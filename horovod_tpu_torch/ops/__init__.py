@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels, their plain PyTorch versions and the
+build that compiles them."""
