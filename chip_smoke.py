@@ -11,21 +11,30 @@ Phases, in order; the first failure exits non-zero:
 2. build every kernel of ``horovod_tpu_torch/csrc/`` (one nvcc each, in
    parallel) and print the build seconds and ptxas resource lines;
 3. hold each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and in its working dtypes, and time the
-   kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick only: the port never calls it);
-4. serve GPT-2 small at full width (random weights from the seed,
+   its path's shapes and in its working dtypes (flash attention at
+   GPT-2 medium's [8, 16, 1024, 64] bf16, LayerNorm backward at
+   [8192, 1024], the decode kernels at the serving shapes), and time
+   the kernel, the plain version and one PyTorch library call computing
+   the same function (a yardstick only: the port never calls it);
+4. train GPT-2 medium at full width and depth through the example's
+   ``main`` (world of one over NCCL, batch 8 x 1024, flash attention and
+   fused norms, 1 warm-up + 5 timed steps on one batch), after checking
+   that the step-1 loss and every gradient of the kernel path agree
+   with the plain path on the same weights; the loss must fall; one
+   step is profiled;
+5. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
    continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
    32 new tokens each; 4 of them again one at a time must give the
    same tokens; a profiled window of 8 full-batch decode steps shows
    where a step's time goes; the first-token logits must agree with
    the plain (unfused, cache-free) forward of the same weights;
-5. a short serve on an int8 KV cache (4 requests);
-6. print the ``{"kernels": [...]}`` line: each kernel's launches on the
-   serving runs of phases 4 and 5 (counts zeroed just before each run
-   and read just after), error, tolerance and times;
-7. print ``{"ok": true, "device": {...}}`` as the last line.
+6. a short serve on an int8 KV cache (4 requests);
+7. print the ``{"kernels": [...]}`` line: each kernel's launches on the
+   training run of phase 4 and the serving runs of phases 5 and 6
+   (counts zeroed just before each run and read just after), error,
+   tolerance and times;
+8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -85,12 +94,22 @@ def _dev_us(event):
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
+def _kernel_events(prof):
+    """The profiler's averaged device events, without the GPU-side
+    copies of user annotations (e.g. ``Optimizer.step``), whose time
+    overlaps the kernels they enclose."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _device_ms(fn, iters=50):
     """Device time of one call of ``fn``: the summed device time of the
     kernels it launches, from ``torch.profiler`` over ``iters`` calls.
     For a call shorter than its host-side launch, where back-to-back
     CUDA-event timing measures the enqueue and not the card."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -99,15 +118,17 @@ def _device_ms(fn, iters=50):
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+    us = sum(_dev_us(e) for e in _kernel_events(prof))
     _require(us > 0, "the profiler saw no device time")
     return us / 1e3 / iters
 
 
 def _bf16_ulp(x):
-    mag = x.abs().to(torch.float32).clamp_min(2.0 ** -126)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    """Spacing of bf16 values at |x| (8 significant bits), exact:
+    x = m * 2^e with m in [0.5, 1) has ulp 2^(e - 8)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       (e - 8).float())
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +140,9 @@ def check_layernorm(seed):
 
     cases = []
     g = torch.Generator(device="cuda").manual_seed(seed)
-    for rows, kind in ((8, "layernorm"), (8, "rmsnorm"),
-                       (512, "layernorm"), (512, "rmsnorm")):
-        c = 768
+    for rows, c, kind in ((8, 768, "layernorm"), (8, 768, "rmsnorm"),
+                          (512, 768, "layernorm"), (512, 768, "rmsnorm"),
+                          (8192, 1024, "layernorm")):
         rms = kind == "rmsnorm"
         x = (torch.randn(rows, c, generator=g, device="cuda") * 2 + 0.5).to(
             torch.bfloat16)
@@ -132,10 +153,15 @@ def check_layernorm(seed):
         want = ln.layer_norm_ref(x, gamma, beta, 1e-5, rms)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        ok = bool(torch.all(err <= _bf16_ulp(want.float())))
-        _require(ok, f"layernorm_fwd {rows}x{c} {kind}: more than one bf16 "
-                     f"ulp from the plain version (max err "
-                     f"{err.max().item()})")
+        # one bf16 ulp of the larger of the two values, plus float32
+        # slack for outputs near 0, where beta cancels the rest and the
+        # sum order moves the result by ~1e-6
+        tol = _bf16_ulp(torch.maximum(got.float().abs(),
+                                      want.float().abs())) + 1e-5
+        _require(bool(torch.all(err <= tol)),
+                 f"layernorm_fwd {rows}x{c} {kind}: more than one bf16 ulp "
+                 f"(+1e-5) from the plain version (max err "
+                 f"{err.max().item()})")
         gb, bb = gamma.to(torch.bfloat16), (
             None if beta is None else beta.to(torch.bfloat16))
         if rms:
@@ -157,7 +183,7 @@ def check_layernorm(seed):
         cases.append({
             "case": f"{rows}x{c} bf16 {kind}",
             "max_abs_err": err.max().item(),
-            "tol": "1 bf16 ulp of the plain value",
+            "tol": "1 bf16 ulp of the larger value + 1e-5",
             "ms": _device_ms(kernel),
             "plain_ms": _device_ms(plain),
             "library_ms": _device_ms(lib),
@@ -165,6 +191,181 @@ def check_layernorm(seed):
             "bound_ms": bound, "bound_by": by,
         })
     return cases
+
+
+def _rel_err(got, want):
+    """(max |got - want|, that over max |want|), both as floats."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_layernorm_bwd(seed):
+    """B5 at the training path's rows: GPT-2 medium's 8 x 1024 tokens of
+    1024 channels, bf16, LayerNorm with beta and RMSNorm."""
+    from horovod_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    cases = []
+    rows, c = 8192, 1024
+    tol = 1e-2  # max |err| / max |want|: bf16 dx, float32 column sums
+    for kind in ("layernorm", "rmsnorm"):
+        rms = kind == "rmsnorm"
+        x = (torch.randn(rows, c, generator=g, device="cuda") * 2 + 0.5).to(
+            torch.bfloat16)
+        dy = torch.randn(rows, c, generator=g, device="cuda").to(
+            torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        got = ln.layer_norm_bwd_cuda(x, dy, gamma, 1e-5, rms, not rms)
+        want = ln.layer_norm_bwd_ref(x, dy, gamma, 1e-5, rms, not rms)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+            if b is None:
+                continue
+            _require(bool(torch.isfinite(a).all()),
+                     f"layernorm_bwd {kind}: {name} not finite")
+            err, rel = _rel_err(a, b)
+            _require(rel <= tol, f"layernorm_bwd {kind}: {name} max err "
+                                 f"{err} ({rel:.2e} of max) > {tol}")
+            errs[name] = err
+        xl = x.detach().requires_grad_()
+        gb = gamma.to(torch.bfloat16).requires_grad_()
+        bb = None if rms else torch.zeros(c, device="cuda", dtype=torch.bfloat16,
+                                          requires_grad=True)
+        y = (F.rms_norm(xl, (c,), gb, 1e-5) if rms
+             else F.layer_norm(xl, (c,), gb, bb, 1e-5))
+        wrt = (xl, gb) if rms else (xl, gb, bb)
+
+        def lib(_=0):
+            torch.autograd.grad(y, wrt, dy, retain_graph=True)
+
+        def kernel(_=0):
+            ln.layer_norm_bwd_cuda(x, dy, gamma, 1e-5, rms, not rms)
+
+        def plain(_=0):
+            ln.layer_norm_bwd_ref(x, dy, gamma, 1e-5, rms, not rms)
+        nbytes = 3 * rows * c * 2 + c * 4 * (2 if rms else 3)
+        bound, by = _bound(nbytes, rows * c * 20, "f32")
+        cases.append({
+            "case": f"{rows}x{c} bf16 {kind}", "max_abs_err": max(
+                errs.values()), "errs": errs,
+            "tol": f"{tol} of max |plain| per output",
+            "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, iters=10),
+            "library_ms": _device_ms(lib), "enqueue_ms": _time_ms(kernel),
+            "bound_ms": bound, "bound_by": by,
+        })
+    return cases
+
+
+def _flash_pairs(tq, tk, causal, q_off, k_off):
+    """Visible (query, key) pairs: the products the kernels must do."""
+    if not causal:
+        return tq * tk
+    last = q_off + np.arange(tq, dtype=np.int64) - k_off  # last key seen
+    return int(np.clip(last + 1, 0, tk).sum())
+
+
+def check_flash(seed):
+    """B1, B2, B3 at GPT-2 medium's attention ([8, 16, 1024, 64] bf16,
+    causal), plus a non-causal, a padded-T and an offset case at batch
+    2. Every case feeds the kernel and the plain version the same
+    inputs (the backward gets the plain forward's lse and delta)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    out = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    # max |err| / max |plain|: 2% for bf16 outputs (p rounded against a
+    # running max vs the row max), 1e-4 for float32; lse 1e-3 absolute
+    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+    def case(name, b, h, tq, tk, causal, q_off=0, k_off=0, timed=False,
+             d=64, dtype=torch.bfloat16):
+        tol = tols[dtype]
+
+        def mk(t):
+            return torch.randn(b, h, t, d, generator=g, device="cuda").to(
+                dtype)
+        q, k, v, dout = mk(tq), mk(tk), mk(tk), mk(tq)
+        args = (causal, d ** -0.5, q_off, k_off)
+        o, lse = fa.flash_fwd_cuda(q, k, v, *args)
+        o_r, lse_r = fa.flash_attention_ref(q, k, v, *args)
+        delta = torch.sum(dout.float() * o_r.float(), dim=-1)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, dout, lse_r, delta, *args)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, dout, lse_r, delta, *args)
+        dq_r, dk_r, dv_r = fa.flash_bwd_ref(q, k, v, dout, lse_r, delta,
+                                            *args)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, a, w in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
+                           ("dv", dv, dv_r)):
+            _require(bool(torch.isfinite(a).all()),
+                     f"flash {name}: {what} not finite")
+            err, rel = _rel_err(a, w)
+            _require(rel <= tol, f"flash {name}: {what} max err {err} "
+                                 f"({rel:.2e} of max) > {tol}")
+            errs[what] = err
+        lse_err = (lse - lse_r).abs().max().item()
+        _require(lse_err <= 1e-3, f"flash {name}: lse max err {lse_err}")
+        rows = {"flash_fwd": {"max_abs_err": errs["o"], "lse_err": lse_err},
+                "flash_bwd_dq": {"max_abs_err": errs["dq"]},
+                "flash_bwd_dkv": {"max_abs_err": max(errs["dk"],
+                                                     errs["dv"])}}
+        for kname, row in rows.items():
+            row.update(case=name, tol=f"{tol} of max |plain|")
+            out[kname].append(row)
+        if not timed:
+            return
+        bh, te = b * h, 2  # bf16 bytes
+        pairs = _flash_pairs(tq, tk, causal, q_off, k_off) * bh
+        rd = bh * tq * 4  # one float32 per query row
+        work = {"flash_fwd": (bh * d * te * (2 * tq + 2 * tk) + rd,
+                              4 * d * pairs),
+                "flash_bwd_dq": (bh * d * te * (3 * tq + 2 * tk) + 2 * rd,
+                                 6 * d * pairs),
+                "flash_bwd_dkv": (bh * d * te * (2 * tq + 4 * tk) + 2 * rd,
+                                  8 * d * pairs)}
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 is_causal=causal)
+        lib_fwd = _time_ms(lambda _=0: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+        lib_bwd = _time_ms(lambda _=0: torch.autograd.grad(
+            lib_out, (qg, kg, vg), dout, retain_graph=True))
+        timings = {
+            "flash_fwd": (lambda _=0: fa.flash_fwd_cuda(q, k, v, *args),
+                          lambda _=0: fa.flash_attention_ref(q, k, v, *args),
+                          lib_fwd),
+            "flash_bwd_dq": (lambda _=0: fa.flash_bwd_dq_cuda(
+                q, k, v, dout, lse_r, delta, *args), None, lib_bwd),
+            "flash_bwd_dkv": (lambda _=0: fa.flash_bwd_dkv_cuda(
+                q, k, v, dout, lse_r, delta, *args), None, lib_bwd),
+        }
+        # the plain backward computes dq, dk and dv together: its time
+        # stands beside both backward kernels
+        plain_bwd = _time_ms(lambda _=0: fa.flash_bwd_ref(
+            q, k, v, dout, lse_r, delta, *args), iters=3, warmup=1)
+        for kname, (kern, plain, lib_ms) in timings.items():
+            bound, by = _bound(*work[kname], "bf16")
+            out[kname][-1].update(
+                ms=_time_ms(kern, iters=10, warmup=2),
+                plain_ms=(_time_ms(plain, iters=3, warmup=1) if plain
+                          else plain_bwd),
+                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+    case("B=8 H=16 T=1024 D=64 bf16 causal", 8, 16, 1024, 1024, True,
+         timed=True)
+    case("B=2 H=16 T=1024 D=64 bf16 non-causal", 2, 16, 1024, 1024, False)
+    case("B=2 H=16 T=1000 D=64 bf16 causal (T not a tile multiple)", 2, 16,
+         1000, 1000, True)
+    case("B=2 H=16 Tq=200 Tk=1000 D=64 bf16 causal, query_offset=700", 2,
+         16, 200, 1000, True, q_off=700)
+    # the other head_dim instantiations and float32, once each
+    case("B=1 H=4 T=300 D=128 bf16 causal", 1, 4, 300, 300, True, d=128)
+    case("B=1 H=4 T=200 D=32 f32 non-causal", 1, 4, 200, 200, False, d=32,
+         dtype=torch.float32)
+    case("B=1 H=4 Tq=64 Tk=96 D=16 f32 causal, key_offset=40", 1, 4, 64, 96,
+         True, k_off=40, d=16, dtype=torch.float32)
+    return out
 
 
 def _attn_bytes_ops(pos, m, h, kh, d, q_bytes, row_bytes):
@@ -330,7 +531,158 @@ def check_append_attend_int8(seed):
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: serving GPT-2 small
+# phase 4: training GPT-2 medium
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--batch-size", "8", "--seq-len", "1024",
+              "--num-warmup-batches", "1", "--num-batches-per-iter", "5",
+              "--num-iters", "1", "--flash", "--fused-norm"]
+TRAIN_STEPS = 6  # 1 warm-up + 5 timed, as TRAIN_ARGS says
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "layernorm_fwd", "layernorm_bwd")
+
+
+def check_train_parity(seed):
+    """Step-1 loss and every parameter's gradient of the kernel path
+    (flash attention, fused norms) against the plain path
+    (``dot_product_attention``, unfused norms) on the weights training
+    starts from (``make_lm_train_step``'s seed 0) and a 2 x 1024 batch."""
+    from horovod_tpu_torch.models.transformer import (GPT2_MEDIUM,
+                                                      Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    with torch.device("cuda"):
+        fast = Transformer(cfg, attention_fn=make_flash_attention_fn(True))
+        plain = Transformer(dataclasses.replace(cfg, fused_norm=False))
+    fast.init_params(torch.Generator(device="cuda").manual_seed(0))
+    plain.load_state_dict(fast.state_dict())
+    tok = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (2, 1024))).cuda()
+    losses, grads = [], []
+    for model in (fast, plain):
+        loss, _ = causal_lm_loss(model(tok), tok)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    loss_tol, grad_tol = 0.02, 5e-2
+    # a key bias shifts every logit of a row by the same q.b, which the
+    # softmax ignores: its true gradient is 0 and both paths give
+    # rounding noise, so it is held to the whole gradient's scale
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in grads[1].values()))
+    rel, zero = {}, {}
+    for n, g in grads[0].items():
+        diff = (g - grads[1][n]).norm()
+        if n.endswith("attn.key.bias"):
+            zero[n] = (diff / total).item()
+        else:
+            rel[n] = (diff / grads[1][n].norm().clamp_min(1e-30)).item()
+    worst = sorted(rel, key=rel.get, reverse=True)
+    out = {"train_parity": {
+        "batch": "2x1024", "loss_kernels": losses[0],
+        "loss_plain": losses[1], "loss_err": abs(losses[0] - losses[1]),
+        "loss_tol": loss_tol, "grad_rel_l2_max": rel[worst[0]],
+        "grad_rel_l2_worst": {n: rel[n] for n in worst[:5]},
+        "grad_rel_l2_median": float(np.median(list(rel.values()))),
+        "grad_tol": grad_tol, "params": len(rel),
+        "key_bias_diff_over_grad_norm_max": max(zero.values()),
+        "key_bias_params": len(zero)}}
+    print(json.dumps(out))
+    _require(all(np.isfinite(losses)), "parity: a loss is not finite")
+    _require(abs(losses[0] - losses[1]) <= loss_tol,
+             f"parity: step-1 loss {losses[0]} vs plain {losses[1]}")
+    _require(rel[worst[0]] <= grad_tol,
+             f"parity: gradient of {worst[0]} differs from the plain path "
+             f"by {rel[worst[0]]:.3e} (relative L2) > {grad_tol}")
+    _require(max(zero.values()) <= 1e-3,
+             "parity: a key bias gradient (zero by construction) is "
+             f"{max(zero.values()):.3e} of the gradient norm")
+    return out["train_parity"]
+
+
+def profile_train_step(step, tokens):
+    """Where one training step's device time goes: ``torch.profiler``
+    over one step; kernels by device time and the device busy share
+    (kernel time over wall time, a lower bound: the profiler adds host
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernel_events(prof)
+    busy_us = sum(_dev_us(e) for e in kernels)
+    top = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    groups = {}
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in (
+            ("flash (B1-B3)", ("flash_",)),
+            ("layernorm (B4, B5)", ("layernorm_", "column_sum")),
+            ("gemm", ("gemm", "nvjet", "cutlass", "sm90_", "xmma")),
+            ("nccl", ("nccl",)),
+            ("elementwise / reduce / other", ("",)))
+            if any(k in name for k in keys)))
+        groups[group] = groups.get(group, 0.0) + _dev_us(e) / 1e3
+    print(json.dumps({
+        "profile": "one GPT-2-medium training step, batch 8x1024",
+        "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "kernels": sum(e.count for e in kernels),
+        "device_ms_by_group": groups,
+        "top": [{"name": e.key[:70], "ms": _dev_us(e) / 1e3,
+                 "calls": e.count} for e in top]}))
+
+
+def train_gpt2(seed, ledger):
+    """Train GPT-2 medium at full width and depth through the example's
+    ``main``: world of one over NCCL, per-rank batch 8 x 1024, flash
+    attention and fused norms, 1 warm-up and 5 timed steps on one
+    batch. Launch counts are zeroed just before and read just after."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import gpt2_pretraining
+    from horovod_tpu_torch.ops import _build
+
+    parity = check_train_parity(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _build.reset_launches()
+    per_chip, mfu = gpt2_pretraining.main(TRAIN_ARGS, stats)
+    torch.cuda.synchronize()
+    ledger["train"] = dict(_build.LAUNCHES)
+    losses = stats["losses"]
+    _require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+             f"training losses {losses}")
+    _require(losses[-1] < losses[0],
+             f"training loss did not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        _require(ledger["train"][name] > 0,
+                 f"kernel {name} was not launched while training")
+    print(json.dumps({
+        "phase": "train", "model": "GPT-2 medium 24x1024, 16 heads",
+        "params": stats["n_params"], "batch": "8x1024", "world": hvd.size(),
+        "backend": "nccl", "losses": losses,
+        "tokens_per_s": per_chip, "step_ms": stats["step_ms"][0],
+        "mfu": mfu, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": {k: ledger["train"][k] / TRAIN_STEPS
+                              for k in TRAIN_KERNELS},
+        "parity": parity}))
+    profile_train_step(stats["step"], stats["tokens"])
+    stats.clear()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: serving GPT-2 small
 # ---------------------------------------------------------------------------
 
 def _drive(sched, reqs, max_iters):
@@ -392,7 +744,6 @@ def profile_decode(engine, prompts, steps=8):
     device busy share (kernel time over wall time; the profiler's own
     host cost makes the share a lower bound) and the kernels by device
     time per step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
@@ -412,8 +763,7 @@ def profile_decode(engine, prompts, steps=8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     sched.close(drain=False)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _kernel_events(prof)
     busy_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:8]
     print(json.dumps({
@@ -446,7 +796,7 @@ def serve_gpt2(seed, ledger):
                            size=int(rng.randint(32, 701))).tolist()
                for _ in range(16)]
 
-    # phase 4: bf16 KV cache
+    # phase 5: bf16 KV cache
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="bf16")
     t0 = time.perf_counter()
     engine.warmup()
@@ -485,7 +835,7 @@ def serve_gpt2(seed, ledger):
     del engine
     torch.cuda.empty_cache()
 
-    # phase 5: int8 KV cache
+    # phase 6: int8 KV cache
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="int8")
     engine.warmup()
     serve(engine, prompts[:4], 16, "serve_int8", ledger)
@@ -497,9 +847,21 @@ def serve_gpt2(seed, ledger):
 # ---------------------------------------------------------------------------
 
 KERNELS = [
+    ("flash_fwd", "horovod_tpu_torch/csrc/flash_fwd.cu",
+     "horovod_tpu/ops/pallas_attention.py:105",
+     "B1 pallas_attention._flash_fwd_kernel"),
+    ("flash_bwd_dq", "horovod_tpu_torch/csrc/flash_bwd_dq.cu",
+     "horovod_tpu/ops/pallas_attention.py:167",
+     "B2 pallas_attention._flash_bwd_dq_kernel"),
+    ("flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd_dkv.cu",
+     "horovod_tpu/ops/pallas_attention.py:214",
+     "B3 pallas_attention._flash_bwd_dkv_kernel"),
     ("layernorm_fwd", "horovod_tpu_torch/csrc/layernorm_fwd.cu",
      "horovod_tpu/ops/pallas_layernorm.py:67",
      "B4 pallas_layernorm._fwd_kernel"),
+    ("layernorm_bwd", "horovod_tpu_torch/csrc/layernorm_bwd.cu",
+     "horovod_tpu/ops/pallas_layernorm.py:80",
+     "B5 pallas_layernorm._bwd_kernel"),
     ("append_attend", "horovod_tpu_torch/csrc/append_attend.cu",
      "horovod_tpu/ops/pallas_collectives.py:380",
      "B16 pallas_collectives._append_attend_kernel"),
@@ -552,7 +914,9 @@ def main(argv=None) -> int:
 
     # phase 3
     checks = {
+        **check_flash(args.seed),
         "layernorm_fwd": check_layernorm(args.seed),
+        "layernorm_bwd": check_layernorm_bwd(args.seed),
         "append_attend": check_append_attend(args.seed),
         "append_attend_int8": check_append_attend_int8(args.seed),
     }
@@ -560,20 +924,21 @@ def main(argv=None) -> int:
         for c in cases:
             print(json.dumps({"kernel": name, **c}))
 
-    # phases 4 and 5
+    # phase 4: training; phases 5 and 6: serving
     ledger = {}
+    train_gpt2(args.seed, ledger)
     serve_gpt2(args.seed, ledger)
     launches = {name: sum(counts.get(name, 0) for counts in ledger.values())
                 for name, *_ in KERNELS}
     print(json.dumps({"launches_by_phase": ledger}))
     for name, n in launches.items():
-        _require(n > 0, f"kernel {name} was not launched while serving")
+        _require(n > 0, f"kernel {name} was not launched on its path")
 
-    # phase 6
+    # phase 7
     kernels = []
     for name, source, replaces, tpu in KERNELS:
         cases = checks[name]
-        top = cases[0]  # the decode-shape case: the steady state
+        top = cases[0]  # the main path's shape
         err = max(c["max_abs_err"] for c in cases)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -584,6 +949,7 @@ def main(argv=None) -> int:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "cases": cases,
         })
+    print(smi.stdout.strip())  # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Environment-variable knobs read by the PyTorch serving path.
+"""Environment-variable knobs read by the PyTorch port.
 
 Same names, prefixes and defaults as the JAX package's registry
 (``horovod_tpu/core/knobs.py``): ``HVD_TPU_X`` beats ``HOROVOD_X``
@@ -32,6 +32,13 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _env_bool(name: str, default: bool) -> bool:
+    v = _env(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
 def _env_float(name: str, default: float) -> float:
     v = _env(name)
     if v is None or v == "":
@@ -44,7 +51,16 @@ def _env_float(name: str, default: float) -> float:
 
 @dataclasses.dataclass
 class Knobs:
-    """Typed snapshot of the knobs the serving path reads."""
+    """Typed snapshot of the knobs the port reads."""
+
+    # --- gradient fusion (ops/fusion.py, optim/distributed.py) ---
+    fusion_threshold_bytes: int = 128 * 1024 * 1024
+    # bucket gradients in the order backward produces them (last layer
+    # first, embeddings last), so the first bucket is ready first
+    bucket_backward_order: bool = True
+    # wire compression of the gradient reduction: "none", "fp16",
+    # "bf16" ("int8" is not ported yet and raises)
+    compression: str = "none"
 
     # --- inference serving ---
     serving_queue_limit: int = 256
@@ -61,6 +77,10 @@ class Knobs:
     @staticmethod
     def from_env() -> "Knobs":
         return Knobs(
+            fusion_threshold_bytes=_env_int(
+                "FUSION_THRESHOLD", 128 * 1024 * 1024),
+            bucket_backward_order=_env_bool("BUCKET_BACKWARD_ORDER", True),
+            compression=_env("COMPRESSION", "") or "none",
             serving_queue_limit=_env_int("SERVING_QUEUE_LIMIT", 256),
             serving_request_timeout_seconds=_env_float(
                 "SERVING_REQUEST_TIMEOUT", 30.0),

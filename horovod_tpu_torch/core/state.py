@@ -1,0 +1,49 @@
+"""Per-process global state.
+
+The counterpart of the JAX package's ``core/state.py``. Where that holds
+a device mesh, this holds the ``torch.distributed`` process group the
+collectives run on, the device they run on, the rank/size fields read
+from the launcher's environment, the knobs, the process-set table and
+the handles of asynchronous collectives.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+from .knobs import Knobs
+
+
+class GlobalState:
+    """One per process. ``init()`` fills it, ``shutdown()`` resets it."""
+
+    def __init__(self) -> None:
+        self.lock = threading.RLock()
+        self.initialized: bool = False
+        self.knobs: Knobs = Knobs()
+        self.global_set: Optional[Any] = None  # ProcessSet of every rank
+        # torch.device the collectives and the kernels run on
+        self.device: Optional[Any] = None
+        self.backend: Optional[str] = None  # "nccl" | "gloo"
+        # whether init() created the process group (and shutdown() ends it)
+        self.owns_group: bool = False
+        self.rank = 0
+        self.size = 1
+        self.local_rank = 0
+        self.local_size = 1
+        self.cross_rank = 0
+        self.cross_size = 1
+        # async collectives: handle -> (work, result-maker)
+        self.handles: Dict[int, Any] = {}
+        self.next_handle = 1
+
+    def reset(self) -> None:
+        self.__init__()
+
+
+_global_state = GlobalState()
+
+
+def global_state() -> GlobalState:
+    return _global_state

@@ -1,4 +1,5 @@
-"""Parameter conversion from the JAX package's flax trees.
+"""Parameter conversion between the JAX package's flax trees and the
+port's state dicts.
 
 The PyTorch modules (transformer.py) name their parameters after the
 flax tree, so a tree converts by joining its path with dots:
@@ -39,3 +40,17 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_flax`: a state dict (or any
+    mapping of dotted names to tensors, such as the parameters'
+    gradients) -> the nested flax tree of float32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for name, value in state.items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy()
+    return tree

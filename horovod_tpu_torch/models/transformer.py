@@ -18,12 +18,15 @@ convert.py) and the same rounding points:
   before the PV product.
 
 ``fused_norm=True`` routes every norm through the fused LayerNorm
-kernel (ops/layernorm.py). With ``kv_cache`` the attention appends the
-new K/V rows into a slotted cache and attends over it
-(serving/decode.py, ops/decode_attention.py).
+kernels (ops/layernorm.py), forward and backward. ``attention_fn``
+(e.g. ``ops.flash_attention.make_flash_attention_fn()``) replaces the
+default attention on the training / one-shot path. With ``kv_cache``
+the attention appends the new K/V rows into a slotted cache and
+attends over it (serving/decode.py, ops/decode_attention.py).
 
-``remat`` is kept for configuration parity with the JAX package; it
-only matters for a backward pass, which this package does not run yet.
+``remat=True`` recomputes each block's forward during the backward
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations, as the JAX package's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.layernorm import FusedLayerNorm
 
@@ -273,9 +277,10 @@ def dot_product_attention(q, k, v, *, causal: bool, mask=None):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, attention_fn=None):
         super().__init__()
         self.cfg = cfg
+        self.attention_fn = attention_fn
         H, KH, D, S = cfg.num_heads, cfg.kv_heads, cfg.head_dim, \
             cfg.hidden_size
         bias = cfg.norm == "layernorm"
@@ -304,9 +309,16 @@ class Attention(nn.Module):
                     "from positions; an explicit padding mask is not "
                     "composable with it")
             out = kv_cache.append_attend(layer, q, k, v, positions)
-        else:
+        elif self.attention_fn is None:
             out = dot_product_attention(q, k, v, causal=cfg.causal,
                                         mask=mask)
+        else:
+            if mask is not None:
+                raise ValueError(
+                    "a custom attention_fn (flash/ring/Ulysses) takes only "
+                    "(q, k, v) and would silently drop the padding mask; "
+                    "pre-mask the inputs or use the default attention")
+            out = self.attention_fn(q, k, v)
         return self.out(out)
 
 
@@ -332,10 +344,10 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, attention_fn=None):
         super().__init__()
         self.ln_attn = _norm(cfg)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, attention_fn)
         self.ln_mlp = _norm(cfg)
         self.mlp = Mlp(cfg)
 
@@ -350,9 +362,10 @@ class Transformer(nn.Module):
     """Decoder/encoder stack with LM head; covers GPT-2 (causal +
     learned positions), BERT (bidirectional) and Llama (causal +
     rope/RMS/swiglu). Parameter names follow the flax tree
-    (``block_0.attn.query.kernel``, ...)."""
+    (``block_0.attn.query.kernel``, ...). ``attention_fn(q, k, v)``
+    replaces the default attention on ``[B, T, H, D]`` tensors."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, attention_fn=None):
         super().__init__()
         self.cfg = cfg
         self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
@@ -360,7 +373,7 @@ class Transformer(nn.Module):
             self.pos_emb = nn.Parameter(
                 torch.zeros(cfg.max_seq_len, cfg.hidden_size))
         for i in range(cfg.num_layers):
-            self.add_module(f"block_{i}", Block(cfg))
+            self.add_module(f"block_{i}", Block(cfg, attention_fn))
         self.ln_final = _norm(cfg)
         if not cfg.tie_embeddings:
             self.lm_head = Dense((cfg.hidden_size,), (cfg.vocab_size,),
@@ -418,9 +431,14 @@ class Transformer(nn.Module):
             x = x + self.pos_emb[positions].to(cfg.dtype)
         rope = ((self.rope_cos, self.rope_sin) if cfg.position == "rope"
                 else None)
+        remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x, positions, mask, kv_cache=kv_cache, layer=i,
-                      rope=rope)
+            if remat:
+                x = checkpoint(block, x, positions, mask, None, i, rope,
+                               use_reentrant=False)
+            else:
+                x = block(x, positions, mask, kv_cache=kv_cache, layer=i,
+                          rope=rope)
         x = self.ln_final(x)
         if return_hidden:
             return x
@@ -465,13 +483,13 @@ def mlm_loss(logits, labels, mask_positions):
     return nll.sum() / n, n
 
 
-def GPT2(cfg: TransformerConfig = GPT2_SMALL) -> Transformer:
-    return Transformer(cfg)
+def GPT2(cfg: TransformerConfig = GPT2_SMALL, **kw) -> Transformer:
+    return Transformer(cfg, **kw)
 
 
-def Bert(cfg: TransformerConfig = BERT_LARGE) -> Transformer:
-    return Transformer(cfg)
+def Bert(cfg: TransformerConfig = BERT_LARGE, **kw) -> Transformer:
+    return Transformer(cfg, **kw)
 
 
-def Llama(cfg: TransformerConfig = LLAMA2_7B) -> Transformer:
-    return Transformer(cfg)
+def Llama(cfg: TransformerConfig = LLAMA2_7B, **kw) -> Transformer:
+    return Transformer(cfg, **kw)

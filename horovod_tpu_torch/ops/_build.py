@@ -42,6 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "layernorm_fwd": 0,
+    "layernorm_bwd": 0,
+    "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
     "append_attend": 0,
     "append_attend_int8": 0,
 }

@@ -1,5 +1,5 @@
-"""Fused LayerNorm / RMSNorm forward: the hand-written CUDA kernel and
-its plain PyTorch version.
+"""Fused LayerNorm / RMSNorm, forward and backward: the hand-written
+CUDA kernels and their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/pallas_layernorm.py``. The
 forward is one pass: read x, write ``(x - mean) * rstd * gamma (+
@@ -7,11 +7,14 @@ beta)`` with float32 statistics and ``var = E[x^2] - mean^2`` clamped
 at 0 (the TPU kernel's formula, not Welford). RMSNorm is the ``mean =
 0``, no-beta case.
 
-Dispatch is by the device of ``x``: a CUDA tensor launches the kernel
-``csrc/layernorm_fwd.cu`` (or raises), a CPU tensor runs
-:func:`layer_norm_ref`. Only the forward exists so far: the backward
-kernel comes with the training path, and its absence raises rather
-than differentiating the plain version behind the kernel's back.
+The backward saves no statistics: it reads x and dy, recomputes mean
+and rstd per row and writes ``dx = rstd * (gamma*dy - mean(gamma*dy) -
+xhat * mean(gamma*dy*xhat))`` (no mean term for RMSNorm), with the
+column sums dgamma and dbeta in float32.
+
+Dispatch is by the device of ``x``: a CUDA tensor launches the kernels
+``csrc/layernorm_fwd.cu`` and ``csrc/layernorm_bwd.cu`` (or raises), a
+CPU tensor runs :func:`layer_norm_ref` and :func:`layer_norm_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -27,49 +30,84 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def layer_norm_ref(x2: torch.Tensor, gamma: torch.Tensor,
-                   beta: Optional[torch.Tensor], eps: float,
-                   rms: bool) -> torch.Tensor:
-    """Plain version of the kernel on ``[N, C]`` rows (any device):
-    float32 statistics, output in ``x2``'s dtype."""
-    c = x2.shape[-1]
-    xf = x2.to(torch.float32)
+#: rows of the backward's per-block column sums: at most this many
+#: blocks, so the second pass reads a small ``[blocks, C]`` scratch
+_BWD_MAX_BLOCKS = 256
+#: the backward kernel keeps 16 columns per thread of 256 in registers
+_BWD_MAX_C = 4096
+
+
+def _stats(xf: torch.Tensor, c: int, eps: float, rms: bool):
+    """float32 ``(mean, rstd)`` per row, ``var = E[x^2] - mean^2``
+    clamped at 0 (the TPU kernel's formula, not Welford)."""
     if rms:
-        mean = torch.zeros((), dtype=torch.float32, device=x2.device)
+        mean = torch.zeros((), dtype=torch.float32, device=xf.device)
         var = torch.sum(xf * xf, dim=-1, keepdim=True) / c
     else:
         mean = torch.sum(xf, dim=-1, keepdim=True) / c
         var = torch.sum(xf * xf, dim=-1, keepdim=True) / c - mean * mean
         var = torch.clamp(var, min=0.0)
-    rstd = torch.rsqrt(var + eps)
+    return mean, torch.rsqrt(var + eps)
+
+
+def layer_norm_ref(x2: torch.Tensor, gamma: torch.Tensor,
+                   beta: Optional[torch.Tensor], eps: float,
+                   rms: bool) -> torch.Tensor:
+    """Plain version of the kernel on ``[N, C]`` rows (any device):
+    float32 statistics, output in ``x2``'s dtype."""
+    xf = x2.to(torch.float32)
+    mean, rstd = _stats(xf, x2.shape[-1], eps, rms)
     y = (xf - mean) * rstd * gamma.to(torch.float32)
     if beta is not None:
         y = y + beta.to(torch.float32)
     return y.to(x2.dtype)
 
 
-def _lib():
-    lib = _build.library("layernorm_fwd")
-    fn = lib.hvd_layernorm_fwd
+def layer_norm_bwd_ref(x2: torch.Tensor, dy2: torch.Tensor,
+                       gamma: torch.Tensor, eps: float, rms: bool,
+                       with_beta: bool):
+    """Plain version of the backward kernel on ``[N, C]`` rows (any
+    device): ``(dx in x2's dtype, dgamma float32 [C], dbeta float32
+    [C] or None)``, statistics recomputed from x."""
+    c = x2.shape[-1]
+    xf = x2.to(torch.float32)
+    dyf = dy2.to(torch.float32)
+    mean, rstd = _stats(xf, c, eps, rms)
+    xhat = (xf - mean) * rstd
+    gdy = dyf * gamma.to(torch.float32)
+    s2 = torch.sum(gdy * xhat, dim=-1, keepdim=True) / c
+    if rms:
+        dx = rstd * (gdy - xhat * s2)
+    else:
+        s1 = torch.sum(gdy, dim=-1, keepdim=True) / c
+        dx = rstd * (gdy - s1 - xhat * s2)
+    dg = torch.sum(dyf * xhat, dim=0)
+    db = torch.sum(dyf, dim=0) if with_beta else None
+    return dx.to(x2.dtype), dg, db
+
+
+def _lib(name: str, argtypes):
+    lib = _build.library(name)
+    fn = getattr(lib, f"hvd_{name}")
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, ctypes.c_float, i, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def layer_norm_cuda(x2: torch.Tensor, gamma: torch.Tensor,
-                    beta: Optional[torch.Tensor], eps: float,
-                    rms: bool) -> torch.Tensor:
-    """Launch ``csrc/layernorm_fwd.cu`` on ``[N, C]`` CUDA rows; gamma
-    and beta are float32 ``[C]`` on the same device."""
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+             _P]
+
+
+def _check_params(x2, gamma, beta, what):
     if not x2.is_cuda:
-        raise ValueError("layer_norm_cuda takes CUDA tensors")
+        raise ValueError(f"{what} takes CUDA tensors")
     if x2.dim() != 2 or x2.dtype not in _DTYPE_CODES:
-        raise ValueError(f"layer_norm_cuda takes [N, C] float32/bfloat16 "
-                         f"rows, got {tuple(x2.shape)} {x2.dtype}")
-    n, c = x2.shape
+        raise ValueError(f"{what} takes [N, C] float32/bfloat16 rows, got "
+                         f"{tuple(x2.shape)} {x2.dtype}")
+    c = x2.shape[1]
     for name, v in (("gamma", gamma), ("beta", beta)):
         if v is None:
             continue
@@ -77,11 +115,20 @@ def layer_norm_cuda(x2: torch.Tensor, gamma: torch.Tensor,
                 or v.device != x2.device or not v.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 [{c}] "
                              f"tensor on {x2.device}")
+
+
+def layer_norm_cuda(x2: torch.Tensor, gamma: torch.Tensor,
+                    beta: Optional[torch.Tensor], eps: float,
+                    rms: bool) -> torch.Tensor:
+    """Launch ``csrc/layernorm_fwd.cu`` on ``[N, C]`` CUDA rows; gamma
+    and beta are float32 ``[C]`` on the same device."""
+    _check_params(x2, gamma, beta, "layer_norm_cuda")
+    n, c = x2.shape
     x2 = x2.contiguous()
     y = torch.empty_like(x2)
     if n == 0:
         return y
-    lib = _lib()
+    lib = _lib("layernorm_fwd", _FWD_ARGS)
     err = lib.hvd_layernorm_fwd(
         x2.data_ptr(), gamma.data_ptr(),
         beta.data_ptr() if beta is not None else None, y.data_ptr(),
@@ -92,10 +139,50 @@ def layer_norm_cuda(x2: torch.Tensor, gamma: torch.Tensor,
     return y
 
 
+def layer_norm_bwd_cuda(x2: torch.Tensor, dy2: torch.Tensor,
+                        gamma: torch.Tensor, eps: float, rms: bool,
+                        with_beta: bool):
+    """Launch ``csrc/layernorm_bwd.cu`` on ``[N, C]`` CUDA rows (C at
+    most 4096): ``(dx, dgamma, dbeta or None)`` as
+    :func:`layer_norm_bwd_ref` returns them."""
+    _check_params(x2, gamma, None, "layer_norm_bwd_cuda")
+    n, c = x2.shape
+    if dy2.shape != x2.shape or dy2.dtype != x2.dtype \
+            or dy2.device != x2.device:
+        raise ValueError(f"dy must match x ({tuple(x2.shape)} {x2.dtype}), "
+                         f"got {tuple(dy2.shape)} {dy2.dtype}")
+    if c > _BWD_MAX_C:
+        raise ValueError(f"layer_norm_bwd_cuda takes C <= {_BWD_MAX_C}, "
+                         f"got {c}")
+    x2, dy2 = x2.contiguous(), dy2.contiguous()
+    dx = torch.empty_like(x2)
+    dg = torch.empty(c, dtype=torch.float32, device=x2.device)
+    db = torch.empty_like(dg) if with_beta else None
+    if n == 0:
+        return dx, dg.zero_(), None if db is None else db.zero_()
+    rows_per_block = -(-n // min(n, _BWD_MAX_BLOCKS))
+    blocks = -(-n // rows_per_block)
+    dg_part = torch.empty(blocks, c, dtype=torch.float32, device=x2.device)
+    db_part = torch.empty_like(dg_part) if with_beta else None
+    lib = _lib("layernorm_bwd", _BWD_ARGS)
+    err = lib.hvd_layernorm_bwd(
+        x2.data_ptr(), dy2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        dg.data_ptr(), db.data_ptr() if with_beta else None,
+        dg_part.data_ptr(), db_part.data_ptr() if with_beta else None,
+        n, c, rows_per_block, blocks, float(eps), int(rms),
+        _DTYPE_CODES[x2.dtype], x2.device.index,
+        _build.stream_handle(x2.device))
+    _build.check(lib, err, "layernorm_bwd")
+    _build.LAUNCHES["layernorm_bwd"] += 1
+    return dx, dg, db
+
+
 class _FusedLayerNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps, rms):
+        ctx.save_for_backward(x2, gamma)
+        ctx.eps, ctx.rms, ctx.with_beta = eps, rms, beta is not None
         if x2.is_cuda:
             return layer_norm_cuda(x2, gamma, beta, eps, rms)
         if x2.device.type != "cpu":
@@ -104,8 +191,10 @@ class _FusedLayerNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "LayerNorm backward kernel (B5) lands with the training slice")
+        x2, gamma = ctx.saved_tensors
+        bwd = layer_norm_bwd_cuda if x2.is_cuda else layer_norm_bwd_ref
+        dx, dg, db = bwd(x2, dy, gamma, ctx.eps, ctx.rms, ctx.with_beta)
+        return dx, dg, db, None, None
 
 
 def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor,

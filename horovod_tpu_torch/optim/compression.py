@@ -1,6 +1,13 @@
-"""Per-block symmetric int8 quantization (the block math only).
+"""Wire compression of the gradient reduction, and the per-block int8
+quantization math.
 
-The PyTorch twin of the shape-polymorphic helpers in the JAX package's
+``Compression`` mirrors the JAX package's namespace: ``none`` (the
+identity), ``fp16`` and ``bf16`` (cast floating tensors for the wire and
+back). The int8 wire with error feedback (``Compression.int8``,
+``HOROVOD_COMPRESSION=int8``) is not ported yet and raises
+``NotImplementedError`` rather than running uncompressed.
+
+The block math below is the PyTorch twin of the shape-polymorphic helpers in the JAX package's
 ``optim/compression.py``: the int8 KV cache stores exactly these codes
 and scales, and they are bitwise equal to the JAX package's for the
 same float32 input (tests/test_torch_kernels.py).
@@ -17,11 +24,110 @@ Two details carry that parity:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 _RECIP_127 = 1.0 / 127.0
+
+_INT8_NOT_PORTED = ("the int8 wire with error feedback is not ported yet "
+              "(ROADMAP item 8)")
+
+
+class NoneCompressor:
+    """Identity."""
+
+    kind = "none"
+
+    @staticmethod
+    def compress(tensor):
+        return tensor, None
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        return tensor
+
+
+class FP16Compressor:
+    """Cast floating tensors to float16 on the wire."""
+
+    kind = "fp16"
+    wire_dtype = torch.float16
+
+    @classmethod
+    def compress(cls, tensor):
+        if tensor.is_floating_point():
+            return tensor.to(cls.wire_dtype), tensor.dtype
+        return tensor, None
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        return tensor if ctx is None else tensor.to(ctx)
+
+
+class BF16Compressor(FP16Compressor):
+    """Cast floating tensors to bfloat16 on the wire."""
+
+    kind = "bf16"
+    wire_dtype = torch.bfloat16
+
+
+class Int8Compressor:
+    """Placeholder of the int8 wire: using it raises."""
+
+    kind = "int8"
+
+    @staticmethod
+    def compress(tensor):
+        raise NotImplementedError(_INT8_NOT_PORTED)
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        raise NotImplementedError(_INT8_NOT_PORTED)
+
+
+_BY_NAME = {"": NoneCompressor, "none": NoneCompressor,
+            "off": NoneCompressor, "0": NoneCompressor,
+            "fp16": FP16Compressor, "float16": FP16Compressor,
+            "bf16": BF16Compressor, "bfloat16": BF16Compressor}
+
+
+class Compression:
+    """``hvd.Compression``: ``none``, ``fp16``, ``bf16`` (and ``int8``,
+    which raises until it is ported)."""
+
+    none = NoneCompressor
+    fp16 = FP16Compressor
+    bf16 = BF16Compressor
+    int8 = Int8Compressor
+
+    @staticmethod
+    def lookup(name: Optional[str]):
+        """The compressor of a ``HOROVOD_COMPRESSION`` value; raises on
+        the int8 kinds (not ported) and on unknown names."""
+        key = (name or "").strip().lower()
+        if key in ("int8", "int8-raw", "int8_raw"):
+            raise NotImplementedError(f"HOROVOD_COMPRESSION={name}: "
+                                      f"{_INT8_NOT_PORTED}")
+        try:
+            return _BY_NAME[key]
+        except KeyError:
+            raise ValueError(f"unknown HOROVOD_COMPRESSION value {name!r}; "
+                             "expected one of none, fp16, bf16") from None
+
+    @classmethod
+    def from_knobs(cls, knobs=None):
+        """The compressor the ``compression`` knob selects."""
+        if knobs is None:
+            from ..core.knobs import Knobs
+            knobs = Knobs.from_env()
+        return cls.lookup(knobs.compression)
+
+
+def check_compressor(compression) -> None:
+    """Raise if ``compression`` is the int8 wire (not ported)."""
+    if getattr(compression, "kind", "none") == "int8":
+        raise NotImplementedError(_INT8_NOT_PORTED)
 
 
 def _pad_flat(flat: torch.Tensor, multiple: int) -> torch.Tensor:

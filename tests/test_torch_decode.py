@@ -242,6 +242,9 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "SERVING_PREFILL_BUCKETS": "16,64",
     "SERVING_DECODE_MAX_NEW": "12",
     "SERVING_DECODE_STATS_EVERY": "0",
+    "FUSION_THRESHOLD": "65536",
+    "BUCKET_BACKWARD_ORDER": "0",
+    "COMPRESSION": "bf16",
 }
 
 
@@ -262,14 +265,26 @@ def test_knobs_match_jax_knobs(set_env, monkeypatch):
         assert getattr(Knobs(), field) == getattr(JaxKnobs(), field), field
 
 
+_TRAINING_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "core.exceptions", "core.state", "core.process_sets",
+        "core.basics", "ops.collectives", "ops.fusion",
+        "ops.flash_attention", "optim.distributed", "optim.functions",
+        "utils.mfu", "parallel.train", "examples.gpt2_pretraining")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
-    without pulling in jax or horovod_tpu."""
+    without pulling in jax or horovod_tpu; the training slice's modules
+    are among those walked."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        f"assert set({_TRAINING_MODULES!r}) <= set(names), names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu',\n"

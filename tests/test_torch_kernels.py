@@ -7,6 +7,8 @@ inputs:
 
 * the fused LayerNorm/RMSNorm forward vs the Pallas kernel (interpret
   mode on the CPU): float32 within 1e-6, bfloat16 within one bf16 ulp;
+* its backward (dx, dgamma, dbeta) vs ``jax.vjp`` of the Pallas
+  kernels, with and without beta, float32 and bfloat16;
 * the int8 block quantize/dequantize, bitwise;
 * the decode append+attend vs the Pallas append+attend kernels forced
   on (float32, bfloat16 and int8 caches, GQA, T=1 and T=8, a position
@@ -14,6 +16,7 @@ inputs:
   float32 output within 1e-6.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +29,9 @@ from horovod_tpu.optim import compression as jcomp
 from horovod_tpu.serving.decode import KVCacheSpec as JaxSpec
 from horovod_tpu.serving.decode import SlottedKVCache as JaxCache
 from horovod_tpu_torch.ops import decode_attention as tda
-from horovod_tpu_torch.ops.layernorm import fused_layer_norm
+from horovod_tpu_torch.ops.layernorm import (fused_layer_norm,
+                                              layer_norm_bwd_cuda,
+                                              layer_norm_bwd_ref)
 from horovod_tpu_torch.optim import compression as tcomp
 from horovod_tpu_torch.serving.decode import KVCacheSpec, SlottedKVCache
 
@@ -95,11 +100,87 @@ def test_layer_norm_rejects_bad_kind_and_rms_beta():
         fused_layer_norm(x, torch.ones(8), torch.zeros(8), kind="rmsnorm")
 
 
-def test_layer_norm_backward_raises_until_b5():
-    x = torch.randn(3, 8, requires_grad=True)
-    y = fused_layer_norm(x, torch.ones(8), torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="B5"):
-        y.sum().backward()
+# ---------------------------------------------------------------------------
+# B5: LayerNorm / RMSNorm backward
+# ---------------------------------------------------------------------------
+
+def _ulps_apart(a, b):
+    """Distance in bf16 ulps of the larger magnitude, per element."""
+    mag = np.maximum(np.abs(a), np.abs(b))
+    return np.abs(a - b) / _bf16_ulp(mag)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,with_beta", [("layernorm", True),
+                                            ("layernorm", False),
+                                            ("rmsnorm", False)])
+def test_layer_norm_backward_matches_pallas(dtype, kind, with_beta):
+    """dx, dgamma, dbeta through the port's autograd (the plain version
+    of B5 on the CPU) against ``jax.vjp`` of the Pallas kernels in
+    interpret mode: 13 rows (not a tile multiple) of 40 channels.
+    float32: dx within 2e-6, dgamma/dbeta within 1e-5 (sums in another
+    order). bfloat16: dx within one bf16 ulp of the larger value plus
+    1e-6 (outputs near 0 come from cancelling terms), dgamma/dbeta
+    (float32 sums of bf16 inputs) within 1e-4."""
+    rs = np.random.RandomState(1)
+    x = (rs.randn(13, 40) * 3 + 1.5).astype(np.float32)
+    g = (1 + 0.1 * rs.randn(40)).astype(np.float32)
+    b = (0.1 * rs.randn(40)).astype(np.float32) if with_beta else None
+    dy = rs.randn(13, 40).astype(np.float32)
+    jx = jnp.asarray(x).astype(_JNP[dtype])
+    jdy = jnp.asarray(dy).astype(_JNP[dtype])
+    if b is None:
+        _, vjp = jax.vjp(lambda x_, g_: jax_fused_layer_norm(
+            x_, g_, None, eps=1e-5, kind=kind), jx, jnp.asarray(g))
+    else:
+        _, vjp = jax.vjp(lambda x_, g_, b_: jax_fused_layer_norm(
+            x_, g_, b_, eps=1e-5, kind=kind), jx, jnp.asarray(g),
+            jnp.asarray(b))
+    want = vjp(jdy)
+
+    tx = torch.from_numpy(x).to(_TORCH[dtype]).requires_grad_()
+    tg = torch.from_numpy(g).requires_grad_()
+    tb = None if b is None else torch.from_numpy(b).requires_grad_()
+    y = fused_layer_norm(tx, tg, tb, eps=1e-5, kind=kind)
+    y.backward(torch.from_numpy(dy).to(_TORCH[dtype]))
+    got = [tx.grad, tg.grad] + ([] if tb is None else [tb.grad])
+    assert got[0].dtype == tx.dtype and got[1].dtype == torch.float32
+    assert len(got) == len(want)
+    dx, jdx = _to_f32(got[0]), _to_f32(want[0])
+    if dtype == "float32":
+        np.testing.assert_allclose(dx, jdx, rtol=0, atol=2e-6)
+        sum_tol = 1e-5
+    else:
+        assert np.all((np.abs(dx - jdx) <= _bf16_ulp(
+            np.maximum(np.abs(dx), np.abs(jdx))) + 1e-6)), \
+            f"bf16 dx off by {_ulps_apart(dx, jdx).max()} ulps"
+        sum_tol = 1e-4
+    for t, j in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(_to_f32(t), _to_f32(j), rtol=0,
+                                   atol=sum_tol)
+
+
+def test_layer_norm_bwd_ref_is_the_autograd_backward():
+    """layer_norm_bwd_ref (what the card's B5 is held to) is exactly the
+    CPU backward of fused_layer_norm, with and without beta."""
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(7, 24).astype(np.float32))
+    dy = torch.from_numpy(rs.randn(7, 24).astype(np.float32))
+    g = torch.from_numpy((1 + 0.1 * rs.randn(24)).astype(np.float32))
+    for beta, kind in ((torch.zeros(24), "layernorm"),
+                       (None, "rmsnorm")):
+        xs = x.clone().requires_grad_()
+        gs = g.clone().requires_grad_()
+        bs = None if beta is None else beta.clone().requires_grad_()
+        fused_layer_norm(xs, gs, bs, eps=1e-5, kind=kind).backward(dy)
+        dx, dg, db = layer_norm_bwd_ref(x, dy, g, 1e-5, kind == "rmsnorm",
+                                        beta is not None)
+        assert torch.equal(xs.grad, dx) and torch.equal(gs.grad, dg)
+        assert (db is None) == (bs is None)
+        if db is not None:
+            assert torch.equal(bs.grad, db)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_bwd_cuda(x, dy, g, 1e-5, False, True)
 
 
 # ---------------------------------------------------------------------------
