@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --parity-sweep 8   # the parity limits' readings
 
 Phases, in order; the first failure exits non-zero:
 
@@ -12,7 +13,8 @@ Phases, in order; the first failure exits non-zero:
    parallel) and print the build seconds and ptxas resource lines;
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
-   GPT-2 medium's [8, 16, 1024, 64] bf16, LayerNorm backward at
+   GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
+   that skip one tile must fail the same check; LayerNorm backward at
    [8192, 1024], the decode kernels at the serving shapes), and time
    the kernel, the plain version and one PyTorch library call computing
    the same function (a yardstick only: the port never calls it);
@@ -20,8 +22,8 @@ Phases, in order; the first failure exits non-zero:
    ``main`` (world of one over NCCL, batch 8 x 1024, flash attention and
    fused norms, 1 warm-up + 5 timed steps on one batch), after checking
    that the step-1 loss and every gradient of the kernel path agree
-   with the plain path on the same weights; the loss must fall; one
-   step is profiled;
+   with the plain path on the same weights (``GRAD_TOL``); the loss
+   must fall; one step is profiled;
 5. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
    continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
@@ -42,6 +44,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -265,22 +268,83 @@ def _flash_pairs(tq, tk, causal, q_off, k_off):
     return int(np.clip(last + 1, 0, tk).sum())
 
 
+#: per-row tolerance of the flash kernels: the L2 norm of a row's error
+#: (one query's O or dQ, one key's dK or dV, over head_dim) within
+#: rtol x the plain row's norm + atol. atol covers dQ rows that are 0
+#: in exact arithmetic (a query seeing one key: dP - delta cancels) and
+#: come out as float32 rounding noise of ~2e-6 on both sides
+FLASH_TOL = {torch.bfloat16: (1.5e-2, 1e-5), torch.float32: (1e-4, 1e-5)}
+FLASH_TILE = 32  # rows of a streamed tile at head_dim <= 64 (flash.cuh)
+FLASH_ROWS = 64  # rows a block holds (flash.cuh kRows)
+
+
+def _row_share(got, want, rtol, atol):
+    """Each row's error as a share of its tolerance, over the last axis:
+    ``||got - want|| / (rtol ||want|| + atol)``; a row passes at <= 1."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    return err / (rtol * want.float().norm(dim=-1) + atol)
+
+
+def _row_rel(got, want, rtol, atol):
+    """Largest per-row relative L2 error over the rows whose tolerance
+    the relative term sets (``rtol ||want|| > atol``); 0 if none."""
+    w = want.float().norm(dim=-1)
+    err = (got.float() - want.float()).norm(dim=-1)
+    big = rtol * w > atol
+    return (err[big] / w[big]).max().item() if bool(big.any()) else 0.0
+
+
+def _tile_skip_shares(fa, q, k, v, dout, lse, delta, got, want, args,
+                      rtol, atol):
+    """What the per-row check reads on kernels whose blocks each skip
+    one streamed tile, the least visible one: the last block of query
+    rows skipping keys 0..31 (forward, dQ), and the first block of keys
+    skipping the last 32 queries (dK, dV), whose part of an early key's
+    gradient is the smallest. The skipped tile's part comes from the
+    plain version on the slices. Each reading is the least, over the
+    (b, h) blocks, of the block's largest row share: above 1, a skip in
+    any one block fails the check."""
+    causal, scale, q_off, k_off = args
+    t = q.shape[2]
+    r0, q0, kt = t - FLASH_ROWS, t - FLASH_TILE, FLASH_TILE
+    o_skip, _ = fa.flash_attention_ref(q[:, :, r0:], k[:, :, kt:],
+                                       v[:, :, kt:], causal, scale,
+                                       q_off + r0, k_off + kt)
+    dq_part = fa.flash_bwd_ref(q[:, :, r0:], k[:, :, :kt], v[:, :, :kt],
+                               dout[:, :, r0:], lse[:, :, r0:],
+                               delta[:, :, r0:], causal, scale, q_off + r0,
+                               k_off)[0]
+    _, dk_part, dv_part = fa.flash_bwd_ref(
+        q[:, :, q0:], k[:, :, :FLASH_ROWS], v[:, :, :FLASH_ROWS],
+        dout[:, :, q0:], lse[:, :, q0:], delta[:, :, q0:], causal, scale,
+        q_off + q0, k_off)
+    rows = {"o": (o_skip, slice(r0, None)),
+            "dq": (got["dq"][:, :, r0:].float() - dq_part.float(),
+                   slice(r0, None)),
+            "dk": (got["dk"][:, :, :FLASH_ROWS].float() - dk_part.float(),
+                   slice(0, FLASH_ROWS)),
+            "dv": (got["dv"][:, :, :FLASH_ROWS].float() - dv_part.float(),
+                   slice(0, FLASH_ROWS))}
+    return {what: _row_share(skip, want[what][:, :, sl], rtol,
+                             atol).amax(-1).min().item()
+            for what, (skip, sl) in rows.items()}
+
+
 def check_flash(seed):
     """B1, B2, B3 at GPT-2 medium's attention ([8, 16, 1024, 64] bf16,
     causal), plus a non-causal, a padded-T and an offset case at batch
     2. Every case feeds the kernel and the plain version the same
-    inputs (the backward gets the plain forward's lse and delta)."""
+    inputs (the backward gets the plain forward's lse and delta). Each
+    row is held to ``FLASH_TOL``; in the main case, kernels that skip
+    one tile must fail that check."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     out = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
-    # max |err| / max |plain|: 2% for bf16 outputs (p rounded against a
-    # running max vs the row max), 1e-4 for float32; lse 1e-3 absolute
-    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
     def case(name, b, h, tq, tk, causal, q_off=0, k_off=0, timed=False,
              d=64, dtype=torch.bfloat16):
-        tol = tols[dtype]
+        rtol, atol = FLASH_TOL[dtype]
 
         def mk(t):
             return torch.randn(b, h, t, d, generator=g, device="cuda").to(
@@ -295,23 +359,45 @@ def check_flash(seed):
         dq_r, dk_r, dv_r = fa.flash_bwd_ref(q, k, v, dout, lse_r, delta,
                                             *args)
         torch.cuda.synchronize()
-        errs = {}
-        for what, a, w in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
-                           ("dv", dv, dv_r)):
-            _require(bool(torch.isfinite(a).all()),
+        got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+        want = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
+        errs, shares, rels = {}, {}, {}
+        for what in got:
+            _require(bool(torch.isfinite(got[what]).all()),
                      f"flash {name}: {what} not finite")
-            err, rel = _rel_err(a, w)
-            _require(rel <= tol, f"flash {name}: {what} max err {err} "
-                                 f"({rel:.2e} of max) > {tol}")
-            errs[what] = err
+            errs[what] = _rel_err(got[what], want[what])[0]
+            shares[what] = _row_share(got[what], want[what], rtol,
+                                      atol).max().item()
+            rels[what] = _row_rel(got[what], want[what], rtol, atol)
         lse_err = (lse - lse_r).abs().max().item()
+        skips = (_tile_skip_shares(fa, q, k, v, dout, lse_r, delta, got,
+                                   want, args, rtol, atol)
+                 if timed else None)
+        print(json.dumps({"flash_case": name, "row_share_max": shares,
+                          "row_rel_l2_max": rels, "lse_err": lse_err,
+                          "tile_skip_share_min": skips}))
+        for what, share in shares.items():
+            _require(share <= 1, f"flash {name}: a row of {what} is "
+                                 f"{share:.2f}x its tolerance from the "
+                                 "plain version (largest relative L2 "
+                                 f"{rels[what]:.2e})")
         _require(lse_err <= 1e-3, f"flash {name}: lse max err {lse_err}")
-        rows = {"flash_fwd": {"max_abs_err": errs["o"], "lse_err": lse_err},
-                "flash_bwd_dq": {"max_abs_err": errs["dq"]},
-                "flash_bwd_dkv": {"max_abs_err": max(errs["dk"],
-                                                     errs["dv"])}}
-        for kname, row in rows.items():
-            row.update(case=name, tol=f"{tol} of max |plain|")
+        for what, share in (skips or {}).items():
+            _require(share > 1, f"flash {name}: a kernel skipping one tile "
+                                f"of {what} reads {share:.2f}x the "
+                                "tolerance and would pass")
+        tol = f"per row: ||err|| <= {rtol} ||plain|| + {atol}"
+        rows = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",),
+                "flash_bwd_dkv": ("dk", "dv")}
+        for kname, whats in rows.items():
+            row = {"case": name, "tol": tol,
+                   "max_abs_err": max(errs[w] for w in whats),
+                   "row_rel_l2_max": max(rels[w] for w in whats),
+                   "row_share_max": max(shares[w] for w in whats)}
+            if kname == "flash_fwd":
+                row["lse_err"] = lse_err
+            if skips:
+                row["tile_skip_share_min"] = min(skips[w] for w in whats)
             out[kname].append(row)
         if not timed:
             return
@@ -542,11 +628,28 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "layernorm_fwd", "layernorm_bwd")
 
 
-def check_train_parity(seed):
+#: relative L2 limit of a parameter's step-1 gradient against the plain
+#: path, by group: the query and key projections' gradients go through
+#: dS = P * (dP - delta), a difference of near-equal terms, and the two
+#: paths round around it at different points (the plain path's logits
+#: come out of a bf16 product; the kernels keep float32 logits and
+#: round dS to bf16, as the TPU kernels do), so they read higher than
+#: the rest. Each limit sits between the worst healthy reading over 8
+#: seeds and the least faulty one (``--parity-sweep``; PERF.md)
+GRAD_TOL = {"attn_qk": 8e-2, "rest": 3e-2}
+
+
+def _grad_group(name):
+    return ("attn_qk" if ".attn.query." in name or ".attn.key." in name
+            else "rest")
+
+
+def check_train_parity(seed, weights_seed=0, enforce=True):
     """Step-1 loss and every parameter's gradient of the kernel path
     (flash attention, fused norms) against the plain path
     (``dot_product_attention``, unfused norms) on the weights training
-    starts from (``make_lm_train_step``'s seed 0) and a 2 x 1024 batch."""
+    starts from (``make_lm_train_step``'s seed 0) and a 2 x 1024 batch.
+    With ``enforce=False`` it only prints the readings."""
     from horovod_tpu_torch.models.transformer import (GPT2_MEDIUM,
                                                       Transformer,
                                                       causal_lm_loss)
@@ -557,7 +660,7 @@ def check_train_parity(seed):
     with torch.device("cuda"):
         fast = Transformer(cfg, attention_fn=make_flash_attention_fn(True))
         plain = Transformer(dataclasses.replace(cfg, fused_norm=False))
-    fast.init_params(torch.Generator(device="cuda").manual_seed(0))
+    fast.init_params(torch.Generator(device="cuda").manual_seed(weights_seed))
     plain.load_state_dict(fast.state_dict())
     tok = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (2, 1024))).cuda()
@@ -567,7 +670,7 @@ def check_train_parity(seed):
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad for n, p in model.named_parameters()})
-    loss_tol, grad_tol = 0.02, 5e-2
+    loss_tol = 0.02
     # a key bias shifts every logit of a row by the same q.b, which the
     # softmax ignores: its true gradient is 0 and both paths give
     # rounding noise, so it is held to the whole gradient's scale
@@ -579,27 +682,110 @@ def check_train_parity(seed):
             zero[n] = (diff / total).item()
         else:
             rel[n] = (diff / grads[1][n].norm().clamp_min(1e-30)).item()
-    worst = sorted(rel, key=rel.get, reverse=True)
+    groups = {}
+    for n, r in rel.items():
+        groups.setdefault(_grad_group(n), {})[n] = r
+    worst = {grp: max(rs, key=rs.get) for grp, rs in groups.items()}
     out = {"train_parity": {
-        "batch": "2x1024", "loss_kernels": losses[0],
+        "batch": "2x1024", "seed": seed, "weights_seed": weights_seed,
+        "loss_kernels": losses[0],
         "loss_plain": losses[1], "loss_err": abs(losses[0] - losses[1]),
-        "loss_tol": loss_tol, "grad_rel_l2_max": rel[worst[0]],
-        "grad_rel_l2_worst": {n: rel[n] for n in worst[:5]},
+        "loss_tol": loss_tol,
+        "grad_rel_l2_max": {grp: groups[grp][n] for grp, n in worst.items()},
+        "grad_rel_l2_worst": worst,
         "grad_rel_l2_median": float(np.median(list(rel.values()))),
-        "grad_tol": grad_tol, "params": len(rel),
+        "grad_tol": GRAD_TOL, "params": len(rel),
         "key_bias_diff_over_grad_norm_max": max(zero.values()),
         "key_bias_params": len(zero)}}
     print(json.dumps(out))
+    del fast, plain, grads
+    torch.cuda.empty_cache()
+    if not enforce:
+        return out["train_parity"]
     _require(all(np.isfinite(losses)), "parity: a loss is not finite")
     _require(abs(losses[0] - losses[1]) <= loss_tol,
              f"parity: step-1 loss {losses[0]} vs plain {losses[1]}")
-    _require(rel[worst[0]] <= grad_tol,
-             f"parity: gradient of {worst[0]} differs from the plain path "
-             f"by {rel[worst[0]]:.3e} (relative L2) > {grad_tol}")
+    for grp, n in worst.items():
+        _require(groups[grp][n] <= GRAD_TOL[grp],
+                 f"parity: gradient of {n} differs from the plain path by "
+                 f"{groups[grp][n]:.3e} (relative L2) > {GRAD_TOL[grp]}")
     _require(max(zero.values()) <= 1e-3,
              "parity: a key bias gradient (zero by construction) is "
              f"{max(zero.values()):.3e} of the gradient norm")
     return out["train_parity"]
+
+
+PARITY_FAULTS = ("dkv_last_q_tile", "ln_last_block")
+
+
+@contextlib.contextmanager
+def _injected_fault(name):
+    """Run the training path's backward as a faulty kernel would, for
+    the readings that bound the parity limits from above:
+    ``dkv_last_q_tile``: B3's loop over q tiles ends one streamed tile
+    early in every block (the last 32 queries add nothing to dK, dV);
+    ``ln_last_block``: B5's column sums stop one block short (the last
+    block's rows add nothing to dgamma, dbeta)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import layernorm as ln
+
+    if name == "dkv_last_q_tile":
+        mod, attr = fa, "flash_bwd_dkv_cuda"
+        orig = fa.flash_bwd_dkv_cuda
+
+        def faulty(q, k, v, dout, lse, delta, causal, scale, q_off=0,
+                   k_off=0):
+            dk, dv = orig(q, k, v, dout, lse, delta, causal, scale, q_off,
+                          k_off)
+            q0 = q.shape[2] - FLASH_TILE
+            pk, pv = orig(q[:, :, q0:], k, v, dout[:, :, q0:],
+                          lse[:, :, q0:], delta[:, :, q0:], causal, scale,
+                          q_off + q0, k_off)
+            return dk - pk, dv - pv
+    elif name == "ln_last_block":
+        mod, attr = ln, "layer_norm_bwd_cuda"
+        orig = ln.layer_norm_bwd_cuda
+
+        def faulty(x2, dy2, gamma, eps, rms, with_beta):
+            dx, dg, db = orig(x2, dy2, gamma, eps, rms, with_beta)
+            n = x2.shape[0]
+            rows = -(-n // min(n, ln._BWD_MAX_BLOCKS))
+            last = n - (-(-n // rows) - 1) * rows
+            _, pg, pb = ln.layer_norm_bwd_ref(x2[-last:], dy2[-last:], gamma,
+                                              eps, rms, with_beta)
+            return dx, dg - pg, None if db is None else db - pb
+    else:
+        raise ValueError(f"unknown fault {name!r}")
+    setattr(mod, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
+def parity_sweep(n_seeds):
+    """The readings behind the parity limits: step-1 parity on seeds
+    0..n-1 (weights and batch), and on seed 0 under each injected
+    fault. Prints one summary line; enforces nothing."""
+    healthy = [check_train_parity(s, weights_seed=s, enforce=False)
+               for s in range(n_seeds)]
+    faults = {}
+    for name in PARITY_FAULTS:
+        with _injected_fault(name):
+            r = check_train_parity(0, enforce=False)
+        faults[name] = {"grad_rel_l2_max": r["grad_rel_l2_max"],
+                        "worst": r["grad_rel_l2_worst"]}
+    print(json.dumps({"parity_sweep": {
+        "seeds": n_seeds, "grad_tol": GRAD_TOL,
+        "grad_rel_l2_max": {grp: max(r["grad_rel_l2_max"][grp]
+                                     for r in healthy)
+                            for grp in GRAD_TOL},
+        "per_seed": [r["grad_rel_l2_max"] for r in healthy],
+        "worst": [r["grad_rel_l2_worst"] for r in healthy],
+        "loss_err": [r["loss_err"] for r in healthy],
+        "key_bias": [r["key_bias_diff_over_grad_norm_max"]
+                     for r in healthy],
+        "faults": faults}}))
 
 
 def profile_train_step(step, tokens):
@@ -874,6 +1060,10 @@ KERNELS = [
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parity-sweep", type=int, default=0, metavar="N",
+                    help="only build the kernels and print the step-1 "
+                         "parity readings of seeds 0..N-1 and of the "
+                         "injected faults (the limits' evidence)")
     args = ap.parse_args(argv)
 
     # phase 1
@@ -911,6 +1101,9 @@ def main(argv=None) -> int:
         for line in log.read_text().splitlines() if log.exists() else []:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    if args.parity_sweep:
+        parity_sweep(args.parity_sweep)
+        return 0
 
     # phase 3
     checks = {

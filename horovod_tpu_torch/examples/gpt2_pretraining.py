@@ -37,6 +37,17 @@ from ..utils.mfu import count_params, peak_flops_per_chip, \
     transformer_train_flops
 
 
+def synthetic_tokens(vocab, batch, seq, rank, size, cross_size=1):
+    """This rank's ``[batch, seq]`` int64 rows of the synthetic batch, as
+    the JAX example shards its global batch over the ranks: ``batch *
+    size`` rows drawn from seed 0 (each host's rank when there are
+    several hosts), rank r taking rows ``[r * batch, (r + 1) * batch)``,
+    so each rank trains on its own data."""
+    rng = np.random.RandomState(rank if cross_size > 1 else 0)
+    rows = rng.randint(0, vocab, (batch * size, seq)).astype(np.int64)
+    return rows[rank * batch:(rank + 1) * batch]
+
+
 def main(argv=None, stats=None):
     p = argparse.ArgumentParser(
         description="horovod_tpu_torch GPT-2 causal pretraining benchmark")
@@ -83,11 +94,9 @@ def main(argv=None, stats=None):
     attention_fn = make_flash_attention_fn(causal=True) if args.flash \
         else None
 
-    rng = np.random.RandomState(
-        basics.rank() if basics.cross_size() > 1 else 0)
     B, T = args.batch_size, args.seq_len
-    tokens = torch.from_numpy(
-        rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int64)).to(dev)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, B, T, basics.rank(), n, basics.cross_size())).to(dev)
 
     model, step = make_lm_train_step(
         cfg, functools.partial(torch.optim.AdamW, lr=args.lr,

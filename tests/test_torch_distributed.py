@@ -148,6 +148,21 @@ def test_entry_points_need_a_card_or_the_cpu():
         hvd.make_lm_train_step(cfg, adamw, sequence_parallel="ring")
 
 
+def test_example_shards_the_global_batch():
+    """As the JAX example does, the port's example draws ``batch * n``
+    rows from seed 0 and gives rank r rows ``[r * batch, (r + 1) *
+    batch)``: each rank trains on its own data."""
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+
+    glob = np.random.RandomState(0).randint(0, 61, (3 * 4, 16))
+    shards = [synthetic_tokens(61, 3, 16, r, 4) for r in range(4)]
+    assert all(s.shape == (3, 16) and s.dtype == np.int64 for s in shards)
+    np.testing.assert_array_equal(np.concatenate(shards), glob)
+    assert not np.array_equal(shards[0], shards[1])
+    np.testing.assert_array_equal(synthetic_tokens(61, 3, 16, 0, 1),
+                                  glob[:3])
+
+
 def test_compression(monkeypatch):
     x = torch.linspace(-3, 3, 7)
     for comp, wire in ((hvd.Compression.fp16, torch.float16),
