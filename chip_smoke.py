@@ -15,28 +15,37 @@ Phases, in order; the first failure exits non-zero:
    its path's shapes and in its working dtypes (flash attention at
    GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
    that skip one tile must fail the same check; LayerNorm backward at
-   [8192, 1024], the decode kernels at the serving shapes), and time
-   the kernel, the plain version and one PyTorch library call computing
-   the same function (a yardstick only: the port never calls it);
+   [8192, 1024], the decode kernels at the serving shapes; the
+   BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise, the
+   two reductions per channel, where sums that leave out one row block
+   must fail), and time the kernel, the plain version and one PyTorch
+   library call computing the same function (a yardstick only: the
+   port never calls it);
 4. train GPT-2 medium at full width and depth through the example's
    ``main`` (world of one over NCCL, batch 8 x 1024, flash attention and
    fused norms, 1 warm-up + 5 timed steps on one batch), after checking
    that the step-1 loss and every gradient of the kernel path agree
    with the plain path on the same weights (``GRAD_TOL``); the loss
    must fall; one step is profiled;
-5. serve GPT-2 small at full width (random weights from the seed,
+5. train ResNet-50 (224 px, 1000 classes) through the example's
+   ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
+   warm-up + 5 timed steps on one batch), after checking the step-1
+   loss and gradients of the fused-BN path against the plain-BN path
+   on the same weights (``RESNET_GRAD_TOL``); the loss must fall, each
+   BatchNorm kernel must launch 53 times a step; one step is profiled;
+6. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
    continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
    32 new tokens each; 4 of them again one at a time must give the
    same tokens; a profiled window of 8 full-batch decode steps shows
    where a step's time goes; the first-token logits must agree with
    the plain (unfused, cache-free) forward of the same weights;
-6. a short serve on an int8 KV cache (4 requests);
-7. print the ``{"kernels": [...]}`` line: each kernel's launches on the
-   training run of phase 4 and the serving runs of phases 5 and 6
-   (counts zeroed just before each run and read just after), error,
-   tolerance and times;
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+7. a short serve on an int8 KV cache (4 requests);
+8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
+   training runs of phases 4 and 5 and the serving runs of phases 6
+   and 7 (counts zeroed just before each run and read just after),
+   error, tolerance and times;
+9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -47,6 +56,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -616,6 +626,218 @@ def check_append_attend_int8(seed):
     return cases
 
 
+#: per-channel tolerance of the BatchNorm reductions (B7, B9): each of
+#: sum(x), sum(x^2), dgamma and dbeta within BN_RTOL x the sum of its
+#: terms' magnitudes of the plain version's. The kernels and the plain
+#: sums differ only in the order of float32 additions; in the main case
+#: a sum that leaves out one of the kernel's row blocks must fail it
+BN_RTOL = 1e-5
+#: (rows, channels, dtype, relu, residual, what): the path's shapes at
+#: batch 128 x 224 px, the main case first, then ragged float32 cases
+#: (a row count no block size divides; C = 100 takes the one-element
+#: path, C = 96 the 16-byte one)
+BN_CASES = (
+    (401408, 256, torch.bfloat16, True, True,
+     "stage-1 block output 128x56x56x256, ReLU + residual"),
+    (1605632, 64, torch.bfloat16, True, False, "stem 128x112x112x64, ReLU"),
+    (401408, 256, torch.bfloat16, False, False,
+     "stage-1 projection 128x56x56x256, plain"),
+    (6272, 2048, torch.bfloat16, True, True,
+     "stage-4 block output 128x7x7x2048, ReLU + residual"),
+    (10007, 100, torch.float32, True, True, "ragged f32, ReLU + residual"),
+    (4099, 96, torch.float32, False, False, "ragged f32, plain"),
+)
+
+
+def _bitwise(a, b):
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and bool(torch.equal(
+        a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def _bn_reading(got, want, terms_abs):
+    """Largest per-channel error as a share of the sum of the terms'
+    magnitudes (a reading of at most BN_RTOL passes)."""
+    return ((got - want).abs() / terms_abs.clamp_min(1e-30)).max().item()
+
+
+def _bn_skip_reading(terms, terms_abs, rows_per_block):
+    """What the per-channel check reads on a sum that leaves out one row
+    block of the kernel's: the least, over the blocks, of the block's
+    largest per-channel share. Above BN_RTOL, leaving out any one block
+    fails the check."""
+    n, c = terms.shape
+    pad = (-n) % rows_per_block
+    blocks = torch.cat([terms, terms.new_zeros(pad, c)]).reshape(
+        -1, rows_per_block, c).sum(1)
+    return (blocks.abs() / terms_abs.clamp_min(1e-30)).amax(1).min().item()
+
+
+def check_batchnorm(seed):
+    """B7-B10 at the ResNet-50 path's shapes (``BN_CASES``). B8 and B10
+    (dx and dres) must be bitwise equal to their plain versions; B7 and
+    B9 are held per channel (``BN_RTOL``), and in the main case sums that
+    leave out one row block of the kernel must fail that check. The
+    per-channel constants between the kernels come from the plain
+    version's sums, so each kernel sees the same inputs as its plain
+    version. The bf16 cases are timed: the kernel, its plain version and
+    one PyTorch call as a yardstick (``torch.var_mean`` for B7, the
+    training forward of ``F.batch_norm`` beside B7 + B8, its autograd
+    backward beside B9 + B10)."""
+    from horovod_tpu_torch.ops import batchnorm as bn
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    out = {k: [] for k in ("bn_stats", "bn_apply", "bn_bwd_reduce",
+                           "bn_bwd_dx")}
+    eps = 1e-5
+    for ci, (n, c, dtype, relu, has_res, what) in enumerate(BN_CASES):
+        def mk(scale=1.0, shift=0.0):
+            return (torch.randn(n, c, generator=g, device="cuda") * scale
+                    + shift).to(dtype)
+        x, dy = mk(2.0, 0.5), mk()
+        res = mk() if has_res else None
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+        xf = x.float()
+        # B7
+        ks, kq = bn.bn_stats_cuda(x)
+        ps, pq = bn.bn_stats_ref(x)
+        # the constants, in the order of the autograd function
+        nf = float(n)
+        mean = ps / nf
+        var = torch.clamp(pq / nf - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        s, t = gamma * rstd, beta - mean * (gamma * rstd)
+        u, w = rstd, -mean * rstd
+        # B8, B9
+        ky = bn.bn_apply_cuda(x, s, t, res, relu)
+        py = bn.bn_apply_ref(x, s, t, res, relu)
+        kg, kb = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, u, w, relu)
+        pg, pb = bn.bn_bwd_reduce_ref(x, dy, res, s, t, u, w, relu)
+        # B10
+        a = gamma * rstd
+        b = rstd * (-a * pg / nf)
+        cc = -a * pb / nf - (-mean * rstd) * a * pg / nf
+        kdx, kdres = bn.bn_bwd_dx_cuda(x, dy, res, s, t, a, b, cc, relu)
+        pdx, pdres = bn.bn_bwd_dx_ref(x, dy, res, s, t, a, b, cc, relu)
+        torch.cuda.synchronize()
+
+        dye = bn._dy_eff(x, dy, res, s, t, relu)
+        terms = {"sum": xf, "sumsq": xf * xf, "dgamma": dye * (xf * u + w),
+                 "dbeta": dye}
+        absum = {k: v.abs().sum(0) for k, v in terms.items()}
+        got = {"sum": ks, "sumsq": kq, "dgamma": kg, "dbeta": kb}
+        want = {"sum": ps, "sumsq": pq, "dgamma": pg, "dbeta": pb}
+        reads = {k: _bn_reading(got[k], want[k], absum[k]) for k in got}
+        vec = bn.vector_width(c, dtype, x)
+        rows_per_block, blocks = bn.reduce_geometry(n, c, vec)
+        skips = ({k: _bn_skip_reading(terms[k], absum[k], rows_per_block)
+                  for k in terms} if ci == 0 else None)
+        bitwise = {"y": _bitwise(ky, py), "dx": _bitwise(kdx, pdx),
+                   "dres": (None if res is None else _bitwise(kdres, pdres))}
+        print(json.dumps({"bn_case": what, "rows": n, "channels": c,
+                          "vec": vec, "rows_per_block": rows_per_block,
+                          "blocks": blocks, "rtol": BN_RTOL,
+                          "reduce_reading": reads, "skip_reading": skips,
+                          "bitwise": bitwise}))
+        for k, r in reads.items():
+            _require(r <= BN_RTOL, f"batchnorm {what}: {k} reads {r:.2e} of "
+                                   f"its terms' magnitude > {BN_RTOL}")
+        for k, r in (skips or {}).items():
+            _require(r > BN_RTOL, f"batchnorm {what}: a {k} that leaves out "
+                                  f"one row block reads {r:.2e} <= "
+                                  f"{BN_RTOL} and would pass")
+        for k, ok in bitwise.items():
+            _require(ok is not False, f"batchnorm {what}: {k} is not bitwise "
+                                      "equal to the plain version")
+        for k, v in (("y", ky), ("dx", kdx)):
+            _require(bool(torch.isfinite(v).all()),
+                     f"batchnorm {what}: {k} not finite")
+        rows = {
+            "bn_stats": {"max_abs_err": max((ks - ps).abs().max().item(),
+                                            (kq - pq).abs().max().item()),
+                         "tol": f"per channel <= {BN_RTOL} x sum |terms|",
+                         "reading": {k: reads[k] for k in ("sum", "sumsq")}},
+            "bn_apply": {"max_abs_err": (ky.float() - py.float()).abs().max()
+                         .item(), "tol": "bitwise"},
+            "bn_bwd_reduce": {
+                "max_abs_err": max((kg - pg).abs().max().item(),
+                                   (kb - pb).abs().max().item()),
+                "tol": f"per channel <= {BN_RTOL} x sum |terms|",
+                "reading": {k: reads[k] for k in ("dgamma", "dbeta")}},
+            "bn_bwd_dx": {"max_abs_err": (kdx.float() - pdx.float()).abs()
+                          .max().item(), "tol": "bitwise (dx, dres)"},
+        }
+        for kname, row in rows.items():
+            row["case"] = f"[{n}, {c}] {str(dtype)[6:]}: {what}"
+            if skips:
+                row["skip_reading"] = skips
+            out[kname].append(row)
+        if dtype != torch.bfloat16:
+            continue
+        # times, and the least each call could take: each input read
+        # once, each output written once, over the HBM rate
+        e = x.element_size()
+        big = n * c * e
+        nres = 1 if has_res else 0
+        mask_res = 1 if (relu and has_res) else 0
+        work = {
+            "bn_stats": (big + 2 * c * 4, 3 * n * c),
+            "bn_apply": ((2 + nres) * big + 2 * c * 4, (3 + nres) * n * c),
+            "bn_bwd_reduce": ((2 + mask_res) * big + 6 * c * 4, 9 * n * c),
+            "bn_bwd_dx": ((3 + mask_res + nres) * big + 5 * c * 4,
+                          9 * n * c),
+        }
+        calls = {
+            "bn_stats": (lambda _=0: bn.bn_stats_cuda(x),
+                         lambda _=0: bn.bn_stats_ref(x)),
+            "bn_apply": (lambda _=0: bn.bn_apply_cuda(x, s, t, res, relu),
+                         lambda _=0: bn.bn_apply_ref(x, s, t, res, relu)),
+            "bn_bwd_reduce": (
+                lambda _=0: bn.bn_bwd_reduce_cuda(x, dy, res, s, t, u, w,
+                                                  relu),
+                lambda _=0: bn.bn_bwd_reduce_ref(x, dy, res, s, t, u, w,
+                                                 relu)),
+            "bn_bwd_dx": (
+                lambda _=0: bn.bn_bwd_dx_cuda(x, dy, res, s, t, a, b, cc,
+                                              relu),
+                lambda _=0: bn.bn_bwd_dx_ref(x, dy, res, s, t, a, b, cc,
+                                             relu)),
+        }
+        # the yardsticks: PyTorch's BatchNorm on the NCHW (channels-last)
+        # view of the same rows, a batch of 128 square images
+        side = math.isqrt(n // 128)
+        xn = x.reshape(128, side, side, c).permute(0, 3, 1, 2)
+        xg = xn.detach().requires_grad_()
+        gb = gamma.detach().requires_grad_()
+        bb = beta.detach().requires_grad_()
+        yl = F.batch_norm(xg, None, None, gb, bb, training=True, eps=eps)
+        dyn = dy.reshape(128, side, side, c).permute(0, 3, 1, 2)
+        lib_bwd = _device_ms(lambda _=0: torch.autograd.grad(
+            yl, (xg, gb, bb), dyn, retain_graph=True), iters=20)
+        lib = {
+            "bn_stats": _device_ms(lambda _=0: torch.var_mean(
+                x, dim=0, correction=0), iters=20),
+            "bn_apply": _device_ms(lambda _=0: F.batch_norm(
+                xn, None, None, gamma, beta, training=True, eps=eps),
+                iters=20),
+            "bn_bwd_reduce": lib_bwd, "bn_bwd_dx": lib_bwd,
+        }
+        covers = {"bn_stats": "torch.var_mean",
+                  "bn_apply": "F.batch_norm training fwd (B7 + B8)",
+                  "bn_bwd_reduce": "F.batch_norm bwd (B9 + B10)",
+                  "bn_bwd_dx": "F.batch_norm bwd (B9 + B10)"}
+        for kname, (kern, plain) in calls.items():
+            bound, by = _bound(*work[kname], "f32")
+            out[kname][-1].update(
+                ms=_device_ms(kern, iters=20),
+                plain_ms=_device_ms(plain, iters=5),
+                library_ms=lib[kname], library_call=covers[kname],
+                bound_ms=bound, bound_by=by)
+        del yl, xg
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: training GPT-2 medium
 # ---------------------------------------------------------------------------
@@ -766,7 +988,8 @@ def _injected_fault(name):
 def parity_sweep(n_seeds):
     """The readings behind the parity limits: step-1 parity on seeds
     0..n-1 (weights and batch), and on seed 0 under each injected
-    fault. Prints one summary line; enforces nothing."""
+    fault, for GPT-2 medium and then for ResNet-50. Prints one summary
+    line for each; enforces nothing."""
     healthy = [check_train_parity(s, weights_seed=s, enforce=False)
                for s in range(n_seeds)]
     faults = {}
@@ -785,6 +1008,27 @@ def parity_sweep(n_seeds):
         "loss_err": [r["loss_err"] for r in healthy],
         "key_bias": [r["key_bias_diff_over_grad_norm_max"]
                      for r in healthy],
+        "faults": faults}}))
+    del healthy
+    torch.cuda.empty_cache()
+    resnet_sensitivity()
+    healthy = [check_resnet_parity(s, weights_seed=s, enforce=False)
+               for s in range(n_seeds)]
+    faults = {}
+    for name in RESNET_FAULTS:
+        with _injected_bn_fault(name):
+            r = check_resnet_parity(0, enforce=False)
+        faults[name] = {"grad_rel_l2_max": r["grad_rel_l2_max"],
+                        "worst": r["grad_rel_l2_worst"],
+                        "loss_err": r["loss_err"]}
+    print(json.dumps({"resnet_parity_sweep": {
+        "seeds": n_seeds, "grad_tol": RESNET_GRAD_TOL,
+        "grad_rel_l2_max": {grp: max(r["grad_rel_l2_max"][grp]
+                                     for r in healthy)
+                            for grp in RESNET_GRAD_TOL},
+        "per_seed": [r["grad_rel_l2_max"] for r in healthy],
+        "worst": [r["grad_rel_l2_worst"] for r in healthy],
+        "loss_err": [r["loss_err"] for r in healthy],
         "faults": faults}}))
 
 
@@ -868,7 +1112,294 @@ def train_gpt2(seed, ledger):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: serving GPT-2 small
+# phase 5: training ResNet-50
+# ---------------------------------------------------------------------------
+
+RESNET_ARGS = ["--fused-bn", "--batch-size", "128",
+               "--num-warmup-batches", "1", "--num-batches-per-iter", "5",
+               "--num-iters", "1"]
+RESNET_STEPS = 6  # 1 warm-up + 5 timed, as RESNET_ARGS says
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
+#: BatchNorm layers of ResNet-50: the stem, 16 blocks x 3, 4 projections
+RESNET_BN_LAYERS = 53
+RESNET_PARITY_BATCH = 16
+
+#: step-1 parity of the fused-BN path against the plain-BN path, in
+#: float32: the loss within RESNET_LOSS_TOL, each parameter's gradient
+#: within a relative L2 limit by group (convolution kernels, BatchNorm
+#: scales and biases, the Dense head). A ResNet-50's step-1 gradient
+#: amplifies a relative change of its input by 10^3 or more (BatchNorm
+#: gradients grow with depth at init, the more so the larger the
+#: residual branches), so in bf16 the two paths' different rounding
+#: points give unrelated gradients; in float32 they differ by rounding
+#: times that gain. The bf16 kernels are held bitwise in phase 3. The
+#: conv and norm limits sit between the worst healthy reading over the
+#: seeds and the least reading under injected B9/B10 faults
+#: (``--parity-sweep``; PERF.md); the backward reaches the Dense head
+#: before any BatchNorm, so its limit guards the head and the loss only
+RESNET_LOSS_TOL = 1e-3
+RESNET_GRAD_TOL = {"conv": 2.5e-2, "norm": 4.5e-2, "dense": 1e-4}
+
+
+def _resnet_group(name):
+    if name.startswith("Dense_0."):
+        return "dense"
+    return "conv" if name.endswith(".kernel") else "norm"
+
+
+def _resnet_pair(weights_seed, dtype, last_scale=(0.1, 0.3)):
+    """A fused-BN and a plain-BN ResNet-50 on the card with the same
+    weights: ``init_params`` from ``weights_seed``, then every BatchNorm
+    scale redrawn, the last of each block from U(*last_scale) (at init
+    it is 0, which makes every gradient inside the blocks exactly 0 on
+    both paths) and the others from U(0.5, 1.5)."""
+    from horovod_tpu_torch.models.convert import rename_norms
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    with torch.device("cuda"):
+        fast = ResNet50(num_classes=1000, fused_bn=True, dtype=dtype)
+        plain = ResNet50(num_classes=1000, fused_bn=False, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(weights_seed)
+    fast.init_params(gen)
+    with torch.no_grad():
+        for m in fast.modules():
+            if hasattr(m, "scale_init"):
+                lo, hi = last_scale if m.scale_init == "zeros" else (0.5, 1.5)
+                m.scale.uniform_(lo, hi, generator=gen)
+    plain.load_state_dict(rename_norms(fast.state_dict(), fused_bn=False))
+    return fast, plain
+
+
+def _resnet_batch(seed):
+    rng = np.random.RandomState(seed)
+    b = RESNET_PARITY_BATCH
+    x = torch.from_numpy(rng.rand(b, 224, 224, 3).astype(np.float32)).cuda()
+    return x, torch.from_numpy(rng.randint(0, 1000, b)).cuda()
+
+
+def _resnet_grads(model, x, y):
+    """(step-1 loss, every parameter's gradient by its plain-tree name)."""
+    from horovod_tpu_torch.examples.resnet50_synthetic import \
+        softmax_cross_entropy
+    from horovod_tpu_torch.models.convert import rename_norms
+
+    model.zero_grad(set_to_none=True)
+    loss = softmax_cross_entropy(model(x), y)
+    loss.backward()
+    return loss.item(), rename_norms(
+        {n: p.grad.float() for n, p in model.named_parameters()}, False)
+
+
+def _rel_l2(got, want):
+    return {n: ((g - want[n]).norm() / want[n].norm().clamp_min(1e-30)).item()
+            for n, g in got.items()}
+
+
+def check_resnet_parity(seed, weights_seed=0, enforce=True):
+    """Step-1 loss and every parameter's gradient of the fused-BN
+    ResNet-50 (B7-B10) against the plain-BN one on the same weights
+    (``_resnet_pair``), in float32, on a 16 x 224 px batch drawn from
+    ``seed``. With ``enforce=False`` it only prints the readings."""
+    fast, plain = _resnet_pair(weights_seed, torch.float32)
+    x, y = _resnet_batch(seed)
+    b = RESNET_PARITY_BATCH
+    losses, grads = zip(*(_resnet_grads(m, x, y) for m in (fast, plain)))
+    rel = _rel_l2(grads[0], grads[1])
+    groups = {}
+    for n, r in rel.items():
+        groups.setdefault(_resnet_group(n), {})[n] = r
+    worst = {grp: max(rs, key=rs.get) for grp, rs in groups.items()}
+    out = {"resnet_parity": {
+        "batch": f"{b}x224", "seed": seed, "weights_seed": weights_seed,
+        "loss_kernels": losses[0], "loss_plain": losses[1],
+        "loss_err": abs(losses[0] - losses[1]), "loss_tol": RESNET_LOSS_TOL,
+        "grad_rel_l2_max": {grp: groups[grp][n] for grp, n in worst.items()},
+        "grad_rel_l2_worst": worst,
+        "grad_rel_l2_median": float(np.median(list(rel.values()))),
+        "grad_tol": RESNET_GRAD_TOL, "params": len(rel)}}
+    print(json.dumps(out))
+    del fast, plain, grads
+    torch.cuda.empty_cache()
+    if not enforce:
+        return out["resnet_parity"]
+    _require(all(np.isfinite(losses)), "resnet parity: a loss is not finite")
+    _require(abs(losses[0] - losses[1]) <= RESNET_LOSS_TOL,
+             f"resnet parity: step-1 loss {losses[0]} vs plain {losses[1]}")
+    for grp, n in worst.items():
+        _require(groups[grp][n] <= RESNET_GRAD_TOL[grp],
+                 f"resnet parity: gradient of {n} differs from the plain "
+                 f"path by {groups[grp][n]:.3e} (relative L2) > "
+                 f"{RESNET_GRAD_TOL[grp]}")
+    return out["resnet_parity"]
+
+
+def resnet_sensitivity():
+    """Why the step-1 parity runs in float32 with small last scales: how
+    far ResNet-50's step-1 gradient moves (relative L2 per parameter,
+    median and max) when its input is scaled by 1 + 1e-6, in float32 on
+    the fused path, with the last scale of each block in U(0.1, 0.3) (the
+    check's) and in U(0.5, 1.5); and what the parity check would read in
+    bf16 on healthy kernels. Prints one line; enforces nothing."""
+    x, y = _resnet_batch(0)
+    out = {}
+    for label, last in (("last_scales_0.1_0.3", (0.1, 0.3)),
+                        ("all_scales_0.5_1.5", (0.5, 1.5))):
+        fast, plain = _resnet_pair(0, torch.float32, last)
+        del plain
+        g0 = _resnet_grads(fast, x, y)[1]
+        g1 = _resnet_grads(fast, x * (1 + 1e-6), y)[1]
+        rel = list(_rel_l2(g1, g0).values())
+        out[f"f32_input_nudge_1e-6_{label}"] = {
+            "median": float(np.median(rel)), "max": max(rel)}
+        del fast
+        torch.cuda.empty_cache()
+    fast, plain = _resnet_pair(0, torch.bfloat16)
+    rel = list(_rel_l2(_resnet_grads(fast, x, y)[1],
+                       _resnet_grads(plain, x, y)[1]).values())
+    out["bf16_fused_vs_plain_last_scales_0.1_0.3"] = {
+        "median": float(np.median(rel)), "max": max(rel)}
+    del fast, plain
+    torch.cuda.empty_cache()
+    print(json.dumps({"resnet_sensitivity": out}))
+
+
+RESNET_FAULTS = ("bn_reduce_last_block", "bn_reduce_mask_no_residual",
+                 "bn_dx_dres_unmasked")
+
+
+@contextlib.contextmanager
+def _injected_bn_fault(name):
+    """Run the fused-BN backward as a faulty kernel would:
+    ``bn_reduce_last_block``: B9's column sums stop one row block short;
+    ``bn_reduce_mask_no_residual``: B9 recomputes the ReLU mask without
+    the residual; ``bn_dx_dres_unmasked``: B10 writes dres = dy, not
+    the masked dy_eff."""
+    from horovod_tpu_torch.ops import batchnorm as bn
+
+    if name == "bn_reduce_last_block":
+        attr, orig = "bn_bwd_reduce_cuda", bn.bn_bwd_reduce_cuda
+
+        def faulty(x2, dy2, res2, s, t, u, w, relu):
+            dg, db = orig(x2, dy2, res2, s, t, u, w, relu)
+            n, c = x2.shape
+            rows, blocks = bn.reduce_geometry(
+                n, c, bn.vector_width(c, x2.dtype, x2, dy2, res2))
+            tail = slice((blocks - 1) * rows, None)
+            pg, pb = bn.bn_bwd_reduce_ref(
+                x2[tail], dy2[tail], None if res2 is None else res2[tail],
+                s, t, u, w, relu)
+            return dg - pg, db - pb
+    elif name == "bn_reduce_mask_no_residual":
+        attr, orig = "bn_bwd_reduce_cuda", bn.bn_bwd_reduce_cuda
+
+        def faulty(x2, dy2, res2, s, t, u, w, relu):
+            return orig(x2, dy2, None, s, t, u, w, relu)
+    elif name == "bn_dx_dres_unmasked":
+        attr, orig = "bn_bwd_dx_cuda", bn.bn_bwd_dx_cuda
+
+        def faulty(x2, dy2, res2, s, t, a, b, c, relu):
+            dx, dres = orig(x2, dy2, res2, s, t, a, b, c, relu)
+            return dx, None if dres is None else dy2.clone()
+    else:
+        raise ValueError(f"unknown fault {name!r}")
+    setattr(bn, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(bn, attr, orig)
+
+
+def profile_resnet_step(step, batch):
+    """Where one ResNet-50 training step's device time goes, by group:
+    cuDNN convolutions, the BatchNorm kernels, the optimizer, casts and
+    other elementwise work; with the device busy share (kernel time over
+    wall time, a lower bound: the profiler adds host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernel_events(prof)
+    busy_us = sum(_dev_us(e) for e in kernels)
+    top = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    groups, calls = {}, {}
+    for e in kernels:
+        name = e.key.lower()
+        # cuDNN's and cuBLAS's kernels by their library's names; PyTorch's
+        # own (casts, [C]-sized BatchNorm constants, pooling, padding, the
+        # mean, the loss) are the rest
+        group = next(g for g, keys in (
+            ("batchnorm (B7-B10)", ("bn_", "column_sum")),
+            ("optimizer (SGD)", ("multi_tensor", "foreach")),
+            ("convolutions + dense (cuDNN, cuBLAS)",
+             ("cudnn", "xmma", "cutlass", "implicit", "fprop", "dgrad",
+              "wgrad", "gemm", "nvjet", "conv")),
+            ("nccl", ("nccl",)),
+            ("casts, constants, pooling, loss (PyTorch)", ("",)))
+            if any(k in name for k in keys))
+        groups[group] = groups.get(group, 0.0) + _dev_us(e) / 1e3
+        calls[group] = calls.get(group, 0) + e.count
+    print(json.dumps({
+        "profile": "one ResNet-50 training step, batch 128 x 224 px, "
+                   "fused BN",
+        "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "kernels": sum(e.count for e in kernels),
+        "device_ms_by_group": groups, "launches_by_group": calls,
+        "top": [{"name": e.key[:70], "ms": _dev_us(e) / 1e3,
+                 "calls": e.count} for e in top]}))
+
+
+def train_resnet(seed, ledger):
+    """Train ResNet-50 (224 px, 1000 classes) through the example's
+    ``main`` with ``--fused-bn``: world of one over NCCL, batch 128, 1
+    warm-up and 5 timed steps on one batch, after the step-1 parity
+    check. Launch counts are zeroed just before and read just after;
+    each of B7-B10 must launch once per BatchNorm layer per step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import resnet50_synthetic
+    from horovod_tpu_torch.ops import _build
+
+    parity = check_resnet_parity(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _build.reset_launches()
+    per_chip, mfu = resnet50_synthetic.main(RESNET_ARGS, stats)
+    torch.cuda.synchronize()
+    ledger["train_resnet"] = dict(_build.LAUNCHES)
+    losses = stats["losses"]
+    _require(len(losses) == RESNET_STEPS and all(np.isfinite(losses)),
+             f"resnet losses {losses}")
+    _require(losses[-1] < losses[0], f"resnet loss did not fall: {losses}")
+    for name in BN_KERNELS:
+        _require(ledger["train_resnet"][name]
+                 == RESNET_BN_LAYERS * RESNET_STEPS,
+                 f"kernel {name} launched {ledger['train_resnet'][name]} "
+                 f"times in {RESNET_STEPS} steps, not "
+                 f"{RESNET_BN_LAYERS} per step")
+    print(json.dumps({
+        "phase": "train_resnet", "model": "ResNet-50 v1.5, 224 px, 1000 "
+        "classes, fused BN", "params": stats["n_params"],
+        "batch": "128x224x224", "world": hvd.size(), "backend": "nccl",
+        "losses": losses, "images_per_s": per_chip,
+        "step_ms": stats["step_ms"][0], "mfu": mfu,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": {k: ledger["train_resnet"][k] / RESNET_STEPS
+                              for k in BN_KERNELS},
+        "parity": parity}))
+    profile_resnet_step(stats["step"], stats["batch"])
+    stats.clear()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: serving GPT-2 small
 # ---------------------------------------------------------------------------
 
 def _drive(sched, reqs, max_iters):
@@ -982,7 +1513,7 @@ def serve_gpt2(seed, ledger):
                            size=int(rng.randint(32, 701))).tolist()
                for _ in range(16)]
 
-    # phase 5: bf16 KV cache
+    # phase 6: bf16 KV cache
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="bf16")
     t0 = time.perf_counter()
     engine.warmup()
@@ -1021,7 +1552,7 @@ def serve_gpt2(seed, ledger):
     del engine
     torch.cuda.empty_cache()
 
-    # phase 6: int8 KV cache
+    # phase 7: int8 KV cache
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="int8")
     engine.warmup()
     serve(engine, prompts[:4], 16, "serve_int8", ledger)
@@ -1054,6 +1585,18 @@ KERNELS = [
     ("append_attend_int8", "horovod_tpu_torch/csrc/append_attend_int8.cu",
      "horovod_tpu/ops/pallas_collectives.py:409",
      "B17 pallas_collectives._append_attend_int8_kernel"),
+    ("bn_stats", "horovod_tpu_torch/csrc/bn_stats.cu",
+     "horovod_tpu/ops/pallas_batchnorm.py:70",
+     "B7 pallas_batchnorm._stats_kernel"),
+    ("bn_apply", "horovod_tpu_torch/csrc/bn_apply.cu",
+     "horovod_tpu/ops/pallas_batchnorm.py:85",
+     "B8 pallas_batchnorm._apply_kernel / _apply_res_kernel (:92)"),
+    ("bn_bwd_reduce", "horovod_tpu_torch/csrc/bn_bwd_reduce.cu",
+     "horovod_tpu/ops/pallas_batchnorm.py:100",
+     "B9 pallas_batchnorm._bwd_reduce_kernel"),
+    ("bn_bwd_dx", "horovod_tpu_torch/csrc/bn_bwd_dx.cu",
+     "horovod_tpu/ops/pallas_batchnorm.py:130",
+     "B10 pallas_batchnorm._bwd_dx_kernel"),
 ]
 
 
@@ -1112,14 +1655,16 @@ def main(argv=None) -> int:
         "layernorm_bwd": check_layernorm_bwd(args.seed),
         "append_attend": check_append_attend(args.seed),
         "append_attend_int8": check_append_attend_int8(args.seed),
+        **check_batchnorm(args.seed),
     }
     for name, cases in checks.items():
         for c in cases:
             print(json.dumps({"kernel": name, **c}))
 
-    # phase 4: training; phases 5 and 6: serving
+    # phases 4 and 5: training; phases 6 and 7: serving
     ledger = {}
     train_gpt2(args.seed, ledger)
+    train_resnet(args.seed, ledger)
     serve_gpt2(args.seed, ledger)
     launches = {name: sum(counts.get(name, 0) for counts in ledger.values())
                 for name, *_ in KERNELS}
@@ -1127,7 +1672,7 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         _require(n > 0, f"kernel {name} was not launched on its path")
 
-    # phase 7
+    # phase 8
     kernels = []
     for name, source, replaces, tpu in KERNELS:
         cases = checks[name]

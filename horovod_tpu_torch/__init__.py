@@ -1,7 +1,7 @@
 """horovod_tpu_torch: the PyTorch and CUDA port of horovod_tpu.
 
-This package trains and serves GPT-2-class transformer language models
-on NVIDIA Hopper GPUs:
+This package trains and serves GPT-2-class transformer language models,
+and trains the ResNet family, on NVIDIA Hopper GPUs:
 
 * **training**, data-parallel in the Horovod style: ``init()`` joins the
   launcher's world over ``torch.distributed`` (NCCL), a
@@ -10,7 +10,11 @@ on NVIDIA Hopper GPUs:
   every rank from rank 0's weights, and the model runs flash attention
   (:func:`make_flash_attention_fn`) and fused LayerNorm
   (``fused_norm=True``) forward and backward
-  (``python -m horovod_tpu_torch.examples.gpt2_pretraining``);
+  (``python -m horovod_tpu_torch.examples.gpt2_pretraining``), and
+  ResNet-50/101/152 with the fused BatchNorm kernels (``fused_bn=True``)
+  and per-rank BatchNorm statistics, or :class:`SyncBatchNorm`'s
+  world-wide ones
+  (``python -m horovod_tpu_torch.examples.resnet50_synthetic``);
 * **serving**: continuous-batching decode
   (:class:`~horovod_tpu_torch.serving.scheduler.DecodeScheduler`) over a
   slotted KV cache
@@ -19,8 +23,9 @@ on NVIDIA Hopper GPUs:
 The JAX package's Pallas kernels on those paths are rewritten by hand in
 CUDA C++ for ``sm_90a`` (``csrc/``, built on first use by
 ``ops/_build.py``): the LayerNorm/RMSNorm forward and backward, the
-flash-attention forward, dQ and dK/dV, and the decode KV append +
-attention over a float or int8 cache.
+flash-attention forward, dQ and dK/dV, the decode KV append +
+attention over a float or int8 cache, and the BatchNorm statistics,
+apply, backward reduction and backward dx.
 
 Everything runs on the card unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead. The package
@@ -39,7 +44,9 @@ from .core.exceptions import (HorovodInternalError, NotInitializedError,
                               ProcessSetError)
 from .core.knobs import Knobs
 from .core.process_sets import ProcessSet, global_process_set
-from .models.convert import params_from_flax, params_to_flax
+from .models.convert import (params_from_flax, params_to_flax,
+                             resnet_from_flax, resnet_to_flax)
+from .models.resnet import ResNet, ResNet50, ResNet101, ResNet152
 from .models.transformer import (GPT2_MEDIUM, GPT2_SMALL, Transformer,
                                  TransformerConfig, causal_lm_loss)
 from .ops._build import LAUNCHES, reset_launches
@@ -50,6 +57,7 @@ from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               broadcast_async, broadcast_async_,
                               grouped_allreduce, grouped_allreduce_async,
                               poll, synchronize)
+from .ops.batchnorm import FusedBatchNorm, fused_batch_norm
 from .ops.decode_attention import decode_append_attend
 from .ops.flash_attention import (flash_attention, flash_attention_bhtd,
                                   make_flash_attention_fn)
@@ -61,6 +69,7 @@ from .optim.functions import (broadcast_object, broadcast_optimizer_state,
 from .parallel.train import make_lm_train_step
 from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
 from .serving.scheduler import DecodeScheduler, GenRequest
+from .sync_batch_norm import SyncBatchNorm
 
 __all__ = [
     # basics
@@ -81,11 +90,14 @@ __all__ = [
     "DistributedOptimizer", "Compression", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "make_lm_train_step",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
+    "SyncBatchNorm",
     # models
-    "params_from_flax", "params_to_flax", "GPT2_SMALL", "GPT2_MEDIUM",
-    "Transformer", "TransformerConfig", "causal_lm_loss",
+    "params_from_flax", "params_to_flax", "resnet_from_flax",
+    "resnet_to_flax", "GPT2_SMALL", "GPT2_MEDIUM", "Transformer",
+    "TransformerConfig", "causal_lm_loss", "ResNet", "ResNet50",
+    "ResNet101", "ResNet152",
     # kernels and serving
     "LAUNCHES", "reset_launches", "decode_append_attend", "FusedLayerNorm",
-    "fused_layer_norm", "GenerationEngine", "KVCacheSpec", "SlottedKVCache",
+    "fused_layer_norm", "FusedBatchNorm", "fused_batch_norm", "GenerationEngine", "KVCacheSpec", "SlottedKVCache",
     "DecodeScheduler", "GenRequest",
 ]

@@ -9,7 +9,10 @@ never loaded. Several sources build in parallel, one ``nvcc`` each.
 
 No ``--use_fast_math``: the int8 cache's quantize-on-write needs IEEE
 division and ``rintf`` to stay bitwise equal to the plain version, and
-the norms' statistics use correctly rounded square roots.
+the norms' statistics use correctly rounded square roots. Where a kernel
+must be bitwise equal to eager PyTorch (BatchNorm apply and dx), it
+writes each float32 step with the ``_rn`` intrinsics, which nvcc never
+contracts into an FMA.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code, so a refused launch (too many
@@ -48,6 +51,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_dkv": 0,
     "append_attend": 0,
     "append_attend_int8": 0,
+    "bn_stats": 0,
+    "bn_apply": 0,
+    "bn_bwd_reduce": 0,
+    "bn_bwd_dx": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
