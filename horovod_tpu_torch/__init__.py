@@ -10,7 +10,9 @@ and trains the ResNet family, on NVIDIA Hopper GPUs:
   every rank from rank 0's weights, and the model runs flash attention
   (:func:`make_flash_attention_fn`) and fused LayerNorm
   (``fused_norm=True``) forward and backward
-  (``python -m horovod_tpu_torch.examples.gpt2_pretraining``), and
+  (``python -m horovod_tpu_torch.examples.gpt2_pretraining``), over the
+  float32 wire or the int8 wire with error feedback
+  (``HOROVOD_COMPRESSION=int8``, ``Compression.int8``), and
   ResNet-50/101/152 with the fused BatchNorm kernels (``fused_bn=True``)
   and per-rank BatchNorm statistics, or :class:`SyncBatchNorm`'s
   world-wide ones
@@ -24,8 +26,10 @@ The JAX package's Pallas kernels on those paths are rewritten by hand in
 CUDA C++ for ``sm_90a`` (``csrc/``, built on first use by
 ``ops/_build.py``): the LayerNorm/RMSNorm forward and backward, the
 flash-attention forward, dQ and dK/dV, the decode KV append +
-attention over a float or int8 cache, and the BatchNorm statistics,
-apply, backward reduction and backward dx.
+attention over a float or int8 cache, the BatchNorm statistics,
+apply, backward reduction and backward dx, and the int8 wire's
+quantize, quantize + error feedback, dequantize-accumulate and
+dequantize.
 
 Everything runs on the card unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead. The package

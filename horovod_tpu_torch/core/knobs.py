@@ -58,9 +58,25 @@ class Knobs:
     # bucket gradients in the order backward produces them (last layer
     # first, embeddings last), so the first bucket is ready first
     bucket_backward_order: bool = True
-    # wire compression of the gradient reduction: "none", "fp16",
-    # "bf16" ("int8" is not ported yet and raises)
+    # wire compression of the gradient reduction (optim/compression.py):
+    # "none", "fp16"/"bf16" (cast on the wire), "int8" (block-quantized
+    # quantize -> exchange -> reduce -> requantize -> gather, with error
+    # feedback), "int8-raw" (int8 without error feedback)
     compression: str = "none"
+    # elements per int8 scale
+    compression_block: int = 256
+    # legacy cast-wire name ("bfloat16", "float16"), read when
+    # `compression` is unset
+    compression_wire_dtype: str = ""
+    # The JAX package's switch between its XLA and Pallas int8 wires,
+    # which give the same bits. Read for parity, it chooses nothing
+    # here: a CUDA tensor always runs the hand-written kernels
+    # (ops/quantized_collectives.py) and a CPU tensor their plain
+    # versions.
+    fused_collectives: bool = False
+    # two-level (local x cross) allreduce; the port has no process sets
+    # for it yet, so the int8 wire refuses it rather than running flat
+    hierarchical_allreduce: bool = False
 
     # --- inference serving ---
     serving_queue_limit: int = 256
@@ -81,6 +97,11 @@ class Knobs:
                 "FUSION_THRESHOLD", 128 * 1024 * 1024),
             bucket_backward_order=_env_bool("BUCKET_BACKWARD_ORDER", True),
             compression=_env("COMPRESSION", "") or "none",
+            compression_block=_env_int("COMPRESSION_BLOCK", 256),
+            compression_wire_dtype=_env("COMPRESSION_WIRE_DTYPE", "") or "",
+            fused_collectives=_env_bool("FUSED_COLLECTIVES", False),
+            hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE",
+                                             False),
             serving_queue_limit=_env_int("SERVING_QUEUE_LIMIT", 256),
             serving_request_timeout_seconds=_env_float(
                 "SERVING_REQUEST_TIMEOUT", 30.0),

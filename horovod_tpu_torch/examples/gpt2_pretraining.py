@@ -14,7 +14,10 @@ the rank environment for several):
     python -m horovod_tpu_torch.examples.gpt2_pretraining --layers 2 \\
         --hidden 256 --device cpu   # a smoke on the CPU
 
-``--fused-ce`` (the vocab-blocked fused cross-entropy) is not ported
+The gradient wire follows ``HOROVOD_COMPRESSION`` (``int8``: the
+block-quantized wire with error feedback, whose quantize, dequantize-
+accumulate and dequantize stages are kernels too); the first line names
+it. ``--fused-ce`` (the vocab-blocked fused cross-entropy) is not ported
 yet and raises.
 """
 
@@ -108,10 +111,12 @@ def main(argv=None, stats=None):
         # the mean loss over the ranks; the host read closes a window
         return float(allreduce(loss.reshape(1)).item())
 
+    wire = step.optimizer.wire
     if basics.rank() == 0:
         print(f"GPT-2 {cfg.num_layers}L/{cfg.hidden_size}H "
               f"({n_params / 1e6:.0f}M params), batch {args.batch_size} x "
-              f"{n} ranks, seq {T}", flush=True)
+              f"{n} ranks, seq {T}, wire "
+              f"{wire.describe() if wire else 'none'}", flush=True)
     losses = []  # every step's local loss, read at the end
     for _ in range(args.num_warmup_batches):
         losses.append(step(tokens))
@@ -151,6 +156,7 @@ def main(argv=None, stats=None):
         stats["step_ms"] = step_ms
         stats["losses"] = [float(x) for x in losses]
         stats["n_params"] = n_params
+        stats["wire"] = wire.describe() if wire else "none"
         stats["step"], stats["tokens"] = step, tokens
     return per_chip, mfu
 

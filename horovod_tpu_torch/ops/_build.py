@@ -7,12 +7,12 @@ loaded with ``ctypes``. The hash covers the source, the shared headers
 and the flags, so an edited source is rebuilt and a stale library is
 never loaded. Several sources build in parallel, one ``nvcc`` each.
 
-No ``--use_fast_math``: the int8 cache's quantize-on-write needs IEEE
-division and ``rintf`` to stay bitwise equal to the plain version, and
-the norms' statistics use correctly rounded square roots. Where a kernel
-must be bitwise equal to eager PyTorch (BatchNorm apply and dx), it
-writes each float32 step with the ``_rn`` intrinsics, which nvcc never
-contracts into an FMA.
+No ``--use_fast_math``: the int8 cache's quantize-on-write and the int8
+wire's kernels need IEEE division and ``rintf`` to stay bitwise equal
+to the plain versions, and the norms' statistics use correctly rounded
+square roots. Where a kernel must be bitwise equal to eager PyTorch
+(BatchNorm apply and dx), it writes each float32 step with the ``_rn``
+intrinsics, which nvcc never contracts into an FMA.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code, so a refused launch (too many
@@ -55,6 +55,10 @@ LAUNCHES: Dict[str, int] = {
     "bn_apply": 0,
     "bn_bwd_reduce": 0,
     "bn_bwd_dx": 0,
+    "quant_rows": 0,
+    "quant_ef_rows": 0,
+    "accum_rows": 0,
+    "dequant_flat": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,8 @@ They run on ``torch.distributed`` (NCCL on the card, gloo on the CPU)
 over every rank; the only process set is the global one. Each returns a
 new tensor and leaves its input alone, except the in-place ``*_``
 forms. ``alltoall``, ``reducescatter``, ``join`` and Adasum are not
-ported yet (ROADMAP item 2).
+ported yet (ROADMAP item 2); the int8 wire's tiled exchanges are the
+private :func:`_all_to_all_tiled` and :func:`_all_gather_tiled`.
 """
 
 from __future__ import annotations
@@ -129,6 +130,11 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
     require_global(process_set)
     op = resolve_op(average, op)
     compression = compression or Compression.none
+    if getattr(compression, "kind", "none") == "int8":
+        # summing int8 codes would overflow and mix the ranks' scales
+        raise ValueError(
+            "allreduce cannot carry the int8 wire: use "
+            "optim.compression.quantized_psum or the DistributedOptimizer")
     wire, ctx = compression.compress(tensor.detach())
     # a private copy: the input is never written (the wire cast may
     # already have made one)
@@ -235,6 +241,31 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
     del name
     works, finish = _grouped_start(tensors, average, op, process_set)
     return _register(finish, *works)
+
+
+# -- the int8 wire's tiled exchanges -----------------------------------------
+
+def _all_to_all_tiled(x: torch.Tensor):
+    """Start an all-to-all of a flat contiguous tensor over the world: its
+    chunk j (of ``size`` equal chunks) goes to rank j, and the output
+    holds every rank's chunk for this rank, in rank order. Returns
+    ``(output, work)``."""
+    out = torch.empty_like(x)
+    return out, dist.all_to_all_single(out, x, async_op=True)
+
+
+# torch 2.13 renames all_gather_into_tensor to all_gather_single and
+# deprecates the old name; torch 2.11 has only the old one
+_all_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _all_gather_tiled(x: torch.Tensor, n: int):
+    """Start an all-gather of a flat contiguous tensor over the world's
+    ``n`` ranks: the output is every rank's tensor, concatenated in rank
+    order. Returns ``(output, work)``."""
+    out = x.new_empty(n * x.numel())
+    return out, _all_gather_single(out, x, async_op=True)
 
 
 # -- allgather / broadcast / barrier ------------------------------------------

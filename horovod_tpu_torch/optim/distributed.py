@@ -18,6 +18,16 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
 * Average is a SUM scaled by ``1/n`` afterwards (with
   ``gradient_predivide_factor`` f: ``1/f`` before, ``f/n`` after), in
   the wire dtype of the compressor, as the JAX package does;
+* under the int8 wire (``Compression.int8``, ``HOROVOD_COMPRESSION=int8``)
+  a floating bucket of a SUM or Average takes the quantized SUM of
+  ``ops/quantized_collectives.py`` instead, enqueued whole from the
+  hook: quantize (with this rank's error-feedback residual), all-to-all,
+  dequantize-accumulate and requantize, all-gather; ``synchronize()``
+  dequantizes. Average divides the dequantized SUM by n. The residual is
+  one float32 tensor per bucket, in the bucket's layout, zero at
+  construction and private to the rank (``error_feedback_residual``);
+  ``int8-raw`` keeps none. Other ops and integer buckets move
+  uncompressed, as in the JAX package;
 * ``synchronize()`` issues whatever is left (a parameter that got no
   gradient this step reduces as zeros), waits, and unpacks the results
   into ``.grad``; ``step()`` synchronizes and then steps the wrapped
@@ -38,10 +48,12 @@ import torch
 import torch.distributed as dist
 
 from ..core.basics import _require_init
+from ..ops import quantized_collectives as qc
 from ..ops.collectives import ReduceOp, dist_op, resolve_op, scale_
 from ..ops.fusion import (flatten_order, flax_path, pack_buckets_by_plan,
                           pytree_bucket_plan, unflatten_buckets_by_plan)
-from .compression import Compression, check_compressor
+from .compression import (Compression, NoneCompressor,
+                          compressor_wire_spec, wire_applies)
 
 
 class _DistributedOptimizer:
@@ -58,9 +70,22 @@ class _DistributedOptimizer:
             raise ValueError("gradient_predivide_factor needs op=Average")
         if compression is None:
             compression = Compression.from_knobs(st.knobs)
-        check_compressor(compression)
+        wire = compressor_wire_spec(compression)
+        int8 = wire is not None and wire.kind == "int8"
+        if int8 and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            # the quantized collective has SUM semantics: other ops move
+            # uncompressed, as in the JAX package
+            compression, wire, int8 = NoneCompressor, None, False
+        if int8 and st.knobs.hierarchical_allreduce:
+            raise NotImplementedError(
+                "HOROVOD_HIERARCHICAL_ALLREDUCE with the int8 wire: the "
+                "two-level quantized allreduce (ops/hierarchical.py) is "
+                "not ported yet (ROADMAP item 8's remainder; it needs "
+                "item 10's process sets)")
         self._opt = optimizer
         self._compression = compression
+        #: the WireSpec of the floating buckets' wire (None: uncompressed)
+        self.wire = wire
         self._op = op
         self._k = backward_passes_per_step
         self._predivide = gradient_predivide_factor
@@ -85,6 +110,7 @@ class _DistributedOptimizer:
         paths = [flax_path(n) for n, _ in named]
         order = flatten_order(paths)
         self._params = [named[i][1] for i in order]
+        self._names = [named[i][0] for i in order]
         self._plans = pytree_bucket_plan(
             [(paths[i], tuple(named[i][1].shape), named[i][1].dtype)
              for i in order],
@@ -93,6 +119,17 @@ class _DistributedOptimizer:
         for b, plan in enumerate(self._plans):
             for (i, _, _, _) in plan:
                 self._bucket_of[id(self._params[i])] = b
+        # the int8 wire's block, and this rank's error-feedback residual
+        # of each floating bucket (none under int8-raw or at world 1)
+        self._int8_block = wire.block if int8 else None
+        self._residuals: Dict[int, torch.Tensor] = {}
+        if int8 and wire.error_feedback and self._size > 1:
+            for b, plan in enumerate(self._plans):
+                first = self._params[plan[0][0]]
+                if wire_applies(wire, first.dtype):
+                    self._residuals[b] = torch.zeros(
+                        sum(size for (_, _, size, _) in plan),
+                        dtype=torch.float32, device=first.device)
         self._lock = threading.Lock()
         self._reset()
         self._hooks = []
@@ -127,7 +164,7 @@ class _DistributedOptimizer:
                 self._next += 1
 
     def _issue(self, b: int) -> None:
-        """Pack bucket ``b`` and start its allreduce."""
+        """Pack bucket ``b`` and start its reduction."""
         for (i, _, _, _) in self._plans[b]:
             p = self._params[i]
             if p.grad is None:
@@ -138,9 +175,46 @@ class _DistributedOptimizer:
             bucket.div_(self._k)
         if self._predivide != 1.0:
             scale_(bucket, 1.0 / self._predivide)
+        if self._int8_block is not None and wire_applies(self.wire,
+                                                         bucket.dtype):
+            self._pending.append((b, self._start_int8(b, bucket)))
+            return
         wire, ctx = self._compression.compress(bucket)
         work = dist.all_reduce(wire, op=dist_op(self._op), async_op=True)
-        self._pending.append((b, wire, ctx, work))
+
+        def finish():
+            work.wait()
+            if self._op != ReduceOp.AVERAGE:
+                return self._compression.decompress(wire, ctx)
+            if self._predivide != 1.0:
+                out = self._compression.decompress(wire, ctx)
+                return scale_(out, self._predivide / self._size)
+            scale_(wire, 1.0 / self._size)
+            return self._compression.decompress(wire, ctx)
+
+        self._pending.append((b, finish))
+
+    def _start_int8(self, b: int, bucket: torch.Tensor):
+        """Enqueue bucket ``b``'s quantized SUM up to its gathers; carry
+        its new residual. Returns the bucket's finish."""
+        finish_sum, err = qc.start_quantized_psum(
+            bucket.to(torch.float32), self._size, self._int8_block,
+            self._residuals.get(b))
+        if err is not None:
+            self._residuals[b] = err
+        dtype = bucket.dtype
+
+        def finish():
+            red = finish_sum().to(dtype)
+            if self._op != ReduceOp.AVERAGE:
+                return red
+            if self._predivide != 1.0:
+                return scale_(red, self._predivide / self._size)
+            # a true division, as the JAX package's `red / n`: where n is
+            # not a power of two, a multiply by 1/n differs in the last bit
+            return red / self._size
+
+        return finish
 
     # -- public surface --------------------------------------------------
 
@@ -159,17 +233,8 @@ class _DistributedOptimizer:
                 self._next += 1
             pending, self._pending = self._pending, []
             self._reset()
-        for b, wire, ctx, work in pending:
-            work.wait()
-            if self._op == ReduceOp.AVERAGE:
-                if self._predivide != 1.0:
-                    out = self._compression.decompress(wire, ctx)
-                    scale_(out, self._predivide / self._size)
-                else:
-                    scale_(wire, 1.0 / self._size)
-                    out = self._compression.decompress(wire, ctx)
-            else:
-                out = self._compression.decompress(wire, ctx)
+        for b, finish in pending:
+            out = finish()
             leaves = unflatten_buckets_by_plan([out], [self._plans[b]],
                                                len(self._params))
             for (i, _, _, _) in self._plans[b]:
@@ -201,6 +266,18 @@ class _DistributedOptimizer:
     def bucket_plan(self):
         """The bucket plan (leaf order: flatten order of the names)."""
         return self._plans
+
+    @property
+    def error_feedback_residual(self) -> Dict[str, torch.Tensor]:
+        """This rank's error-feedback residual of the int8 wire by
+        parameter name: float32 views in each parameter's shape, to be
+        read, not written. Empty when the wire carries no residual
+        (another wire, ``int8-raw``, a world of one)."""
+        out = {}
+        for b, res in self._residuals.items():
+            for (i, off, size, shape) in self._plans[b]:
+                out[self._names[i]] = res[off:off + size].view(shape)
+        return out
 
     def __getattr__(self, item):
         if item == "_opt":  # not set yet: __init__ raised

@@ -6,7 +6,9 @@ data-parallel training against the JAX package's DistributedOptimizer.
   optimizer does;
 * without a card, ``init()``, ``make_lm_train_step`` and the example
   refuse to run unless asked for the CPU;
-* compression: the cast compressors round-trip, the int8 wire raises;
+* compression: the cast compressors round-trip; ``Compression.int8``
+  and ``HOROVOD_COMPRESSION=int8`` build an optimizer on the int8 wire
+  (block 256, error feedback);
 * a world of two: two worker processes join over gloo through the slot
   environment the launcher exports (``HOROVOD_RANK/SIZE``,
   ``HVD_TPU_COORDINATOR_ADDRESS``) and run every scenario in one world:
@@ -177,14 +179,20 @@ def test_compression(monkeypatch):
         hvd.Compression.lookup("int4")
     hvd.init(device="cpu")
     lin = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1),
-                                 compression=hvd.Compression.int8)
+    int8_ef = hvd.Compression.int8
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1),
+                                   compression=int8_ef)
+    assert (opt.wire.kind, opt.wire.block, opt.wire.error_feedback) == (
+        "int8", 256, True)
+    assert opt.error_feedback_residual == {}  # a world of one reduces nothing
+    with pytest.raises(ValueError, match="int8 wire"):
+        hvd.allreduce(x, compression=int8_ef)  # int8 codes cannot be summed
     hvd.shutdown()
     monkeypatch.setenv("HOROVOD_COMPRESSION", "int8")
     hvd.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1))
+    assert (opt.wire.kind, opt.wire.block, opt.wire.error_feedback) == (
+        "int8", 256, True)
 
 
 # ---------------------------------------------------------------------------
