@@ -19,8 +19,12 @@ Phases, in order; the first failure exits non-zero:
    BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise, the
    two reductions per channel, where sums that leave out one row block
    must fail; the int8 wire's kernels bitwise on the largest bucket of
-   GPT-2 medium's plan at worlds 4 and 8 and on edge cases), and time
-   the kernel, the plain version and one PyTorch library call computing
+   GPT-2 medium's plan at worlds 4 and 8 and on edge cases; the bucket
+   pack bitwise on BERT-Large's largest bucket and edge cases; the
+   matmul with the ring-row epilogue row by row against a float64
+   product at BERT-Large's weight-gradient shapes, where a kernel that
+   skips one K tile must fail, and bitwise on integer operands), and
+   time the kernel, the plain version and one PyTorch library call computing
    the same function where there is one (a yardstick only: the port
    never calls it);
 4. train GPT-2 medium at full width and depth through the example's
@@ -36,6 +40,17 @@ Phases, in order; the first failure exits non-zero:
    mean, exact launch counts, a falling loss; then the real
    ``quantized_psum`` through NCCL (a world of one), bitwise; and the
    wire's byte accounting;
+4c. train BERT-Large (24 x 1024, vocab 30522, seq 512, bf16, non-causal
+   flash attention, fused norms) under ZeRO-1 in a world of four
+   emulated on the card, 3 steps on the float32 wire and one on the
+   int8 wire: every packed bucket (B6, exactly 44 launches a step)
+   bitwise against ``_pad_rows``, the ranks bitwise equal, the
+   parameters within ``ZERO_REL_TOL`` of a DistributedOptimizer
+   emulation on the same global batch, each rank's AdamW state 1/4 of
+   the replicated one, a falling loss; then the example's ``main``
+   with ``--zero --flash --fused-ln`` at world 1 over NCCL (B6 does not
+   launch there), and ``matmul_reduce_scatter`` at world 1, bitwise
+   against ``matmul_pack``;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -51,9 +66,9 @@ Phases, in order; the first failure exits non-zero:
    the plain (unfused, cache-free) forward of the same weights;
 7. a short serve on an int8 KV cache (4 requests);
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
-   training runs of phases 4, 4b and 5 and the serving runs of phases 6
-   and 7 (counts zeroed just before each run and read just after),
-   error, tolerance and times;
+   training runs of phases 4, 4b, 4c and 5 and the serving runs of
+   phases 6 and 7 (counts zeroed just before each run and read just
+   after), error, tolerance and times;
 9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -64,6 +79,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -460,6 +476,8 @@ def check_flash(seed):
     case("B=8 H=16 T=1024 D=64 bf16 causal", 8, 16, 1024, 1024, True,
          timed=True)
     case("B=2 H=16 T=1024 D=64 bf16 non-causal", 2, 16, 1024, 1024, False)
+    case("B=8 H=16 T=512 D=64 bf16 non-causal (BERT-Large)", 8, 16, 512,
+         512, False)
     case("B=2 H=16 T=1000 D=64 bf16 causal (T not a tile multiple)", 2, 16,
          1000, 1000, True)
     case("B=2 H=16 Tq=200 Tk=1000 D=64 bf16 causal, query_offset=700", 2,
@@ -864,12 +882,18 @@ def gpt2_medium_plan(model=None):
     """GPT-2 medium's DistributedOptimizer bucket plan at the default
     128 MiB threshold and ``model``'s parameters in the plan's leaf order
     (without a model: the plan alone, from a model on the meta device)."""
-    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM, Transformer
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    return _model_plan(GPT2_MEDIUM, model)
+
+
+def _model_plan(cfg, model=None):
+    from horovod_tpu_torch.models.transformer import Transformer
     from horovod_tpu_torch.ops import fusion
 
     if model is None:
         with torch.device("meta"):
-            model = Transformer(GPT2_MEDIUM)
+            model = Transformer(cfg)
     named = list(model.named_parameters())
     paths = [fusion.flax_path(n) for n, _ in named]
     order = fusion.flatten_order(paths)
@@ -1043,6 +1067,200 @@ def check_quantized(seed):
         del pe, pa
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the reduce-scatter's pack epilogues (B6, B15)
+# ---------------------------------------------------------------------------
+
+ZERO_RANKS = 4
+#: per-row relative L2 limit of B15's [M, N] product against the float64
+#: product of the same operands. Float32 accumulation of K exact products
+#: errs by ~sqrt(K) float32 roundings of a row's scale; a kernel that
+#: skips one 16-deep K tile loses about sqrt(16 / K) of a random row. The
+#: limit sits between the worst healthy reading (7.1e-7 over the three
+#: cases) and the least skipped-tile reading (3.0e-2; NVIDIA H100 80GB
+#: HBM3, 700 W; PERF.md), both printed and checked by every run
+MATMUL_TOL = 1e-4
+MATMUL_TILE_K = 16  # csrc/matmul_pack.cu kBK
+#: (name, M, K, N, dtype, n): BERT-Large's weight gradients at per-rank
+#: batch 8 x 512 = 4096 tokens, and a ragged float32 case
+MATMUL_CASES = (
+    ("(a) MLP-out dW = x^T dy, [4096,4096] @ [4096,1024] bf16, n = 4",
+     4096, 4096, 1024, torch.bfloat16, 4),
+    ("(b) tied-embedding dW of the MLM head, [1024,4096] @ [4096,30522] "
+     "bf16, n = 4", 1024, 4096, 30522, torch.bfloat16, 4),
+    ("(c) ragged [1000,777] @ [777,333] float32, n = 3", 1000, 777, 333,
+     torch.float32, 3),
+)
+
+
+def bert_large_plan(model=None):
+    """BERT-Large's ZeRO-1 bucket plan at the default 128 MiB threshold
+    (11 buckets, the largest 32,543,744 float32) and ``model``'s
+    parameters in the plan's leaf order."""
+    from horovod_tpu_torch.models.transformer import BERT_LARGE
+
+    return _model_plan(BERT_LARGE, model)
+
+
+def check_pack_rows(seed):
+    """B6 against ``zero._pad_rows`` on the card, bitwise: the largest
+    bucket of BERT-Large's plan in float32 at n in {4, 1, 2, 8} (the
+    main case: n = 4), ragged lengths, L < n, bf16, and sources that
+    start off 16-byte alignment (slices of a larger tensor). The main
+    case is timed: kernel, plain version, ``F.pad`` (one call), bound."""
+    from horovod_tpu_torch.ops import ring_pack
+    from horovod_tpu_torch.optim import zero
+
+    plans, _ = bert_large_plan()
+    big = max(_bucket_sizes(plans))
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    base = torch.randn(big + 8, generator=g, device="cuda")
+    base[5] = -0.0
+    half = base.to(torch.bfloat16)
+    cases = [(f"largest BERT-Large bucket ({big} float32), world {n}",
+              base[:big], n) for n in (ZERO_RANKS, 1, 2, 8)]
+    cases += [("ragged: largest bucket - 1, world 4", base[:big - 1], 4),
+              ("ragged: 1001 float32, world 3", base[:1001], 3),
+              ("L < n: 3 float32, world 8", base[:3], 8),
+              ("bf16: largest bucket, world 4", half[:big], 4),
+              ("bf16 ragged: 1001, world 3", half[:1001], 3),
+              ("unaligned float32 slice [1:big+1], world 4",
+               base[1:big + 1], 4),
+              ("unaligned bf16 slice [3:1004], world 4", half[3:1004], 4)]
+    out = []
+    for ci, (what, x, n) in enumerate(cases):
+        got = ring_pack.pack_rows_cuda(x, n)
+        want = zero._pad_rows(x, n)
+        torch.cuda.synchronize()
+        ok = tuple(got.shape) == tuple(want.shape) and _bitwise(got, want)
+        print(json.dumps({"pack_case": what, "elements": x.numel(),
+                          "world": n, "aligned": x.data_ptr() % 16 == 0,
+                          "bitwise": ok}))
+        _require(ok, f"pack_rows {what}: not bitwise equal to _pad_rows")
+        row = {"case": what, "max_abs_err": 0.0, "tol": "bitwise"}
+        if ci == 0:
+            k = -(-big // n)
+            pad = n * k - big
+            bound, by = _bound(4 * big + 4 * n * k, 0, "f32")
+            row.update(
+                shape=f"[{big}] float32 -> [{n}, {k}]",
+                ms=_device_ms(lambda _=0: ring_pack.pack_rows_cuda(x, n),
+                              iters=20),
+                plain_ms=_device_ms(lambda _=0: zero._pad_rows(x, n),
+                                    iters=20),
+                library_ms=_device_ms(lambda _=0: F.pad(x, (0, pad)).view(
+                    n, k), iters=20),
+                library_call="F.pad(bucket, (0, n*k - L)).view(n, k): one "
+                             "call", bound_ms=bound, bound_by=by)
+        out.append(row)
+        del got, want
+    del base, half
+    torch.cuda.empty_cache()
+    return {"pack_rows": out}
+
+
+def _matmul_row_rel(rows, ref64, m, ncols):
+    """Per-row relative L2 of the [M, N] product held in the first M * N
+    elements of the ring rows, against the float64 product."""
+    g = rows.reshape(-1)[:m * ncols].view(m, ncols).double()
+    return ((g - ref64).norm(dim=1)
+            / ref64.norm(dim=1).clamp_min(1e-300))
+
+
+def check_matmul_pack(seed):
+    """B15 on the card at ``MATMUL_CASES``: each row of the product held
+    within ``MATMUL_TOL`` (relative L2) of the float64 product, the
+    plain float32 path (``matmul_pack_ref``, no TF32) read beside it as
+    a second witness, the padding exactly zero; the kernel's product
+    with its last K tile taken out (an emulated skip) must fail that
+    check in every row. Integer-valued operands in [-4, 4], whose
+    float32 sums are exact, must give the float64 product bitwise,
+    padding included, at all three shapes. Each case is timed: kernel,
+    plain version, ``torch.matmul`` + ``F.pad`` (two calls), bound."""
+    from horovod_tpu_torch.ops import ring_pack
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 10)
+    out = []
+    for what, m, kd, ncols, dtype, n in MATMUL_CASES:
+        a = torch.randn(m, kd, generator=g, device="cuda").to(dtype)
+        b = torch.randn(kd, ncols, generator=g, device="cuda").to(dtype)
+        got = ring_pack.matmul_pack_cuda(a, b, n)
+        plain = ring_pack.matmul_pack_ref(a, b, n)
+        ref64 = a.double() @ b.double()
+        torch.cuda.synchronize()
+        size, k = m * ncols, -(-m * ncols // n)
+        _require(tuple(got.shape) == (n, k) and got.dtype == torch.float32,
+                 f"matmul_pack {what}: shape {tuple(got.shape)}")
+        _require(bool((got.reshape(-1)[size:] == 0).all()),
+                 f"matmul_pack {what}: padding not zero")
+        _require(bool(torch.isfinite(got).all()),
+                 f"matmul_pack {what}: not finite")
+        rel = _matmul_row_rel(got, ref64, m, ncols)
+        plain_rel = _matmul_row_rel(plain, ref64, m, ncols)
+        p0 = (kd - 1) // MATMUL_TILE_K * MATMUL_TILE_K
+        part = a[:, p0:].double() @ b[p0:, :].double()
+        skip = _matmul_row_rel(
+            (got.reshape(-1)[:size].view(m, ncols).double() - part), ref64,
+            m, ncols)
+        del part
+        err = (got.reshape(-1)[:size].view(m, ncols).double()
+               - ref64).abs().max().item()
+        # the exactness case: integer-valued operands
+        ai = torch.randint(-4, 5, (m, kd), generator=g, device="cuda").to(
+            dtype)
+        bi = torch.randint(-4, 5, (kd, ncols), generator=g,
+                           device="cuda").to(dtype)
+        goti = ring_pack.matmul_pack_cuda(ai, bi, n)
+        wanti = torch.zeros(n * k, dtype=torch.float32, device="cuda")
+        wanti[:size] = (ai.double() @ bi.double()).reshape(-1).float()
+        plaini = ring_pack.matmul_pack_ref(ai, bi, n)
+        torch.cuda.synchronize()
+        exact = _bitwise(goti.reshape(-1), wanti)
+        plain_exact = _bitwise(plaini.reshape(-1), wanti)
+        reading = {"matmul_case": what, "row_rel_l2_max": rel.max().item(),
+                   "plain_row_rel_l2_max": plain_rel.max().item(),
+                   "tile_skip_row_rel_l2_min": skip.min().item(),
+                   "tol": MATMUL_TOL, "integer_operands_bitwise": exact,
+                   "plain_integer_operands_bitwise": plain_exact}
+        print(json.dumps(reading))
+        _require(reading["row_rel_l2_max"] <= MATMUL_TOL,
+                 f"matmul_pack {what}: a row is {rel.max().item():.2e} "
+                 f"(relative L2) from the float64 product > {MATMUL_TOL}")
+        _require(reading["tile_skip_row_rel_l2_min"] > MATMUL_TOL,
+                 f"matmul_pack {what}: a kernel skipping its last K tile "
+                 f"reads {skip.min().item():.2e} and would pass")
+        _require(exact, f"matmul_pack {what}: integer-valued operands not "
+                        "bitwise equal to the exact product")
+        del ref64, rel, plain_rel, skip, goti, wanti, plaini, plain
+        es = a.element_size()
+        bound, by = _bound((m * kd + kd * ncols) * es + 4 * n * k,
+                           2 * m * ncols * kd,
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        pad = n * k - size
+        row = dict(case=what, max_abs_err=err,
+                   tol=f"per row: ||err|| <= {MATMUL_TOL} ||float64 row||; "
+                       "integer operands bitwise",
+                   row_rel_l2_max=reading["row_rel_l2_max"],
+                   tile_skip_row_rel_l2_min=reading[
+                       "tile_skip_row_rel_l2_min"],
+                   shape=f"[{m},{kd}] @ [{kd},{ncols}] {str(dtype)[6:]} -> "
+                         f"[{n}, {k}] float32",
+                   ms=_device_ms(lambda _=0: ring_pack.matmul_pack_cuda(
+                       a, b, n), iters=3),
+                   plain_ms=_device_ms(lambda _=0: ring_pack.matmul_pack_ref(
+                       a, b, n), iters=3),
+                   library_ms=_device_ms(lambda _=0: F.pad(
+                       torch.matmul(a, b).reshape(-1), (0, pad)), iters=3),
+                   library_call="torch.matmul(a, b) + F.pad: two calls "
+                                "(cuBLAS; the product in the operands' "
+                                "dtype)",
+                   bound_ms=bound, bound_by=by)
+        out.append(row)
+        del a, b, got, ai, bi
+        torch.cuda.empty_cache()
+    return {"matmul_pack": out}
 
 
 # ---------------------------------------------------------------------------
@@ -1252,7 +1470,8 @@ def parity_sweep(n_seeds):
                    for k, v in faults.items()}}}))
 
 
-def profile_train_step(step, tokens):
+def profile_train_step(step, *inputs,
+                       what="one GPT-2-medium training step, batch 8x1024"):
     """Where one training step's device time goes: ``torch.profiler``
     over one step; kernels by device time and the device busy share
     (kernel time over wall time, a lower bound: the profiler adds host
@@ -1263,7 +1482,7 @@ def profile_train_step(step, tokens):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(tokens)
+        step(*inputs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = _kernel_events(prof)
@@ -1281,7 +1500,7 @@ def profile_train_step(step, tokens):
             if any(k in name for k in keys)))
         groups[group] = groups.get(group, 0.0) + _dev_us(e) / 1e3
     print(json.dumps({
-        "profile": "one GPT-2-medium training step, batch 8x1024",
+        "profile": what,
         "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall,
         "kernels": sum(e.count for e in kernels),
@@ -1621,6 +1840,313 @@ def train_int8(seed, ledger):
         "one_rank_stage_device_ms_total": sum(
             v for k, v in stages.items() if not k.startswith("copies"))}))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: BERT-Large under ZeRO-1, a world of four emulated on the card
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS = 3  # float32 wire; then one step on the int8 wire
+ZERO_BUCKETS = 11
+ZERO_ARGS = ["--zero", "--flash", "--fused-ln", "--batch-size", "8",
+             "--seq-len", "512", "--num-warmup-batches", "1",
+             "--num-batches-per-iter", "3", "--num-iters", "1"]
+ZERO_TRAIN_STEPS = 4  # 1 warm-up + 3 timed, as ZERO_ARGS says
+#: relative L2 limit, per bucket, of the ZeRO ranks' parameter change
+#: since the start against the DistributedOptimizer emulation's (the
+#: mean of the four ranks' gradients summed in the same rank order, one
+#: AdamW on the full parameters). Both run torch's elementwise AdamW on
+#: the same averaged gradients, so they should agree bitwise; the limit
+#: leaves room for an optimizer kernel that rounds an element apart
+#: where a tensor's chunking differs (torch's CPU AdamW does: 1e-6
+#: after 3 steps of a tiny BERT), far below a wrong shard, offset or
+#: average (a change of the order of 1)
+ZERO_REL_TOL = 1e-4
+
+
+def _launch_snapshot():
+    from horovod_tpu_torch.ops import _build
+
+    return dict(_build.LAUNCHES)
+
+
+def _launch_delta(before):
+    from horovod_tpu_torch.ops import _build
+
+    return {k: _build.LAUNCHES[k] - before.get(k, 0)
+            for k in _build.LAUNCHES}
+
+
+def zero_world(seed):
+    """BERT-Large (24 x 1024, 16 heads, vocab 30522, seq 512; weights
+    from ``seed``; bf16 compute, non-causal flash attention, fused
+    norms) trained by ZeRO-1 in a world of four emulated on the card:
+    the example's global batch of 8 x 512 (``synthetic_mlm_batch``),
+    rank r taking rows [2r, 2r + 2); each rank keeps its own copy of the
+    parameters and computes its gradients on it; each bucket of the
+    11-bucket plan is packed per rank (``zero.stage_pack``: B6, 44
+    launches a step, each bitwise against ``_pad_rows``), reduce-
+    scattered in rank order (``emulated_scatter_buckets``), stepped by
+    the rank's AdamW on its shards (``RankShards``) and all-gathered by a
+    concatenation that each rank writes back (``stage_write``). Beside
+    it, the DistributedOptimizer emulation on its own parameters: the
+    mean of the four ranks' gradients summed in rank order, one AdamW on
+    the full parameters (it takes the ranks' gradients, so the two see
+    the same inputs and any difference is the optimizers'). ``ZERO_STEPS`` steps on the
+    float32 wire, then one on the int8 wire (block 256, no error
+    feedback: B11 and B13 44 times each, B12 and B14 never). Returns
+    the readings and the main path's launch counts (the reference's
+    launches taken out)."""
+    from horovod_tpu_torch.examples.bert_pretraining import \
+        synthetic_mlm_batch
+    from horovod_tpu_torch.models.transformer import (BERT_LARGE,
+                                                      Transformer, mlm_loss)
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.ops.fusion import (pack_buckets_by_plan,
+                                              unflatten_buckets_by_plan)
+    from horovod_tpu_torch.optim import zero
+    from horovod_tpu_torch.optim.compression import WireSpec
+
+    cfg = dataclasses.replace(BERT_LARGE, fused_norm=True)
+    with torch.device("cuda"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(False))
+    model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    plans, params = bert_large_plan(model)
+    sizes = _bucket_sizes(plans)
+    n, nleaves = ZERO_RANKS, len(params)
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    with torch.no_grad():
+        init = pack_buckets_by_plan([p.detach() for p in params], plans)
+    rank_flat = [[b.clone() for b in init] for _ in range(n)]
+    rank_leaves = [unflatten_buckets_by_plan(f, plans, nleaves)
+                   for f in rank_flat]
+    ranks = [zero.RankShards(factory, rank_leaves[r], plans, n, r)
+             for r in range(n)]
+    ref_flat = [b.clone() for b in init]
+    ref_opt = factory(ref_flat)
+    batches = [[torch.from_numpy(a).cuda() for a in synthetic_mlm_batch(
+        cfg.vocab_size, 2, 512, 0.15, r, n)] for r in range(n)]
+
+    def grads_on(leaves, batch):
+        with torch.no_grad():
+            for p, v in zip(params, leaves):
+                p.copy_(v)
+        model.zero_grad(set_to_none=True)
+        loss, _ = mlm_loss(model(batch[0]), batch[1], batch[2])
+        loss.backward()
+        return loss.item(), [p.grad for p in params]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    comparison = {k: 0 for k in _build.LAUNCHES}
+    wires = [None] * ZERO_STEPS + [WireSpec("int8", 256, False)]
+    losses, rel, bitwise_ref, packs, scatter, wall = [], [], [], [], [], []
+    for step, wire in enumerate(wires):
+        t0 = time.perf_counter()
+        rows, step_losses, n_packs, acc = [], [], 0, []
+        for r in range(n):
+            loss, grads = grads_on(rank_leaves[r], batches[r])
+            step_losses.append(loss)
+            before = _launch_snapshot()
+            rows.append([zero.stage_pack(grads, plan, n) for plan in plans])
+            n_packs += _launch_delta(before)["pack_rows"]
+            for b, plan in enumerate(plans):
+                flat, = pack_buckets_by_plan(grads, [plan])
+                _require(_bitwise(rows[r][b], zero._pad_rows(flat, n)),
+                         f"zero step {step} rank {r} bucket {b}: the packed "
+                         "rows are not bitwise _pad_rows")
+                if wire is not None:
+                    continue
+                if r == 0:  # the reference's sum, in rank order
+                    acc.append(flat)
+                else:
+                    acc[b].add_(flat)
+            del grads, flat
+        losses.append(float(np.mean(step_losses)))
+        packs.append(n_packs)
+        before = _launch_snapshot()
+        shards = [zero.emulated_scatter_buckets(
+            [rows[r][b] for r in range(n)], n, wire)
+            for b in range(len(plans))]
+        scatter.append({k: v for k, v in _launch_delta(before).items() if v})
+        del rows
+        for r in range(n):
+            ranks[r].step([shards[b][r] for b in range(len(plans))])
+        del shards
+        gathered = [torch.cat([ranks[r].tensors[b] for r in range(n)])
+                    for b in range(len(plans))]
+        for r in range(n):
+            zero.stage_write(rank_leaves[r], plans, gathered)
+        del gathered
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        for r in range(1, n):
+            for b in range(len(plans)):
+                _require(_bitwise(rank_flat[r][b], rank_flat[0][b]),
+                         f"zero step {step}: rank {r}'s bucket {b} differs "
+                         "from rank 0's")
+        if wire is not None:
+            continue
+        # the DistributedOptimizer emulation's step (its launches are
+        # not the main path's)
+        before = _launch_snapshot()
+        for t, a in zip(ref_flat, acc):
+            t.grad = a / n
+        del acc
+        ref_opt.step()
+        ref_opt.zero_grad(set_to_none=True)
+        for k, v in _launch_delta(before).items():
+            comparison[k] += v
+        step_rel, step_bits = [], True
+        for b in range(len(plans)):
+            dz = rank_flat[0][b] - init[b]
+            dr = ref_flat[b] - init[b]
+            step_rel.append(((dz - dr).norm()
+                             / dr.norm().clamp_min(1e-30)).item())
+            step_bits = step_bits and _bitwise(rank_flat[0][b], ref_flat[b])
+            del dz, dr
+        rel.append(step_rel)
+        bitwise_ref.append(step_bits)
+    torch.cuda.synchronize()
+    counts = {k: _build.LAUNCHES[k] - comparison[k] for k in _build.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = [rk.state_bytes() for rk in ranks]
+    ref_state = zero.state_bytes(ref_opt)
+
+    # one rank's stage kernels, device time (a probe, after the counts)
+    _, grads = grads_on(rank_leaves[0], batches[0])
+    probe = zero.RankShards(factory, rank_leaves[0], plans, n, 0)
+    rows0 = [zero.stage_pack(grads, plan, n) for plan in plans]
+    shard0 = [rw[0].clone() for rw in rows0]
+    stage_ms = {
+        f"pack (B6), {len(plans)} buckets": _device_ms(
+            lambda _=0: [zero.ring_pack.maybe_pack_rows(
+                pack_buckets_by_plan(grads, [plan])[0], n)
+                for plan in plans], iters=3),
+        "AdamW on the shards": _device_ms(
+            lambda _=0: probe.step(shard0), iters=3),
+        "write-back of the gathered buckets": _device_ms(
+            lambda _=0: zero.stage_write(rank_leaves[0], plans, init),
+            iters=3)}
+    del grads, rows0, shard0, probe
+    out = {"seed": seed, "buckets": len(plans), "bucket_elements": sizes,
+           "params": sum(sizes), "losses": losses,
+           "pack_launches_by_step": packs,
+           "scatter_launches_by_step": scatter,
+           "rel_l2_vs_distributed_by_step": [max(r) for r in rel],
+           "bitwise_vs_distributed_by_step": bitwise_ref,
+           "rel_l2_tol": ZERO_REL_TOL,
+           "shard_state_bytes_by_rank": state,
+           "replicated_state_bytes": ref_state,
+           "emulated_step_wall_ms": wall, "peak_mem_gb": peak,
+           "one_rank_stage_device_ms_world4": stage_ms,
+           "launches": counts}
+    del model, ranks, ref_opt, rank_flat, rank_leaves, ref_flat, init
+    torch.cuda.empty_cache()
+    _require(len(plans) == ZERO_BUCKETS and max(sizes) == 32543744,
+             f"BERT-Large's plan: {len(plans)} buckets of {sizes}")
+    for step, c in enumerate(packs):
+        _require(c == n * len(plans), f"zero step {step}: B6 launched {c} "
+                                      f"times, not 4 x {len(plans)}")
+    want_int8 = {"quant_rows": n * len(plans), "accum_rows": n * len(plans)}
+    _require(scatter[-1] == want_int8,
+             f"the int8 step's reduce-scatter launched {scatter[-1]}, not "
+             f"{want_int8} (and no B12, B14)")
+    _require(all(not c for c in scatter[:-1]),
+             f"the float32 reduce-scatter launched kernels: {scatter}")
+    _require(all(np.isfinite(losses)) and losses[ZERO_STEPS - 1] < losses[0],
+             f"ZeRO training loss did not fall: {losses}")
+    worst = max(out["rel_l2_vs_distributed_by_step"])
+    _require(worst <= ZERO_REL_TOL,
+             f"ZeRO parameters {worst:.3e} (relative L2 of the change) from "
+             f"the DistributedOptimizer emulation > {ZERO_REL_TOL}")
+    for r, b in enumerate(state):
+        _require(abs(b / ref_state - 1 / n) < 1e-3,
+                 f"rank {r}'s shard state {b} bytes is not 1/{n} of the "
+                 f"replicated {ref_state}")
+    return out
+
+
+def train_zero(seed, ledger):
+    """(a) BERT-Large under ZeRO-1 in a world of four emulated on the card
+    (``zero_world``); (b) the example's ``main`` with ``--zero --flash
+    --fused-ln`` at world 1 over NCCL, batch 8 x 512, 1 warm-up and 3
+    timed steps: B6 must not launch (a world of one packs nothing);
+    (c) the ``matmul_reduce_scatter`` entry point at world 1 over NCCL
+    on shape (a) of ``MATMUL_CASES``, bitwise against ``matmul_pack``
+    divided by 1. Launch counts are zeroed just before each and read
+    just after."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import bert_pretraining
+    from horovod_tpu_torch.ops import _build, ring_pack
+
+    torch.cuda.empty_cache()
+    world = zero_world(seed)
+    counts = dict(world.pop("launches"))
+
+    # (b) the real entry point
+    torch.cuda.empty_cache()
+    stats = {}
+    _build.reset_launches()
+    per_chip, mfu = bert_pretraining.main(ZERO_ARGS, stats)
+    torch.cuda.synchronize()
+    real = dict(_build.LAUNCHES)
+    losses = stats["losses"]
+    _require(hvd.size() == 1 and hvd.nccl_enabled(),
+             "train_zero (b) needs a world of one over NCCL")
+    _require(len(losses) == ZERO_TRAIN_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0],
+             f"BERT-Large --zero losses did not fall: {losses}")
+    _require(real["pack_rows"] == 0,
+             f"B6 launched {real['pack_rows']} times at world 1")
+    for name in TRAIN_KERNELS:
+        _require(real[name] > 0, f"kernel {name} was not launched by the "
+                                 "BERT-Large example")
+    profile_train_step(stats.pop("step"), *stats.pop("batch"),
+                       what="one BERT-Large --zero training step at world "
+                            "1, batch 8x512")
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # (c) matmul_reduce_scatter at world 1
+    hvd.init()
+    _, m, kd, ncols, dtype, _ = MATMUL_CASES[0]
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    a = torch.randn(m, kd, generator=g, device="cuda").to(dtype)
+    b = torch.randn(kd, ncols, generator=g, device="cuda").to(dtype)
+    _build.reset_launches()
+    shard = ring_pack.matmul_reduce_scatter(a, b, 1)
+    torch.cuda.synchronize()
+    mrs = dict(_build.LAUNCHES)
+    want = ring_pack.matmul_pack_cuda(a, b, 1).reshape(-1) / 1
+    _require(_bitwise(shard, want),
+             "matmul_reduce_scatter through NCCL is not matmul_pack / 1")
+    _require(mrs["matmul_pack"] == 1,
+             f"matmul_reduce_scatter launched {mrs}")
+    hvd.shutdown()
+    del a, b, shard, want
+    torch.cuda.empty_cache()
+
+    ledger["train_zero"] = {k: counts[k] + real[k] + mrs[k] for k in counts}
+    print(json.dumps({
+        "phase": "train_zero", "model": "BERT-Large 24x1024, 16 heads, "
+        "vocab 30522, seq 512", "world": "4 emulated on one card",
+        "batch": "4 x 2x512", **world,
+        "example": {"args": ZERO_ARGS, "world": 1, "backend": "nccl",
+                    "losses": losses, "tokens_per_s": per_chip,
+                    "step_ms": stats["step_ms"][0], "mfu": mfu,
+                    "peak_mem_gb": stats["peak_mem_gb"],
+                    "optimizer_state_bytes": stats[
+                        "optimizer_state_bytes"],
+                    "buckets": stats["buckets"], "launches": real},
+        "matmul_reduce_scatter": {
+            "shape": MATMUL_CASES[0][0], "world": 1, "backend": "nccl",
+            "bitwise_vs_matmul_pack": True, "launches": {
+                k: v for k, v in mrs.items() if v}}}))
 
 
 # ---------------------------------------------------------------------------
@@ -2121,6 +2647,12 @@ KERNELS = [
     ("dequant_flat", "horovod_tpu_torch/csrc/dequant_flat.cu",
      "horovod_tpu/ops/pallas_collectives.py:134",
      "B14 pallas_collectives._dequant_kernel"),
+    ("pack_rows", "horovod_tpu_torch/csrc/pack_rows.cu",
+     "horovod_tpu/ops/pallas_collectives.py:141",
+     "B6 pallas_collectives._pack_kernel"),
+    ("matmul_pack", "horovod_tpu_torch/csrc/matmul_pack.cu",
+     "horovod_tpu/ops/pallas_collectives.py:148",
+     "B15 pallas_collectives._matmul_pack_kernel"),
 ]
 
 
@@ -2181,6 +2713,8 @@ def main(argv=None) -> int:
         "append_attend_int8": check_append_attend_int8(args.seed),
         **check_batchnorm(args.seed),
         **check_quantized(args.seed),
+        **check_pack_rows(args.seed),
+        **check_matmul_pack(args.seed),
     }
     for name, cases in checks.items():
         for c in cases:
@@ -2190,6 +2724,7 @@ def main(argv=None) -> int:
     ledger = {}
     train_gpt2(args.seed, ledger)
     train_int8(args.seed, ledger)
+    train_zero(args.seed, ledger)
     train_resnet(args.seed, ledger)
     serve_gpt2(args.seed, ledger)
     launches = {name: sum(counts.get(name, 0) for counts in ledger.values())

@@ -12,8 +12,11 @@ and trains the ResNet family, on NVIDIA Hopper GPUs:
   (``fused_norm=True``) forward and backward
   (``python -m horovod_tpu_torch.examples.gpt2_pretraining``), over the
   float32 wire or the int8 wire with error feedback
-  (``HOROVOD_COMPRESSION=int8``, ``Compression.int8``), and
-  ResNet-50/101/152 with the fused BatchNorm kernels (``fused_bn=True``)
+  (``HOROVOD_COMPRESSION=int8``, ``Compression.int8``); BERT-Large
+  masked-LM pretraining with Adam's state sharded over the ranks by
+  the ZeRO-1 :func:`ShardedOptimizer`
+  (``python -m horovod_tpu_torch.examples.bert_pretraining --zero``);
+  and ResNet-50/101/152 with the fused BatchNorm kernels (``fused_bn=True``)
   and per-rank BatchNorm statistics, or :class:`SyncBatchNorm`'s
   world-wide ones
   (``python -m horovod_tpu_torch.examples.resnet50_synthetic``);
@@ -29,7 +32,8 @@ flash-attention forward, dQ and dK/dV, the decode KV append +
 attention over a float or int8 cache, the BatchNorm statistics,
 apply, backward reduction and backward dx, and the int8 wire's
 quantize, quantize + error feedback, dequantize-accumulate and
-dequantize.
+dequantize, and the reduce-scatter's producer epilogues: the bucket
+pack and the matmul that writes its product into the ring rows.
 
 Everything runs on the card unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead. The package
@@ -51,8 +55,9 @@ from .core.process_sets import ProcessSet, global_process_set
 from .models.convert import (params_from_flax, params_to_flax,
                              resnet_from_flax, resnet_to_flax)
 from .models.resnet import ResNet, ResNet50, ResNet101, ResNet152
-from .models.transformer import (GPT2_MEDIUM, GPT2_SMALL, Transformer,
-                                 TransformerConfig, causal_lm_loss)
+from .models.transformer import (BERT_LARGE, GPT2_MEDIUM, GPT2_SMALL, Bert,
+                                 Transformer, TransformerConfig,
+                                 causal_lm_loss, mlm_loss)
 from .ops._build import LAUNCHES, reset_launches
 from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               Sum, allgather, allgather_async, allreduce,
@@ -60,16 +65,22 @@ from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               barrier, broadcast, broadcast_,
                               broadcast_async, broadcast_async_,
                               grouped_allreduce, grouped_allreduce_async,
-                              poll, synchronize)
+                              grouped_reducescatter,
+                              grouped_reducescatter_async, poll,
+                              reducescatter, reducescatter_async,
+                              synchronize)
 from .ops.batchnorm import FusedBatchNorm, fused_batch_norm
 from .ops.decode_attention import decode_append_attend
 from .ops.flash_attention import (flash_attention, flash_attention_bhtd,
                                   make_flash_attention_fn)
 from .ops.layernorm import FusedLayerNorm, fused_layer_norm
+from .ops.ring_pack import (matmul_reduce_scatter, maybe_pack_rows,
+                            pack_rows_fused)
 from .optim.compression import Compression
 from .optim.distributed import DistributedOptimizer
 from .optim.functions import (broadcast_object, broadcast_optimizer_state,
                               broadcast_parameters)
+from .optim.zero import ShardedOptimizer, reshard_state
 from .parallel.train import make_lm_train_step
 from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
 from .serving.scheduler import DecodeScheduler, GenRequest
@@ -89,19 +100,25 @@ __all__ = [
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "grouped_allreduce", "grouped_allreduce_async", "allgather",
     "allgather_async", "broadcast", "broadcast_", "broadcast_async",
-    "broadcast_async_", "barrier", "poll", "synchronize",
+    "broadcast_async_", "barrier", "poll", "synchronize", "reducescatter",
+    "reducescatter_async", "grouped_reducescatter",
+    "grouped_reducescatter_async", "maybe_pack_rows", "pack_rows_fused",
+    "matmul_reduce_scatter",
     # training
-    "DistributedOptimizer", "Compression", "broadcast_parameters",
+    "DistributedOptimizer", "ShardedOptimizer", "reshard_state",
+    "Compression", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "make_lm_train_step",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
     "SyncBatchNorm",
     # models
     "params_from_flax", "params_to_flax", "resnet_from_flax",
     "resnet_to_flax", "GPT2_SMALL", "GPT2_MEDIUM", "Transformer",
-    "TransformerConfig", "causal_lm_loss", "ResNet", "ResNet50",
+    "TransformerConfig", "causal_lm_loss", "BERT_LARGE", "Bert",
+    "mlm_loss", "ResNet", "ResNet50",
     "ResNet101", "ResNet152",
     # kernels and serving
     "LAUNCHES", "reset_launches", "decode_append_attend", "FusedLayerNorm",
-    "fused_layer_norm", "FusedBatchNorm", "fused_batch_norm", "GenerationEngine", "KVCacheSpec", "SlottedKVCache",
+    "fused_layer_norm", "FusedBatchNorm", "fused_batch_norm",
+    "GenerationEngine", "KVCacheSpec", "SlottedKVCache",
     "DecodeScheduler", "GenRequest",
 ]

@@ -59,6 +59,8 @@ LAUNCHES: Dict[str, int] = {
     "quant_ef_rows": 0,
     "accum_rows": 0,
     "dequant_flat": 0,
+    "pack_rows": 0,
+    "matmul_pack": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -10,9 +10,12 @@ which return an integer handle for ``poll`` and ``synchronize``.
 They run on ``torch.distributed`` (NCCL on the card, gloo on the CPU)
 over every rank; the only process set is the global one. Each returns a
 new tensor and leaves its input alone, except the in-place ``*_``
-forms. ``alltoall``, ``reducescatter``, ``join`` and Adasum are not
-ported yet (ROADMAP item 2); the int8 wire's tiled exchanges are the
-private :func:`_all_to_all_tiled` and :func:`_all_gather_tiled`.
+forms. ``reducescatter`` and ``grouped_reducescatter`` (Average or Sum,
+dim 0 split evenly over the ranks) and their asynchronous forms are
+here too; ``alltoall``, ``join`` and Adasum are not ported yet (ROADMAP
+item 2). The private tiled exchanges are :func:`_all_to_all_tiled`,
+:func:`_all_gather_tiled` (the int8 wire) and
+:func:`_reduce_scatter_tiled` (ZeRO).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.basics import _require_init
+from ..core.exceptions import HorovodInternalError
 from ..core.process_sets import require_global
 from ..optim.compression import Compression
 
@@ -240,6 +244,129 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             process_set=None) -> int:
     del name
     works, finish = _grouped_start(tensors, average, op, process_set)
+    return _register(finish, *works)
+
+
+# -- reducescatter ------------------------------------------------------------
+
+# torch 2.13 renames reduce_scatter_tensor to reduce_scatter_single and
+# deprecates the old name; torch 2.11 has only the old one. NCCL and
+# gloo both run it, so no backend falls back to an allreduce followed by
+# a slice
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _reduce_scatter_tiled(flat: torch.Tensor, n: int):
+    """Start a SUM reduce-scatter of a flat contiguous tensor over the
+    world's ``n`` ranks: rank r gets the sum over the ranks of chunk r
+    (``numel / n`` elements). Returns ``(output, work)``."""
+    out = flat.new_empty(flat.numel() // n)
+    return out, _reduce_scatter_single(out, flat, op=dist.ReduceOp.SUM,
+                                       async_op=True)
+
+
+def _reducescatter_op(op) -> ReduceOp:
+    op = ReduceOp.AVERAGE if op is None else ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("reducescatter supports Sum and Average (as the "
+                         "reference: collective_operations.h:342)")
+    return op
+
+
+def _check_dim0(t: torch.Tensor, n: int, what: str) -> None:
+    if t.dim() == 0 or t.shape[0] % n:
+        d0 = t.shape[0] if t.dim() else "(a scalar)"
+        raise HorovodInternalError(
+            f"{what} dim0 {d0} not divisible by set size {n}")
+
+
+def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
+                         process_set, what):
+    """Enqueue one reduce-scatter per dtype over ``tensors``, each split
+    into ``n`` chunks along dim 0 and packed rank-major (chunk r of every
+    tensor, in order), so that one collective hands rank r its chunk of
+    each. Returns ``(works, finish)``; ``finish()`` gives this rank's
+    chunks in the tensors' order."""
+    st = _require_init()
+    require_global(process_set)
+    op = _reducescatter_op(op)
+    n = st.size
+    tensors = list(tensors)
+    for t in tensors:
+        _check_dim0(t, n, what)
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    pending = []
+    for idxs in groups.values():
+        packed = torch.cat([tensors[i].detach().reshape(n, -1)
+                            for i in idxs], dim=1).reshape(-1)
+        scale_(packed, prescale_factor)  # a new tensor: inputs stay
+        out, work = _reduce_scatter_tiled(packed, n)
+        pending.append((idxs, out, work))
+
+    def finish():
+        res: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        for idxs, out, work in pending:
+            work.wait()
+            if op == ReduceOp.AVERAGE:
+                average_(out, n)
+            scale_(out, postscale_factor)
+            off = 0
+            for i in idxs:
+                t = tensors[i]
+                m = t.numel() // n
+                res[i] = out[off:off + m].view((t.shape[0] // n,)
+                                               + tuple(t.shape[1:]))
+                off += m
+        return res
+
+    return [w for _, _, w in pending], finish
+
+
+def reducescatter(tensor, op=None, name=None, prescale_factor=1.0,
+                  postscale_factor=1.0, process_set=None):
+    """Reduce ``tensor`` over every rank and scatter dim 0: rank r gets
+    chunk r of ``size()`` equal chunks (dim 0 must divide evenly, as in
+    the JAX package). ``op`` is Average (default) or Sum; returns a new
+    tensor. ``name`` is accepted for parity and unused."""
+    del name
+    _, finish = _reducescatter_start([tensor], op, prescale_factor,
+                                     postscale_factor, process_set,
+                                     "reducescatter")
+    return finish()[0]
+
+
+def reducescatter_async(tensor, op=None, name=None, prescale_factor=1.0,
+                        postscale_factor=1.0, process_set=None) -> int:
+    del name
+    works, finish = _reducescatter_start([tensor], op, prescale_factor,
+                                         postscale_factor, process_set,
+                                         "reducescatter")
+    return _register(lambda: finish()[0], *works)
+
+
+def grouped_reducescatter(tensors: Sequence[torch.Tensor], op=None,
+                          name=None, prescale_factor=1.0,
+                          postscale_factor=1.0, process_set=None):
+    """Reduce-scatter a list of tensors in one collective per dtype."""
+    del name
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    return _reducescatter_start(tensors, op, prescale_factor,
+                                postscale_factor, process_set,
+                                "grouped_reducescatter")[1]()
+
+
+def grouped_reducescatter_async(tensors, op=None, name=None,
+                                prescale_factor=1.0, postscale_factor=1.0,
+                                process_set=None) -> int:
+    del name
+    works, finish = _reducescatter_start(
+        tensors, op, prescale_factor, postscale_factor, process_set,
+        "grouped_reducescatter")
     return _register(finish, *works)
 
 

@@ -5,8 +5,8 @@ CUDA kernels and their plain PyTorch versions.
 The counterpart of the quantize-in-collective third of the JAX
 package's ``ops/pallas_collectives.py`` (``fused_quantized_psum``,
 ``fused_quantized_reduce_scatter_rows``). Its decode third is
-``ops/decode_attention.py``; the bucket pack and the matmul epilogue
-(B6, B15) belong to the sharded optimizers, not ported yet.
+``ops/decode_attention.py``, and the bucket pack and the matmul
+epilogue of the ZeRO reduce-scatter (B6, B15) are ``ops/ring_pack.py``.
 
 The four kernels, one ``csrc/*.cu`` source each (shared math in
 ``csrc/quant.cuh``), and what they replace:
@@ -400,3 +400,20 @@ def emulated_quantized_psum(flats, n: int, block: int, residuals=None):
     return ([stage_dequantize(qa, sa, length, block) for _ in range(n)],
             [e for _, _, e in outs])
 
+
+
+def emulated_quantized_reduce_scatter_rows(rows_fs, n: int, block: int):
+    """:func:`fused_quantized_reduce_scatter_rows` of ``n`` ranks' float32
+    ``(n, k2)`` row stacks (padded to whole blocks) in one process,
+    without residuals: stage 1 per rank (B11), the all-to-all as slicing
+    (rank r receives row r of every rank, in rank order), B13 per rank.
+    Returns each rank's float32 SUM shard ``(k2,)``."""
+    k2 = rows_fs[0].shape[1]
+    cs = k2 // block
+    outs = [stage_quantize(r.reshape(-1), None, n, block) for r in rows_fs]
+    sums = []
+    for r in range(n):
+        qg = torch.cat([q[r * k2:(r + 1) * k2] for q, _, _ in outs])
+        sg = torch.cat([s[r * cs:(r + 1) * cs] for _, s, _ in outs])
+        sums.append(accum_rows(qg.reshape(n, k2), sg.reshape(n, cs), block))
+    return sums

@@ -97,28 +97,13 @@ class _DistributedOptimizer:
             named = [(f"param.{gi}.{pi}", p)
                      for gi, group in enumerate(optimizer.param_groups)
                      for pi, p in enumerate(group["params"])]
-        dups = [n for n, c in Counter(n for n, _ in named).items() if c > 1]
-        if dups:
-            raise ValueError(f"duplicate parameter names: {sorted(dups)}")
         known = {id(p) for _, p in named}
         missing = [p for group in optimizer.param_groups
                    for p in group["params"] if id(p) not in known]
         if missing:
             raise ValueError(f"{len(missing)} parameters of the optimizer "
                              "are not in named_parameters")
-        named = [(n, p) for n, p in named if p.requires_grad]
-        paths = [flax_path(n) for n, _ in named]
-        order = flatten_order(paths)
-        self._params = [named[i][1] for i in order]
-        self._names = [named[i][0] for i in order]
-        self._plans = pytree_bucket_plan(
-            [(paths[i], tuple(named[i][1].shape), named[i][1].dtype)
-             for i in order],
-            threshold_bytes=fusion_threshold_bytes)
-        self._bucket_of: Dict[int, int] = {}
-        for b, plan in enumerate(self._plans):
-            for (i, _, _, _) in plan:
-                self._bucket_of[id(self._params[i])] = b
+        self._plan(named, fusion_threshold_bytes)
         # the int8 wire's block, and this rank's error-feedback residual
         # of each floating bucket (none under int8-raw or at world 1)
         self._int8_block = wire.block if int8 else None
@@ -130,6 +115,34 @@ class _DistributedOptimizer:
                     self._residuals[b] = torch.zeros(
                         sum(size for (_, _, size, _) in plan),
                         dtype=torch.float32, device=first.device)
+        self._install_hooks()
+
+    def _plan(self, named, fusion_threshold_bytes,
+              backward_order: Optional[bool] = None) -> None:
+        """Order the parameters that take gradients as the flax tree of
+        their names flattens, plan their buckets, and map each to its
+        bucket."""
+        dups = [n for n, c in Counter(n for n, _ in named).items() if c > 1]
+        if dups:
+            raise ValueError(f"duplicate parameter names: {sorted(dups)}")
+        named = [(n, p) for n, p in named if p.requires_grad]
+        paths = [flax_path(n) for n, _ in named]
+        order = flatten_order(paths)
+        self._params = [named[i][1] for i in order]
+        self._names = [named[i][0] for i in order]
+        self._plans = pytree_bucket_plan(
+            [(paths[i], tuple(named[i][1].shape), named[i][1].dtype)
+             for i in order],
+            threshold_bytes=fusion_threshold_bytes,
+            backward_order=backward_order)
+        self._bucket_of: Dict[int, int] = {}
+        for b, plan in enumerate(self._plans):
+            for (i, _, _, _) in plan:
+                self._bucket_of[id(self._params[i])] = b
+
+    def _install_hooks(self) -> None:
+        """The per-step state, and a post-accumulate-grad hook on every
+        parameter in a world of more than one rank."""
         self._lock = threading.Lock()
         self._reset()
         self._hooks = []
@@ -163,14 +176,18 @@ class _DistributedOptimizer:
                 self._issue(self._next)
                 self._next += 1
 
-    def _issue(self, b: int) -> None:
-        """Pack bucket ``b`` and start its reduction."""
+    def _grads(self, b: int) -> List[torch.Tensor]:
+        """The gradients of every leaf, after giving bucket ``b``'s leaves
+        that got none this step zeros."""
         for (i, _, _, _) in self._plans[b]:
             p = self._params[i]
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        bucket, = pack_buckets_by_plan([p.grad for p in self._params],
-                                       [self._plans[b]])
+        return [p.grad for p in self._params]
+
+    def _issue(self, b: int) -> None:
+        """Pack bucket ``b`` and start its reduction."""
+        bucket, = pack_buckets_by_plan(self._grads(b), [self._plans[b]])
         if self._k > 1:
             bucket.div_(self._k)
         if self._predivide != 1.0:
