@@ -10,11 +10,16 @@ Phases, in order; the first failure exits non-zero:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build every kernel of ``horovod_tpu_torch/csrc/`` (one nvcc each, in
-   parallel) and print the build seconds and ptxas resource lines;
+   parallel) and print the build seconds, ptxas's registers, shared
+   memory and spills by kernel, and the count of tensor-core (HMMA)
+   instructions in the flash kernels' SASS where cuobjdump is
+   installed;
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
    GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
-   that skip one tile must fail the same check; LayerNorm backward at
+   that skip one tile of the kernels' own tiling must fail the same
+   check; B1-B3 and SDPA timed by CUDA events and by the profiler's
+   device time; LayerNorm backward at
    [8192, 1024], the decode kernels at the serving shapes; the
    BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise, the
    two reductions per channel, where sums that leave out one row block
@@ -83,6 +88,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -309,8 +315,6 @@ def _flash_pairs(tq, tk, causal, q_off, k_off):
 #: in exact arithmetic (a query seeing one key: dP - delta cancels) and
 #: come out as float32 rounding noise of ~2e-6 on both sides
 FLASH_TOL = {torch.bfloat16: (1.5e-2, 1e-5), torch.float32: (1e-4, 1e-5)}
-FLASH_TILE = 32  # rows of a streamed tile at head_dim <= 64 (flash.cuh)
-FLASH_ROWS = 64  # rows a block holds (flash.cuh kRows)
 
 
 def _row_share(got, want, rtol, atol):
@@ -332,34 +336,41 @@ def _row_rel(got, want, rtol, atol):
 def _tile_skip_shares(fa, q, k, v, dout, lse, delta, got, want, args,
                       rtol, atol):
     """What the per-row check reads on kernels whose blocks each skip
-    one streamed tile, the least visible one: the last block of query
-    rows skipping keys 0..31 (forward, dQ), and the first block of keys
-    skipping the last 32 queries (dK, dV), whose part of an early key's
-    gradient is the smallest. The skipped tile's part comes from the
-    plain version on the slices. Each reading is the least, over the
-    (b, h) blocks, of the block's largest row share: above 1, a skip in
-    any one block fails the check."""
+    one streamed tile, the least visible one, at the bf16 kernels' own
+    tiling (``ops/flash_attention.py``): the last block of query rows
+    skipping the first K/V tile (forward, dQ), and the first block of
+    keys skipping the last Q/dO tile (dK, dV), whose part of an early
+    key's gradient is the smallest. The skipped tile's part comes from
+    the plain version on the slices. Each reading is the least, over
+    the (b, h) blocks, of the block's largest row share: above 1, a
+    skip in any one block fails the check."""
     causal, scale, q_off, k_off = args
-    t = q.shape[2]
-    r0, q0, kt = t - FLASH_ROWS, t - FLASH_TILE, FLASH_TILE
+    t, d = q.shape[2], q.shape[3]
+
+    def last_start(rows):
+        return (t - 1) // rows * rows
+
+    # bf16: B1 and B3 on the tensor cores, B2 on the CUDA cores
+    r0, kt = last_start(fa.FWD_Q_ROWS), fa.FWD_KV_TILE
     o_skip, _ = fa.flash_attention_ref(q[:, :, r0:], k[:, :, kt:],
                                        v[:, :, kt:], causal, scale,
                                        q_off + r0, k_off + kt)
-    dq_part = fa.flash_bwd_ref(q[:, :, r0:], k[:, :, :kt], v[:, :, :kt],
-                               dout[:, :, r0:], lse[:, :, r0:],
-                               delta[:, :, r0:], causal, scale, q_off + r0,
+    rq, kq = last_start(fa.CUDA_CORE_ROWS), fa.cuda_core_tile(d)
+    dq_part = fa.flash_bwd_ref(q[:, :, rq:], k[:, :, :kq], v[:, :, :kq],
+                               dout[:, :, rq:], lse[:, :, rq:],
+                               delta[:, :, rq:], causal, scale, q_off + rq,
                                k_off)[0]
+    kr, q0 = fa.DKV_K_ROWS, last_start(fa.dkv_q_tile(d))
     _, dk_part, dv_part = fa.flash_bwd_ref(
-        q[:, :, q0:], k[:, :, :FLASH_ROWS], v[:, :, :FLASH_ROWS],
-        dout[:, :, q0:], lse[:, :, q0:], delta[:, :, q0:], causal, scale,
-        q_off + q0, k_off)
+        q[:, :, q0:], k[:, :, :kr], v[:, :, :kr], dout[:, :, q0:],
+        lse[:, :, q0:], delta[:, :, q0:], causal, scale, q_off + q0, k_off)
     rows = {"o": (o_skip, slice(r0, None)),
-            "dq": (got["dq"][:, :, r0:].float() - dq_part.float(),
-                   slice(r0, None)),
-            "dk": (got["dk"][:, :, :FLASH_ROWS].float() - dk_part.float(),
-                   slice(0, FLASH_ROWS)),
-            "dv": (got["dv"][:, :, :FLASH_ROWS].float() - dv_part.float(),
-                   slice(0, FLASH_ROWS))}
+            "dq": (got["dq"][:, :, rq:].float() - dq_part.float(),
+                   slice(rq, None)),
+            "dk": (got["dk"][:, :, :kr].float() - dk_part.float(),
+                   slice(0, kr)),
+            "dv": (got["dv"][:, :, :kr].float() - dv_part.float(),
+                   slice(0, kr))}
     return {what: _row_share(skip, want[what][:, :, sl], rtol,
                              atol).amax(-1).min().item()
             for what, (skip, sl) in rows.items()}
@@ -368,10 +379,12 @@ def _tile_skip_shares(fa, q, k, v, dout, lse, delta, got, want, args,
 def check_flash(seed):
     """B1, B2, B3 at GPT-2 medium's attention ([8, 16, 1024, 64] bf16,
     causal), plus a non-causal, a padded-T and an offset case at batch
-    2. Every case feeds the kernel and the plain version the same
-    inputs (the backward gets the plain forward's lse and delta). Each
-    row is held to ``FLASH_TOL``; in the main case, kernels that skip
-    one tile must fail that check."""
+    2, BERT-Large's non-causal shape, every other head_dim in bf16 (one
+    case with rows that see no key) and float32 twice. Every case feeds
+    the kernel and the plain version the same inputs (the backward gets
+    the plain forward's lse and delta). Each row is held to
+    ``FLASH_TOL``; in the main case, kernels that skip one tile must
+    fail that check, and the kernels and SDPA are timed."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
@@ -448,10 +461,17 @@ def check_flash(seed):
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg,
                                                  is_causal=causal)
-        lib_fwd = _time_ms(lambda _=0: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
-        lib_bwd = _time_ms(lambda _=0: torch.autograd.grad(
-            lib_out, (qg, kg, vg), dout, retain_graph=True))
+        def sdpa_fwd(_=0):
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        def sdpa_bwd(_=0):
+            torch.autograd.grad(lib_out, (qg, kg, vg), dout,
+                                retain_graph=True)
+        lib_fwd, lib_bwd = _time_ms(sdpa_fwd), _time_ms(sdpa_bwd)
+        # near 0.1 ms a kernel is close to its wrapper's enqueue time:
+        # the profiler's device time stands beside the event timings
+        lib_dev = {"flash_fwd": _device_ms(sdpa_fwd, iters=10),
+                   "bwd": _device_ms(sdpa_bwd, iters=10)}
         timings = {
             "flash_fwd": (lambda _=0: fa.flash_fwd_cuda(q, k, v, *args),
                           lambda _=0: fa.flash_attention_ref(q, k, v, *args),
@@ -469,9 +489,12 @@ def check_flash(seed):
             bound, by = _bound(*work[kname], "bf16")
             out[kname][-1].update(
                 ms=_time_ms(kern, iters=10, warmup=2),
+                device_ms=_device_ms(kern, iters=10),
                 plain_ms=(_time_ms(plain, iters=3, warmup=1) if plain
                           else plain_bwd),
-                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                library_ms=lib_ms,
+                library_device_ms=lib_dev.get(kname, lib_dev["bwd"]),
+                bound_ms=bound, bound_by=by)
 
     case("B=8 H=16 T=1024 D=64 bf16 causal", 8, 16, 1024, 1024, True,
          timed=True)
@@ -484,6 +507,9 @@ def check_flash(seed):
          16, 200, 1000, True, q_off=700)
     # the other head_dim instantiations and float32, once each
     case("B=1 H=4 T=300 D=128 bf16 causal", 1, 4, 300, 300, True, d=128)
+    case("B=1 H=4 T=333 D=32 bf16 non-causal", 1, 4, 333, 333, False, d=32)
+    case("B=1 H=4 Tq=100 Tk=200 D=16 bf16 causal, key_offset=40 (40 rows "
+         "see no key)", 1, 4, 100, 200, True, k_off=40, d=16)
     case("B=1 H=4 T=200 D=32 f32 non-causal", 1, 4, 200, 200, False, d=32,
          dtype=torch.float32)
     case("B=1 H=4 Tq=64 Tk=96 D=16 f32 causal, key_offset=40", 1, 4, 64, 96,
@@ -1370,7 +1396,8 @@ def _injected_fault(name):
     """Run the training path's backward as a faulty kernel would, for
     the readings that bound the parity limits from above:
     ``dkv_last_q_tile``: B3's loop over q tiles ends one streamed tile
-    early in every block (the last 32 queries add nothing to dK, dV);
+    early in every block (the last tile's queries, 64 at GPT-2's
+    head_dim in bf16, add nothing to dK, dV);
     ``ln_last_block``: B5's column sums stop one block short (the last
     block's rows add nothing to dgamma, dbeta)."""
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -1384,7 +1411,8 @@ def _injected_fault(name):
                    k_off=0):
             dk, dv = orig(q, k, v, dout, lse, delta, causal, scale, q_off,
                           k_off)
-            q0 = q.shape[2] - FLASH_TILE
+            tile = fa.dkv_q_tile(q.shape[3])  # the bf16 kernel's
+            q0 = (q.shape[2] - 1) // tile * tile
             pk, pv = orig(q[:, :, q0:], k, v, dout[:, :, q0:],
                           lse[:, :, q0:], delta[:, :, q0:], causal, scale,
                           q_off + q0, k_off)
@@ -2601,6 +2629,72 @@ def serve_gpt2(seed, ledger):
 
 # ---------------------------------------------------------------------------
 
+def _kernel_name(mangled):
+    """``flash_fwd_mma_kernel<64>`` from a mangled kernel name (template
+    arguments: ``f`` float32, ``13__nv_bfloat16`` bf16, numbers as
+    they are)."""
+    m = re.search(r"\d+([a-z][a-z_]*?_kernel)I(\w*?)EE", mangled)
+    if not m:
+        return mangled
+    names = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a, a) for a in
+             re.findall(r"^f|13__nv_bfloat16|(?<=Li)\d+", m.group(2))]
+    return f"{m.group(1)}<{','.join(names)}>"
+
+
+def print_ptxas(_build, names):
+    """The ptxas report of each named kernel source: registers, shared
+    memory and spills, by kernel."""
+    for name in names:
+        log = (_build.BUILD_DIR / f"{name}.log")
+        fn = ""
+        for line in log.read_text().splitlines() if log.exists() else []:
+            if "Compiling entry function" in line:
+                fn = _kernel_name(line.split("'")[1])
+            elif "Function properties for" in line:
+                fn = _kernel_name(line.split()[-1])
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {fn}: {line.strip()}")
+
+
+def _cuobjdump():
+    import importlib.util
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = ["/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    return next((c for c in cands if os.path.exists(c)), None)
+
+
+def print_sass_mma(_build, names):
+    """Count the tensor-core multiply-adds (``HMMA``) in each kernel's
+    SASS of the named libraries, with ``cuobjdump`` where it is
+    installed: a kernel that reads 0 does not use the tensor cores.
+    Informational; never fails."""
+    tool = _cuobjdump()
+    if tool is None:
+        print("sass: cuobjdump is absent (CUDA toolkit, triton); HMMA "
+              "counts not read")
+        return
+    for name in names:
+        res = subprocess.run([tool, "-sass", str(_build._target(name))],
+                             capture_output=True, text=True, timeout=300)
+        counts, fn = {}, None
+        for line in res.stdout.splitlines():
+            if "Function :" in line:
+                fn = _kernel_name(line.split("Function :")[1].strip())
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+        print(json.dumps({"sass_hmma": name, "tool": tool,
+                          "rc": res.returncode, "counts": counts}))
+
+
 KERNELS = [
     ("flash_fwd", "horovod_tpu_torch/csrc/flash_fwd.cu",
      "horovod_tpu/ops/pallas_attention.py:105",
@@ -2695,11 +2789,8 @@ def main(argv=None) -> int:
     secs = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
-    for name in secs:
-        log = (_build.BUILD_DIR / f"{name}.log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    print_ptxas(_build, secs)
+    print_sass_mma(_build, ("flash_fwd", "flash_bwd_dkv"))
     if args.parity_sweep:
         parity_sweep(args.parity_sweep)
         return 0

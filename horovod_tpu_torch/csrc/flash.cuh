@@ -1,4 +1,4 @@
-// Shared layout of the three flash-attention kernels (flash_fwd.cu,
+// Shared layout of the CUDA-core flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
 // Tensors are [B*H, T, D] contiguous (the [B, H, T, D] layout of the
@@ -14,8 +14,10 @@
 // ..., so the lanes of a row read neighbouring 16-byte chunks of a
 // shared row and never share a bank.
 //
-// Every product is a float32 FMA on the CUDA cores; the tensor cores
-// (mma.sync / wgmma) are not used yet.
+// Every product is a float32 FMA on the CUDA cores. Only the float32
+// path of the forward and dK/dV, and the dQ kernel (B2) in both dtypes,
+// still run here; bf16 forward and dK/dV run on the tensor cores
+// (flash_mma.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -457,8 +457,11 @@ def _gather_nll(lg, targets):
     return lse - tgt
 
 
-def causal_lm_loss(logits, tokens, ignore_index: int = -1):
-    """Next-token cross-entropy; returns (loss, n_tokens). float32."""
+def causal_lm_nll(logits, tokens, ignore_index: int = -1):
+    """The two sums of :func:`causal_lm_loss`: ``(Σ nll, n_valid)``,
+    the float32 next-token cross-entropy summed over valid, in-range
+    targets and the count of targets that are not ``ignore_index``
+    (not clamped), so several ranks' batches can share one mean."""
     targets = tokens[:, 1:]
     lg = logits[:, :-1].to(torch.float32)
     valid = targets != ignore_index
@@ -467,8 +470,14 @@ def causal_lm_loss(logits, tokens, ignore_index: int = -1):
     nll = _gather_nll(lg, torch.where(in_range, targets,
                                       torch.zeros_like(targets)))
     nll = torch.where(valid & in_range, nll, torch.zeros_like(nll))
-    n = torch.clamp(valid.sum(), min=1)
-    return nll.sum() / n, n
+    return nll.sum(), valid.sum()
+
+
+def causal_lm_loss(logits, tokens, ignore_index: int = -1):
+    """Next-token cross-entropy; returns (loss, n_tokens). float32."""
+    nll, n = causal_lm_nll(logits, tokens, ignore_index)
+    n = torch.clamp(n, min=1)
+    return nll / n, n
 
 
 def mlm_loss(logits, labels, mask_positions):

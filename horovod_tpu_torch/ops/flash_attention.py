@@ -21,9 +21,12 @@ Dispatch is by the device of ``q``: a CUDA tensor launches
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` and
 ``csrc/flash_bwd_dkv.cu`` (head_dim 16, 32, 64 or 128; anything else
 raises), a CPU tensor runs :func:`flash_attention_ref` and
-:func:`flash_bwd_ref`. The kernels choose their own tiles; the TPU
-kernels' ``block_q``/``block_k`` and ``HOROVOD_FLASH_BLOCK_Q/K`` are
-Mosaic tiling devices and have no counterpart here.
+:func:`flash_bwd_ref`. In bf16 the forward and dK/dV run on the tensor
+cores (``mma.sync``, ``csrc/flash_mma.cuh``); float32, and dQ in both
+dtypes, run on the CUDA cores (``csrc/flash.cuh``). The kernels choose
+their own tiles (the constants below); the TPU kernels'
+``block_q``/``block_k`` and ``HOROVOD_FLASH_BLOCK_Q/K`` are Mosaic
+tiling devices and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,6 +42,31 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernels' tiling, for callers that emulate a kernel skipping one
+# tile (chip_smoke.py); tests/test_torch_flash_attention.py holds each
+# to its ``constexpr`` in csrc/.
+#: bf16 forward (B1): query rows a block holds (flash_mma.cuh
+#: kBlockRows) and key rows of a streamed K/V tile (flash_fwd.cu kKvTile)
+FWD_Q_ROWS = 64
+FWD_KV_TILE = 64
+#: bf16 dK/dV (B3): key rows a block holds (flash_mma.cuh kBlockRows)
+DKV_K_ROWS = 64
+#: the CUDA-core kernels (float32 B1 and B3, B2 in both dtypes): rows a
+#: block holds (flash.cuh kRows)
+CUDA_CORE_ROWS = 64
+
+
+def dkv_q_tile(head_dim: int) -> int:
+    """Query rows of a streamed Q/dO tile of the bf16 dK/dV kernel
+    (flash_bwd_dkv.cu ``q_tile<D>``)."""
+    return 64 if head_dim <= 64 else 32
+
+
+def cuda_core_tile(head_dim: int) -> int:
+    """Rows of a streamed tile of the CUDA-core kernels (flash.cuh
+    ``Shape<D>::kTile``)."""
+    return 32 if head_dim <= 64 else 16
 
 
 # ---------------------------------------------------------------------------
@@ -156,11 +184,19 @@ def _check(q, k, v, what):
     return b * h, tq, k.shape[2], d
 
 
+def _aligned(*ts):
+    """``ts`` contiguous, each starting on a 16-byte boundary: the bf16
+    kernels copy rows 16 bytes at a time (``cp.async``), so a view that
+    starts off the boundary is cloned."""
+    ts = (t.contiguous() for t in ts)
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float,
                    query_offset: int = 0, key_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu``: ``(O, lse float32 [B, H, Tq])``."""
     bh, tq, tk, d = _check(q, k, v, "flash_fwd_cuda")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if bh == 0 or tq == 0:
@@ -217,7 +253,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
     """Launch ``csrc/flash_bwd_dkv.cu``: ``(dK, dV)`` in k's dtype."""
     bh, tq, tk, d = _check(q, k, v, "flash_bwd_dkv_cuda")
     _check_rows("flash_bwd_dkv_cuda", dout, lse, delta, q)
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = _aligned(q, k, v, dout)
     lse, delta = lse.contiguous(), delta.contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -15,7 +15,8 @@ from typing import Callable, Optional
 import torch
 
 from ..core.basics import _require_init
-from ..models.transformer import Transformer, TransformerConfig, causal_lm_loss
+from ..models.transformer import Transformer, TransformerConfig, causal_lm_nll
+from ..ops.collectives import Sum, allreduce
 from ..optim.distributed import DistributedOptimizer
 from ..optim.functions import broadcast_parameters
 
@@ -32,8 +33,12 @@ def make_lm_train_step(cfg: TransformerConfig,
     after broadcasting rank 0's weights. The model is built on
     ``device`` (default: the device ``init()`` chose) with random
     weights from seed 0. ``step(tokens) -> loss``
-    runs the forward, ``causal_lm_loss``, the backward and the
-    optimizer step on a ``[B, T]`` batch, and returns the local loss;
+    runs the forward, the causal-LM loss, the backward and the
+    optimizer step on this rank's ``[B, T]`` rows of the global batch.
+    As in the JAX package's step, the loss is the global batch's mean,
+    ``Σ nll / Σ valid`` over every rank's targets (``ignore_index`` -1
+    excluded), and the gradients are its gradients, however unevenly
+    the ranks' targets are padded; the step returns that loss.
     ``step.optimizer`` is the DistributedOptimizer.
 
     ``mesh`` (tensor / fully-sharded parallelism) and
@@ -61,12 +66,18 @@ def make_lm_train_step(cfg: TransformerConfig,
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
         logits = model(tokens)
-        loss, _ = causal_lm_loss(logits, tokens)
+        nll, count = causal_lm_nll(logits, tokens)
         del logits
-        loss.backward()
+        # one denominator for every rank, before the backward: the
+        # DistributedOptimizer averages Σ nll_r · size / n, which is the
+        # gradient of the global mean Σ_r Σ nll_r / n
+        sums = allreduce(torch.stack([nll.detach().double(),
+                                      count.double()]), op=Sum)
+        n = sums[1].clamp(min=1)
+        (nll * (st.size / n).float()).backward()
         opt.step()
         opt.zero_grad(set_to_none=True)
-        return loss.detach()
+        return sums[0].float() / n.float()
 
     step.optimizer = opt
     return model, step

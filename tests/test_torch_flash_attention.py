@@ -15,6 +15,8 @@ plain version against the row max.
 """
 
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +135,45 @@ def test_backward_ref_equals_kernel_split():
     assert torch.equal(got_out, out)
     for g, w in zip((qs.grad, ks.grad, vs.grad), want):
         assert torch.equal(g, w)
+
+
+def _constexpr(src, name):
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m, name
+    return int(m.group(1))
+
+
+def _by_head_dim(src, pattern):
+    """``{d: tile}`` from a ``D <= a ? b : c`` expression."""
+    m = re.search(pattern + r" D <= (\d+) \? (\d+) : (\d+);", src)
+    assert m, pattern
+    lim, lo, hi = (int(g) for g in m.groups())
+    return {d: lo if d <= lim else hi for d in fa.HEAD_DIMS}
+
+
+def test_exported_tiling_is_the_kernels():
+    """The tiling ``ops/flash_attention.py`` exports (``chip_smoke.py``
+    emulates kernels that skip one tile with it) is the ``constexpr``
+    tiling of the CUDA sources: the bf16 tensor-core kernels' resident
+    rows (B1's queries, B3's keys), B1's K/V tile and B3's Q/dO tile
+    per head_dim, and the CUDA-core kernels' rows and tile."""
+    csrc = pathlib.Path(fa.__file__).resolve().parent.parent / "csrc"
+    mma = (csrc / "flash_mma.cuh").read_text()
+    fwd = (csrc / "flash_fwd.cu").read_text()
+    dkv = (csrc / "flash_bwd_dkv.cu").read_text()
+    core = (csrc / "flash.cuh").read_text()
+    assert re.search(r"constexpr int kBlockRows = kWarps \* kWarpRows;",
+                     mma)
+    rows = _constexpr(mma, "kWarps") * _constexpr(mma, "kWarpRows")
+    assert fa.FWD_Q_ROWS == fa.DKV_K_ROWS == rows
+    assert fa.FWD_KV_TILE == _constexpr(fwd, "kKvTile")
+    q_tiles = _by_head_dim(dkv, r"q_tile\(\) \{\s*return")
+    assert {d: fa.dkv_q_tile(d) for d in fa.HEAD_DIMS} == q_tiles
+    assert fa.CUDA_CORE_ROWS == _constexpr(core, "kRows")
+    core_tiles = _by_head_dim(core, r"kTile =")
+    assert {d: fa.cuda_core_tile(d) for d in fa.HEAD_DIMS} == core_tiles
+    # a streamed tile is whole k16 steps of the products that consume it
+    assert all(t % 16 == 0 for t in (fa.FWD_KV_TILE, *q_tiles.values()))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
