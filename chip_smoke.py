@@ -11,9 +11,9 @@ Phases, in order; the first failure exits non-zero:
 1. require a CUDA device; print the card's name and power limit;
 2. build every kernel of ``horovod_tpu_torch/csrc/`` (one nvcc each, in
    parallel) and print the build seconds, ptxas's registers, shared
-   memory and spills by kernel, and the count of tensor-core (HMMA)
-   instructions in the flash kernels' SASS where cuobjdump is
-   installed;
+   memory and spills by kernel, and the count of tensor-core
+   instructions (``mma.sync``'s HMMA, ``wgmma``'s HGMMA) in the flash
+   and matmul kernels' SASS where cuobjdump is installed;
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
    GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
@@ -153,18 +153,24 @@ def _device_ms(fn, iters=50):
     """Device time of one call of ``fn``: the summed device time of the
     kernels it launches, from ``torch.profiler`` over ``iters`` calls.
     For a call shorter than its host-side launch, where back-to-back
-    CUDA-event timing measures the enqueue and not the card."""
+    CUDA-event timing measures the enqueue and not the card. Now and
+    then the profiler returns a window without any device event: such a
+    window is profiled again, three windows in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in _kernel_events(prof))
-    _require(us > 0, "the profiler saw no device time")
-    return us / 1e3 / iters
+    windows = 3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        us = sum(_dev_us(e) for e in _kernel_events(prof))
+        if us > 0:
+            return us / 1e3 / iters
+    raise SmokeFailure(f"the profiler saw no device time in {windows} "
+                       "windows")
 
 
 def _bf16_ulp(x):
@@ -350,12 +356,12 @@ def _tile_skip_shares(fa, q, k, v, dout, lse, delta, got, want, args,
     def last_start(rows):
         return (t - 1) // rows * rows
 
-    # bf16: B1 and B3 on the tensor cores, B2 on the CUDA cores
+    # bf16: B1, B2 and B3 on the tensor cores
     r0, kt = last_start(fa.FWD_Q_ROWS), fa.FWD_KV_TILE
     o_skip, _ = fa.flash_attention_ref(q[:, :, r0:], k[:, :, kt:],
                                        v[:, :, kt:], causal, scale,
                                        q_off + r0, k_off + kt)
-    rq, kq = last_start(fa.CUDA_CORE_ROWS), fa.cuda_core_tile(d)
+    rq, kq = last_start(fa.DQ_Q_ROWS), fa.dq_kv_tile(d)
     dq_part = fa.flash_bwd_ref(q[:, :, rq:], k[:, :, :kq], v[:, :, :kq],
                                dout[:, :, rq:], lse[:, :, rq:],
                                delta[:, :, rq:], causal, scale, q_off + rq,
@@ -1103,14 +1109,19 @@ ZERO_RANKS = 4
 #: per-row relative L2 limit of B15's [M, N] product against the float64
 #: product of the same operands. Float32 accumulation of K exact products
 #: errs by ~sqrt(K) float32 roundings of a row's scale; a kernel that
-#: skips one 16-deep K tile loses about sqrt(16 / K) of a random row. The
-#: limit sits between the worst healthy reading (7.1e-7 over the three
-#: cases) and the least skipped-tile reading (3.0e-2; NVIDIA H100 80GB
-#: HBM3, 700 W; PERF.md), both printed and checked by every run
+#: skips one K tile of depth t (ops/ring_pack.py: 64 in bf16, 16 in
+#: float32) loses about sqrt(t / K) of a random row. The limit sits
+#: between the worst healthy reading (4.7e-6, the bf16 products on the
+#: tensor cores) and the least skipped-tile reading (3.4e-2, case (d);
+#: NVIDIA H100 80GB HBM3, 700 W; PERF.md), both printed and checked by
+#: every run
 MATMUL_TOL = 1e-4
-MATMUL_TILE_K = 16  # csrc/matmul_pack.cu kBK
 #: (name, M, K, N, dtype, n): BERT-Large's weight gradients at per-rank
-#: batch 8 x 512 = 4096 tokens, and a ragged float32 case
+#: batch 8 x 512 = 4096 tokens; ragged cases in float32 and bf16 (M not
+#: a tile multiple, K and N odd: every load route of the bf16 kernel,
+#: TMA and narrow copies, runs); and (b) with N = 30720, whose rows of b
+#: are 16-byte aligned (TMA) where (b)'s are not (4-byte copies): the
+#: price of the copy route at the same size
 MATMUL_CASES = (
     ("(a) MLP-out dW = x^T dy, [4096,4096] @ [4096,1024] bf16, n = 4",
      4096, 4096, 1024, torch.bfloat16, 4),
@@ -1118,6 +1129,10 @@ MATMUL_CASES = (
      "bf16, n = 4", 1024, 4096, 30522, torch.bfloat16, 4),
     ("(c) ragged [1000,777] @ [777,333] float32, n = 3", 1000, 777, 333,
      torch.float32, 3),
+    ("(d) ragged [1000,777] @ [777,333] bf16, n = 3", 1000, 777, 333,
+     torch.bfloat16, 3),
+    ("(e) (b) with N = 30720, rows of b 16-byte aligned, [1024,4096] @ "
+     "[4096,30720] bf16, n = 4", 1024, 4096, 30720, torch.bfloat16, 4),
 )
 
 
@@ -1203,7 +1218,7 @@ def check_matmul_pack(seed):
     with its last K tile taken out (an emulated skip) must fail that
     check in every row. Integer-valued operands in [-4, 4], whose
     float32 sums are exact, must give the float64 product bitwise,
-    padding included, at all three shapes. Each case is timed: kernel,
+    padding included, at every shape. Each case is timed: kernel,
     plain version, ``torch.matmul`` + ``F.pad`` (two calls), bound."""
     from horovod_tpu_torch.ops import ring_pack
 
@@ -1225,7 +1240,9 @@ def check_matmul_pack(seed):
                  f"matmul_pack {what}: not finite")
         rel = _matmul_row_rel(got, ref64, m, ncols)
         plain_rel = _matmul_row_rel(plain, ref64, m, ncols)
-        p0 = (kd - 1) // MATMUL_TILE_K * MATMUL_TILE_K
+        tile_k = (ring_pack.MATMUL_TILE_K if dtype == torch.bfloat16
+                  else ring_pack.MATMUL_F32_TILE_K)
+        p0 = (kd - 1) // tile_k * tile_k
         part = a[:, p0:].double() @ b[p0:, :].double()
         skip = _matmul_row_rel(
             (got.reshape(-1)[:size].view(m, ncols).double() - part), ref64,
@@ -2632,10 +2649,12 @@ def serve_gpt2(seed, ledger):
 def _kernel_name(mangled):
     """``flash_fwd_mma_kernel<64>`` from a mangled kernel name (template
     arguments: ``f`` float32, ``13__nv_bfloat16`` bf16, numbers as
-    they are)."""
+    they are); ``matmul_pack_kernel`` from a function that is no
+    template."""
     m = re.search(r"\d+([a-z][a-z_]*?_kernel)I(\w*?)EE", mangled)
     if not m:
-        return mangled
+        plain = re.search(r"\d+([a-z][a-z_]*?_kernel)E", mangled)
+        return plain.group(1) if plain else mangled
     names = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a, a) for a in
              re.findall(r"^f|13__nv_bfloat16|(?<=Li)\d+", m.group(2))]
     return f"{m.group(1)}<{','.join(names)}>"
@@ -2672,14 +2691,15 @@ def _cuobjdump():
 
 
 def print_sass_mma(_build, names):
-    """Count the tensor-core multiply-adds (``HMMA``) in each kernel's
-    SASS of the named libraries, with ``cuobjdump`` where it is
-    installed: a kernel that reads 0 does not use the tensor cores.
-    Informational; never fails."""
+    """Count the tensor-core instructions in each kernel's SASS of the
+    named libraries, with ``cuobjdump`` where it is installed:
+    ``mma.sync``'s ``HMMA`` and ``wgmma``'s ``HGMMA`` (the substring
+    "HMMA" does not match "HGMMA"). A kernel that reads 0 of both does
+    not use the tensor cores. Informational; never fails."""
     tool = _cuobjdump()
     if tool is None:
         print("sass: cuobjdump is absent (CUDA toolkit, triton); HMMA "
-              "counts not read")
+              "and HGMMA counts not read")
         return
     for name in names:
         res = subprocess.run([tool, "-sass", str(_build._target(name))],
@@ -2688,10 +2708,11 @@ def print_sass_mma(_build, names):
         for line in res.stdout.splitlines():
             if "Function :" in line:
                 fn = _kernel_name(line.split("Function :")[1].strip())
-                counts[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                counts[fn] += 1
-        print(json.dumps({"sass_hmma": name, "tool": tool,
+                counts[fn] = {"HMMA": 0, "HGMMA": 0}
+            elif fn is not None:
+                for op in counts[fn]:
+                    counts[fn][op] += op in line
+        print(json.dumps({"sass_mma": name, "tool": tool,
                           "rc": res.returncode, "counts": counts}))
 
 
@@ -2790,7 +2811,8 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     print_ptxas(_build, secs)
-    print_sass_mma(_build, ("flash_fwd", "flash_bwd_dkv"))
+    print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                            "matmul_pack"))
     if args.parity_sweep:
         parity_sweep(args.parity_sweep)
         return 0
@@ -2853,5 +2875,8 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as e:
+        import traceback
+
+        traceback.print_exc()
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

@@ -15,9 +15,8 @@
 // shared row and never share a bank.
 //
 // Every product is a float32 FMA on the CUDA cores. Only the float32
-// path of the forward and dK/dV, and the dQ kernel (B2) in both dtypes,
-// still run here; bf16 forward and dK/dV run on the tensor cores
-// (flash_mma.cuh).
+// kernels (forward, dQ, dK/dV) run here; in bf16 all three run on the
+// tensor cores (flash_mma.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -1,13 +1,13 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_fwd.cu B1, flash_bwd_dkv.cu B3).
+// (flash_fwd.cu B1, flash_bwd_dq.cu B2, flash_bwd_dkv.cu B3).
 //
 // Products are `mma.sync.m16n8k16` on bf16 operands with float32
 // accumulation: exactly the TPU kernels' rounding points (bf16 inputs to
 // each product, float32 sums), only the order of the sums differs.
 //
 // A block is kWarps warps; each warp owns kWarpRows resident rows (the
-// A operand of its products: queries in B1, keys in B3), so a block
-// holds kBlockRows rows. The streamed operand arrives in bf16 tiles of
+// A operand of its products: queries in B1 and B2, keys in B3), so a
+// block holds kBlockRows rows. The streamed operand arrives in bf16 tiles of
 // shared memory through 16-byte `cp.async` copies into a two-stage ring
 // (tile t+1 loads while tile t computes); rows past the end are
 // zero-filled by the copy's src-size operand. Each shared row is padded

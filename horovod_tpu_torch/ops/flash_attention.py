@@ -21,9 +21,9 @@ Dispatch is by the device of ``q``: a CUDA tensor launches
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` and
 ``csrc/flash_bwd_dkv.cu`` (head_dim 16, 32, 64 or 128; anything else
 raises), a CPU tensor runs :func:`flash_attention_ref` and
-:func:`flash_bwd_ref`. In bf16 the forward and dK/dV run on the tensor
-cores (``mma.sync``, ``csrc/flash_mma.cuh``); float32, and dQ in both
-dtypes, run on the CUDA cores (``csrc/flash.cuh``). The kernels choose
+:func:`flash_bwd_ref`. In bf16 the forward, dQ and dK/dV run on the
+tensor cores (``mma.sync``, ``csrc/flash_mma.cuh``); float32 runs on the
+CUDA cores (``csrc/flash.cuh``). The kernels choose
 their own tiles (the constants below); the TPU kernels'
 ``block_q``/``block_k`` and ``HOROVOD_FLASH_BLOCK_Q/K`` are Mosaic
 tiling devices and have no counterpart here.
@@ -50,11 +50,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: kBlockRows) and key rows of a streamed K/V tile (flash_fwd.cu kKvTile)
 FWD_Q_ROWS = 64
 FWD_KV_TILE = 64
+#: bf16 dQ (B2): query rows a block holds (flash_mma.cuh kBlockRows)
+DQ_Q_ROWS = 64
 #: bf16 dK/dV (B3): key rows a block holds (flash_mma.cuh kBlockRows)
 DKV_K_ROWS = 64
-#: the CUDA-core kernels (float32 B1 and B3, B2 in both dtypes): rows a
-#: block holds (flash.cuh kRows)
+#: the float32 kernels of B1, B2 and B3, on the CUDA cores: rows a block
+#: holds (flash.cuh kRows)
 CUDA_CORE_ROWS = 64
+
+
+def dq_kv_tile(head_dim: int) -> int:
+    """Key rows of a streamed K/V tile of the bf16 dQ kernel
+    (flash_bwd_dq.cu ``kv_tile<D>``)."""
+    return 64 if head_dim <= 64 else 32
 
 
 def dkv_q_tile(head_dim: int) -> int:
@@ -64,7 +72,7 @@ def dkv_q_tile(head_dim: int) -> int:
 
 
 def cuda_core_tile(head_dim: int) -> int:
-    """Rows of a streamed tile of the CUDA-core kernels (flash.cuh
+    """Rows of a streamed tile of the float32 kernels (flash.cuh
     ``Shape<D>::kTile``)."""
     return 32 if head_dim <= 64 else 16
 
@@ -230,7 +238,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
     """Launch ``csrc/flash_bwd_dq.cu``: dQ in q's dtype."""
     bh, tq, tk, d = _check(q, k, v, "flash_bwd_dq_cuda")
     _check_rows("flash_bwd_dq_cuda", dout, lse, delta, q)
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = _aligned(q, k, v, dout)
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty_like(q)
     if bh == 0 or tq == 0:

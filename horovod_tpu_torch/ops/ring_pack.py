@@ -14,8 +14,10 @@ are ``ops/quantized_collectives.py`` (B11-B14) and
   bitwise. Plain version: ``optim.zero._pad_rows``.
 * ``matmul_pack`` (B15, ``_matmul_pack_kernel``): ``a @ b`` with
   float32 accumulation written straight into the ``(n, k)`` rows of the
-  ``[M, N]`` product, ``k = ceil(M * N / n)``, the tail zero. Plain
-  version: ``torch.matmul`` of the float32 operands, then ``_pad_rows``.
+  ``[M, N]`` product, ``k = ceil(M * N / n)``, the tail zero; bf16 on
+  the tensor cores (``wgmma`` fed by TMA), float32 on the CUDA cores.
+  Plain version: ``torch.matmul`` of the float32 operands, then
+  ``_pad_rows``.
 
 ``knobs.fused_collectives`` is read by the JAX package to choose
 between its Pallas kernels and plain XLA; in the port it chooses
@@ -38,6 +40,17 @@ _ARGTYPES = {
 }
 #: dtype codes of csrc/common.cuh
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# B15's tiling, for callers that emulate a kernel skipping one K tile
+# (chip_smoke.py); tests/test_torch_matmul_pack.py holds each to its
+# ``constexpr`` in csrc/matmul_pack.cu.
+#: bf16 (wgmma): output rows and columns of a block (kTileM, kTileN) and
+#: the K depth of a stage of its ring (kTileK)
+MATMUL_TILE_M = 128
+MATMUL_TILE_N = 128
+MATMUL_TILE_K = 64
+#: float32 (CUDA cores): the K depth of a shared-memory tile (kBK)
+MATMUL_F32_TILE_K = 16
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -131,7 +144,10 @@ def matmul_pack_ref(a: torch.Tensor, b: torch.Tensor,
 def matmul_pack_cuda(a: torch.Tensor, b: torch.Tensor,
                      n: int) -> torch.Tensor:
     """Launch ``csrc/matmul_pack.cu`` (B15): ``a @ b`` accumulated in
-    float32 on the CUDA cores, as the float32 ``(n, k)`` ring rows."""
+    float32, as the float32 ``(n, k)`` ring rows; bf16 operands on the
+    tensor cores, float32 on the CUDA cores. Operands of any alignment
+    are read in place (TMA where rows are 16-byte aligned, narrower
+    copies elsewhere): none is copied to pad it."""
     _matmul_operands(a, b)
     for what, t in (("a", a), ("b", b)):
         if not t.is_cuda:

@@ -155,25 +155,32 @@ def test_exported_tiling_is_the_kernels():
     """The tiling ``ops/flash_attention.py`` exports (``chip_smoke.py``
     emulates kernels that skip one tile with it) is the ``constexpr``
     tiling of the CUDA sources: the bf16 tensor-core kernels' resident
-    rows (B1's queries, B3's keys), B1's K/V tile and B3's Q/dO tile
-    per head_dim, and the CUDA-core kernels' rows and tile."""
+    rows (B1's and B2's queries, B3's keys), B1's K/V tile, B2's K/V
+    tile and B3's Q/dO tile per head_dim, and the float32 CUDA-core
+    kernels' rows and tile."""
     csrc = pathlib.Path(fa.__file__).resolve().parent.parent / "csrc"
     mma = (csrc / "flash_mma.cuh").read_text()
     fwd = (csrc / "flash_fwd.cu").read_text()
+    dq = (csrc / "flash_bwd_dq.cu").read_text()
     dkv = (csrc / "flash_bwd_dkv.cu").read_text()
     core = (csrc / "flash.cuh").read_text()
     assert re.search(r"constexpr int kBlockRows = kWarps \* kWarpRows;",
                      mma)
     rows = _constexpr(mma, "kWarps") * _constexpr(mma, "kWarpRows")
-    assert fa.FWD_Q_ROWS == fa.DKV_K_ROWS == rows
+    assert fa.FWD_Q_ROWS == fa.DQ_Q_ROWS == fa.DKV_K_ROWS == rows
+    # B2's blocks hold query rows in the A operand, as B1's do
+    assert "flash_bwd_dq_mma_kernel" in dq and "kBlockRows" in dq
     assert fa.FWD_KV_TILE == _constexpr(fwd, "kKvTile")
+    kv_tiles = _by_head_dim(dq, r"kv_tile\(\) \{\s*return")
+    assert {d: fa.dq_kv_tile(d) for d in fa.HEAD_DIMS} == kv_tiles
     q_tiles = _by_head_dim(dkv, r"q_tile\(\) \{\s*return")
     assert {d: fa.dkv_q_tile(d) for d in fa.HEAD_DIMS} == q_tiles
     assert fa.CUDA_CORE_ROWS == _constexpr(core, "kRows")
     core_tiles = _by_head_dim(core, r"kTile =")
     assert {d: fa.cuda_core_tile(d) for d in fa.HEAD_DIMS} == core_tiles
     # a streamed tile is whole k16 steps of the products that consume it
-    assert all(t % 16 == 0 for t in (fa.FWD_KV_TILE, *q_tiles.values()))
+    assert all(t % 16 == 0 for t in (fa.FWD_KV_TILE, *kv_tiles.values(),
+                                     *q_tiles.values()))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -4,7 +4,9 @@ the JAX package.
 
 * ``matmul_pack`` on the CPU against the JAX package's ``_matmul_pack``
   (the Pallas kernel in interpret mode) at the JAX test's 24 x 33 @ 33
-  x 16 for n in {1, 2, 3, 4, 8}: bitwise on integer-valued operands in
+  x 16 and at a ragged 20 x 13 @ 13 x 11 (the shape of the card's
+  ragged bf16 case: M no tile multiple, K and N odd) for n in {1, 2, 3,
+  4, 8}: bitwise on integer-valued operands in
   [-4, 4] (every partial sum is an exact float32 integer, whatever the
   order), float32 and bf16; within 1e-5 relative on random float32
   operands (the two sum the products in different orders); the padding
@@ -22,11 +24,15 @@ the JAX package.
     ``reducescatter``: bitwise at world 2 and on integers, within 1e-6
     relative on floats at world 4; a dim 0 that the world does not
     divide raises, as in the JAX package;
-* a 3-D operand raises the JAX package's ``ValueError``.
+* a 3-D operand raises the JAX package's ``ValueError``;
+* the tiling ``ops/ring_pack.py`` exports (``chip_smoke.py`` emulates a
+  kernel that skips its last K tile with it) is the ``constexpr``
+  tiling of ``csrc/matmul_pack.cu``.
 """
 
 import os
 import pathlib
+import re
 import socket
 import subprocess
 import sys
@@ -51,6 +57,9 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BLOCK = 32
 M, K, N = 24, 33, 16
+#: (M, K, N) of test_matmul_pack_matches_jax: the JAX test's shape, and a
+#: ragged one (M no multiple of a tile, K and N odd)
+SHAPES = ((M, K, N), (20, 13, 11))
 
 
 @pytest.fixture(autouse=True)
@@ -60,13 +69,14 @@ def _fresh_port():
     hvd.shutdown()
 
 
-def _operands(rs, dtype, integer, lead=()):
+def _operands(rs, dtype, integer, lead=(), shape=(M, K, N)):
+    m, k, n = shape
     if integer:
-        a = rs.randint(-4, 5, lead + (M, K)).astype(np.float32)
-        b = rs.randint(-4, 5, lead + (K, N)).astype(np.float32)
+        a = rs.randint(-4, 5, lead + (m, k)).astype(np.float32)
+        b = rs.randint(-4, 5, lead + (k, n)).astype(np.float32)
     else:
-        a = rs.randn(*lead, M, K).astype(np.float32)
-        b = rs.randn(*lead, K, N).astype(np.float32)
+        a = rs.randn(*lead, m, k).astype(np.float32)
+        b = rs.randn(*lead, k, n).astype(np.float32)
     return a, b
 
 
@@ -74,24 +84,51 @@ def _operands(rs, dtype, integer, lead=()):
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
 def test_matmul_pack_matches_jax(dtype, n):
     rs = np.random.RandomState(n)
-    for integer in (True, False):
-        if dtype == "bfloat16" and not integer:
-            continue
-        a, b = _operands(rs, dtype, integer)
-        ta = torch.from_numpy(a).to(getattr(torch, dtype))
-        tb = torch.from_numpy(b).to(getattr(torch, dtype))
-        want = np.asarray(jpc._matmul_pack(
-            jnp.asarray(a).astype(getattr(jnp, dtype)),
-            jnp.asarray(b).astype(getattr(jnp, dtype)), n))
-        got = ring_pack.matmul_pack(ta, tb, n)
-        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-        flat = got.reshape(-1).numpy()
-        assert (flat[M * N:] == 0).all()
-        if integer:
-            np.testing.assert_array_equal(got.numpy(), want)
-        else:
-            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
-                                       atol=1e-5)
+    for shape in SHAPES:
+        for integer in (True, False):
+            if dtype == "bfloat16" and not integer:
+                continue
+            a, b = _operands(rs, dtype, integer, shape=shape)
+            ta = torch.from_numpy(a).to(getattr(torch, dtype))
+            tb = torch.from_numpy(b).to(getattr(torch, dtype))
+            want = np.asarray(jpc._matmul_pack(
+                jnp.asarray(a).astype(getattr(jnp, dtype)),
+                jnp.asarray(b).astype(getattr(jnp, dtype)), n))
+            got = ring_pack.matmul_pack(ta, tb, n)
+            assert (got.dtype == torch.float32
+                    and tuple(got.shape) == want.shape)
+            flat = got.reshape(-1).numpy()
+            assert (flat[shape[0] * shape[2]:] == 0).all()
+            if integer:
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                           atol=1e-5)
+
+
+def _constexprs(src):
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_exported_tiling_is_the_kernel():
+    """``ops/ring_pack.py``'s B15 tiling is ``csrc/matmul_pack.cu``'s:
+    the bf16 kernel's block tile and ring depth, and the float32
+    kernel's K tile. A wgmma m64n128k16 block of two consumer
+    warpgroups covers 128 x 128, and a stage is whole k16 steps of
+    128-byte rows."""
+    src = (REPO / "horovod_tpu_torch" / "csrc" / "matmul_pack.cu"
+           ).read_text()
+    c = _constexprs(src)
+    assert ring_pack.MATMUL_TILE_M == c["kTileM"] == 64 * c["kConsumers"]
+    assert ring_pack.MATMUL_TILE_N == c["kTileN"]
+    assert ring_pack.MATMUL_TILE_K == c["kTileK"]
+    assert "m64n%dk16" % ring_pack.MATMUL_TILE_N in src
+    assert ring_pack.MATMUL_TILE_K % 16 == 0
+    assert ring_pack.MATMUL_TILE_K * 2 == 128  # one swizzled row
+    assert ring_pack.MATMUL_F32_TILE_K == int(
+        re.search(r"constexpr int kBM = \d+, kBN = \d+, kBK = (\d+)",
+                  src).group(1))
 
 
 def test_two_dimensional_operands_only():
