@@ -12,15 +12,20 @@ Phases, in order; the first failure exits non-zero:
 2. build every kernel of ``horovod_tpu_torch/csrc/`` (one nvcc each, in
    parallel) and print the build seconds, ptxas's registers, shared
    memory and spills by kernel, and the count of tensor-core
-   instructions (``mma.sync``'s HMMA, ``wgmma``'s HGMMA) in the flash
-   and matmul kernels' SASS where cuobjdump is installed;
+   instructions (``mma.sync``'s HMMA, ``wgmma``'s HGMMA) in the flash,
+   append+attend and matmul kernels' SASS where cuobjdump is installed;
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
    GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
    that skip one tile of the kernels' own tiling must fail the same
    check; B1-B3 and SDPA timed by CUDA events and by the profiler's
-   device time; LayerNorm backward at
-   [8192, 1024], the decode kernels at the serving shapes; the
+   device time; LayerNorm backward at [8192, 1024], dx row by row and
+   dgamma, dbeta per column, where sums that leave out one block of
+   its partition must fail; the decode kernels at the serving shapes,
+   B16 on its prefill (tensor cores) and decode (cluster) routes row by
+   row, where a prefill block that skips its last key tile or a
+   cluster that skips one CTA's span must fail, merged caches bitwise;
+   the
    BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise, the
    two reductions per channel, where sums that leave out one row block
    must fail; the int8 wire's kernels bitwise on the largest bucket of
@@ -67,8 +72,11 @@ Phases, in order; the first failure exits non-zero:
    continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
    32 new tokens each; 4 of them again one at a time must give the
    same tokens; a profiled window of 8 full-batch decode steps shows
-   where a step's time goes; the first-token logits must agree with
-   the plain (unfused, cache-free) forward of the same weights;
+   where a step's time goes; B16's launches must split by route as
+   the engine's calls say (prefills of 16 rows or more on the prefill
+   route, decode steps on the decode route); the first-token logits
+   must agree with the plain (unfused, cache-free) forward of the same
+   weights;
 7. a short serve on an int8 KV cache (4 requests);
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c and 5 and the serving runs of
@@ -250,60 +258,97 @@ def _rel_err(got, want):
 
 
 def check_layernorm_bwd(seed):
-    """B5 at the training path's rows: GPT-2 medium's 8 x 1024 tokens of
-    1024 channels, bf16, LayerNorm with beta and RMSNorm."""
+    """B5 at the training path's rows (GPT-2 medium's 8 x 1024 tokens of
+    1024 channels, bf16, LayerNorm with beta and RMSNorm), and on ragged
+    cases: float32 with C = 1000 and bf16 with C = 1001 (no 16-byte
+    chunks: the one-element loads). dx is held row by row to
+    ``FLASH_TOL`` of its dtype, dgamma and dbeta per column to
+    ``BN_RTOL`` of the sum of their terms' magnitudes (the plain
+    version's xhat); on the main cases a column sum that leaves out one
+    block of the kernel's partition (``ops/layernorm.py``
+    ``bwd_block_of_rows``) must fail that check."""
     from horovod_tpu_torch.ops import layernorm as ln
 
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
-    rows, c = 8192, 1024
-    tol = 1e-2  # max |err| / max |want|: bf16 dx, float32 column sums
-    for kind in ("layernorm", "rmsnorm"):
+    for rows, c, kind, dtype, timed in (
+            (8192, 1024, "layernorm", torch.bfloat16, True),
+            (8192, 1024, "rmsnorm", torch.bfloat16, True),
+            (4099, 1000, "layernorm", torch.float32, False),
+            (777, 1001, "layernorm", torch.bfloat16, False)):
         rms = kind == "rmsnorm"
+        rtol, atol = FLASH_TOL[dtype]
         x = (torch.randn(rows, c, generator=g, device="cuda") * 2 + 0.5).to(
-            torch.bfloat16)
-        dy = torch.randn(rows, c, generator=g, device="cuda").to(
-            torch.bfloat16)
+            dtype)
+        dy = torch.randn(rows, c, generator=g, device="cuda").to(dtype)
         gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
         got = ln.layer_norm_bwd_cuda(x, dy, gamma, 1e-5, rms, not rms)
         want = ln.layer_norm_bwd_ref(x, dy, gamma, 1e-5, rms, not rms)
         torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
-            if b is None:
+        name = f"{rows}x{c} {str(dtype)[6:]} {kind}"
+        for a, what in zip(got, ("dx", "dgamma", "dbeta")):
+            _require(a is None or bool(torch.isfinite(a).all()),
+                     f"layernorm_bwd {name}: {what} not finite")
+        dx_share = _row_share(got[0], want[0], rtol, atol).max().item()
+        xf, dyf = x.float(), dy.float()
+        mean, rstd = ln._stats(xf, c, 1e-5, rms)
+        terms = {"dgamma": dyf * ((xf - mean) * rstd), "dbeta": dyf}
+        reads, skips = {}, {}
+        blocks = ln.bwd_blocks(rows, sms)
+        block_of = ln.bwd_block_of_rows(rows, blocks).cuda()
+        for i, what in ((1, "dgamma"), (2, "dbeta")):
+            if want[i] is None:
                 continue
-            _require(bool(torch.isfinite(a).all()),
-                     f"layernorm_bwd {kind}: {name} not finite")
-            err, rel = _rel_err(a, b)
-            _require(rel <= tol, f"layernorm_bwd {kind}: {name} max err "
-                                 f"{err} ({rel:.2e} of max) > {tol}")
-            errs[name] = err
-        xl = x.detach().requires_grad_()
-        gb = gamma.to(torch.bfloat16).requires_grad_()
-        bb = None if rms else torch.zeros(c, device="cuda", dtype=torch.bfloat16,
-                                          requires_grad=True)
-        y = (F.rms_norm(xl, (c,), gb, 1e-5) if rms
-             else F.layer_norm(xl, (c,), gb, bb, 1e-5))
-        wrt = (xl, gb) if rms else (xl, gb, bb)
+            absum = terms[what].abs().sum(0)
+            reads[what] = _bn_reading(got[i], want[i], absum)
+            if timed:
+                skips[what] = _block_skip_reading(terms[what], absum,
+                                                  block_of)
+        row = {"case": name, "blocks": blocks,
+               "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, want)
+                                  if b is not None),
+               "dx_row_share_max": dx_share, "column_reading": reads,
+               "tol": f"dx per row: ||err|| <= {rtol} ||plain|| + {atol}; "
+                      f"dgamma, dbeta per column <= {BN_RTOL} x sum |terms|"}
+        if skips:
+            row["skip_reading"] = skips
+        print(json.dumps({"layernorm_bwd_case": row}))
+        _require(dx_share <= 1, f"layernorm_bwd {name}: a dx row is "
+                                f"{dx_share:.2f}x its tolerance")
+        for what, r in reads.items():
+            _require(r <= BN_RTOL, f"layernorm_bwd {name}: {what} reads "
+                                   f"{r:.2e} of its terms' magnitude > "
+                                   f"{BN_RTOL}")
+        for what, r in skips.items():
+            _require(r > BN_RTOL, f"layernorm_bwd {name}: a {what} that "
+                                  f"leaves out one block reads {r:.2e} <= "
+                                  f"{BN_RTOL} and would pass")
+        if timed:
+            xl = x.detach().requires_grad_()
+            gb = gamma.to(dtype).requires_grad_()
+            bb = None if rms else torch.zeros(c, device="cuda", dtype=dtype,
+                                              requires_grad=True)
+            y = (F.rms_norm(xl, (c,), gb, 1e-5) if rms
+                 else F.layer_norm(xl, (c,), gb, bb, 1e-5))
+            wrt = (xl, gb) if rms else (xl, gb, bb)
 
-        def lib(_=0):
-            torch.autograd.grad(y, wrt, dy, retain_graph=True)
+            def lib(_=0):
+                torch.autograd.grad(y, wrt, dy, retain_graph=True)
 
-        def kernel(_=0):
-            ln.layer_norm_bwd_cuda(x, dy, gamma, 1e-5, rms, not rms)
+            def kernel(_=0):
+                ln.layer_norm_bwd_cuda(x, dy, gamma, 1e-5, rms, not rms)
 
-        def plain(_=0):
-            ln.layer_norm_bwd_ref(x, dy, gamma, 1e-5, rms, not rms)
-        nbytes = 3 * rows * c * 2 + c * 4 * (2 if rms else 3)
-        bound, by = _bound(nbytes, rows * c * 20, "f32")
-        cases.append({
-            "case": f"{rows}x{c} bf16 {kind}", "max_abs_err": max(
-                errs.values()), "errs": errs,
-            "tol": f"{tol} of max |plain| per output",
-            "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, iters=10),
-            "library_ms": _device_ms(lib), "enqueue_ms": _time_ms(kernel),
-            "bound_ms": bound, "bound_by": by,
-        })
+            def plain(_=0):
+                ln.layer_norm_bwd_ref(x, dy, gamma, 1e-5, rms, not rms)
+            nbytes = 3 * rows * c * 2 + c * 4 * (2 if rms else 3)
+            bound, by = _bound(nbytes, rows * c * 20, "f32")
+            row.update(ms=_device_ms(kernel),
+                       plain_ms=_device_ms(plain, iters=10),
+                       library_ms=_device_ms(lib), enqueue_ms=_time_ms(kernel),
+                       bound_ms=bound, bound_by=by)
+        cases.append(row)
     return cases
 
 
@@ -558,16 +603,81 @@ def _sdpa(q, k_full, v_full, valid):
     return run
 
 
+def _attend_without(q, k, v, valid, drop):
+    """``cached_attention`` with the rows ``drop`` ``[B, M]`` left out of
+    every query's softmax, as a kernel that never reads them computes it
+    (a query left with no row gets 0)."""
+    d = q.shape[3]
+    rep = q.shape[2] // k.shape[1]
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    logits = torch.einsum("bthd,bhmd->bhtm", q, k).float() * float(
+        1.0 / np.sqrt(d))
+    logits = torch.where(valid[:, None], logits, -1e30)
+    logits = logits.masked_fill(drop[:, None, None], float("-inf"))
+    probs = torch.nan_to_num(torch.softmax(logits, -1), 0.0).to(q.dtype)
+    return torch.einsum("bhtm,bhmd->bthd", probs, v)
+
+
+def _b16_skip_reading(da, q, k_full, v_full, valid, want, kh, route,
+                      cluster, rtol, atol):
+    """What the per-row check reads on a B16 route that skips part of
+    its work, the plain version computing the rest:
+    ``prefill``: the block of the last query tile (``PREFILL_Q_TILE``
+    rows) leaves out the last key tile (``PREFILL_KEY_TILE`` rows) it
+    visits; ``decode``: in every (batch row, kv head) cluster of
+    ``cluster`` CTAs (as the entry point reported it), the last CTA with
+    rows leaves out its span (``decode_span``). The reading is the least, over the (batch row,
+    head) blocks or (batch row, kv head) clusters, of the largest row
+    share among the rows the skip touches: above 1, a skip in any one
+    block or cluster fails the check."""
+    b, t, h, _ = q.shape
+    m = k_full.shape[2]
+    pos_end = valid.sum(-1)  # [B, T]: rows each query reads
+    pos_end = torch.where(pos_end == 0, m, pos_end)  # p < 0 reads all M
+    j = torch.arange(m, device=q.device)
+    if route == "prefill":
+        q0 = (t - 1) // da.PREFILL_Q_TILE * da.PREFILL_Q_TILE
+        end = pos_end[:, q0:].amax(-1)  # [B]: the block's last row + 1
+        lo = (end - 1) // da.PREFILL_KEY_TILE * da.PREFILL_KEY_TILE
+        drop = (j[None] >= lo[:, None]) & (j[None] < end[:, None])
+        got = _attend_without(q[:, q0:], k_full, v_full, valid[:, q0:],
+                              drop)
+        share = _row_share(got, want[:, q0:], rtol, atol)  # [B, T', H]
+        return share.amax(1).min().item()
+    r = pos_end.amax(-1)  # [B]
+    span = da.decode_span(r, cluster)
+    lo = (r - 1) // span * span  # the last CTA with rows
+    drop = (j[None] >= lo[:, None]) & (j[None] < r[:, None])
+    got = _attend_without(q, k_full, v_full, valid, drop)
+    share = _row_share(got, want, rtol, atol)  # [B, T, H]
+    rep = h // kh
+    return share.reshape(b, t, kh, rep).amax(dim=(1, 3)).min().item()
+
+
 def check_append_attend(seed):
+    """B16 on its two bf16 routes at the serving shapes (GPT-2 small: 12
+    heads of 64, 8 slots x 1024; prefill buckets of 512 and 1024 through
+    a float32 cache, and of 8, which takes the decode route), on a bf16
+    and a float32 cache, and on ragged GQA cases whose repeated and
+    out-of-range positions reach both routes' gather paths; a decode
+    call with 288 query rows a kv group (more than a CTA's threads); and
+    on the CUDA-core route: float32 compute at the decode shape, a head
+    dim of 80, and a decode call whose 480 query rows a kv group the
+    decode route refuses. The merged
+    caches must be bitwise equal to the plain version's and each output
+    row within ``FLASH_TOL``; on the main cases a route that skips its
+    last key tile (prefill) or one CTA's span (decode) must fail that
+    check. Timed as device time (profiler) beside CUDA events."""
     from horovod_tpu_torch.ops import decode_attention as da
 
     rng = np.random.RandomState(seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     cases = []
-    L, KH, H, D = 12, 12, 12, 64
-    atol = 4e-3  # bf16 outputs of magnitude ~0.1: summation order only
 
-    def case(name, slots, m, t, cache_dtype, pos):
+    def case(name, slots, m, t, cache_dtype, pos, route, skip=False,
+             timed=True, L=12, KH=12, H=12, D=64, qdtype=torch.bfloat16):
+        rtol, atol = FLASH_TOL[qdtype]
         shape = (slots, L, KH, m, D)
         if cache_dtype == torch.float32 and t == m:
             k0 = torch.zeros(shape, device="cuda")       # prefill's cache
@@ -578,43 +688,109 @@ def check_append_attend(seed):
             v0 = torch.randn(shape, generator=g, device="cuda").to(
                 cache_dtype)
         q = torch.randn(slots, t, H, D, generator=g, device="cuda").to(
-            torch.bfloat16)
+            qdtype)
         kn = torch.randn(slots, t, KH, D, generator=g, device="cuda").to(
-            torch.bfloat16)
+            qdtype)
         vn = torch.randn(slots, t, KH, D, generator=g, device="cuda").to(
-            torch.bfloat16)
+            qdtype)
         posd = torch.from_numpy(pos).cuda()
         kk, vk = k0.clone(), v0.clone()
         kr, vr = k0.clone(), v0.clone()
+        da.reset_route_launches()
         got = da.append_attend_cuda(q, kk[:, 0], vk[:, 0], kn, vn, posd)
+        routes = {r: n for r, n in da.ROUTE_LAUNCHES.items() if n}
+        cluster = da.LAST_LAUNCH["cluster"]
         want = da.append_attend_ref(q, kr[:, 0], vr[:, 0], kn, vn, posd)
         torch.cuda.synchronize()
+        _require(routes == {route: 1},
+                 f"append_attend {name}: took route {routes}, expected "
+                 f"{route}")
         _require(bool(torch.equal(kk, kr)) and bool(torch.equal(vk, vr)),
                  f"append_attend {name}: merged cache differs")
-        err = (got.float() - want.float()).abs().max().item()
-        _require(err <= atol, f"append_attend {name}: max err {err} > "
-                              f"{atol}")
+        _require(bool(torch.isfinite(got).all()),
+                 f"append_attend {name}: output not finite")
+        share = _row_share(got, want, rtol, atol)
         k_full, v_full, valid = da.append_rows_ref(
-            kr[:, 0], vr[:, 0], kn, vn, posd, torch.bfloat16)
-        cb = 4 if cache_dtype == torch.float32 else 2
-        nbytes, ops = _attn_bytes_ops(pos, m, H, KH, D, 2, D * cb)
-        bound, by = _bound(nbytes, ops, "bf16")
-        cases.append({
-            "case": name, "max_abs_err": err, "tol": atol,
+            k0[:, 0].clone(), v0[:, 0].clone(), kn, vn, posd, qdtype)
+        skip_share = (_b16_skip_reading(da, q, k_full, v_full, valid, want,
+                                        KH, route, cluster, rtol, atol)
+                      if skip else None)
+        row = {"case": name, "route": route, "cluster": cluster,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "row_share_max": share.max().item(),
+               "row_rel_l2_max": _row_rel(got, want, rtol, atol),
+               "tol": f"per row: ||err|| <= {rtol} ||plain|| + {atol}; "
+                      "merged caches bitwise"}
+        if skip:
+            row["skip_share_min"] = skip_share
+        print(json.dumps({"append_attend_case": row}))
+        _require(row["row_share_max"] <= 1,
+                 f"append_attend {name}: a row is {row['row_share_max']:.2f}x "
+                 "its tolerance from the plain version")
+        _require(skip_share is None or skip_share > 1,
+                 f"append_attend {name}: the {route} route skipping part of "
+                 f"its rows reads {skip_share}x the tolerance and would pass")
+        if timed:
+            cb = 4 if cache_dtype == torch.float32 else 2
+            nbytes, ops = _attn_bytes_ops(pos, m, H, KH, D, 2, D * cb)
+            bound, by = _bound(nbytes, ops, "bf16")
+
             # rotate over the 12 layers' slices: a decode step finds
             # each layer's slice cold in L2, as here
-            "ms": _time_ms(lambda i=0: da.append_attend_cuda(
-                q, kk[:, i % L], vk[:, i % L], kn, vn, posd)),
-            "plain_ms": _time_ms(lambda i=0: da.append_attend_ref(
-                q, kr[:, i % L], vr[:, i % L], kn, vn, posd), iters=10),
-            "library_ms": _time_ms(_sdpa(q, k_full, v_full, valid)),
-            "bound_ms": bound, "bound_by": by,
-        })
+            def kern(i=0):
+                da.append_attend_cuda(q, kk[:, i % L], vk[:, i % L], kn, vn,
+                                      posd)
+            lib = _sdpa(q, k_full, v_full, valid)
+            row.update(
+                ms=_device_ms(kern), events_ms=_time_ms(kern),
+                plain_ms=_time_ms(lambda i=0: da.append_attend_ref(
+                    q, kr[:, i % L], vr[:, i % L], kn, vn, posd), iters=10),
+                library_ms=_device_ms(lib), library_events_ms=_time_ms(lib),
+                bound_ms=bound, bound_by=by)
+        cases.append(row)
 
+    dec = rng.randint(32, 1024, size=(8, 1)).astype(np.int32)
     case("decode B=8 T=1 M=1024 bf16 cache", 8, 1024, 1, torch.bfloat16,
-         rng.randint(32, 1024, size=(8, 1)).astype(np.int32))
-    case("prefill B=1 T=M=512 f32 cache", 1, 512, 512, torch.float32,
-         np.arange(512, dtype=np.int32)[None])
+         dec, "decode", skip=True)
+    case("decode B=8 T=1 M=1024 f32 cache (the engine's default)", 8, 1024,
+         1, torch.float32, dec, "decode")
+    for t in (512, 1024):
+        case(f"prefill B=1 T=M={t} f32 cache", 1, t, t, torch.float32,
+             np.arange(t, dtype=np.int32)[None], "prefill", skip=True)
+    case("prefill bucket 8: B=1 T=M=8 f32 cache (decode route, 8 CTAs)",
+         1, 8, 8, torch.float32, np.arange(8, dtype=np.int32)[None],
+         "decode", timed=False)
+    # ragged GQA: repeated positions, one past M and one below 0
+    pre = np.stack([np.arange(10, 34), rng.randint(0, 160, 24)]).astype(
+        np.int32)
+    pre[0, 5] = pre[0, 4]
+    pre[0, 20] = 171
+    pre[1, 3] = -1
+    pre[1, 7] = pre[1, 6]
+    gqa = dict(timed=False, L=2, KH=2, H=8)
+    for cd, cname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        case(f"prefill ragged B=2 H=8 KH=2 M=160 T=24 {cname} cache", 2, 160,
+             24, cd, pre, "prefill", skip=True, **gqa)
+        case(f"decode ragged B=2 H=8 KH=2 M=160 T=3 {cname} cache", 2, 160,
+             3, cd, np.array([[50, 50, 170], [-1, 7, 100]], np.int32),
+             "decode", skip=True, **gqa)
+    # a kv group of 32 heads: T = 9 gives 288 query rows, more than a
+    # decode CTA's 256 threads; T = 15 gives 480, whose shared memory the
+    # decode route refuses, so the call runs on the CUDA cores
+    wide = dict(timed=False, L=1, KH=1, H=32)
+    pw = np.array([[3, 3, 40, 90, 127, 128, -1, 60, 61]], np.int32)
+    case("decode B=1 H=32 KH=1 M=128 T=9 bf16 cache (288 query rows)", 1,
+         128, 9, torch.bfloat16, pw, "decode", skip=True, **wide)
+    case("decode refused: B=1 H=32 KH=1 M=128 T=15 bf16 cache (CUDA cores)",
+         1, 128, 15, torch.bfloat16,
+         np.concatenate([pw, [[70, 71, 71, 100, 5, 126]]], 1), "cuda_core",
+         **wide)
+    # float32 compute and a head dim the bf16 routes are not built for
+    case("decode B=8 T=1 M=1024 f32 compute, f32 cache (CUDA cores)", 8,
+         1024, 1, torch.float32, dec, "cuda_core", timed=False,
+         qdtype=torch.float32)
+    case("ragged B=2 H=8 KH=2 M=160 T=24 D=80 f32 cache (CUDA cores)", 2, 160,
+         24, torch.float32, pre, "cuda_core", D=80, **gqa)
     return cases
 
 
@@ -669,17 +845,21 @@ def check_append_attend_int8(seed):
             torch.bfloat16)
         nbytes, ops = _attn_bytes_ops(pos, M, H, KH, D, 2, D + 4 * nb)
         bound, by = _bound(nbytes, ops, "bf16")
+
+        def kern(i=0):
+            da.append_attend_int8_cuda(
+                q, kk[:, i % L], ksk[:, i % L], vk[:, i % L], vsk[:, i % L],
+                kn, vn, posd, block)
+        lib = _sdpa(q, k_full, v_full, valid)
         cases.append({
             "case": f"decode B=8 T=1 M=1024 int8 cache block {block}",
             "max_abs_err": err, "tol": atol,
             "codes_scales": "bitwise",
-            "ms": _time_ms(lambda i=0: da.append_attend_int8_cuda(
-                q, kk[:, i % L], ksk[:, i % L], vk[:, i % L], vsk[:, i % L],
-                kn, vn, posd, block)),
+            "ms": _device_ms(kern), "events_ms": _time_ms(kern),
             "plain_ms": _time_ms(lambda i=0: da.append_attend_int8_ref(
                 q, kr[:, i % L], ksr[:, i % L], vr[:, i % L], vsr[:, i % L],
                 kn, vn, posd, block), iters=10),
-            "library_ms": _time_ms(_sdpa(q, k_full, v_full, valid)),
+            "library_ms": _device_ms(lib), "library_events_ms": _time_ms(lib),
             "bound_ms": bound, "bound_by": by,
         })
     return cases
@@ -720,16 +900,23 @@ def _bn_reading(got, want, terms_abs):
     return ((got - want).abs() / terms_abs.clamp_min(1e-30)).max().item()
 
 
-def _bn_skip_reading(terms, terms_abs, rows_per_block):
-    """What the per-channel check reads on a sum that leaves out one row
-    block of the kernel's: the least, over the blocks, of the block's
-    largest per-channel share. Above BN_RTOL, leaving out any one block
-    fails the check."""
+def _block_skip_reading(terms, terms_abs, block_of):
+    """What the per-channel (per-column) check reads on a sum that
+    leaves out one block of a kernel's rows, ``block_of`` giving each
+    row's block: the least, over the blocks, of the block's largest
+    per-channel share. Above the limit, leaving out any one block fails
+    the check."""
     n, c = terms.shape
-    pad = (-n) % rows_per_block
-    blocks = torch.cat([terms, terms.new_zeros(pad, c)]).reshape(
-        -1, rows_per_block, c).sum(1)
+    blocks = terms.new_zeros(int(block_of.max()) + 1, c).index_add_(
+        0, block_of, terms)
     return (blocks.abs() / terms_abs.clamp_min(1e-30)).amax(1).min().item()
+
+
+def _bn_skip_reading(terms, terms_abs, rows_per_block):
+    """:func:`_block_skip_reading` over row blocks of ``rows_per_block``
+    consecutive rows (the BatchNorm reductions' partition)."""
+    block_of = torch.arange(terms.shape[0], device=terms.device)
+    return _block_skip_reading(terms, terms_abs, block_of // rows_per_block)
 
 
 def check_batchnorm(seed):
@@ -1415,8 +1602,9 @@ def _injected_fault(name):
     ``dkv_last_q_tile``: B3's loop over q tiles ends one streamed tile
     early in every block (the last tile's queries, 64 at GPT-2's
     head_dim in bf16, add nothing to dK, dV);
-    ``ln_last_block``: B5's column sums stop one block short (the last
-    block's rows add nothing to dgamma, dbeta)."""
+    ``ln_last_block``: B5's column sums leave out the last block of its
+    partition (``ops/layernorm.py`` ``bwd_block_of_rows``: that block's
+    rows add nothing to dgamma, dbeta)."""
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import layernorm as ln
 
@@ -1441,9 +1629,10 @@ def _injected_fault(name):
         def faulty(x2, dy2, gamma, eps, rms, with_beta):
             dx, dg, db = orig(x2, dy2, gamma, eps, rms, with_beta)
             n = x2.shape[0]
-            rows = -(-n // min(n, ln._BWD_MAX_BLOCKS))
-            last = n - (-(-n // rows) - 1) * rows
-            _, pg, pb = ln.layer_norm_bwd_ref(x2[-last:], dy2[-last:], gamma,
+            blocks = ln.bwd_blocks(n, ln._sm_count(x2.device))
+            last = (ln.bwd_block_of_rows(n, blocks) == blocks - 1).to(
+                x2.device)
+            _, pg, pb = ln.layer_norm_bwd_ref(x2[last], dy2[last], gamma,
                                               eps, rms, with_beta)
             return dx, dg - pg, None if db is None else db - pb
     else:
@@ -2497,22 +2686,59 @@ def _pct(xs, p):
     return float(np.percentile(np.asarray(xs, dtype=np.float64), p))
 
 
+@contextlib.contextmanager
+def _engine_calls(engine):
+    """Count the engine's prefills (by bucket) and decode steps."""
+    calls = {"prefill_buckets": [], "decode_steps": 0}
+    prefill, decode = engine._prefill, engine.decode
+
+    def counted_prefill(slot, padded, n):
+        calls["prefill_buckets"].append(int(padded.shape[1]))
+        return prefill(slot, padded, n)
+
+    def counted_decode(*args, **kwargs):
+        calls["decode_steps"] += 1
+        return decode(*args, **kwargs)
+    engine._prefill, engine.decode = counted_prefill, counted_decode
+    try:
+        yield calls
+    finally:
+        del engine._prefill, engine.decode
+
+
 def serve(engine, prompts, max_new, label, ledger):
     """Serve ``prompts`` through the scheduler with the launch counts
-    zeroed just before and read just after; returns the tokens."""
+    zeroed just before and read just after; returns the tokens. B16's
+    launches must split by route as the engine's calls say: one a layer
+    on the prefill route for each prefill of 16 rows or more, on the
+    decode route for each shorter prefill and, on a float cache, each
+    decode step."""
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import decode_attention as da
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
 
     sched = DecodeScheduler(engine, queue_limit=len(prompts),
                             default_timeout_s=600.0, stats_every=0)
     torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    reqs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
-    _drive(sched, reqs, 100 * max_new * len(prompts))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _engine_calls(engine) as calls:
+        _build.reset_launches()
+        da.reset_route_launches()
+        t0 = time.perf_counter()
+        reqs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+        _drive(sched, reqs, 100 * max_new * len(prompts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     ledger[label] = dict(_build.LAUNCHES)
+    layers = engine.cfg.num_layers
+    long = sum(b >= da.PREFILL_MIN_T for b in calls["prefill_buckets"])
+    short = len(calls["prefill_buckets"]) - long
+    fp_cache = engine.spec.dtype != "int8"
+    want = {"cuda_core": 0, "prefill": layers * long,
+            "decode": layers * (short + fp_cache * calls["decode_steps"])}
+    routes = dict(da.ROUTE_LAUNCHES)
+    _require(routes == want, f"{label}: append_attend routes {routes}, "
+                             f"expected {want} from the engine's calls "
+                             f"{calls}")
     outs = []
     for r in reqs:
         toks, reason = r.result(0.0)
@@ -2533,6 +2759,9 @@ def serve(engine, prompts, max_new, label, ledger):
              "ttft_max_ms": max(ttft) * 1e3,
              "tpot_p50_ms": _pct(tpot, 50) * 1e3,
              "tpot_max_ms": max(tpot) * 1e3,
+             "prefills": len(calls["prefill_buckets"]),
+             "decode_steps": calls["decode_steps"],
+             "append_attend_routes": routes,
              "scheduler": sched.stats()}
     print(json.dumps(stats))
     return outs
@@ -2695,7 +2924,10 @@ def print_sass_mma(_build, names):
     named libraries, with ``cuobjdump`` where it is installed:
     ``mma.sync``'s ``HMMA`` and ``wgmma``'s ``HGMMA`` (the substring
     "HMMA" does not match "HGMMA"). A kernel that reads 0 of both does
-    not use the tensor cores. Informational; never fails."""
+    not use the tensor cores. Also counts its local-memory (register
+    spill) instructions ``LDL``/``STL``, and how many of them lie inside
+    a loop (between a backward branch and its target), where they cost
+    on every iteration. Informational; never fails."""
     tool = _cuobjdump()
     if tool is None:
         print("sass: cuobjdump is absent (CUDA toolkit, triton); HMMA "
@@ -2704,14 +2936,28 @@ def print_sass_mma(_build, names):
     for name in names:
         res = subprocess.run([tool, "-sass", str(_build._target(name))],
                              capture_output=True, text=True, timeout=300)
-        counts, fn = {}, None
+        counts, fn, local, loops = {}, None, {}, {}
         for line in res.stdout.splitlines():
             if "Function :" in line:
                 fn = _kernel_name(line.split("Function :")[1].strip())
                 counts[fn] = {"HMMA": 0, "HGMMA": 0}
+                local[fn], loops[fn] = [], []
             elif fn is not None:
-                for op in counts[fn]:
+                for op in ("HMMA", "HGMMA"):
                     counts[fn][op] += op in line
+                at = re.search(r"/\*([0-9a-f]{4,})\*/", line)
+                if at is None:
+                    continue
+                here = int(at.group(1), 16)
+                if re.search(r"\b(LDL|STL)\b", line):
+                    local[fn].append(here)
+                br = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", line)
+                if br and int(br.group(1), 16) <= here:
+                    loops[fn].append((int(br.group(1), 16), here))
+        for fn, at in local.items():
+            counts[fn]["LDL+STL"] = len(at)
+            counts[fn]["LDL+STL in loops"] = sum(
+                any(lo <= x <= hi for lo, hi in loops[fn]) for x in at)
         print(json.dumps({"sass_mma": name, "tool": tool,
                           "rc": res.returncode, "counts": counts}))
 
@@ -2812,7 +3058,7 @@ def main(argv=None) -> int:
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     print_ptxas(_build, secs)
     print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                            "matmul_pack"))
+                            "append_attend", "matmul_pack"))
     if args.parity_sweep:
         parity_sweep(args.parity_sweep)
         return 0

@@ -13,7 +13,11 @@ The plain version is the cache update followed by the cached attention
 ``SlottedKVCache.update`` runs exactly these merges. Dispatch is by the
 device of ``q``: a CUDA tensor launches ``csrc/append_attend.cu`` (float
 cache) or ``csrc/append_attend_int8.cu`` (int8 cache), or raises; a CPU
-tensor runs the plain version.
+tensor runs the plain version. In bf16, ``csrc/append_attend.cu`` takes
+one of two routes (its C entry point picks and reports it): the
+tensor-core prefill for calls of ``PREFILL_MIN_T`` or more new rows a
+batch row, the cluster decode for fewer; float32 compute, and a call
+whose shapes the route for its T refuses, run on the CUDA cores.
 
 The port reads no ``HOROVOD_FUSED_COLLECTIVES``: the card always runs
 the kernel.
@@ -36,6 +40,43 @@ from ..optim.compression import dequantize_blocks, quantize_blocks
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The routes of csrc/append_attend.cu (the C entry point picks one and
+# reports it) and their tiling, for callers that emulate a route
+# skipping part of its work (chip_smoke.py);
+# tests/test_torch_kernels.py holds each to its ``constexpr`` there.
+#: route codes the entry point reports, by index: the CUDA-core kernel
+#: (float32 compute, other head_dims, calls the other routes refuse), the
+#: tensor-core prefill and the cluster decode (both bf16 compute)
+ROUTES = ("cuda_core", "prefill", "decode")
+#: launches by route since the last :func:`reset_route_launches`
+ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
+#: the last launch's route and the CTAs of its decode clusters (0 on the
+#: other routes), as the entry point reported them
+LAST_LAUNCH = {"route": None, "cluster": 0}
+#: prefill: query rows a block holds (kQueryTile) and merged rows of a
+#: streamed K/V tile (kKeyTile)
+PREFILL_Q_TILE = 64
+PREFILL_KEY_TILE = 64
+#: bf16 calls with at least this many new rows per batch row take the
+#: prefill route, fewer the decode route (kPrefillMinT)
+PREFILL_MIN_T = 16
+#: CTAs of a decode cluster, at most (kMaxCluster): the entry point
+#: takes the least of 1, 2, 4, 8 with ``B * KH * C`` >= the card's SM
+#: count, 8 where none reaches it, and reports it in :data:`LAST_LAUNCH`
+DECODE_MAX_CLUSTER = 8
+
+
+def decode_span(r: int, c: int) -> int:
+    """Rows each CTA of a ``c``-CTA cluster owns of a batch row whose
+    queries read the rows ``[0, r)``: ``ceil(r / c)``, CTA k taking
+    ``[k * span, (k + 1) * span)`` (the last may be short)."""
+    return -(-r // c)
+
+
+def reset_route_launches() -> None:
+    for r in ROUTES:
+        ROUTE_LAUNCHES[r] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +189,9 @@ def _lib_fp():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, p,
-                       i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+                       i, i, i, i, i, i, ctypes.c_float, i, i, i, p,
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
     return lib
 
@@ -203,7 +246,8 @@ def append_attend_cuda(q, k_buf, v_buf, k_new, v_new, positions):
     """Launch ``csrc/append_attend.cu``: merge the new rows into the
     float32/bfloat16 cache slices ``k_buf``/``v_buf`` ``[B, KH, M, D]``
     in place and return the attention output ``[B, T, H, D]`` in
-    ``q``'s dtype (the compute dtype)."""
+    ``q``'s dtype (the compute dtype). The route the kernel took is
+    counted in :data:`ROUTE_LAUNCHES`."""
     m, d = k_buf.shape[2], k_buf.shape[3]
     b, t, h, kh, pos = _check_inputs(
         q, k_new, v_new, positions,
@@ -215,14 +259,18 @@ def append_attend_cuda(q, k_buf, v_buf, k_new, v_new, positions):
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty_like(q)
     lib = _lib_fp()
+    route, cluster = ctypes.c_int(-1), ctypes.c_int(0)
     err = lib.hvd_append_attend(
         q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(), k_buf.stride(0),
         k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, t, h, kh, m, d, float(1.0 / np.sqrt(d)), _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_buf.dtype], q.device.index,
-        _build.stream_handle(q.device))
+        _build.stream_handle(q.device), ctypes.byref(route),
+        ctypes.byref(cluster))
     _build.check(lib, err, "append_attend")
     _build.LAUNCHES["append_attend"] += 1
+    ROUTE_LAUNCHES[ROUTES[route.value]] += 1
+    LAST_LAUNCH.update(route=ROUTES[route.value], cluster=cluster.value)
     return out
 
 

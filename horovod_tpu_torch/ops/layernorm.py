@@ -30,11 +30,53 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-#: rows of the backward's per-block column sums: at most this many
-#: blocks, so the second pass reads a small ``[blocks, C]`` scratch
-_BWD_MAX_BLOCKS = 256
-#: the backward kernel keeps 16 columns per thread of 256 in registers
+# The backward kernel's partition (csrc/layernorm_bwd.cu; held to its
+# ``constexpr``s by tests/test_torch_kernels.py): a warp per row, warp w
+# of block k taking rows k * BWD_WARPS + w, + blocks * BWD_WARPS, ...
+#: warps of a block (csrc/layernorm_bwd.cu kWarps)
+BWD_WARPS = 8
+#: blocks per SM (csrc/layernorm_bwd.cu kBlocksPerSm): the grid is this
+#: multiple of the SM count, or fewer blocks where the rows run out
+BWD_BLOCKS_PER_SM = 1
+#: a lane keeps at most 128 columns (kMaxCols) in registers
 _BWD_MAX_C = 4096
+
+_SM_COUNT = {}
+_TICKETS = {}
+
+
+def bwd_blocks(n: int, sm_count: int) -> int:
+    """Blocks of the backward kernel for ``n`` rows on a card of
+    ``sm_count`` SMs; block k writes row k of the ``[blocks, C]``
+    column-sum scratch."""
+    return max(1, min(BWD_BLOCKS_PER_SM * sm_count, -(-n // BWD_WARPS)))
+
+
+def bwd_block_of_rows(n: int, blocks: int) -> torch.Tensor:
+    """The block of the backward kernel that sums each of ``n`` rows
+    into dgamma and dbeta (int64 ``[n]``)."""
+    r = torch.arange(n)
+    return (r % (blocks * BWD_WARPS)) // BWD_WARPS
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The zeroed counter of the backward's last block, one per device
+    and stream (the kernel leaves it zeroed; launches on one stream run
+    in order)."""
+    key = (device.index, _build.stream_handle(device))
+    t = _TICKETS.get(key)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def _stats(xf: torch.Tensor, c: int, eps: float, rms: bool):
@@ -97,7 +139,7 @@ def _lib(name: str, argtypes):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P]
-_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
              _P]
 
 
@@ -160,8 +202,7 @@ def layer_norm_bwd_cuda(x2: torch.Tensor, dy2: torch.Tensor,
     db = torch.empty_like(dg) if with_beta else None
     if n == 0:
         return dx, dg.zero_(), None if db is None else db.zero_()
-    rows_per_block = -(-n // min(n, _BWD_MAX_BLOCKS))
-    blocks = -(-n // rows_per_block)
+    blocks = bwd_blocks(n, _sm_count(x2.device))
     dg_part = torch.empty(blocks, c, dtype=torch.float32, device=x2.device)
     db_part = torch.empty_like(dg_part) if with_beta else None
     lib = _lib("layernorm_bwd", _BWD_ARGS)
@@ -169,7 +210,7 @@ def layer_norm_bwd_cuda(x2: torch.Tensor, dy2: torch.Tensor,
         x2.data_ptr(), dy2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
         dg.data_ptr(), db.data_ptr() if with_beta else None,
         dg_part.data_ptr(), db_part.data_ptr() if with_beta else None,
-        n, c, rows_per_block, blocks, float(eps), int(rms),
+        _ticket(x2.device).data_ptr(), n, c, blocks, float(eps), int(rms),
         _DTYPE_CODES[x2.dtype], x2.device.index,
         _build.stream_handle(x2.device))
     _build.check(lib, err, "layernorm_bwd")

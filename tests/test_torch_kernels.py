@@ -11,10 +11,14 @@ inputs:
   kernels, with and without beta, float32 and bfloat16;
 * the int8 block quantize/dequantize, bitwise;
 * the decode append+attend vs the Pallas append+attend kernels forced
-  on (float32, bfloat16 and int8 caches, GQA, T=1 and T=8, a position
-  past the cache): merged buffers, codes and scales bitwise, the
-  float32 output within 1e-6.
+  on (float32, bfloat16 and int8 caches, GQA, T=1, 8, 16 and 20,
+  repeated positions and positions past the cache): merged buffers,
+  codes and scales bitwise, the float32 output within 1e-6;
+* the kernels' exported tiling and partitions against their sources.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +33,7 @@ from horovod_tpu.optim import compression as jcomp
 from horovod_tpu.serving.decode import KVCacheSpec as JaxSpec
 from horovod_tpu.serving.decode import SlottedKVCache as JaxCache
 from horovod_tpu_torch.ops import decode_attention as tda
+from horovod_tpu_torch.ops import layernorm as ln_mod
 from horovod_tpu_torch.ops.layernorm import (fused_layer_norm,
                                               layer_norm_bwd_cuda,
                                               layer_norm_bwd_ref)
@@ -160,6 +165,68 @@ def test_layer_norm_backward_matches_pallas(dtype, kind, with_beta):
                                    atol=sum_tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_backward_wide_ragged_row_matches_pallas(dtype):
+    """C = 1000, not a multiple of 32 x 8 (the card's kernel takes its
+    one-element loads or a partial last chunk there): the plain version
+    of B5 against ``jax.vjp`` of the Pallas kernels, 9 rows, with beta;
+    tolerances as in the 40-channel case."""
+    rs = np.random.RandomState(5)
+    x = (rs.randn(9, 1000) * 3 + 1.5).astype(np.float32)
+    g = (1 + 0.1 * rs.randn(1000)).astype(np.float32)
+    b = (0.1 * rs.randn(1000)).astype(np.float32)
+    dy = rs.randn(9, 1000).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, g_, b_: jax_fused_layer_norm(
+        x_, g_, b_, eps=1e-5, kind="layernorm"),
+        jnp.asarray(x).astype(_JNP[dtype]), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(dy).astype(_JNP[dtype]))
+    got = layer_norm_bwd_ref(torch.from_numpy(x).to(_TORCH[dtype]),
+                             torch.from_numpy(dy).to(_TORCH[dtype]),
+                             torch.from_numpy(g), 1e-5, False, True)
+    dx, jdx = _to_f32(got[0]), _to_f32(want[0])
+    if dtype == "float32":
+        np.testing.assert_allclose(dx, jdx, rtol=0, atol=2e-6)
+        sum_tol = 1e-5
+    else:
+        assert np.all(np.abs(dx - jdx) <= _bf16_ulp(
+            np.maximum(np.abs(dx), np.abs(jdx))) + 1e-6), \
+            f"bf16 dx off by {_ulps_apart(dx, jdx).max()} ulps"
+        sum_tol = 1e-4
+    for t, j in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(_to_f32(t), _to_f32(j), rtol=0,
+                                   atol=sum_tol)
+
+
+def _constexpr(src, name):
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_layer_norm_bwd_partition_is_the_kernels():
+    """The partition ``ops/layernorm.py`` exports (``chip_smoke.py``
+    emulates a column sum that leaves out one block with it) is the
+    ``constexpr`` partition of ``csrc/layernorm_bwd.cu``: warps a block,
+    blocks an SM, a warp per row walking rows ``block * warps + warp``,
+    ``+ blocks * warps``, ..."""
+    src = (pathlib.Path(ln_mod.__file__).resolve().parent.parent / "csrc"
+           / "layernorm_bwd.cu").read_text()
+    assert ln_mod.BWD_WARPS == _constexpr(src, "kWarps")
+    assert ln_mod.BWD_BLOCKS_PER_SM == _constexpr(src, "kBlocksPerSm")
+    assert "int r = blockIdx.x * kWarps + warp;" in src
+    assert "const int n_warps = gridDim.x * kWarps;" in src
+    assert "r += n_warps" in src
+    assert ln_mod.bwd_blocks(8192, 132) == 132 * ln_mod.BWD_BLOCKS_PER_SM
+    assert ln_mod.bwd_blocks(20, 132) == 3
+    blocks = ln_mod.bwd_blocks(8192, 132)
+    of = ln_mod.bwd_block_of_rows(8192, blocks)
+    nw = blocks * ln_mod.BWD_WARPS
+    for r in (0, 7, 8, nw - 1, nw, 8191):
+        assert of[r].item() == (r % nw) // ln_mod.BWD_WARPS
+    # every block sums rows, and each row exactly once
+    assert torch.bincount(of, minlength=blocks).min().item() > 0
+
+
 def test_layer_norm_bwd_ref_is_the_autograd_backward():
     """layer_norm_bwd_ref (what the card's B5 is held to) is exactly the
     CPU backward of fused_layer_norm, with and without beta."""
@@ -246,6 +313,14 @@ _CASES = {
     "int8_t8_past_end": ("int8", "float32",
                          [list(range(3, 11)), list(range(9, 17))]),
     "int8_t1_bf16compute": ("int8", "bfloat16", [[7], [1]]),
+    # the engine's prefill: a float32 cache filled whole, bf16 compute
+    # (T = 16 is the first T of the card's prefill route)
+    "fp32_t16_prefill_bf16compute": ("fp32", "bfloat16",
+                                     [list(range(16)), list(range(16))]),
+    # T = 20 > M: repeated positions and positions past the cache
+    "bf16_t20_dup_past_end": ("bf16", "bfloat16",
+                              [list(range(18)) + [5, 17],
+                               [2, 2] + list(range(3, 21))]),
 }
 
 
@@ -319,6 +394,32 @@ def test_append_attend_ref_matches_pallas(case, monkeypatch):
     else:
         assert np.all(np.abs(got - want) <= _bf16_ulp(want)), \
             f"{case}: bf16 output differs by more than one bf16 ulp"
+
+
+def test_append_attend_tiling_is_the_kernels():
+    """The routes and tiling ``ops/decode_attention.py`` exports
+    (``chip_smoke.py`` emulates a prefill block that skips its last key
+    tile and a decode cluster that skips one CTA's span with them) are
+    those of ``csrc/append_attend.cu``: the route codes, the prefill
+    query and key tiles, the T from which bf16 calls take the prefill
+    route, the decode cluster's largest size (the entry point reports
+    the size it launched) and its span rule."""
+    src = (pathlib.Path(tda.__file__).resolve().parent.parent / "csrc"
+           / "append_attend.cu").read_text()
+    m = re.search(r"enum Route : int \{ kRouteCudaCores = (\d), "
+                  r"kRoutePrefill = (\d), kRouteDecode = (\d) \}", src)
+    assert m
+    assert [tda.ROUTES[int(i)] for i in m.groups()] == [
+        "cuda_core", "prefill", "decode"]
+    assert tda.PREFILL_Q_TILE == _constexpr(src, "kQueryTile")
+    assert tda.PREFILL_KEY_TILE == _constexpr(src, "kKeyTile")
+    assert tda.PREFILL_MIN_T == _constexpr(src, "kPrefillMinT")
+    assert tda.DECODE_MAX_CLUSTER == _constexpr(src, "kMaxCluster")
+    assert re.search(r"decode_span\(int R, int C\)\s*\{\s*"
+                     r"return \(R \+ C - 1\) / C;", src)
+    # a prefill block's rows are whole m16 tiles of its warps
+    assert tda.PREFILL_Q_TILE % 16 == 0 and tda.PREFILL_KEY_TILE % 16 == 0
+    assert tda.decode_span(530, 2) == 265 and tda.decode_span(1, 8) == 1
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
