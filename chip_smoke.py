@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --parity-sweep 8   # the parity limits' readings
+    python3 chip_smoke.py --profiles         # decode and ResNet profiles only
 
 Phases, in order; the first failure exits non-zero:
 
@@ -22,11 +23,12 @@ Phases, in order; the first failure exits non-zero:
    device time; LayerNorm backward at [8192, 1024], dx row by row and
    dgamma, dbeta per column, where sums that leave out one block of
    its partition must fail; the decode kernels at the serving shapes,
-   B16 on its prefill (tensor cores) and decode (cluster) routes row by
-   row, where a prefill block that skips its last key tile or a
-   cluster that skips one CTA's span must fail, merged caches bitwise;
-   the
-   BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise, the
+   B16 on its prefill (tensor cores) and decode (cluster) routes and
+   B17 on the same decode route, row by row, where a prefill block that
+   skips its last key tile or a cluster that skips one CTA's span must
+   fail, merged caches (B17: codes and scales) bitwise; the
+   BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise (dx
+   folding its constants from the statistics), the
    two reductions per channel, where sums that leave out one row block
    must fail; the int8 wire's kernels bitwise on the largest bucket of
    GPT-2 medium's plan at worlds 4 and 8 and on edge cases; the bucket
@@ -77,7 +79,8 @@ Phases, in order; the first failure exits non-zero:
    route, decode steps on the decode route); the first-token logits
    must agree with the plain (unfused, cache-free) forward of the same
    weights;
-7. a short serve on an int8 KV cache (4 requests);
+7. a short serve on an int8 KV cache (4 requests), whose decode steps
+   must run B17 on the decode route, and the same decode-step profile;
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c and 5 and the serving runs of
    phases 6 and 7 (counts zeroed just before each run and read just
@@ -619,10 +622,10 @@ def _attend_without(q, k, v, valid, drop):
     return torch.einsum("bhtm,bhmd->bthd", probs, v)
 
 
-def _b16_skip_reading(da, q, k_full, v_full, valid, want, kh, route,
+def _route_skip_reading(da, q, k_full, v_full, valid, want, kh, route,
                       cluster, rtol, atol):
-    """What the per-row check reads on a B16 route that skips part of
-    its work, the plain version computing the rest:
+    """What the per-row check reads on a B16 or B17 route that skips
+    part of its work, the plain version computing the rest:
     ``prefill``: the block of the last query tile (``PREFILL_Q_TILE``
     rows) leaves out the last key tile (``PREFILL_KEY_TILE`` rows) it
     visits; ``decode``: in every (batch row, kv head) cluster of
@@ -712,7 +715,7 @@ def check_append_attend(seed):
         share = _row_share(got, want, rtol, atol)
         k_full, v_full, valid = da.append_rows_ref(
             k0[:, 0].clone(), v0[:, 0].clone(), kn, vn, posd, qdtype)
-        skip_share = (_b16_skip_reading(da, q, k_full, v_full, valid, want,
+        skip_share = (_route_skip_reading(da, q, k_full, v_full, valid, want,
                                         KH, route, cluster, rtol, atol)
                       if skip else None)
         row = {"case": name, "route": route, "cluster": cluster,
@@ -795,73 +798,129 @@ def check_append_attend(seed):
 
 
 def check_append_attend_int8(seed):
+    """B17 at the serving shapes (GPT-2 small: 12 heads of 64, 8 slots x
+    1024, one new row a slot) for quantization blocks of 64 and 32, on
+    the cluster decode route it shares with B16; a ragged GQA call whose
+    repeated and out-of-range positions reach the merge of codes and
+    scales; a call with 288 query rows a kv group; and on the CUDA cores:
+    a call whose shared memory the route refuses and float32 compute.
+    Codes and scales must be bitwise equal to the plain version's and
+    each output row within ``FLASH_TOL``; on the route a cluster that
+    skips one CTA's span must fail that check. Timed as device time
+    (profiler) beside CUDA events, the plain version and SDPA on the
+    dequantized cache."""
     from horovod_tpu_torch.ops import decode_attention as da
 
     rng = np.random.RandomState(seed + 2)
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     cases = []
-    S, L, KH, H, M, D = 8, 12, 12, 12, 1024, 64
-    atol = 4e-3
-    def codes():
-        return torch.randint(-127, 128, (S, L, KH, M, D), generator=g,
-                             device="cuda", dtype=torch.int8)
 
-    def scales(nb):
-        # blocks of randn rows: amax in about [1.5, 3.5]
-        return (1.5 + 2 * torch.rand(S, L, KH, M, nb, generator=g,
-                                     device="cuda")) / 127
-
-    for block in (64, 32):
+    def case(name, slots, m, t, block, pos, route, skip=False, timed=False,
+             L=12, KH=12, H=12, D=64, qdtype=torch.bfloat16):
+        rtol, atol = FLASH_TOL[qdtype]
         nb = D // block
-        kc0, vc0, ks0, vs0 = codes(), codes(), scales(nb), scales(nb)
-        q = torch.randn(S, 1, H, D, generator=g, device="cuda").to(
-            torch.bfloat16)
-        kn = torch.randn(S, 1, KH, D, generator=g, device="cuda").to(
-            torch.bfloat16)
-        vn = torch.randn(S, 1, KH, D, generator=g, device="cuda").to(
-            torch.bfloat16)
-        pos = rng.randint(32, M, size=(S, 1)).astype(np.int32)
+        shape = (slots, L, KH, m)
+        kc0, vc0 = (torch.randint(-127, 128, shape + (D,), generator=g,
+                                  device="cuda", dtype=torch.int8)
+                    for _ in range(2))
+        # blocks of randn rows: amax in about [1.5, 3.5]
+        ks0, vs0 = ((1.5 + 2 * torch.rand(shape + (nb,), generator=g,
+                                          device="cuda")) / 127
+                    for _ in range(2))
+        q, kn, vn = (torch.randn(slots, t, heads, D, generator=g,
+                                 device="cuda").to(qdtype)
+                     for heads in (H, KH, KH))
         posd = torch.from_numpy(pos).cuda()
-        kk, vk, ksk, vsk = kc0.clone(), vc0.clone(), ks0.clone(), vs0.clone()
-        kr, vr, ksr, vsr = kc0.clone(), vc0.clone(), ks0.clone(), vs0.clone()
-        got = da.append_attend_int8_cuda(q, kk[:, 0], ksk[:, 0], vk[:, 0],
-                                         vsk[:, 0], kn, vn, posd, block)
-        want = da.append_attend_int8_ref(q, kr[:, 0], ksr[:, 0], vr[:, 0],
-                                         vsr[:, 0], kn, vn, posd, block)
+        kern_bufs = [x.clone() for x in (kc0, ks0, vc0, vs0)]
+        ref_bufs = [x.clone() for x in (kc0, ks0, vc0, vs0)]
+        da.reset_route_launches()
+        got = da.append_attend_int8_cuda(
+            q, *(x[:, 0] for x in kern_bufs), kn, vn, posd, block)
+        routes = {r: n for r, n in da.ROUTE_LAUNCHES.items() if n}
+        cluster = da.LAST_LAUNCH["cluster"]
+        want = da.append_attend_int8_ref(
+            q, *(x[:, 0] for x in ref_bufs), kn, vn, posd, block)
         torch.cuda.synchronize()
-        for a, b, what in ((kk, kr, "k codes"), (vk, vr, "v codes"),
-                           (ksk.view(torch.int32), ksr.view(torch.int32),
-                            "k scales"),
-                           (vsk.view(torch.int32), vsr.view(torch.int32),
-                            "v scales")):
+        _require(routes == {route: 1},
+                 f"append_attend_int8 {name}: took route {routes}, expected "
+                 f"{route}")
+        _require((cluster > 0) == (route == "decode"),
+                 f"append_attend_int8 {name}: cluster {cluster} on the "
+                 f"{route} route")
+        for a, b, what in zip(kern_bufs, ref_bufs, ("k codes", "k scales",
+                                                    "v codes", "v scales")):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
             _require(bool(torch.equal(a, b)),
-                     f"append_attend_int8 block {block}: {what} not "
-                     "bitwise equal to the plain version")
-        err = (got.float() - want.float()).abs().max().item()
-        _require(err <= atol, f"append_attend_int8 block {block}: max err "
-                              f"{err} > {atol}")
+                     f"append_attend_int8 {name}: {what} not bitwise equal "
+                     "to the plain version")
+        _require(bool(torch.isfinite(got).all()),
+                 f"append_attend_int8 {name}: output not finite")
+        share = _row_share(got, want, rtol, atol)
         k_full, v_full, valid = da.append_rows_int8_ref(
-            kr[:, 0], ksr[:, 0], vr[:, 0], vsr[:, 0], kn, vn, posd, block,
-            torch.bfloat16)
-        nbytes, ops = _attn_bytes_ops(pos, M, H, KH, D, 2, D + 4 * nb)
-        bound, by = _bound(nbytes, ops, "bf16")
+            *(x[:, 0].clone() for x in (kc0, ks0, vc0, vs0)), kn, vn, posd,
+            block, qdtype)
+        skip_share = (_route_skip_reading(da, q, k_full, v_full, valid, want,
+                                          KH, route, cluster, rtol, atol)
+                      if skip else None)
+        row = {"case": name, "route": route, "cluster": cluster,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "row_share_max": share.max().item(),
+               "row_rel_l2_max": _row_rel(got, want, rtol, atol),
+               "tol": f"per row: ||err|| <= {rtol} ||plain|| + {atol}; "
+                      "codes and scales bitwise"}
+        if skip:
+            row["skip_share_min"] = skip_share
+        print(json.dumps({"append_attend_int8_case": row}))
+        _require(row["row_share_max"] <= 1,
+                 f"append_attend_int8 {name}: a row is "
+                 f"{row['row_share_max']:.2f}x its tolerance from the plain "
+                 "version")
+        _require(skip_share is None or skip_share > 1,
+                 f"append_attend_int8 {name}: the {route} route skipping one "
+                 f"CTA's span reads {skip_share}x the tolerance and would "
+                 "pass")
+        if timed:
+            nbytes, ops = _attn_bytes_ops(pos, m, H, KH, D, 2, D + 4 * nb)
+            bound, by = _bound(nbytes, ops, "bf16")
 
-        def kern(i=0):
-            da.append_attend_int8_cuda(
-                q, kk[:, i % L], ksk[:, i % L], vk[:, i % L], vsk[:, i % L],
-                kn, vn, posd, block)
-        lib = _sdpa(q, k_full, v_full, valid)
-        cases.append({
-            "case": f"decode B=8 T=1 M=1024 int8 cache block {block}",
-            "max_abs_err": err, "tol": atol,
-            "codes_scales": "bitwise",
-            "ms": _device_ms(kern), "events_ms": _time_ms(kern),
-            "plain_ms": _time_ms(lambda i=0: da.append_attend_int8_ref(
-                q, kr[:, i % L], ksr[:, i % L], vr[:, i % L], vsr[:, i % L],
-                kn, vn, posd, block), iters=10),
-            "library_ms": _device_ms(lib), "library_events_ms": _time_ms(lib),
-            "bound_ms": bound, "bound_by": by,
-        })
+            # rotate over the 12 layers' slices: a decode step finds
+            # each layer's slice cold in L2, as here
+            def kern(i=0):
+                da.append_attend_int8_cuda(
+                    q, *(x[:, i % L] for x in kern_bufs), kn, vn, posd,
+                    block)
+            lib = _sdpa(q, k_full, v_full, valid)
+            row.update(
+                ms=_device_ms(kern), events_ms=_time_ms(kern),
+                plain_ms=_time_ms(lambda i=0: da.append_attend_int8_ref(
+                    q, *(x[:, i % L] for x in ref_bufs), kn, vn, posd,
+                    block), iters=10),
+                library_ms=_device_ms(lib), library_events_ms=_time_ms(lib),
+                bound_ms=bound, bound_by=by)
+        cases.append(row)
+
+    dec = rng.randint(32, 1024, size=(8, 1)).astype(np.int32)
+    for block in (64, 32):
+        case(f"decode B=8 T=1 M=1024 int8 cache block {block}", 8, 1024, 1,
+             block, dec, "decode", skip=True, timed=True)
+    # ragged GQA: a repeated position, one past M and one below 0
+    gqa = dict(L=2, KH=2, H=8)
+    rag = np.array([[50, 50, 170], [-1, 7, 100]], np.int32)
+    case("decode ragged B=2 H=8 KH=2 M=160 T=3 block 32", 2, 160, 3, 32, rag,
+         "decode", skip=True, **gqa)
+    # a kv group of 32 heads: T = 9 gives 288 query rows, more than a
+    # decode CTA's 256 threads; T = 15 gives 480, whose shared memory the
+    # route refuses, so the call runs on the CUDA cores
+    wide = dict(L=1, KH=1, H=32)
+    pw = np.array([[3, 3, 40, 90, 127, 128, -1, 60, 61]], np.int32)
+    case("decode B=1 H=32 KH=1 M=128 T=9 block 64 (288 query rows)", 1, 128,
+         9, 64, pw, "decode", skip=True, **wide)
+    case("decode refused: B=1 H=32 KH=1 M=128 T=15 block 64 (CUDA cores)", 1,
+         128, 15, 64, np.concatenate([pw, [[70, 71, 71, 100, 5, 126]]], 1),
+         "cuda_core", **wide)
+    case("decode B=8 T=1 M=1024 block 64 f32 compute (CUDA cores)", 8, 1024,
+         1, 64, dec, "cuda_core", qdtype=torch.float32)
     return cases
 
 
@@ -926,10 +985,12 @@ def check_batchnorm(seed):
     leave out one row block of the kernel must fail that check. The
     per-channel constants between the kernels come from the plain
     version's sums, so each kernel sees the same inputs as its plain
-    version. The bf16 cases are timed: the kernel, its plain version and
-    one PyTorch call as a yardstick (``torch.var_mean`` for B7, the
-    training forward of ``F.batch_norm`` beside B7 + B8, its autograd
-    backward beside B9 + B10)."""
+    version (B10 folds its A, B and C from them itself, held bitwise
+    through dx against the plain fold on the card). The bf16 cases are
+    timed: the kernel, its plain version and one PyTorch call as a
+    yardstick (``torch.var_mean`` for B7, the training forward of
+    ``F.batch_norm`` beside B7 + B8, its autograd backward beside B9 +
+    B10)."""
     from horovod_tpu_torch.ops import batchnorm as bn
 
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
@@ -960,12 +1021,12 @@ def check_batchnorm(seed):
         py = bn.bn_apply_ref(x, s, t, res, relu)
         kg, kb = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, u, w, relu)
         pg, pb = bn.bn_bwd_reduce_ref(x, dy, res, s, t, u, w, relu)
-        # B10
-        a = gamma * rstd
-        b = rstd * (-a * pg / nf)
-        cc = -a * pb / nf - (-mean * rstd) * a * pg / nf
-        kdx, kdres = bn.bn_bwd_dx_cuda(x, dy, res, s, t, a, b, cc, relu)
-        pdx, pdres = bn.bn_bwd_dx_ref(x, dy, res, s, t, a, b, cc, relu)
+        # B10: the kernel folds A, B and C from the statistics and the
+        # plain version's column sums; the plain fold runs on the card
+        kdx, kdres = bn.bn_bwd_dx_cuda(x, dy, res, s, t, gamma, mean, rstd,
+                                       pg, pb, relu)
+        pdx, pdres = bn.bn_bwd_dx_folded_ref(x, dy, res, s, t, gamma, mean,
+                                             rstd, pg, pb, relu)
         torch.cuda.synchronize()
 
         dye = bn._dy_eff(x, dy, res, s, t, relu)
@@ -1012,7 +1073,9 @@ def check_batchnorm(seed):
                 "tol": f"per channel <= {BN_RTOL} x sum |terms|",
                 "reading": {k: reads[k] for k in ("dgamma", "dbeta")}},
             "bn_bwd_dx": {"max_abs_err": (kdx.float() - pdx.float()).abs()
-                          .max().item(), "tol": "bitwise (dx, dres)"},
+                          .max().item(),
+                          "tol": "bitwise (dx, dres) against the plain fold "
+                                 "of A, B, C + bn_bwd_dx_ref"},
         }
         for kname, row in rows.items():
             row["case"] = f"[{n}, {c}] {str(dtype)[6:]}: {what}"
@@ -1031,7 +1094,7 @@ def check_batchnorm(seed):
             "bn_stats": (big + 2 * c * 4, 3 * n * c),
             "bn_apply": ((2 + nres) * big + 2 * c * 4, (3 + nres) * n * c),
             "bn_bwd_reduce": ((2 + mask_res) * big + 6 * c * 4, 9 * n * c),
-            "bn_bwd_dx": ((3 + mask_res + nres) * big + 5 * c * 4,
+            "bn_bwd_dx": ((3 + mask_res + nres) * big + 7 * c * 4,
                           9 * n * c),
         }
         calls = {
@@ -1045,10 +1108,11 @@ def check_batchnorm(seed):
                 lambda _=0: bn.bn_bwd_reduce_ref(x, dy, res, s, t, u, w,
                                                  relu)),
             "bn_bwd_dx": (
-                lambda _=0: bn.bn_bwd_dx_cuda(x, dy, res, s, t, a, b, cc,
-                                              relu),
-                lambda _=0: bn.bn_bwd_dx_ref(x, dy, res, s, t, a, b, cc,
-                                             relu)),
+                lambda _=0: bn.bn_bwd_dx_cuda(x, dy, res, s, t, gamma, mean,
+                                              rstd, pg, pb, relu),
+                lambda _=0: bn.bn_bwd_dx_folded_ref(x, dy, res, s, t, gamma,
+                                                    mean, rstd, pg, pb,
+                                                    relu)),
         }
         # the yardsticks: PyTorch's BatchNorm on the NCHW (channels-last)
         # view of the same rows, a batch of 128 square images
@@ -2569,8 +2633,8 @@ def _injected_bn_fault(name):
     elif name == "bn_dx_dres_unmasked":
         attr, orig = "bn_bwd_dx_cuda", bn.bn_bwd_dx_cuda
 
-        def faulty(x2, dy2, res2, s, t, a, b, c, relu):
-            dx, dres = orig(x2, dy2, res2, s, t, a, b, c, relu)
+        def faulty(x2, dy2, res2, *stats_relu):
+            dx, dres = orig(x2, dy2, res2, *stats_relu)
             return dx, None if dres is None else dy2.clone()
     else:
         raise ValueError(f"unknown fault {name!r}")
@@ -2708,11 +2772,12 @@ def _engine_calls(engine):
 
 def serve(engine, prompts, max_new, label, ledger):
     """Serve ``prompts`` through the scheduler with the launch counts
-    zeroed just before and read just after; returns the tokens. B16's
-    launches must split by route as the engine's calls say: one a layer
-    on the prefill route for each prefill of 16 rows or more, on the
-    decode route for each shorter prefill and, on a float cache, each
-    decode step."""
+    zeroed just before and read just after; returns the tokens. The
+    append+attend launches must split by route as the engine's calls
+    say: one a layer on B16's prefill route for each prefill of 16 rows
+    or more (prompts run through a float32 cache), on the decode route
+    for each shorter prefill and each decode step (B16 on a float cache,
+    B17 on an int8 one), none on the CUDA cores."""
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import decode_attention as da
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
@@ -2732,13 +2797,18 @@ def serve(engine, prompts, max_new, label, ledger):
     layers = engine.cfg.num_layers
     long = sum(b >= da.PREFILL_MIN_T for b in calls["prefill_buckets"])
     short = len(calls["prefill_buckets"]) - long
-    fp_cache = engine.spec.dtype != "int8"
+    steps = layers * calls["decode_steps"]
     want = {"cuda_core": 0, "prefill": layers * long,
-            "decode": layers * (short + fp_cache * calls["decode_steps"])}
+            "decode": layers * short + steps}
     routes = dict(da.ROUTE_LAUNCHES)
     _require(routes == want, f"{label}: append_attend routes {routes}, "
                              f"expected {want} from the engine's calls "
                              f"{calls}")
+    int8 = steps if engine.spec.dtype == "int8" else 0
+    _require(ledger[label]["append_attend_int8"] == int8,
+             f"{label}: append_attend_int8 launched "
+             f"{ledger[label]['append_attend_int8']} times, expected {int8} "
+             "(one a layer a decode step on an int8 cache)")
     outs = []
     for r in reqs:
         toks, reason = r.result(0.0)
@@ -2771,8 +2841,9 @@ def profile_decode(engine, prompts, steps=8):
     """Where a decode step's time goes: ``torch.profiler`` over
     ``steps`` scheduler iterations with every slot occupied. Prints the
     device busy share (kernel time over wall time; the profiler's own
-    host cost makes the share a lower bound) and the kernels by device
-    time per step."""
+    host cost makes the share a lower bound), the append+attend
+    kernels' device time per step (B16 or B17, by the cache) and the
+    kernels by device time per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
@@ -2795,35 +2866,47 @@ def profile_decode(engine, prompts, steps=8):
     kernels = _kernel_events(prof)
     busy_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+    attend_us = sum(_dev_us(e) for e in kernels
+                    if "attend" in e.key or "decode_cluster" in e.key)
     print(json.dumps({
-        "profile": f"decode, all {engine.slots} slots occupied",
+        "profile": f"decode, all {engine.slots} slots occupied, "
+                   f"{engine.spec.dtype} cache",
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_ms_per_step": busy_us / 1e3 / steps,
+        "append_attend_ms_per_step": attend_us / 1e3 / steps,
         "device_busy_share": (busy_us / 1e6 / wall) if busy_us else None,
         "kernels_per_step": sum(e.count for e in kernels) / steps,
         "top": [{"name": e.key[:60], "ms_per_step": _dev_us(e) / 1e3 / steps,
                  "calls_per_step": e.count / steps} for e in top]}))
 
 
-def serve_gpt2(seed, ledger):
+def _gpt2_small(seed):
+    """GPT-2 small with fused norms on the card, random weights from
+    ``seed``, and the serve mix's 16 prompts of 32..700 tokens."""
     from horovod_tpu_torch.models.transformer import GPT2_SMALL, Transformer
-    from horovod_tpu_torch.serving.decode import GenerationEngine
 
     cfg = dataclasses.replace(GPT2_SMALL, fused_norm=True)
     with torch.device("cuda"):
         model = Transformer(cfg)
     model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           size=int(rng.randint(32, 701))).tolist()
+               for _ in range(16)]
+    return cfg, model, prompts
+
+
+def serve_gpt2(seed, ledger):
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.serving.decode import GenerationEngine
+
+    cfg, model, prompts = _gpt2_small(seed)
     plain_cfg = dataclasses.replace(cfg, fused_norm=False)
     with torch.device("cuda"):
         plain = Transformer(plain_cfg)
     plain.load_state_dict(model.state_dict())
     plain.eval()
-
-    rng = np.random.RandomState(seed)
-    prompts = [rng.randint(0, cfg.vocab_size,
-                           size=int(rng.randint(32, 701))).tolist()
-               for _ in range(16)]
 
     # phase 6: bf16 KV cache
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="bf16")
@@ -2870,23 +2953,104 @@ def serve_gpt2(seed, ledger):
     serve(engine, prompts[:4], 16, "serve_int8", ledger)
     _require(engine._cache["k"].dtype == torch.int8,
              "int8 serve did not hold an int8 cache")
+    profile_decode(engine, prompts)
     del engine
+
+
+#: kernels the profiles of ``--profiles`` run
+PROFILE_KERNELS = ("layernorm_fwd", "append_attend", "append_attend_int8",
+                   *BN_KERNELS)
+
+
+def profiles(seed):
+    """``--profiles``: only the profiles that compare two trees in one
+    call, run from the root of each: a decode step of GPT-2 small with
+    every slot occupied on a bf16 and on an int8 cache
+    (``profile_decode``), and one ResNet-50 training step with the fused
+    BatchNorm after one warm-up step (``profile_resnet_step``). Enforces
+    nothing."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import resnet50_synthetic
+    from horovod_tpu_torch.serving.decode import GenerationEngine
+
+    _, model, prompts = _gpt2_small(seed)
+    for kv in ("bf16", "int8"):
+        engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype=kv)
+        engine.warmup()
+        profile_decode(engine, prompts)
+        del engine
+    del model
+    torch.cuda.empty_cache()
+    stats = {}
+    resnet50_synthetic.main(["--fused-bn", "--batch-size", "128",
+                             "--num-warmup-batches", "1",
+                             "--num-batches-per-iter", "1",
+                             "--num-iters", "1"], stats)
+    profile_resnet_step(stats["step"], stats["batch"])
+    stats.clear()
+    hvd.shutdown()
 
 
 # ---------------------------------------------------------------------------
 
+def _mangled_args(s, i):
+    """The template arguments of an Itanium-mangled name from ``s[i]``
+    (just past their ``I``) to their closing ``E``: ``(names, index past
+    it)``, with ``f`` as f32, ``__nv_bfloat16`` as bf16, an integer
+    literal as its value and a nested name as its last component."""
+    out = []
+    while s[i] != "E":
+        a, i = _mangled_arg(s, i)
+        if a is not None:
+            out.append(a)
+    return out, i + 1
+
+
+def _mangled_arg(s, i):
+    if s[i] == "f":
+        return "f32", i + 1
+    if s[i] == "L":  # literal: L <type> <value> E
+        j = s.index("E", i)
+        return s[i + 2:j], j + 1
+    if s[i] == "N":  # nested name: its last component
+        i, name = i + 1, None
+        while s[i] != "E":
+            part, i = _mangled_arg(s, i)
+            name = part if part is not None else name
+        return name, i + 1
+    digits = re.match(r"\d+", s[i:]).group()
+    i += len(digits)
+    name, i = s[i:i + int(digits)], i + int(digits)
+    name = {"__nv_bfloat16": "bf16", "_GLOBAL__N_1": None}.get(name, name)
+    if i < len(s) and s[i] == "I":
+        args, i = _mangled_args(s, i + 1)
+        name = f"{name}<{','.join(args)}>"
+    return name, i
+
+
 def _kernel_name(mangled):
-    """``flash_fwd_mma_kernel<64>`` from a mangled kernel name (template
-    arguments: ``f`` float32, ``13__nv_bfloat16`` bf16, numbers as
-    they are); ``matmul_pack_kernel`` from a function that is no
-    template."""
-    m = re.search(r"\d+([a-z][a-z_]*?_kernel)I(\w*?)EE", mangled)
-    if not m:
-        plain = re.search(r"\d+([a-z][a-z_]*?_kernel)E", mangled)
-        return plain.group(1) if plain else mangled
-    names = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a, a) for a in
-             re.findall(r"^f|13__nv_bfloat16|(?<=Li)\d+", m.group(2))]
-    return f"{m.group(1)}<{','.join(names)}>"
+    """``flash_fwd_mma_kernel<64>`` or
+    ``decode_cluster_kernel<FpDecodeRows<bf16>,64>`` from a mangled
+    kernel name (template arguments: ``f`` float32, ``13__nv_bfloat16``
+    bf16, numbers as they are, row policies by name);
+    ``matmul_pack_kernel`` from a function that is no template. A name
+    this does not parse is returned as it is."""
+    for run in re.finditer(r"\d+", mangled):
+        for k in range(run.start(), run.end()):  # the run's suffixes
+            end = run.end() + int(mangled[k:run.end()])
+            name = mangled[run.end():end]
+            if re.fullmatch(r"[a-z]\w*_kernel", name):
+                break
+        else:
+            continue
+        if not mangled[end:].startswith("I"):
+            return name
+        try:
+            args, _ = _mangled_args(mangled, end + 1)
+        except (IndexError, AttributeError, ValueError):
+            return mangled
+        return f"{name}<{','.join(args)}>"
+    return mangled
 
 
 def print_ptxas(_build, names):
@@ -3024,6 +3188,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and print the step-1 "
                          "parity readings of seeds 0..N-1 and of the "
                          "injected faults (the limits' evidence)")
+    ap.add_argument("--profiles", action="store_true",
+                    help="only build the kernels they run and print the "
+                         "decode-step (bf16 and int8 cache) and ResNet-50 "
+                         "step profiles, to compare two trees in one call")
     args = ap.parse_args(argv)
 
     # phase 1
@@ -3053,12 +3221,16 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    secs = _build.build()
+    secs = _build.build(PROFILE_KERNELS if args.profiles else None)
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    if args.profiles:
+        profiles(args.seed)
+        return 0
     print_ptxas(_build, secs)
     print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                            "append_attend", "matmul_pack"))
+                            "append_attend", "append_attend_int8",
+                            "matmul_pack"))
     if args.parity_sweep:
         parity_sweep(args.parity_sweep)
         return 0

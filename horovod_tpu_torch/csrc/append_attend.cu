@@ -61,21 +61,12 @@
 //   what the card spends is the float32 softmax per logit (exp, an IEEE
 //   division) on the heaviest block's path.
 //
-// * decode (bf16 compute, T < kPrefillMinT): `decode_cluster_kernel`.
-//   A decode step has too few (batch row, head) pairs to fill the card
-//   with a block each, and each block's rows are a latency chain. One
-//   thread-block cluster of C CTAs per (batch row, kv head), C the
-//   least of 1, 2, 4, 8 with B * KH * C >= the SM count (8 where none
-//   reaches it). Each CTA owns one contiguous span of the rows [0, R),
-//   R the batch row's last valid row + 1, and serves every query row
-//   and every query head of the kv group, so K and V are read once per
-//   group, 16 bytes a lane, at least 16 rows in flight a warp. Logits
-//   stay in shared memory; the CTAs exchange each query's maximum and
-//   then its sum through distributed shared memory, added in rank
-//   order, so every CTA rounds P where the plain version does; P.V
-//   partial rows are summed in rank order by rank 0, which writes the
-//   output. No atomics: the result does not vary from run to run. The
-//   CTA that owns a replaced row writes it.
+// * decode (bf16 compute, T < kPrefillMinT): decode_cluster.cuh's
+//   `decode_cluster_kernel`, one thread-block cluster per (batch row, kv
+//   head), its CTAs exchanging each query's maximum and sum through
+//   distributed shared memory, with the float caches' row policy
+//   `FpDecodeRows` below (16-byte loads of a kept row or of a fresh row
+//   covered once, the element-wise merge for a repeated position).
 //
 // * CUDA cores (float32 compute; a head_dim other than 64 or 128;
 //   rows not 16-byte aligned; a call whose shared memory the route above
@@ -83,31 +74,19 @@
 //   query rows outgrow it): `append_attend_kernel`, one block per (head,
 //   query row, batch row) over attend.cuh's `attend_row`.
 
-#include <cooperative_groups.h>
-
 #include <type_traits>
 
-#include "attend.cuh"
+#include "decode_cluster.cuh"
 #include "flash_mma.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-
-// routes, as the entry point reports them (ops/decode_attention.py ROUTES)
-enum Route : int { kRouteCudaCores = 0, kRoutePrefill = 1, kRouteDecode = 2 };
 
 constexpr int kQueryTile = 64;    // query rows a prefill block holds
 constexpr int kKeyTile = 64;      // merged rows a prefill K/V tile holds
-constexpr int kPrefillMinT = 16;  // one m16 tile of query rows
-constexpr int kMaxCluster = 8;    // CTAs of a decode cluster, at most
-constexpr int kDecodeThreads = 256;
-constexpr int kDecodeWarps = kDecodeThreads / 32;
-constexpr int kQueryGroup = 4;    // queries one P.V sweep accumulates
-// dynamic shared memory a block may take, room left for static
-constexpr size_t kMaxSmem = 232448 - 4096;
 static_assert(kQueryTile == flash_mma::kBlockRows, "a warp's m16 rows");
+static_assert(kPrefillMinT == flash_mma::kWarpRows, "one m16 tile of rows");
 
 // Merged rows of one (batch row, kv head) of a float cache.
 template <typename TQ, typename TC>
@@ -138,17 +117,6 @@ struct FpRows {
     return round_to<TQ>(round_to<TC>(merged(m, d)));
   }
 };
-
-// One past the last merged row query position p reads.
-__device__ __forceinline__ int row_end(int p, int M) {
-  return (p >= 0 && p < M) ? p + 1 : M;
-}
-
-// Logit of a row j < row_end(p) from its float32 dot product.
-__device__ __forceinline__ float logit(float dot, int j, int p,
-                                       float scale) {
-  return j <= p ? __fmul_rn(round_to<bf16>(dot), scale) : -1e30f;
-}
 
 // Eight values of a row chunk, as float32, to the cache dtype.
 __device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
@@ -653,380 +621,110 @@ cudaError_t launch_prefill(const void* q, void* kc, void* vc,
   return cudaGetLastError();
 }
 
-// ---- decode: a cluster per (batch row, kv head) ---------------------------
+// ---- decode: the float caches' row policy of decode_cluster.cuh -------
 
-template <typename TC, int D>
-struct DecodeShape {
-  static constexpr int kVec = 16 / sizeof(TC);          // a 16-byte load
-  static constexpr int kLanesPerRow = D / kVec;         // 2 .. 32
-  static constexpr int kRowsPerLoad = 32 / kLanesPerRow;
-  // loads a lane keeps in flight: 16 rows a warp at least
-  static constexpr int kUnroll = kRowsPerLoad >= 16 ? 1 : 16 / kRowsPerLoad;
-  static constexpr int kRowsPerRound = kDecodeWarps * kUnroll * kRowsPerLoad;
-  static_assert(kLanesPerRow >= 2 && kLanesPerRow <= 32, "head_dim");
-};
-
-// Shared memory of a decode CTA, in 4-byte words: queries and the CTA's
-// P.V partial rows (G x D floats each), the warps' partial rows, logits
-// of the CTA's span (G x span), per query the CTA's max and sum and the
-// cluster's max or sum, and the cover table (2 M ints).
-__host__ __device__ inline size_t decode_smem_words(int G, int D, int span,
-                                                    int M) {
-  return 2 * (size_t)G * D + (size_t)kDecodeWarps * kQueryGroup * D +
-         (size_t)G * span + 3 * (size_t)G + 2 * (size_t)M;
-}
-
-// Least C of 1, 2, 4, 8 with B * KH * C CTAs filling `sms` SMs; 8 where
-// none does (the entry point reports the C it launched).
-__host__ inline int decode_cluster(int B, int KH, int sms) {
-  int c = 1;
-  while (c < kMaxCluster && (long long)B * KH * c < sms) c *= 2;
-  return c;
-}
-
-// Span of the rows [0, R) each of C CTAs owns (the last may be short or
-// empty): ceil(R / C) (ops/decode_attention.py decode_span).
-__host__ __device__ inline int decode_span(int R, int C) {
-  return (R + C - 1) / C;
-}
-
-// One lane's kVec elements d0.. of merged row j: `chunk_fetch` loads
-// them (one 16-byte load of a kept cache row, one 16- or 8-byte load of
-// a fresh row covered once, nothing for a row to merge element-wise),
-// and `chunk_values` gives them in the compute dtype (bf16 values held
-// in float32), so a warp has all its loads in flight before it uses any.
+// One lane's kVec elements d0.. of merged row j: `fetch` loads them (one
+// 16-byte load of a kept cache row, one 16- or 8-byte load of a fresh
+// row covered once, nothing for a row to merge element-wise), and
+// `values` gives them in the compute dtype (bf16 values held in
+// float32).
 struct ChunkLoad {
   uint4 raw;
   int kind;  // 0 kept cache row, 1 fresh row, 2 merge, 3 no row
 };
-
-template <typename TC, int kVec>
-__device__ __forceinline__ void chunk_fetch(ChunkLoad& c,
-                                            const FpRows<bf16, TC>& rows,
-                                            int j, int j_end, int d0) {
-  if (j >= j_end) {
-    c.kind = 3;
-    c.raw = make_uint4(0, 0, 0, 0);
-    return;
-  }
-  const int n = rows.count[j];
-  if (n == 0) {
-    c.kind = 0;
-    c.raw = *reinterpret_cast<const uint4*>(rows.cache + (size_t)j * rows.D +
-                                            d0);
-  } else if (n == 1) {
-    c.kind = 1;
-    const bf16* src = rows.fresh + (size_t)rows.first[j] * rows.stride_t + d0;
-    if constexpr (kVec == 8) {
-      c.raw = *reinterpret_cast<const uint4*>(src);
-    } else {
-      const uint2 h = *reinterpret_cast<const uint2*>(src);
-      c.raw = make_uint4(h.x, h.y, 0, 0);
-    }
-  } else {
-    c.kind = 2;
-  }
-}
 
 __device__ __forceinline__ void unpack_bf16x2(uint32_t x, float* v) {
   v[0] = __uint_as_float(x << 16);
   v[1] = __uint_as_float(x & 0xffff0000u);
 }
 
-template <typename TC, int kVec>
-__device__ __forceinline__ void chunk_values(float (&v)[kVec],
-                                             const ChunkLoad& c,
-                                             const FpRows<bf16, TC>& rows,
-                                             int j, int d0) {
-  const uint32_t w[4] = {c.raw.x, c.raw.y, c.raw.z, c.raw.w};
-  if (c.kind == 3) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) v[e] = 0.f;
-  } else if (c.kind == 2) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) v[e] = rows(j, d0 + e);
-  } else if (c.kind == 1 || std::is_same<TC, bf16>::value) {
-    // bf16 values: exact in the compute dtype
-#pragma unroll
-    for (int e = 0; e < kVec / 2; ++e) unpack_bf16x2(w[e], v + 2 * e);
-  } else {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e)
-      v[e] = round_to<bf16>(__uint_as_float(w[e]));
-  }
-}
+template <typename TC>
+struct FpSide : FpRows<bf16, TC> {
+  static constexpr int kVec = 16 / sizeof(TC);
 
-template <typename TC, int D>
-__global__ void __launch_bounds__(kDecodeThreads)
-    decode_cluster_kernel(const bf16* __restrict__ q, TC* kc, TC* vc,
-                          long long slot_stride, const bf16* __restrict__ kn,
-                          const bf16* __restrict__ vn,
-                          const int* __restrict__ pos,
-                          bf16* __restrict__ out, int T, int H, int KH,
-                          int M, int span_cap, float scale) {
-  using Sh = DecodeShape<TC, D>;
-  constexpr int kVec = Sh::kVec, kLPR = Sh::kLanesPerRow;
-  constexpr int kRPL = Sh::kRowsPerLoad, kU = Sh::kUnroll;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int rep = H / KH, G = T * rep;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane / kLPR, d0 = (lane % kLPR) * kVec;
-
-  extern __shared__ __align__(16) float dsm[];
-  float* qs = dsm;                                  // [G][D]
-  float* part = qs + (size_t)G * D;                 // [G][D]
-  float* wpart = part + (size_t)G * D;              // [warps][group][D]
-  float* lg = wpart + kDecodeWarps * kQueryGroup * D;  // [G][span_cap]
-  float* red_max = lg + (size_t)G * span_cap;       // [G]
-  float* red_sum = red_max + G;                     // [G]
-  float* gred = red_sum + G;                        // [G]
-  int* first = reinterpret_cast<int*>(gred + G);
-  int* count = first + M;
-  __shared__ float scratch[32];
-
-  const int* pos_b = pos + (size_t)b * T;
-  for (int i = threadIdx.x; i < G * D; i += kDecodeThreads) {
-    const int g = i / D, d = i % D;
-    const int t = g / rep, h = kh * rep + g % rep;
-    qs[i] = __bfloat162float(q[(((size_t)b * T + t) * H + h) * D + d]);
-  }
-  build_cover(pos_b, T, M, first, count);  // ends in __syncthreads
-  int R = 0;
-  for (int t = 0; t < T; ++t) R = max(R, row_end(pos_b[t], M));
-  const int span = decode_span(R, C);
-  const int s0 = min(R, rank * span), s1 = min(R, s0 + span);
-
-  const size_t slice = (size_t)b * slot_stride + (size_t)kh * M * D;
-  const size_t fresh = (size_t)b * T * KH * D + (size_t)kh * D;
-  const FpRows<bf16, TC> krows{kc + slice, kn + fresh, KH * D, pos_b,
-                               first, count, T, D};
-  const FpRows<bf16, TC> vrows{vc + slice, vn + fresh, KH * D, pos_b,
-                               first, count, T, D};
-
-  // logits of the span: lane `sub` of a load reads row j, 16 bytes at d0
-  for (int base = s0 + warp * kU * kRPL; base < s1;
-       base += Sh::kRowsPerRound) {
-    ChunkLoad ld[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u)
-      chunk_fetch<TC, kVec>(ld[u], krows, base + u * kRPL + sub, s1, d0);
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int j = base + u * kRPL + sub;
-      float v[kVec];
-      chunk_values(v, ld[u], krows, j, d0);
-      for (int g = 0; g < G; ++g) {
-        const float* qg = qs + (size_t)g * D + d0;
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) dot = fmaf(qg[e], v[e], dot);
-#pragma unroll
-        for (int off = kLPR / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (d0 == 0 && j < s1) {
-          const int p = pos_b[g / rep];
-          lg[(size_t)g * span_cap + (j - s0)] =
-              j < row_end(p, M) ? logit(dot, j, p, scale) : -INFINITY;
-        }
+  __device__ __forceinline__ void fetch(ChunkLoad& c, int j, int j_end,
+                                        int d0) const {
+    if (j >= j_end) {
+      c.kind = 3;
+      c.raw = make_uint4(0, 0, 0, 0);
+      return;
+    }
+    const int n = this->count[j];
+    if (n == 0) {
+      c.kind = 0;
+      c.raw = *reinterpret_cast<const uint4*>(this->cache +
+                                              (size_t)j * this->D + d0);
+    } else if (n == 1) {
+      c.kind = 1;
+      const bf16* src =
+          this->fresh + (size_t)this->first[j] * this->stride_t + d0;
+      if constexpr (kVec == 8) {
+        c.raw = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const uint2 h = *reinterpret_cast<const uint2*>(src);
+        c.raw = make_uint4(h.x, h.y, 0, 0);
       }
+    } else {
+      c.kind = 2;
     }
   }
-  __syncthreads();
 
-  const int len = s1 - s0;
-  // the span's maximum per query; the cluster's (order-free); exp and
-  // the span's sum; the cluster's sum, the ranks added in rank order by
-  // every CTA, so all round P from the same bits
-  for (int g = 0; g < G; ++g) {
-    float m = -INFINITY;
-    for (int i = threadIdx.x; i < len; i += kDecodeThreads)
-      m = fmaxf(m, lg[(size_t)g * span_cap + i]);
-    m = block_max(m, scratch);
-    if (threadIdx.x == 0) red_max[g] = m;
-  }
-  cluster.sync();
-  for (int g = threadIdx.x; g < G; g += kDecodeThreads) {
-    float m = -INFINITY;
-    for (int r = 0; r < C; ++r)
-      m = fmaxf(m, *cluster.map_shared_rank(red_max + g, r));
-    gred[g] = m;
-  }
-  __syncthreads();
-  for (int g = 0; g < G; ++g) {
-    float s = 0.f;
-    for (int i = threadIdx.x; i < len; i += kDecodeThreads) {
-      float* l = lg + (size_t)g * span_cap + i;
-      const float e = expf(__fsub_rn(*l, gred[g]));
-      *l = e;
-      s += e;
-    }
-    s = block_sum(s, scratch);
-    if (threadIdx.x == 0) red_sum[g] = s;
-  }
-  cluster.sync();
-  for (int g = threadIdx.x; g < G; g += kDecodeThreads) {
-    float s = 0.f;
-    for (int r = 0; r < C; ++r) s += *cluster.map_shared_rank(red_sum + g, r);
-    gred[g] = s;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * len; i += kDecodeThreads) {
-    const int g = i / len;
-    float* l = lg + (size_t)g * span_cap + i % len;
-    *l = round_to<bf16>(__fdiv_rn(*l, gred[g]));
-  }
-  __syncthreads();
-
-  // P . V over the span, kQueryGroup queries a sweep; partial rows meet
-  // across a warp's loads by shuffles, across warps in warp order
-  for (int g0 = 0; g0 < G; g0 += kQueryGroup) {
-    float acc[kQueryGroup][kVec];
+  __device__ __forceinline__ void values(float (&v)[kVec],
+                                         const ChunkLoad& c, int j,
+                                         int d0) const {
+    const uint32_t w[4] = {c.raw.x, c.raw.y, c.raw.z, c.raw.w};
+    if (c.kind == 3) {
 #pragma unroll
-    for (int k = 0; k < kQueryGroup; ++k)
+      for (int e = 0; e < kVec; ++e) v[e] = 0.f;
+    } else if (c.kind == 2) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[k][e] = 0.f;
-    for (int base = s0 + warp * kU * kRPL; base < s1;
-         base += Sh::kRowsPerRound) {
-      ChunkLoad ld[kU];
+      for (int e = 0; e < kVec; ++e) v[e] = (*this)(j, d0 + e);
+    } else if (c.kind == 1 || std::is_same<TC, bf16>::value) {
+      // bf16 values: exact in the compute dtype
 #pragma unroll
-      for (int u = 0; u < kU; ++u)
-        chunk_fetch<TC, kVec>(ld[u], vrows, base + u * kRPL + sub, s1, d0);
+      for (int e = 0; e < kVec / 2; ++e) unpack_bf16x2(w[e], v + 2 * e);
+    } else {
 #pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int j = base + u * kRPL + sub;
-        if (j >= s1) continue;
-        float v[kVec];
-        chunk_values(v, ld[u], vrows, j, d0);
-#pragma unroll
-        for (int k = 0; k < kQueryGroup; ++k) {
-          if (g0 + k >= G) break;
-          const float pj = lg[(size_t)(g0 + k) * span_cap + (j - s0)];
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[k][e] = fmaf(pj, v[e], acc[k][e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kQueryGroup; ++k)
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-#pragma unroll
-        for (int off = kLPR; off < 32; off <<= 1)
-          acc[k][e] += __shfl_xor_sync(0xffffffffu, acc[k][e], off);
-        if (sub == 0)
-          wpart[((size_t)warp * kQueryGroup + k) * D + d0 + e] = acc[k][e];
-      }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kQueryGroup * D; i += kDecodeThreads) {
-      const int k = i / D, d = i % D;
-      if (g0 + k >= G) break;
-      float s = 0.f;
-      for (int w = 0; w < kDecodeWarps; ++w)
-        s += wpart[((size_t)w * kQueryGroup + k) * D + d];
-      part[(size_t)(g0 + k) * D + d] = s;
-    }
-    __syncthreads();
-  }
-
-  // the CTA that owns a replaced row writes it
-  write_rows(kc + slice, vc + slice, krows, vrows, len,
-             [&](int r) { return count[s0 + r] > 0 ? s0 + r : -1; });
-
-  cluster.sync();
-  if (rank == 0) {
-    for (int i = threadIdx.x; i < G * D; i += kDecodeThreads) {
-      const int g = i / D, d = i % D;
-      float s = 0.f;
-      for (int r = 0; r < C; ++r) s += *cluster.map_shared_rank(part + i, r);
-      const int t = g / rep, h = kh * rep + g % rep;
-      out[(((size_t)b * T + t) * H + h) * D + d] = __float2bfloat16_rn(s);
+      for (int e = 0; e < kVec; ++e)
+        v[e] = round_to<bf16>(__uint_as_float(w[e]));
     }
   }
-  cluster.sync();  // the other ranks' shared memory stays until read
-}
+};
 
-// The SM count of `device` (cached).
-__host__ inline cudaError_t sm_count(int device, int* n) {
-  static int cached[64] = {0};
-  if (device >= 0 && device < 64 && cached[device] > 0) {
-    *n = cached[device];
-    return cudaSuccess;
+// The merged rows of a float32 or bf16 cache: nothing to stage (a fresh
+// row is read from the new rows), the replaced rows written by
+// write_rows.
+template <typename TC>
+struct FpDecodeRows {
+  struct Cache {
+    TC* k;
+    TC* v;
+    long long slot_stride;
+  };
+  using Load = ChunkLoad;
+  static constexpr int kVec = FpSide<TC>::kVec;
+
+  __host__ static size_t smem_words(int, int, const Cache&) { return 0; }
+
+  TC* kc;
+  TC* vc;
+  FpSide<TC> k, v;
+
+  __device__ __forceinline__ FpDecodeRows(const Cache& c,
+                                          const DecodeSlot& s)
+      : kc(c.k + (size_t)s.b * c.slot_stride + (size_t)s.kh * s.M * s.D),
+        vc(c.v + (size_t)s.b * c.slot_stride + (size_t)s.kh * s.M * s.D),
+        k{{kc, s.kn, s.stride_t, s.pos_b, s.first, s.count, s.T, s.D}},
+        v{{vc, s.vn, s.stride_t, s.pos_b, s.first, s.count, s.T, s.D}} {}
+
+  __device__ __forceinline__ void stage(int, int) const {}
+
+  __device__ __forceinline__ void write(int s0, int s1) const {
+    const int* count = k.count;
+    write_rows(kc, vc, k, v, s1 - s0,
+               [&](int r) { return count[s0 + r] > 0 ? s0 + r : -1; });
   }
-  const cudaError_t err =
-      cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && device >= 0 && device < 64) cached[device] = *n;
-  return err;
-}
-
-// Launch the decode route with clusters of *cluster CTAs (written before
-// the launch); cudaErrorNotSupported when its shared memory does not fit
-// a block (the caller takes the CUDA cores instead).
-template <typename TC, int D>
-cudaError_t launch_decode(const void* q, void* kc, void* vc,
-                          long long slot_stride, const void* kn,
-                          const void* vn, const int* pos, void* out, int B,
-                          int T, int H, int KH, int M, float scale,
-                          int device, cudaStream_t stream, int* cluster) {
-  int sms = 0;
-  cudaError_t err = sm_count(device, &sms);
-  if (err != cudaSuccess) return err;
-  const int C = decode_cluster(B, KH, sms);
-  *cluster = C;
-  const int G = T * (H / KH);
-  const int span_cap = decode_span(M, C);
-  const size_t smem = decode_smem_words(G, D, span_cap, M) * 4;
-  if (smem > kMaxSmem) return cudaErrorNotSupported;
-  auto kernel = decode_cluster_kernel<TC, D>;
-  err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, KH, B);
-  cfg.blockDim = dim3(kDecodeThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // residency: a cluster of C such CTAs must fit the card (checked once
-  // per cluster size up to the largest shared memory seen to fit)
-  static size_t fits[kMaxCluster + 1] = {0};
-  if (smem > fits[C]) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    fits[C] = smem;
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q),
-                           static_cast<TC*>(kc), static_cast<TC*>(vc),
-                           slot_stride, static_cast<const bf16*>(kn),
-                           static_cast<const bf16*>(vn), pos,
-                           static_cast<bf16*>(out), T, H, KH, M, span_cap,
-                           scale);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The head_dims the two bf16 routes are built for (GPT-2's 64 and the
-// common 128; any other runs on the CUDA cores): `body` takes a
-// std::integral_constant<int, D>.
-template <typename F>
-cudaError_t routed_head_dim(int d, F&& body) {
-  if (d == 64) return body(std::integral_constant<int, 64>{});
-  if (d == 128) return body(std::integral_constant<int, 128>{});
-  return cudaErrorInvalidValue;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+};
 
 // bf16 compute: the tensor-core prefill (T >= kPrefillMinT) or the
 // cluster decode route (fewer rows) where the shapes allow; a call either
@@ -1045,9 +743,11 @@ cudaError_t launch_bf16(const void* q, void* kc, void* vc,
   if (rows16 && mma_dim && T < kPrefillMinT) {
     const cudaError_t err = routed_head_dim(D, [&](auto dd) {
       constexpr int kD = decltype(dd)::value;
-      return launch_decode<TC, kD>(q, kc, vc, slot_stride, kn, vn, pos, out,
-                                   B, T, H, KH, M, scale, device, stream,
-                                   cluster);
+      using Rows = FpDecodeRows<TC>;
+      return launch_decode<Rows, kD>(
+          q, typename Rows::Cache{static_cast<TC*>(kc), static_cast<TC*>(vc),
+                                  slot_stride},
+          kn, vn, pos, out, B, T, H, KH, M, scale, device, stream, cluster);
     });
     if (err != cudaErrorNotSupported) {
       *route = kRouteDecode;

@@ -18,13 +18,32 @@
 //   * dequantize code * scale in float32, cast to the compute dtype,
 //     and attend exactly as append_attend.cu does.
 //
-// What bounds it on an H100: bytes, as append_attend.cu; the cache is a
-// quarter of the float32 bytes plus one float32 scale per block.
+// What bounds it on an H100: bytes, as append_attend.cu; a cache row is
+// D one-byte codes and D / block float32 scales (68 bytes at D = 64 and
+// one scale a row, against 128 in bf16).
 //
-// Design: append_attend.cu's, with the replaced rows re-quantized from
-// the new rows wherever they are read (a few rows per call at decode).
+// Routes (the C entry point picks one and reports it):
+//
+// * decode (bf16 compute, T < kPrefillMinT, head_dim 64 or 128, block a
+//   multiple of kCodesPerLoad, 16-byte-aligned rows): decode_cluster.cuh's
+//   cluster kernel, the one B16 runs, with the row policy `Int8DecodeRows`
+//   below. A lane loads 16 codes of a row in one 16-byte load and their
+//   one scale beside it (a block of 16 or more codes holds them), so a
+//   warp has 16 rows in flight at head_dim 64, and dequantizes them as
+//   the plain version does, round_bf16(code * scale). The new rows are
+//   quantized once per call: before the row loops each CTA quantizes the
+//   new rows that land in its span into shared memory, with the merge of
+//   repeated positions, and reads those rows from there; the CTA that
+//   owns a replaced row writes its codes and scales to the cache.
+//   Softmax, P rounding and the rank-order sums are the shared kernel's.
+//
+// * CUDA cores (float32 compute, and every call the route above refuses,
+//   for its shapes or its shared memory): `append_attend_int8_kernel`, one
+//   block per (head, query row, batch row) over attend.cuh's
+//   `attend_row`, each replaced row re-quantized from the new rows
+//   wherever it is read.
 
-#include "attend.cuh"
+#include "decode_cluster.cuh"
 
 namespace {
 
@@ -179,25 +198,269 @@ cudaError_t launch(const void* q, void* kc, void* ks, void* vc, void* vs,
   return cudaErrorInvalidValue;
 }
 
+// ---- decode route: the int8 cache's row policy of decode_cluster.cuh ----
+
+using bf16 = __nv_bfloat16;
+
+// codes a lane loads at once (16 bytes); the route takes a block that is
+// a multiple of it, so the lane's codes share one scale
+constexpr int kCodesPerLoad = 16;
+
+struct Int8Load {
+  uint4 raw;    // 16 codes
+  float scale;  // their block's scale
+};
+
+// One side (K or V) of the merged int8 rows of one (batch row, kv head).
+struct Int8Side {
+  const int8_t* codes;        // [M, D] in the cache
+  const float* scales;        // [M, D / block] in the cache
+  const int8_t* new_codes;    // [T, D] shared: merged codes at the first t
+  const float* new_scales;    // [T, D / block] shared
+  const int* first;
+  const int* count;
+  int D, nb, block;
+
+  // 16 codes of merged row j at d0 and their scale: a kept row from the
+  // cache, a replaced row from shared memory, nothing past j_end
+  __device__ __forceinline__ void fetch(Int8Load& c, int j, int j_end,
+                                        int d0) const {
+    if (j >= j_end) {
+      c.raw = make_uint4(0, 0, 0, 0);
+      c.scale = 0.f;
+      return;
+    }
+    const int blk = d0 / block;
+    if (count[j] == 0) {
+      c.raw = *reinterpret_cast<const uint4*>(codes + (size_t)j * D + d0);
+      c.scale = scales[(size_t)j * nb + blk];
+    } else {
+      const int t = first[j];
+      c.raw = *reinterpret_cast<const uint4*>(new_codes + t * D + d0);
+      c.scale = new_scales[t * nb + blk];
+    }
+  }
+
+  // round_bf16(code * scale), as Int8Rows and the plain version
+  __device__ __forceinline__ void values(float (&v)[kCodesPerLoad],
+                                         const Int8Load& c, int,
+                                         int) const {
+    const uint32_t w[4] = {c.raw.x, c.raw.y, c.raw.z, c.raw.w};
+#pragma unroll
+    for (int e = 0; e < kCodesPerLoad; ++e) {
+      const int8_t code = static_cast<int8_t>(w[e / 4] >> (8 * (e % 4)));
+      v[e] = round_to<bf16>(__fmul_rn(static_cast<float>(code), c.scale));
+    }
+  }
+};
+
+// The merged rows of an int8 cache. Shared memory: the scales [2][T][nb]
+// (K then V) of the new rows that land in the CTA's span, then their
+// codes [2][T][D] from the next 16-byte boundary; a new row's slot holds
+// the merge of its position once stage() has run, at the first t of
+// that position.
+struct Int8DecodeRows {
+  struct Cache {
+    int8_t* kc;
+    float* ks;
+    int8_t* vc;
+    float* vs;
+    long long slot_stride;
+    long long scale_slot_stride;
+    int block;
+  };
+  using Load = Int8Load;
+  static constexpr int kVec = kCodesPerLoad;
+
+  __host__ static size_t smem_words(int T, int D, const Cache& c) {
+    return align4(2 * (size_t)T * (D / c.block)) + 2 * (size_t)T * D / 4;
+  }
+
+  int8_t* kc;
+  float* ks;
+  int8_t* vc;
+  float* vs;
+  float* sc;     // shared scales
+  int8_t* cd;    // shared codes
+  const bf16* kn;
+  const bf16* vn;
+  int stride_t;
+  const int* pos_b;
+  int T, D, nb, block;
+  Int8Side k, v;
+
+  __device__ __forceinline__ Int8DecodeRows(const Cache& c,
+                                            const DecodeSlot& s)
+      : kc(c.kc + (size_t)s.b * c.slot_stride + (size_t)s.kh * s.M * s.D),
+        ks(c.ks + (size_t)s.b * c.scale_slot_stride +
+           (size_t)s.kh * s.M * (s.D / c.block)),
+        vc(c.vc + (size_t)s.b * c.slot_stride + (size_t)s.kh * s.M * s.D),
+        vs(c.vs + (size_t)s.b * c.scale_slot_stride +
+           (size_t)s.kh * s.M * (s.D / c.block)),
+        sc(static_cast<float*>(s.smem)),
+        cd(reinterpret_cast<int8_t*>(
+            static_cast<float*>(s.smem) + align4(2 * (size_t)s.T *
+                                                 (s.D / c.block)))),
+        kn(s.kn),
+        vn(s.vn),
+        stride_t(s.stride_t),
+        pos_b(s.pos_b),
+        T(s.T),
+        D(s.D),
+        nb(s.D / c.block),
+        block(c.block),
+        k{kc, ks, cd, sc, s.first, s.count, s.D, nb, c.block},
+        v{vc, vs, cd + (size_t)s.T * s.D, sc + (size_t)s.T * nb, s.first,
+          s.count, s.D, nb, c.block} {}
+
+  // new row t lands in [s0, s1)
+  __device__ __forceinline__ bool lands(int t, int s0, int s1) const {
+    const int p = pos_b[t];
+    return p >= s0 && p < s1;
+  }
+
+  // Quantize the new rows that land in [s0, s1) into shared memory with
+  // Int8Rows::quantize's arithmetic, then merge each repeated position
+  // into its first t's slot with Int8Rows::merged's rule. Every thread
+  // calls it; it ends in a barrier.
+  __device__ void stage(int s0, int s1) const {
+    const int* first = k.first;
+    const int* count = k.count;
+    // the scale of each block: amax * (1/127), 1 for an all-zero block
+    for (int i = threadIdx.x; i < 2 * T * nb; i += blockDim.x) {
+      const int side = i / (T * nb), t = (i / nb) % T, blk = i % nb;
+      if (!lands(t, s0, s1)) continue;
+      const bf16* x =
+          (side ? vn : kn) + (size_t)t * stride_t + (size_t)blk * block;
+      float amax = 0.f;
+      for (int e = 0; e < block; e += 8) {
+        const uint4 w = *reinterpret_cast<const uint4*>(x + e);
+        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          amax = fmaxf(amax, fabsf(__uint_as_float(ws[h] << 16)));
+          amax = fmaxf(amax, fabsf(__uint_as_float(ws[h] & 0xffff0000u)));
+        }
+      }
+      sc[i] = amax > 0.f ? __fmul_rn(amax, kRecip127) : 1.f;
+    }
+    __syncthreads();
+    // codes: clamp(rint(x / scale), -127, 127), an IEEE division
+    for (int i = threadIdx.x; i < 2 * T * D; i += blockDim.x) {
+      const int side = i / (T * D), t = (i / D) % T, d = i % D;
+      if (!lands(t, s0, s1)) continue;
+      const float x =
+          __bfloat162float((side ? vn : kn)[(size_t)t * stride_t + d]);
+      const float s = sc[(side * T + t) * nb + d / block];
+      cd[i] = static_cast<int8_t>(
+          fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f));
+    }
+    __syncthreads();
+    // repeated positions: codes summed in float32 in t order, rounded and
+    // saturated; scales summed; into the first t's slot (the later slots
+    // are only read)
+    for (int i = threadIdx.x; i < 2 * T * D; i += blockDim.x) {
+      const int side = i / (T * D), t = (i / D) % T, d = i % D;
+      if (!lands(t, s0, s1)) continue;
+      const int p = pos_b[t];
+      if (first[p] != t || count[p] < 2) continue;
+      const int base = side * T;
+      float qsum = 0.f + static_cast<float>(cd[i]);
+      for (int t2 = t + 1; t2 < T; ++t2)
+        if (pos_b[t2] == p)
+          qsum += static_cast<float>(cd[(base + t2) * D + d]);
+      cd[i] = static_cast<int8_t>(fminf(fmaxf(rintf(qsum), -128.f), 127.f));
+      if (d % block == 0) {
+        const int blk = d / block;
+        float ssum = 0.f + sc[(base + t) * nb + blk];
+        for (int t2 = t + 1; t2 < T; ++t2)
+          if (pos_b[t2] == p) ssum += sc[(base + t2) * nb + blk];
+        sc[(base + t) * nb + blk] = ssum;
+      }
+    }
+    __syncthreads();
+  }
+
+  // The replaced rows of [s0, s1): codes in 16-byte stores, then scales.
+  __device__ __forceinline__ void write(int s0, int s1) const {
+    const int* first = k.first;
+    const int chunks = D / kCodesPerLoad, per = chunks + nb;
+    for (int i = threadIdx.x; i < 2 * T * per; i += blockDim.x) {
+      const int side = i / (T * per), t = (i / per) % T, c = i % per;
+      if (!lands(t, s0, s1)) continue;
+      const int p = pos_b[t];
+      if (first[p] != t) continue;
+      const int slot = side * T + t;
+      if (c < chunks) {
+        int8_t* dst = (side ? vc : kc) + (size_t)p * D + c * kCodesPerLoad;
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(
+            cd + (size_t)slot * D + c * kCodesPerLoad);
+      } else {
+        (side ? vs : ks)[(size_t)p * nb + (c - chunks)] =
+            sc[slot * nb + (c - chunks)];
+      }
+    }
+  }
+};
+
+// bf16 compute: the cluster decode route where the shapes allow it, else
+// the CUDA cores.
+cudaError_t launch_bf16(const void* q, void* kc, void* ks, void* vc,
+                        void* vs, long long slot_stride,
+                        long long scale_slot_stride, const void* kn,
+                        const void* vn, const int* pos, void* out, int B,
+                        int T, int H, int KH, int M, int D, int block,
+                        float scale, int device, cudaStream_t stream,
+                        int* route, int* cluster) {
+  const bool rows16 = aligned16(q) && aligned16(kc) && aligned16(vc) &&
+                      aligned16(kn) && aligned16(vn) && aligned16(out) &&
+                      slot_stride % 16 == 0;
+  if (rows16 && (D == 64 || D == 128) && block % kCodesPerLoad == 0 &&
+      T < kPrefillMinT) {
+    const Int8DecodeRows::Cache cache{
+        static_cast<int8_t*>(kc), static_cast<float*>(ks),
+        static_cast<int8_t*>(vc), static_cast<float*>(vs), slot_stride,
+        scale_slot_stride, block};
+    const cudaError_t err = routed_head_dim(D, [&](auto dd) {
+      constexpr int kD = decltype(dd)::value;
+      return launch_decode<Int8DecodeRows, kD>(q, cache, kn, vn, pos, out, B,
+                                               T, H, KH, M, scale, device,
+                                               stream, cluster);
+    });
+    if (err != cudaErrorNotSupported) {
+      *route = kRouteDecode;
+      return err;
+    }
+    *cluster = 0;
+  }
+  *route = kRouteCudaCores;
+  return launch<bf16>(q, kc, ks, vc, vs, slot_stride, scale_slot_stride, kn,
+                      vn, pos, out, B, T, H, KH, M, D, block, scale, stream);
+}
+
 }  // namespace
 
 // As hvd_append_attend, for an int8 cache: kc, vc are int8 codes at
 // b * slot_stride + (kh * M + m) * D + d; ks, vs float32 scales at
-// b * scale_slot_stride + (kh * M + m) * (D / block) + d / block.
+// b * scale_slot_stride + (kh * M + m) * (D / block) + d / block. Writes
+// the route it took to *route (kRouteCudaCores, kRouteDecode) and the
+// CTAs of a decode cluster to *cluster (0 on the CUDA cores).
 extern "C" int hvd_append_attend_int8(
     const void* q, void* kc, void* ks, void* vc, void* vs,
     long long slot_stride, long long scale_slot_stride, const void* kn,
     const void* vn, const void* pos, void* out, int B, int T, int H, int KH,
     int M, int D, int block, float scale, int q_dtype, int device,
-    void* stream) {
+    void* stream, int* route, int* cluster) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int* p = static_cast<const int*>(pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = kRouteCudaCores;
+  *cluster = 0;
   if (q_dtype == kBF16)
-    return launch<__nv_bfloat16>(q, kc, ks, vc, vs, slot_stride,
-                                 scale_slot_stride, kn, vn, p, out, B, T, H,
-                                 KH, M, D, block, scale, s);
+    return launch_bf16(q, kc, ks, vc, vs, slot_stride, scale_slot_stride, kn,
+                       vn, p, out, B, T, H, KH, M, D, block, scale, device, s,
+                       route, cluster);
   if (q_dtype == kF32)
     return launch<float>(q, kc, ks, vc, vs, slot_stride, scale_slot_stride,
                          kn, vn, p, out, B, T, H, KH, M, D, block, scale, s);

@@ -13,8 +13,10 @@ Every kernel works on the ``[R, C]`` view of a channels-last activation:
 the channel axis is the last and contiguous (NHWC, the JAX layout; an
 NCHW tensor in ``torch.channels_last`` memory format has the same
 bytes). The per-channel constants between the passes (mean, var, rstd,
-s, t, u, w, A, B, C) are plain PyTorch ``[C]`` vector operations in the
-order of ``_fbn_fwd_impl`` and ``_fbn_bwd_impl``; the ReLU mask is
+s, t, u, w) are plain PyTorch ``[C]`` vector operations in the order of
+``_fbn_fwd_impl`` and ``_fbn_bwd_impl``; the backward's A, B and C are
+folded from the statistics inside the dx kernel on the card
+(:func:`bn_bwd_constants_ref` is the same arithmetic); the ReLU mask is
 recomputed from x (and the residual) in the backward, which never reads
 y. Statistics are float32; the variance is the biased ``E[x^2] -
 mean^2`` clamped at 0, as ``flax.linen.BatchNorm`` computes it.
@@ -25,7 +27,8 @@ The four kernels, one ``csrc/*.cu`` source each, and what they replace:
   squares;
 * ``bn_apply`` (B8, ``_apply_kernel`` / ``_apply_res_kernel``);
 * ``bn_bwd_reduce`` (B9, ``_bwd_reduce_kernel``): dgamma and dbeta;
-* ``bn_bwd_dx`` (B10, ``_bwd_dx_kernel``): dx and dres.
+* ``bn_bwd_dx`` (B10, ``_bwd_dx_kernel``): A, B and C, then dx and
+  dres.
 
 All four are bound by bytes on an H100 (a few flops per element). B8
 and B10 round each float32 step on its own, as eager PyTorch does, so
@@ -122,13 +125,36 @@ def bn_bwd_reduce_ref(x2, dy2, res2, s, t, u, w, relu: bool):
 
 
 def bn_bwd_dx_ref(x2, dy2, res2, s, t, a, b, c, relu: bool):
-    """Plain version of B10: ``(dx, dres)`` with ``dx = dy_eff * a + x *
-    b + c`` in float32, each step rounded on its own, and ``dres =
-    dy_eff`` (None without a residual), both in x's dtype."""
+    """Plain version of B10's elementwise pass: ``(dx, dres)`` with ``dx
+    = dy_eff * a + x * b + c`` in float32, each step rounded on its own,
+    and ``dres = dy_eff`` (None without a residual), both in x's
+    dtype."""
     dye = _dy_eff(x2, dy2, res2, s, t, relu)
     dx = dye * a + x2.to(torch.float32) * b + c
     dres = None if res2 is None else dye.to(x2.dtype)
     return dx.to(x2.dtype), dres
+
+
+def bn_bwd_constants_ref(gamma, mean, rstd, dgamma, dbeta, n: float):
+    """Plain version of B10's fold: the per-channel float32 ``(a, b, c)``
+    of dx from the statistics and ``(dgamma, dbeta)`` over ``n`` rows, in
+    the order of ``_fbn_bwd_impl``. On the card PyTorch divides by the
+    Python float ``n`` as a product with ``1 / float32(n)``; the kernel
+    folds the same way."""
+    a = gamma * rstd
+    b = rstd * (-a * dgamma / n)
+    c = -a * dbeta / n - (-mean * rstd) * a * dgamma / n
+    return a, b, c
+
+
+def bn_bwd_dx_folded_ref(x2, dy2, res2, s, t, gamma, mean, rstd, dgamma,
+                         dbeta, relu: bool):
+    """Plain version of B10 as the kernel runs it: the fold of
+    :func:`bn_bwd_constants_ref` over ``x2``'s rows, then
+    :func:`bn_bwd_dx_ref`."""
+    a, b, c = bn_bwd_constants_ref(gamma, mean, rstd, dgamma, dbeta,
+                                   float(x2.shape[0]))
+    return bn_bwd_dx_ref(x2, dy2, res2, s, t, a, b, c, relu)
 
 
 # -- kernel wrappers --------------------------------------------------------
@@ -138,7 +164,7 @@ _ARGTYPES = {
     "bn_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bn_apply": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "bn_bwd_reduce": [_P] * 11 + [_I] * 8 + [_P],
-    "bn_bwd_dx": [_P] * 10 + [_L, _I, _I, _I, _I, _I, _P],
+    "bn_bwd_dx": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -160,9 +186,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check_rows(what, x2, *others):
     """x2 and each non-None ``(name, tensor)`` of ``others``: [R, C]
-    CUDA rows of one float32/bfloat16 dtype, contiguous."""
-    if not x2.is_cuda:
-        raise ValueError(f"{what} takes CUDA tensors")
+    rows of one float32/bfloat16 dtype, contiguous, on one device."""
     if x2.dim() != 2 or x2.dtype not in _DTYPE_CODES \
             or not x2.is_contiguous():
         raise ValueError(f"{what} takes contiguous [R, C] float32/bfloat16 "
@@ -185,6 +209,13 @@ def _check_vecs(what, x2, **vecs):
                              f"[{c}] tensor on {x2.device}")
 
 
+def _check_cuda(what, x2):
+    """Checked after the shapes, so that a CPU call reports a bad shape
+    before the device."""
+    if not x2.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors")
+
+
 def _reduce_scratch(x2, vec):
     n, c = x2.shape
     rows_per_block, blocks = reduce_geometry(n, c, vec)
@@ -196,6 +227,7 @@ def bn_stats_cuda(x2: torch.Tensor):
     """Launch ``csrc/bn_stats.cu`` (B7) on ``[R, C]`` CUDA rows:
     ``(sum, sum of squares)`` as :func:`bn_stats_ref` returns them."""
     _check_rows("bn_stats_cuda", x2)
+    _check_cuda("bn_stats_cuda", x2)
     n, c = x2.shape
     out = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
     if n == 0:
@@ -213,6 +245,7 @@ def bn_apply_cuda(x2, s, t, res2, relu: bool) -> torch.Tensor:
     bitwise."""
     _check_rows("bn_apply_cuda", x2, ("residual", res2))
     _check_vecs("bn_apply_cuda", x2, s=s, t=t)
+    _check_cuda("bn_apply_cuda", x2)
     n, c = x2.shape
     y = torch.empty_like(x2)
     if n == 0:
@@ -228,6 +261,7 @@ def bn_bwd_reduce_cuda(x2, dy2, res2, s, t, u, w, relu: bool):
     :func:`bn_bwd_reduce_ref` returns them."""
     _check_rows("bn_bwd_reduce_cuda", x2, ("dy", dy2), ("residual", res2))
     _check_vecs("bn_bwd_reduce_cuda", x2, s=s, t=t, u=u, w=w)
+    _check_cuda("bn_bwd_reduce_cuda", x2)
     n, c = x2.shape
     out = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
     if n == 0:
@@ -241,11 +275,15 @@ def bn_bwd_reduce_cuda(x2, dy2, res2, s, t, u, w, relu: bool):
     return out[0], out[1]
 
 
-def bn_bwd_dx_cuda(x2, dy2, res2, s, t, a, b, c, relu: bool):
-    """Launch ``csrc/bn_bwd_dx.cu`` (B10): :func:`bn_bwd_dx_ref`'s
-    ``(dx, dres)``, bitwise."""
+def bn_bwd_dx_cuda(x2, dy2, res2, s, t, gamma, mean, rstd, dgamma, dbeta,
+                   relu: bool):
+    """Launch ``csrc/bn_bwd_dx.cu`` (B10), which folds A, B and C from
+    the statistics and the column sums itself:
+    :func:`bn_bwd_dx_folded_ref`'s ``(dx, dres)``, bitwise."""
     _check_rows("bn_bwd_dx_cuda", x2, ("dy", dy2), ("residual", res2))
-    _check_vecs("bn_bwd_dx_cuda", x2, s=s, t=t, a=a, b=b, c=c)
+    _check_vecs("bn_bwd_dx_cuda", x2, s=s, t=t, gamma=gamma, mean=mean,
+                rstd=rstd, dgamma=dgamma, dbeta=dbeta)
+    _check_cuda("bn_bwd_dx_cuda", x2)
     n, ch = x2.shape
     dx = torch.empty_like(x2)
     dres = None if res2 is None else torch.empty_like(x2)
@@ -253,8 +291,9 @@ def bn_bwd_dx_cuda(x2, dy2, res2, s, t, a, b, c, relu: bool):
         return dx, dres
     vec = vector_width(ch, x2.dtype, x2, dy2, res2, dx, dres)
     _launch("bn_bwd_dx", x2, x2.data_ptr(), dy2.data_ptr(), _ptr(res2),
-            s.data_ptr(), t.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), dx.data_ptr(), _ptr(dres), n, ch, vec, int(relu))
+            s.data_ptr(), t.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            dx.data_ptr(), _ptr(dres), n, ch, vec, int(relu))
     return dx, dres
 
 
@@ -291,15 +330,11 @@ class _FusedBatchNormFn(torch.autograd.Function):
         # running averages (the JAX op's `_fbn_b` does the same)
         x2, gamma, res2, mean, rstd, s, t = ctx.saved_tensors
         dy2 = dy2.contiguous()
-        n = float(x2.shape[0])
         u, w = rstd, -mean * rstd
         dgamma, dbeta = _pick(x2, bn_bwd_reduce_cuda, bn_bwd_reduce_ref)(
             x2, dy2, res2, s, t, u, w, ctx.relu)
-        a = gamma * rstd
-        b = rstd * (-a * dgamma / n)
-        c = -a * dbeta / n - (-mean * rstd) * a * dgamma / n
-        dx2, dres2 = _pick(x2, bn_bwd_dx_cuda, bn_bwd_dx_ref)(
-            x2, dy2, res2, s, t, a, b, c, ctx.relu)
+        dx2, dres2 = _pick(x2, bn_bwd_dx_cuda, bn_bwd_dx_folded_ref)(
+            x2, dy2, res2, s, t, gamma, mean, rstd, dgamma, dbeta, ctx.relu)
         return dx2, dgamma, dbeta, dres2, None, None
 
 

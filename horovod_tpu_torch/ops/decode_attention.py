@@ -13,11 +13,14 @@ The plain version is the cache update followed by the cached attention
 ``SlottedKVCache.update`` runs exactly these merges. Dispatch is by the
 device of ``q``: a CUDA tensor launches ``csrc/append_attend.cu`` (float
 cache) or ``csrc/append_attend_int8.cu`` (int8 cache), or raises; a CPU
-tensor runs the plain version. In bf16, ``csrc/append_attend.cu`` takes
-one of two routes (its C entry point picks and reports it): the
-tensor-core prefill for calls of ``PREFILL_MIN_T`` or more new rows a
-batch row, the cluster decode for fewer; float32 compute, and a call
-whose shapes the route for its T refuses, run on the CUDA cores.
+tensor runs the plain version. In bf16, each C entry point picks a
+route and reports it: ``csrc/append_attend.cu`` the tensor-core
+prefill for calls of ``PREFILL_MIN_T`` or more new rows a batch row and
+the cluster decode for fewer; ``csrc/append_attend_int8.cu`` the same
+cluster decode (``csrc/decode_cluster.cuh``, one kernel with a row
+policy for each cache) for fewer than ``PREFILL_MIN_T`` rows and a block
+that is a multiple of ``INT8_CODES_PER_LOAD``. Float32 compute, and a
+call whose shapes the route for its T refuses, run on the CUDA cores.
 
 The port reads no ``HOROVOD_FUSED_COLLECTIVES``: the card always runs
 the kernel.
@@ -41,15 +44,19 @@ from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The routes of csrc/append_attend.cu (the C entry point picks one and
-# reports it) and their tiling, for callers that emulate a route
-# skipping part of its work (chip_smoke.py);
-# tests/test_torch_kernels.py holds each to its ``constexpr`` there.
-#: route codes the entry point reports, by index: the CUDA-core kernel
+# The routes of csrc/append_attend.cu and csrc/append_attend_int8.cu
+# (each C entry point picks one and reports it) and their tiling, for
+# callers that emulate a route skipping part of its work
+# (chip_smoke.py); tests/test_torch_kernels.py holds each to its
+# ``constexpr`` there.
+#: route codes the entry points report, by index: the CUDA-core kernel
 #: (float32 compute, other head_dims, calls the other routes refuse), the
-#: tensor-core prefill and the cluster decode (both bf16 compute)
+#: tensor-core prefill (float caches only) and the cluster decode (both
+#: bf16 compute; csrc/decode_cluster.cuh)
 ROUTES = ("cuda_core", "prefill", "decode")
-#: launches by route since the last :func:`reset_route_launches`
+#: launches of both kernels by route since the last
+#: :func:`reset_route_launches` (``_build.LAUNCHES`` tells the kernels
+#: apart)
 ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
 #: the last launch's route and the CTAs of its decode clusters (0 on the
 #: other routes), as the entry point reported them
@@ -59,8 +66,15 @@ LAST_LAUNCH = {"route": None, "cluster": 0}
 PREFILL_Q_TILE = 64
 PREFILL_KEY_TILE = 64
 #: bf16 calls with at least this many new rows per batch row take the
-#: prefill route, fewer the decode route (kPrefillMinT)
+#: prefill route (float caches) or the CUDA cores (int8 cache), fewer the
+#: decode route (kPrefillMinT)
 PREFILL_MIN_T = 16
+#: the head_dims the bf16 routes are built for (routed_head_dim)
+ROUTED_HEAD_DIMS = (64, 128)
+#: int8 cache: codes one lane of the decode route loads at once
+#: (kCodesPerLoad); the route takes a quantization block that is a
+#: multiple of it, so the codes of one load share one scale
+INT8_CODES_PER_LOAD = 16
 #: CTAs of a decode cluster, at most (kMaxCluster): the entry point
 #: takes the least of 1, 2, 4, 8 with ``B * KH * C`` >= the card's SM
 #: count, 8 where none reaches it, and reports it in :data:`LAST_LAUNCH`
@@ -203,7 +217,8 @@ def _lib_int8():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
                        p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
-                       i, p]
+                       i, p, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
     return lib
 
@@ -242,6 +257,12 @@ def _check_inputs(q, k_new, v_new, positions, slices, m: int, d: int):
     return b, t, h, kh, positions.to(torch.int32).contiguous()
 
 
+def _count(kernel: str, route: int, cluster: int) -> None:
+    _build.LAUNCHES[kernel] += 1
+    ROUTE_LAUNCHES[ROUTES[route]] += 1
+    LAST_LAUNCH.update(route=ROUTES[route], cluster=cluster)
+
+
 def append_attend_cuda(q, k_buf, v_buf, k_new, v_new, positions):
     """Launch ``csrc/append_attend.cu``: merge the new rows into the
     float32/bfloat16 cache slices ``k_buf``/``v_buf`` ``[B, KH, M, D]``
@@ -268,9 +289,7 @@ def append_attend_cuda(q, k_buf, v_buf, k_new, v_new, positions):
         _build.stream_handle(q.device), ctypes.byref(route),
         ctypes.byref(cluster))
     _build.check(lib, err, "append_attend")
-    _build.LAUNCHES["append_attend"] += 1
-    ROUTE_LAUNCHES[ROUTES[route.value]] += 1
-    LAST_LAUNCH.update(route=ROUTES[route.value], cluster=cluster.value)
+    _count("append_attend", route.value, cluster.value)
     return out
 
 
@@ -278,7 +297,8 @@ def append_attend_int8_cuda(q, k_codes, k_scales, v_codes, v_scales, k_new,
                             v_new, positions, block: int):
     """Launch ``csrc/append_attend_int8.cu``: quantize the new rows on
     write, merge codes ``[B, KH, M, D]`` int8 and scales ``[B, KH, M,
-    D/block]`` float32 in place, and return the attention output."""
+    D/block]`` float32 in place, and return the attention output. The
+    route the kernel took is counted in :data:`ROUTE_LAUNCHES`."""
     m, d = k_codes.shape[2], k_codes.shape[3]
     if block < 1 or d % block:
         raise ValueError(f"block {block} does not divide head_dim {d}")
@@ -297,15 +317,17 @@ def append_attend_int8_cuda(q, k_codes, k_scales, v_codes, v_scales, k_new,
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty_like(q)
     lib = _lib_int8()
+    route, cluster = ctypes.c_int(-1), ctypes.c_int(0)
     err = lib.hvd_append_attend_int8(
         q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
         v_codes.data_ptr(), v_scales.data_ptr(), k_codes.stride(0),
         k_scales.stride(0), k_new.data_ptr(), v_new.data_ptr(),
         pos.data_ptr(), out.data_ptr(), b, t, h, kh, m, d, int(block),
         float(1.0 / np.sqrt(d)), _DTYPE_CODES[q.dtype], q.device.index,
-        _build.stream_handle(q.device))
+        _build.stream_handle(q.device), ctypes.byref(route),
+        ctypes.byref(cluster))
     _build.check(lib, err, "append_attend_int8")
-    _build.LAUNCHES["append_attend_int8"] += 1
+    _count("append_attend_int8", route.value, cluster.value)
     return out
 
 

@@ -17,7 +17,9 @@ relative + 1e-5 of the largest value.
 Also: the module against the JAX ``FusedBatchNorm`` in training (output
 and running statistics) and in eval; bf16 input keeps float32
 statistics; a bad activation or residual shape raises; the kernel
-wrappers refuse CPU tensors; the reduction geometry covers every row.
+wrappers refuse CPU tensors; the reduction geometry covers every row;
+B10's fold of A, B and C (``bn_bwd_constants_ref``) is bitwise the
+backward's former inline arithmetic, and its wrapper refuses bad shapes.
 """
 
 import flax.linen as fnn
@@ -181,7 +183,8 @@ def test_kernel_wrappers_take_cuda_tensors_only():
                  lambda: tbn.bn_apply_cuda(x, v, v, None, True),
                  lambda: tbn.bn_bwd_reduce_cuda(x, x, None, v, v, v, v,
                                                 True),
-                 lambda: tbn.bn_bwd_dx_cuda(x, x, x, v, v, v, v, v, True)):
+                 lambda: tbn.bn_bwd_dx_cuda(x, x, x, v, v, v, v, v, v, v,
+                                            True)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
@@ -194,3 +197,70 @@ def test_reduce_geometry_covers_every_row(n, c, vec):
     col_tiles = -(-(c // vec) // tbn.THREADS)
     assert rows * blocks >= n > rows * (blocks - 1)
     assert 1 <= blocks * col_tiles <= max(tbn.TARGET_BLOCKS, col_tiles)
+
+
+def _inline_fold(gamma, mean, rstd, dgamma, dbeta, n):
+    # the constants as _FusedBatchNormFn.backward computed them inline
+    a = gamma * rstd
+    b = rstd * (-a * dgamma / n)
+    c = -a * dbeta / n - (-mean * rstd) * a * dgamma / n
+    return a, b, c
+
+
+@pytest.mark.parametrize("n,c", [(401408, 256), (1605632, 64), (6272, 2048),
+                                 (10007, 100), (4099, 96), (3, 8)])
+def test_bn_bwd_constants_ref_is_the_inline_fold(n, c):
+    """The plain fold the dx kernel is held against returns bitwise what
+    the backward computed before the fold moved into the kernel."""
+    rng = np.random.RandomState(c + n % 97)
+    v = {k: torch.from_numpy(rng.randn(c).astype(np.float32) * sc)
+         for k, sc in (("gamma", 0.3), ("mean", 1.0), ("dgamma", 50.0),
+                       ("dbeta", 80.0))}
+    v["gamma"] += 1
+    rstd = torch.from_numpy((rng.rand(c) + 0.2).astype(np.float32))
+    args = (v["gamma"], v["mean"], rstd, v["dgamma"], v["dbeta"], float(n))
+    for got, want in zip(tbn.bn_bwd_constants_ref(*args), _inline_fold(*args)):
+        assert got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_bn_bwd_dx_folded_ref_is_fold_then_dx():
+    d = _inputs((3, 5, 5, 96), seed=11)
+    x2 = torch.from_numpy(d["x"]).reshape(-1, 96)
+    dy2 = torch.from_numpy(d["dy"]).reshape(-1, 96)
+    res2 = torch.from_numpy(d["res"]).reshape(-1, 96)
+    g = torch.from_numpy(d["gamma"])
+    mean, rstd = x2.mean(0), torch.rsqrt(x2.var(0, unbiased=False) + 1e-5)
+    s, t = g * rstd, torch.from_numpy(d["beta"]) - mean * g * rstd
+    dg, db = dy2.sum(0), (dy2 * x2).sum(0)
+    a, b, c = _inline_fold(g, mean, rstd, dg, db, float(x2.shape[0]))
+    want = tbn.bn_bwd_dx_ref(x2, dy2, res2, s, t, a, b, c, True)
+    got = tbn.bn_bwd_dx_folded_ref(x2, dy2, res2, s, t, g, mean, rstd, dg,
+                                   db, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _dx_args(**bad):
+    x = torch.zeros(32, 64)
+    v = torch.ones(64)
+    args = dict(x2=x, dy2=x, res2=None, s=v, t=v, gamma=v, mean=v, rstd=v,
+                dgamma=v, dbeta=v, relu=True)
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({}, "CUDA"),
+    ({"x2": torch.zeros(2, 32, 64)}, r"\[R, C\]"),
+    ({"x2": torch.zeros(32, 64, dtype=torch.float64)}, "float32/bfloat16"),
+    ({"dy2": torch.zeros(32, 32)}, "dy must be"),
+    ({"res2": torch.zeros(32, 64, dtype=torch.bfloat16)}, "residual must be"),
+    ({"gamma": torch.ones(32)}, "gamma must be"),
+    ({"rstd": torch.ones(64, dtype=torch.float64)}, "rstd must be"),
+    ({"dbeta": torch.ones(128)[::2]}, "dbeta must be"),
+], ids=["cpu", "rank", "dtype", "dy", "res", "gamma", "rstd", "strided"])
+def test_bn_bwd_dx_cuda_rejects_bad_inputs(bad, match):
+    """B10's wrapper takes contiguous [R, C] rows and [C] float32
+    statistics on the card; shapes are checked before the device."""
+    with pytest.raises(ValueError, match=match):
+        tbn.bn_bwd_dx_cuda(**_dx_args(**bad))

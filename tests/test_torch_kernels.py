@@ -396,6 +396,11 @@ def test_append_attend_ref_matches_pallas(case, monkeypatch):
             f"{case}: bf16 output differs by more than one bf16 ulp"
 
 
+def _csrc(name):
+    return (pathlib.Path(tda.__file__).resolve().parent.parent / "csrc"
+            / name).read_text()
+
+
 def test_append_attend_tiling_is_the_kernels():
     """The routes and tiling ``ops/decode_attention.py`` exports
     (``chip_smoke.py`` emulates a prefill block that skips its last key
@@ -404,8 +409,7 @@ def test_append_attend_tiling_is_the_kernels():
     query and key tiles, the T from which bf16 calls take the prefill
     route, the decode cluster's largest size (the entry point reports
     the size it launched) and its span rule."""
-    src = (pathlib.Path(tda.__file__).resolve().parent.parent / "csrc"
-           / "append_attend.cu").read_text()
+    src = _csrc("append_attend.cu") + _csrc("decode_cluster.cuh")
     m = re.search(r"enum Route : int \{ kRouteCudaCores = (\d), "
                   r"kRoutePrefill = (\d), kRouteDecode = (\d) \}", src)
     assert m
@@ -420,6 +424,35 @@ def test_append_attend_tiling_is_the_kernels():
     # a prefill block's rows are whole m16 tiles of its warps
     assert tda.PREFILL_Q_TILE % 16 == 0 and tda.PREFILL_KEY_TILE % 16 == 0
     assert tda.decode_span(530, 2) == 265 and tda.decode_span(1, 8) == 1
+
+
+def test_append_attend_int8_route_is_the_kernels():
+    """B17 runs B16's cluster decode kernel (``csrc/decode_cluster.cuh``)
+    with its own row policy, and the route constants
+    ``ops/decode_attention.py`` exports for it are the sources': the
+    head_dims the route is built for, the T below which it is taken, the
+    codes a lane loads (the block must be a multiple), the route codes
+    and the cluster's largest size, which both kernels share."""
+    head = _csrc("decode_cluster.cuh")
+    int8 = _csrc("append_attend_int8.cu")
+    assert '#include "decode_cluster.cuh"' in int8
+    assert '#include "decode_cluster.cuh"' in _csrc("append_attend.cu")
+    assert "launch_decode<Int8DecodeRows, kD>" in int8
+    assert "launch_decode<Rows, kD>" in _csrc("append_attend.cu")
+    assert tda.INT8_CODES_PER_LOAD == _constexpr(int8, "kCodesPerLoad")
+    assert tda.PREFILL_MIN_T == _constexpr(head, "kPrefillMinT")
+    assert tda.DECODE_MAX_CLUSTER == _constexpr(head, "kMaxCluster")
+    dims = tuple(int(d) for d in re.findall(
+        r"if \(d == (\d+)\) return body", head))
+    assert dims == tda.ROUTED_HEAD_DIMS
+    assert re.search(r"\(D == 64 \|\| D == 128\) && block % kCodesPerLoad "
+                     r"== 0 &&\s*T < kPrefillMinT", int8)
+    # a lane's 16-byte load of codes is kCodesPerLoad int8 values, and
+    # every routed head_dim splits into loads
+    assert tda.INT8_CODES_PER_LOAD == 16
+    assert all(d % tda.INT8_CODES_PER_LOAD == 0 for d in tda.ROUTED_HEAD_DIMS)
+    assert "*route = kRouteDecode;" in int8
+    assert "*route = kRouteCudaCores;" in int8
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
