@@ -28,9 +28,11 @@ Phases, in order; the first failure exits non-zero:
    skips its last key tile or a cluster that skips one CTA's span must
    fail, merged caches (B17: codes and scales) bitwise; the
    BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise (dx
-   folding its constants from the statistics), the
-   two reductions per channel, where sums that leave out one row block
-   must fail; the int8 wire's kernels bitwise on the largest bucket of
+   folding its constants from the statistics), the two one-launch
+   reductions per channel and bitwise from run to run, where sums that
+   leave out one row block of their partition, or a finish that drops
+   one partial row, must fail, and the statistics kernel's folded
+   constants bitwise the plain fold of its own sums; the int8 wire's kernels bitwise on the largest bucket of
    GPT-2 medium's plan at worlds 4 and 8 and on edge cases; the bucket
    pack bitwise on BERT-Large's largest bucket and edge cases; the
    matmul with the ring-row epilogue row by row against a float64
@@ -68,7 +70,9 @@ Phases, in order; the first failure exits non-zero:
    warm-up + 5 timed steps on one batch), after checking the step-1
    loss and gradients of the fused-BN path against the plain-BN path
    on the same weights (``RESNET_GRAD_TOL``); the loss must fall, each
-   BatchNorm kernel must launch 53 times a step; one step is profiled;
+   BatchNorm kernel must launch 53 times a step; one step is profiled,
+   and there too each of B7-B10 must run 53 times and no column-sum
+   kernel;
 6. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
    continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
@@ -927,13 +931,17 @@ def check_append_attend_int8(seed):
 #: per-channel tolerance of the BatchNorm reductions (B7, B9): each of
 #: sum(x), sum(x^2), dgamma and dbeta within BN_RTOL x the sum of its
 #: terms' magnitudes of the plain version's. The kernels and the plain
-#: sums differ only in the order of float32 additions; in the main case
-#: a sum that leaves out one of the kernel's row blocks must fail it
+#: sums differ only in the order of float32 additions; a sum that leaves
+#: out one of the kernel's row blocks, or a finish that drops one
+#: partial row, must fail it
 BN_RTOL = 1e-5
 #: (rows, channels, dtype, relu, residual, what): the path's shapes at
-#: batch 128 x 224 px, the main case first, then ragged float32 cases
-#: (a row count no block size divides; C = 100 takes the one-element
-#: path, C = 96 the 16-byte one)
+#: batch 128 x 224 px, the main case first, then ragged float32 cases (a
+#: row count no block size divides; C = 100 and C = 96 take 16-byte
+#: loads, 25 and 24 of them a row, C = 101 one-element loads, two column
+#: tiles and a one-element finish), and 100 rows, which one row block
+#: sums (its last-block finish and ticket reset with nothing to wait
+#: for)
 BN_CASES = (
     (401408, 256, torch.bfloat16, True, True,
      "stage-1 block output 128x56x56x256, ReLU + residual"),
@@ -944,6 +952,9 @@ BN_CASES = (
      "stage-4 block output 128x7x7x2048, ReLU + residual"),
     (10007, 100, torch.float32, True, True, "ragged f32, ReLU + residual"),
     (4099, 96, torch.float32, False, False, "ragged f32, plain"),
+    (777, 101, torch.float32, True, True,
+     "ragged f32 C = 101, one-element loads, ReLU + residual"),
+    (100, 64, torch.float32, False, False, "one row block, plain"),
 )
 
 
@@ -959,45 +970,59 @@ def _bn_reading(got, want, terms_abs):
     return ((got - want).abs() / terms_abs.clamp_min(1e-30)).max().item()
 
 
+def _block_sums(terms, block_of):
+    """Each block's float32 column sums of ``terms`` ([blocks, c]),
+    ``block_of`` giving each row's block."""
+    return terms.new_zeros(int(block_of.max()) + 1, terms.shape[1]
+                           ).index_add_(0, block_of, terms)
+
+
 def _block_skip_reading(terms, terms_abs, block_of):
     """What the per-channel (per-column) check reads on a sum that
     leaves out one block of a kernel's rows, ``block_of`` giving each
     row's block: the least, over the blocks, of the block's largest
     per-channel share. Above the limit, leaving out any one block fails
     the check."""
-    n, c = terms.shape
-    blocks = terms.new_zeros(int(block_of.max()) + 1, c).index_add_(
-        0, block_of, terms)
+    blocks = _block_sums(terms, block_of)
     return (blocks.abs() / terms_abs.clamp_min(1e-30)).amax(1).min().item()
 
 
-def _bn_skip_reading(terms, terms_abs, rows_per_block):
-    """:func:`_block_skip_reading` over row blocks of ``rows_per_block``
-    consecutive rows (the BatchNorm reductions' partition)."""
-    block_of = torch.arange(terms.shape[0], device=terms.device)
-    return _block_skip_reading(terms, terms_abs, block_of // rows_per_block)
+def _dropped_partial_reading(terms, terms_abs, block_of, want):
+    """What the per-channel check reads on a finish that drops the last
+    partial row: the row blocks' partial sums (``block_of``, the
+    kernel's partition) added over every row but the last, against the
+    plain sums ``want``."""
+    part = _block_sums(terms, block_of)
+    return _bn_reading(part[:-1].sum(0), want, terms_abs)
 
 
 def check_batchnorm(seed):
     """B7-B10 at the ResNet-50 path's shapes (``BN_CASES``). B8 and B10
     (dx and dres) must be bitwise equal to their plain versions; B7 and
-    B9 are held per channel (``BN_RTOL``), and in the main case sums that
-    leave out one row block of the kernel must fail that check. The
-    per-channel constants between the kernels come from the plain
-    version's sums, so each kernel sees the same inputs as its plain
-    version (B10 folds its A, B and C from them itself, held bitwise
-    through dx against the plain fold on the card). The bf16 cases are
-    timed: the kernel, its plain version and one PyTorch call as a
-    yardstick (``torch.var_mean`` for B7, the training forward of
-    ``F.batch_norm`` beside B7 + B8, its autograd backward beside B9 +
+    B9 are held per channel (``BN_RTOL``), and in every case sums that
+    leave out one row block of the kernel's partition
+    (``reduce_block_of_rows``), and a finish that drops one partial row,
+    must fail that check. B7's constants (mean, var, rstd, s, t) must be
+    bitwise the plain fold of its own sums on the card, and B7's and
+    B9's outputs bitwise equal over two runs. The per-channel constants
+    between the kernels come from the plain version's sums, so each
+    kernel sees the same inputs as its plain version (B9 forms u and w,
+    B10 its A, B and C, from them itself). The bf16 cases are timed: the
+    kernel, its plain version and PyTorch calls as yardsticks
+    (``torch.batch_norm_stats`` and ``torch.var_mean`` for B7, the
+    training forward of ``F.batch_norm`` beside B7 + B8,
+    ``torch.batch_norm_backward_reduce`` for B9 (no ReLU mask: B9's plain
+    case) and the autograd backward of ``F.batch_norm`` beside B9 +
     B10)."""
+    from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import batchnorm as bn
 
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    sms = _build.sm_count(torch.device("cuda", 0))
     out = {k: [] for k in ("bn_stats", "bn_apply", "bn_bwd_reduce",
                            "bn_bwd_dx")}
     eps = 1e-5
-    for ci, (n, c, dtype, relu, has_res, what) in enumerate(BN_CASES):
+    for n, c, dtype, relu, has_res, what in BN_CASES:
         def mk(scale=1.0, shift=0.0):
             return (torch.randn(n, c, generator=g, device="cuda") * scale
                     + shift).to(dtype)
@@ -1006,21 +1031,22 @@ def check_batchnorm(seed):
         gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
         beta = 0.1 * torch.randn(c, generator=g, device="cuda")
         xf = x.float()
-        # B7
-        ks, kq = bn.bn_stats_cuda(x)
-        ps, pq = bn.bn_stats_ref(x)
-        # the constants, in the order of the autograd function
         nf = float(n)
-        mean = ps / nf
-        var = torch.clamp(pq / nf - mean * mean, min=0.0)
-        rstd = torch.rsqrt(var + eps)
-        s, t = gamma * rstd, beta - mean * (gamma * rstd)
-        u, w = rstd, -mean * rstd
-        # B8, B9
+        # B7, twice, and its fold of its own sums in eager PyTorch
+        kstats = bn.bn_stats_cuda(x, gamma, beta, eps)
+        kstats2 = bn.bn_stats_cuda(x, gamma, beta, eps)
+        ks, kq = kstats[:2]
+        kfold = bn.bn_fwd_constants_ref(ks, kq, gamma, beta, eps, nf)
+        ps, pq = bn.bn_stats_ref(x)
+        # the constants of the plain sums, in the order of the op
+        mean, var, rstd, s, t = bn.bn_fwd_constants_ref(ps, pq, gamma, beta,
+                                                        eps, nf)
+        # B8, B9 (twice)
         ky = bn.bn_apply_cuda(x, s, t, res, relu)
         py = bn.bn_apply_ref(x, s, t, res, relu)
-        kg, kb = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, u, w, relu)
-        pg, pb = bn.bn_bwd_reduce_ref(x, dy, res, s, t, u, w, relu)
+        kg, kb = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, mean, rstd, relu)
+        kred2 = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, mean, rstd, relu)
+        pg, pb = bn.bn_bwd_reduce_ref(x, dy, res, s, t, mean, rstd, relu)
         # B10: the kernel folds A, B and C from the statistics and the
         # plain version's column sums; the plain fold runs on the card
         kdx, kdres = bn.bn_bwd_dx_cuda(x, dy, res, s, t, gamma, mean, rstd,
@@ -1030,40 +1056,62 @@ def check_batchnorm(seed):
         torch.cuda.synchronize()
 
         dye = bn._dy_eff(x, dy, res, s, t, relu)
-        terms = {"sum": xf, "sumsq": xf * xf, "dgamma": dye * (xf * u + w),
-                 "dbeta": dye}
+        terms = {"sum": xf, "sumsq": xf * xf,
+                 "dgamma": dye * (xf * rstd + -mean * rstd), "dbeta": dye}
         absum = {k: v.abs().sum(0) for k, v in terms.items()}
         got = {"sum": ks, "sumsq": kq, "dgamma": kg, "dbeta": kb}
         want = {"sum": ps, "sumsq": pq, "dgamma": pg, "dbeta": pb}
         reads = {k: _bn_reading(got[k], want[k], absum[k]) for k in got}
         vec = bn.vector_width(c, dtype, x)
-        rows_per_block, blocks = bn.reduce_geometry(n, c, vec)
-        skips = ({k: _bn_skip_reading(terms[k], absum[k], rows_per_block)
-                  for k in terms} if ci == 0 else None)
+        row_blocks, col_tiles = bn.reduce_geometry(n, c, vec,
+                                                   x.element_size(), sms)
+        block_of = bn.reduce_block_of_rows(n, c, vec, row_blocks).cuda()
+        skips = {k: _block_skip_reading(terms[k], absum[k], block_of)
+                 for k in terms}
+        dropped = {k: _dropped_partial_reading(terms[k], absum[k], block_of,
+                                               want[k]) for k in terms}
+        names = ("mean", "var", "rstd", "s", "t")
         bitwise = {"y": _bitwise(ky, py), "dx": _bitwise(kdx, pdx),
-                   "dres": (None if res is None else _bitwise(kdres, pdres))}
+                   "dres": (None if res is None else _bitwise(kdres, pdres)),
+                   **{f"stats_{k}": _bitwise(a, b)
+                      for k, a, b in zip(names, kstats[2:], kfold)},
+                   "stats_run_to_run": all(
+                       _bitwise(a, b) for a, b in zip(kstats, kstats2)),
+                   "bwd_reduce_run_to_run": all(
+                       _bitwise(a, b) for a, b in zip((kg, kb), kred2))}
         print(json.dumps({"bn_case": what, "rows": n, "channels": c,
-                          "vec": vec, "rows_per_block": rows_per_block,
-                          "blocks": blocks, "rtol": BN_RTOL,
-                          "reduce_reading": reads, "skip_reading": skips,
+                          "vec": vec, "row_blocks": row_blocks,
+                          "col_tiles": col_tiles,
+                          "partial_share": 8 * row_blocks / (
+                              n * x.element_size()),
+                          "rtol": BN_RTOL, "reduce_reading": reads,
+                          "skip_reading": skips,
+                          "dropped_partial_reading": dropped,
                           "bitwise": bitwise}))
         for k, r in reads.items():
             _require(r <= BN_RTOL, f"batchnorm {what}: {k} reads {r:.2e} of "
                                    f"its terms' magnitude > {BN_RTOL}")
-        for k, r in (skips or {}).items():
+        for k, r in skips.items():
             _require(r > BN_RTOL, f"batchnorm {what}: a {k} that leaves out "
                                   f"one row block reads {r:.2e} <= "
                                   f"{BN_RTOL} and would pass")
+        for k, r in dropped.items():
+            _require(r > BN_RTOL, f"batchnorm {what}: a {k} whose finish "
+                                  f"drops one partial row reads {r:.2e} <= "
+                                  f"{BN_RTOL} and would pass")
         for k, ok in bitwise.items():
             _require(ok is not False, f"batchnorm {what}: {k} is not bitwise "
-                                      "equal to the plain version")
-        for k, v in (("y", ky), ("dx", kdx)):
+                                      "equal")
+        for k, v in (("y", ky), ("dx", kdx), ("mean", kstats[2]),
+                     ("rstd", kstats[4])):
             _require(bool(torch.isfinite(v).all()),
                      f"batchnorm {what}: {k} not finite")
         rows = {
             "bn_stats": {"max_abs_err": max((ks - ps).abs().max().item(),
                                             (kq - pq).abs().max().item()),
-                         "tol": f"per channel <= {BN_RTOL} x sum |terms|",
+                         "tol": f"sums per channel <= {BN_RTOL} x sum "
+                                "|terms|; mean, var, rstd, s, t bitwise the "
+                                "plain fold of the kernel's sums",
                          "reading": {k: reads[k] for k in ("sum", "sumsq")}},
             "bn_apply": {"max_abs_err": (ky.float() - py.float()).abs().max()
                          .item(), "tol": "bitwise"},
@@ -1079,8 +1127,9 @@ def check_batchnorm(seed):
         }
         for kname, row in rows.items():
             row["case"] = f"[{n}, {c}] {str(dtype)[6:]}: {what}"
-            if skips:
-                row["skip_reading"] = skips
+            if kname in ("bn_stats", "bn_bwd_reduce"):
+                row.update(row_blocks=row_blocks, skip_reading=skips,
+                           dropped_partial_reading=dropped)
             out[kname].append(row)
         if dtype != torch.bfloat16:
             continue
@@ -1091,22 +1140,23 @@ def check_batchnorm(seed):
         nres = 1 if has_res else 0
         mask_res = 1 if (relu and has_res) else 0
         work = {
-            "bn_stats": (big + 2 * c * 4, 3 * n * c),
+            "bn_stats": (big + 9 * c * 4, 3 * n * c),
             "bn_apply": ((2 + nres) * big + 2 * c * 4, (3 + nres) * n * c),
             "bn_bwd_reduce": ((2 + mask_res) * big + 6 * c * 4, 9 * n * c),
             "bn_bwd_dx": ((3 + mask_res + nres) * big + 7 * c * 4,
                           9 * n * c),
         }
         calls = {
-            "bn_stats": (lambda _=0: bn.bn_stats_cuda(x),
-                         lambda _=0: bn.bn_stats_ref(x)),
+            "bn_stats": (lambda _=0: bn.bn_stats_cuda(x, gamma, beta, eps),
+                         lambda _=0: bn.bn_stats_folded_ref(x, gamma, beta,
+                                                            eps)),
             "bn_apply": (lambda _=0: bn.bn_apply_cuda(x, s, t, res, relu),
                          lambda _=0: bn.bn_apply_ref(x, s, t, res, relu)),
             "bn_bwd_reduce": (
-                lambda _=0: bn.bn_bwd_reduce_cuda(x, dy, res, s, t, u, w,
-                                                  relu),
-                lambda _=0: bn.bn_bwd_reduce_ref(x, dy, res, s, t, u, w,
-                                                 relu)),
+                lambda _=0: bn.bn_bwd_reduce_cuda(x, dy, res, s, t, mean,
+                                                  rstd, relu),
+                lambda _=0: bn.bn_bwd_reduce_ref(x, dy, res, s, t, mean,
+                                                 rstd, relu)),
             "bn_bwd_dx": (
                 lambda _=0: bn.bn_bwd_dx_cuda(x, dy, res, s, t, gamma, mean,
                                               rstd, pg, pb, relu),
@@ -1126,17 +1176,25 @@ def check_batchnorm(seed):
         lib_bwd = _device_ms(lambda _=0: torch.autograd.grad(
             yl, (xg, gb, bb), dyn, retain_graph=True), iters=20)
         lib = {
-            "bn_stats": _device_ms(lambda _=0: torch.var_mean(
-                x, dim=0, correction=0), iters=20),
+            "bn_stats": _device_ms(lambda _=0: torch.batch_norm_stats(
+                xn, eps), iters=20),
             "bn_apply": _device_ms(lambda _=0: F.batch_norm(
                 xn, None, None, gamma, beta, training=True, eps=eps),
                 iters=20),
-            "bn_bwd_reduce": lib_bwd, "bn_bwd_dx": lib_bwd,
+            "bn_bwd_reduce": _device_ms(
+                lambda _=0: torch.batch_norm_backward_reduce(
+                    dyn, xn, mean, rstd, gamma, True, True, True), iters=20),
+            "bn_bwd_dx": lib_bwd,
         }
-        covers = {"bn_stats": "torch.var_mean",
+        covers = {"bn_stats": "torch.batch_norm_stats (mean, invstd)",
                   "bn_apply": "F.batch_norm training fwd (B7 + B8)",
-                  "bn_bwd_reduce": "F.batch_norm bwd (B9 + B10)",
+                  "bn_bwd_reduce": "torch.batch_norm_backward_reduce (no "
+                                   "ReLU mask: B9's plain case)",
                   "bn_bwd_dx": "F.batch_norm bwd (B9 + B10)"}
+        also = {"bn_stats": ("torch.var_mean", _device_ms(
+                    lambda _=0: torch.var_mean(x, dim=0, correction=0),
+                    iters=20)),
+                "bn_bwd_reduce": ("F.batch_norm bwd (B9 + B10)", lib_bwd)}
         for kname, (kern, plain) in calls.items():
             bound, by = _bound(*work[kname], "f32")
             out[kname][-1].update(
@@ -1144,7 +1202,20 @@ def check_batchnorm(seed):
                 plain_ms=_device_ms(plain, iters=5),
                 library_ms=lib[kname], library_call=covers[kname],
                 bound_ms=bound, bound_by=by)
+            if kname in also:
+                out[kname][-1].update(library2_call=also[kname][0],
+                                      library2_ms=also[kname][1])
         del yl, xg
+    # no rows: one row block sums nothing, and the fold divides by 0
+    e = torch.empty(0, 64, device="cuda")
+    v = torch.ones(64, device="cuda")
+    es = bn.bn_stats_cuda(e, v, v, eps)
+    eg = bn.bn_bwd_reduce_cuda(e, e, None, v, v, v, v, True)
+    ef = bn.bn_fwd_constants_ref(es[0], es[1], v, v, eps, 0.0)
+    _require(all(bool((a == 0).all()) for a in (*es[:2], *eg))
+             and all(torch.equal(a.isnan(), b.isnan())
+                     for a, b in zip(es[2:], ef)),
+             "batchnorm: no rows must give zero sums and the fold's NaNs")
     return out
 
 
@@ -1669,6 +1740,7 @@ def _injected_fault(name):
     ``ln_last_block``: B5's column sums leave out the last block of its
     partition (``ops/layernorm.py`` ``bwd_block_of_rows``: that block's
     rows add nothing to dgamma, dbeta)."""
+    from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import layernorm as ln
 
@@ -1693,7 +1765,7 @@ def _injected_fault(name):
         def faulty(x2, dy2, gamma, eps, rms, with_beta):
             dx, dg, db = orig(x2, dy2, gamma, eps, rms, with_beta)
             n = x2.shape[0]
-            blocks = ln.bwd_blocks(n, ln._sm_count(x2.device))
+            blocks = ln.bwd_blocks(n, _build.sm_count(x2.device))
             last = (ln.bwd_block_of_rows(n, blocks) == blocks - 1).to(
                 x2.device)
             _, pg, pb = ln.layer_norm_bwd_ref(x2[last], dy2[last], gamma,
@@ -2606,30 +2678,35 @@ RESNET_FAULTS = ("bn_reduce_last_block", "bn_reduce_mask_no_residual",
 @contextlib.contextmanager
 def _injected_bn_fault(name):
     """Run the fused-BN backward as a faulty kernel would:
-    ``bn_reduce_last_block``: B9's column sums stop one row block short;
+    ``bn_reduce_last_block``: B9's column sums leave out the last row
+    block of its partition (``reduce_block_of_rows``);
     ``bn_reduce_mask_no_residual``: B9 recomputes the ReLU mask without
     the residual; ``bn_dx_dres_unmasked``: B10 writes dres = dy, not
     the masked dy_eff."""
     from horovod_tpu_torch.ops import batchnorm as bn
 
     if name == "bn_reduce_last_block":
+        from horovod_tpu_torch.ops import _build
+
         attr, orig = "bn_bwd_reduce_cuda", bn.bn_bwd_reduce_cuda
 
-        def faulty(x2, dy2, res2, s, t, u, w, relu):
-            dg, db = orig(x2, dy2, res2, s, t, u, w, relu)
+        def faulty(x2, dy2, res2, s, t, mean, rstd, relu):
+            dg, db = orig(x2, dy2, res2, s, t, mean, rstd, relu)
             n, c = x2.shape
-            rows, blocks = bn.reduce_geometry(
-                n, c, bn.vector_width(c, x2.dtype, x2, dy2, res2))
-            tail = slice((blocks - 1) * rows, None)
+            vec = bn.vector_width(c, x2.dtype, x2, dy2, res2)
+            blocks, _ = bn.reduce_geometry(n, c, vec, x2.element_size(),
+                                           _build.sm_count(x2.device))
+            last = (bn.reduce_block_of_rows(n, c, vec, blocks)
+                    == blocks - 1).to(x2.device)
             pg, pb = bn.bn_bwd_reduce_ref(
-                x2[tail], dy2[tail], None if res2 is None else res2[tail],
-                s, t, u, w, relu)
+                x2[last], dy2[last], None if res2 is None else res2[last],
+                s, t, mean, rstd, relu)
             return dg - pg, db - pb
     elif name == "bn_reduce_mask_no_residual":
         attr, orig = "bn_bwd_reduce_cuda", bn.bn_bwd_reduce_cuda
 
-        def faulty(x2, dy2, res2, s, t, u, w, relu):
-            return orig(x2, dy2, None, s, t, u, w, relu)
+        def faulty(x2, dy2, res2, s, t, mean, rstd, relu):
+            return orig(x2, dy2, None, s, t, mean, rstd, relu)
     elif name == "bn_dx_dres_unmasked":
         attr, orig = "bn_bwd_dx_cuda", bn.bn_bwd_dx_cuda
 
@@ -2649,7 +2726,9 @@ def profile_resnet_step(step, batch):
     """Where one ResNet-50 training step's device time goes, by group:
     cuDNN convolutions, the BatchNorm kernels, the optimizer, casts and
     other elementwise work; with the device busy share (kernel time over
-    wall time, a lower bound: the profiler adds host time)."""
+    wall time, a lower bound: the profiler adds host time). Returns the
+    step's calls of each BatchNorm kernel by name (``column_sum``, the
+    earlier reductions' finishing kernel, beside B7-B10)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2662,6 +2741,8 @@ def profile_resnet_step(step, batch):
     kernels = _kernel_events(prof)
     busy_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    bn_calls = {k: sum(e.count for e in kernels if f"{k}_kernel" in e.key)
+                for k in ("column_sum", *BN_KERNELS)}
     groups, calls = {}, {}
     for e in kernels:
         name = e.key.lower()
@@ -2686,8 +2767,10 @@ def profile_resnet_step(step, batch):
         "device_busy_share": busy_us / 1e6 / wall,
         "kernels": sum(e.count for e in kernels),
         "device_ms_by_group": groups, "launches_by_group": calls,
+        "batchnorm_kernel_calls": bn_calls,
         "top": [{"name": e.key[:70], "ms": _dev_us(e) / 1e3,
                  "calls": e.count} for e in top]}))
+    return bn_calls
 
 
 def train_resnet(seed, ledger):
@@ -2728,7 +2811,11 @@ def train_resnet(seed, ledger):
         "launches_per_step": {k: ledger["train_resnet"][k] / RESNET_STEPS
                               for k in BN_KERNELS},
         "parity": parity}))
-    profile_resnet_step(stats["step"], stats["batch"])
+    bn_calls = profile_resnet_step(stats["step"], stats["batch"])
+    _require(bn_calls["column_sum"] == 0
+             and all(bn_calls[k] == RESNET_BN_LAYERS for k in BN_KERNELS),
+             f"the profiled ResNet-50 step ran BatchNorm kernels {bn_calls}, "
+             f"not {RESNET_BN_LAYERS} of each of B7-B10 and no column sum")
     stats.clear()
     hvd.shutdown()
     torch.cuda.empty_cache()

@@ -34,26 +34,11 @@
 // entry point sizes to the blocks the card holds at once; a thread
 // issues the 16-byte loads of kRows rows before it uses any of them.
 
-#include <type_traits>
-
 #include "batchnorm.cuh"
 
 namespace {
 
-constexpr int kRows = 4;  // rows a thread has in flight
-
-// The raw bits of one vector: a uint4 when it is 16 bytes, else one T.
-template <typename T, int VEC>
-using Raw = std::conditional_t<VEC * sizeof(T) == 16, uint4, T>;
-
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const Raw<T, VEC>& raw,
-                                       float (&out)[VEC]) {
-  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "vector width");
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = to_f32<T>(e[i]);
-}
+using bn::kRows;  // rows a thread has in flight
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(bn::kThreads)
@@ -66,7 +51,7 @@ __global__ void __launch_bounds__(bn::kThreads)
                      const float* __restrict__ dgamma,
                      const float* __restrict__ dbeta, T* __restrict__ dx,
                      T* __restrict__ dres, long long n, int c, int relu) {
-  using R = Raw<T, VEC>;
+  using R = bn::Raw<T, VEC>;
   const bn::ReduceSlot slot = bn::reduce_slot(c / VEC);
   if (!slot.active) return;  // no barrier below
   const int col = slot.vcol * VEC;
@@ -111,9 +96,9 @@ __global__ void __launch_bounds__(bn::kThreads)
       if (r >= n) break;
       const size_t off = static_cast<size_t>(r) * c + col;
       float xv[VEC], dv[VEC], rv[VEC], out[VEC];
-      unpack<T, VEC>(xr[k], xv);
-      unpack<T, VEC>(dr[k], dv);
-      if (mask_res) unpack<T, VEC>(rr[k], rv);
+      bn::unpack<T, VEC>(xr[k], xv);
+      bn::unpack<T, VEC>(dr[k], dv);
+      if (mask_res) bn::unpack<T, VEC>(rr[k], rv);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         if (relu) {

@@ -165,3 +165,35 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SM_COUNT: Dict[int, int] = {}
+_TICKETS: Dict[tuple, "torch.Tensor"] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of CUDA ``device`` (cached)."""
+    import torch
+
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
+
+
+def tickets(kernel: str, device, count: int):
+    """At least ``count`` zeroed int32 counters for the last-block
+    finish of ``kernel``, one set per (kernel, device, stream): launches
+    on one stream run in order, and each kernel leaves its counters
+    zeroed. A larger ``count`` replaces the set with a larger one (work
+    that reuses the old one's memory is queued on the same stream, after
+    the launches that counted with it)."""
+    import torch
+
+    key = (kernel, device.index, stream_handle(device))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t

@@ -12,29 +12,35 @@ pass structure::
 Every kernel works on the ``[R, C]`` view of a channels-last activation:
 the channel axis is the last and contiguous (NHWC, the JAX layout; an
 NCHW tensor in ``torch.channels_last`` memory format has the same
-bytes). The per-channel constants between the passes (mean, var, rstd,
-s, t, u, w) are plain PyTorch ``[C]`` vector operations in the order of
-``_fbn_fwd_impl`` and ``_fbn_bwd_impl``; the backward's A, B and C are
-folded from the statistics inside the dx kernel on the card
-(:func:`bn_bwd_constants_ref` is the same arithmetic); the ReLU mask is
-recomputed from x (and the residual) in the backward, which never reads
-y. Statistics are float32; the variance is the biased ``E[x^2] -
-mean^2`` clamped at 0, as ``flax.linen.BatchNorm`` computes it.
+bytes). The per-channel constants between the passes are folded inside
+the kernels on the card, in the order of ``_fbn_fwd_impl`` and
+``_fbn_bwd_impl``: the forward's mean, var, rstd, s and t in the stats
+kernel's finish (:func:`bn_fwd_constants_ref` is the same arithmetic),
+the backward's u and w in the reduce kernel's prologue, its A, B and C
+in the dx kernel's (:func:`bn_bwd_constants_ref`); so the op runs no
+``[C]`` arithmetic of its own. The ReLU mask is recomputed from x (and
+the residual) in the backward, which never reads y. Statistics are
+float32; the variance is the biased ``E[x^2] - mean^2`` clamped at 0, as
+``flax.linen.BatchNorm`` computes it.
 
 The four kernels, one ``csrc/*.cu`` source each, and what they replace:
 
 * ``bn_stats`` (B7, ``_stats_kernel``): per-channel sum and sum of
-  squares;
+  squares, then mean, var, rstd, s and t;
 * ``bn_apply`` (B8, ``_apply_kernel`` / ``_apply_res_kernel``);
-* ``bn_bwd_reduce`` (B9, ``_bwd_reduce_kernel``): dgamma and dbeta;
+* ``bn_bwd_reduce`` (B9, ``_bwd_reduce_kernel``): u and w, then dgamma
+  and dbeta;
 * ``bn_bwd_dx`` (B10, ``_bwd_dx_kernel``): A, B and C, then dx and
   dres.
 
 All four are bound by bytes on an H100 (a few flops per element). B8
 and B10 round each float32 step on its own, as eager PyTorch does, so
-they are bitwise equal to their plain versions; B7 and B9 add per-block
-partial sums in block order (no atomics, deterministic) and differ from
-the plain sums only in the order of the additions.
+they are bitwise equal to their plain versions. B7 and B9 are one launch
+each: blocks of strided rows write partial sums and the last block of
+each column tile adds them in a fixed order (no atomics, deterministic;
+:func:`reduce_geometry`, :func:`reduce_block_of_rows`); their sums
+differ from the plain sums only in the order of the additions, and B7's
+constants are bitwise the plain fold of its own sums.
 
 Dispatch is by the device of x: a CUDA tensor launches the kernel (or
 the call raises), a CPU tensor runs the plain version.
@@ -51,11 +57,20 @@ from torch import nn
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: threads of every BatchNorm kernel's block (csrc/batchnorm.cuh)
+# The reductions' partition (csrc/batchnorm.cuh; held to its
+# ``constexpr``s by tests/test_torch_kernels.py): a 2-D grid of row
+# blocks x column tiles, a block's threads across a tile of up to
+# REDUCE_TILE vectors of a row and over THREADS / tile row groups.
+#: threads of every BatchNorm kernel's block (kThreads)
 THREADS = 256
-#: blocks a reduction aims for: 8 blocks of 256 threads on each of the
-#: H100's 132 SMs, so every shape of the path fills the card
-TARGET_BLOCKS = 8 * 132
+#: vectors a reduction block spans in a row (kTileVecs)
+REDUCE_TILE = 64
+#: reduction blocks an SM holds at once (kBlocksPerSm): the grid aims at
+#: this multiple of the SM count
+REDUCE_BLOCKS_PER_SM = 2
+#: the two float32 partial arrays together hold at most 1 / this of x's
+#: bytes: fewer row blocks where the rows are few
+REDUCE_PARTIAL_SHARE = 32
 
 
 def vector_width(c: int, dtype: torch.dtype, *tensors) -> int:
@@ -68,16 +83,27 @@ def vector_width(c: int, dtype: torch.dtype, *tensors) -> int:
     return vec if ok else 1
 
 
-def reduce_geometry(n: int, c: int, vec: int) -> Tuple[int, int]:
-    """``(rows_per_block, blocks)`` of the reduction kernels (B7, B9) on
-    ``n`` rows of ``c`` channels: block b sums rows ``[b *
-    rows_per_block, (b + 1) * rows_per_block)`` of its column tile."""
-    cv = c // vec
-    rows_par = THREADS // min(cv, THREADS)
-    col_tiles = -(-cv // THREADS)
-    blocks = max(1, min(-(-n // rows_par), TARGET_BLOCKS // col_tiles))
-    rows_per_block = -(-n // blocks)
-    return rows_per_block, -(-n // rows_per_block)
+def reduce_geometry(n: int, c: int, vec: int, itemsize: int,
+                    sm_count: int) -> Tuple[int, int]:
+    """``(row_blocks, col_tiles)`` of the reduction kernels (B7, B9) on
+    ``n`` rows of ``c`` channels of ``itemsize`` bytes, moved ``vec`` at
+    a time, on a card of ``sm_count`` SMs: about REDUCE_BLOCKS_PER_SM
+    blocks an SM in all, and few enough row blocks that the ``[2,
+    row_blocks, c]`` float32 partials are at most 1 /
+    REDUCE_PARTIAL_SHARE of x's bytes (at least one row block)."""
+    col_tiles = -(-(c // vec) // REDUCE_TILE)
+    fill = REDUCE_BLOCKS_PER_SM * sm_count // col_tiles
+    few = n * itemsize // (2 * 4 * REDUCE_PARTIAL_SHARE)
+    return max(1, min(fill, few)), col_tiles
+
+
+def reduce_block_of_rows(n: int, c: int, vec: int,
+                         row_blocks: int) -> torch.Tensor:
+    """The row block of B7 and B9 that sums each of ``n`` rows (int64
+    ``[n]``): row group g of block b takes rows ``b * groups + g``, ``+
+    row_blocks * groups``, ... (every column tile alike)."""
+    groups = THREADS // min(c // vec, REDUCE_TILE)
+    return (torch.arange(n) % (row_blocks * groups)) // groups
 
 
 # -- plain versions ---------------------------------------------------------
@@ -90,10 +116,34 @@ def _relu_mask(xf, s, t, res2):
 
 
 def bn_stats_ref(x2: torch.Tensor):
-    """Plain version of B7 on ``[R, C]`` rows (any device): float32
-    ``(sum, sum of squares)`` per channel."""
+    """Plain version of B7's sums on ``[R, C]`` rows (any device):
+    float32 ``(sum, sum of squares)`` per channel."""
     xf = x2.to(torch.float32)
     return xf.sum(0), (xf * xf).sum(0)
+
+
+def bn_fwd_constants_ref(xsum, xsq, gamma, beta, eps: float, n: float):
+    """Plain version of B7's fold: the per-channel float32 ``(mean, var,
+    rstd, s, t)`` of the forward from the sums over ``n`` rows, in the
+    order of ``_fbn_fwd_impl`` (the biased variance clamped at 0; ``y =
+    x * s + t``). On the card PyTorch divides by the Python float ``n``
+    as a product with ``1 / float32(n)`` and ``torch.rsqrt`` is
+    ``rsqrtf``; the kernel folds the same way."""
+    mean = xsum / n
+    var = torch.clamp(xsq / n - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    s = gamma * rstd
+    t = beta - mean * s
+    return mean, var, rstd, s, t
+
+
+def bn_stats_folded_ref(x2, gamma, beta, eps: float):
+    """Plain version of B7 as the kernel runs it: :func:`bn_stats_ref`,
+    then :func:`bn_fwd_constants_ref` over ``x2``'s rows: ``(sum, sum of
+    squares, mean, var, rstd, s, t)``."""
+    xsum, xsq = bn_stats_ref(x2)
+    return (xsum, xsq, *bn_fwd_constants_ref(xsum, xsq, gamma, beta, eps,
+                                             float(x2.shape[0])))
 
 
 def bn_apply_ref(x2, s, t, res2, relu: bool) -> torch.Tensor:
@@ -115,10 +165,11 @@ def _dy_eff(x2, dy2, res2, s, t, relu):
                        0.0)
 
 
-def bn_bwd_reduce_ref(x2, dy2, res2, s, t, u, w, relu: bool):
+def bn_bwd_reduce_ref(x2, dy2, res2, s, t, mean, rstd, relu: bool):
     """Plain version of B9: float32 ``(dgamma, dbeta)`` = ``(sum(dy_eff *
-    (x * u + w)), sum(dy_eff))`` per channel, the ReLU mask recomputed
-    from x (and res)."""
+    (x * u + w)), sum(dy_eff))`` per channel with ``u, w = rstd, -mean *
+    rstd``, the ReLU mask recomputed from x (and res)."""
+    u, w = rstd, -mean * rstd
     dye = _dy_eff(x2, dy2, res2, s, t, relu)
     xhat = x2.to(torch.float32) * u + w
     return (dye * xhat).sum(0), dye.sum(0)
@@ -161,9 +212,10 @@ def bn_bwd_dx_folded_ref(x2, dy2, res2, s, t, gamma, mean, rstd, dgamma,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "bn_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bn_stats": [_P, _P, _P, ctypes.c_float, _P, _P, _P, _L, _I, _I, _I,
+                 _I, _I, _P],
     "bn_apply": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
-    "bn_bwd_reduce": [_P] * 11 + [_I] * 8 + [_P],
+    "bn_bwd_reduce": [_P] * 11 + [_L] + [_I] * 6 + [_P],
     "bn_bwd_dx": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
 }
 
@@ -216,28 +268,33 @@ def _check_cuda(what, x2):
         raise ValueError(f"{what} takes CUDA tensors")
 
 
-def _reduce_scratch(x2, vec):
+def _reduce_scratch(name, x2, vec):
+    """``(row_blocks, partials, tickets)`` of a reduction launch."""
     n, c = x2.shape
-    rows_per_block, blocks = reduce_geometry(n, c, vec)
-    part = torch.empty(2, blocks, c, dtype=torch.float32, device=x2.device)
-    return rows_per_block, blocks, part[0], part[1]
+    row_blocks, col_tiles = reduce_geometry(n, c, vec, x2.element_size(),
+                                            _build.sm_count(x2.device))
+    part = torch.empty(2, row_blocks, c, dtype=torch.float32,
+                       device=x2.device)
+    return row_blocks, part, _build.tickets(name, x2.device, col_tiles)
 
 
-def bn_stats_cuda(x2: torch.Tensor):
-    """Launch ``csrc/bn_stats.cu`` (B7) on ``[R, C]`` CUDA rows:
-    ``(sum, sum of squares)`` as :func:`bn_stats_ref` returns them."""
+def bn_stats_cuda(x2: torch.Tensor, gamma, beta, eps: float):
+    """Launch ``csrc/bn_stats.cu`` (B7) on ``[R, C]`` CUDA rows, which
+    folds the forward's constants from its sums itself: ``(sum, sum of
+    squares, mean, var, rstd, s, t)`` as :func:`bn_stats_folded_ref`
+    returns them (the constants bitwise the plain fold of the kernel's
+    own sums)."""
     _check_rows("bn_stats_cuda", x2)
+    _check_vecs("bn_stats_cuda", x2, gamma=gamma, beta=beta)
     _check_cuda("bn_stats_cuda", x2)
     n, c = x2.shape
-    out = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
-    if n == 0:
-        return out[0], out[1]
+    out = torch.empty(7, c, dtype=torch.float32, device=x2.device)
     vec = vector_width(c, x2.dtype, x2)
-    rows, blocks, sp, qp = _reduce_scratch(x2, vec)
-    _launch("bn_stats", x2, x2.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), sp.data_ptr(), qp.data_ptr(), n, c, vec, rows,
-            blocks)
-    return out[0], out[1]
+    row_blocks, part, tickets = _reduce_scratch("bn_stats", x2, vec)
+    _launch("bn_stats", x2, x2.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), float(eps), out.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), n, c, vec, row_blocks)
+    return tuple(out)
 
 
 def bn_apply_cuda(x2, s, t, res2, relu: bool) -> torch.Tensor:
@@ -256,22 +313,21 @@ def bn_apply_cuda(x2, s, t, res2, relu: bool) -> torch.Tensor:
     return y
 
 
-def bn_bwd_reduce_cuda(x2, dy2, res2, s, t, u, w, relu: bool):
-    """Launch ``csrc/bn_bwd_reduce.cu`` (B9): ``(dgamma, dbeta)`` as
-    :func:`bn_bwd_reduce_ref` returns them."""
+def bn_bwd_reduce_cuda(x2, dy2, res2, s, t, mean, rstd, relu: bool):
+    """Launch ``csrc/bn_bwd_reduce.cu`` (B9), which forms u and w from
+    the statistics itself: ``(dgamma, dbeta)`` as
+    :func:`bn_bwd_reduce_ref` returns them (zeros for no rows)."""
     _check_rows("bn_bwd_reduce_cuda", x2, ("dy", dy2), ("residual", res2))
-    _check_vecs("bn_bwd_reduce_cuda", x2, s=s, t=t, u=u, w=w)
+    _check_vecs("bn_bwd_reduce_cuda", x2, s=s, t=t, mean=mean, rstd=rstd)
     _check_cuda("bn_bwd_reduce_cuda", x2)
     n, c = x2.shape
-    out = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
-    if n == 0:
-        return out[0], out[1]
+    out = torch.empty(2, c, dtype=torch.float32, device=x2.device)
     vec = vector_width(c, x2.dtype, x2, dy2, res2)
-    rows, blocks, gp, bp = _reduce_scratch(x2, vec)
+    row_blocks, part, tickets = _reduce_scratch("bn_bwd_reduce", x2, vec)
     _launch("bn_bwd_reduce", x2, x2.data_ptr(), dy2.data_ptr(), _ptr(res2),
-            s.data_ptr(), t.data_ptr(), u.data_ptr(), w.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), gp.data_ptr(),
-            bp.data_ptr(), n, c, vec, rows, blocks, int(relu))
+            s.data_ptr(), t.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), n, c, vec, row_blocks, int(relu))
     return out[0], out[1]
 
 
@@ -311,13 +367,8 @@ class _FusedBatchNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, gamma, beta, res2, eps, relu):
-        n = float(x2.shape[0])
-        xsum, xsq = _pick(x2, bn_stats_cuda, bn_stats_ref)(x2)
-        mean = xsum / n
-        var = torch.clamp(xsq / n - mean * mean, min=0.0)
-        rstd = torch.rsqrt(var + eps)
-        s = gamma * rstd
-        t = beta - mean * s
+        _, _, mean, var, rstd, s, t = _pick(
+            x2, bn_stats_cuda, bn_stats_folded_ref)(x2, gamma, beta, eps)
         y2 = _pick(x2, bn_apply_cuda, bn_apply_ref)(x2, s, t, res2, relu)
         ctx.save_for_backward(x2, gamma, res2, mean, rstd, s, t)
         ctx.relu = relu
@@ -330,9 +381,8 @@ class _FusedBatchNormFn(torch.autograd.Function):
         # running averages (the JAX op's `_fbn_b` does the same)
         x2, gamma, res2, mean, rstd, s, t = ctx.saved_tensors
         dy2 = dy2.contiguous()
-        u, w = rstd, -mean * rstd
         dgamma, dbeta = _pick(x2, bn_bwd_reduce_cuda, bn_bwd_reduce_ref)(
-            x2, dy2, res2, s, t, u, w, ctx.relu)
+            x2, dy2, res2, s, t, mean, rstd, ctx.relu)
         dx2, dres2 = _pick(x2, bn_bwd_dx_cuda, bn_bwd_dx_folded_ref)(
             x2, dy2, res2, s, t, gamma, mean, rstd, dgamma, dbeta, ctx.relu)
         return dx2, dgamma, dbeta, dres2, None, None

@@ -41,9 +41,6 @@ BWD_BLOCKS_PER_SM = 1
 #: a lane keeps at most 128 columns (kMaxCols) in registers
 _BWD_MAX_C = 4096
 
-_SM_COUNT = {}
-_TICKETS = {}
-
 
 def bwd_blocks(n: int, sm_count: int) -> int:
     """Blocks of the backward kernel for ``n`` rows on a card of
@@ -57,26 +54,6 @@ def bwd_block_of_rows(n: int, blocks: int) -> torch.Tensor:
     into dgamma and dbeta (int64 ``[n]``)."""
     r = torch.arange(n)
     return (r % (blocks * BWD_WARPS)) // BWD_WARPS
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _SM_COUNT.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _SM_COUNT[device.index] = n
-    return n
-
-
-def _ticket(device: torch.device) -> torch.Tensor:
-    """The zeroed counter of the backward's last block, one per device
-    and stream (the kernel leaves it zeroed; launches on one stream run
-    in order)."""
-    key = (device.index, _build.stream_handle(device))
-    t = _TICKETS.get(key)
-    if t is None:
-        t = torch.zeros(1, dtype=torch.int32, device=device)
-        _TICKETS[key] = t
-    return t
 
 
 def _stats(xf: torch.Tensor, c: int, eps: float, rms: bool):
@@ -202,7 +179,7 @@ def layer_norm_bwd_cuda(x2: torch.Tensor, dy2: torch.Tensor,
     db = torch.empty_like(dg) if with_beta else None
     if n == 0:
         return dx, dg.zero_(), None if db is None else db.zero_()
-    blocks = bwd_blocks(n, _sm_count(x2.device))
+    blocks = bwd_blocks(n, _build.sm_count(x2.device))
     dg_part = torch.empty(blocks, c, dtype=torch.float32, device=x2.device)
     db_part = torch.empty_like(dg_part) if with_beta else None
     lib = _lib("layernorm_bwd", _BWD_ARGS)
@@ -210,7 +187,8 @@ def layer_norm_bwd_cuda(x2: torch.Tensor, dy2: torch.Tensor,
         x2.data_ptr(), dy2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
         dg.data_ptr(), db.data_ptr() if with_beta else None,
         dg_part.data_ptr(), db_part.data_ptr() if with_beta else None,
-        _ticket(x2.device).data_ptr(), n, c, blocks, float(eps), int(rms),
+        _build.tickets("layernorm_bwd", x2.device, 1).data_ptr(), n, c,
+        blocks, float(eps), int(rms),
         _DTYPE_CODES[x2.dtype], x2.device.index,
         _build.stream_handle(x2.device))
     _build.check(lib, err, "layernorm_bwd")

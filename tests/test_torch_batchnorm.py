@@ -17,9 +17,11 @@ relative + 1e-5 of the largest value.
 Also: the module against the JAX ``FusedBatchNorm`` in training (output
 and running statistics) and in eval; bf16 input keeps float32
 statistics; a bad activation or residual shape raises; the kernel
-wrappers refuse CPU tensors; the reduction geometry covers every row;
-B10's fold of A, B and C (``bn_bwd_constants_ref``) is bitwise the
-backward's former inline arithmetic, and its wrapper refuses bad shapes.
+wrappers refuse CPU tensors and bad shapes; the reductions' partition
+puts every row in one block and keeps the partials a small share of x;
+B7's fold of mean, var, rstd, s and t (``bn_fwd_constants_ref``), B9's
+u and w and B10's fold of A, B and C (``bn_bwd_constants_ref``) are
+bitwise the op's former inline arithmetic.
 """
 
 import flax.linen as fnn
@@ -179,7 +181,7 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     raises, it never falls back)."""
     x = torch.randn(32, 64)
     v = torch.ones(64)
-    for call in (lambda: tbn.bn_stats_cuda(x),
+    for call in (lambda: tbn.bn_stats_cuda(x, v, v, 1e-5),
                  lambda: tbn.bn_apply_cuda(x, v, v, None, True),
                  lambda: tbn.bn_bwd_reduce_cuda(x, x, None, v, v, v, v,
                                                 True),
@@ -191,12 +193,139 @@ def test_kernel_wrappers_take_cuda_tensors_only():
 
 @pytest.mark.parametrize("n,c,vec", [(1605632, 64, 8), (401408, 256, 8),
                                      (6272, 2048, 8), (10007, 100, 1),
-                                     (3, 4096, 4), (1, 8, 8)])
+                                     (3, 4096, 4), (1, 8, 8),
+                                     (100352, 512, 8), (25088, 1024, 8),
+                                     (4099, 96, 4)])
 def test_reduce_geometry_covers_every_row(n, c, vec):
-    rows, blocks = tbn.reduce_geometry(n, c, vec)
-    col_tiles = -(-(c // vec) // tbn.THREADS)
-    assert rows * blocks >= n > rows * (blocks - 1)
-    assert 1 <= blocks * col_tiles <= max(tbn.TARGET_BLOCKS, col_tiles)
+    """B7's and B9's partition on a 132-SM card: every row in exactly one
+    row block, every block with rows, the grid about REDUCE_BLOCKS_PER_SM
+    blocks an SM, and the float32 partials at most 1 / 32 of x's bytes
+    (at the five ResNet-50 shapes and the ragged ones; a single row
+    block, as for 1 or 3 rows, writes one partial row whatever x's
+    size). bf16 where vec is 8, float32 otherwise."""
+    itemsize = 2 if vec == 8 else 4
+    row_blocks, col_tiles = tbn.reduce_geometry(n, c, vec, itemsize, 132)
+    assert col_tiles == -(-(c // vec) // tbn.REDUCE_TILE)
+    assert 1 <= row_blocks * col_tiles <= max(
+        tbn.REDUCE_BLOCKS_PER_SM * 132, col_tiles)
+    of = tbn.reduce_block_of_rows(n, c, vec, row_blocks)
+    assert of.shape == (n,) and of.dtype == torch.int64
+    counts = torch.bincount(of, minlength=row_blocks)
+    assert counts.numel() == row_blocks and counts.sum().item() == n
+    assert counts.min().item() > 0
+    share = 2 * row_blocks * c * 4 / (n * c * itemsize)
+    assert share <= 1 / tbn.REDUCE_PARTIAL_SHARE or row_blocks == 1
+    if n > 3:
+        assert share <= 1 / 32
+
+
+def _inline_fwd_fold(xsum, xsq, gamma, beta, eps, n):
+    # the constants as _FusedBatchNormFn.forward computed them inline
+    mean = xsum / n
+    var = torch.clamp(xsq / n - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    s = gamma * rstd
+    t = beta - mean * s
+    return mean, var, rstd, s, t
+
+
+def _bits(a, b):
+    return a.dtype == b.dtype == torch.float32 and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,c", [(401408, 256), (1605632, 64), (6272, 2048),
+                                 (10007, 100), (4099, 96), (3, 8)])
+def test_bn_fwd_constants_ref_is_the_inline_fold(n, c):
+    """B7's plain fold, applied to bn_stats_ref's sums, returns bitwise
+    what the forward computed inline before the fold moved into the
+    kernel; where the variance rounds below 0 it is clamped at 0."""
+    rng = np.random.RandomState(c + n % 89)
+    rows = min(n, 512)
+    x2 = torch.from_numpy((rng.randn(rows, c) * 2 + 0.5).astype(np.float32))
+    gamma = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32))
+    beta = torch.from_numpy(rng.randn(c).astype(np.float32))
+    xsum, xsq = tbn.bn_stats_ref(x2)
+    xsum, xsq = xsum * (n / rows), xsq * (n / rows)  # sums over n rows
+    # a nearly constant channel, where E[x^2] - mean^2 rounds below 0
+    xsq[0] = xsum[0] * xsum[0] / n * (1 - 1e-6)
+    got = tbn.bn_fwd_constants_ref(xsum, xsq, gamma, beta, 1e-5, float(n))
+    want = _inline_fwd_fold(xsum, xsq, gamma, beta, 1e-5, float(n))
+    for g, w in zip(got, want):
+        assert _bits(g, w)
+    assert (xsq / n - got[0] * got[0])[0].item() < 0
+    assert got[1][0].item() == 0.0 and got[1].min().item() >= 0.0
+
+
+def test_bn_stats_folded_ref_is_sums_then_fold():
+    d = _inputs((3, 5, 5, 96), seed=12)
+    x2 = torch.from_numpy(d["x"]).reshape(-1, 96)
+    g, b = torch.from_numpy(d["gamma"]), torch.from_numpy(d["beta"])
+    got = tbn.bn_stats_folded_ref(x2, g, b, 1e-3)
+    xsum, xsq = tbn.bn_stats_ref(x2)
+    want = (xsum, xsq, *_inline_fwd_fold(xsum, xsq, g, b, 1e-3,
+                                         float(x2.shape[0])))
+    assert len(got) == 7
+    for a, w in zip(got, want):
+        assert _bits(a, w)
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["", "relu"])
+@pytest.mark.parametrize("residual", [False, True], ids=["", "res"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bn_bwd_reduce_ref_forms_u_w_inline(relu, residual, dtype):
+    """B9's plain version, given the statistics, returns bitwise what it
+    returned given ``u, w = rstd, -mean * rstd`` from the backward."""
+    d = _inputs((4, 7, 7, 64), seed=13 + relu + 2 * residual)
+    x2 = torch.from_numpy(d["x"]).reshape(-1, 64).to(dtype)
+    dy2 = torch.from_numpy(d["dy"]).reshape(-1, 64).to(dtype)
+    res2 = (torch.from_numpy(d["res"]).reshape(-1, 64).to(dtype)
+            if residual else None)
+    g, b = torch.from_numpy(d["gamma"]), torch.from_numpy(d["beta"])
+    _, _, mean, _, rstd, s, t = tbn.bn_stats_folded_ref(x2, g, b, 1e-5)
+    got = tbn.bn_bwd_reduce_ref(x2, dy2, res2, s, t, mean, rstd, relu)
+    u, w = rstd, -mean * rstd
+    dye = tbn._dy_eff(x2, dy2, res2, s, t, relu)
+    want = ((dye * (x2.float() * u + w)).sum(0), dye.sum(0))
+    for a, b_ in zip(got, want):
+        assert _bits(a, b_)
+
+
+def _stats_args(**bad):
+    v = torch.ones(64)
+    args = dict(x2=torch.zeros(32, 64), gamma=v, beta=v, eps=1e-5)
+    args.update(bad)
+    return args
+
+
+def _reduce_args(**bad):
+    x = torch.zeros(32, 64)
+    v = torch.ones(64)
+    args = dict(x2=x, dy2=x, res2=None, s=v, t=v, mean=v, rstd=v, relu=True)
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("fn,bad,match", [
+    ("stats", {}, "CUDA"),
+    ("stats", {"x2": torch.zeros(2, 32, 64)}, r"\[R, C\]"),
+    ("stats", {"gamma": torch.ones(32)}, "gamma must be"),
+    ("stats", {"beta": torch.ones(64, dtype=torch.float64)}, "beta must be"),
+    ("reduce", {}, "CUDA"),
+    ("reduce", {"dy2": torch.zeros(32, 32)}, "dy must be"),
+    ("reduce", {"mean": torch.ones(128)[::2]}, "mean must be"),
+    ("reduce", {"rstd": torch.ones(63)}, "rstd must be"),
+], ids=["stats-cpu", "stats-rank", "stats-gamma", "stats-beta",
+        "reduce-cpu", "reduce-dy", "reduce-strided", "reduce-rstd"])
+def test_bn_reductions_reject_bad_inputs(fn, bad, match):
+    """B7's and B9's wrappers take contiguous [R, C] rows and [C] float32
+    vectors on the card; shapes are checked before the device."""
+    with pytest.raises(ValueError, match=match):
+        if fn == "stats":
+            tbn.bn_stats_cuda(**_stats_args(**bad))
+        else:
+            tbn.bn_bwd_reduce_cuda(**_reduce_args(**bad))
 
 
 def _inline_fold(gamma, mean, rstd, dgamma, dbeta, n):

@@ -32,6 +32,7 @@ from horovod_tpu.ops.pallas_layernorm import \
 from horovod_tpu.optim import compression as jcomp
 from horovod_tpu.serving.decode import KVCacheSpec as JaxSpec
 from horovod_tpu.serving.decode import SlottedKVCache as JaxCache
+from horovod_tpu_torch.ops import batchnorm as bn_mod
 from horovod_tpu_torch.ops import decode_attention as tda
 from horovod_tpu_torch.ops import layernorm as ln_mod
 from horovod_tpu_torch.ops.layernorm import (fused_layer_norm,
@@ -225,6 +226,35 @@ def test_layer_norm_bwd_partition_is_the_kernels():
         assert of[r].item() == (r % nw) // ln_mod.BWD_WARPS
     # every block sums rows, and each row exactly once
     assert torch.bincount(of, minlength=blocks).min().item() > 0
+
+
+def test_batch_norm_reduce_partition_is_the_kernels():
+    """The partition ``ops/batchnorm.py`` exports (the wrappers size the
+    grid and scratch with it; ``chip_smoke.py`` emulates a sum that
+    leaves out one row block with it) is the ``constexpr`` partition of
+    ``csrc/batchnorm.cuh``: threads a block, vectors a column tile,
+    blocks an SM, and row group g of block b walking rows ``b * groups +
+    g``, ``+ row_blocks * groups``, ...; B7 and B9 launch on it."""
+    csrc = pathlib.Path(bn_mod.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "batchnorm.cuh").read_text()
+    assert bn_mod.THREADS == _constexpr(src, "kThreads")
+    assert bn_mod.REDUCE_TILE == _constexpr(src, "kTileVecs")
+    assert bn_mod.REDUCE_BLOCKS_PER_SM == _constexpr(src, "kBlocksPerSm")
+    assert "s.groups = kThreads / s.tile;" in src
+    assert ("static_cast<long long>(blockIdx.x) * s.groups + s.group;"
+            in src)
+    assert "gridDim.x) * s.groups;" in src
+    assert "reduce_slot<kTileVecs>(c / VEC)" in src
+    for name in ("bn_stats", "bn_bwd_reduce"):
+        kernel = (csrc / f"{name}.cu").read_text()
+        assert "bn::reduce<VEC>(" in kernel
+        assert "__launch_bounds__(bn::kThreads, bn::kBlocksPerSm)" in kernel
+        assert "column_sum" not in kernel
+    # 8 row groups of 32 vectors at C = 256 bf16, blocks strided
+    row_blocks, _ = bn_mod.reduce_geometry(401408, 256, 8, 2, 132)
+    of = bn_mod.reduce_block_of_rows(401408, 256, 8, row_blocks)
+    for r in (0, 7, 8, 8 * row_blocks - 1, 8 * row_blocks, 401407):
+        assert of[r].item() == (r % (8 * row_blocks)) // 8
 
 
 def test_layer_norm_bwd_ref_is_the_autograd_backward():
