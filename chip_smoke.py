@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --parity-sweep 8   # the parity limits' readings
-    python3 chip_smoke.py --profiles         # decode and ResNet profiles only
+    python3 chip_smoke.py --profiles         # GPT-2, decode, ResNet profiles
 
 Phases, in order; the first failure exits non-zero:
 
@@ -20,9 +20,13 @@ Phases, in order; the first failure exits non-zero:
    GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
    that skip one tile of the kernels' own tiling must fail the same
    check; B1-B3 and SDPA timed by CUDA events and by the profiler's
-   device time; LayerNorm backward at [8192, 1024], dx row by row and
-   dgamma, dbeta per column, where sums that leave out one block of
-   its partition must fail; the decode kernels at the serving shapes,
+   device time; the LayerNorm forward element by element at the
+   serving and training shapes and on each of its routes, where a row
+   of its partition left as stale memory must fail, timed L2-hot and,
+   at [8192, 1024], L2-cold; LayerNorm backward at [8192, 1024], dx row
+   by row and dgamma, dbeta per column, where sums that leave out one
+   block of its partition must fail; the decode kernels at the serving
+   shapes,
    B16 on its prefill (tensor cores) and decode (cluster) routes and
    B17 on the same decode route, row by row, where a prefill block that
    skips its last key tile or a cluster that skips one CTA's span must
@@ -32,9 +36,10 @@ Phases, in order; the first failure exits non-zero:
    reductions per channel and bitwise from run to run, where sums that
    leave out one row block of their partition, or a finish that drops
    one partial row, must fail, and the statistics kernel's folded
-   constants bitwise the plain fold of its own sums; the int8 wire's kernels bitwise on the largest bucket of
-   GPT-2 medium's plan at worlds 4 and 8 and on edge cases; the bucket
-   pack bitwise on BERT-Large's largest bucket and edge cases; the
+   constants bitwise the plain fold of its own sums; the int8 wire's
+   kernels bitwise on the largest bucket of GPT-2 medium's plan at
+   worlds 4 and 8 and on edge cases; the bucket pack bitwise on
+   BERT-Large's largest bucket and edge cases; the
    matmul with the ring-row epilogue row by row against a float64
    product at BERT-Large's weight-gradient shapes, where a kernel that
    skips one K tile must fail, and bitwise on integer operands), and
@@ -164,24 +169,48 @@ def _kernel_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _device_ms(fn, iters=50):
+#: bytes written before each call of an L2-cold reading (``_device_ms``
+#: with ``cold=True``): more than the H100's 50 MB L2. The fill's kernel
+#: (``FLUSH_KERNEL`` in its name) is left out of the reading
+FLUSH_BYTES = 128 << 20
+FLUSH_KERNEL = "FillFunctor"
+
+
+def _device_ms(fn, iters=50, cold=False):
     """Device time of one call of ``fn``: the summed device time of the
     kernels it launches, from ``torch.profiler`` over ``iters`` calls.
     For a call shorter than its host-side launch, where back-to-back
     CUDA-event timing measures the enqueue and not the card. Now and
     then the profiler returns a window without any device event: such a
-    window is profiled again, three windows in all."""
+    window is profiled again, three windows in all. With ``cold``, each
+    call follows a fill of ``FLUSH_BYTES``, whose kernel the sum leaves
+    out by its name: the call finds its inputs in HBM, not in L2."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    flush = (torch.empty(FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+
+    def call(i=0):
+        if flush is not None:
+            flush.fill_(float(i))
+        fn(i)
+
+    call()
     torch.cuda.synchronize()
     windows = 3
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
-                fn(i)
+                call(i)
             torch.cuda.synchronize()
-        us = sum(_dev_us(e) for e in _kernel_events(prof))
+        events = _kernel_events(prof)
+        _require(flush is None or not events
+                 or any(FLUSH_KERNEL in e.key for e in events),
+                 f"no kernel named *{FLUSH_KERNEL}* among "
+                 f"{[e.key[:60] for e in events]}: the L2 flush cannot be "
+                 "left out of the reading")
+        us = sum(_dev_us(e) for e in events
+                 if flush is None or FLUSH_KERNEL not in e.key)
         if us > 0:
             return us / 1e3 / iters
     raise SmokeFailure(f"the profiler saw no device time in {windows} "
@@ -200,61 +229,161 @@ def _bf16_ulp(x):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+#: B4's cases: (rows, C, kind, dtype, element offset of the rows' view,
+#: route, timed). The main path's shapes first (the kernel line's row is
+#: the first): GPT-2 small's served decode rows [8, 768] and prefill rows
+#: [512, 768], GPT-2 medium's and BERT-Large's training rows [8192,
+#: 1024]; then each route of csrc/layernorm_fwd.cu: float32 rows, a
+#: ragged last chunk (C = 1000: 125 16-byte loads a row, not a multiple
+#: of 32), one-element loads (C = 1001; rows whose view starts 2 bytes
+#: past 16-byte alignment), 128 columns a lane (C = 4096, one block an
+#: SM, no second row buffer), and the long-row route (C > 4096, a block
+#: a row; C = 8193 with one-element loads)
+LN_CASES = (
+    (8, 768, "layernorm", torch.bfloat16, 0, "register", True),
+    (8, 768, "rmsnorm", torch.bfloat16, 0, "register", True),
+    (512, 768, "layernorm", torch.bfloat16, 0, "register", True),
+    (512, 768, "rmsnorm", torch.bfloat16, 0, "register", True),
+    (8192, 1024, "layernorm", torch.bfloat16, 0, "register", True),
+    (2048, 1024, "layernorm", torch.float32, 0, "register", False),
+    (4099, 1000, "layernorm", torch.float32, 0,
+     "register, ragged last chunk", False),
+    (777, 1001, "layernorm", torch.bfloat16, 0,
+     "register, one-element loads", False),
+    (512, 768, "layernorm", torch.bfloat16, 1,
+     "register, one-element loads (unaligned row view)", False),
+    (300, 4096, "layernorm", torch.bfloat16, 0,
+     "register, 128 columns a lane", True),
+    (300, 4096, "rmsnorm", torch.float32, 0,
+     "register, 128 columns a lane", False),
+    (64, 8192, "layernorm", torch.bfloat16, 0, "long row", True),
+    (33, 8193, "rmsnorm", torch.float32, 0, "long row, one-element loads",
+     False),
+)
+
+
+#: B4's per-element limit on float32 rows: relative to the larger value,
+#: plus slack for outputs near 0, where beta cancels the rest and the
+#: sum order moves the result by ~1e-7. A route that rounded its output
+#: or its statistics through bf16 reads hundreds of times this
+LN_F32_RTOL, LN_F32_ATOL = 1e-5, 1e-6
+
+
+def _ln_tol(dtype):
+    return ("1 bf16 ulp of the larger value + 1e-5"
+            if dtype != torch.float32
+            else f"{LN_F32_RTOL:g} x the larger value + {LN_F32_ATOL:g}")
+
+
+def _ln_reading(got, want, dtype):
+    """Per element, |got - want| over the limit (``_ln_tol``): for bf16
+    outputs one bf16 ulp of the larger of the two values, plus float32
+    slack for outputs near 0, where beta cancels the rest and the sum
+    order moves the result by ~1e-6; for float32 outputs
+    ``LN_F32_RTOL`` of the larger value plus ``LN_F32_ATOL``. A reading
+    of at most 1 passes; returned per row's maximum."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs())
+    if dtype == torch.float32:
+        tol = LN_F32_RTOL * big + LN_F32_ATOL
+    else:
+        tol = _bf16_ulp(big) + 1e-5
+    return ((g - w).abs() / tol).amax(dim=1)
+
+
 def check_layernorm(seed):
+    """B4 against its plain version on the card (``LN_CASES``), every
+    element within its dtype's limit (``_ln_reading``: bf16 rows one
+    bf16 ulp of the larger value + 1e-5, float32 rows 1e-5 of it +
+    1e-6); on float32 rows the plain output rounded through bf16 must
+    fail that limit. At [8192, 1024] one row of the kernel's partition
+    (``ops/layernorm.py`` ``fwd_rows_of_warp``: the last warp's last
+    row) left as stale memory (the row before it, as a buffer reused
+    from an earlier call could hold) must fail that check. The timed
+    cases time the kernel, the plain version and ``F.layer_norm`` /
+    ``F.rms_norm`` (one call) with L2 hot (back to back) and, at
+    [8192, 1024], L2 cold (``FLUSH_BYTES`` written before each call):
+    its 33.5 MB of x and y fit in the 50 MB L2, while the bound counts
+    HBM bytes."""
+    from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import layernorm as ln
 
     cases = []
     g = torch.Generator(device="cuda").manual_seed(seed)
-    for rows, c, kind in ((8, 768, "layernorm"), (8, 768, "rmsnorm"),
-                          (512, 768, "layernorm"), (512, 768, "rmsnorm"),
-                          (8192, 1024, "layernorm")):
+    sms = _build.sm_count(torch.device("cuda", 0))
+    for rows, c, kind, dtype, offset, route, timed in LN_CASES:
         rms = kind == "rmsnorm"
-        x = (torch.randn(rows, c, generator=g, device="cuda") * 2 + 0.5).to(
-            torch.bfloat16)
+        flat = (torch.randn(rows * c + offset, generator=g, device="cuda")
+                * 2 + 0.5).to(dtype)
+        x = flat[offset:].view(rows, c)
         gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
         beta = None if rms else 0.1 * torch.randn(c, generator=g,
                                                   device="cuda")
         got = ln.layer_norm_cuda(x, gamma, beta, 1e-5, rms)
         want = ln.layer_norm_ref(x, gamma, beta, 1e-5, rms)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        # one bf16 ulp of the larger of the two values, plus float32
-        # slack for outputs near 0, where beta cancels the rest and the
-        # sum order moves the result by ~1e-6
-        tol = _bf16_ulp(torch.maximum(got.float().abs(),
-                                      want.float().abs())) + 1e-5
-        _require(bool(torch.all(err <= tol)),
-                 f"layernorm_fwd {rows}x{c} {kind}: more than one bf16 ulp "
-                 f"(+1e-5) from the plain version (max err "
-                 f"{err.max().item()})")
-        gb, bb = gamma.to(torch.bfloat16), (
-            None if beta is None else beta.to(torch.bfloat16))
-        if rms:
-            def lib(_=0):
-                F.rms_norm(x, (c,), gb, 1e-5)
-        else:
-            def lib(_=0):
-                F.layer_norm(x, (c,), gb, bb, 1e-5)
-        nbytes = 2 * rows * c * 2 + c * 4 * (1 if rms else 2)
-        bound, by = _bound(nbytes, rows * c * 8, "f32")
+        name = f"{rows}x{c} {str(dtype)[6:]} {kind}"
+        reading = _ln_reading(got, want, dtype).max().item()
+        row = {"case": name, "route": route,
+               "aligned": x.data_ptr() % 16 == 0,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "reading": reading, "tol": _ln_tol(dtype)}
+        _require(bool(torch.isfinite(got).all()),
+                 f"layernorm_fwd {name}: not finite")
+        _require(reading <= 1,
+                 f"layernorm_fwd {name} ({route}): an element is "
+                 f"{reading:.2f}x its limit ({_ln_tol(dtype)}) from the "
+                 "plain version")
+        if dtype == torch.float32:
+            rounded = _ln_reading(want.to(torch.bfloat16).float(), want,
+                                  dtype).max().item()
+            row.update(bf16_rounded_reading=rounded)
+            _require(rounded > 1, f"layernorm_fwd {name}: the plain "
+                                  "output rounded through bf16 reads "
+                                  f"{rounded:.2f} <= 1 and would pass")
+        if (rows, c) == (8192, 1024):
+            blocks = ln.fwd_blocks(rows, c, sms)
+            skipped = int(ln.fwd_rows_of_warp(
+                rows, blocks, blocks * ln.FWD_WARPS - 1)[-1])
+            stale = got.clone()
+            stale[skipped] = got[skipped - 1]
+            skip = _ln_reading(stale, want, dtype)[skipped].item()
+            row.update(blocks=blocks, skipped_row=skipped,
+                       skip_reading=skip)
+            _require(skip > 1, f"layernorm_fwd {name}: a skipped row "
+                               f"({skipped}) reads {skip:.2f} <= 1 and "
+                               "would pass")
+        if timed:
+            e = x.element_size()
+            lg = gamma.to(dtype)
+            lb = None if beta is None else beta.to(dtype)
+            if rms:
+                def lib(_=0):
+                    F.rms_norm(x, (c,), lg, 1e-5)
+            else:
+                def lib(_=0):
+                    F.layer_norm(x, (c,), lg, lb, 1e-5)
 
-        def kernel(_=0):
-            ln.layer_norm_cuda(x, gamma, beta, 1e-5, rms)
+            def kernel(_=0):
+                ln.layer_norm_cuda(x, gamma, beta, 1e-5, rms)
 
-        def plain(_=0):
-            ln.layer_norm_ref(x, gamma, beta, 1e-5, rms)
-        # a call this short is shorter than its launch: times are the
-        # card's (profiler), the host's enqueue is kept beside them
-        cases.append({
-            "case": f"{rows}x{c} bf16 {kind}",
-            "max_abs_err": err.max().item(),
-            "tol": "1 bf16 ulp of the larger value + 1e-5",
-            "ms": _device_ms(kernel),
-            "plain_ms": _device_ms(plain),
-            "library_ms": _device_ms(lib),
-            "enqueue_ms": _time_ms(kernel),
-            "bound_ms": bound, "bound_by": by,
-        })
+            def plain(_=0):
+                ln.layer_norm_ref(x, gamma, beta, 1e-5, rms)
+            nbytes = 2 * rows * c * e + c * 4 * (1 if rms else 2)
+            bound, by = _bound(nbytes, rows * c * 8, "f32")
+            # a call this short is shorter than its launch: times are the
+            # card's (profiler), the host's enqueue is kept beside them
+            row.update(ms=_device_ms(kernel), plain_ms=_device_ms(plain),
+                       library_ms=_device_ms(lib),
+                       enqueue_ms=_time_ms(kernel), bound_ms=bound,
+                       bound_by=by)
+            if (rows, c) == (8192, 1024):
+                row.update(cold_ms=_device_ms(kernel, iters=20, cold=True),
+                           cold_library_ms=_device_ms(lib, iters=20,
+                                                      cold=True))
+        print(json.dumps({"layernorm_fwd_case": row}))
+        cases.append(row)
+        del flat, x, got, want
     return cases
 
 
@@ -1010,7 +1139,8 @@ def check_batchnorm(seed):
     B10 its A, B and C, from them itself). The bf16 cases are timed: the
     kernel, its plain version and PyTorch calls as yardsticks
     (``torch.batch_norm_stats`` and ``torch.var_mean`` for B7, the
-    training forward of ``F.batch_norm`` beside B7 + B8,
+    training forward of ``F.batch_norm`` beside B7 + B8 and, in the plain
+    case, ``torch.batch_norm_elemt`` beside B8 alone,
     ``torch.batch_norm_backward_reduce`` for B9 (no ReLU mask: B9's plain
     case) and the autograd backward of ``F.batch_norm`` beside B9 +
     B10)."""
@@ -1195,6 +1325,13 @@ def check_batchnorm(seed):
                     lambda _=0: torch.var_mean(x, dim=0, correction=0),
                     iters=20)),
                 "bn_bwd_reduce": ("F.batch_norm bwd (B9 + B10)", lib_bwd)}
+        if not relu and not has_res:
+            # B8's own function in one call: (x - mean) * rstd * gamma +
+            # beta from given statistics (B8 takes them folded into s, t)
+            also["bn_apply"] = (
+                "torch.batch_norm_elemt (one call, B8's plain case)",
+                _device_ms(lambda _=0: torch.batch_norm_elemt(
+                    xn, gamma, beta, mean, rstd, eps), iters=20))
         for kname, (kern, plain) in calls.items():
             bound, by = _bound(*work[kname], "f32")
             out[kname][-1].update(
@@ -1470,14 +1607,20 @@ def bert_large_plan(model=None):
 def check_pack_rows(seed):
     """B6 against ``zero._pad_rows`` on the card, bitwise: the largest
     bucket of BERT-Large's plan in float32 at n in {4, 1, 2, 8} (the
-    main case: n = 4), ragged lengths, L < n, bf16, and sources that
-    start off 16-byte alignment (slices of a larger tensor). The main
-    case is timed: kernel, plain version, ``F.pad`` (one call), bound."""
+    main case: n = 4), ragged lengths, L < n, n * k - L = 1, lengths at
+    the kernel's tile boundaries (``ops/ring_pack.py`` ``PACK_THREADS``
+    x ``PACK_TILE_UNROLL`` vectors; one element or one vector on either
+    side), bf16, and sources that start off 16-byte alignment (slices of
+    a larger tensor: the element-wise kernel). The main case is timed:
+    the kernel, the plain version, ``F.pad`` and a ``copy_`` of the same
+    bytes (one call each), and the bound; the large unaligned case is
+    timed too."""
     from horovod_tpu_torch.ops import ring_pack
     from horovod_tpu_torch.optim import zero
 
     plans, _ = bert_large_plan()
     big = max(_bucket_sizes(plans))
+    tile = 4 * ring_pack.PACK_THREADS * ring_pack.PACK_TILE_UNROLL
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
     base = torch.randn(big + 8, generator=g, device="cuda")
     base[5] = -0.0
@@ -1487,6 +1630,18 @@ def check_pack_rows(seed):
     cases += [("ragged: largest bucket - 1, world 4", base[:big - 1], 4),
               ("ragged: 1001 float32, world 3", base[:1001], 3),
               ("L < n: 3 float32, world 8", base[:3], 8),
+              ("n*k - L = 1: 4000011 float32, world 4", base[:4000011], 4),
+              ("n*k - L = 1: 40023 bf16, world 8", half[:40023], 8),
+              (f"3 tiles: {3 * tile} float32, world 2", base[:3 * tile],
+               2),
+              (f"3 tiles + 1: {3 * tile + 1} float32, world 3",
+               base[:3 * tile + 1], 3),
+              (f"3 tiles - 1 vector: {3 * tile - 4} float32, world 4",
+               base[:3 * tile - 4], 4),
+              (f"3 tiles + 1 vector: {3 * tile + 4} float32, world 4",
+               base[:3 * tile + 4], 4),
+              (f"3 tiles - 1: {3 * tile - 1} float32, world 4",
+               base[:3 * tile - 1], 4),
               ("bf16: largest bucket, world 4", half[:big], 4),
               ("bf16 ragged: 1001, world 3", half[:1001], 3),
               ("unaligned float32 slice [1:big+1], world 4",
@@ -1494,18 +1649,20 @@ def check_pack_rows(seed):
               ("unaligned bf16 slice [3:1004], world 4", half[3:1004], 4)]
     out = []
     for ci, (what, x, n) in enumerate(cases):
-        got = ring_pack.pack_rows_cuda(x, n)
         want = zero._pad_rows(x, n)
+        got = ring_pack.pack_rows_cuda(x, n)
         torch.cuda.synchronize()
         ok = tuple(got.shape) == tuple(want.shape) and _bitwise(got, want)
         print(json.dumps({"pack_case": what, "elements": x.numel(),
                           "world": n, "aligned": x.data_ptr() % 16 == 0,
                           "bitwise": ok}))
         _require(ok, f"pack_rows {what}: not bitwise equal to _pad_rows")
+        del got
         row = {"case": what, "max_abs_err": 0.0, "tol": "bitwise"}
+        k = -(-x.numel() // n)
         if ci == 0:
-            k = -(-big // n)
             pad = n * k - big
+            dst = torch.empty(n * k, device="cuda")
             bound, by = _bound(4 * big + 4 * n * k, 0, "f32")
             row.update(
                 shape=f"[{big}] float32 -> [{n}, {k}]",
@@ -1516,9 +1673,19 @@ def check_pack_rows(seed):
                 library_ms=_device_ms(lambda _=0: F.pad(x, (0, pad)).view(
                     n, k), iters=20),
                 library_call="F.pad(bucket, (0, n*k - L)).view(n, k): one "
-                             "call", bound_ms=bound, bound_by=by)
+                             "call",
+                library2_ms=_device_ms(lambda _=0: dst[:big].copy_(x),
+                                       iters=20),
+                library2_call="dst[:L].copy_(bucket) into a preallocated "
+                              "[n*k]: one call, no zeros",
+                bound_ms=bound, bound_by=by)
+            del dst
+        elif x.numel() == big and x.data_ptr() % 16:
+            row.update(ms=_device_ms(
+                lambda _=0: ring_pack.pack_rows_cuda(x, n), iters=20),
+                bound_ms=_bound(4 * big + 4 * n * k, 0, "f32")[0])
         out.append(row)
-        del got, want
+        del want
     del base, half
     torch.cuda.empty_cache()
     return {"pack_rows": out}
@@ -1858,7 +2025,7 @@ def profile_train_step(step, *inputs,
     kernels = _kernel_events(prof)
     busy_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
-    groups = {}
+    groups, calls = {}, {}
     for e in kernels:
         name = e.key.lower()
         group = next((g for g, keys in (
@@ -1869,12 +2036,16 @@ def profile_train_step(step, *inputs,
             ("elementwise / reduce / other", ("",)))
             if any(k in name for k in keys)))
         groups[group] = groups.get(group, 0.0) + _dev_us(e) / 1e3
+        calls[group] = calls.get(group, 0) + e.count
     print(json.dumps({
         "profile": what,
         "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall,
         "kernels": sum(e.count for e in kernels),
-        "device_ms_by_group": groups,
+        "device_ms_by_group": groups, "launches_by_group": calls,
+        "layernorm_kernel_calls": {
+            k: sum(e.count for e in kernels if k in e.key)
+            for k in ("layernorm_fwd", "layernorm_bwd")},
         "top": [{"name": e.key[:70], "ms": _dev_us(e) / 1e3,
                  "calls": e.count} for e in top]}))
 
@@ -2722,13 +2893,75 @@ def _injected_bn_fault(name):
         setattr(bn, attr, orig)
 
 
+#: forwards of one layer that ``running_average_kernels`` profiles
+RUNNING_AVERAGE_PROBES = 20
+RUNNING_AVERAGE_SPAN = "running averages probe"
+
+
+def running_average_kernels(step, batch):
+    """The kernels that one ``FusedBatchNorm`` layer's training forward
+    launches besides B7 and B8, by name: the running averages' eager
+    update (``FusedBatchNorm.forward``), the same in every layer of the
+    step. A profile (CPU and CUDA activity) holds one more training step
+    and then ``RUNNING_AVERAGE_PROBES`` forwards of a 256-channel layer
+    inside a ``record_function`` span; the kernels that start inside the
+    span are the forwards' (a short profile of its own recorded no
+    kernel at all on some machines). A profile counts only if the span
+    holds every forward's B7 launch and a whole number of each kernel a
+    forward (about one in six did not, on one machine); after three that
+    do not, the count is not measured (None; the profile's line says
+    "not measured"), which does not fail the smoke: it checks nothing of
+    the port."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from horovod_tpu_torch.ops.batchnorm import FusedBatchNorm
+
+    layer = FusedBatchNorm(256).cuda().train()
+    x = torch.randn(128, 8, 8, 256, device="cuda").to(torch.bfloat16)
+    k = RUNNING_AVERAGE_PROBES
+    with torch.no_grad():
+        layer(x)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*batch)
+            torch.cuda.synchronize()
+            with torch.no_grad(), record_function(RUNNING_AVERAGE_SPAN):
+                for _ in range(k):
+                    layer(x)
+                torch.cuda.synchronize()
+        events = prof.events()
+        spans = [e.time_range for e in events
+                 if e.name == RUNNING_AVERAGE_SPAN
+                 and e.device_type == DeviceType.CPU]
+        if len(spans) != 1:
+            continue
+        lo, hi = spans[0].start, spans[0].end
+        counts = Counter(e.name[:80] for e in events
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)
+                         and lo <= e.time_range.start <= hi)
+        if (sum(n for name, n in counts.items() if "bn_stats" in name) == k
+                and not any(n % k for n in counts.values())):
+            return {name: n // k for name, n in counts.items()
+                    if "bn_" not in name}
+    return None
+
+
 def profile_resnet_step(step, batch):
     """Where one ResNet-50 training step's device time goes, by group:
     cuDNN convolutions, the BatchNorm kernels, the optimizer, casts and
     other elementwise work; with the device busy share (kernel time over
-    wall time, a lower bound: the profiler adds host time). Returns the
-    step's calls of each BatchNorm kernel by name (``column_sum``, the
-    earlier reductions' finishing kernel, beside B7-B10)."""
+    wall time, a lower bound: the profiler adds host time), and the
+    running averages' kernels counted by name on one layer
+    (``running_average_kernels``, in a second profile) and for the step's
+    53 layers. Returns
+    the step's calls of each BatchNorm kernel by name (``column_sum``,
+    the earlier reductions' finishing kernel, beside B7-B10)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2743,6 +2976,7 @@ def profile_resnet_step(step, batch):
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     bn_calls = {k: sum(e.count for e in kernels if f"{k}_kernel" in e.key)
                 for k in ("column_sum", *BN_KERNELS)}
+    averages = running_average_kernels(step, batch)
     groups, calls = {}, {}
     for e in kernels:
         name = e.key.lower()
@@ -2768,6 +3002,11 @@ def profile_resnet_step(step, batch):
         "kernels": sum(e.count for e in kernels),
         "device_ms_by_group": groups, "launches_by_group": calls,
         "batchnorm_kernel_calls": bn_calls,
+        "running_average_kernels_per_layer": (
+            "not measured" if averages is None else averages),
+        "running_average_kernels_per_step": (
+            "not measured" if averages is None
+            else RESNET_BN_LAYERS * sum(averages.values())),
         "top": [{"name": e.key[:70], "ms": _dev_us(e) / 1e3,
                  "calls": e.count} for e in top]}))
     return bn_calls
@@ -3046,20 +3285,84 @@ def serve_gpt2(seed, ledger):
 
 #: kernels the profiles of ``--profiles`` run
 PROFILE_KERNELS = ("layernorm_fwd", "append_attend", "append_attend_int8",
-                   *BN_KERNELS)
+                   *BN_KERNELS, *TRAIN_KERNELS, "pack_rows")
+
+
+def profile_kernels(seed):
+    """B4 and B6 timed through the wrappers' signatures, which this PR's
+    parent has too, so that ``--profiles`` run in two trees compares
+    them in one call: B4 (LayerNorm, bf16) at [8, 768], [512, 768] and
+    [8192, 1024], the last L2-hot and L2-cold, beside ``F.layer_norm``;
+    B6 on BERT-Large's largest bucket (32,543,744 float32) at world 4,
+    from an aligned and from an unaligned start (the element-wise
+    kernel), beside ``F.pad`` and a ``copy_`` of the same bytes. Device
+    time from the profiler (``_device_ms``)."""
+    from horovod_tpu_torch.ops import layernorm as ln
+    from horovod_tpu_torch.ops import ring_pack
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for rows, c in ((8, 768), (512, 768), (8192, 1024)):
+        x = (torch.randn(rows, c, generator=g, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+        gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+        def kernel(_=0):
+            ln.layer_norm_cuda(x, gamma, beta, 1e-5, False)
+
+        def lib(_=0):
+            F.layer_norm(x, (c,), gb, bb, 1e-5)
+        row = {"ms": _device_ms(kernel), "library_ms": _device_ms(lib)}
+        if rows == 8192:
+            row.update(cold_ms=_device_ms(kernel, iters=20, cold=True),
+                       cold_library_ms=_device_ms(lib, iters=20, cold=True))
+        out[f"layernorm_fwd {rows}x{c} bf16"] = row
+    big, n = 32543744, ZERO_RANKS
+    base = torch.randn(big + 1, generator=g, device="cuda")
+    x, off = base[:big], base[1:]
+    dst = torch.empty(big, device="cuda")
+    out[f"pack_rows [{big}] float32, world {n}"] = {
+        "ms": _device_ms(lambda _=0: ring_pack.pack_rows_cuda(x, n),
+                         iters=20),
+        "unaligned_ms": _device_ms(
+            lambda _=0: ring_pack.pack_rows_cuda(off, n), iters=20),
+        "library_ms": _device_ms(lambda _=0: F.pad(x, (0, 0)).view(n, -1),
+                                 iters=20),
+        "copy_ms": _device_ms(lambda _=0: dst.copy_(x), iters=20)}
+    print(json.dumps({"profile": "B4 and B6 through their wrappers",
+                      "kernels": out}))
 
 
 def profiles(seed):
     """``--profiles``: only the profiles that compare two trees in one
-    call, run from the root of each: a decode step of GPT-2 small with
-    every slot occupied on a bf16 and on an int8 cache
-    (``profile_decode``), and one ResNet-50 training step with the fused
-    BatchNorm after one warm-up step (``profile_resnet_step``). Enforces
-    nothing."""
+    call, run from the root of each: B4 and B6 through their wrappers
+    (``profile_kernels``), GPT-2 medium training through the example's
+    ``main`` with phase 4's arguments (batch 8 x 1024, flash attention
+    and fused norms, 1 warm-up + 5 timed steps: the unprofiled step time
+    and tokens/s) and then one profiled step (``profile_train_step``:
+    the LayerNorm group's device time and launches), a decode step of GPT-2 small with every slot occupied on
+    a bf16 and on an int8 cache (``profile_decode``), and one ResNet-50
+    training step with the fused BatchNorm after one warm-up step
+    (``profile_resnet_step``). Enforces nothing."""
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.examples import resnet50_synthetic
+    from horovod_tpu_torch.examples import (gpt2_pretraining,
+                                            resnet50_synthetic)
     from horovod_tpu_torch.serving.decode import GenerationEngine
 
+    profile_kernels(seed)
+    stats = {}
+    per_chip, _ = gpt2_pretraining.main(TRAIN_ARGS, stats)
+    print(json.dumps({
+        "profile": "GPT-2 medium training through the example's main, "
+                   "unprofiled (phase 4's arguments: batch 8x1024, 1 "
+                   "warm-up + 5 timed steps)",
+        "step_ms": stats["step_ms"][0], "tokens_per_s": per_chip}))
+    profile_train_step(stats["step"], stats["tokens"])
+    stats.clear()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
     _, model, prompts = _gpt2_small(seed)
     for kv in ("bf16", "int8"):
         engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype=kv)
@@ -3276,7 +3579,9 @@ def main(argv=None) -> int:
                          "parity readings of seeds 0..N-1 and of the "
                          "injected faults (the limits' evidence)")
     ap.add_argument("--profiles", action="store_true",
-                    help="only build the kernels they run and print the "
+                    help="only build the kernels they run and print B4's "
+                         "and B6's times, GPT-2 medium's unprofiled "
+                         "training step time, the training-step, "
                          "decode-step (bf16 and int8 cache) and ResNet-50 "
                          "step profiles, to compare two trees in one call")
     args = ap.parse_args(argv)

@@ -11,10 +11,9 @@
 //   dx = rstd * (gdy - s1 - xhat * s2)  (RMSNorm: no s1 term)
 //   dgamma = sum_rows(dy * xhat),       dbeta = sum_rows(dy)
 // with dx stored in x's dtype. Elementwise steps use the _rn intrinsics
-// so nothing is contracted into an FMA. The row sums run in another
-// order than layernorm_fwd.cu's 256-thread block sums, so mean and rstd
-// may differ from the forward's in the last bit; dx is held to the
-// plain version either way.
+// so nothing is contracted into an FMA. mean and rstd come from
+// layernorm.cuh's `warp_row_stats`, as the forward's do (C <= 4096), so
+// they are the forward's bit for bit.
 //
 // What bounds it on an H100: bytes. It reads x and dy and writes dx
 // ([N, C] each) and does ~20 flops per element, far below the card's
@@ -23,10 +22,10 @@
 // Design: a warp per row, no barrier inside a row. A lane holds the
 // row's columns (k * 32 + lane) * V .. + V for k < CPL / V, V = 16 bytes
 // of x's dtype (8 bf16, 4 float32; 1 where C is no multiple of V), read
-// by 16-byte loads; the four row sums (sum x, sum x^2, sum gdy,
-// sum gdy * xhat) are warp shuffles. Each warp walks rows warp_id,
-// warp_id + n_warps, ... and starts the next row's loads before the
-// current row's reductions. gamma sits in shared memory.
+// by 16-byte loads (layernorm.cuh's `Cols`); the four row sums (sum x,
+// sum x^2, sum gdy, sum gdy * xhat) are warp shuffles. Each warp walks
+// rows warp_id, warp_id + n_warps, ... and starts the next row's loads
+// before the current row's reductions. gamma sits in shared memory.
 //
 // dgamma and dbeta: each lane accumulates its columns across its rows
 // in float32 registers; a block's warps add theirs in warp order through
@@ -41,7 +40,7 @@
 // backward one kernel, whose last block reads blocks x C floats from
 // L2 with 16-byte loads.
 
-#include "common.cuh"
+#include "layernorm.cuh"
 
 namespace {
 
@@ -49,59 +48,6 @@ constexpr int kWarps = 8;                // rows in flight a block
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlocksPerSm = 1;          // blocks = this x the SM count
 constexpr int kMaxCols = 128;            // columns a lane, so C <= 4096
-
-// One lane's chunk of V columns: 16-byte loads (kWide) or one element.
-template <typename T, bool kWide>
-struct Cols;
-
-template <typename T>
-struct Cols<T, true> {
-  static constexpr int V = 16 / sizeof(T);
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load(const T* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&v)[V]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-    if constexpr (sizeof(T) == 2) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[2 * i] = __uint_as_float(w[i] << 16);
-        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(w[i]);
-    }
-  }
-  static __device__ __forceinline__ void store(T* p, const float (&v)[V]) {
-    uint32_t w[4];
-    if constexpr (sizeof(T) == 2) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-        w[i] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = __float_as_uint(v[i]);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
-template <typename T>
-struct Cols<T, false> {
-  static constexpr int V = 1;
-  using Raw = T;
-  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&v)[1]) {
-    v[0] = to_f32(r);
-  }
-  static __device__ __forceinline__ void store(T* p, const float (&v)[1]) {
-    *p = from_f32<T>(v[0]);
-  }
-};
 
 template <typename T, bool kWide, int kCpl>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
@@ -111,7 +57,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                          float* dg_part, float* db_part,
                          unsigned int* ticket, int n, int c, float eps,
                          int rms) {
-  using L = Cols<T, kWide>;
+  using L = ln::Cols<T, kWide>;
   constexpr int V = L::V;
   constexpr int kChunks = kCpl / V;  // chunks a lane
   using Raw = typename L::Raw;
@@ -152,29 +98,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   for (; r < n; r += n_warps) {
     if (r + n_warps < n) load(nx, nd, r + n_warps);
 
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      if ((k * 32 + lane) * V >= c) continue;
-      float xv[V];
-      L::unpack(cx[k], xv);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        s += xv[e];
-        ss = fmaf(xv[e], xv[e], ss);
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    float mean, var;
-    if (rms) {
-      mean = 0.f;
-      var = __fdiv_rn(ss, cf);
-    } else {
-      mean = __fdiv_rn(s, cf);
-      var = fmaxf(__fsub_rn(__fdiv_rn(ss, cf), __fmul_rn(mean, mean)), 0.f);
-    }
-    const float rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+    float mean, rstd;
+    ln::warp_row_stats<T, kWide, kChunks>(cx, lane, c, eps, rms, mean, rstd);
 
     float a1 = 0.f, a2 = 0.f;
 #pragma unroll
@@ -292,7 +217,7 @@ cudaError_t launch_wide(const void* x, const void* dy, const float* gamma,
                         void* dx, float* dg, float* db, float* dg_part,
                         float* db_part, unsigned int* ticket, int n, int c,
                         int blocks, float eps, int rms, cudaStream_t stream) {
-  constexpr int V = Cols<T, kWide>::V;
+  constexpr int V = ln::Cols<T, kWide>::V;
   const int need = (c + 31) / 32;  // columns a lane
   const size_t smem = 2 * static_cast<size_t>(c) * sizeof(float);
   auto go = [&](auto kernel) {
@@ -325,7 +250,7 @@ cudaError_t launch(const void* x, const void* dy, const float* gamma,
                    int blocks, float eps, int rms, cudaStream_t stream) {
   // 16-byte loads need whole chunks in every row (rows start 16-byte
   // aligned when c is a multiple of the chunk and x, dy, dx are)
-  constexpr int V = Cols<T, true>::V;
+  constexpr int V = ln::Cols<T, true>::V;
   const bool wide =
       c % V == 0 && ((reinterpret_cast<uintptr_t>(x) |
                       reinterpret_cast<uintptr_t>(dy) |

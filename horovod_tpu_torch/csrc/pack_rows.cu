@@ -16,19 +16,30 @@
 //
 // What bounds it on an H100: bytes, L * size read and n * k * size
 // written once each (the largest BERT-Large bucket at n = 4: 130 MB
-// each way, 0.078 ms at 3.35 TB/s). Design: 16-byte vector loads and
-// stores where the source is 16-byte aligned (the output comes from
-// torch.empty and always is), one vector per thread in a grid-stride
-// loop; the vector that straddles L and the last n * k mod (16 / size)
-// elements go element by element. A source that is not 16-byte
-// aligned (a slice of a larger tensor) takes the element-wise loop
-// throughout.
+// each way, 0.078 ms at 3.35 TB/s). 260 MB stream through a 50 MB L2,
+// and nothing reads them again before the reduce-scatter.
+//
+// Design, where the source and the output are 16-byte aligned (the
+// output comes from torch.empty and always is): block b copies the
+// kTileUnroll x kThreads 16-byte vectors of the source's whole vectors
+// [0, L / V) (V = 16 bytes of elements) from b x that, each thread
+// kTileUnroll vectors kThreads apart with all its loads before its
+// stores, a block a tile (no grid-stride loop): neighbouring blocks
+// stream neighbouring bytes, as PyTorch's own copy does. On an H100 it
+// runs level with `copy_` of the same bytes; a persistent grid with
+// four streaming-hint loads in flight a thread, and 1-D TMA bulk copies
+// through an mbarrier ring, both ran about 7% behind (PERF.md). The
+// zeros are a loop of their own (at most n - 1 elements), one thread
+// writes the vector that straddles L, and the last n * k mod V elements
+// go element by element. A source that is not 16-byte aligned (a slice
+// of a larger tensor) takes the element-wise kernel throughout.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTileUnroll = 2;  // 16-byte vectors a thread
 
 int grid_for(long long items) {
   long long blocks = (items + kThreads - 1) / kThreads;
@@ -36,35 +47,57 @@ int grid_for(long long items) {
   return static_cast<int>(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
 }
 
+// The output past the source's whole vectors: zeros from the first
+// vector after the bucket's last element, the straddling vector (thread
+// 0 of the range), and the output's last total mod V elements (zeros,
+// or the bucket's tail when length > nv * V). Thread `tid` of `stride`.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    pack_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
-                    long long length, long long total) {
+__device__ __forceinline__ void pack_rest(const T* __restrict__ x,
+                                          T* __restrict__ out,
+                                          long long length, long long total,
+                                          long long tid, long long stride) {
   constexpr int V = 16 / sizeof(T);
   const long long nv = total / V;   // whole vectors of the output
   const long long lv = length / V;  // whole vectors of the source
   const bool ragged = length % V != 0;
-  const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x);
   uint4* __restrict__ ov = reinterpret_cast<uint4*>(out);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid =
-      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  for (long long i = tid; i < nv; i += stride) {
-    if (i < lv) {
-      ov[i] = __ldg(xv + i);
-    } else if (i > lv || !ragged) {
-      ov[i] = make_uint4(0u, 0u, 0u, 0u);
-    } else {  // the vector holding the bucket's last elements
-      for (int j = 0; j < V; ++j) {
-        const long long e = i * V + j;
-        out[e] = e < length ? x[e] : T(0);
-      }
+  for (long long i = lv + ragged + tid; i < nv; i += stride)
+    __stcs(ov + i, make_uint4(0u, 0u, 0u, 0u));
+  if (tid == 0 && ragged && lv < nv) {
+    for (int j = 0; j < V; ++j) {
+      const long long e = lv * V + j;
+      out[e] = e < length ? x[e] : T(0);
     }
   }
-  // the output's last total mod V elements (zeros, or the bucket's tail
-  // when length > nv * V)
   for (long long e = nv * V + tid; e < total; e += stride)
     out[e] = e < length ? x[e] : T(0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pack_tiles_kernel(const T* __restrict__ x, T* __restrict__ out,
+                      long long length, long long total) {
+  constexpr int V = 16 / sizeof(T);
+  const long long lv = length / V;
+  const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x);
+  uint4* __restrict__ ov = reinterpret_cast<uint4*>(out);
+  const long long first =
+      blockIdx.x * static_cast<long long>(kThreads * kTileUnroll) +
+      threadIdx.x;
+  uint4 v[kTileUnroll];
+#pragma unroll
+  for (int u = 0; u < kTileUnroll; ++u) {
+    const long long i = first + u * kThreads;
+    if (i < lv) v[u] = xv[i];
+  }
+#pragma unroll
+  for (int u = 0; u < kTileUnroll; ++u) {
+    const long long i = first + u * kThreads;
+    if (i < lv) ov[i] = v[u];
+  }
+  pack_rest(x, out, length, total,
+            blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x,
+            static_cast<long long>(gridDim.x) * kThreads);
 }
 
 template <typename T>
@@ -85,10 +118,12 @@ cudaError_t launch(const void* x, void* out, long long length,
   T* os = static_cast<T*>(out);
   const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  constexpr int V = 16 / sizeof(T);
   if (aligned) {
-    const long long nv = total / (16 / sizeof(T));
-    pack_vec_kernel<T><<<grid_for(nv > 0 ? nv : total), kThreads, 0,
-                         stream>>>(xs, os, length, total);
+    const long long tile = kThreads * kTileUnroll;
+    const long long blocks = (length / V + tile - 1) / tile;
+    pack_tiles_kernel<T><<<static_cast<int>(blocks < 1 ? 1 : blocks),
+                           kThreads, 0, stream>>>(xs, os, length, total);
   } else {
     pack_elem_kernel<T><<<grid_for(total), kThreads, 0, stream>>>(
         xs, os, length, total);

@@ -30,6 +30,36 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# The forward kernel's partition (csrc/layernorm_fwd.cu; held to its
+# ``constexpr``s by tests/test_torch_kernels.py): on the register route
+# (C <= FWD_MAX_C) a warp per row, warp w of block k taking rows
+# k * FWD_WARPS + w, + blocks * FWD_WARPS, ...; on the long-row route
+# (C > FWD_MAX_C) a block per row.
+#: warps of a block (csrc/layernorm_fwd.cu kWarps)
+FWD_WARPS = 8
+#: blocks per SM (kBlocksPerSm) for rows of at most FWD_MAX_C // 2
+#: columns; one block per SM above that, where a lane holds 128 columns
+FWD_BLOCKS_PER_SM = 2
+#: a lane keeps at most 128 columns (kMaxCols) in registers; longer rows
+#: take the long-row route
+FWD_MAX_C = 4096
+
+
+def fwd_blocks(n: int, c: int, sm_count: int) -> int:
+    """The forward kernel's grid for ``n`` rows of ``c`` columns on a
+    card of ``sm_count`` SMs."""
+    if c > FWD_MAX_C:
+        return max(1, n)
+    per_sm = FWD_BLOCKS_PER_SM if c <= FWD_MAX_C // 2 else 1
+    return max(1, min(per_sm * sm_count, -(-n // FWD_WARPS)))
+
+
+def fwd_rows_of_warp(n: int, blocks: int, warp: int) -> torch.Tensor:
+    """The rows (int64, in the order it takes them) that warp ``warp``
+    of the register route's grid of ``blocks`` writes."""
+    return torch.arange(warp, n, blocks * FWD_WARPS)
+
+
 # The backward kernel's partition (csrc/layernorm_bwd.cu; held to its
 # ``constexpr``s by tests/test_torch_kernels.py): a warp per row, warp w
 # of block k taking rows k * BWD_WARPS + w, + blocks * BWD_WARPS, ...
@@ -115,7 +145,7 @@ def _lib(name: str, argtypes):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P]
+_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
              _P]
 
@@ -145,13 +175,14 @@ def layer_norm_cuda(x2: torch.Tensor, gamma: torch.Tensor,
     n, c = x2.shape
     x2 = x2.contiguous()
     y = torch.empty_like(x2)
-    if n == 0:
+    if n == 0 or c == 0:
         return y
     lib = _lib("layernorm_fwd", _FWD_ARGS)
     err = lib.hvd_layernorm_fwd(
         x2.data_ptr(), gamma.data_ptr(),
         beta.data_ptr() if beta is not None else None, y.data_ptr(),
-        n, c, float(eps), int(rms), _DTYPE_CODES[x2.dtype],
+        n, c, fwd_blocks(n, c, _build.sm_count(x2.device)), float(eps),
+        int(rms), _DTYPE_CODES[x2.dtype],
         x2.device.index, _build.stream_handle(x2.device))
     _build.check(lib, err, "layernorm_fwd")
     _build.LAUNCHES["layernorm_fwd"] += 1

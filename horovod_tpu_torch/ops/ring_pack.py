@@ -41,6 +41,13 @@ _ARGTYPES = {
 #: dtype codes of csrc/common.cuh
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# B6's tiling of the aligned copy (csrc/pack_rows.cu): a block copies
+# PACK_TILE_UNROLL x PACK_THREADS 16-byte vectors, for callers that
+# place cases at its tile boundaries (chip_smoke.py);
+# tests/test_torch_zero.py holds each to its ``constexpr``.
+PACK_THREADS = 256
+PACK_TILE_UNROLL = 2
+
 # B15's tiling, for callers that emulate a kernel skipping one K tile
 # (chip_smoke.py); tests/test_torch_matmul_pack.py holds each to its
 # ``constexpr`` in csrc/matmul_pack.cu.

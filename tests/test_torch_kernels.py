@@ -74,13 +74,17 @@ def _bf16_ulp(x):
 @pytest.mark.parametrize("kind,with_beta", [("layernorm", True),
                                             ("layernorm", False),
                                             ("rmsnorm", False)])
-def test_layer_norm_ref_matches_pallas(dtype, kind, with_beta):
+@pytest.mark.parametrize("rows,c", [(13, 40), (5, 1000), (3, 4096),
+                                    (2, 8192)])
+def test_layer_norm_ref_matches_pallas(dtype, kind, with_beta, rows, c):
     """13 rows (not a multiple of 8) of 40 channels (lane-padded on the
-    TPU): float32 within 1e-6, bfloat16 within one bf16 ulp."""
+    TPU), and a few rows at the widths of the card kernel's routes: C =
+    1000 (a ragged last chunk), 4096 (128 columns a lane) and 8192 (a
+    block a row): float32 within 1e-6, bfloat16 within one bf16 ulp."""
     rs = np.random.RandomState(0)
-    x = (rs.randn(13, 40) * 3 + 1.5).astype(np.float32)
-    g = (1 + 0.1 * rs.randn(40)).astype(np.float32)
-    b = (0.1 * rs.randn(40)).astype(np.float32) if with_beta else None
+    x = (rs.randn(rows, c) * 3 + 1.5).astype(np.float32)
+    g = (1 + 0.1 * rs.randn(c)).astype(np.float32)
+    b = (0.1 * rs.randn(c)).astype(np.float32) if with_beta else None
     xj = jnp.asarray(x).astype(_JNP[dtype])
     want = jax_fused_layer_norm(
         xj, jnp.asarray(g), None if b is None else jnp.asarray(b),
@@ -202,6 +206,57 @@ def _constexpr(src, name):
     m = re.search(rf"constexpr int {name} = (\d+);", src)
     assert m, name
     return int(m.group(1))
+
+
+def test_layer_norm_fwd_partition_is_the_kernels():
+    """The partition ``ops/layernorm.py`` exports for B4 (``chip_smoke.py``
+    emulates a skipped row of it) is the ``constexpr`` partition of
+    ``csrc/layernorm_fwd.cu``: warps a block, blocks an SM, the register
+    route's limit, a warp per row walking rows ``block * warps + warp``,
+    ``+ blocks * warps``, ...; a block a row past the limit."""
+    src = _csrc("layernorm_fwd.cu")
+    assert ln_mod.FWD_WARPS == _constexpr(src, "kWarps")
+    assert ln_mod.FWD_BLOCKS_PER_SM == _constexpr(src, "kBlocksPerSm")
+    assert ln_mod.FWD_MAX_C == 32 * _constexpr(src, "kMaxCols")
+    assert "int r = blockIdx.x * kWarps + warp;" in src
+    assert "const int n_warps = gridDim.x * kWarps;" in src
+    assert "r += n_warps" in src
+    assert "return cpl < kMaxCols ? kBlocksPerSm : 1;" in src
+    assert ln_mod.fwd_blocks(8192, 1024, 132) == 132 * ln_mod.FWD_BLOCKS_PER_SM
+    assert ln_mod.fwd_blocks(8192, 4096, 132) == 132
+    assert ln_mod.fwd_blocks(8, 768, 132) == 1
+    assert ln_mod.fwd_blocks(512, 768, 132) == 64
+    assert ln_mod.fwd_blocks(64, 8192, 132) == 64
+    blocks = ln_mod.fwd_blocks(8192, 1024, 132)
+    warps = blocks * ln_mod.FWD_WARPS
+    rows = torch.cat([ln_mod.fwd_rows_of_warp(8192, blocks, w)
+                      for w in range(warps)])
+    # every row exactly once, each warp's rows in walking order
+    assert torch.equal(rows.sort().values, torch.arange(8192))
+    assert ln_mod.fwd_rows_of_warp(8192, blocks, 3)[:2].tolist() == [
+        3, 3 + warps]
+
+
+def test_layer_norm_kernels_share_the_row_statistics():
+    """B4 and B5 take their row statistics from one routine in
+    ``csrc/layernorm.cuh``, so the backward's recomputed mean and rstd
+    are the forward's bit for bit: both sources include the header and
+    call ``ln::warp_row_stats``; the fold into rstd appears in the
+    header and in no other kernel source."""
+    fwd, bwd = _csrc("layernorm_fwd.cu"), _csrc("layernorm_bwd.cu")
+    head = _csrc("layernorm.cuh")
+    for src in (fwd, bwd):
+        assert '#include "layernorm.cuh"' in src
+        assert ("ln::warp_row_stats<T, kWide, kChunks>(cx, lane, c, eps, "
+                "rms, mean, rstd);") in src
+        assert "struct Cols" not in src
+    assert "ln::fold(s, ss, c, eps, rms, mean, rstd);" in fwd
+    fold = "__frcp_rn(__fsqrt_rn("
+    assert head.count(fold) == 1
+    csrc = pathlib.Path(ln_mod.__file__).resolve().parent.parent / "csrc"
+    for path in csrc.glob("*.c*"):
+        if path.name != "layernorm.cuh":
+            assert fold not in path.read_text(), path.name
 
 
 def test_layer_norm_bwd_partition_is_the_kernels():

@@ -37,6 +37,7 @@ import dataclasses
 import functools
 import os
 import pathlib
+import re
 import socket
 import subprocess
 import sys
@@ -119,6 +120,59 @@ def test_pack_rows_matches_jax(dtype, n):
         for what, g in (("pack_rows_fused", got), ("_pad_rows", plain)):
             assert (_tbits(g) == want).all(), (what, length)
         np.testing.assert_array_equal(_jbits(jzero._pad_rows(jx, n)), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length,n", [
+    (64, 4), (63, 4), (65, 4),        # a multiple of float32's 4-element
+    (128, 3), (127, 3), (129, 3),     # vector (and bf16's 8), and +-1
+    (4096, 8), (4095, 8), (4097, 8),  # a 16 KB / 8 KB bucket, +-1
+    (2, 4), (5, 8),                   # L < n
+])
+def test_pack_rows_vector_boundary_matches_jax(dtype, length, n):
+    """B6's plain version and ``zero._pad_rows`` against the JAX
+    package's ``pack_rows_fused`` at lengths around the card kernel's
+    16-byte vector (where one thread writes the vector that straddles L
+    and the output's last n * k mod V elements go one by one), bitwise,
+    from an aligned start."""
+    rs = np.random.RandomState(length * 31 + n)
+    tdt = getattr(torch, dtype)
+    t = torch.from_numpy(rs.randn(length).astype(np.float32)).to(tdt)
+    jx = jax.lax.bitcast_convert_type(jnp.asarray(_tbits(t)),
+                                      getattr(jnp, dtype))
+    want = _jbits(jpc.pack_rows_fused(jx, n))
+    k = -(-length // n)
+    assert want.shape == (n, k)
+    for what, got in (("pack_rows_fused", ring_pack.pack_rows_fused(t, n)),
+                      ("_pad_rows", zero._pad_rows(t, n))):
+        assert got.dtype == tdt and tuple(got.shape) == (n, k), what
+        assert (_tbits(got) == want).all(), what
+    assert (want.reshape(-1)[length:] == 0).all()
+
+
+def _csrc(name):
+    return (REPO / "horovod_tpu_torch" / "csrc" / name).read_text()
+
+
+def _constexpr(src, name):
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_pack_tile_is_the_kernels():
+    """The tiling ``ops/ring_pack.py`` exports (``chip_smoke.py`` builds
+    its tile-boundary cases from it) is the ``constexpr``s of
+    ``csrc/pack_rows.cu``, and the wrapper's ctypes signature has the C
+    entry's arity."""
+    src = _csrc("pack_rows.cu")
+    assert ring_pack.PACK_THREADS == _constexpr(src, "kThreads")
+    assert ring_pack.PACK_TILE_UNROLL == _constexpr(src, "kTileUnroll")
+    m = re.search(r'extern "C" int hvd_pack_rows\(([^)]*)\)', src)
+    assert m
+    assert len(m.group(1).split(",")) == len(ring_pack._ARGTYPES["pack_rows"])
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_pack.pack_rows_cuda(torch.zeros(4), 2)
 
 
 def test_bf16_nan_payloads():
