@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --parity-sweep 8   # the parity limits' readings
-    python3 chip_smoke.py --profiles         # GPT-2, decode, ResNet profiles
+    python3 chip_smoke.py --profiles         # kernel, int8, GPT-2, decode,
+                                             # ResNet profiles
 
 Phases, in order; the first failure exits non-zero:
 
@@ -32,14 +33,16 @@ Phases, in order; the first failure exits non-zero:
    skips its last key tile or a cluster that skips one CTA's span must
    fail, merged caches (B17: codes and scales) bitwise; the
    BatchNorm kernels at ResNet-50's shapes, apply and dx bitwise (dx
-   folding its constants from the statistics), the two one-launch
+   folding its constants from the statistics; apply also on an output
+   buffer poisoned with NaN just before), the two one-launch
    reductions per channel and bitwise from run to run, where sums that
    leave out one row block of their partition, or a finish that drops
    one partial row, must fail, and the statistics kernel's folded
    constants bitwise the plain fold of its own sums; the int8 wire's
    kernels bitwise on the largest bucket of GPT-2 medium's plan at
-   worlds 4 and 8 and on edge cases; the bucket pack bitwise on
-   BERT-Large's largest bucket and edge cases; the
+   worlds 4 and 8 and on edge cases (the dequantize-accumulate on both
+   its routes and on a NaN-poisoned output buffer); the bucket pack
+   bitwise on BERT-Large's largest bucket and edge cases; the
    matmul with the ring-row epilogue row by row against a float64
    product at BERT-Large's weight-gradient shapes, where a kernel that
    skips one K tile must fail, and bitwise on integer operands), and
@@ -175,18 +178,92 @@ def _kernel_events(prof):
 FLUSH_BYTES = 128 << 20
 FLUSH_KERNEL = "FillFunctor"
 
+#: seconds a profiler window (``_profiled``) stays open on the host
+#: before the profiled work and after the card has finished it. The
+#: profiler keeps only the device events that fall inside its window on
+#: the host's clock, and the card's timestamps, carried over to that
+#: clock, can fall past its end: a window of tiny kernels, closed right
+#: after its last one, lost some of its events or all of them
+PROFILER_PAD_S = 0.02
+
+#: ``_device_ms``'s tally over the run: profiler windows read, windows
+#: refused (no device time, or a count of kernel calls that is not a
+#: whole number a call: events dropped), and readings that fell back to
+#: ``_held_ms`` after ``DEVICE_MS_WINDOWS`` refused windows; the first
+#: 20 refused windows' counts, with the kernels whose calls were not a
+#: whole number a call
+PROFILER_TALLY = {"windows": 0, "refused": 0, "held_event_readings": 0,
+                  "refusals": []}
+DEVICE_MS_WINDOWS = 3
+
+
+@contextlib.contextmanager
+def _profiled(*activities):
+    """A ``torch.profiler`` window (CUDA activity unless ``activities``
+    are given) over the block, open ``PROFILER_PAD_S`` before it and
+    after the card has finished its work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=list(activities)
+                 or [ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
+
+
+def _held_run_ms(fn, calls, cycles):
+    """CUDA-event ms of ``fn(i)`` for each i in ``calls``, enqueued
+    while a spin kernel of ``cycles`` (``torch.cuda._sleep``) holds the
+    stream; None if the spin ended before the host had enqueued them."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    start.record()
+    for i in calls:
+        fn(i)
+    end.record()
+    held = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) if held else None
+
+
+def _held_ms(fn, iters=50):
+    """Device time of one call of ``fn`` by CUDA events, with the stream
+    held by a spin kernel until the host has enqueued the calls: the
+    events then time the card's run of them, the gaps between their
+    kernels included, and not the host's enqueue. All ``iters`` calls
+    behind one spin of up to 1 << 28 cycles (about 135 ms at 1.98 GHz);
+    failing that (the stream's queue holds about a thousand launches and
+    blocks the host beyond them), each call behind a spin of its own."""
+    for shift in (22, 24, 26, 28):
+        ms = _held_run_ms(fn, range(iters), 1 << shift)
+        if ms is not None:
+            return ms / iters
+    total = 0.0
+    for i in range(iters):
+        for shift in (22, 24, 26, 28, 30):
+            ms = _held_run_ms(fn, (i,), 1 << shift)
+            if ms is not None:
+                break
+        _require(ms is not None, "a spin of 1 << 30 cycles did not outlast "
+                                 "the host's enqueue of one call")
+        total += ms
+    return total / iters
+
 
 def _device_ms(fn, iters=50, cold=False):
     """Device time of one call of ``fn``: the summed device time of the
     kernels it launches, from ``torch.profiler`` over ``iters`` calls.
     For a call shorter than its host-side launch, where back-to-back
-    CUDA-event timing measures the enqueue and not the card. Now and
-    then the profiler returns a window without any device event: such a
-    window is profiled again, three windows in all. With ``cold``, each
+    CUDA-event timing measures the enqueue and not the card. A window
+    without device time, or whose kernel calls are not a whole number a
+    call (the profiler dropped events), is refused and profiled again;
+    after ``DEVICE_MS_WINDOWS`` refused windows the reading is
+    ``_held_ms``'s (``PROFILER_TALLY`` counts both). With ``cold``, each
     call follows a fill of ``FLUSH_BYTES``, whose kernel the sum leaves
     out by its name: the call finds its inputs in HBM, not in L2."""
-    from torch.profiler import ProfilerActivity, profile
-
     flush = (torch.empty(FLUSH_BYTES // 4, device="cuda") if cold
              else None)
 
@@ -197,24 +274,35 @@ def _device_ms(fn, iters=50, cold=False):
 
     call()
     torch.cuda.synchronize()
-    windows = 3
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(DEVICE_MS_WINDOWS):
+        with _profiled() as prof:
             for i in range(iters):
                 call(i)
-            torch.cuda.synchronize()
+        PROFILER_TALLY["windows"] += 1
         events = _kernel_events(prof)
-        _require(flush is None or not events
-                 or any(FLUSH_KERNEL in e.key for e in events),
+        fills = sum(e.count for e in events if FLUSH_KERNEL in e.key)
+        _require(flush is None or not events or fills,
                  f"no kernel named *{FLUSH_KERNEL}* among "
                  f"{[e.key[:60] for e in events]}: the L2 flush cannot be "
                  "left out of the reading")
-        us = sum(_dev_us(e) for e in events
-                 if flush is None or FLUSH_KERNEL not in e.key)
-        if us > 0:
+        mine = [e for e in events
+                if flush is None or FLUSH_KERNEL not in e.key]
+        us = sum(_dev_us(e) for e in mine)
+        calls = sum(e.count for e in mine)
+        if us > 0 and calls % iters == 0 and fills % iters == 0:
             return us / 1e3 / iters
-    raise SmokeFailure(f"the profiler saw no device time in {windows} "
-                       "windows")
+        PROFILER_TALLY["refused"] += 1
+        if len(PROFILER_TALLY["refusals"]) < 20:
+            PROFILER_TALLY["refusals"].append({
+                "iters": iters, "device_us": us, "calls": calls,
+                "fills": fills, "kernels": {
+                    e.key[:60]: e.count for e in mine
+                    if e.count % iters}})
+    PROFILER_TALLY["held_event_readings"] += 1
+    if flush is None:
+        return _held_ms(fn, iters)
+    return max(_held_ms(call, iters)
+               - _held_ms(lambda i=0: flush.fill_(float(i)), iters), 0.0)
 
 
 def _bf16_ulp(x):
@@ -1068,9 +1156,10 @@ BN_RTOL = 1e-5
 #: batch 128 x 224 px, the main case first, then ragged float32 cases (a
 #: row count no block size divides; C = 100 and C = 96 take 16-byte
 #: loads, 25 and 24 of them a row, C = 101 one-element loads, two column
-#: tiles and a one-element finish), and 100 rows, which one row block
-#: sums (its last-block finish and ticket reset with nothing to wait
-#: for)
+#: tiles and a one-element finish), 1000 and 50 rows (B8's last tile of
+#: 16 and 64 rows ragged, and 50 rows under one tile), and 100 rows,
+#: which one row block of the reductions sums (its last-block finish and
+#: ticket reset with nothing to wait for)
 BN_CASES = (
     (401408, 256, torch.bfloat16, True, True,
      "stage-1 block output 128x56x56x256, ReLU + residual"),
@@ -1083,6 +1172,10 @@ BN_CASES = (
     (4099, 96, torch.float32, False, False, "ragged f32, plain"),
     (777, 101, torch.float32, True, True,
      "ragged f32 C = 101, one-element loads, ReLU + residual"),
+    (1000, 256, torch.float32, True, True,
+     "1000 rows, a ragged last tile of B8, ReLU + residual"),
+    (50, 64, torch.float32, True, True,
+     "50 rows, under one tile of B8, ReLU + residual"),
     (100, 64, torch.float32, False, False, "one row block, plain"),
 )
 
@@ -1091,6 +1184,23 @@ def _bitwise(a, b):
     ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
     return a.dtype == b.dtype and bool(torch.equal(
         a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def _on_poison(call, shape, dtype):
+    """``call()``'s output tensor, written over memory that held NaN: a
+    NaN tensor of the output's shape is filled and freed just before,
+    and the caching allocator, back in the state it was in before that
+    tensor, must hand the same block to the output (required). An output
+    element the kernel leaves unwritten then reads NaN, not an earlier
+    call's bits."""
+    poison = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+    at = poison.data_ptr()
+    del poison
+    out = call()
+    _require(out.data_ptr() == at,
+             f"the output of {shape} {dtype} did not land on the poisoned "
+             "block")
+    return out
 
 
 def _bn_reading(got, want, terms_abs):
@@ -1136,8 +1246,10 @@ def check_batchnorm(seed):
     B9's outputs bitwise equal over two runs. The per-channel constants
     between the kernels come from the plain version's sums, so each
     kernel sees the same inputs as its plain version (B9 forms u and w,
-    B10 its A, B and C, from them itself). The bf16 cases are timed: the
-    kernel, its plain version and PyTorch calls as yardsticks
+    B10 its A, B and C, from them itself). B8 runs once more on a
+    NaN-poisoned output buffer (``_on_poison``), bitwise too, so a grid
+    that skips a row block or a tail vector fails. The bf16 cases are
+    timed: the kernel, its plain version and PyTorch calls as yardsticks
     (``torch.batch_norm_stats`` and ``torch.var_mean`` for B7, the
     training forward of ``F.batch_norm`` beside B7 + B8 and, in the plain
     case, ``torch.batch_norm_elemt`` beside B8 alone,
@@ -1173,6 +1285,8 @@ def check_batchnorm(seed):
                                                         eps, nf)
         # B8, B9 (twice)
         ky = bn.bn_apply_cuda(x, s, t, res, relu)
+        ky_poison = _on_poison(
+            lambda: bn.bn_apply_cuda(x, s, t, res, relu), x.shape, dtype)
         py = bn.bn_apply_ref(x, s, t, res, relu)
         kg, kb = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, mean, rstd, relu)
         kred2 = bn.bn_bwd_reduce_cuda(x, dy, res, s, t, mean, rstd, relu)
@@ -1201,7 +1315,9 @@ def check_batchnorm(seed):
         dropped = {k: _dropped_partial_reading(terms[k], absum[k], block_of,
                                                want[k]) for k in terms}
         names = ("mean", "var", "rstd", "s", "t")
-        bitwise = {"y": _bitwise(ky, py), "dx": _bitwise(kdx, pdx),
+        bitwise = {"y": _bitwise(ky, py),
+                   "y on a NaN-poisoned buffer": _bitwise(ky_poison, py),
+                   "dx": _bitwise(kdx, pdx),
                    "dres": (None if res is None else _bitwise(kdres, pdres)),
                    **{f"stats_{k}": _bitwise(a, b)
                       for k, a, b in zip(names, kstats[2:], kfold)},
@@ -1450,8 +1566,14 @@ def check_quantized(seed):
     delivers them, B11 on the reduced shard, B14 on the gathered codes.
     Then the same at world 8, and the CPU test's edge cases (all-zero
     blocks, ties, a subnormal amax, a ragged length) at blocks 32 and
-    256 and n in {1, 2, 4, 8}. The main case is timed: kernel, plain
-    version, and the bytes bound."""
+    256 and n in {1, 2, 4, 8}, and at n = 3 and 12 (a partial round of
+    B13's eight ranks in flight, and two rounds); at block 40 (C and the
+    block not multiples of 16) B13 takes its element route. In every
+    case B13 also runs on a NaN-poisoned output buffer (``_on_poison``)
+    and on codes whose view starts 1 byte off 16-byte alignment (the
+    element route), both bitwise, and its route is the one
+    ``accum_route`` states. The main case is timed: kernel (B13 also
+    L2-cold), plain version, and the bytes bound."""
     from horovod_tpu_torch.ops import quantized_collectives as qc
 
     plans, _ = gpt2_medium_plan()
@@ -1462,8 +1584,9 @@ def check_quantized(seed):
               None, big, QUANT_RANKS, QUANT_BLOCK),
              (f"largest GPT-2 medium bucket, world 8", None, big, 8,
               QUANT_BLOCK)]
-    for block in (32, 256):
-        for n in (1, 2, 4, 8):
+    for block, worlds in ((32, (1, 2, 3, 4, 8, 12)), (256, (1, 2, 4, 8)),
+                          (40, (1, 3, 4))):
+        for n in worlds:
             x = _quant_payload(block, 6 * n, rs)[:-37]
             cases.append((f"edge cases, block {block}, world {n}, ragged",
                           x, x.size, n, block))
@@ -1482,7 +1605,20 @@ def check_quantized(seed):
         kq, ks, ke = qc.quantize_ef_rows_cuda(x, r, n, block)
         pq, ps, pe = qc.quantize_ef_rows_ref(x, r, n, block)
         ka = qc.accum_rows_cuda(pq, ps, block)
+        ka_poison = _on_poison(lambda: qc.accum_rows_cuda(pq, ps, block),
+                               (pq.shape[1],), torch.float32)
+        q_off = torch.empty(pq.numel() + 16, dtype=torch.int8,
+                            device="cuda")[1:1 + pq.numel()].view(pq.shape)
+        q_off.copy_(pq)
+        ka_off = qc.accum_rows_cuda(q_off, ps, block)
         pa = qc.accum_rows_ref(pq, ps, block)
+        route = qc.accum_route(pq, ps, ka, block)
+        route_off = qc.accum_route(q_off, ps, ka_off, block)
+        _require(route == (qc.ACCUM_CODES if block % 16 == 0 else 1)
+                 and route_off == 1,
+                 f"accum_rows {what}: routes {route}, {route_off} (codes "
+                 "a thread) where the block and alignment call for "
+                 "others")
         kq3, ks3 = qc.quantize_rows_cuda(pa, 1, block)
         pq3, ps3 = qc.quantize_rows_ref(pa, 1, block)
         kq1, ks1 = qc.quantize_rows_cuda(x, n, block)
@@ -1494,7 +1630,11 @@ def check_quantized(seed):
         bitwise = {
             "quant_ef_rows": {"q": _equal(kq, pq), "s": _equal(ks, ps),
                               "residual": _equal(ke, pe)},
-            "accum_rows": {"sum": _equal(ka, pa)},
+            "accum_rows": {"sum": _equal(ka, pa),
+                           "sum on a NaN-poisoned buffer": _equal(ka_poison,
+                                                                  pa),
+                           "sum of codes 1 byte off alignment": _equal(
+                               ka_off, pa)},
             "quant_rows": {"q shard": _equal(kq3, pq3),
                            "s shard": _equal(ks3, ps3),
                            "q rows": _equal(kq1, pq1),
@@ -1510,7 +1650,8 @@ def check_quantized(seed):
             "dequant_flat": (ky - py).abs().max().item(),
         }
         print(json.dumps({"quant_case": what, "elements": length, "world": n,
-                          "block": block, "bitwise": bitwise}))
+                          "block": block, "accum_route": route,
+                          "accum_route_off": route_off, "bitwise": bitwise}))
         for kname, parts in bitwise.items():
             for part, ok in parts.items():
                 _require(ok, f"{kname} {what}: {part} is not bitwise equal "
@@ -1555,7 +1696,9 @@ def check_quantized(seed):
                 plain_ms=_device_ms(plain, iters=3), bound_ms=bound,
                 bound_by=by, library_ms=None,
                 library_call=QUANT_NO_LIBRARY)
-        del pe, pa
+        out["accum_rows"][-1]["cold_ms"] = _device_ms(
+            calls["accum_rows"][0], iters=20, cold=True)
+        del pe, pa, q_off
     torch.cuda.empty_cache()
     return out
 
@@ -2013,11 +2156,10 @@ def profile_train_step(step, *inputs,
     over one step; kernels by device time and the device busy share
     (kernel time over wall time, a lower bound: the profiler adds host
     time)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         step(*inputs)
         torch.cuda.synchronize()
@@ -2272,8 +2414,6 @@ def profile_int8_stages():
     """Device time of one rank's int8 stages on GPT-2 medium's plan at
     world 4: each bucket's chain of B12, B13, B11, B14 on gradient-like
     data, with the exchanges left out (they are NCCL's)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from horovod_tpu_torch.ops import quantized_collectives as qc
 
     plans, _ = gpt2_medium_plan()
@@ -2292,7 +2432,7 @@ def profile_int8_stages():
 
     one_rank()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         one_rank()
         torch.cuda.synchronize()
     names = (("quantize_kernel<true>", "quant_ef_rows"),
@@ -2915,7 +3055,7 @@ def running_average_kernels(step, batch):
     from collections import Counter
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, record_function
 
     from horovod_tpu_torch.ops.batchnorm import FusedBatchNorm
 
@@ -2926,8 +3066,8 @@ def running_average_kernels(step, batch):
         layer(x)
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled(ProfilerActivity.CPU,
+                       ProfilerActivity.CUDA) as prof:
             step(*batch)
             torch.cuda.synchronize()
             with torch.no_grad(), record_function(RUNNING_AVERAGE_SPAN):
@@ -2959,14 +3099,14 @@ def profile_resnet_step(step, batch):
     wall time, a lower bound: the profiler adds host time), and the
     running averages' kernels counted by name on one layer
     (``running_average_kernels``, in a second profile) and for the step's
-    53 layers. Returns
-    the step's calls of each BatchNorm kernel by name (``column_sum``,
-    the earlier reductions' finishing kernel, beside B7-B10)."""
-    from torch.profiler import ProfilerActivity, profile
+    53 layers, and each BatchNorm kernel's calls and device ms by name.
+    Returns the step's calls of each BatchNorm kernel by name
+    (``column_sum``, the earlier reductions' finishing kernel, beside
+    B7-B10)."""
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         step(*batch)
         torch.cuda.synchronize()
@@ -2976,6 +3116,8 @@ def profile_resnet_step(step, batch):
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     bn_calls = {k: sum(e.count for e in kernels if f"{k}_kernel" in e.key)
                 for k in ("column_sum", *BN_KERNELS)}
+    bn_ms = {k: sum(_dev_us(e) for e in kernels if f"{k}_kernel" in e.key)
+             / 1e3 for k in BN_KERNELS}
     averages = running_average_kernels(step, batch)
     groups, calls = {}, {}
     for e in kernels:
@@ -3002,6 +3144,7 @@ def profile_resnet_step(step, batch):
         "kernels": sum(e.count for e in kernels),
         "device_ms_by_group": groups, "launches_by_group": calls,
         "batchnorm_kernel_calls": bn_calls,
+        "batchnorm_kernel_device_ms": bn_ms,
         "running_average_kernels_per_layer": (
             "not measured" if averages is None else averages),
         "running_average_kernels_per_step": (
@@ -3170,7 +3313,7 @@ def profile_decode(engine, prompts, steps=8):
     host cost makes the share a lower bound), the append+attend
     kernels' device time per step (B16 or B17, by the cache) and the
     kernels by device time per step."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
 
@@ -3181,8 +3324,7 @@ def profile_decode(engine, prompts, steps=8):
     sched.step_once()  # admit and prefill every slot
     sched.step_once()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             sched.step_once()
@@ -3285,19 +3427,25 @@ def serve_gpt2(seed, ledger):
 
 #: kernels the profiles of ``--profiles`` run
 PROFILE_KERNELS = ("layernorm_fwd", "append_attend", "append_attend_int8",
-                   *BN_KERNELS, *TRAIN_KERNELS, "pack_rows")
+                   *BN_KERNELS, *TRAIN_KERNELS, *QUANT_KERNELS, "pack_rows")
 
 
 def profile_kernels(seed):
-    """B4 and B6 timed through the wrappers' signatures, which this PR's
-    parent has too, so that ``--profiles`` run in two trees compares
-    them in one call: B4 (LayerNorm, bf16) at [8, 768], [512, 768] and
-    [8192, 1024], the last L2-hot and L2-cold, beside ``F.layer_norm``;
-    B6 on BERT-Large's largest bucket (32,543,744 float32) at world 4,
-    from an aligned and from an unaligned start (the element-wise
-    kernel), beside ``F.pad`` and a ``copy_`` of the same bytes. Device
-    time from the profiler (``_device_ms``)."""
+    """B4, B6, B8 and B13 timed through the wrappers' signatures, which
+    the parent commits have too, so that ``--profiles`` run in two trees
+    compares them in one call: B4 (LayerNorm, bf16) at [8, 768], [512,
+    768] and [8192, 1024], the last L2-hot and L2-cold, beside
+    ``F.layer_norm``; B6 on BERT-Large's largest bucket (32,543,744
+    float32) at world 4, from an aligned and from an unaligned start
+    (the element-wise kernel), beside ``F.pad`` and a ``copy_`` of the
+    same bytes; B8 at ResNet-50's [401408, 256], [1605632, 64] and
+    [6272, 2048] bf16, plain and with ReLU + residual, the plain case
+    beside ``torch.batch_norm_elemt``; B13 on GPT-2 medium's largest
+    bucket at world 4 ([4, 12865792] int8, block 256), L2-hot and
+    L2-cold. Device time from the profiler (``_device_ms``)."""
+    from horovod_tpu_torch.ops import batchnorm as bn
     from horovod_tpu_torch.ops import layernorm as ln
+    from horovod_tpu_torch.ops import quantized_collectives as qc
     from horovod_tpu_torch.ops import ring_pack
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -3331,18 +3479,51 @@ def profile_kernels(seed):
         "library_ms": _device_ms(lambda _=0: F.pad(x, (0, 0)).view(n, -1),
                                  iters=20),
         "copy_ms": _device_ms(lambda _=0: dst.copy_(x), iters=20)}
-    print(json.dumps({"profile": "B4 and B6 through their wrappers",
-                      "kernels": out}))
+    del base, x, off, dst
+    for n, c in ((401408, 256), (1605632, 64), (6272, 2048)):
+        x, res = (torch.randn(2, n, c, generator=g, device="cuda")
+                  .to(torch.bfloat16))
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+        mean = 0.5 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        rstd = 0.5 + 0.01 * torch.randn(c, generator=g, device="cuda")
+        s = gamma * rstd
+        t = beta - mean * s
+        side = math.isqrt(n // 128)
+        xn = x.reshape(128, side, side, c).permute(0, 3, 1, 2)
+        out[f"bn_apply [{n}, {c}] bf16"] = {
+            "ms": _device_ms(lambda _=0: bn.bn_apply_cuda(
+                x, s, t, None, False), iters=20),
+            "relu_residual_ms": _device_ms(lambda _=0: bn.bn_apply_cuda(
+                x, s, t, res, True), iters=20),
+            "library_ms": _device_ms(lambda _=0: torch.batch_norm_elemt(
+                xn, gamma, beta, mean, rstd, 1e-5), iters=20)}
+        del x, res, xn
+    plans, _ = gpt2_medium_plan()
+    big, n = max(_bucket_sizes(plans)), QUANT_RANKS
+    c = big // n
+    q = torch.randint(-127, 128, (n, c), generator=g, device="cuda",
+                      dtype=torch.int8)
+    sc = torch.rand(n, c // QUANT_BLOCK, generator=g, device="cuda")
+    out[f"accum_rows [{n}, {c}] int8, block {QUANT_BLOCK}"] = {
+        "ms": _device_ms(lambda _=0: qc.accum_rows_cuda(q, sc, QUANT_BLOCK),
+                         iters=20),
+        "cold_ms": _device_ms(lambda _=0: qc.accum_rows_cuda(
+            q, sc, QUANT_BLOCK), iters=20, cold=True)}
+    print(json.dumps({"profile": "B4, B6, B8 and B13 through their "
+                      "wrappers", "kernels": out}))
 
 
 def profiles(seed):
     """``--profiles``: only the profiles that compare two trees in one
-    call, run from the root of each: B4 and B6 through their wrappers
-    (``profile_kernels``), GPT-2 medium training through the example's
-    ``main`` with phase 4's arguments (batch 8 x 1024, flash attention
-    and fused norms, 1 warm-up + 5 timed steps: the unprofiled step time
-    and tokens/s) and then one profiled step (``profile_train_step``:
-    the LayerNorm group's device time and launches), a decode step of GPT-2 small with every slot occupied on
+    call, run from the root of each: B4, B6, B8 and B13 through their
+    wrappers (``profile_kernels``), one rank's int8 stage kernels at
+    world 4 (``profile_int8_stages``), GPT-2 medium training through the
+    example's ``main`` with phase 4's arguments (batch 8 x 1024, flash
+    attention and fused norms, 1 warm-up + 5 timed steps: the unprofiled
+    step time and tokens/s) and then one profiled step
+    (``profile_train_step``: the LayerNorm group's device time and
+    launches), a decode step of GPT-2 small with every slot occupied on
     a bf16 and on an int8 cache (``profile_decode``), and one ResNet-50
     training step with the fused BatchNorm after one warm-up step
     (``profile_resnet_step``). Enforces nothing."""
@@ -3352,6 +3533,12 @@ def profiles(seed):
     from horovod_tpu_torch.serving.decode import GenerationEngine
 
     profile_kernels(seed)
+    stages = profile_int8_stages()
+    print(json.dumps({
+        "profile": "one rank's int8 stage kernels on GPT-2 medium's plan "
+                   "at world 4", "device_ms": stages,
+        "device_ms_total": sum(v for k, v in stages.items()
+                               if not k.startswith("copies"))}))
     stats = {}
     per_chip, _ = gpt2_pretraining.main(TRAIN_ARGS, stats)
     print(json.dumps({
@@ -3379,6 +3566,7 @@ def profiles(seed):
     profile_resnet_step(stats["step"], stats["batch"])
     stats.clear()
     hvd.shutdown()
+    print(json.dumps({"profiler_windows": PROFILER_TALLY}))
 
 
 # ---------------------------------------------------------------------------
@@ -3579,8 +3767,9 @@ def main(argv=None) -> int:
                          "parity readings of seeds 0..N-1 and of the "
                          "injected faults (the limits' evidence)")
     ap.add_argument("--profiles", action="store_true",
-                    help="only build the kernels they run and print B4's "
-                         "and B6's times, GPT-2 medium's unprofiled "
+                    help="only build the kernels they run and print "
+                         "B4's, B6's, B8's and B13's times, the int8 "
+                         "stage kernels' profile, GPT-2 medium's unprofiled "
                          "training step time, the training-step, "
                          "decode-step (bf16 and int8 cache) and ResNet-50 "
                          "step profiles, to compare two trees in one call")
@@ -3673,6 +3862,7 @@ def main(argv=None) -> int:
                if "library_call" in top else {}),
             "cases": cases,
         })
+    print(json.dumps({"profiler_windows": PROFILER_TALLY}))
     print(smi.stdout.strip())  # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3688,5 +3878,7 @@ if __name__ == "__main__":
         import traceback
 
         traceback.print_exc()
+        print(json.dumps({"profiler_windows": PROFILER_TALLY}),
+              file=sys.stderr)
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

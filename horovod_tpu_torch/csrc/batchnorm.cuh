@@ -40,7 +40,7 @@ namespace bn {
 
 constexpr int kThreads = 256;
 constexpr int kTileVecs = 64;     // vectors a reduction block spans in a row
-constexpr int kRows = 4;          // rows a reduction thread has in flight
+constexpr int kRows = 4;          // rows a thread has in flight
 constexpr int kBlocksPerSm = 2;   // reduction blocks an SM holds at once
 
 // The elements of one vector of T at p, as float32.
@@ -319,13 +319,6 @@ __device__ __forceinline__ void reduce(const Rows& rows, long long n, int c,
 // Column tiles of a reduction over c channels moved VEC at a time.
 inline int reduce_col_tiles(int c, int vec) {
   return (c / vec + kTileVecs - 1) / kTileVecs;
-}
-
-// Blocks of an elementwise pass over nvec vectors: one vector a thread,
-// with a grid-stride loop past the cap.
-inline int elementwise_blocks(long long nvec) {
-  const long long want = (nvec + kThreads - 1) / kThreads;
-  return static_cast<int>(want < (1LL << 20) ? want : (1LL << 20));
 }
 
 }  // namespace bn

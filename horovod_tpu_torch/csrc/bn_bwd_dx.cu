@@ -116,11 +116,12 @@ __global__ void __launch_bounds__(bn::kThreads)
   }
 }
 
-// Blocks of `kernel` (kThreads each) that `device` holds at once
-// (cached per kernel and device).
+// Blocks of `kernel` (kThreads each) that `device` holds at once.
+// `cached` (64 ints, zero at first) keeps them by device: one array per
+// kernel, since the kernels of one signature share this function.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int device, int* blocks) {
-  static int cached[64] = {0};
+cudaError_t resident_blocks(Kernel kernel, int device, int* cached,
+                            int* blocks) {
   if (device >= 0 && device < 64 && cached[device] > 0) {
     *blocks = cached[device];
     return cudaSuccess;
@@ -144,8 +145,9 @@ cudaError_t launch(const void* x, const void* dy, const void* res,
                    const float* dbeta, void* dx, void* dres, long long n,
                    int c, int relu, int device, cudaStream_t stream) {
   auto kernel = bn_bwd_dx_kernel<T, VEC>;
+  static int cached[64] = {0};
   int resident = 0;
-  const cudaError_t err = resident_blocks(kernel, device, &resident);
+  const cudaError_t err = resident_blocks(kernel, device, cached, &resident);
   if (err != cudaSuccess) return err;
   const int cv = c / VEC;
   const int tile = cv < bn::kThreads ? cv : bn::kThreads;

@@ -35,9 +35,11 @@ The four kernels, one ``csrc/*.cu`` source each, and what they replace:
 
 All four are bound by bytes on an H100 (a few flops per element). B8
 and B10 round each float32 step on its own, as eager PyTorch does, so
-they are bitwise equal to their plain versions. B7 and B9 are one launch
-each: blocks of strided rows write partial sums and the last block of
-each column tile adds them in a fixed order (no atomics, deterministic;
+they are bitwise equal to their plain versions; B8 gives each block a
+tile of contiguous rows (:func:`apply_geometry`,
+:func:`apply_block_of_rows`). B7 and B9 are one launch each: blocks of
+strided rows write partial sums and the last block of each column tile
+adds them in a fixed order (no atomics, deterministic;
 :func:`reduce_geometry`, :func:`reduce_block_of_rows`); their sums
 differ from the plain sums only in the order of the additions, and B7's
 constants are bitwise the plain fold of its own sums.
@@ -63,6 +65,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # REDUCE_TILE vectors of a row and over THREADS / tile row groups.
 #: threads of every BatchNorm kernel's block (kThreads)
 THREADS = 256
+#: rows a thread has loads in flight for, in every BatchNorm kernel (kRows)
+ROWS_IN_FLIGHT = 4
 #: vectors a reduction block spans in a row (kTileVecs)
 REDUCE_TILE = 64
 #: reduction blocks an SM holds at once (kBlocksPerSm): the grid aims at
@@ -104,6 +108,39 @@ def reduce_block_of_rows(n: int, c: int, vec: int,
     row_blocks * groups``, ... (every column tile alike)."""
     groups = THREADS // min(c // vec, REDUCE_TILE)
     return (torch.arange(n) % (row_blocks * groups)) // groups
+
+
+def apply_geometry(n: int, c: int, vec: int) -> Tuple[int, int]:
+    """``(row_blocks, col_tiles)`` of B8 on ``n`` rows of ``c`` channels
+    moved ``vec`` at a time: column tiles of up to THREADS vectors, and
+    a row block for each tile of ``THREADS / tile * ROWS_IN_FLIGHT``
+    contiguous rows (at most 2^31 - 1 blocks; past that they loop)."""
+    cv = c // vec
+    per_tile = THREADS // min(cv, THREADS) * ROWS_IN_FLIGHT
+    return min(-(-n // per_tile), 2 ** 31 - 1), -(-cv // THREADS)
+
+
+def apply_block_of_rows(n: int, c: int, vec: int,
+                        row_blocks: int) -> torch.Tensor:
+    """The row block of B8 that writes each of ``n`` rows (int64
+    ``[n]``), by walking the kernel's loop on ``row_blocks`` blocks:
+    block b takes row tiles b, b + row_blocks, ...; in tile i, row group
+    g writes rows ``i * groups * ROWS_IN_FLIGHT + g + k * groups`` for k
+    below ROWS_IN_FLIGHT (every column tile alike). -1 marks a row that
+    no block, or more than one, writes."""
+    groups = THREADS // min(c // vec, THREADS)
+    per_tile = groups * ROWS_IN_FLIGHT
+    tile = torch.arange(-(-n // per_tile))
+    rows = (tile[:, None, None] * per_tile
+            + torch.arange(groups)[None, :, None]
+            + groups * torch.arange(ROWS_IN_FLIGHT)[None, None, :])
+    block = (tile % row_blocks)[:, None, None].expand_as(rows)
+    keep = rows < n
+    rows, block = rows[keep], block[keep]
+    out = torch.full((n,), -1, dtype=torch.int64)
+    out[rows] = block
+    out[torch.bincount(rows, minlength=n) != 1] = -1
+    return out
 
 
 # -- plain versions ---------------------------------------------------------

@@ -20,7 +20,8 @@ The four kernels, one ``csrc/*.cu`` source each (shared math in
   (the error-feedback add, also done before the JAX kernel), and the new
   residual ``x + residual - code * scale``;
 * ``accum_rows`` (B13, ``_accum_kernel``): dequantize the n ranks'
-  shards and sum them in float32, in rank order;
+  shards and sum them in float32, in rank order; 16 codes a thread
+  with 16-byte loads where :func:`accum_route` allows it, else one;
 * ``dequant_flat`` (B14, ``_dequant_kernel``): ``code * scale``, the
   first ``length`` elements.
 
@@ -150,7 +151,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "quant_rows": [_P, _L, _P, _P, _L, _I, _I, _P],
     "quant_ef_rows": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _P],
-    "accum_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
+    "accum_rows": [_P, _P, _P, _I, _L, _I, _I, _I, _P],
     "dequant_flat": [_P, _P, _P, _L, _I, _I, _P],
 }
 
@@ -178,6 +179,25 @@ def _check(what: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{t.numel()}")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: tensor on {t.device}, expected {device}")
+
+
+#: codes a thread of B13's vector route sums with one 16-byte load a rank
+#: (``kCodes`` in csrc/accum_rows.cu)
+ACCUM_CODES = 16
+
+
+def accum_route(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor,
+                block: int) -> int:
+    """Codes a thread of B13 sums for codes ``q`` ``(n, C)``, scales
+    ``s`` and output ``out``: ACCUM_CODES (the vector route: 16-byte
+    loads of a rank's codes, one scale load a rank, 16-byte stores) when
+    C and ``block`` are multiples of it and ``q`` and ``out`` start
+    16-byte aligned, else 1 (one element a thread). The scales are read
+    one at a time on either route."""
+    c = q.shape[-1]
+    ok = (c % ACCUM_CODES == 0 and block % ACCUM_CODES == 0
+          and q.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    return ACCUM_CODES if ok else 1
 
 
 def quantize_rows_cuda(x: torch.Tensor, n: int, block: int):
@@ -228,7 +248,7 @@ def accum_rows_cuda(q: torch.Tensor, s: torch.Tensor,
     out = torch.empty(c, dtype=torch.float32, device=q.device)
     if c:
         _launch("accum_rows", q.device, q.data_ptr(), s.data_ptr(),
-                out.data_ptr(), n, c, block)
+                out.data_ptr(), n, c, block, accum_route(q, s, out, block))
     return out
 
 

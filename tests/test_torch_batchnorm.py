@@ -219,6 +219,36 @@ def test_reduce_geometry_covers_every_row(n, c, vec):
         assert share <= 1 / 32
 
 
+@pytest.mark.parametrize("capped", [False, True], ids=["", "capped"])
+@pytest.mark.parametrize("n,c,vec", [(401408, 256, 8), (1605632, 64, 8),
+                                     (6272, 2048, 8), (10007, 100, 4),
+                                     (4099, 96, 4), (777, 101, 1),
+                                     (1000, 256, 4), (50, 64, 4),
+                                     (100, 64, 4), (1, 8, 8), (3, 4096, 4),
+                                     (5, 8192, 8), (33, 16, 8),
+                                     (8449, 256, 8)])
+def test_apply_partition_writes_every_row_once(n, c, vec, capped):
+    """B8's layout, walked as the kernel walks it, at the
+    ``chip_smoke.py`` BatchNorm shapes (bf16 where vec is 8, float32
+    otherwise) and ragged ones: every row written by exactly one row
+    block, every block with rows, a block's rows one contiguous tile on
+    the full grid; and the same where the grid is capped below the tile
+    count (7 blocks: the kernel's loop over tiles past the cap)."""
+    tiles, col_tiles = tbn.apply_geometry(n, c, vec)
+    assert col_tiles == -(-(c // vec) // tbn.THREADS)
+    groups = tbn.THREADS // min(c // vec, tbn.THREADS)
+    assert tiles == -(-n // (groups * tbn.ROWS_IN_FLIGHT))
+    row_blocks = min(tiles, 7) if capped else tiles
+    of = tbn.apply_block_of_rows(n, c, vec, row_blocks)
+    assert of.shape == (n,) and of.dtype == torch.int64
+    assert of.min().item() >= 0
+    counts = torch.bincount(of, minlength=row_blocks)
+    assert counts.numel() == row_blocks and counts.min().item() > 0
+    if not capped:
+        per_tile = groups * tbn.ROWS_IN_FLIGHT
+        assert torch.equal(of, torch.arange(n) // per_tile)
+
+
 def _inline_fwd_fold(xsum, xsq, gamma, beta, eps, n):
     # the constants as _FusedBatchNormFn.forward computed them inline
     mean = xsum / n

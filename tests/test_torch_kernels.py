@@ -312,6 +312,39 @@ def test_batch_norm_reduce_partition_is_the_kernels():
         assert of[r].item() == (r % (8 * row_blocks)) // 8
 
 
+def test_batch_norm_apply_partition_is_the_kernels():
+    """B8's layout ``ops/batchnorm.py`` states (``apply_geometry``,
+    ``apply_block_of_rows``) is the one of ``csrc/bn_apply.cu``: a
+    block's threads across a column tile of up to kThreads vectors and
+    over kThreads / tile row groups, block b taking the contiguous tile
+    of groups * kRows rows from b * groups * kRows (row group g, rows
+    groups apart), a tile a block, s and t loaded once a thread."""
+    csrc = pathlib.Path(bn_mod.__file__).resolve().parent.parent / "csrc"
+    head = (csrc / "batchnorm.cuh").read_text()
+    assert bn_mod.ROWS_IN_FLIGHT == _constexpr(head, "kRows")
+    assert "elementwise_blocks" not in head
+    src = (csrc / "bn_apply.cu").read_text()
+    assert "using bn::kRows;" in src
+    assert "bn::reduce_slot(c / VEC);" in src
+    assert ("const long long per_tile = static_cast<long long>(slot.groups)"
+            " * kRows;") in src
+    assert "for (long long tile = blockIdx.x; tile * per_tile < n;" in src
+    assert "tile += gridDim.x) {" in src
+    assert "const long long r0 = tile * per_tile + slot.group;" in src
+    assert "const long long r = r0 + k * slot.groups;" in src
+    assert "const long long tiles = (n + per_tile - 1) / per_tile;" in src
+    assert "(cv + bn::kThreads - 1) / bn::kThreads);" in src
+    assert "v % cv" not in src
+    assert "ks[i] = s[col + i];" in src
+    # [401408, 256] bf16: 8 row groups of 32 vectors, 32 rows a block
+    assert bn_mod.apply_geometry(401408, 256, 8) == (12544, 1)
+    of = bn_mod.apply_block_of_rows(401408, 256, 8, 12544)
+    for r in (0, 31, 32, 401407):
+        assert of[r].item() == r // 32
+    assert bn_mod.apply_geometry(5, 8192, 8) == (2, 4)
+    assert bn_mod.apply_geometry(100, 64, 4) == (2, 1)
+
+
 def test_layer_norm_bwd_ref_is_the_autograd_backward():
     """layer_norm_bwd_ref (what the card's B5 is held to) is exactly the
     CPU backward of fused_layer_norm, with and without beta."""

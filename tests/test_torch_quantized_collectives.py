@@ -140,6 +140,42 @@ def test_accum_rows_ref_matches_pallas(block, n):
     _eq(got, want, "B13")
 
 
+@pytest.mark.parametrize("c,block,q_off,out_off,route", [
+    (1024 * 256, 256, 0, 0, 16),  # block 256, as on the main path
+    (160, 32, 0, 0, 16),
+    (160, 16, 0, 0, 16),
+    (120, 40, 0, 0, 1),          # C and block not multiples of 16
+    (160, 40, 0, 0, 1),          # C is, block is not
+    (96, 8, 0, 0, 1),            # block 8: 16 codes span two scales
+    (160, 32, 1, 0, 1),          # codes 1 byte off alignment
+    (160, 32, 16, 0, 16),        # codes 16 bytes on: aligned
+    (160, 32, 0, 4, 1),          # output 4 bytes off alignment
+])
+def test_accum_route(c, block, q_off, out_off, route):
+    """B13 takes its vector route (16 codes a thread, 16-byte loads and
+    stores) only when C and the block are multiples of 16 and the codes
+    and the output start 16-byte aligned; anything else goes one element
+    a thread."""
+    n = 3
+    qbuf = torch.zeros(n * c + 64, dtype=torch.int8)
+    base = (-qbuf.data_ptr()) % 16
+    q = qbuf[base + q_off:base + q_off + n * c].view(n, c)
+    s = torch.ones(n, c // block)
+    obuf = torch.zeros(c + 16)
+    obase = ((-obuf.data_ptr()) % 16) // 4
+    out = obuf[obase + out_off // 4:obase + out_off // 4 + c]
+    assert qc.accum_route(q, s, out, block) == route
+
+
+def test_accum_route_codes_are_the_kernels():
+    """The route's width is the vector kernel's ``kCodes``, and the entry
+    point refuses the vector route where the wrapper would not take it."""
+    src = (REPO / "horovod_tpu_torch" / "csrc" / "accum_rows.cu").read_text()
+    assert f"constexpr int kCodes = {qc.ACCUM_CODES};" in src
+    assert "if (C % kCodes != 0 || block % kCodes != 0 ||" in src
+    assert "accum_kernel<kCodes><<<" in src and "accum_kernel<1><<<" in src
+
+
 @pytest.mark.parametrize("block", [32, 256])
 def test_dequantize_flat_ref_matches_pallas(block):
     """B14, whole and cut to a ragged length."""
