@@ -48,7 +48,15 @@ Phases, in order; the first failure exits non-zero:
    skips one K tile must fail, and bitwise on integer operands), and
    time the kernel, the plain version and one PyTorch library call computing
    the same function where there is one (a yardstick only: the port
-   never calls it);
+   never calls it); and the vocab-blocked fused cross-entropy (no kernel
+   of its own) at GPT-2 medium's ([8184, 1024] x 50257) and BERT-Large's
+   ([4096, 1024] x 30522) heads against a float64 materialized
+   reference, the loss, dX row by row and dW vocab row by vocab row
+   (``CE_TOL``), also with rows masked out and out-of-range ids, where a
+   version that skips the ragged last vocab block, leaves its pad
+   columns unmasked or drops one block's dW must fail; the head + loss
+   timed fused and unfused (device ms, GEMM kernels by name, peak
+   memory), and the float32 product's route;
 4. train GPT-2 medium at full width and depth through the example's
    ``main`` (world of one over NCCL, batch 8 x 1024, flash attention and
    fused norms, 1 warm-up + 5 timed steps on one batch), after checking
@@ -71,8 +79,18 @@ Phases, in order; the first failure exits non-zero:
    emulation on the same global batch, each rank's AdamW state 1/4 of
    the replicated one, a falling loss; then the example's ``main``
    with ``--zero --flash --fused-ln`` at world 1 over NCCL (B6 does not
-   launch there), and ``matmul_reduce_scatter`` at world 1, bitwise
-   against ``matmul_pack``;
+   launch there); the step-1 check of the fused cross-entropy against
+   ``mlm_loss`` on one BERT-Large (``CE_GRAD_TOL``) and the example's
+   ``main`` again with ``--fused-ce``, a falling loss and exactly
+   ``STEP_LAUNCHES`` a step; and ``matmul_reduce_scatter`` at world 1,
+   bitwise against ``matmul_pack``;
+4d. train GPT-2 medium at bench.py's cell through the example's
+   ``main``: batch 16 x 1024, ``--flash --fused-norm --fused-ce``, 1
+   warm-up + 5 timed steps, after the step-1 check of the fused LM head
+   + loss against the unfused head and ``causal_lm_loss`` on the same
+   weights and batch (``CE_GRAD_TOL``); the loss must fall, B1-B5 launch
+   exactly ``STEP_LAUNCHES`` a step; one step is profiled (device ms by
+   group, the elementwise group's top kernels by name);
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -81,6 +99,13 @@ Phases, in order; the first failure exits non-zero:
    BatchNorm kernel must launch 53 times a step; one step is profiled,
    and there too each of B7-B10 must run 53 times and no column-sum
    kernel;
+5b. train Inception V3 (299 px, batch 256) and VGG-16 (224 px, batch
+   128), bench.py's batches, through the same example's ``main``
+   (``--model``), 1 warm-up + 3 timed steps each: finite, falling
+   losses, images/s, MFU, peak memory, one profiled step each;
+5c. train MNIST for one epoch through its example's ``main`` (a falling
+   loss, the test accuracy), then call ``entry()`` once: its loss finite
+   and equal to ``causal_lm_loss`` of the same model;
 6. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
    continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
@@ -94,7 +119,7 @@ Phases, in order; the first failure exits non-zero:
 7. a short serve on an int8 KV cache (4 requests), whose decode steps
    must run B17 on the decode route, and the same decode-step profile;
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
-   training runs of phases 4, 4b, 4c and 5 and the serving runs of
+   training runs of phases 4, 4b, 4c, 4d, 5 and 5b and the serving runs of
    phases 6 and 7 (counts zeroed just before each run and read just
    after), error, tolerance and times;
 9. print ``{"ok": true, "device": {...}}`` as the last line.
@@ -1939,6 +1964,321 @@ def check_matmul_pack(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the vocab-blocked fused cross-entropy (no kernel of its own)
+# ---------------------------------------------------------------------------
+
+#: the heads the fused loss runs on, as (label, batch, seq, vocab,
+#: causal): GPT-2 medium's causal head reads hidden[:, :-1] (8 x 1023 =
+#: 8184 rows), BERT-Large's masked-LM head every position (8 x 512 = 4096)
+CE_HEADS = (("GPT-2 medium head", 8, 1024, 50257, True),
+            ("BERT-Large head", 8, 512, 30522, False))
+CE_HIDDEN = 1024
+#: limits of ``fused_linear_cross_entropy`` against a float64 materialized
+#: reference of the same function (the weight rounded to bf16 as the
+#: function rounds it): the loss relative, dX row by row and dW vocab row
+#: by vocab row, each as a relative L2 of the row. The function rounds
+#: ds to bf16 before its two products, as the JAX function does, so dX
+#: and dW carry bf16 rounding (2^-9 relative a term) where the loss
+#: carries only float32 sums. Each limit sits between the worst healthy
+#: reading and the least of the injected faults (``CE_FAULTS``; PERF.md)
+CE_TOL = {"loss_rel": 1e-4, "dx_row": 2e-2, "dw_row": 2e-2}
+#: faults the checks must catch: the ragged last vocab block skipped, its
+#: pad columns left unmasked, the first block's dW dropped
+CE_FAULTS = ("skip_ragged_block", "unmasked_pad", "drop_block_dw")
+
+
+@contextlib.contextmanager
+def _injected_ce_fault(name):
+    """Run ``fused_linear_cross_entropy`` as a faulty version would:
+    ``skip_ragged_block``: the loop over vocab blocks leaves out the
+    ragged last one (forward and backward); ``unmasked_pad``: its pad
+    columns keep their logits (0, from the zero pad rows) and
+    probabilities; ``drop_block_dw``: the first block's weight gradient
+    is never written (zeros)."""
+    from horovod_tpu_torch.ops import fused_cross_entropy as fce
+
+    if name == "skip_ragged_block":
+        attr, orig = "_vocab_blocks", fce._vocab_blocks
+
+        def faulty(v, block):
+            return [b for b in orig(v, block) if b[1] == block]
+    elif name == "unmasked_pad":
+        attr, orig = "_mask_pad_", fce._mask_pad_
+
+        def faulty(t, width, value):
+            return None
+    elif name == "drop_block_dw":
+        attr, orig = "_write_dw", fce._write_dw
+
+        def faulty(dwt, base, width, blk):
+            if base == 0:
+                dwt[:width].zero_()
+            else:
+                orig(dwt, base, width, blk)
+    else:
+        raise ValueError(f"unknown fault {name!r}")
+    setattr(fce, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(fce, attr, orig)
+
+
+def _ce_reference64(x, table, targets, valid, mean):
+    """Loss, dX and dW of ``fused_linear_cross_entropy(x, table.t(),
+    targets, valid=valid, mean=mean)`` computed in float64 on the whole
+    [N, V] logits: the weight rounded to x's dtype first, out-of-range ids
+    adding no loss but counting in the mean."""
+    xd = x.double()
+    wd = table.to(x.dtype).double()
+    logits = xd @ wd.t()
+    in_range = (targets >= 0) & (targets < table.shape[0])
+    contrib = valid & in_range
+    t = torch.where(in_range, targets, 0)
+    rows = torch.arange(len(t), device=x.device)
+    lse = torch.logsumexp(logits, dim=1)
+    nll = torch.where(contrib, lse - logits[rows, t], 0.0)
+    gscale = 1.0 / valid.sum().clamp(min=1).double() if mean else 1.0
+    loss = (nll.sum() * gscale).item()
+    p = logits.sub_(lse[:, None]).exp_()
+    p[rows, t] -= 1.0
+    p.mul_((contrib.double() * gscale)[:, None])
+    dx, dw = p @ wd, p.t() @ xd
+    del logits, p
+    return loss, dx, dw
+
+
+def _ce_grads(x, table, targets, valid, mean):
+    """The function's loss, dX and dW (tied layout: ``table.t()``)."""
+    from horovod_tpu_torch.ops.fused_cross_entropy import \
+        fused_linear_cross_entropy
+
+    xg = x.detach().requires_grad_()
+    w = table.detach().requires_grad_()
+    loss, _ = fused_linear_cross_entropy(xg, w.t(), targets, valid=valid,
+                                         mean=mean)
+    loss.backward()
+    return loss.item(), xg.grad, w.grad
+
+
+def _row_rel_l2(got, want):
+    """Each row's ||got - want|| / ||want|| (a zero reference row reads
+    its error over 1e-30)."""
+    err = (got.double() - want).norm(dim=1)
+    return err / want.norm(dim=1).clamp_min(1e-30)
+
+
+def _ce_readings(got, want):
+    dx_rel, dw_rel = _row_rel_l2(got[1], want[1]), _row_rel_l2(got[2],
+                                                               want[2])
+    return {"loss": got[0], "loss_ref": want[0],
+            "loss_rel": abs(got[0] - want[0]) / max(abs(want[0]), 1e-30),
+            "dx_row": dx_rel.max().item(),
+            "dx_row_median": dx_rel.median().item(),
+            "dw_row": dw_rel.max().item(),
+            "dw_row_median": dw_rel.median().item()}
+
+
+def _ce_within(r):
+    return all(r[k] <= CE_TOL[k] for k in CE_TOL)  # False on NaN
+
+
+def _gemm_kernels(fn, iters=3):
+    """Each matrix-product kernel one call of ``fn`` launches: name,
+    device ms a call and launches a call (one profiler window)."""
+    with _profiled() as prof:
+        for i in range(iters):
+            fn(i)
+    out = {}
+    for e in _kernel_events(prof):
+        if any(k in e.key.lower() for k in ("gemm", "nvjet", "cutlass",
+                                            "sm90_", "xmma")):
+            out[e.key[:100]] = {"ms": _dev_us(e) / 1e3 / iters,
+                                "calls": e.count / iters}
+    return out
+
+
+def _peak_mb(fn):
+    """Device memory ``fn`` allocates at its peak above what was live
+    before it, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _ce_case(b, t, v, causal, g):
+    """The inputs of one head: hidden [b, t, h] bf16 (unit normal, like
+    a LayerNorm output), the tied table [v, h] float32 (std 0.02, GPT-2's
+    init), and tokens (causal) or labels and a 15% mask (masked LM)."""
+    hidden = torch.randn(b, t, CE_HIDDEN, generator=g,
+                         device="cuda").to(torch.bfloat16)
+    table = torch.randn(v, CE_HIDDEN, generator=g, device="cuda") * 0.02
+    ids = torch.randint(0, v, (b, t), generator=g, device="cuda")
+    if causal:
+        return hidden, table, ids, None
+    mask = torch.rand(b, t, generator=g, device="cuda") < 0.15
+    return hidden, table, ids, mask
+
+
+def _ce_time(label, hidden, table, ids, mask, causal):
+    """Device ms, GEMM kernels and peak memory of the head + loss forward
+    and backward, fused (``fused_linear_cross_entropy`` as the training
+    steps call it) and unfused (the model's tied head,
+    ``Embed.attend``, then ``causal_lm_nll`` or ``mlm_loss``), on the
+    same inputs."""
+    from horovod_tpu_torch.models.transformer import (Embed, causal_lm_nll,
+                                                      mlm_loss)
+    from horovod_tpu_torch.ops.fused_cross_entropy import \
+        fused_linear_cross_entropy
+
+    head = Embed(table.shape[0], CE_HIDDEN, torch.bfloat16).cuda()
+    with torch.no_grad():
+        head.embedding.copy_(table)
+
+    def fused(_=0):
+        xh = hidden.detach().requires_grad_()
+        head.embedding.grad = None
+        if causal:
+            targets = ids[:, 1:]
+            loss, _n = fused_linear_cross_entropy(
+                xh[:, :-1], head.embedding.t(), targets,
+                valid=targets != -1, mean=False)
+        else:
+            loss, _n = fused_linear_cross_entropy(
+                xh, head.embedding.t(), ids, valid=mask)
+        loss.backward()
+
+    def unfused(_=0):
+        xh = hidden.detach().requires_grad_()
+        head.embedding.grad = None
+        logits = head.attend(xh)
+        if causal:
+            loss, _n = causal_lm_nll(logits, ids)
+        else:
+            loss, _n = mlm_loss(logits, ids, mask)
+        del logits
+        loss.backward()
+
+    n = hidden.shape[0] * (hidden.shape[1] - causal)
+    v = table.shape[0]
+    bound, by = _bound(0, 3 * 2 * n * CE_HIDDEN * v, "bf16")
+    out = {"head": label, "rows": n, "vocab": v, "bound_ms": bound,
+           "bound_by": by}
+    for name, fn in (("fused", fused), ("unfused", unfused)):
+        fn()
+        out[name] = {"device_ms": _device_ms(fn, iters=5),
+                     "peak_mb": _peak_mb(fn),
+                     "gemm_kernels": _gemm_kernels(fn)}
+    head.embedding.grad = None
+    return out
+
+
+def _ce_product_routes(hidden, table):
+    """The float32 product of one vocab block at the training shape,
+    [8184, 1024] @ [1024, 8192] bf16: ``torch.mm(..., out_dtype=
+    torch.float32)`` (the route the card takes), beside a bf16 result
+    (what the JAX function does not do) and float32 operands (the CPU's
+    route); device ms and the error against float64, which shows the
+    route keeps float32 logits."""
+    a = hidden[:, :-1].reshape(-1, CE_HIDDEN)
+    b = table[:8192].to(torch.bfloat16).t()
+    want = a.double() @ b.double()
+    scale = want.abs().max().item()
+    routes = {"mm out_dtype=float32": lambda _=0: torch.mm(
+        a, b, out_dtype=torch.float32),
+              "mm bf16 result": lambda _=0: torch.mm(a, b),
+              "mm of float32 operands": lambda _=0: torch.mm(a.float(),
+                                                             b.float())}
+    bound, by = _bound(0, 2 * a.shape[0] * CE_HIDDEN * 8192, "bf16")
+    out = {"shape": [list(a.shape), list(b.shape)], "bound_ms": bound,
+           "bound_by": by}
+    for name, fn in routes.items():
+        got = fn()
+        out[name] = {"device_ms": _device_ms(fn, iters=20),
+                     "dtype": str(got.dtype),
+                     "max_abs_err_over_max": (
+                         (got.double() - want).abs().max().item() / scale)}
+        del got
+    del want
+    _require(out["mm out_dtype=float32"]["dtype"] == "torch.float32"
+             and out["mm out_dtype=float32"]["max_abs_err_over_max"]
+             < out["mm bf16 result"]["max_abs_err_over_max"] / 16,
+             f"torch.mm(..., out_dtype=torch.float32) does not keep float32 "
+             f"logits: {out}")
+    return out
+
+
+def check_fused_ce(seed):
+    """``fused_linear_cross_entropy`` on the card at GPT-2 medium's and
+    BERT-Large's heads against ``_ce_reference64``: the GPT-2 head all
+    valid in sum mode (the training step's call), the GPT-2 head with
+    half its rows invalid and out-of-range ids (mean), the BERT head
+    with a 15% mask and out-of-range ids (mean, the MLM step's call);
+    each reading within ``CE_TOL``, and on the first case each of
+    ``CE_FAULTS`` must fail the same checks. Then the head + loss timed
+    fused and unfused, and the float32 product's route."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    cases, timings = [], []
+    for label, b, t, v, causal in CE_HEADS:
+        hidden, table, ids, mask = _ce_case(b, t, v, causal, g)
+        if causal:
+            x = hidden[:, :-1].reshape(-1, CE_HIDDEN)
+            targets = ids[:, 1:].reshape(-1)
+            n = x.shape[0]
+            odd = torch.randperm(n, generator=g, device="cuda")
+            valid = torch.rand(n, generator=g, device="cuda") < 0.5
+            t_odd = targets.clone()
+            t_odd[odd[:5]] = v + 7
+            valid[odd[:5]] = True
+            t_odd[odd[5:10]] = -1
+            valid[odd[5:10]] = False
+            runs = (("all valid, sum", targets,
+                     torch.ones_like(targets, dtype=torch.bool), False),
+                    ("half valid, out-of-range ids, mean", t_odd, valid,
+                     True))
+        else:
+            x = hidden.reshape(-1, CE_HIDDEN)
+            targets = ids.reshape(-1).clone()
+            valid = mask.reshape(-1)
+            on = valid.nonzero()[:, 0]
+            targets[on[:3]] = v + 7
+            runs = (("15% mask, out-of-range ids, mean", targets, valid,
+                     True),)
+        for i, (what, tg, va, mean) in enumerate(runs):
+            want = _ce_reference64(x, table, tg, va, mean)
+            r = _ce_readings(_ce_grads(x, table, tg, va, mean), want)
+            r.update(head=label, case=what, rows=x.shape[0], vocab=v)
+            if causal and i == 0:
+                r["faults"] = {}
+                for name in CE_FAULTS:
+                    with _injected_ce_fault(name):
+                        f = _ce_readings(_ce_grads(x, table, tg, va, mean),
+                                         want)
+                    r["faults"][name] = {k: f[k] for k in CE_TOL}
+            del want
+            cases.append(r)
+        timings.append(_ce_time(label, hidden, table, ids, mask, causal))
+        if causal:
+            routes = _ce_product_routes(hidden, table)
+        del hidden, table, x
+        torch.cuda.empty_cache()
+    out = {"tol": CE_TOL, "cases": cases, "timings": timings,
+           "product_routes": routes}
+    print(json.dumps({"fused_ce": out}))
+    for r in cases:
+        _require(_ce_within(r), f"fused CE, {r['head']}, {r['case']}: "
+                                f"{ {k: r[k] for k in CE_TOL} } not within "
+                                f"{CE_TOL}")
+        for name, f in r.get("faults", {}).items():
+            _require(not _ce_within(f), f"fused CE: the injected fault "
+                                        f"{name} passes the checks: {f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training GPT-2 medium
 # ---------------------------------------------------------------------------
 
@@ -2093,8 +2433,10 @@ def _injected_fault(name):
 def parity_sweep(n_seeds):
     """The readings behind the parity limits: step-1 parity on seeds
     0..n-1 (weights and batch), and on seed 0 under each injected
-    fault, for GPT-2 medium and then for ResNet-50. Prints one summary
-    line for each; enforces nothing."""
+    fault, for the fused cross-entropy on GPT-2 medium and BERT-Large
+    (``ce_parity_sweep``), GPT-2 medium's kernels and then ResNet-50's.
+    Prints one summary line for each; enforces nothing."""
+    ce_parity_sweep(n_seeds)
     healthy = [check_train_parity(s, weights_seed=s, enforce=False)
                for s in range(n_seeds)]
     faults = {}
@@ -2167,7 +2509,7 @@ def profile_train_step(step, *inputs,
     kernels = _kernel_events(prof)
     busy_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
-    groups, calls = {}, {}
+    groups, calls, other = {}, {}, []
     for e in kernels:
         name = e.key.lower()
         group = next((g for g, keys in (
@@ -2179,6 +2521,8 @@ def profile_train_step(step, *inputs,
             if any(k in name for k in keys)))
         groups[group] = groups.get(group, 0.0) + _dev_us(e) / 1e3
         calls[group] = calls.get(group, 0) + e.count
+        if group.startswith("elementwise"):
+            other.append(e)
     print(json.dumps({
         "profile": what,
         "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
@@ -2189,7 +2533,10 @@ def profile_train_step(step, *inputs,
             k: sum(e.count for e in kernels if k in e.key)
             for k in ("layernorm_fwd", "layernorm_bwd")},
         "top": [{"name": e.key[:70], "ms": _dev_us(e) / 1e3,
-                 "calls": e.count} for e in top]}))
+                 "calls": e.count} for e in top],
+        "elementwise_top": [
+            {"name": e.key[:300], "ms": _dev_us(e) / 1e3, "calls": e.count}
+            for e in sorted(other, key=_dev_us, reverse=True)[:15]]}))
 
 
 def train_gpt2(seed, ledger):
@@ -2768,6 +3115,7 @@ def train_zero(seed, ledger):
     torch.cuda.empty_cache()
     world = zero_world(seed)
     counts = dict(world.pop("launches"))
+    ce_parity = check_ce_parity("bert", seed)
 
     # (b) the real entry point
     torch.cuda.empty_cache()
@@ -2790,6 +3138,31 @@ def train_zero(seed, ledger):
     profile_train_step(stats.pop("step"), *stats.pop("batch"),
                        what="one BERT-Large --zero training step at world "
                             "1, batch 8x512")
+    torch.cuda.empty_cache()
+
+    # (b') the same with the fused cross-entropy
+    torch.cuda.reset_peak_memory_stats()
+    fused = {}
+    _build.reset_launches()
+    fused_per_chip, fused_mfu = bert_pretraining.main(
+        ZERO_ARGS + ["--fused-ce"], fused)
+    torch.cuda.synchronize()
+    fused_real = dict(_build.LAUNCHES)
+    _require(len(fused["losses"]) == ZERO_TRAIN_STEPS
+             and all(np.isfinite(fused["losses"]))
+             and fused["losses"][-1] < fused["losses"][0],
+             f"BERT-Large --zero --fused-ce losses did not fall: "
+             f"{fused['losses']}")
+    _require(fused_real["pack_rows"] == 0,
+             f"B6 launched {fused_real['pack_rows']} times at world 1")
+    _exact_launches(fused_real, ZERO_TRAIN_STEPS, "BERT-Large --fused-ce")
+    fused_stats = {
+        "args": ZERO_ARGS + ["--fused-ce"], "losses": fused["losses"],
+        "tokens_per_s": fused_per_chip, "step_ms": fused["step_ms"][0],
+        "mfu": fused_mfu, "peak_mem_gb": fused["peak_mem_gb"],
+        "launches_per_step": {k: fused_real[k] / ZERO_TRAIN_STEPS
+                              for k in STEP_LAUNCHES}, "parity": ce_parity}
+    fused.clear()
     hvd.shutdown()
     torch.cuda.empty_cache()
 
@@ -2812,7 +3185,8 @@ def train_zero(seed, ledger):
     del a, b, shard, want
     torch.cuda.empty_cache()
 
-    ledger["train_zero"] = {k: counts[k] + real[k] + mrs[k] for k in counts}
+    ledger["train_zero"] = {k: counts[k] + real[k] + fused_real[k] + mrs[k]
+                            for k in counts}
     print(json.dumps({
         "phase": "train_zero", "model": "BERT-Large 24x1024, 16 heads, "
         "vocab 30522, seq 512", "world": "4 emulated on one card",
@@ -2824,10 +3198,207 @@ def train_zero(seed, ledger):
                     "optimizer_state_bytes": stats[
                         "optimizer_state_bytes"],
                     "buckets": stats["buckets"], "launches": real},
+        "example_fused_ce": fused_stats,
         "matmul_reduce_scatter": {
             "shape": MATMUL_CASES[0][0], "world": 1, "backend": "nccl",
             "bitwise_vs_matmul_pack": True, "launches": {
                 k: v for k, v in mrs.items() if v}}}))
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: training GPT-2 medium with the fused cross-entropy at bench.py's
+# cell (batch 16 x 1024, --flash --fused-ce)
+# ---------------------------------------------------------------------------
+
+FUSED_CE_ARGS = ["--batch-size", "16", "--seq-len", "1024",
+                 "--num-warmup-batches", "1", "--num-batches-per-iter", "5",
+                 "--num-iters", "1", "--flash", "--fused-norm", "--fused-ce"]
+FUSED_CE_STEPS = 6  # 1 warm-up + 5 timed, as FUSED_CE_ARGS says
+#: kernel launches a training step of GPT-2 medium or BERT-Large makes:
+#: the 24 layers' attention, and 49 norms (two a layer and the last one)
+STEP_LAUNCHES = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+                 "layernorm_fwd": 49, "layernorm_bwd": 49}
+
+#: limits of the step-1 check of the fused LM head + loss against the
+#: unfused head + model loss on one model (relative L2 per parameter, by
+#: group; the loss absolute). The unfused head rounds its logits to bf16
+#: (the JAX model's head does too) and the fused one keeps them float32,
+#: so the two differ by that rounding, most in the tied embedding's
+#: gradient. Each limit sits between the worst healthy reading over 8
+#: seeds and the least faulty one (``--parity-sweep``; PERF.md)
+CE_GRAD_TOL = {"tok_emb": 2e-2, "rest": 3e-2}
+CE_LOSS_TOL = 1e-3
+
+
+def check_ce_parity(kind, seed, weights_seed=0, enforce=True):
+    """Step-1 loss and every parameter's gradient with the fused LM head
+    + loss (``fused_causal_lm_loss`` for ``kind`` "gpt2", GPT-2 medium
+    on a 2 x 1024 batch; ``fused_linear_cross_entropy`` with the MLM mask
+    for "bert", BERT-Large on a 2 x 512 batch with a 15% mask) against the
+    unfused head and ``causal_lm_loss`` / ``mlm_loss``, on one model with
+    flash attention and fused norms and the weights from
+    ``weights_seed``. With ``enforce=False`` it only prints the
+    readings."""
+    from horovod_tpu_torch.models.transformer import (BERT_LARGE,
+                                                      GPT2_MEDIUM,
+                                                      Transformer,
+                                                      causal_lm_loss,
+                                                      mlm_loss)
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.ops.fused_cross_entropy import (
+        fused_causal_lm_loss, fused_linear_cross_entropy)
+
+    gpt2 = kind == "gpt2"
+    cfg = dataclasses.replace(GPT2_MEDIUM if gpt2 else BERT_LARGE,
+                              fused_norm=True)
+    with torch.device("cuda"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(gpt2))
+    model.init_params(torch.Generator(device="cuda").manual_seed(weights_seed))
+    rs = np.random.RandomState(seed)
+    t = 1024 if gpt2 else 512
+    tok = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, t))).cuda()
+    labels = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, t))).cuda()
+    mask = torch.from_numpy(rs.rand(2, t) < 0.15).cuda()
+    w = model.tok_emb.embedding
+
+    def fused():
+        hidden = model(tok, return_hidden=True)
+        if gpt2:
+            return fused_causal_lm_loss(hidden, w.t(), tok)[0]
+        return fused_linear_cross_entropy(hidden, w.t(), labels,
+                                          valid=mask)[0]
+
+    def plain():
+        if gpt2:
+            return causal_lm_loss(model(tok), tok)[0]
+        return mlm_loss(model(tok), labels, mask)[0]
+
+    losses, grads = [], []
+    for fn in (fused, plain):
+        model.zero_grad(set_to_none=True)
+        loss = fn()
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in grads[1].values()))
+    rel, zero = {}, {}
+    for n, g in grads[0].items():
+        diff = (g - grads[1][n]).norm()
+        if n.endswith("attn.key.bias"):  # a zero true gradient
+            zero[n] = (diff / total).item()
+        else:
+            rel[n] = (diff / grads[1][n].norm().clamp_min(1e-30)).item()
+    groups = {}
+    for n, r in rel.items():
+        groups.setdefault("tok_emb" if n.startswith("tok_emb.") else "rest",
+                          {})[n] = r
+    worst = {grp: max(rs_, key=rs_.get) for grp, rs_ in groups.items()}
+    out = {"ce_parity": {
+        "model": "GPT-2 medium" if gpt2 else "BERT-Large",
+        "batch": f"2x{t}", "seed": seed, "weights_seed": weights_seed,
+        "loss_fused": losses[0], "loss_plain": losses[1],
+        "loss_err": abs(losses[0] - losses[1]), "loss_tol": CE_LOSS_TOL,
+        "grad_rel_l2_max": {grp: groups[grp][n] for grp, n in worst.items()},
+        "grad_rel_l2_worst": worst,
+        "grad_rel_l2_median": float(np.median(list(rel.values()))),
+        "grad_tol": CE_GRAD_TOL, "params": len(rel),
+        "key_bias_diff_over_grad_norm_max": max(zero.values())}}
+    print(json.dumps(out))
+    del model, grads
+    torch.cuda.empty_cache()
+    if not enforce:
+        return out["ce_parity"]
+    _require(all(np.isfinite(losses)), "ce parity: a loss is not finite")
+    _require(abs(losses[0] - losses[1]) <= CE_LOSS_TOL,
+             f"ce parity ({kind}): step-1 loss {losses[0]} vs unfused "
+             f"{losses[1]}")
+    for grp, n in worst.items():
+        _require(groups[grp][n] <= CE_GRAD_TOL[grp],
+                 f"ce parity ({kind}): gradient of {n} differs from the "
+                 f"unfused head by {groups[grp][n]:.3e} (relative L2) > "
+                 f"{CE_GRAD_TOL[grp]}")
+    _require(max(zero.values()) <= 1e-3,
+             f"ce parity ({kind}): a key bias gradient (zero by "
+             f"construction) is {max(zero.values()):.3e} of the gradient "
+             "norm")
+    return out["ce_parity"]
+
+
+def ce_parity_sweep(n_seeds):
+    """The readings behind ``CE_GRAD_TOL`` and ``CE_LOSS_TOL``: the step-1
+    check on seeds 0..n-1 (weights and batch) and on seed 0 under each of
+    ``CE_FAULTS``, for GPT-2 medium and BERT-Large. Enforces nothing."""
+    for kind in ("gpt2", "bert"):
+        healthy = [check_ce_parity(kind, s, weights_seed=s, enforce=False)
+                   for s in range(n_seeds)]
+        faults = {}
+        for name in CE_FAULTS:
+            with _injected_ce_fault(name):
+                r = check_ce_parity(kind, 0, enforce=False)
+            faults[name] = {"grad_rel_l2_max": r["grad_rel_l2_max"],
+                            "loss_err": r["loss_err"]}
+        print(json.dumps({"ce_parity_sweep": {
+            "model": kind, "seeds": n_seeds, "grad_tol": CE_GRAD_TOL,
+            "loss_tol": CE_LOSS_TOL,
+            "grad_rel_l2_max": {grp: max(r["grad_rel_l2_max"][grp]
+                                         for r in healthy)
+                                for grp in CE_GRAD_TOL},
+            "loss_err_max": max(r["loss_err"] for r in healthy),
+            "per_seed": [r["grad_rel_l2_max"] for r in healthy],
+            "worst": [r["grad_rel_l2_worst"] for r in healthy],
+            "faults": faults}}))
+
+
+def _exact_launches(counts, steps, what):
+    for name, per_step in STEP_LAUNCHES.items():
+        _require(counts[name] == per_step * steps,
+                 f"{what}: kernel {name} launched {counts[name]} times in "
+                 f"{steps} steps, not {per_step} a step")
+
+
+def train_gpt2_fused_ce(seed, ledger):
+    """Train GPT-2 medium at bench.py's cell through the example's
+    ``main``: world of one over NCCL, batch 16 x 1024, flash attention,
+    fused norms and the fused cross-entropy, 1 warm-up and 5 timed steps
+    on one batch, after the step-1 check of the fused head + loss
+    against the unfused one. Launch counts are zeroed just before and
+    read just after, and must be exactly ``STEP_LAUNCHES`` a step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import gpt2_pretraining
+    from horovod_tpu_torch.ops import _build
+
+    parity = check_ce_parity("gpt2", seed)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _build.reset_launches()
+    per_chip, mfu = gpt2_pretraining.main(FUSED_CE_ARGS, stats)
+    torch.cuda.synchronize()
+    ledger["train_fused_ce"] = dict(_build.LAUNCHES)
+    losses = stats["losses"]
+    _require(len(losses) == FUSED_CE_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0],
+             f"GPT-2 --fused-ce losses did not fall: {losses}")
+    _exact_launches(ledger["train_fused_ce"], FUSED_CE_STEPS,
+                    "GPT-2 --fused-ce")
+    print(json.dumps({
+        "phase": "train_fused_ce", "model": "GPT-2 medium 24x1024, 16 heads",
+        "args": FUSED_CE_ARGS, "params": stats["n_params"],
+        "batch": "16x1024", "world": hvd.size(), "backend": "nccl",
+        "losses": losses, "tokens_per_s": per_chip,
+        "step_ms": stats["step_ms"][0], "mfu": mfu,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": {k: ledger["train_fused_ce"][k] / FUSED_CE_STEPS
+                              for k in STEP_LAUNCHES},
+        "parity": parity}))
+    profile_train_step(stats["step"], stats["tokens"],
+                       what="one GPT-2-medium --fused-ce training step, "
+                            "batch 16x1024")
+    stats.clear()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3200,6 +3771,135 @@ def train_resnet(seed, ledger):
              f"not {RESNET_BN_LAYERS} of each of B7-B10 and no column sum")
     stats.clear()
     hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 5b and 5c: Inception V3, VGG-16, MNIST and the entry point
+# ---------------------------------------------------------------------------
+
+#: bench.py's CNN cells: (model, per-card batch, image px)
+CNN_RUNS = (("inception3", 256, 299), ("vgg16", 128, 224))
+CNN_STEPS = 4  # 1 warm-up + 3 timed
+
+
+def profile_cnn_step(step, batch, what):
+    """Where one CNN training step's device time goes, by group
+    (convolutions and dense products, the optimizer, pooling, the rest:
+    the plain BatchNorm, ReLUs, casts, concatenations and the loss), with
+    the device busy share (kernel time over wall time, a lower bound: the
+    profiler adds host time) and the top kernels."""
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with _profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernel_events(prof)
+    busy_us = sum(_dev_us(e) for e in kernels)
+    groups, calls = {}, {}
+    for e in kernels:
+        name = e.key.lower()
+        group = next(g for g, keys in (
+            ("optimizer (SGD)", ("multi_tensor", "foreach")),
+            ("convolutions + dense (cuDNN, cuBLAS)",
+             ("cudnn", "xmma", "cutlass", "implicit", "fprop", "dgrad",
+              "wgrad", "gemm", "nvjet", "conv")),
+            ("pooling", ("pool",)),
+            ("nccl", ("nccl",)),
+            ("norms, activations, casts, concat, loss (PyTorch)", ("",)))
+            if any(k in name for k in keys))
+        groups[group] = groups.get(group, 0.0) + _dev_us(e) / 1e3
+        calls[group] = calls.get(group, 0) + e.count
+    top = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    print(json.dumps({
+        "profile": what, "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "kernels": sum(e.count for e in kernels),
+        "device_ms_by_group": groups, "launches_by_group": calls,
+        "top": [{"name": e.key[:300], "ms": _dev_us(e) / 1e3,
+                 "calls": e.count} for e in top]}))
+
+
+def train_cnns(ledger):
+    """Train Inception V3 (299 px, batch 256) and VGG-16 (224 px, batch
+    128), bench.py's batches, through ``resnet50_synthetic.main(["--model",
+    ...])``: world of one over NCCL, 1 warm-up and 3 timed steps on one
+    batch each; the losses must be finite and fall. Neither runs a kernel
+    of the port (Inception's norm is the plain one, as in the JAX model;
+    VGG has none): the launch counts are read to show it."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import resnet50_synthetic
+    from horovod_tpu_torch.ops import _build
+
+    for model, batch, px in CNN_RUNS:
+        args = ["--model", model, "--batch-size", str(batch),
+                "--num-warmup-batches", "1", "--num-batches-per-iter", "3",
+                "--num-iters", "1"]
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        _build.reset_launches()
+        per_chip, mfu = resnet50_synthetic.main(args, stats)
+        torch.cuda.synchronize()
+        ledger[f"train_{model}"] = dict(_build.LAUNCHES)
+        losses = stats["losses"]
+        _require(len(losses) == CNN_STEPS and all(np.isfinite(losses))
+                 and losses[-1] < losses[0],
+                 f"{model} losses did not fall: {losses}")
+        print(json.dumps({
+            "phase": f"train_{model}", "args": args,
+            "params": stats["n_params"], "batch": f"{batch}x{px}x{px}",
+            "world": hvd.size(), "backend": "nccl", "losses": losses,
+            "images_per_s": per_chip, "step_ms": stats["step_ms"][0],
+            "mfu": mfu,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "port_kernel_launches": {
+                k: v for k, v in ledger[f"train_{model}"].items() if v}}))
+        profile_cnn_step(stats["step"], stats["batch"],
+                         f"one {model} training step, batch {batch} x "
+                         f"{px} px")
+        stats.clear()
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+
+
+def train_mnist_and_entry():
+    """MNIST for one epoch through the example's ``main`` (world of one
+    over NCCL; the mean loss of the last 4 steps must be below the first
+    4's), then ``entry()`` once: its loss finite and ``causal_lm_loss``
+    of the same model and tokens, within 1e-6 relative."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.entry import entry
+    from horovod_tpu_torch.examples import mnist
+    from horovod_tpu_torch.models.transformer import causal_lm_loss
+
+    stats = {}
+    t0 = time.perf_counter()
+    acc = mnist.main(["--epochs", "1"], stats)
+    wall = time.perf_counter() - t0
+    losses = stats["losses"]
+    _require(all(np.isfinite(losses))
+             and np.mean(losses[-4:]) < np.mean(losses[:4]),
+             f"MNIST loss did not fall: {losses}")
+    hvd.shutdown()
+    fn, (model, tokens) = entry()
+    with torch.no_grad():
+        loss = fn(model, tokens).item()
+        ref = causal_lm_loss(model(tokens), tokens)[0].item()
+    _require(np.isfinite(loss) and abs(loss - ref) <= 1e-6 * abs(ref),
+             f"entry(): loss {loss} vs causal_lm_loss {ref}")
+    print(json.dumps({
+        "phase": "mnist_and_entry",
+        "mnist": {"steps": len(losses), "first_losses": losses[:4],
+                  "last_losses": losses[-4:], "test_acc": acc,
+                  "wall_s": wall},
+        "entry": {"model": "GPT-2 small, seq 512", "tokens": list(
+            tokens.shape), "loss": loss, "causal_lm_loss": ref}}))
+    del model, tokens
     torch.cuda.empty_cache()
 
 
@@ -3765,7 +4465,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parity-sweep", type=int, default=0, metavar="N",
                     help="only build the kernels and print the step-1 "
                          "parity readings of seeds 0..N-1 and of the "
-                         "injected faults (the limits' evidence)")
+                         "injected faults (the limits' evidence): the "
+                         "fused cross-entropy on GPT-2 medium and "
+                         "BERT-Large, GPT-2 medium's kernels, ResNet-50's "
+                         "and the int8 wire")
     ap.add_argument("--profiles", action="store_true",
                     help="only build the kernels they run and print "
                          "B4's, B6's, B8's and B13's times, the int8 "
@@ -3831,13 +4534,17 @@ def main(argv=None) -> int:
     for name, cases in checks.items():
         for c in cases:
             print(json.dumps({"kernel": name, **c}))
+    check_fused_ce(args.seed)
 
     # phases 4 and 5: training; phases 6 and 7: serving
     ledger = {}
     train_gpt2(args.seed, ledger)
     train_int8(args.seed, ledger)
     train_zero(args.seed, ledger)
+    train_gpt2_fused_ce(args.seed, ledger)
     train_resnet(args.seed, ledger)
+    train_cnns(ledger)
+    train_mnist_and_entry()
     serve_gpt2(args.seed, ledger)
     launches = {name: sum(counts.get(name, 0) for counts in ledger.values())
                 for name, *_ in KERNELS}

@@ -1,7 +1,8 @@
 """horovod_tpu_torch: the PyTorch and CUDA port of horovod_tpu.
 
 This package trains and serves GPT-2-class transformer language models,
-and trains the ResNet family, on NVIDIA Hopper GPUs:
+and trains the ResNet family, Inception V3, VGG-16 and MNIST nets, on
+NVIDIA Hopper GPUs:
 
 * **training**, data-parallel in the Horovod style: ``init()`` joins the
   launcher's world over ``torch.distributed`` (NCCL), a
@@ -10,7 +11,9 @@ and trains the ResNet family, on NVIDIA Hopper GPUs:
   every rank from rank 0's weights, and the model runs flash attention
   (:func:`make_flash_attention_fn`) and fused LayerNorm
   (``fused_norm=True``) forward and backward
-  (``python -m horovod_tpu_torch.examples.gpt2_pretraining``), over the
+  (``python -m horovod_tpu_torch.examples.gpt2_pretraining``), with the
+  LM head and its cross-entropy fused over vocab blocks (``--fused-ce``,
+  ``ops.fused_linear_cross_entropy``), over the
   float32 wire or the int8 wire with error feedback
   (``HOROVOD_COMPRESSION=int8``, ``Compression.int8``); BERT-Large
   masked-LM pretraining with Adam's state sharded over the ranks by
@@ -18,8 +21,9 @@ and trains the ResNet family, on NVIDIA Hopper GPUs:
   (``python -m horovod_tpu_torch.examples.bert_pretraining --zero``);
   and ResNet-50/101/152 with the fused BatchNorm kernels (``fused_bn=True``)
   and per-rank BatchNorm statistics, or :class:`SyncBatchNorm`'s
-  world-wide ones
-  (``python -m horovod_tpu_torch.examples.resnet50_synthetic``);
+  world-wide ones, and Inception V3 and VGG-16
+  (``python -m horovod_tpu_torch.examples.resnet50_synthetic --model``),
+  and MNIST (``python -m horovod_tpu_torch.examples.mnist``);
 * **serving**: continuous-batching decode
   (:class:`~horovod_tpu_torch.serving.scheduler.DecodeScheduler`) over a
   slotted KV cache

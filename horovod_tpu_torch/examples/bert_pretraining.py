@@ -7,19 +7,21 @@ parameters) on a synthetic masked-LM batch, AdamW (weight decay 1e-4,
 optax's default) under the DistributedOptimizer's fused all-reduce, or
 with ``--zero`` under the ZeRO-1 ``ShardedOptimizer`` (Adam's m and v
 sharded 1/n over the ranks); optionally the non-causal flash-attention
-kernels (``--flash``) and the fused LayerNorm kernels (``--fused-ln``).
+kernels (``--flash``), the fused LayerNorm kernels (``--fused-ln``) and
+the vocab-blocked fused LM head and cross-entropy (``--fused-ce``,
+``ops/fused_cross_entropy.py``).
 
 Run on the card, one process per card (``examples.local_world`` or
 ``horovod_tpu.runner`` export the rank environment for several):
 
     python -m horovod_tpu_torch.examples.bert_pretraining --zero --flash \\
-        --fused-ln
+        --fused-ln --fused-ce
     python -m horovod_tpu_torch.examples.bert_pretraining --zero \\
         --layers 2 --hidden 64 --device cpu   # a smoke on the CPU
 
 The gradient wire follows ``HOROVOD_COMPRESSION``; the first line names
-it. ``--fused-ce`` (the vocab-blocked fused cross-entropy) and
-``--autotune-spmd`` (the SPMD step tuner) are not ported yet and raise.
+it. ``--autotune-spmd`` (the SPMD step tuner) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..core.basics import _require_init
 from ..models.transformer import BERT_LARGE, Transformer, mlm_loss
 from ..ops.collectives import allreduce
 from ..ops.flash_attention import make_flash_attention_fn
+from ..ops.fused_cross_entropy import fused_linear_cross_entropy
 from ..optim.distributed import DistributedOptimizer
 from ..optim.functions import broadcast_parameters
 from ..optim.zero import ShardedOptimizer, state_bytes
@@ -61,7 +64,7 @@ def synthetic_mlm_batch(vocab, batch, seq, mask_frac, rank, size,
 
 
 def make_mlm_train_step(cfg, optimizer, *, zero=False, attention_fn=None,
-                        device=None):
+                        device=None, fused_ce=False):
     """Build ``(model, step)`` for data-parallel masked-LM training.
 
     ``optimizer`` makes the inner torch optimizer from a list of tensors
@@ -72,7 +75,10 @@ def make_mlm_train_step(cfg, optimizer, *, zero=False, attention_fn=None,
     the ZeRO-1 ``ShardedOptimizer``, else in the
     ``DistributedOptimizer``. ``step(tokens, labels, mask) -> loss``
     runs the forward, ``mlm_loss``, the backward and the optimizer step
-    and returns the local loss; ``step.optimizer`` is the wrapper."""
+    and returns the local loss; ``step.optimizer`` is the wrapper.
+    ``fused_ce`` takes the loss from the pre-head activations through
+    ``fused_linear_cross_entropy`` with the tied embedding as the head,
+    as the JAX example's ``--fused-ce`` does."""
     st = _require_init()
     device = st.device if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -88,10 +94,15 @@ def make_mlm_train_step(cfg, optimizer, *, zero=False, attention_fn=None,
         opt = DistributedOptimizer(optimizer(list(model.parameters())),
                                    named_parameters=model.named_parameters())
 
+    def loss_of(tokens, labels, mask):
+        if fused_ce:
+            hidden = model(tokens, return_hidden=True)
+            return fused_linear_cross_entropy(
+                hidden, model.tok_emb.embedding.t(), labels, valid=mask)[0]
+        return mlm_loss(model(tokens), labels, mask)[0]
+
     def step(tokens, labels, mask):
-        logits = model(tokens)
-        loss, _ = mlm_loss(logits, labels, mask)
-        del logits
+        loss = loss_of(tokens, labels, mask)
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)
@@ -133,10 +144,6 @@ def main(argv=None, stats=None):
     p.add_argument("--device", default=None,
                    help="'cpu' to run on the CPU (default: the card)")
     args = p.parse_args(argv)
-    if args.fused_ce:
-        raise NotImplementedError(
-            "--fused-ce: the fused LM-head cross-entropy is not ported yet "
-            "(ROADMAP item 5)")
     if args.autotune_spmd:
         raise NotImplementedError(
             "--autotune-spmd: the SPMD step tuner is not ported yet "
@@ -168,7 +175,7 @@ def main(argv=None, stats=None):
     model, step = make_mlm_train_step(
         cfg, functools.partial(torch.optim.AdamW, lr=args.lr,
                                weight_decay=1e-4),
-        zero=args.zero, attention_fn=attention_fn)
+        zero=args.zero, attention_fn=attention_fn, fused_ce=args.fused_ce)
     n_params = count_params(model.parameters())
 
     def sync_loss(loss):

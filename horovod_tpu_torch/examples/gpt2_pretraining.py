@@ -4,21 +4,22 @@ The port of the JAX package's ``examples/gpt2_pretraining.py``, with
 its flags, output lines and ``main(argv, stats)`` return: bf16 GPT-2
 medium (24 layers, hidden 1024, 355M parameters) on a synthetic token
 batch, AdamW under the DistributedOptimizer's fused gradient buckets,
-optionally the flash-attention kernels (``--flash``) and the fused
-LayerNorm kernels (``--fused-norm``).
+optionally the flash-attention kernels (``--flash``), the fused
+LayerNorm kernels (``--fused-norm``) and the vocab-blocked fused LM head
+and cross-entropy (``--fused-ce``, ``ops/fused_cross_entropy.py``).
 
 Run on the card, one process per card (``horovod_tpu.runner`` exports
 the rank environment for several):
 
-    python -m horovod_tpu_torch.examples.gpt2_pretraining --flash --fused-norm
+    python -m horovod_tpu_torch.examples.gpt2_pretraining --flash \\
+        --fused-norm --fused-ce
     python -m horovod_tpu_torch.examples.gpt2_pretraining --layers 2 \\
         --hidden 256 --device cpu   # a smoke on the CPU
 
 The gradient wire follows ``HOROVOD_COMPRESSION`` (``int8``: the
 block-quantized wire with error feedback, whose quantize, dequantize-
 accumulate and dequantize stages are kernels too); the first line names
-it. ``--fused-ce`` (the vocab-blocked fused cross-entropy) is not ported
-yet and raises.
+it.
 """
 
 from __future__ import annotations
@@ -76,10 +77,6 @@ def main(argv=None, stats=None):
     p.add_argument("--device", default=None,
                    help="'cpu' to run on the CPU (default: the card)")
     args = p.parse_args(argv)
-    if args.fused_ce:
-        raise NotImplementedError(
-            "--fused-ce: the fused LM-head cross-entropy is not ported yet "
-            "(ROADMAP item 1)")
 
     basics.init(device=args.device)
     n = basics.size()
@@ -104,7 +101,7 @@ def main(argv=None, stats=None):
     model, step = make_lm_train_step(
         cfg, functools.partial(torch.optim.AdamW, lr=args.lr,
                                weight_decay=1e-4),
-        attention_fn=attention_fn)
+        attention_fn=attention_fn, fused_ce=args.fused_ce)
     n_params = count_params(model.parameters())
 
     def sync_loss(loss):

@@ -6,9 +6,11 @@ Horovod's ``examples/pytorch/pytorch_synthetic_benchmark.py``): a bf16
 ResNet with float32 BatchNorm statistics and parameters on a synthetic
 ImageNet batch, SGD (lr 0.1, momentum 0.9) under the
 DistributedOptimizer's fused gradient buckets, optionally the fused
-BatchNorm kernels (``--fused-bn``). Each rank trains on its own rows of
-a global batch drawn from seed 0, and keeps its own BatchNorm running
-statistics, as the JAX example's ``shard_map`` does.
+BatchNorm kernels (``--fused-bn``). ``--model`` covers the reference's
+scaling trio: resnet50/101/152, inception3 (299 px) and vgg16 (no
+BatchNorm, so no batch statistics in its step). Each rank trains on its
+own rows of a global batch drawn from seed 0, and keeps its own
+BatchNorm running statistics, as the JAX example's ``shard_map`` does.
 
 Run on the card, one process per card (``local_world`` or the
 ``horovod_tpu`` launcher export the rank environment for several):
@@ -16,8 +18,8 @@ Run on the card, one process per card (``local_world`` or the
     python -m horovod_tpu_torch.examples.resnet50_synthetic --fused-bn
     python -m horovod_tpu_torch.examples.resnet50_synthetic --device cpu \\
         --image-size 32 --batch-size 2   # a smoke on the CPU
-
-``--model inception3`` and ``vgg16`` are not ported yet and raise.
+    python -m horovod_tpu_torch.examples.resnet50_synthetic --model \\
+        inception3 --batch-size 256
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import numpy as np
 import torch
 
 from ..core import basics
+from ..models.inception import InceptionV3
 from ..models.resnet import ResNet50, ResNet101, ResNet152
+from ..models.vgg import VGG16
 from ..ops.collectives import allreduce
 from ..optim.compression import Compression
 from ..optim.distributed import DistributedOptimizer
@@ -40,8 +44,8 @@ _MODELS = {
     "resnet50": (ResNet50, 224),
     "resnet101": (ResNet101, 224),
     "resnet152": (ResNet152, 224),
-    "inception3": (None, 299),
-    "vgg16": (None, 224),
+    "inception3": (InceptionV3, 299),
+    "vgg16": (VGG16, 224),
 }
 
 
@@ -99,8 +103,7 @@ def make_train_step(model: torch.nn.Module, compression=None):
 def main(argv=None, stats=None):
     p = argparse.ArgumentParser(
         description="horovod_tpu_torch synthetic CNN benchmark "
-                    "(--model resnet50/101/152; inception3 and vgg16 are "
-                    "not ported yet)")
+                    "(--model resnet50/101/152, inception3, vgg16)")
     p.add_argument("--model", choices=sorted(_MODELS), default="resnet50",
                    help="reference tf_cnn_benchmarks model name")
     p.add_argument("--batch-size", type=int, default=128,
@@ -128,21 +131,28 @@ def main(argv=None, stats=None):
     args = p.parse_args(argv)
 
     model_cls, native_size = _MODELS[args.model]
-    if model_cls is None:
-        raise NotImplementedError(
-            f"--model {args.model}: not ported yet (ROADMAP item 7)")
     if not args.image_size:
         args.image_size = native_size
+    model_kw = {}
+    if args.model.startswith("resnet"):
+        model_kw = dict(stem="space_to_depth" if args.s2d_stem else "conv",
+                        fused_bn=args.fused_bn, one_by_one=args.one_by_one)
+    else:
+        for flag, on in (("--s2d-stem", args.s2d_stem),
+                         ("--fused-bn", args.fused_bn),
+                         ("--one-by-one", args.one_by_one != "conv")):
+            if on:
+                raise SystemExit(f"{flag} applies to the resnet family")
+        if args.model == "vgg16":
+            model_kw = dict(image_size=args.image_size)
     basics.init(device=args.device)
     n = basics.size()
     dev = basics.device()
     torch.backends.cudnn.benchmark = True  # the reference benchmark's
 
     with torch.device(dev):
-        model = model_cls(
-            num_classes=args.num_classes, dtype=torch.bfloat16,
-            stem="space_to_depth" if args.s2d_stem else "conv",
-            fused_bn=args.fused_bn, one_by_one=args.one_by_one)
+        model = model_cls(num_classes=args.num_classes, dtype=torch.bfloat16,
+                          **model_kw)
     model.init_params(torch.Generator(device=dev).manual_seed(0))
     n_params = count_params(model.parameters())
     images, labels = synthetic_batch(

@@ -1,5 +1,8 @@
-"""Transformer and ResNet models and flax parameter conversion."""
+"""Transformer, ResNet, Inception V3, VGG-16 and MNIST models and flax
+parameter conversion."""
 
+from .inception import InceptionV3  # noqa: F401
+from .mlp import MLP, MnistNet  # noqa: F401
 from .resnet import ResNet, ResNet50, ResNet101, ResNet152  # noqa: F401
 from .transformer import (  # noqa: F401
     BERT_LARGE,
@@ -10,3 +13,4 @@ from .transformer import (  # noqa: F401
     causal_lm_loss,
     mlm_loss,
 )
+from .vgg import VGG16  # noqa: F401

@@ -1,15 +1,20 @@
 """Parameter conversion between the JAX package's flax trees and the
 port's state dicts.
 
-The PyTorch modules (transformer.py, resnet.py) name their parameters
-after the flax tree, so a tree converts by joining its path with dots:
-``{"block_0": {"attn": {"query": {"kernel": ...}}}}`` becomes
-``"block_0.attn.query.kernel"``. The transformer's layouts already agree
-(dense kernels ``[in, out]``, q/k/v ``[hidden, H, D]``, out ``[H, D,
-hidden]``), so no array is transposed. The ResNet's convolution kernels
-are HWIO in flax and OIHW in the port: :func:`resnet_from_flax` and
-:func:`resnet_to_flax` transpose every 4-D kernel, and carry the
-``batch_stats`` collection as the norms' ``mean`` and ``var`` buffers.
+The PyTorch modules (transformer.py, resnet.py, inception.py, vgg.py,
+mlp.py) name their parameters after the flax tree, so a tree converts by
+joining its path with dots: ``{"block_0": {"attn": {"query": {"kernel":
+...}}}}`` becomes ``"block_0.attn.query.kernel"``. The transformer's
+layouts already agree (dense kernels ``[in, out]``, q/k/v ``[hidden, H,
+D]``, out ``[H, D, hidden]``), so no array is transposed. The CNNs'
+convolution kernels are HWIO in flax and OIHW in the port:
+:func:`resnet_from_flax` and :func:`resnet_to_flax` transpose every 4-D
+kernel, and carry the ``batch_stats`` collection as the norms' ``mean``
+and ``var`` buffers. Nothing in them is particular to the ResNet: they
+convert Inception V3 (``ConvBN_i.Conv_0`` / ``.BatchNorm_0``), VGG-16,
+``MLP`` and ``MnistNet`` (convolution biases, Dense kernels ``[in,
+out]`` in both, VGG's and MNIST's flatten in NHWC order in both) and the
+MNIST example's ``ConvNet`` as they are.
 """
 
 from __future__ import annotations

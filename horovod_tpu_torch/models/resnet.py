@@ -63,18 +63,29 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """``nn.Conv(use_bias=False, padding="SAME")`` of flax on NHWC
-    inputs; ``kernel`` is a float32 OIHW parameter, cast to ``dtype``
-    (in channels-last memory) on every call."""
+    """flax's ``nn.Conv`` on NHWC inputs, ``padding`` "SAME" or "VALID",
+    without a bias (the ResNet's and Inception's) or with one
+    (``use_bias``: VGG's and MNIST's); ``kernel`` is a float32 OIHW
+    parameter, cast to ``dtype`` (in channels-last memory) on every
+    call, and the bias is added in the convolution."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, int], strides=(1, 1),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 padding: str = "SAME", use_bias: bool = False):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}: expected "
+                             "'SAME' or 'VALID'")
         self.kernel_size, self.strides, self.dtype = (
             tuple(kernel_size), tuple(strides), dtype)
+        self.padding = padding
         self.kernel = nn.Parameter(torch.empty(features, in_features,
                                                *self.kernel_size))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter("bias", None)
 
     @property
     def fan_in(self) -> int:
@@ -82,15 +93,20 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel.to(self.dtype, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         x = x.to(self.dtype)
-        (ht, hb), (wl, wr) = (
-            _same_pads(x.shape[1 + i], self.kernel_size[i], self.strides[i])
-            for i in range(2))
+        if self.padding == "VALID":
+            (ht, hb), (wl, wr) = (0, 0), (0, 0)
+        else:
+            (ht, hb), (wl, wr) = (
+                _same_pads(x.shape[1 + i], self.kernel_size[i],
+                           self.strides[i]) for i in range(2))
         if ht == hb and wl == wr:
-            y = F.conv2d(_nchw(x), w, stride=self.strides, padding=(ht, wl))
+            y = F.conv2d(_nchw(x), w, b, stride=self.strides,
+                         padding=(ht, wl))
         else:
             x = F.pad(x, (0, 0, wl, wr, ht, hb))
-            y = F.conv2d(_nchw(x), w, stride=self.strides)
+            y = F.conv2d(_nchw(x), w, b, stride=self.strides)
         return _nhwc(y)
 
 
@@ -118,11 +134,14 @@ class ChannelDot(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` in float32: ``x @ kernel + bias``, kernel
-    ``[in, out]``."""
+    """flax ``nn.Dense`` with float32 parameters: ``x @ kernel + bias``,
+    kernel ``[in, out]``, input, kernel and bias cast to ``dtype``
+    (float32 by default)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -131,7 +150,8 @@ class Dense(nn.Module):
         return self.kernel.shape[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(torch.float32) @ self.kernel + self.bias
+        return (x.to(self.dtype) @ self.kernel.to(self.dtype)
+                + self.bias.to(self.dtype))
 
 
 class BatchNorm(nn.Module):
@@ -311,27 +331,12 @@ class ResNet(nn.Module):
                 features = num_filters * 2 ** i * 4
         self.Dense_0 = Dense(features, num_classes)
 
-    @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "ResNet":
-        """Random weights distributed as flax initializes them: every
-        conv, ChannelDot and Dense kernel lecun-normal (a normal of
-        variance 1 / fan_in truncated at two standard deviations), zero
-        biases, unit BatchNorm scales except the zero-initialized last
-        one of each block, and running statistics mean 0, var 1.
-        ``generator`` must live on the parameters' device."""
-        for module in self.modules():
-            if isinstance(module, (Conv, ChannelDot, Dense)):
-                _trunc_normal_(module.kernel, 1.0 / math.sqrt(module.fan_in),
-                               generator)
-                if isinstance(module, Dense):
-                    module.bias.zero_()
-            elif hasattr(module, "scale_init"):
-                module.scale.fill_(0.0 if module.scale_init == "zeros"
-                                   else 1.0)
-                module.bias.zero_()
-                module.mean.zero_()
-                module.var.fill_(1.0)
-        return self
+        """Random weights distributed as flax initializes them
+        (:func:`init_flax_params`); the last BatchNorm scale of each
+        block starts at 0. ``generator`` must live on the parameters'
+        device."""
+        return init_flax_params(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -347,6 +352,29 @@ class ResNet(nn.Module):
         # a bf16 mean accumulates in float32 and returns bf16, as jnp's
         x = x.mean(dim=(1, 2))
         return self.Dense_0(x)
+
+
+@torch.no_grad()
+def init_flax_params(model: nn.Module, generator: torch.Generator):
+    """Draw ``model``'s weights as flax initializes the same modules,
+    module by module in ``model.modules()`` order: every Conv,
+    ChannelDot and Dense kernel lecun-normal (a normal of variance
+    1 / fan_in truncated at two standard deviations), zero biases, unit
+    BatchNorm scales (zero where a norm's ``scale_init`` says so), and
+    running statistics mean 0, var 1. Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, (Conv, ChannelDot, Dense)):
+            _trunc_normal_(module.kernel, 1.0 / math.sqrt(module.fan_in),
+                           generator)
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
+        elif hasattr(module, "scale_init"):
+            module.scale.fill_(0.0 if module.scale_init == "zeros"
+                               else 1.0)
+            module.bias.zero_()
+            module.mean.zero_()
+            module.var.fill_(1.0)
+    return model
 
 
 def _trunc_normal_(p: torch.Tensor, std: float, generator) -> None:

@@ -17,6 +17,7 @@ import torch
 from ..core.basics import _require_init
 from ..models.transformer import Transformer, TransformerConfig, causal_lm_nll
 from ..ops.collectives import Sum, allreduce
+from ..ops.fused_cross_entropy import fused_linear_cross_entropy
 from ..optim.distributed import DistributedOptimizer
 from ..optim.functions import broadcast_parameters
 
@@ -24,7 +25,8 @@ from ..optim.functions import broadcast_parameters
 def make_lm_train_step(cfg: TransformerConfig,
                        optimizer: Callable[..., torch.optim.Optimizer], *,
                        attention_fn=None, device=None, mesh=None,
-                       sequence_parallel: Optional[str] = None):
+                       sequence_parallel: Optional[str] = None,
+                       fused_ce: bool = False):
     """Build ``(model, step)`` for data-parallel causal-LM training.
 
     ``optimizer`` makes the inner torch optimizer from the parameters
@@ -40,6 +42,12 @@ def make_lm_train_step(cfg: TransformerConfig,
     excluded), and the gradients are its gradients, however unevenly
     the ranks' targets are padded; the step returns that loss.
     ``step.optimizer`` is the DistributedOptimizer.
+
+    ``fused_ce`` computes the LM head and the loss together with
+    :func:`~horovod_tpu_torch.ops.fused_cross_entropy.fused_linear_cross_entropy`
+    (vocab blocks, the logits never whole in memory) from the model's
+    pre-head activations: the same two sums, ``Σ nll`` and the valid
+    count, so the same denominator and backward.
 
     ``mesh`` (tensor / fully-sharded parallelism) and
     ``sequence_parallel`` raise: ROADMAP items 9 and 14."""
@@ -64,10 +72,19 @@ def make_lm_train_step(cfg: TransformerConfig,
     opt = DistributedOptimizer(optimizer(model.parameters()),
                                named_parameters=model.named_parameters())
 
+    def nll_sums(tokens):
+        if fused_ce:
+            hidden = model(tokens, return_hidden=True)
+            w = (model.tok_emb.embedding.t() if cfg.tie_embeddings
+                 else model.lm_head.kernel)
+            targets = tokens[:, 1:]
+            return fused_linear_cross_entropy(
+                hidden[:, :-1], w, targets, valid=targets != -1,
+                mean=False)
+        return causal_lm_nll(model(tokens), tokens)
+
     def step(tokens: torch.Tensor) -> torch.Tensor:
-        logits = model(tokens)
-        nll, count = causal_lm_nll(logits, tokens)
-        del logits
+        nll, count = nll_sums(tokens)
         # one denominator for every rank, before the backward: the
         # DistributedOptimizer averages Σ nll_r · size / n, which is the
         # gradient of the global mean Σ_r Σ nll_r / n

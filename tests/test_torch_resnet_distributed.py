@@ -270,8 +270,9 @@ def test_example_world_of_two_prints_the_jax_examples_lines():
 
 
 def test_example_refuses_unported_models_and_runs_on_the_card():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ex.main(["--model", "vgg16", "--device", "cpu"])
+    for flag in (["--fused-bn"], ["--s2d-stem"], ["--one-by-one", "dot"]):
+        with pytest.raises(SystemExit, match="resnet family"):
+            ex.main(["--model", "vgg16", "--device", "cpu", *flag])
     if torch.cuda.is_available():
         pytest.skip("a card is present: main() would use it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
