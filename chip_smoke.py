@@ -91,6 +91,21 @@ Phases, in order; the first failure exits non-zero:
    weights and batch (``CE_GRAD_TOL``); the loss must fall, B1-B5 launch
    exactly ``STEP_LAUNCHES`` a step; one step is profiled (device ms by
    group, the elementwise group's top kernels by name);
+4e. drive GPT-2 medium through the port's launcher
+   (``horovod_tpu_torch.runner``): ``python -m
+   horovod_tpu_torch.runner.launch -np 1 -H localhost:1`` running the
+   example at phase 4's arguments with 3 timed steps (exit 0, the
+   ``[0]``-prefixed rate line, the ``[0]iter 0`` loss printed as phase
+   4's step-4 loss prints, tokens/s beside phase 4's in-process rate,
+   the seconds from launch to the first step); ``runner.run(fn, np=1)``
+   with one step in the worker (``cuda:0``, NCCL, world 1, B1-B5
+   exactly ``STEP_LAUNCHES``, its loss bitwise phase 4's step-1 loss:
+   same seed, weights and batch); ``-np 2 -H localhost:2`` on one card,
+   where rank 1 must fail in ``init()`` for want of a card and the
+   launcher must stop rank 0 and exit non-zero within
+   ``REFUSAL_BOUND_S``, no rank training (with two cards or more: a
+   world-2 NCCL run instead); and ``--check-build``, which must report
+   NCCL, CUDA and nvcc;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -119,9 +134,10 @@ Phases, in order; the first failure exits non-zero:
 7. a short serve on an int8 KV cache (4 requests), whose decode steps
    must run B17 on the decode route, and the same decode-step profile;
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
-   training runs of phases 4, 4b, 4c, 4d, 5 and 5b and the serving runs of
-   phases 6 and 7 (counts zeroed just before each run and read just
-   after), error, tolerance and times;
+   training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
+   step), 5 and 5b and the serving runs of phases 6 and 7 (counts zeroed
+   just before each run and read just after), error, tolerance and
+   times;
 9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -2543,7 +2559,8 @@ def train_gpt2(seed, ledger):
     """Train GPT-2 medium at full width and depth through the example's
     ``main``: world of one over NCCL, per-rank batch 8 x 1024, flash
     attention and fused norms, 1 warm-up and 5 timed steps on one
-    batch. Launch counts are zeroed just before and read just after."""
+    batch. Launch counts are zeroed just before and read just after.
+    Returns the tokens/s a card and every step's loss."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.examples import gpt2_pretraining
     from horovod_tpu_torch.ops import _build
@@ -2578,6 +2595,7 @@ def train_gpt2(seed, ledger):
     stats.clear()
     hvd.shutdown()
     torch.cuda.empty_cache()
+    return per_chip, losses
 
 
 # ---------------------------------------------------------------------------
@@ -3398,6 +3416,210 @@ def train_gpt2_fused_ce(seed, ledger):
                             "batch 16x1024")
     stats.clear()
     hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: GPT-2 medium through the port's launcher
+# ---------------------------------------------------------------------------
+
+#: phase 4's arguments with 3 timed steps (1 warm-up + 3)
+LAUNCH_ARGS = ["--batch-size", "8", "--seq-len", "1024",
+               "--num-warmup-batches", "1", "--num-batches-per-iter", "3",
+               "--num-iters", "1", "--flash", "--fused-norm"]
+LAUNCH_STEPS = 4  # 1 warm-up + 3 timed, as LAUNCH_ARGS says
+#: one step, no warm-up: what ``launched_step`` runs in ``runner.run``'s
+#: worker
+RUN_ARGS = ["--batch-size", "8", "--seq-len", "1024",
+            "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+            "--num-iters", "1", "--flash", "--fused-norm"]
+#: seconds within which ``-np 2`` on one card must have exited: rank 1
+#: spawns, imports torch and the package and fails in ``init()``; the
+#: launcher then stops rank 0 (SIGTERM, SIGKILL after 5 s)
+REFUSAL_BOUND_S = 90.0
+#: a subprocess of this phase that runs longer fails the smoke
+LAUNCH_TIMEOUT_S = 300.0
+
+
+def _launcher(*args):
+    return [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *args]
+
+
+def _gpt2(*args):
+    return [sys.executable, "-m", "horovod_tpu_torch.examples.gpt2_pretraining",
+            *args]
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _stream(argv, timeout=LAUNCH_TIMEOUT_S):
+    """Run ``argv`` (a launcher command line) from the checkout's root,
+    its stderr merged into its stdout, and stamp each line with the
+    seconds since the start: ``(exit code, [(seconds, line)], wall
+    seconds)``. Past ``timeout`` the launcher gets SIGTERM, which stops
+    its workers too, then SIGKILL; the smoke fails."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=HERE, env=_child_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        raise SmokeFailure(f"{' '.join(argv[2:5])} ... ran over {timeout} s:"
+                           + "\n".join(l for _, l in lines[-20:]))
+    reader.join(timeout=30)
+    return rc, lines, time.perf_counter() - t0
+
+
+def _first(lines, prefix):
+    return next(((t, l) for t, l in lines if l.startswith(prefix)),
+                (None, None))
+
+
+def launched_step():
+    """``runner.run``'s function: one GPT-2 medium step through the
+    example's ``main`` in the launched worker (``RUN_ARGS``), its launch
+    counts zeroed just before and read just after. Runs in the worker,
+    which imports this file as the module ``chip_smoke``."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import gpt2_pretraining
+    from horovod_tpu_torch.ops import _build
+
+    stats = {}
+    _build.reset_launches()
+    gpt2_pretraining.main(RUN_ARGS, stats)
+    torch.cuda.synchronize()
+    out = {"device": str(hvd.device()), "backend": dist.get_backend(),
+           "size": hvd.size(), "launches": dict(_build.LAUNCHES),
+           "losses": stats["losses"], "step_ms": stats["step_ms"]}
+    stats.clear()
+    hvd.shutdown()
+    return out
+
+
+def launch_gpt2(ledger, in_process_rate, in_process_losses):
+    """Phase 4e: GPT-2 medium through ``horovod_tpu_torch.runner``, the
+    launcher's command line and its ``run()`` API; the one-card refusal
+    of ``-np 2``; ``--check-build``. The launched runs start from phase
+    4's seed, weights and batch, so their losses are phase 4's: the
+    ``run()`` step's bitwise, the command line's as printed."""
+    import importlib
+
+    from horovod_tpu_torch.runner import run
+
+    # the parent holds the earlier phases' cache; a child needs ~20 GB
+    torch.cuda.empty_cache()
+    report = {"phase": "launch", "model": "GPT-2 medium 24x1024, 16 heads",
+              "batch": "8x1024"}
+
+    # (1) the command line, one slot
+    rc, lines, wall = _stream(_launcher("-np", "1", "-H", "localhost:1",
+                                        *_gpt2(*LAUNCH_ARGS)))
+    for t, line in lines:
+        print(f"launch -np 1 +{t:.2f} s: {line}")
+    _require(rc == 0, "launch -np 1: exit %d:\n%s"
+             % (rc, "\n".join(l for _, l in lines[-30:])))
+    first_s, _ = _first(lines, "[0]GPT-2 24L/1024H")
+    _, rate_line = _first(lines, "[0]tokens/sec on 1 rank(s): ")
+    _require(first_s is not None and rate_line is not None,
+             "launch -np 1: no [0]-prefixed header or rate line:\n"
+             + "\n".join(l for _, l in lines[-30:]))
+    launched_rate = float(rate_line.split(": ")[1].split()[0])
+    # the example prints iter 0's last step: step LAUNCH_STEPS
+    _, iter_line = _first(lines, "[0]iter 0: ")
+    want = f"(loss {in_process_losses[LAUNCH_STEPS - 1]:.3f})"
+    _require(iter_line is not None and iter_line.endswith(want),
+             f"launch -np 1: [0]iter 0 line {iter_line!r}, phase 4's "
+             f"step {LAUNCH_STEPS} prints {want}")
+    report["cli"] = {
+        "argv": "launch -np 1 -H localhost:1 gpt2_pretraining "
+                + " ".join(LAUNCH_ARGS),
+        "rc": rc, "wall_s": wall, "launch_to_first_step_s": first_s,
+        "iter0_loss": iter_line.rsplit("(loss ", 1)[1].rstrip(")"),
+        "in_process_step_loss": in_process_losses[LAUNCH_STEPS - 1],
+        "tokens_per_s": launched_rate,
+        "in_process_tokens_per_s": in_process_rate,
+        "launched_over_in_process": launched_rate / in_process_rate}
+
+    # (2) run(fn, np=1): fn pickles by reference, so it must come from a
+    # module the worker can import, not from __main__
+    smoke = importlib.import_module("chip_smoke")
+    t0 = time.perf_counter()
+    res = run(smoke.launched_step, np=1, env=_child_env())[0]
+    run_s = time.perf_counter() - t0
+    _require(res["device"] == "cuda:0" and res["backend"] == "nccl"
+             and res["size"] == 1,
+             f"run(fn, np=1): device {res['device']}, backend "
+             f"{res['backend']}, world {res['size']}")
+    _require(res["losses"] == in_process_losses[:1],
+             f"run(fn, np=1): losses {res['losses']}, phase 4's step 1 "
+             f"{in_process_losses[0]!r}")
+    _exact_launches(res["launches"], 1, "run(fn, np=1)")
+    ledger["launch_run"] = res["launches"]
+    report["run"] = {"wall_s": run_s, **{k: res[k] for k in (
+        "device", "backend", "size", "losses", "step_ms")},
+        "in_process_step1_loss": in_process_losses[0],
+        "launches": {k: res["launches"][k] for k in STEP_LAUNCHES}}
+
+    # (3) two slots on this host
+    cards = torch.cuda.device_count()
+    rc, lines, wall = _stream(_launcher("-np", "2", "-H", "localhost:2",
+                                        *_gpt2(*LAUNCH_ARGS)))
+    text = "\n".join(l for _, l in lines)
+    if cards < 2:
+        # rank 0 waits in init() for rank 1, which has no card: no step
+        # may run, and rank 1 must not go on without one
+        trained = [l for _, l in lines
+                   if re.match(r"\[\d\](iter |tokens/sec)|\[1\]GPT-2 ", l)]
+        _require(rc != 0 and wall < REFUSAL_BOUND_S and not trained
+                 and "[1]RuntimeError: horovod_tpu_torch.init(): local "
+                     "rank 1 needs card cuda:1, but 1 card(s) are visible"
+                 in text,
+                 f"launch -np 2 on one card: exit {rc} after {wall:.1f} s "
+                 f"(bound {REFUSAL_BOUND_S} s), lines of training "
+                 f"{trained}:\n" + "\n".join(l for _, l in lines[-30:]))
+        report["np2_one_card"] = {
+            "rc": rc, "wall_s": wall, "bound_s": REFUSAL_BOUND_S,
+            "rank1_error": next(l for _, l in lines
+                                if "needs card cuda:1" in l)}
+    else:
+        _require(rc == 0 and "[0]tokens/sec on 2 rank(s)" in text,
+                 f"launch -np 2 on {cards} cards: exit {rc}:\n"
+                 + "\n".join(l for _, l in lines[-30:]))
+        report["np2_nccl"] = {"rc": rc, "wall_s": wall}
+
+    # (4) --check-build on the card
+    rc, lines, _ = _stream(_launcher("--check-build"), timeout=120)
+    text = "\n".join(l for _, l in lines)
+    for need in ("[X] NCCL", "[X] CUDA", "[X] nvcc"):
+        _require(rc == 0 and need in text,
+                 f"--check-build: no {need!r} (exit {rc}):\n{text}")
+    report["check_build"] = [l.strip() for _, l in lines if "[" in l]
+    print(json.dumps(report))
     torch.cuda.empty_cache()
 
 
@@ -4538,10 +4760,11 @@ def main(argv=None) -> int:
 
     # phases 4 and 5: training; phases 6 and 7: serving
     ledger = {}
-    train_gpt2(args.seed, ledger)
+    in_process_rate, in_process_losses = train_gpt2(args.seed, ledger)
     train_int8(args.seed, ledger)
     train_zero(args.seed, ledger)
     train_gpt2_fused_ce(args.seed, ledger)
+    launch_gpt2(ledger, in_process_rate, in_process_losses)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

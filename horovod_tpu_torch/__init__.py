@@ -39,11 +39,18 @@ quantize, quantize + error feedback, dequantize-accumulate and
 dequantize, and the reduce-scatter's producer epilogues: the bucket
 pack and the matmul that writes its product into the ring rows.
 
+Worlds start from the launcher, ``python -m
+horovod_tpu_torch.runner.launch -np N -H host:n,... <command>`` (the JAX
+package's ``hvdrun``, one process per card; ``runner.run(fn, np=N)``
+from Python), whose slot environment ``init()`` reads.
+
 Everything runs on the card unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead. The package
 imports neither JAX nor ``horovod_tpu``; the JAX package is the
 reference its tests compare against.
 """
+
+__version__ = "0.1.0"
 
 from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                           cuda_enabled, ddl_built, device, gloo_built,

@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``core/basics.py``. The world is
 processes, one card each, as in the reference Horovod: ``init()`` reads
-the slot environment the launcher exports (``horovod_tpu/runner``'s
+the slot environment the launcher exports (``horovod_tpu_torch.runner``'s,
+the same as the JAX package's:
 ``HOROVOD_RANK/SIZE/LOCAL_RANK/LOCAL_SIZE/CROSS_RANK/CROSS_SIZE`` and
 ``HVD_TPU_COORDINATOR_ADDRESS``; ``HVD_TPU_X`` beats ``HOROVOD_X``) and
 sets up a ``torch.distributed`` process group over it: NCCL on the card
@@ -10,7 +11,10 @@ sets up a ``torch.distributed`` process group over it: NCCL on the card
 ``device="cpu"``. Without that environment the world is one process;
 its process group lives in an in-process store, so the collectives
 still run through the backend. Without a card and without
-``device="cpu"``, ``init()`` raises.
+``device="cpu"``, ``init()`` raises, and so it does when the local rank
+has no card of its own (more slots on a host than cards). It also sets
+up logging, fault injection and the control-plane retry policy from the
+knobs.
 
 A process group the caller set up before ``init()`` is adopted as it
 is (its rank and size win over the environment) and left alone at
@@ -60,6 +64,7 @@ def init(device: Optional[str] = None) -> None:
         if on_cpu:
             dev = torch.device("cpu")
         else:
+            _check_card(local_rank)
             torch.cuda.set_device(local_rank)
             dev = torch.device("cuda", local_rank)
 
@@ -83,6 +88,7 @@ def init(device: Optional[str] = None) -> None:
             owns = True
 
         st.knobs = Knobs.from_env()
+        _configure_control_plane(st.knobs)
         st.device, st.backend, st.owns_group = dev, backend, owns
         st.rank, st.size = rank, size
         st.local_rank, st.local_size = local_rank, local_size
@@ -90,6 +96,37 @@ def init(device: Optional[str] = None) -> None:
         st.global_set = ProcessSet(range(size))
         st.global_set.process_set_id = 0
         st.initialized = True
+
+
+def _check_card(local_rank: int) -> None:
+    """Local rank r runs on card r: a host given more slots than it has
+    cards must fail here, naming why, and never fall back to the CPU."""
+    import os
+
+    count = torch.cuda.device_count()
+    if local_rank >= count:
+        raise RuntimeError(
+            f"horovod_tpu_torch.init(): local rank {local_rank} needs card "
+            f"cuda:{local_rank}, but {count} card(s) are visible "
+            f"(CUDA_VISIBLE_DEVICES="
+            f"{os.environ.get('CUDA_VISIBLE_DEVICES', '<unset>')}); give "
+            "this host at most as many slots as it has cards")
+
+
+def _configure_control_plane(knobs: Knobs) -> None:
+    """Logging, fault injection and the control-plane retry policy from
+    the knob snapshot, as the JAX package's ``init()`` sets them up."""
+    from ..utils import faults, retry
+    from ..utils.logging import configure_logging
+
+    configure_logging(knobs.log_level, knobs.log_hide_timestamp,
+                      rank_prefix=knobs.log_rank)
+    # faults armed itself from the env at import (a launched worker
+    # needs that); an explicitly knobbed spec re-compiles here so the
+    # HVD_TPU_ precedence matches every other knob
+    if knobs.fault_spec:
+        faults.configure(knobs.fault_spec)
+    retry.configure(knobs)
 
 
 def shutdown() -> None:

@@ -90,6 +90,25 @@ class Knobs:
     serving_decode_max_new: int = 64
     serving_decode_stats_every: int = 50
 
+    # --- fault injection (utils/faults.py) ---
+    # canonical env HOROVOD_TPU_FAULT_SPEC; empty = disabled no-op
+    fault_spec: str = ""
+
+    # --- control-plane retry (utils/retry.py default policy) ---
+    retry_max_attempts: int = 5
+    retry_base_delay_seconds: float = 0.1
+    retry_max_delay_seconds: float = 2.0
+    # "full": uniform on [0, backoff]; "bounded": +-25% around it
+    retry_jitter: str = "full"
+    # cap on the total seconds of one call's retries; <=0 disables
+    retry_max_elapsed_seconds: float = 60.0
+
+    # --- logging (utils/logging.py) ---
+    log_level: str = "WARNING"
+    log_hide_timestamp: bool = False
+    # "[rank N]" line prefix, the rank read from the launcher's env
+    log_rank: bool = False
+
     @staticmethod
     def from_env() -> "Knobs":
         return Knobs(
@@ -114,4 +133,15 @@ class Knobs:
             serving_decode_max_new=_env_int("SERVING_DECODE_MAX_NEW", 64),
             serving_decode_stats_every=_env_int(
                 "SERVING_DECODE_STATS_EVERY", 50),
+            # canonical name first so it wins when both are set
+            fault_spec=(os.environ.get("HOROVOD_TPU_FAULT_SPEC", "")
+                        or _env("FAULT_SPEC") or ""),
+            retry_max_attempts=_env_int("RETRY_MAX_ATTEMPTS", 5),
+            retry_base_delay_seconds=_env_float("RETRY_BASE_DELAY", 0.1),
+            retry_max_delay_seconds=_env_float("RETRY_MAX_DELAY", 2.0),
+            retry_jitter=_env("RETRY_JITTER", "full") or "full",
+            retry_max_elapsed_seconds=_env_float("RETRY_MAX_ELAPSED", 60.0),
+            log_level=_env("LOG_LEVEL", "WARNING") or "WARNING",
+            log_hide_timestamp=_env_bool("LOG_HIDE_TIME", False),
+            log_rank=_env_bool("LOG_RANK", False),
         )

@@ -11,8 +11,9 @@ kernels (``--flash``), the fused LayerNorm kernels (``--fused-ln``) and
 the vocab-blocked fused LM head and cross-entropy (``--fused-ce``,
 ``ops/fused_cross_entropy.py``).
 
-Run on the card, one process per card (``examples.local_world`` or
-``horovod_tpu.runner`` export the rank environment for several):
+Run on the card, one process per card (the launcher,
+``horovod_tpu_torch.runner``, exports the rank environment for
+several):
 
     python -m horovod_tpu_torch.examples.bert_pretraining --zero --flash \\
         --fused-ln --fused-ce

@@ -8,8 +8,9 @@ optionally the flash-attention kernels (``--flash``), the fused
 LayerNorm kernels (``--fused-norm``) and the vocab-blocked fused LM head
 and cross-entropy (``--fused-ce``, ``ops/fused_cross_entropy.py``).
 
-Run on the card, one process per card (``horovod_tpu.runner`` exports
-the rank environment for several):
+Run on the card, one process per card (the launcher,
+``horovod_tpu_torch.runner``, exports the rank environment for
+several):
 
     python -m horovod_tpu_torch.examples.gpt2_pretraining --flash \\
         --fused-norm --fused-ce

@@ -1,6 +1,12 @@
 """Run a command as N ranks of this host.
 
-Each rank gets the slot environment the ``horovod_tpu`` launcher
+The port's launcher, ``python -m horovod_tpu_torch.runner.launch -np N
+-H localhost:N <command>``, does this and more (hostfiles, ssh, the
+rendezvous KV, NIC probing, config files, ``runner.run(fn)``); this
+script stays as the minimal form, and its worlds train bitwise like
+the launcher's (``tests/test_torch_launch_world.py``).
+
+Each rank gets the slot environment the launcher
 exports (``HOROVOD_RANK/SIZE/LOCAL_RANK/LOCAL_SIZE/CROSS_RANK/
 CROSS_SIZE`` and ``HVD_TPU_COORDINATOR_ADDRESS`` on a free local port),
 so ``horovod_tpu_torch.init()`` joins them into one world: rank r on

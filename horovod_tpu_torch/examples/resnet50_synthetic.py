@@ -12,8 +12,9 @@ BatchNorm, so no batch statistics in its step). Each rank trains on its
 own rows of a global batch drawn from seed 0, and keeps its own
 BatchNorm running statistics, as the JAX example's ``shard_map`` does.
 
-Run on the card, one process per card (``local_world`` or the
-``horovod_tpu`` launcher export the rank environment for several):
+Run on the card, one process per card (the launcher,
+``horovod_tpu_torch.runner``, exports the rank environment for
+several):
 
     python -m horovod_tpu_torch.examples.resnet50_synthetic --fused-bn
     python -m horovod_tpu_torch.examples.resnet50_synthetic --device cpu \\

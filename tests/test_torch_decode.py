@@ -245,6 +245,15 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "FUSION_THRESHOLD": "65536",
     "BUCKET_BACKWARD_ORDER": "0",
     "COMPRESSION": "bf16",
+    "FAULT_SPEC": "http.put:delay:secs=0",
+    "RETRY_MAX_ATTEMPTS": "7",
+    "RETRY_BASE_DELAY": "0.3",
+    "RETRY_MAX_DELAY": "4",
+    "RETRY_JITTER": "bounded",
+    "RETRY_MAX_ELAPSED": "9",
+    "LOG_LEVEL": "DEBUG",
+    "LOG_HIDE_TIME": "1",
+    "LOG_RANK": "1",
 }
 
 
@@ -272,17 +281,25 @@ _TRAINING_MODULES = [
         "ops.flash_attention", "optim.distributed", "optim.functions",
         "utils.mfu", "parallel.train", "examples.gpt2_pretraining")]
 
+_LAUNCHER_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "runner", "runner.launch", "runner.api", "runner.exec_run",
+        "runner.http.http_server", "runner.http.http_client",
+        "runner.driver.probe", "runner.driver.probe_task",
+        "utils.retry", "utils.faults", "utils.logging", "utils.metrics")]
+
 
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
-    without pulling in jax or horovod_tpu; the training slice's modules
-    are among those walked."""
+    without pulling in jax or horovod_tpu; the training slice's and the
+    launcher's modules are among those walked."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        f"assert set({_TRAINING_MODULES!r}) <= set(names), names\n"
+        f"assert set({_TRAINING_MODULES + _LAUNCHER_MODULES!r})"
+        " <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
