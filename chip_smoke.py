@@ -7,6 +7,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py --parity-sweep 8   # the parity limits' readings
     python3 chip_smoke.py --profiles         # kernel, int8, GPT-2, decode,
                                              # ResNet profiles
+    python3 chip_smoke.py --profiler-probe 32   # what profiler windows
+                                                # keep as the process ages
 
 Phases, in order; the first failure exits non-zero:
 
@@ -106,6 +108,28 @@ Phases, in order; the first failure exits non-zero:
    ``REFUSAL_BOUND_S``, no rank training (with two cards or more: a
    world-2 NCCL run instead); and ``--check-build``, which must report
    NCCL, CUDA and nvcc;
+4f. train GPT-2 medium with fully-sharded parameters
+   (``FullyShardedOptimizer``, ``optim/fsdp.py``) through the staged
+   FSDP runners (``ops/overlap.py``): (a) through ``make_lm_train_step`` at
+   world 1 over NCCL (batch 8 x 1024, ``--flash --fused-norm``, AdamW), 3
+   steps in each FSDP mode (regather, saved gathers, prefetch 0 and 2,
+   offload), bitwise phase 4's losses and the DistributedOptimizer's
+   parameters, exact launch counts (B1 48 and B4 97 a step under
+   regather: the recompute), step ms and tokens/s beside phase 4's; (b)
+   in a world of four emulated on the card (``EmulatedWorld``: a rank
+   keeps its rows, a gather concatenates the ranks' rows on a side
+   stream with events), 2 x 1024 a rank, 3 steps on the float32 wire and
+   on the int8 wire with error feedback (block 256): every mode bitwise
+   the gathered reference (losses, shards, residuals), the float32 wire
+   bitwise ZeRO-1 on the same world, each B6 launch of a step bitwise
+   ``_pad_rows``, each bucket issued at ``bucket_issue_schedule``'s
+   boundary, exact launch counts (B6, B12, B13 once a bucket a rank);
+   (c) a ``torch.cuda._sleep`` on the side stream before each exchange
+   (gathers poisoned with NaN first) keeps (b)'s bits, and a dropped
+   wait on one gather's event, or on the last rank's last
+   reduce-scatter, must lose them; (e) a rank's peak parameter bytes
+   beside shard + prefetch x the largest bucket, offloaded bytes,
+   B6/B12/B13 device ms of one rank's int8 step;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -135,7 +159,8 @@ Phases, in order; the first failure exits non-zero:
    must run B17 on the decode route, and the same decode-step profile;
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
-   step), 5 and 5b and the serving runs of phases 6 and 7 (counts zeroed
+   step), 4f (the FSDP runs, not their references), 5 and 5b and the
+   serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
 9. print ``{"ok": true, "device": {...}}`` as the last line.
@@ -203,14 +228,26 @@ def _dev_us(event):
 
 
 def _kernel_events(prof):
-    """The profiler's averaged device events, without the GPU-side
-    copies of user annotations (e.g. ``Optimizer.step``), whose time
-    overlaps the kernels they enclose."""
+    """The device events of a ``_profiled`` window, averaged, without
+    the GPU-side copies of user annotations (e.g. ``Optimizer.step``),
+    whose time overlaps the kernels they enclose, and without the spin
+    kernels that open the window. The profiler loses a window's first
+    device records, the more of them the older the process: a window
+    that lost every spin may have lost the work's first records too,
+    and fails."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    spins = sum(e.count for e in events if SPIN_KERNEL in e.key)
+    lost = PROFILE_WARMUP_SPINS - spins
+    PROFILER_TALLY["spins_lost_max"] = max(
+        PROFILER_TALLY["spins_lost_max"], lost)
+    _require(spins > 0, f"a profiler window lost all its "
+                        f"{PROFILE_WARMUP_SPINS} leading spin kernels, "
+                        "and maybe the first records of its work")
+    return [e for e in events if SPIN_KERNEL not in e.key]
 
 
 #: bytes written before each call of an L2-cold reading (``_device_ms``
@@ -227,14 +264,28 @@ FLUSH_KERNEL = "FillFunctor"
 #: after its last one, lost some of its events or all of them
 PROFILER_PAD_S = 0.02
 
+#: spin kernels (``torch.cuda._sleep``: ATen's ``spin_kernel``) that
+#: every profiler window (``_profiled``) runs before the profiled work,
+#: and that ``_kernel_events`` counts and leaves out. The profiler loses
+#: the first device records of a window, about one more every 16 s of the
+#: process's life in ``--profiler-probe`` (a process that does nothing
+#: else): a count, not a time, since a longer spin or a host pad of
+#: 0.1 s before the work kept nothing more. Late in a smoke a window
+#: lost a ResNet-50 step's first 3-17 records, the stem's B7 and B8
+#: among them. The spins take those losses; a short spin is enough
+PROFILE_WARMUP_SPINS = 128
+PROFILE_WARMUP_CYCLES = 1000
+SPIN_KERNEL = "spin_kernel"
+
 #: ``_device_ms``'s tally over the run: profiler windows read, windows
 #: refused (no device time, or a count of kernel calls that is not a
 #: whole number a call: events dropped), and readings that fell back to
 #: ``_held_ms`` after ``DEVICE_MS_WINDOWS`` refused windows; the first
 #: 20 refused windows' counts, with the kernels whose calls were not a
-#: whole number a call
+#: whole number a call; and the most leading spins any window lost
+#: (``_kernel_events``)
 PROFILER_TALLY = {"windows": 0, "refused": 0, "held_event_readings": 0,
-                  "refusals": []}
+                  "refusals": [], "spins_lost_max": 0}
 DEVICE_MS_WINDOWS = 3
 
 
@@ -242,12 +293,16 @@ DEVICE_MS_WINDOWS = 3
 def _profiled(*activities):
     """A ``torch.profiler`` window (CUDA activity unless ``activities``
     are given) over the block, open ``PROFILER_PAD_S`` before it and
-    after the card has finished its work."""
+    after the card has finished its work; ``PROFILE_WARMUP_SPINS`` spin
+    kernels run, and finish, between the first pad and the block."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=list(activities)
                  or [ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_PAD_S)
+        for _ in range(PROFILE_WARMUP_SPINS):
+            torch.cuda._sleep(PROFILE_WARMUP_CYCLES)
+        torch.cuda.synchronize()
         yield prof
         torch.cuda.synchronize()
         time.sleep(PROFILER_PAD_S)
@@ -3624,6 +3679,597 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: GPT-2 medium with fully-sharded parameters (FSDP / ZeRO-3) and
+# the backward-interleaved overlap scheduler
+# ---------------------------------------------------------------------------
+
+FSDP_STEPS = 3
+#: steps timed after the checked ones (world 1), for the median step time
+FSDP_TIMED_STEPS = 5
+FSDP_RANKS = 4
+#: the FSDP knobs of each mode (ops/overlap.fsdp_staged_value_and_grad)
+FSDP_MODES = (
+    ("regather", dict(regather=True, prefetch=1, offload=False)),
+    ("saved", dict(regather=False, prefetch=1, offload=False)),
+    ("prefetch0", dict(regather=True, prefetch=0, offload=False)),
+    ("prefetch2", dict(regather=True, prefetch=2, offload=False)),
+    ("offload", dict(regather=True, prefetch=1, offload=True)))
+FSDP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "layernorm_fwd", "layernorm_bwd", "pack_rows",
+                "quant_ef_rows", "accum_rows")
+#: ``torch.cuda._sleep`` cycles put on the side stream before each
+#: exchange in the stream-ordering checks: ~20 ms at the H100's boost
+#: clock, more than a block's forward at 2 x 1024
+FSDP_DELAY_CYCLES = 40_000_000
+
+
+def _fsdp_launches(cfg, buckets, regather, steps, ranks=1, int8=False):
+    """Each kernel's launches over ``steps`` steps of ``ranks`` ranks, from
+    the stage plan (embed, one stage a block, head): a block stage's
+    forward runs B1 once and B4 twice, twice under regather (the forward
+    without grad, then the recompute), its backward B2, B3 once and B5
+    twice; the head B4 and B5 once. Each bucket is packed (B6) once a
+    rank; the int8 wire with error feedback quantizes it with the
+    residual (B12) and sums the ranks' codes (B13) once."""
+    L = cfg.num_layers
+    fwd = 2 if regather else 1
+    per = {"flash_fwd": fwd * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+           "layernorm_fwd": fwd * 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+           "pack_rows": buckets, "quant_ef_rows": buckets if int8 else 0,
+           "accum_rows": buckets if int8 else 0}
+    return {k: v * steps * ranks for k, v in per.items()}
+
+
+def _launch_check(counts, want, what):
+    from horovod_tpu_torch.ops import _build
+
+    for name in _build.LAUNCHES:
+        _require(counts.get(name, 0) == want.get(name, 0),
+                 f"{what}: kernel {name} launched {counts.get(name, 0)} "
+                 f"times, not {want.get(name, 0)}")
+
+
+def _first_difference(got, want):
+    """``None`` when the named tensors are bitwise equal, else the names
+    that differ, the worst by relative L2 first, with its largest
+    difference and relative L2."""
+    worst, names = None, []
+    for name, w in want.items():
+        g = got[name]
+        if not _bitwise(g, w):
+            d = (g.float() - w.float())
+            rel = (d.norm() / w.float().norm().clamp_min(1e-30)).item()
+            names.append(name)
+            if worst is None or rel > worst["rel_l2"]:
+                worst = {"param": name, "max_abs": d.abs().max().item(),
+                         "rel_l2": rel}
+    return None if worst is None else {**worst, "differ": names}
+
+
+def _set_fsdp_knobs(knobs, regather, prefetch, offload):
+    knobs.fsdp_regather, knobs.fsdp_prefetch = regather, prefetch
+    knobs.fsdp_offload = offload
+
+
+def fsdp_world_one(in_process_losses, in_process_rate):
+    """(a) GPT-2 medium (batch 8 x 1024, ``--flash --fused-norm``, AdamW,
+    seed 0) through ``make_lm_train_step`` with a FullyShardedOptimizer
+    at world 1 over NCCL, 3 steps in each mode, against the
+    DistributedOptimizer step on the same seed, weights and batch:
+    phase 4's losses and the parameters after 3 steps, bitwise. Launch
+    counts zeroed just before each mode and read just after, exact from
+    the stage plan. Returns the readings and the summed launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    hvd.init()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    flash = make_flash_attention_fn(causal=True)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    model, step = hvd.make_lm_train_step(cfg, factory, attention_fn=flash)
+    ref_losses = [float(step(tokens)) for _ in range(FSDP_STEPS)]
+    ref = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, step
+    torch.cuda.empty_cache()
+    _require(ref_losses == in_process_losses[:FSDP_STEPS],
+             f"the DistributedOptimizer step's losses {ref_losses} are not "
+             f"phase 4's {in_process_losses[:FSDP_STEPS]}")
+    knobs = global_state().knobs
+    total, modes = {}, {}
+    for name, kw in FSDP_MODES:
+        _set_fsdp_knobs(knobs, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        _, fstep = hvd.make_lm_train_step(
+            cfg, hvd.FullyShardedOptimizer(factory), attention_fn=flash)
+        losses = [float(fstep(tokens)) for _ in range(FSDP_STEPS)]
+        counts = dict(_build.LAUNCHES)
+        layout, vag = fstep.layout, fstep.vag
+        want = _fsdp_launches(cfg, len(layout.plans), kw["regather"],
+                              FSDP_STEPS)
+        _launch_check(counts, want, f"FSDP world 1, {name}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        parts = _first_difference(fstep.state_dict(), ref)
+        _require(parts is None and losses == ref_losses,
+                 f"FSDP world 1, {name}: not bitwise the "
+                 f"DistributedOptimizer step: {parts}, losses {losses} vs "
+                 f"{ref_losses}")
+        if name in ("regather", "saved"):
+            profile_train_step(fstep, tokens, what="one FSDP step at "
+                               f"world 1 ({name}), batch 8x1024")
+        secs = []
+        for _ in range(FSDP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fstep(tokens)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        step_s = float(np.median(secs))
+        modes[name] = {
+            "losses": losses, "bitwise_losses": True,
+            "bitwise_params": True,
+            "step_ms": step_s * 1e3, "step_ms_all": [x * 1e3 for x in secs],
+            "tokens_per_s": 8 * 1024 / step_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "param_bytes": vag.param_bytes,
+            "peak_param_bytes": vag.peak_param_bytes,
+            "regather_bytes": vag.regather_bytes,
+            "offload_bytes": vag.offload_bytes,
+            "launches_per_step": {k: counts[k] / FSDP_STEPS
+                                  for k in FSDP_KERNELS}}
+        _require((vag.offload_bytes > 0) == kw["offload"],
+                 f"FSDP world 1, {name}: offloaded {vag.offload_bytes} B")
+        del fstep, vag
+        torch.cuda.empty_cache()
+    _set_fsdp_knobs(knobs, True, 1, False)
+    hvd.shutdown()
+    return {"ref_losses": ref_losses,
+            "phase4_tokens_per_s": in_process_rate,
+            "buckets": len(layout.plans), "modes": modes}, total
+
+
+def _emulated_fsdp(cfg, init_named, batches, wire, mode, steps,
+                   side=None, snapshot=False, pack_check=False):
+    """FSDP on GPT-2 medium in a world of ``FSDP_RANKS`` emulated on the
+    card (``EmulatedWorld``: each rank keeps only its rows; a gather is
+    the concatenation of the ranks' rows, issued on a side stream with
+    events; the reduce-scatter ``zero.emulated_scatter_buckets``, with the
+    residuals on the int8 wire), each rank's loss its own mean.
+    ``mode`` is ``"upfront"`` (the gathered reference) or one of
+    ``FSDP_MODES``. Returns the losses, the final shards and residuals
+    (and step 1's with ``snapshot``), the figures of one rank's last
+    step, and the launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops import _build, overlap, ring_pack
+    from horovod_tpu_torch.optim import fsdp, zero
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    n = FSDP_RANKS
+    comp = hvd.Compression.int8 if wire is not None else \
+        hvd.Compression.none
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    opts = [fsdp.FullyShardedOptimizer(factory, init_named,
+                                       compression=comp, world=n, rank=r)
+            for r in range(n)]
+    with torch.device("meta"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(True))
+
+    def stages_fn(tok):
+        return overlap.transformer_lm_stages(
+            model, tok, lambda lg: causal_lm_loss(lg, tok)[0])
+
+    kw = {} if mode == "upfront" else dict(FSDP_MODES)[mode]
+    vag = fsdp.fsdp_value_and_grad(
+        stages_fn, opts[0], opts[0].layout,
+        mode="upfront" if mode == "upfront" else "prefetch", **kw)
+    world = overlap.EmulatedWorld(n, wire)
+    packs = []
+    orig = ring_pack.maybe_pack_rows
+    if pack_check:
+        def checked(bucket, k):
+            rows = orig(bucket, k)
+            packs.append(_bitwise(rows, zero._pad_rows(bucket, k)))
+            return rows
+        ring_pack.maybe_pack_rows = checked
+    losses, snap = [], None
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    try:
+        for t in range(steps):
+            world.shards = [o.shards for o in opts]
+            outs = [vag(o.shards, batches[r], opt_state=o.opt_state,
+                        exchange=world.rank(r),
+                        side=side(r) if side else None)
+                    for r, o in enumerate(opts)]
+            world.resolve()
+            for o, (_, g) in zip(opts, outs):
+                o.step(g)
+                o.zero_grad()
+            losses.append([loss.item() for loss, _ in outs])
+            ring_pack.maybe_pack_rows = orig
+            if snapshot and t == 0:
+                snap = _fsdp_state(opts)
+            del outs
+    finally:
+        ring_pack.maybe_pack_rows = orig
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    out = {"losses": losses, "final": _fsdp_state(opts), "step1": snap,
+           "launches": counts, "packs_bitwise": packs,
+           "layout": opts[0].layout,
+           "state_bytes": [o.shard_state_bytes() for o in opts]}
+    if mode != "upfront":
+        out.update(peak_param_bytes=vag.peak_param_bytes,
+                   param_bytes=vag.param_bytes,
+                   offload_bytes=vag.offload_bytes,
+                   regather_bytes=vag.regather_bytes,
+                   issue_log=vag.issue_log, gather_log=vag.gather_log)
+    del opts, vag, world
+    torch.cuda.empty_cache()
+    return out
+
+
+def _faulty_side(drop=None):
+    """A side stream with the faults of phase 4f (c): each exchange
+    behind a spin of ``FSDP_DELAY_CYCLES`` on the side stream, each
+    gather's output filled with NaN on the compute stream before it is
+    issued, and the compute stream's wait on ``drop`` (``(kind,
+    bucket)``) left out."""
+    from horovod_tpu_torch.ops import overlap
+
+    class FaultySide(overlap.SideStream):
+        def issue(self, start):
+            def delayed():
+                torch.cuda._sleep(FSDP_DELAY_CYCLES)
+                return start()
+            return super().issue(delayed)
+
+        def consume(self, pending, kind, bucket):
+            if (kind, bucket) != drop or pending.event is None:
+                return super().consume(pending, kind, bucket)
+            out = pending.finish()
+            for t in overlap._tensors(out):
+                t.record_stream(torch.cuda.current_stream())
+            return out
+
+        def empty(self, n, dtype):
+            return super().empty(n, dtype).fill_(float("nan"))
+
+    return FaultySide("cuda")
+
+
+def _fsdp_state(opts):
+    return {"shards": [[s.detach().clone() for s in o.shards] for o in opts],
+            "res": [[r.clone() for r in o.residuals] if o.residuals else []
+                    for o in opts]}
+
+
+def _same_state(a, b):
+    return all(_bitwise(x, y)
+               for key in ("shards", "res")
+               for xs, ys in zip(a[key], b[key]) for x, y in zip(xs, ys))
+
+
+def _zero1_emulated(cfg, init_state, layout, batches, steps):
+    """ZeRO-1 on the same world and buckets (``layout``'s plan;
+    ``zero_world``'s stage functions): each rank's replica and monolithic
+    backward, the pack (B6), the emulated reduce-scatter, ``RankShards``
+    and a concatenation for the all-gather. Returns the losses and each
+    rank's shards."""
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.optim import zero
+
+    n = FSDP_RANKS
+    with torch.device("cuda"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(True))
+    model.load_state_dict(init_state)
+    named = dict(model.named_parameters())
+    plans = [list(p) for p in layout.plans]
+    params = [named[name] for name in layout.names]
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    ranks = [zero.RankShards(factory, params, plans, n, r)
+             for r in range(n)]
+    losses = []
+    for _ in range(steps):
+        rows, step_losses = [], []
+        for r in range(n):
+            model.zero_grad(set_to_none=True)
+            loss, _ = causal_lm_loss(model(batches[r]), batches[r])
+            loss.backward()
+            step_losses.append(loss.item())
+            grads = [p.grad for p in params]
+            rows.append([zero.stage_pack(grads, plan, n) for plan in plans])
+        losses.append(step_losses)
+        shards = [zero.emulated_scatter_buckets(
+            [rows[r][b] for r in range(n)], n, None)
+            for b in range(len(plans))]
+        del rows
+        for r in range(n):
+            ranks[r].step([shards[b][r] for b in range(len(plans))])
+        zero.stage_write(params, plans, [
+            torch.cat([ranks[r].tensors[b] for r in range(n)])
+            for b in range(len(plans))])
+    out = {"losses": losses,
+           "shards": [[t.clone() for t in rk.tensors] for rk in ranks]}
+    del model, ranks
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_profile(cfg, init_named, batches, wire):
+    """Device ms of B6, B12 and B13 a rank in a regather step on the int8
+    wire: B6 in rank 0's backward; B12 and B13, which the emulation runs
+    for every rank when it resolves the step's reduce-scatters, over that
+    resolve divided by the ranks. Read from the first pair of windows
+    that held every launch; "not measured" when none of
+    ``DEVICE_MS_WINDOWS`` did."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops import overlap
+    from horovod_tpu_torch.optim import fsdp
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    n = FSDP_RANKS
+    opts = [fsdp.FullyShardedOptimizer(
+        functools.partial(torch.optim.AdamW, lr=1e-4), init_named,
+        compression=hvd.Compression.int8, world=n, rank=r)
+        for r in range(n)]
+    with torch.device("meta"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(True))
+    vag = fsdp.fsdp_value_and_grad(
+        lambda tok: overlap.transformer_lm_stages(
+            model, tok, lambda lg: causal_lm_loss(lg, tok)[0]),
+        opts[0], opts[0].layout)
+    world = overlap.EmulatedWorld(n, wire)
+    world.shards = [o.shards for o in opts]
+
+    def rank(r):
+        return vag(opts[r].shards, batches[r], opt_state=opts[r].opt_state,
+                   exchange=world.rank(r))
+
+    for r in range(n):  # warm-up
+        rank(r)
+    world.resolve()
+    torch.cuda.synchronize()
+    names = (("pack_tiles_kernel", "B6 pack_rows"),
+             ("pack_elem_kernel", "B6 pack_rows"),
+             ("quantize_kernel<true>", "B12 quant_ef_rows"),
+             ("accum_kernel", "B13 accum_rows"))
+    by, calls = {}, {}
+
+    def tally(prof, share):
+        for e in _kernel_events(prof):
+            name = next((v for k, v in names if k in e.key), None)
+            if name:
+                by[name] = by.get(name, 0.0) + _dev_us(e) / 1e3 / share
+                calls[name] = calls.get(name, 0) + e.count / share
+
+    whole = len(opts[0].layout.plans)
+    for _ in range(DEVICE_MS_WINDOWS):  # a window that dropped events
+        by.clear()
+        calls.clear()
+        with _profiled() as prof:
+            rank(0)
+            torch.cuda.synchronize()
+        tally(prof, 1)
+        for r in range(1, n):
+            rank(r)
+        torch.cuda.synchronize()
+        with _profiled() as prof:
+            world.resolve()
+            torch.cuda.synchronize()
+        tally(prof, n)
+        if all(calls.get(k) == whole for _, k in names):
+            break
+    else:  # no window held every launch: its sums are no reading
+        by = {k: "not measured" for k in by}
+    del opts, vag, world
+    torch.cuda.empty_cache()
+    return {"device_ms_a_rank": by, "launches_a_rank": calls}
+
+
+def _expected_issue_log(cfg, names, plans):
+    """Each bucket at the backward step where its last gradient arrives
+    (``fusion.bucket_issue_schedule`` over embed, the blocks, the tied
+    head)."""
+    from horovod_tpu_torch.ops.fusion import bucket_issue_schedule
+
+    keys = [("tok_emb", "pos_emb")] + [
+        (f"block_{i}",) for i in range(cfg.num_layers)] + [
+        ("ln_final", "tok_emb")]
+    leaf_stages = [[s for s, ks in enumerate(keys) if n.split(".")[0] in ks]
+                   for n in names]
+    sched = bucket_issue_schedule(plans, leaf_stages,
+                                  list(reversed(range(len(keys)))))
+    return [(step, b) for step, bs in enumerate(sched) for b in bs]
+
+
+def train_fsdp(seed, ledger, in_process_losses, in_process_rate):
+    """Phase 4f. (a) :func:`fsdp_world_one`; (b) FSDP in a world of four
+    emulated on the card, GPT-2 medium at 2 x 1024 a rank, 3 steps on
+    the float32 wire and on the int8 wire with error feedback (block
+    256), every mode bitwise against the gathered reference
+    (``fsdp_value_and_grad(mode="upfront")``): losses, shards and
+    residuals; the float32 wire bitwise against ZeRO-1 on the same world
+    (:func:`_zero1_emulated`); each B6 launch of a step bitwise against
+    ``_pad_rows``; each bucket issued at its scheduled boundary; exact
+    launch counts. (c) the stream ordering (:func:`_faulty_side`): a
+    delay on the side stream before every exchange (gathers poisoned
+    with NaN first) leaves (b)'s results bitwise, and dropping the
+    compute stream's wait on one gather's event, or on the last rank's
+    last reduce-scatter, must break them. (e) readings. The replicated
+    optimizers keep their hook-driven step under the overlap knob, so
+    they have no staged path to hold here (``tests/test_torch_overlap.py``
+    holds their issue boundaries on gloo worlds)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM, Transformer
+    from horovod_tpu_torch.ops import overlap
+    from horovod_tpu_torch.optim.compression import WireSpec
+
+    torch.cuda.empty_cache()
+    world_one, counts = fsdp_world_one(in_process_losses, in_process_rate)
+    print(json.dumps({"phase": "train_fsdp (a) world 1",
+                      "model": "GPT-2 medium 24x1024, 16 heads, batch "
+                               "8x1024, --flash --fused-norm", **world_one}))
+
+    hvd.init()
+    n = FSDP_RANKS
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    with torch.device("cuda"):
+        init_model = Transformer(cfg)
+    init_model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    init_state = {k: v.detach().clone()
+                  for k, v in init_model.state_dict().items()}
+    init_named = [(k, v) for k, v in init_state.items()]
+    del init_model
+    batches = [torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 2, 1024, r, n)).cuda() for r in range(n)]
+    int8 = WireSpec("int8", 256, True)
+
+    # (b) every mode against the gathered reference, on both wires; on
+    # the float32 wire the reference against ZeRO-1 on the same world
+    runs, zero_bitwise = {}, None
+    for wire_name, wire in (("float32", None), ("int8 ef", int8)):
+        ref = _emulated_fsdp(cfg, init_named, batches, wire, "upfront",
+                             FSDP_STEPS)
+        runs[(wire_name, "upfront")] = ref
+        if wire is None:
+            zero1 = _zero1_emulated(cfg, init_state, ref["layout"],
+                                    batches, FSDP_STEPS)
+            zero_bitwise = (zero1["losses"] == ref["losses"] and all(
+                _bitwise(x, y) for xs, ys in zip(zero1["shards"],
+                                                 ref["final"]["shards"])
+                for x, y in zip(xs, ys)))
+            del zero1
+            _require(zero_bitwise, "FSDP on the float32 wire is not "
+                                   "bitwise ZeRO-1 on the same world")
+        for mode, kw in FSDP_MODES:
+            got = _emulated_fsdp(
+                cfg, init_named, batches, wire, mode, FSDP_STEPS,
+                snapshot=mode == "regather",
+                pack_check=(mode == "regather" and wire is None))
+            _require(got["losses"] == ref["losses"]
+                     and _same_state(got["final"], ref["final"]),
+                     f"FSDP world {n}, {wire_name}, {mode}: not bitwise "
+                     "the gathered reference")
+            layout = got["layout"]
+            want = _fsdp_launches(cfg, len(layout.plans), kw["regather"],
+                                  FSDP_STEPS, ranks=n,
+                                  int8=wire is not None)
+            _launch_check(got["launches"], want,
+                          f"FSDP world {n}, {wire_name}, {mode}")
+            _require(got["issue_log"] == _expected_issue_log(
+                cfg, layout.names, [list(p) for p in layout.plans]),
+                f"FSDP world {n}, {mode}: issue log {got['issue_log']}")
+            if mode == "regather":
+                for k, v in got["launches"].items():
+                    counts[k] = counts.get(k, 0) + v
+            del got["final"]
+            runs[(wire_name, mode)] = got
+        del ref["final"]
+    checked = runs[("float32", "regather")]["packs_bitwise"]
+    _require(len(checked) == n * len(layout.plans) and all(checked),
+             f"B6 on the FSDP path: {checked.count(True)} of "
+             f"{len(checked)} packs bitwise _pad_rows")
+    for (wire_name, mode), got in runs.items():
+        for r, b in enumerate(got["state_bytes"]):
+            full = got["layout"].param_bytes * 2
+            _require(abs(b / full - 1 / n) < 1e-3,
+                     f"rank {r}'s AdamW state {b} B is not 1/{n} of {full}")
+
+    # (c) the stream ordering of the gathers and the reduce-scatters
+    plain = runs[("float32", "regather")]
+    drop = layout.bucket_of[layout.names.index("block_0.attn.query.kernel")]
+    last = plain["issue_log"][-1][1]
+
+    def delayed(drop=None, rank=None):
+        """Each rank's side stream, delayed; the wait on ``drop`` left
+        out on ``rank``'s (every rank's when None)."""
+        return lambda r: _faulty_side(drop if rank in (None, r) else None)
+
+    slow = _emulated_fsdp(cfg, init_named, batches, None, "regather", 1,
+                          side=delayed())
+    broken = _emulated_fsdp(cfg, init_named, batches, None, "regather", 1,
+                            side=delayed(("gather", drop)))
+    slow_ok = (slow["losses"] == plain["losses"][:1]
+               and _same_state(slow["final"], plain["step1"]))
+    broken_ok = (broken["losses"] == plain["losses"][:1]
+                 and _same_state(broken["final"], plain["step1"]))
+    _require(slow_ok, "FSDP with a delayed side stream is not bitwise")
+    _require(not broken_ok, "FSDP without the wait on bucket "
+                            f"{drop}'s gather still read bitwise")
+    # the last rank's last reduce-scatter: no later wait covers it, and
+    # the exchanges are resolved right after that rank's backward. The
+    # fault runs first, on a batch no run drew before, so no block the
+    # allocator hands its pack can hold the right rows already
+    fresh = [torch.from_numpy(np.random.RandomState(seed + 1 + r).randint(
+        0, cfg.vocab_size, (2, 1024))).cuda() for r in range(n)]
+    broken_s = _emulated_fsdp(cfg, init_named, fresh, None, "regather", 1,
+                              side=delayed(("scatter", last), n - 1))
+    one = _emulated_fsdp(cfg, init_named, fresh, None, "regather", 1)
+    scatter_ok = (broken_s["losses"] == one["losses"]
+                  and _same_state(broken_s["final"], one["final"]))
+    _require(not scatter_ok, "FSDP without the wait on the last rank's "
+                             f"reduce-scatter of bucket {last} still read "
+                             "bitwise")
+    del slow, broken, broken_s, one
+
+    # (e) readings
+    prof = _fsdp_profile(cfg, init_named, batches, int8)
+    ledger["train_fsdp"] = counts
+    print(json.dumps({
+        "phase": "train_fsdp (b), (c), (e) world 4 emulated",
+        "model": "GPT-2 medium 24x1024, 16 heads", "batch": "4 x 2x1024",
+        "buckets": len(layout.plans), "bucket_bytes": [
+            L * 4 for L in layout.lens],
+        "shard_bytes": layout.shard_bytes,
+        "max_bucket_bytes": layout.max_bucket_bytes,
+        "modes": {f"{w} {m}": {
+            "losses": got["losses"][-1],
+            "peak_param_bytes_a_rank": got.get("peak_param_bytes"),
+            "bound_shard_plus_prefetch_x_largest": (
+                layout.shard_bytes + dict(FSDP_MODES)[m]["prefetch"]
+                * layout.max_bucket_bytes) if m != "upfront" else None,
+            "offload_bytes_a_rank": got.get("offload_bytes"),
+            "regather_bytes_a_rank": got.get("regather_bytes")}
+            for (w, m), got in runs.items()},
+        "bitwise_vs_gathered_reference": True,
+        "bitwise_vs_zero1_float32": zero_bitwise,
+        "b6_packs_bitwise": len(checked),
+        "stream_checks": {"delayed_gathers_bitwise": slow_ok,
+                          "dropped_gather_wait_bitwise": broken_ok,
+                          "dropped_bucket": drop,
+                          "dropped_last_scatter_wait_bitwise": scatter_ok,
+                          "dropped_scatter_bucket": last},
+        "one_rank_int8_step": prof,
+        "launches": counts}))
+    del runs, init_state, init_named, batches
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -4491,6 +5137,75 @@ def profiles(seed):
     print(json.dumps({"profiler_windows": PROFILER_TALLY}))
 
 
+#: ``--profiler-probe``: the kernels each window launches back to back,
+#: and the spin (``torch.cuda._sleep`` cycles, ~2 ms) that every other
+#: window launches first
+PROBE_KERNELS = 16
+PROBE_SPIN_CYCLES = 4_000_000
+
+
+def profiler_probe(windows, cadence_s=10.0):
+    """``--profiler-probe N``: what ``torch.profiler`` windows keep as
+    the process ages. Every ``cadence_s`` (the card idle in between), a
+    window (CPU and CUDA activity) in which ``PROBE_KERNELS`` small
+    kernels are launched back to back as soon as it opens; every other
+    window launches one spin kernel of ~2 ms first. Printed
+    per window: its index, whether it spun, the process's age, the
+    small kernels launched and kept, the launch positions of those
+    lost, whether the spin was kept, the median lag of a kept kernel's
+    device start after its ``cudaLaunchKernel`` call (by correlation
+    id, us), and the card's clock against the host's since the first
+    window (CUDA-event ms against ``perf_counter`` ms, parts per
+    million)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1024, device="cuda")
+    x.add_(1)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    e0.synchronize()
+    t0 = time.perf_counter()
+    for w in range(windows):
+        spin = w % 2 == 1
+        age = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if spin:
+                torch.cuda._sleep(PROBE_SPIN_CYCLES)
+            for _ in range(PROBE_KERNELS):
+                x.add_(1)
+            torch.cuda.synchronize()
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        e1.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.profiler.kineto_results.events()
+        kernels = {e.correlation_id(): (e.start_ns(), e.name())
+                   for e in events if e.device_type() == DeviceType.CUDA}
+        launches = sorted((e.start_ns(), e.correlation_id())
+                          for e in events
+                          if e.device_type() == DeviceType.CPU
+                          and e.name().startswith("cudaLaunchKernel"))
+        spin_kept = None
+        if spin:
+            spin_kept = launches[0][1] in kernels
+            launches = launches[1:]
+        lags = sorted((kernels[c][0] - t) / 1e3 for t, c in launches
+                      if c in kernels)
+        print(json.dumps({
+            "profiler_probe_window": w, "spin": spin, "age_s": age,
+            "launched": len(launches),
+            "kept": sum(c in kernels for _, c in launches),
+            "lost_positions": [i for i, (_, c) in enumerate(launches)
+                               if c not in kernels],
+            "spin_kept": spin_kept,
+            "lag_us_median": lags[len(lags) // 2] if lags else None,
+            "card_vs_host_ppm": (e0.elapsed_time(e1) - host_ms) / host_ms
+            * 1e6}), flush=True)
+        time.sleep(max(0.0, cadence_s - (time.perf_counter() - t0 - age)))
+
+
 # ---------------------------------------------------------------------------
 
 def _mangled_args(s, i):
@@ -4698,6 +5413,12 @@ def main(argv=None) -> int:
                          "training step time, the training-step, "
                          "decode-step (bf16 and int8 cache) and ResNet-50 "
                          "step profiles, to compare two trees in one call")
+    ap.add_argument("--profiler-probe", type=int, default=0,
+                    metavar="N",
+                    help="only open N profiler windows, one every 10 s, "
+                         "and print what each kept of the kernels launched "
+                         "as it opened, with and without a spin kernel "
+                         "first (profiler_probe)")
     args = ap.parse_args(argv)
 
     # phase 1
@@ -4722,6 +5443,9 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
+    if args.profiler_probe:
+        profiler_probe(args.profiler_probe)
+        return 0
 
     # phase 2
     from horovod_tpu_torch.ops import _build
@@ -4765,6 +5489,7 @@ def main(argv=None) -> int:
     train_zero(args.seed, ledger)
     train_gpt2_fused_ce(args.seed, ledger)
     launch_gpt2(ledger, in_process_rate, in_process_losses)
+    train_fsdp(args.seed, ledger, in_process_losses, in_process_rate)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

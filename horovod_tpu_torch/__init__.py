@@ -19,6 +19,9 @@ NVIDIA Hopper GPUs:
   masked-LM pretraining with Adam's state sharded over the ranks by
   the ZeRO-1 :func:`ShardedOptimizer`
   (``python -m horovod_tpu_torch.examples.bert_pretraining --zero``);
+  the parameters too by the ZeRO-3 :func:`FullyShardedOptimizer`
+  (``make_lm_train_step``'s FSDP step); each bucket's exchange issued
+  inside the backward (``HOROVOD_OVERLAP_SCHEDULE``, ``ops/overlap.py``);
   and ResNet-50/101/152 with the fused BatchNorm kernels (``fused_bn=True``)
   and per-rank BatchNorm statistics, or :class:`SyncBatchNorm`'s
   world-wide ones, and Inception V3 and VGG-16
@@ -91,6 +94,7 @@ from .optim.compression import Compression
 from .optim.distributed import DistributedOptimizer
 from .optim.functions import (broadcast_object, broadcast_optimizer_state,
                               broadcast_parameters)
+from .optim.fsdp import FullyShardedOptimizer
 from .optim.zero import ShardedOptimizer, reshard_state
 from .parallel.train import make_lm_train_step
 from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
@@ -116,7 +120,8 @@ __all__ = [
     "grouped_reducescatter_async", "maybe_pack_rows", "pack_rows_fused",
     "matmul_reduce_scatter",
     # training
-    "DistributedOptimizer", "ShardedOptimizer", "reshard_state",
+    "DistributedOptimizer", "ShardedOptimizer", "FullyShardedOptimizer",
+    "reshard_state",
     "Compression", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "make_lm_train_step",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",

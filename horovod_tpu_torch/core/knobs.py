@@ -78,6 +78,36 @@ class Knobs:
     # for it yet, so the int8 wire refuses it rather than running flat
     hierarchical_allreduce: bool = False
 
+    # --- backward-interleaved collective scheduler (ops/overlap.py) ---
+    # "off" (default), "stage" or "double", as in the JAX package.
+    # The port's replicated optimizers train through the hook-driven
+    # step in every mode: with the backward-ordered plan
+    # (bucket_backward_order) their hooks already issue each fusion
+    # bucket at the first backward boundary where all of its gradients
+    # exist, and consume every bucket after the backward. Spellings:
+    # ops/overlap.normalize_mode.
+    overlap_schedule: str = "off"
+
+    # --- fully-sharded parameters (optim/fsdp.py) ---
+    # routing gate: on, make_lm_train_step trains a FullyShardedOptimizer
+    # through the FSDP step; off, such a step raises (other optimizers
+    # never read it)
+    fsdp: bool = True
+    # forward all-gather look-ahead in stages (0: each gather at the
+    # stage that first needs its bucket)
+    fsdp_prefetch: int = 1
+    # on: the forward keeps only the stage-boundary activations and the
+    # backward gathers each bucket again and recomputes its stages; off:
+    # the gathered buckets live from forward to backward. The same bits
+    # either way
+    fsdp_regather: bool = True
+    # regather mode: park the stage-boundary activations in pinned host
+    # memory until the backward, each fetched one stage ahead
+    fsdp_offload: bool = False
+    # the share of the eligible activations offloaded, earliest stages
+    # first
+    fsdp_offload_duty: float = 1.0
+
     # --- inference serving ---
     serving_queue_limit: int = 256
     serving_request_timeout_seconds: float = 30.0
@@ -121,6 +151,12 @@ class Knobs:
             fused_collectives=_env_bool("FUSED_COLLECTIVES", False),
             hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE",
                                              False),
+            overlap_schedule=_env("OVERLAP_SCHEDULE", "") or "off",
+            fsdp=_env_bool("FSDP", True),
+            fsdp_prefetch=_env_int("FSDP_PREFETCH", 1),
+            fsdp_regather=_env_bool("FSDP_REGATHER", True),
+            fsdp_offload=_env_bool("FSDP_OFFLOAD", False),
+            fsdp_offload_duty=_env_float("FSDP_OFFLOAD_DUTY", 1.0),
             serving_queue_limit=_env_int("SERVING_QUEUE_LIMIT", 256),
             serving_request_timeout_seconds=_env_float(
                 "SERVING_REQUEST_TIMEOUT", 30.0),

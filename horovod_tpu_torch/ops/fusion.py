@@ -128,6 +128,81 @@ def pytree_bucket_plan(leaves: Sequence[Tuple[Path, Sequence[int],
     return plans
 
 
+def plan_bucket_lengths(plans: Sequence[BucketPlan]) -> List[int]:
+    """Element count of each bucket of a plan: the widths the ZeRO and
+    FSDP shards and the staged scheduler derive from."""
+    return [sum(size for (_, _, size, _) in plan) for plan in plans]
+
+
+def bucket_issue_schedule(plans: Sequence[BucketPlan],
+                          leaf_stages: Sequence[Sequence[int]],
+                          backward_stage_order: Sequence[int]
+                          ) -> List[List[int]]:
+    """When each bucket can be issued during a segmented backward.
+
+    ``leaf_stages[i]`` lists the stages that contribute gradient to leaf
+    ``i`` (a tied embedding lists two: the head's contribution and the
+    input lookup's); ``backward_stage_order`` is the order the segments'
+    backward runs. Returns one list per backward step: the buckets all
+    of whose leaves have received every contribution by the end of that
+    step, in ascending bucket order. Raises when a bucket never
+    completes (the stages do not cover its leaves)."""
+    remaining = [len(s) for s in leaf_stages]
+    stage_to_leaves: dict = {}
+    for i, sids in enumerate(leaf_stages):
+        for si in sids:
+            stage_to_leaves.setdefault(si, []).append(i)
+    pending = list(range(len(plans)))
+    schedule = []
+    for si in backward_stage_order:
+        for i in stage_to_leaves.get(si, ()):
+            remaining[i] -= 1
+        now = [bi for bi in pending
+               if all(remaining[i] == 0 for (i, _, _, _) in plans[bi])]
+        for bi in now:
+            pending.remove(bi)
+        schedule.append(now)
+    if pending:
+        raise ValueError(
+            f"buckets {pending} never complete under this stage "
+            "decomposition — some of their leaves receive no gradient "
+            "contribution from any stage")
+    return schedule
+
+
+def bucket_prefetch_schedule(plans: Sequence[BucketPlan],
+                             leaf_first_stage: Sequence[int],
+                             n_stages: int) -> List[List[int]]:
+    """When each bucket's parameter all-gather must have completed in a
+    segmented forward: at the first stage that touches any of its leaves
+    (``leaf_first_stage[i]``, the least of leaf i's stages). One list per
+    forward stage. :func:`bucket_issue_schedule` driven over the stages
+    in reverse, read backwards."""
+    rev = bucket_issue_schedule(
+        plans, [[s] for s in leaf_first_stage],
+        list(reversed(range(n_stages))))
+    return list(reversed(rev))
+
+
+def bucket_regather_schedule(plans: Sequence[BucketPlan],
+                             leaf_last_stage: Sequence[int],
+                             n_stages: int) -> List[List[int]]:
+    """When each bucket must be gathered again in a segmented backward
+    that recomputes its stages: at the LAST forward stage touching any of
+    its leaves (``leaf_last_stage[i]``, the greatest of leaf i's stages),
+    the first the reversed traversal reaches. One list per backward step
+    (index 0: the last forward stage's), each bucket exactly once. Every
+    leaf is lifted to its bucket's greatest stage first, since the issue
+    schedule waits for all of a bucket's leaves."""
+    lifted = list(leaf_last_stage)
+    for bp in plans:
+        m = max(leaf_last_stage[i] for (i, _, _, _) in bp)
+        for (i, _, _, _) in bp:
+            lifted[i] = m
+    return bucket_issue_schedule(
+        plans, [[s] for s in lifted], list(reversed(range(n_stages))))
+
+
 def pack_buckets_by_plan(tensors: Sequence[torch.Tensor],
                          plans: Sequence[BucketPlan]) -> List[torch.Tensor]:
     """One flat tensor per bucket: its leaves' values concatenated (a
@@ -145,3 +220,18 @@ def unflatten_buckets_by_plan(buckets: Sequence[torch.Tensor],
         for (i, off, n, shape) in plan:
             leaves[i] = bucket[off:off + n].view(shape)
     return leaves
+
+
+def pack_pytree_by_plan(tensors: Sequence[torch.Tensor],
+                        plans: Sequence[BucketPlan]):
+    """Pack ``tensors`` (the leaves, in plan order) into the buckets of
+    ``plans``, which may come from other tensors of the same layout (the
+    gradients packed by the parameters' plan). Returns ``(buckets,
+    unflatten)``; ``unflatten(reduced)`` gives the leaves back."""
+    nleaves = len(tensors)
+    buckets = pack_buckets_by_plan(tensors, plans)
+
+    def unflatten(reduced):
+        return unflatten_buckets_by_plan(reduced, plans, nleaves)
+
+    return buckets, unflatten

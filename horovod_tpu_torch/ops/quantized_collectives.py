@@ -422,18 +422,24 @@ def emulated_quantized_psum(flats, n: int, block: int, residuals=None):
 
 
 
-def emulated_quantized_reduce_scatter_rows(rows_fs, n: int, block: int):
+def emulated_quantized_reduce_scatter_rows(rows_fs, n: int, block: int,
+                                           residuals=None):
     """:func:`fused_quantized_reduce_scatter_rows` of ``n`` ranks' float32
-    ``(n, k2)`` row stacks (padded to whole blocks) in one process,
-    without residuals: stage 1 per rank (B11), the all-to-all as slicing
-    (rank r receives row r of every rank, in rank order), B13 per rank.
-    Returns each rank's float32 SUM shard ``(k2,)``."""
+    ``(n, k2)`` row stacks (padded to whole blocks) in one process: stage
+    1 per rank (B11, or B12 with that rank's ``(n, k2)`` residual), the
+    all-to-all as slicing (rank r receives row r of every rank, in rank
+    order), B13 per rank. Returns each rank's float32 SUM shard
+    ``(k2,)``, and with ``residuals`` ``(sums, new_residuals)``."""
     k2 = rows_fs[0].shape[1]
     cs = k2 // block
-    outs = [stage_quantize(r.reshape(-1), None, n, block) for r in rows_fs]
+    res = residuals or [None] * n
+    outs = [stage_quantize(r.reshape(-1), e, n, block)
+            for r, e in zip(rows_fs, res)]
     sums = []
     for r in range(n):
         qg = torch.cat([q[r * k2:(r + 1) * k2] for q, _, _ in outs])
         sg = torch.cat([s[r * cs:(r + 1) * cs] for _, s, _ in outs])
         sums.append(accum_rows(qg.reshape(n, k2), sg.reshape(n, cs), block))
-    return sums
+    if residuals is None:
+        return sums
+    return sums, [e.reshape(n, k2) for _, _, e in outs]

@@ -40,7 +40,8 @@ for element.
 
 In a world of one rank the inner optimizer steps on the full
 parameters and nothing is packed or exchanged. ``params_sharded=True``
-(ZeRO-3, FSDP) and ``backward_passes_per_step`` are not offered.
+is ZeRO-3 (``optim/fsdp.py``); ``backward_passes_per_step`` is not
+offered.
 
 One card cannot hold an NCCL world of several ranks:
 :func:`emulated_scatter_buckets` composes the same per-rank pieces with
@@ -59,7 +60,8 @@ from ..core.basics import _require_init
 from ..ops import ring_pack
 from ..ops.collectives import (ReduceOp, _all_gather_tiled,
                                _reduce_scatter_tiled)
-from ..ops.fusion import BucketPlan, pack_buckets_by_plan
+from ..ops.fusion import (BucketPlan, pack_buckets_by_plan,
+                          plan_bucket_lengths)
 from .compression import (Compression, compressor_wire_spec,
                           quantized_reduce_scatter_rows, wire_applies)
 from .distributed import _DistributedOptimizer
@@ -125,12 +127,13 @@ def _scatter_bucket(rows: torch.Tensor, n: int, wire,
 
 
 def emulated_scatter_buckets(rows_by_rank: Sequence[torch.Tensor], n: int,
-                             wire) -> List[torch.Tensor]:
+                             wire, residuals=None):
     """:func:`_scatter_bucket` of ``n`` ranks' ``(n, k)`` rows in one
     process: the SUM of row r over the ranks in rank order (the int8
     wire: the same quantize and dequantize-accumulate stages with the
     all-to-all as slicing), divided by n. Returns each rank's averaged
-    shard."""
+    shard; with ``residuals`` (each rank's ``(n, k2)`` error-feedback
+    residual, the int8 wire only) ``(shards, new_residuals)``."""
     rows0 = rows_by_rank[0]
     dtype = rows0.dtype
     if _int8(wire, dtype):
@@ -140,9 +143,15 @@ def emulated_scatter_buckets(rows_by_rank: Sequence[torch.Tensor], n: int,
         k2 = -(-k // wire.block) * wire.block
         rows_f = [torch.nn.functional.pad(r.to(torch.float32), (0, k2 - k))
                   for r in rows_by_rank]
-        sums = qc.emulated_quantized_reduce_scatter_rows(
-            [r.contiguous() for r in rows_f], n, wire.block)
-        return [(s[:k] / n).to(dtype) for s in sums]
+        out = qc.emulated_quantized_reduce_scatter_rows(
+            [r.contiguous() for r in rows_f], n, wire.block, residuals)
+        sums = out if residuals is None else out[0]
+        shards = [(s[:k] / n).to(dtype) for s in sums]
+        return shards if residuals is None else (shards, out[1])
+    if residuals is not None:
+        raise ValueError(
+            "error-feedback residual passed for a non-int8 wire — only "
+            "the quantized exchange produces an error to feed back")
     x = [r.to(wire.wire_dtype) if wire_applies(wire, dtype) else r
          for r in rows_by_rank]
     out = []
@@ -162,10 +171,6 @@ def stage_pack(grads: Sequence[Optional[torch.Tensor]], plan: BucketPlan,
     in plan order), as ``(n, k)`` ring rows (B6 on the card)."""
     bucket, = pack_buckets_by_plan(grads, [plan])
     return ring_pack.maybe_pack_rows(bucket, n)
-
-
-def bucket_lengths(plans: Sequence[BucketPlan]) -> List[int]:
-    return [sum(size for (_, _, size, _) in plan) for plan in plans]
 
 
 def state_bytes(optimizer: torch.optim.Optimizer) -> int:
@@ -197,7 +202,7 @@ class RankShards:
                  plans: Sequence[BucketPlan], n: int, rank: int):
         self.params, self.plans, self.n, self.rank = (list(params), plans,
                                                       n, rank)
-        self.lens = bucket_lengths(plans)
+        self.lens = plan_bucket_lengths(plans)
         self.ks = [-(-L // n) for L in self.lens]
         self.tensors = []
         for plan, k in zip(plans, self.ks):
@@ -321,7 +326,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
         return state_bytes(self._opt)
 
 
-def ShardedOptimizer(optimizer: Callable, named_parameters,
+def ShardedOptimizer(optimizer: Callable, named_parameters=None,
                      compression=None,
                      fusion_threshold_bytes: Optional[int] = None,
                      bucket_backward_order: Optional[bool] = None,
@@ -336,13 +341,33 @@ def ShardedOptimizer(optimizer: Callable, named_parameters,
     ``HOROVOD_COMPRESSION`` knob selects; the int8 wire runs without
     error feedback. Call ``step()`` after each backward;
     ``bucket_plan`` and ``shard_state_bytes()`` show the layout and the
-    state's size on this rank. ``params_sharded=True`` (ZeRO-3) raises:
-    FSDP is not ported yet."""
+    state's size on this rank.
+
+    ``params_sharded=True`` escalates to ZeRO-3: it returns
+    ``optim.fsdp.FullyShardedOptimizer`` over the same arguments (the two
+    spellings are the same optimizer). Without ``named_parameters`` the
+    result is an ``UnboundOptimizer`` that ``make_lm_train_step`` binds
+    to the model it builds."""
     if params_sharded:
-        raise NotImplementedError(
-            "params_sharded=True (ZeRO-3, optim/fsdp.py "
-            "FullyShardedOptimizer) is not ported yet: ROADMAP item 9's "
-            "FSDP remainder")
+        from .fsdp import FullyShardedOptimizer
+
+        return FullyShardedOptimizer(
+            optimizer, named_parameters, compression=compression,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_backward_order=bucket_backward_order)
+    if named_parameters is None:
+        import functools
+
+        from .fsdp import UnboundOptimizer
+
+        comp = Compression.from_knobs() if compression is None \
+            else compression
+        return UnboundOptimizer(
+            functools.partial(
+                _ShardedOptimizer, optimizer, compression=comp,
+                fusion_threshold_bytes=fusion_threshold_bytes,
+                bucket_backward_order=bucket_backward_order),
+            dict(kind="zero"))
     return _ShardedOptimizer(
         optimizer, named_parameters, compression=compression,
         fusion_threshold_bytes=fusion_threshold_bytes,

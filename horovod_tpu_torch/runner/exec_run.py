@@ -177,6 +177,9 @@ def launch_slots(
 
     failure = threading.Event()
     codes: List[Optional[int]] = [None] * len(assignments)
+    # set when a slot's thread is done with its process: after it reaped
+    # it, or gave up on it
+    done = [threading.Event() for _ in assignments]
 
     def run_slot(i: int, slot: SlotInfo):
         wenv = slot_env(slot, env, coordinator)
@@ -191,6 +194,7 @@ def launch_slots(
         finally:
             if codes[i] != 0:
                 failure.set()
+            done[i].set()
 
     threads = [
         threading.Thread(target=run_slot, args=(i, s), daemon=True)
@@ -204,10 +208,14 @@ def launch_slots(
     except BaseException:
         # interrupted (SIGINT, or SIGTERM through launch.main): each
         # slot runs in a session of its own, so stop every slot's
-        # process tree before leaving — no orphan holds a card
+        # process tree before leaving — no orphan holds a card. Wait on
+        # the slots' own events, not Thread.join: a join that the signal
+        # interrupted has marked its (live) thread stopped, so a second
+        # join returns at once. Each slot's termination is bounded (its
+        # watcher escalates to SIGKILL after GRACEFUL_TERMINATION_TIME_S)
         failure.set()
-        for t in threads:
-            t.join(timeout=safe_shell_exec.GRACEFUL_TERMINATION_TIME_S + 5)
+        for ev in done:
+            ev.wait()
         raise
     return [c if c is not None else 1 for c in codes]
 

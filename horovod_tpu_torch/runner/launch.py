@@ -10,9 +10,9 @@ worker's ``--device cpu``), bootstrapped by rank 0's TCP store
 
 A flag whose feature the port does not have yet — elastic training
 and the control-plane retry it brings, the sharded control plane,
-autotune, timeline/profiler/flight recorder, FSDP and the overlap
-schedule, hierarchical collectives, the mesh, the negotiation
-runtime's cycle, stall and cache knobs — is refused
+autotune, timeline/profiler/flight recorder, hierarchical
+collectives, the mesh, the negotiation runtime's cycle, stall and cache
+knobs — is refused
 when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -37,7 +37,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
-    5: "FSDP and the overlap scheduler",
     7: "hierarchical (two-level) collectives",
     8: "elastic training, preemption and recovery",
     9: "the eager negotiation runtime",
@@ -66,9 +65,6 @@ UNPORTED = {
         "timeline_filename", "timeline_mark_cycles", "prof_every",
         "prof_dir", "prof_duty_cycle", "flight_recorder", "flight_dir"),
         13),
-    **dict.fromkeys((
-        "overlap_schedule", "fsdp", "fsdp_prefetch", "fsdp_regather",
-        "fsdp_offload", "fsdp_offload_duty"), 5),
     **dict.fromkeys((
         "hierarchical_allreduce", "hierarchical_allgather",
         "hierarchical_local_size"), 7),

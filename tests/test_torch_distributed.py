@@ -146,7 +146,7 @@ def test_entry_points_need_a_card_or_the_cpu():
     model, step = hvd.make_lm_train_step(cfg, adamw)
     loss = step(torch.randint(0, 61, (2, 16)))
     assert np.isfinite(float(loss))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="entry 11, item 14"):
         hvd.make_lm_train_step(cfg, adamw, mesh="dp=1,tp=1")
     with pytest.raises(NotImplementedError, match="item 14"):
         hvd.make_lm_train_step(cfg, adamw, sequence_parallel="ring")

@@ -115,9 +115,14 @@ def test_sigterm_to_the_launcher_stops_every_worker(tmp_path):
     launcher must still stop them, and the launcher exits 143."""
     import signal
 
+    # the pid goes to a temporary name first and is renamed into place,
+    # so a file that exists holds the whole pid
     code = ("import os, time\n"
-            f"open(os.path.join({str(tmp_path)!r}, os.environ["
-            "'HOROVOD_RANK']), 'w').write(str(os.getpid()))\n"
+            f"path = os.path.join({str(tmp_path)!r}, os.environ["
+            "'HOROVOD_RANK'])\n"
+            "with open(path + '.tmp', 'w') as f:\n"
+            "    f.write(str(os.getpid()))\n"
+            "os.replace(path + '.tmp', path)\n"
             "time.sleep(60)\n")
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
@@ -125,10 +130,14 @@ def test_sigterm_to_the_launcher_stops_every_worker(tmp_path):
         cwd=REPO, env=_env(), stdout=subprocess.DEVNULL,
         stderr=subprocess.DEVNULL)
     try:
+        files = [tmp_path / r for r in ("0", "1")]
         deadline = time.monotonic() + 60
-        while len(os.listdir(tmp_path)) < 2 and time.monotonic() < deadline:
+        while not all(f.exists() and f.stat().st_size for f in files):
+            if time.monotonic() > deadline:
+                pytest.fail("the workers did not write their pids in 60 s")
             time.sleep(0.1)
-        pids = [int((tmp_path / r).read_text() or 0) for r in ("0", "1")]
+        pids = [int(f.read_text()) for f in files]
+        assert all(pid > 0 for pid in pids), pids
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 143
     finally:

@@ -747,6 +747,41 @@ def test_slot_env_matches_jax_but_for_the_listed_keys():
     assert base == {"PATH": "/bin", "HOROVOD_NICS": "eth0", "X": "y"}
 
 
+# ------------------------------------- FSDP and the overlap schedule
+
+_ENTRY5 = [a for a in _FLAGS if a.dest in (
+    "overlap_schedule", "fsdp", "fsdp_prefetch", "fsdp_regather",
+    "fsdp_offload", "fsdp_offload_duty")]
+
+
+@pytest.mark.parametrize("action", _ENTRY5,
+                         ids=[a.option_strings[-1] for a in _ENTRY5])
+def test_fsdp_and_overlap_flags_reach_the_workers_knobs(action,
+                                                        monkeypatch):
+    """FSDP's and the overlap schedule's flags are accepted, exported
+    into the slot env as the JAX launcher exports them, and read by the
+    worker's knobs as the JAX package reads them."""
+    from horovod_tpu.core.knobs import Knobs as JKnobs
+    from horovod_tpu_torch.core.knobs import Knobs
+
+    argv = _flag_argv(action) + ["python", "train.py"]
+    mine, theirs = launch.parse_args(argv), jax_launch.parse_args(argv)
+    assert launch.unported_flags(mine, argv) == []
+    env = config_parser.env_from_args(mine, {})
+    assert env == jax_config_parser.env_from_args(theirs, {})
+    assert len(env) == 1
+    slot = SlotInfo("localhost", 0, 0, 0, 1, 1, 1)
+    wenv = slot_env(slot, env, "localhost:4261")
+    var, value = next(iter(env.items()))
+    assert wenv[var] == value
+    for k in list(os.environ):
+        if k.startswith(("HOROVOD_", "HVD_TPU_")):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv(var, value)
+    assert getattr(Knobs.from_env(), action.dest) == \
+        getattr(JKnobs.from_env(), action.dest)
+
+
 # ------------------------------------------------------ unported flags
 
 _REFUSED = [a for a in _FLAGS if a.dest in launch.UNPORTED]

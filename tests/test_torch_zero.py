@@ -30,7 +30,8 @@ version) against the JAX package.
   all-gather), fed the world's packed rows, are bitwise equal to the
   world of two at every step, on the float32 and the int8 wire;
 * a world of one steps the bare inner optimizer; ``params_sharded``
-  raises; ``reshard_state`` mirrors the JAX package's.
+  routes to the FullyShardedOptimizer; ``reshard_state`` mirrors the JAX
+  package's.
 """
 
 import dataclasses
@@ -297,11 +298,20 @@ def test_world_of_one_is_the_inner_optimizer():
 
 
 def test_params_sharded_and_wrong_residual_raise():
+    """``params_sharded=True`` routes to ZeRO-3 (optim/fsdp.py): the
+    FullyShardedOptimizer, holding this rank's rows of the parameters;
+    a residual on a wire without one raises."""
+    from horovod_tpu_torch.optim import fsdp
+
     hvd.init(device="cpu")
     lin = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        hvd.ShardedOptimizer(torch.optim.AdamW, lin.named_parameters(),
-                             params_sharded=True)
+    opt = hvd.ShardedOptimizer(torch.optim.AdamW, lin.named_parameters(),
+                               params_sharded=True)
+    assert isinstance(opt, fsdp._FullyShardedOptimizer)
+    assert opt._hvd_overlap_info["kind"] == "fsdp"
+    assert [s.numel() for s in opt.shards] == [6]
+    with pytest.raises(ValueError, match="staged gradient shards"):
+        opt.step()
     with pytest.raises(ValueError, match="non-int8 wire"):
         zero._scatter_bucket(torch.zeros(1, 4), 1, None,
                              residual=torch.zeros(1, 4))
