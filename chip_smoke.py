@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
                                              # ResNet profiles
     python3 chip_smoke.py --profiler-probe 32   # what profiler windows
                                                 # keep as the process ages
+    python3 chip_smoke.py --adasum-sweep 8   # phase 4g's limit's readings
 
 Phases, in order; the first failure exits non-zero:
 
@@ -130,6 +131,25 @@ Phases, in order; the first failure exits non-zero:
    reduce-scatter, must lose them; (e) a rank's peak parameter bytes
    beside shard + prefetch x the largest bucket, offloaded bytes,
    B6/B12/B13 device ms of one rank's int8 step;
+4g. train GPT-2 medium under Adasum (``op=Adasum``, ``ops/adasum.py``):
+   (a) the Adasum example's ``main`` (``examples/adasum_gpt2.py``, the
+   JAX example's flags at 24 x 1024, vocab 50257, seq 1024, batch 8,
+   ``--flash``) at world 1 over NCCL, ``ADASUM_STEPS`` steps: a falling
+   loss, B1-B3 exactly 24 a step by the launch counts and by kernel name
+   in a profiled step, and the parameters bitwise those of the same
+   steps under a plain ``torch.optim.Adam`` (Adasum at world 1 is the
+   identity), step ms and tokens/s; (b) a world of four emulated on the
+   card, 2 x 1024 a rank, each rank its own model and Adam, 3 steps:
+   every bucket of the optimizer's plan through ``emulated_adasum``, the
+   ranks' reduced buckets and parameters bitwise equal, each bucket
+   within ``ADASUM_REL_TOL`` of a float64 Adasum tree on every rank and
+   step and each of ``ADASUM_FAULTS`` beyond it, the anchors (adasum(a,
+   a) = a, disjoint supports sum) bitwise at the plan's bucket sizes,
+   the combine's device ms a rank a step beside its bytes bound; (c)
+   process sets, alltoall (equal and split), grouped allgather, masked
+   allreduce, join, allgather_object and a sparse allreduce of an
+   ``nn.Embedding(50257, 1024, sparse=True)`` gradient over NCCL at
+   world 1;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -159,7 +179,8 @@ Phases, in order; the first failure exits non-zero:
    must run B17 on the decode route, and the same decode-step profile;
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
-   step), 4f (the FSDP runs, not their references), 5 and 5b and the
+   step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 5
+   and 5b and the
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
@@ -4270,6 +4291,473 @@ def train_fsdp(seed, ledger, in_process_losses, in_process_rate):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: GPT-2 medium under Adasum (op=Adasum), process sets and the rest
+# of the collectives
+# ---------------------------------------------------------------------------
+
+#: the JAX example's flags at GPT-2 medium's full width and depth
+ADASUM_STEPS = 4
+ADASUM_ARGS = ["--layers", "24", "--hidden", "1024", "--vocab", "50257",
+               "--seq-len", "1024", "--batch-size", "8", "--flash",
+               "--steps", str(ADASUM_STEPS)]
+ADASUM_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+ADASUM_RANKS = 4
+ADASUM_WORLD_STEPS = 3
+#: relative L2 limit, per bucket and rank, of the emulated world's
+#: Adasum-reduced bucket against a float64 Adasum tree of the same four
+#: float32 gradients. It sits between the worst healthy reading over 8
+#: seeds (2.17e-7) and the least reading of any injected fault over them
+#: (the dot in bf16, 4.04e-5; ``--adasum-sweep 8`` on an NVIDIA H100
+#: 80GB HBM3, 700 W; PERF.md), a factor of about 13 from each
+ADASUM_REL_TOL = 3e-6
+#: the faults the limit must catch: the last level skipped, partner
+#: ``(r + d) % n`` in place of ``r ^ d``, the 1/2 dropped from the
+#: coefficient, the dot taken in bf16
+ADASUM_FAULTS = ("skip_level", "partner_plus", "no_half", "bf16_dot")
+
+
+def _adasum_coefficient(dot, norm, half=0.5):
+    one = torch.ones((), dtype=dot.dtype, device=dot.device)
+    return torch.where(norm > 0, 1.0 - half * dot / torch.where(
+        norm > 0, norm, one), one)
+
+
+def _faulty_adasum(parts, fault):
+    """The emulated world's Adasum with ``fault`` (``ADASUM_FAULTS``)."""
+    from horovod_tpu_torch.ops.adasum import adasum_combine, adasum_distances
+
+    def combine(a, b):
+        if fault not in ("no_half", "bf16_dot"):
+            return adasum_combine(a, b)
+        af, bf = a.float(), b.float()
+        dot = ((a.bfloat16() * b.bfloat16()).sum().float()
+               if fault == "bf16_dot" else (af * bf).sum())
+        half = 1.0 if fault == "no_half" else 0.5
+        return (_adasum_coefficient(dot, (af * af).sum(), half) * af
+                + _adasum_coefficient(dot, (bf * bf).sum(), half) * bf)
+
+    n = len(parts)
+    levels = adasum_distances(n)
+    if fault == "skip_level":
+        levels = levels[:-1]
+    for d in levels:
+        partner = ((lambda r: (r + d) % n) if fault == "partner_plus"
+                   else (lambda r: r ^ d))
+        parts = [combine(parts[r], parts[partner(r)]) for r in range(n)]
+    return parts
+
+
+def _adasum_tree64(parts):
+    """The Adasum of ``parts`` in float64: the recursive-doubling tree,
+    which every rank's partner order gives (the combine is symmetric)."""
+    parts = [p.double() for p in parts]
+    while len(parts) > 1:
+        nxt = []
+        for a, b in zip(parts[0::2], parts[1::2]):
+            dot = (a * b).sum()
+            nxt.append(_adasum_coefficient(dot, (a * a).sum()) * a
+                       + _adasum_coefficient(dot, (b * b).sum()) * b)
+        parts = nxt
+    return parts[0]
+
+
+def _bucket_rel(got, want64):
+    return ((got.double() - want64).norm()
+            / want64.norm().clamp_min(1e-300)).item()
+
+
+def adasum_world(seed, weights_seed=0, steps=ADASUM_WORLD_STEPS,
+                 enforce=True):
+    """GPT-2 medium (24 x 1024, vocab 50257; weights from
+    ``weights_seed``) trained ``steps`` Adam steps under Adasum in a
+    world of four emulated on the card: the example's global batch of
+    8 x 1024 (its bigram language, seed ``seed``) split into four rank
+    shards of 2 x 1024; each rank its own model and Adam, its gradients
+    from the kernel path (flash attention) packed into the optimizer's
+    bucket plan; every bucket through ``emulated_adasum`` (the port's
+    combine, indexing as the exchange, levels d = 1, 2). Reads each
+    bucket's relative L2 against the float64 tree (``ADASUM_REL_TOL``)
+    on every rank and step, and, on step 1's gradients, each fault's.
+    With ``enforce``: the ranks' reduced buckets bitwise equal, every
+    reading within the limit and every fault's beyond it, the anchors
+    at the plan's bucket sizes (adasum(a, a) = a, disjoint supports
+    sum, bitwise), the four ranks' parameters bitwise equal after every
+    step, B1-B3 launched 24 a step a rank, a falling loss. Returns the
+    readings."""
+    from horovod_tpu_torch.examples.adasum_gpt2 import bigram_tokens
+    from horovod_tpu_torch.models.transformer import (GPT2_MEDIUM,
+                                                      Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.adasum import (adasum_combine,
+                                              emulated_adasum)
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.ops.fusion import (pack_buckets_by_plan,
+                                              unflatten_buckets_by_plan)
+
+    n = ADASUM_RANKS
+    cfg = GPT2_MEDIUM
+    models = []
+    for r in range(n):
+        with torch.device("cuda"):
+            models.append(Transformer(
+                cfg, attention_fn=make_flash_attention_fn(True)))
+        if r == 0:
+            models[0].init_params(torch.Generator(device="cuda").manual_seed(
+                weights_seed))
+        else:
+            models[r].load_state_dict(models[0].state_dict())
+    params = []
+    for m in models:  # the same plan, each rank's parameters in its order
+        plans, ps = _model_plan(cfg, m)
+        params.append(ps)
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3) for m in models]
+    rows = bigram_tokens(cfg.vocab_size, 2 * n, 1024, seed)
+    tokens = [torch.from_numpy(rows[2 * r:2 * r + 2]).cuda()
+              for r in range(n)]
+    losses, rel, faults, launches = [], [], {}, []
+    anchors = None
+    for step in range(steps):
+        _build.reset_launches()
+        step_losses, grads = [], []
+        for r in range(n):
+            loss, _ = causal_lm_loss(models[r](tokens[r]), tokens[r])
+            loss.backward()
+            step_losses.append(loss.item())
+            grads.append(pack_buckets_by_plan(
+                [p.grad for p in params[r]], plans))
+            models[r].zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        launches.append({k: _build.LAUNCHES[k] for k in ADASUM_KERNELS})
+        losses.append(float(np.mean(step_losses)))
+        outs, step_rel = [], []
+        for b in range(len(plans)):
+            parts = [grads[r][b] for r in range(n)]
+            red = emulated_adasum(parts)
+            tree = _adasum_tree64(parts)
+            step_rel.append(max(_bucket_rel(x, tree) for x in red))
+            if enforce:
+                for r in range(1, n):
+                    _require(_bitwise(red[r], red[0]),
+                             f"adasum step {step} bucket {b}: rank {r}'s "
+                             "reduced bucket differs from rank 0's")
+            if step == 0:
+                for name in ADASUM_FAULTS:
+                    faults.setdefault(name, []).append(max(
+                        _bucket_rel(x, tree)
+                        for x in _faulty_adasum(parts, name)))
+            outs.append(red)
+            del tree
+        rel.append(step_rel)
+        if step == 0:
+            anchors = _adasum_anchors(grads, adasum_combine, enforce)
+        for r in range(n):
+            leaves = unflatten_buckets_by_plan([o[r] for o in outs], plans,
+                                               len(params[r]))
+            for p, leaf in zip(params[r], leaves):
+                p.grad = leaf.view_as(p)
+            opts[r].step()
+            opts[r].zero_grad(set_to_none=True)
+        del outs, grads
+        if enforce:
+            ref = models[0].state_dict()
+            for r in range(1, n):
+                diff = _first_difference(models[r].state_dict(), ref)
+                _require(diff is None,
+                         f"adasum step {step}: rank {r}'s parameters differ "
+                         f"from rank 0's: {diff}")
+    timing = _adasum_combine_timing(models, params, plans, tokens)
+    del models, opts
+    torch.cuda.empty_cache()
+    out = {"seed": seed, "weights_seed": weights_seed,
+           "buckets": len(plans), "bucket_elements": _bucket_sizes(plans),
+           "losses": losses, "rel_l2_max_by_step": [max(r) for r in rel],
+           "rel_l2_max": max(max(r) for r in rel),
+           "rel_l2_by_bucket_last_step": rel[-1],
+           "fault_rel_l2_min_over_buckets_max": {
+               k: max(v) for k, v in faults.items()},
+           "fault_rel_l2_by_bucket": faults,
+           "launches_by_step": launches, "anchors": anchors, **timing}
+    if enforce:
+        for step, counts in enumerate(launches):
+            for k, c in counts.items():
+                _require(c == STEP_LAUNCHES[k] * n,
+                         f"adasum step {step}: {k} launched {c} times, not "
+                         f"{STEP_LAUNCHES[k]} a rank x {n}")
+        _require(all(np.isfinite(losses)) and min(losses[1:]) < losses[0],
+                 f"adasum training loss did not fall: {losses}")
+        _require(out["rel_l2_max"] <= ADASUM_REL_TOL,
+                 f"adasum reduced bucket {out['rel_l2_max']:.3e} from the "
+                 f"float64 tree (relative L2) > {ADASUM_REL_TOL}")
+        for name, reading in out["fault_rel_l2_min_over_buckets_max"].items():
+            _require(reading > ADASUM_REL_TOL,
+                     f"adasum fault {name} reads {reading:.3e} (relative "
+                     f"L2, worst bucket) <= {ADASUM_REL_TOL}: the limit "
+                     "does not catch it")
+    return out
+
+
+def _adasum_anchors(grads, combine, enforce):
+    """At each bucket of the plan (rank 0's and rank 1's step-1
+    gradients): adasum(a, a) = a, and a on one half with b on the other
+    (disjoint supports) sums, bitwise."""
+    same = disjoint = 0
+    for b in range(len(grads[0])):
+        a, c = grads[0][b], grads[1][b]
+        same += _bitwise(combine(a, a), a)
+        half = a.numel() // 2
+        lo = torch.cat([a[:half], torch.zeros_like(a[half:])])
+        hi = torch.cat([torch.zeros_like(c[:half]), c[half:]])
+        disjoint += _bitwise(combine(lo, hi), lo + hi)
+    nb = len(grads[0])
+    if enforce:
+        _require(same == nb, f"adasum(a, a) != a bitwise on {nb - same} of "
+                             f"{nb} buckets")
+        _require(disjoint == nb, "adasum of disjoint supports is not their "
+                                 f"sum bitwise on {nb - disjoint} of {nb} "
+                                 "buckets")
+    return {"buckets": nb, "same_is_identity": same,
+            "disjoint_is_sum": disjoint}
+
+
+def _adasum_combine_timing(models, params, plans, tokens):
+    """Device ms of one rank's combines a step at world 4 (two levels
+    over every bucket of the plan, on one step's gradients of two ranks)
+    beside the bytes bound: a level reads both partials and writes one,
+    3 x 4 bytes an element."""
+    from horovod_tpu_torch.models.transformer import causal_lm_loss
+    from horovod_tpu_torch.ops.adasum import adasum_combine, adasum_distances
+    from horovod_tpu_torch.ops.fusion import pack_buckets_by_plan
+
+    grads = []
+    for r in range(2):
+        loss, _ = causal_lm_loss(models[r](tokens[r]), tokens[r])
+        loss.backward()
+        grads.append(pack_buckets_by_plan([p.grad for p in params[r]],
+                                          plans))
+        models[r].zero_grad(set_to_none=True)
+    levels = len(adasum_distances(ADASUM_RANKS))
+
+    def one_rank(i=0):
+        for _ in range(levels):
+            for a, b in zip(grads[0], grads[1]):
+                adasum_combine(a, b)
+
+    ms = _device_ms(one_rank, iters=5)
+    elements = sum(_bucket_sizes(plans))
+    bound, by = _bound(levels * 3 * 4 * elements, levels * 9 * elements,
+                       "f32")
+    return {"combine_device_ms_per_rank_step": ms,
+            "combine_bound_ms": bound, "combine_bound_by": by,
+            "combine_levels": levels, "combine_elements": elements}
+
+
+def adasum_sweep(n_seeds):
+    """The readings behind ``ADASUM_REL_TOL``: the emulated world on
+    seeds 0..n-1 (weights and batch), with the faults read on each; one
+    summary line, nothing enforced."""
+    runs = [adasum_world(s, weights_seed=s, enforce=False)
+            for s in range(n_seeds)]
+    print(json.dumps({"adasum_sweep": {
+        "seeds": n_seeds, "rel_l2_tol": ADASUM_REL_TOL,
+        "rel_l2_max": max(r["rel_l2_max"] for r in runs),
+        "per_seed_by_step": [r["rel_l2_max_by_step"] for r in runs],
+        "fault_min_over_seeds": {
+            k: min(r["fault_rel_l2_min_over_buckets_max"][k] for r in runs)
+            for k in ADASUM_FAULTS},
+        "fault_least_bucket_seed0": {
+            k: min(v) for k, v in runs[0]["fault_rel_l2_by_bucket"].items()},
+        "losses": [r["losses"] for r in runs],
+        "combine_device_ms": [r["combine_device_ms_per_rank_step"]
+                              for r in runs],
+        "combine_bound_ms": runs[0]["combine_bound_ms"]}}))
+
+
+def _raises(exc, fn):
+    """Whether ``fn()`` raises ``exc`` (any other exception propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def adasum_surface():
+    """(c) process sets and the collectives of this slice over NCCL at
+    world 1, each on cuda tensors against its single-rank result; a
+    sparse allreduce of an ``nn.Embedding(50257, 1024, sparse=True)``
+    gradient from one batch's token ids against its dense gradient."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.adasum_gpt2 import bigram_tokens
+
+    hvd.init()
+    _require(hvd.nccl_enabled() and hvd.size() == 1,
+             "phase 4g (c) needs a world of one over NCCL")
+    glob = hvd.global_process_set()
+    _require(_raises(hvd.ProcessSetError, lambda: hvd.add_process_set([0])),
+             "add_process_set([0]) did not raise the duplicate error")
+    _require(hvd.add_or_get_process_set([0]) is glob,
+             "add_or_get_process_set([0]) is not the global set")
+    _require(_raises(hvd.ProcessSetError, lambda: hvd.remove_process_set(0)),
+             "removing the global set did not raise")
+
+    def trained(process_set):
+        torch.manual_seed(1)
+        lin = torch.nn.Linear(64, 32).cuda()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.Adam(lin.parameters(), lr=1e-2),
+            named_parameters=lin.named_parameters(), op=hvd.Adasum,
+            process_set=process_set)
+        x = torch.randn(16, 64, device="cuda")
+        for _ in range(3):
+            lin(x).square().mean().backward()
+            opt.step()
+            opt.zero_grad()
+        return lin.state_dict()
+
+    _require(_first_difference(trained(glob), trained(None)) is None,
+             "DistributedOptimizer(process_set=global) differs from the "
+             "default")
+    x = torch.arange(32, dtype=torch.float32, device="cuda").reshape(8, 4)
+    got = {"alltoall": hvd.alltoall(x)}
+    out, recv = hvd.alltoall(x, splits=[8])
+    got["alltoall_splits"] = out
+    _require(recv.tolist() == [8], f"alltoall received splits {recv}")
+    ga, gb = hvd.grouped_allgather([x, x[:3, :2].to(torch.bfloat16)])
+    got["grouped_allgather"] = ga
+    _require(_bitwise(gb, x[:3, :2].to(torch.bfloat16)),
+             "grouped_allgather's bf16 member")
+    got["masked_allreduce"] = hvd.masked_allreduce(x, True)
+    _require(torch.equal(hvd.masked_allreduce(x, False),
+                         torch.zeros_like(x)), "masked_allreduce(invalid)")
+    _require(hvd.join() == 0, "join() != 0")
+    _require(hvd.allgather_object({"rank": 0}) == [{"rank": 0}],
+             "allgather_object")
+    for name, t in got.items():
+        _require(t.device.type == "cuda" and _bitwise(t, x),
+                 f"{name} at world 1 is not its input on the card")
+    tok = torch.from_numpy(bigram_tokens(50257, 8, 1024)).cuda()
+    sparse = torch.nn.Embedding(50257, 1024, sparse=True).cuda()
+    dense = torch.nn.Embedding(50257, 1024).cuda()
+    dense.load_state_dict(sparse.state_dict())
+    w = torch.randn(1024, device="cuda")
+    for emb in (sparse, dense):
+        (emb(tok) * w).sum().backward()
+    red = hvd.sparse_allreduce(sparse.weight.grad)
+    _require(red.is_sparse and red.device.type == "cuda",
+             "sparse_allreduce did not return a sparse cuda tensor")
+    err = (red.to_dense() - dense.weight.grad).abs().max().item()
+    scale = dense.weight.grad.abs().max().item()
+    _require(err <= 1e-6 * scale,
+             f"sparse allreduce differs from the dense gradient by {err} "
+             f"(max |g| {scale})")
+    rows = int(red.coalesce().indices().shape[1])
+    hvd.shutdown()
+    return {"process_sets": "duplicate, add_or_get, remove 0, optimizer "
+                            "process_set=global bitwise",
+            "collectives": sorted(got) + ["join", "allgather_object"],
+            "sparse": {"rows": rows, "unique_tokens": int(
+                tok.unique().numel()), "max_abs_err": err,
+                "max_abs_grad": scale}}
+
+
+def train_adasum(seed, ledger):
+    """Phase 4g. (a) the Adasum example's ``main`` at GPT-2 medium's full
+    width (``ADASUM_ARGS``), world 1 over NCCL: a falling loss, B1-B3
+    exactly 24 a step (by the launch counts, and by kernel name in a
+    profiled step of the twin below), and the parameters bitwise those
+    of the same steps under a plain ``torch.optim.Adam`` (at world 1
+    Adasum is the identity); (b) :func:`adasum_world`; (c)
+    :func:`adasum_surface`. Launch counts are zeroed just before (a)
+    and (b) and read just after."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import adasum_gpt2
+    from horovod_tpu_torch.models.transformer import causal_lm_loss
+    from horovod_tpu_torch.ops import _build
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _build.reset_launches()
+    first, last = adasum_gpt2.main(ADASUM_ARGS, stats)
+    torch.cuda.synchronize()
+    ledger["train_adasum"] = {k: _build.LAUNCHES[k] for k in ADASUM_KERNELS}
+    losses = stats["losses"]
+    _require(len(losses) == ADASUM_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0],
+             f"Adasum example losses did not fall: {losses}")
+    for k in ADASUM_KERNELS:
+        _require(ledger["train_adasum"][k] == STEP_LAUNCHES[k] * ADASUM_STEPS,
+                 f"Adasum example: {k} launched {ledger['train_adasum'][k]} "
+                 f"times in {ADASUM_STEPS} steps, not {STEP_LAUNCHES[k]} a "
+                 "step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model, tok = stats["model"], stats["tokens"]
+    step_ms, rates = stats["step_ms"], stats["tokens_per_s"]
+    got = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del stats, model
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # the twin: the same steps under a plain torch.optim.Adam
+    with torch.device("cuda"):
+        twin = adasum_gpt2.Transformer(
+            dataclasses.replace(
+                adasum_gpt2.GPT2_SMALL, num_layers=24, hidden_size=1024,
+                num_heads=16, vocab_size=50257, max_seq_len=1024),
+            attention_fn=adasum_gpt2.make_flash_attention_fn(causal=True))
+    twin.init_params(torch.Generator(device="cuda").manual_seed(0))
+    adam = torch.optim.Adam(twin.parameters(), lr=1e-3)
+
+    def twin_step():
+        causal_lm_loss(twin(tok), tok)[0].backward()
+        adam.step()
+        adam.zero_grad(set_to_none=True)
+
+    for _ in range(ADASUM_STEPS - 1):
+        twin_step()
+    with _profiled(ProfilerActivity.CUDA) as prof:
+        twin_step()
+    by_name = {k: sum(e.count for e in _kernel_events(prof)
+                      if k + "_" in e.key) for k in ADASUM_KERNELS}
+    for k, c in by_name.items():
+        _require(c == STEP_LAUNCHES[k],
+                 f"profiled twin step: {c} kernels named {k}*, not "
+                 f"{STEP_LAUNCHES[k]}")
+    diff = _first_difference(got, twin.state_dict())
+    _require(diff is None, "the Adasum example at world 1 is not bitwise "
+                           f"plain Adam's steps: {diff}")
+    del twin, adam, got
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "train_adasum (a) world 1",
+        "model": "GPT-2 medium 24x1024, 16 heads, vocab 50257",
+        "args": ADASUM_ARGS, "batch": "8x1024", "backend": "nccl",
+        "losses": losses, "step_ms": step_ms, "tokens_per_s": rates,
+        "step_ms_median_after_first": float(np.median(step_ms[1:])),
+        "tokens_per_s_median_after_first": float(np.median(rates[1:])),
+        "peak_mem_gb": peak, "bitwise_plain_adam": True,
+        "launches_per_step": {k: ledger["train_adasum"][k] / ADASUM_STEPS
+                              for k in ADASUM_KERNELS},
+        "profiled_step_kernels": by_name}))
+
+    torch.cuda.reset_peak_memory_stats()
+    world = adasum_world(seed)
+    ledger["train_adasum_world"] = {
+        k: sum(s[k] for s in world["launches_by_step"])
+        for k in ADASUM_KERNELS}
+    world["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"phase": "train_adasum (b) world 4 emulated",
+                      "model": "GPT-2 medium 24x1024", "batch": "4 x 2x1024",
+                      "rel_l2_tol": ADASUM_REL_TOL, **world}))
+    print(json.dumps({"phase": "train_adasum (c) surface, world 1 nccl",
+                      **adasum_surface()}))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -5413,6 +5901,10 @@ def main(argv=None) -> int:
                          "training step time, the training-step, "
                          "decode-step (bf16 and int8 cache) and ResNet-50 "
                          "step profiles, to compare two trees in one call")
+    ap.add_argument("--adasum-sweep", type=int, default=0, metavar="N",
+                    help="only build the flash kernels and print phase "
+                         "4g's readings of seeds 0..N-1 and of the "
+                         "injected faults (ADASUM_REL_TOL's evidence)")
     ap.add_argument("--profiler-probe", type=int, default=0,
                     metavar="N",
                     help="only open N profiler windows, one every 10 s, "
@@ -5451,11 +5943,15 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    secs = _build.build(PROFILE_KERNELS if args.profiles else None)
+    secs = _build.build(PROFILE_KERNELS if args.profiles
+                        else ADASUM_KERNELS if args.adasum_sweep else None)
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     if args.profiles:
         profiles(args.seed)
+        return 0
+    if args.adasum_sweep:
+        adasum_sweep(args.adasum_sweep)
         return 0
     print_ptxas(_build, secs)
     print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -5490,6 +5986,7 @@ def main(argv=None) -> int:
     train_gpt2_fused_ce(args.seed, ledger)
     launch_gpt2(ledger, in_process_rate, in_process_losses)
     train_fsdp(args.seed, ledger, in_process_losses, in_process_rate)
+    train_adasum(args.seed, ledger)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

@@ -7,7 +7,10 @@ NVIDIA Hopper GPUs:
 * **training**, data-parallel in the Horovod style: ``init()`` joins the
   launcher's world over ``torch.distributed`` (NCCL), a
   :func:`DistributedOptimizer` averages gradients in fused buckets
-  issued as backward produces them, ``broadcast_parameters`` starts
+  issued as backward produces them (or combines them by Adasum,
+  ``op=Adasum``: ``python -m horovod_tpu_torch.examples.adasum_gpt2``;
+  over every rank or a process set, ``add_process_set``),
+  ``broadcast_parameters`` starts
   every rank from rank 0's weights, and the model runs flash attention
   (:func:`make_flash_attention_fn`) and fused LayerNorm
   (``fused_norm=True``) forward and backward
@@ -65,7 +68,9 @@ from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
 from .core.exceptions import (HorovodInternalError, NotInitializedError,
                               ProcessSetError)
 from .core.knobs import Knobs
-from .core.process_sets import ProcessSet, global_process_set
+from .core.process_sets import (ProcessSet, add_or_get_process_set,
+                                 add_process_set, get_process_set_by_id,
+                                 global_process_set, remove_process_set)
 from .models.convert import (params_from_flax, params_to_flax,
                              resnet_from_flax, resnet_to_flax)
 from .models.resnet import ResNet, ResNet50, ResNet101, ResNet152
@@ -73,16 +78,18 @@ from .models.transformer import (BERT_LARGE, GPT2_MEDIUM, GPT2_SMALL, Bert,
                                  Transformer, TransformerConfig,
                                  causal_lm_loss, mlm_loss)
 from .ops._build import LAUNCHES, reset_launches
+from .ops.adasum import adasum_allreduce, hierarchical_adasum
 from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               Sum, allgather, allgather_async, allreduce,
                               allreduce_, allreduce_async, allreduce_async_,
-                              barrier, broadcast, broadcast_,
-                              broadcast_async, broadcast_async_,
+                              alltoall, alltoall_async, barrier, broadcast,
+                              broadcast_, broadcast_async, broadcast_async_,
+                              grouped_allgather, grouped_allgather_async,
                               grouped_allreduce, grouped_allreduce_async,
                               grouped_reducescatter,
-                              grouped_reducescatter_async, poll,
-                              reducescatter, reducescatter_async,
-                              synchronize)
+                              grouped_reducescatter_async, join,
+                              masked_allreduce, poll, reducescatter,
+                              reducescatter_async, synchronize)
 from .ops.batchnorm import FusedBatchNorm, fused_batch_norm
 from .ops.decode_attention import decode_append_attend
 from .ops.flash_attention import (flash_attention, flash_attention_bhtd,
@@ -90,9 +97,11 @@ from .ops.flash_attention import (flash_attention, flash_attention_bhtd,
 from .ops.layernorm import FusedLayerNorm, fused_layer_norm
 from .ops.ring_pack import (matmul_reduce_scatter, maybe_pack_rows,
                             pack_rows_fused)
+from .ops.sparse import IndexedSlices, sparse_allreduce
 from .optim.compression import Compression
 from .optim.distributed import DistributedOptimizer
-from .optim.functions import (broadcast_object, broadcast_optimizer_state,
+from .optim.functions import (allgather_object, broadcast_object,
+                              broadcast_optimizer_state,
                               broadcast_parameters)
 from .optim.fsdp import FullyShardedOptimizer
 from .optim.zero import ShardedOptimizer, reshard_state
@@ -110,6 +119,8 @@ __all__ = [
     "cuda_enabled", "rocm_built", "ddl_built", "ccl_built", "xla_built",
     "xla_enabled", "HorovodInternalError", "NotInitializedError",
     "ProcessSetError", "Knobs", "ProcessSet", "global_process_set",
+    "add_process_set", "add_or_get_process_set", "remove_process_set",
+    "get_process_set_by_id",
     # collectives
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
@@ -117,13 +128,17 @@ __all__ = [
     "allgather_async", "broadcast", "broadcast_", "broadcast_async",
     "broadcast_async_", "barrier", "poll", "synchronize", "reducescatter",
     "reducescatter_async", "grouped_reducescatter",
-    "grouped_reducescatter_async", "maybe_pack_rows", "pack_rows_fused",
-    "matmul_reduce_scatter",
+    "grouped_reducescatter_async", "alltoall", "alltoall_async",
+    "grouped_allgather", "grouped_allgather_async", "join",
+    "masked_allreduce", "sparse_allreduce", "IndexedSlices",
+    "adasum_allreduce", "hierarchical_adasum", "maybe_pack_rows",
+    "pack_rows_fused", "matmul_reduce_scatter",
     # training
     "DistributedOptimizer", "ShardedOptimizer", "FullyShardedOptimizer",
     "reshard_state",
     "Compression", "broadcast_parameters",
-    "broadcast_optimizer_state", "broadcast_object", "make_lm_train_step",
+    "broadcast_optimizer_state", "broadcast_object", "allgather_object",
+    "make_lm_train_step",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
     "SyncBatchNorm",
     # models

@@ -19,27 +19,34 @@ knobs.
 A process group the caller set up before ``init()`` is adopted as it
 is (its rank and size win over the environment) and left alone at
 ``shutdown()``.
+
+``init(process_sets=[...])`` registers those process sets, in order,
+once the world is up, as ``add_process_set`` would (collective: every
+rank passes the same list).
 """
 
 from __future__ import annotations
 
 import atexit
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from .exceptions import NotInitializedError
 from .knobs import Knobs, _env, _env_int
-from .process_sets import ProcessSet
+from . import process_sets as _ps
 from .state import global_state
 
 
-def init(device: Optional[str] = None) -> None:
+def init(device: Optional[str] = None,
+         process_sets: Optional[Sequence] = None) -> None:
     """Initialize horovod_tpu_torch (a no-op when already initialized).
 
     ``device``: None runs on the card of this process's local rank over
-    NCCL; ``"cpu"`` runs on the CPU over gloo (tests, drive scripts)."""
+    NCCL; ``"cpu"`` runs on the CPU over gloo (tests, drive scripts).
+    ``process_sets``: ``ProcessSet`` objects (or rank lists) to register
+    after the world is up (reference common/basics.py:48-100)."""
     st = global_state()
     with st.lock:
         if st.initialized:
@@ -93,9 +100,10 @@ def init(device: Optional[str] = None) -> None:
         st.rank, st.size = rank, size
         st.local_rank, st.local_size = local_rank, local_size
         st.cross_rank, st.cross_size = cross_rank, cross_size
-        st.global_set = ProcessSet(range(size))
-        st.global_set.process_set_id = 0
+        st.process_set_table = _ps.ProcessSetTable(size)
         st.initialized = True
+    for ps in process_sets or ():
+        _ps.add_process_set(ps)
 
 
 def _check_card(local_rank: int) -> None:
@@ -135,6 +143,8 @@ def shutdown() -> None:
     with st.lock:
         if st.owns_group and dist.is_initialized():
             dist.destroy_process_group()
+        elif dist.is_initialized():
+            _ps.destroy_groups()
         st.reset()
 
 

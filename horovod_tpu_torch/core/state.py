@@ -22,7 +22,8 @@ class GlobalState:
         self.lock = threading.RLock()
         self.initialized: bool = False
         self.knobs: Knobs = Knobs()
-        self.global_set: Optional[Any] = None  # ProcessSet of every rank
+        # ProcessSetTable: the global set (id 0) and the registered ones
+        self.process_set_table: Optional[Any] = None
         # torch.device the collectives and the kernels run on
         self.device: Optional[Any] = None
         self.backend: Optional[str] = None  # "nccl" | "gloo"

@@ -1,35 +1,49 @@
-"""Collectives over the world's process group.
+"""Collectives over the world or a process set.
 
 The counterpart of the JAX package's ``ops/collectives.py``, with the
 names and arguments of its ``horovod_tpu/torch`` surface: ``allreduce``
-(Average/Sum/Min/Max/Product, ``prescale_factor``/``postscale_factor``),
-``grouped_allreduce``, ``allgather`` (the first dimension may differ
-between ranks), ``broadcast``, ``barrier``, and the asynchronous forms,
-which return an integer handle for ``poll`` and ``synchronize``.
+(Average/Sum/Adasum/Min/Max/Product, ``prescale_factor``/
+``postscale_factor``), ``grouped_allreduce``, ``allgather`` and
+``grouped_allgather`` (the first dimension may differ between ranks),
+``broadcast``, ``reducescatter`` and ``grouped_reducescatter`` (Average
+or Sum, dim 0 split evenly), ``alltoall`` (equal chunks, or ``splits``
+with the received splits returned), ``masked_allreduce``, ``barrier``,
+``join``, and the asynchronous forms, which return an integer handle
+for ``poll`` and ``synchronize``.
 
-They run on ``torch.distributed`` (NCCL on the card, gloo on the CPU)
-over every rank; the only process set is the global one. Each returns a
-new tensor and leaves its input alone, except the in-place ``*_``
-forms. ``reducescatter`` and ``grouped_reducescatter`` (Average or Sum,
-dim 0 split evenly over the ranks) and their asynchronous forms are
-here too; ``alltoall``, ``join`` and Adasum are not ported yet (ROADMAP
-item 2). The private tiled exchanges are :func:`_all_to_all_tiled`,
+They run on ``torch.distributed`` (NCCL on the card, gloo on the CPU).
+``process_set`` restricts a collective to a registered set
+(``core/process_sets.py``): it runs on the set's group, Average divides
+by the set's size, and ``broadcast``'s ``root_rank`` is a global rank
+that must be a member. A rank outside the set sends nothing: the
+allreduce family and ``broadcast`` return its input as it is, and the
+shape-changing collectives (``allgather``, ``grouped_allgather``,
+``reducescatter``, ``alltoall``) raise ``ProcessSetError`` there, as the
+reference Horovod refuses a non-member's submission. Each returns a new
+tensor and leaves its input alone, except the in-place ``*_`` forms.
+
+``allreduce`` routes sparse slices (``ops/sparse.py``'s IndexedSlices
+or a sparse COO tensor) to ``sparse_allreduce``, and ``op=Adasum`` to
+``ops/adasum.py``; a collective without sparse semantics refuses sparse
+slices. The private tiled exchanges are :func:`_all_to_all_tiled`,
 :func:`_all_gather_tiled` (the int8 wire) and
-:func:`_reduce_scatter_tiled` (ZeRO).
+:func:`_reduce_scatter_tiled` (ZeRO); they run over the world.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..core.basics import _require_init
-from ..core.exceptions import HorovodInternalError
-from ..core.process_sets import require_global
+from ..core.exceptions import HorovodInternalError, ProcessSetError
+from ..core.process_sets import set_context
 from ..optim.compression import Compression
+from .sparse import is_sparse
 
 
 class ReduceOp(enum.IntEnum):
@@ -66,16 +80,12 @@ def resolve_op(average: Optional[bool], op: Optional[ReduceOp]) -> ReduceOp:
             ReduceOp.SUM
     elif average is not None:
         raise ValueError("specify either average= or op=, not both")
-    op = ReduceOp(op)
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP item 2)")
-    return op
+    return ReduceOp(op)
 
 
 def dist_op(op: ReduceOp):
     """The ``torch.distributed`` op that carries ``op`` (Average is a
-    SUM followed by a division)."""
+    SUM followed by a division; Adasum has none)."""
     return _DIST_OPS[ReduceOp.SUM if op == ReduceOp.AVERAGE else op]
 
 
@@ -92,6 +102,27 @@ def average_(x: torch.Tensor, n: int) -> torch.Tensor:
     if x.is_floating_point():
         return x.div_(n)
     return x.copy_(torch.div(x, n).to(x.dtype))
+
+
+def _member_context(process_set, what: str):
+    """The set's context; a non-member of a shape-changing collective
+    has no defined result and raises."""
+    ctx = set_context(process_set)
+    if not ctx.member:
+        raise ProcessSetError(
+            f"{what}: rank {_require_init().rank} is not a member of "
+            f"{process_set!r}; only its members may call it")
+    return ctx
+
+
+def _reject_sparse(tensor, what: str) -> None:
+    """Collectives without sparse semantics fail loudly: running them
+    over sparse slices would mix indices with values."""
+    if is_sparse(tensor):
+        raise TypeError(
+            f"{what} does not accept IndexedSlices or sparse tensors; "
+            "sparse tensors reduce via allreduce/sparse_allreduce "
+            "(reference tensorflow/__init__.py:56)")
 
 
 def _register(finish: Callable[[], object], *works) -> int:
@@ -129,41 +160,69 @@ def synchronize(handle: int):
 
 def _allreduce_start(tensor, average, compression, op, prescale_factor,
                      postscale_factor, process_set, out=None):
-    """Enqueue one allreduce; returns (work, finish)."""
-    st = _require_init()
-    require_global(process_set)
+    """Enqueue one allreduce; returns (works, finish)."""
     op = resolve_op(average, op)
+    if is_sparse(tensor):
+        if op == ReduceOp.ADASUM:
+            raise ValueError("adasum does not support sparse "
+                             "(IndexedSlices) gradients; use op=Average/Sum")
+        if out is not None:
+            raise TypeError("an in-place allreduce cannot take sparse "
+                            "slices")
+        from .sparse import sparse_allreduce
+
+        res = sparse_allreduce(tensor, op=op, process_set=process_set)
+        return [], lambda: res
+    _require_init()
+    ctx = set_context(process_set)
     compression = compression or Compression.none
     if getattr(compression, "kind", "none") == "int8":
         # summing int8 codes would overflow and mix the ranks' scales
         raise ValueError(
             "allreduce cannot carry the int8 wire: use "
             "optim.compression.quantized_psum or the DistributedOptimizer")
-    wire, ctx = compression.compress(tensor.detach())
+    if op == ReduceOp.ADASUM:
+        # over the world only: a proper subset raises on every rank
+        from .adasum import adasum_allreduce
+
+        wire, wctx = compression.compress(tensor.detach())
+        buf = scale_(wire.clone(), prescale_factor)
+        red = scale_(adasum_allreduce(buf, process_set=process_set),
+                     postscale_factor)
+        res = compression.decompress(red, wctx)
+        if out is not None:
+            res = out.copy_(res)
+        return [], lambda: res
+    if not ctx.member:
+        res = tensor if out is not None else tensor.detach().clone()
+        return [], lambda: res
+    wire, wctx = compression.compress(tensor.detach())
     # a private copy: the input is never written (the wire cast may
     # already have made one)
     buf = wire.clone() if wire.data_ptr() == tensor.data_ptr() else wire
     scale_(buf, prescale_factor)
-    work = dist.all_reduce(buf, op=dist_op(op), async_op=True)
+    work = dist.all_reduce(buf, op=dist_op(op), group=ctx.group,
+                           async_op=True)
 
     def finish():
         work.wait()
         if op == ReduceOp.AVERAGE:
-            average_(buf, st.size)
+            average_(buf, ctx.size)
         scale_(buf, postscale_factor)
-        res = compression.decompress(buf, ctx)
+        res = compression.decompress(buf, wctx)
         if out is None:
             return res
         out.copy_(res)
         return out
 
-    return work, finish
+    return [work], finish
 
 
 def allreduce(tensor, average=None, name=None, compression=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0, process_set=None):
-    """Reduce ``tensor`` over every rank; returns a new tensor. ``name``
-    is accepted for parity and unused."""
+    """Reduce ``tensor`` over the set's ranks; returns a new tensor (the
+    input itself, copied, on a non-member). ``name`` is accepted for
+    parity and unused."""
     del name
     _, finish = _allreduce_start(tensor, average, compression, op,
                                  prescale_factor, postscale_factor,
@@ -175,10 +234,10 @@ def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
                     process_set=None) -> int:
     del name
-    work, finish = _allreduce_start(tensor, average, None, op,
-                                    prescale_factor, postscale_factor,
-                                    process_set)
-    return _register(finish, work)
+    works, finish = _allreduce_start(tensor, average, None, op,
+                                     prescale_factor, postscale_factor,
+                                     process_set)
+    return _register(finish, *works)
 
 
 def allreduce_(tensor, average=None, name=None, op=None, prescale_factor=1.0,
@@ -194,35 +253,63 @@ def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
                      process_set=None) -> int:
     del name
-    work, finish = _allreduce_start(tensor, average, None, op,
-                                    prescale_factor, postscale_factor,
-                                    process_set, out=tensor)
-    return _register(finish, work)
+    works, finish = _allreduce_start(tensor, average, None, op,
+                                     prescale_factor, postscale_factor,
+                                     process_set, out=tensor)
+    return _register(finish, *works)
 
 
-def _grouped_start(tensors, average, op, process_set):
-    """One allreduce per dtype over the tensors' flat concatenation
-    (in order); returns (works, finish)."""
-    st = _require_init()
-    require_global(process_set)
-    op = resolve_op(average, op)
-    tensors = list(tensors)
-    groups = {}
+def _by_dtype(tensors) -> dict:
+    """Index groups per dtype, in submission order within each."""
+    groups: dict = {}
     for i, t in enumerate(tensors):
         groups.setdefault(t.dtype, []).append(i)
+    return groups
+
+
+def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
+                   process_set):
+    """One allreduce per dtype over the dense tensors' flat
+    concatenation (in order; Adasum combines each concatenation as a
+    whole); sparse members reduce one by one through the sparse path.
+    Returns (works, finish)."""
+    op = resolve_op(average, op)
+    tensors = list(tensors)
+    sparse = {i: _allreduce_start(t, None, None, op, 1.0, 1.0,
+                                  process_set)[1]
+              for i, t in enumerate(tensors) if is_sparse(t)}
+    dense = [i for i in range(len(tensors)) if i not in sparse]
+    _require_init()
+    ctx = set_context(process_set)
     pending = []
-    for idxs in groups.values():
+    for idxs in _by_dtype([tensors[i] for i in dense]).values():
+        idxs = [dense[j] for j in idxs]
         flat = torch.cat([tensors[i].detach().reshape(-1) for i in idxs])
+        if not ctx.member:
+            pending.append((idxs, flat, None))
+            continue
+        scale_(flat, prescale_factor)
+        if op == ReduceOp.ADASUM:
+            from .adasum import adasum_allreduce
+
+            flat = scale_(adasum_allreduce(flat, process_set=process_set),
+                          postscale_factor)
+            pending.append((idxs, flat, None))
+            continue
         pending.append((idxs, flat,
                         dist.all_reduce(flat, op=dist_op(op),
-                                        async_op=True)))
+                                        group=ctx.group, async_op=True)))
 
     def finish():
         out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        for i, fin in sparse.items():
+            out[i] = fin()
         for idxs, flat, work in pending:
-            work.wait()
-            if op == ReduceOp.AVERAGE:
-                average_(flat, st.size)
+            if work is not None:
+                work.wait()
+                if op == ReduceOp.AVERAGE:
+                    average_(flat, ctx.size)
+                scale_(flat, postscale_factor)
             off = 0
             for i in idxs:
                 n = tensors[i].numel()
@@ -230,24 +317,39 @@ def _grouped_start(tensors, average, op, process_set):
                 off += n
         return out
 
-    return [w for _, _, w in pending], finish
+    return [w for _, _, w in pending if w is not None], finish
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
-                      name=None, op=None, process_set=None):
+                      name=None, op=None, prescale_factor=1.0,
+                      postscale_factor=1.0, process_set=None):
     """Reduce a list of tensors in one collective per dtype."""
     del name
-    return _grouped_start(tensors, average, op, process_set)[1]()
+    return _grouped_start(tensors, average, op, prescale_factor,
+                          postscale_factor, process_set)[1]()
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
+                            prescale_factor=1.0, postscale_factor=1.0,
                             process_set=None) -> int:
     del name
-    works, finish = _grouped_start(tensors, average, op, process_set)
+    works, finish = _grouped_start(tensors, average, op, prescale_factor,
+                                   postscale_factor, process_set)
     return _register(finish, *works)
 
 
-# -- reducescatter ------------------------------------------------------------
+def masked_allreduce(tensor, valid, process_set=None):
+    """Average over only the ranks where ``valid`` is true, the SPMD
+    form of join: ``Sum(x * valid) / max(Sum(valid), 1)``, the
+    reference's join-with-zero-contribution and recount."""
+    v = torch.as_tensor(valid, device=tensor.device)
+    num = allreduce(tensor * v.to(tensor.dtype), op=Sum,
+                    process_set=process_set)
+    den = allreduce(v.to(torch.float32), op=Sum, process_set=process_set)
+    return (num / den.clamp(min=1.0).to(tensor.dtype)).to(tensor.dtype)
+
+
+# -- reducescatter -----------------------------------------------------------
 
 # torch 2.13 renames reduce_scatter_tensor to reduce_scatter_single and
 # deprecates the old name; torch 2.11 has only the old one. NCCL and
@@ -257,13 +359,14 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
-def _reduce_scatter_tiled(flat: torch.Tensor, n: int):
+def _reduce_scatter_tiled(flat: torch.Tensor, n: int, group=None):
     """Start a SUM reduce-scatter of a flat contiguous tensor over the
-    world's ``n`` ranks: rank r gets the sum over the ranks of chunk r
-    (``numel / n`` elements). Returns ``(output, work)``."""
+    ``n`` ranks of ``group`` (default: the world): rank r gets the sum
+    over the ranks of chunk r (``numel / n`` elements). Returns
+    ``(output, work)``."""
     out = flat.new_empty(flat.numel() // n)
     return out, _reduce_scatter_single(out, flat, op=dist.ReduceOp.SUM,
-                                       async_op=True)
+                                       group=group, async_op=True)
 
 
 def _reducescatter_op(op) -> ReduceOp:
@@ -285,25 +388,24 @@ def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
                          process_set, what):
     """Enqueue one reduce-scatter per dtype over ``tensors``, each split
     into ``n`` chunks along dim 0 and packed rank-major (chunk r of every
-    tensor, in order), so that one collective hands rank r its chunk of
-    each. Returns ``(works, finish)``; ``finish()`` gives this rank's
+    tensor, in order), so that one collective hands set rank r its chunk
+    of each. Returns ``(works, finish)``; ``finish()`` gives this rank's
     chunks in the tensors' order."""
-    st = _require_init()
-    require_global(process_set)
-    op = _reducescatter_op(op)
-    n = st.size
+    _require_init()
     tensors = list(tensors)
     for t in tensors:
+        _reject_sparse(t, what)
+    ctx = _member_context(process_set, what)
+    op = _reducescatter_op(op)
+    n = ctx.size
+    for t in tensors:
         _check_dim0(t, n, what)
-    groups = {}
-    for i, t in enumerate(tensors):
-        groups.setdefault(t.dtype, []).append(i)
     pending = []
-    for idxs in groups.values():
+    for idxs in _by_dtype(tensors).values():
         packed = torch.cat([tensors[i].detach().reshape(n, -1)
                             for i in idxs], dim=1).reshape(-1)
         scale_(packed, prescale_factor)  # a new tensor: inputs stay
-        out, work = _reduce_scatter_tiled(packed, n)
+        out, work = _reduce_scatter_tiled(packed, n, ctx.group)
         pending.append((idxs, out, work))
 
     def finish():
@@ -327,10 +429,10 @@ def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
 
 def reducescatter(tensor, op=None, name=None, prescale_factor=1.0,
                   postscale_factor=1.0, process_set=None):
-    """Reduce ``tensor`` over every rank and scatter dim 0: rank r gets
-    chunk r of ``size()`` equal chunks (dim 0 must divide evenly, as in
-    the JAX package). ``op`` is Average (default) or Sum; returns a new
-    tensor. ``name`` is accepted for parity and unused."""
+    """Reduce ``tensor`` over the set's ranks and scatter dim 0: set
+    rank r gets chunk r of ``n`` equal chunks (dim 0 must divide evenly,
+    as in the JAX package). ``op`` is Average (default) or Sum; returns
+    a new tensor. ``name`` is accepted for parity and unused."""
     del name
     _, finish = _reducescatter_start([tensor], op, prescale_factor,
                                      postscale_factor, process_set,
@@ -395,36 +497,170 @@ def _all_gather_tiled(x: torch.Tensor, n: int):
     return out, _all_gather_single(out, x, async_op=True)
 
 
-# -- allgather / broadcast / barrier ------------------------------------------
+# -- allgather ---------------------------------------------------------------
+
+def _grouped_allgather_start(tensors, process_set, what):
+    """Gather every member's tensors along dim 0 (which may differ
+    between ranks): one small all-gather of the dim-0 sizes, then one
+    all-gather per dtype of each rank's tensors, flattened,
+    concatenated and padded to the longest. Returns (works, finish)."""
+    st = _require_init()
+    for t in tensors:
+        _reject_sparse(t, what)
+    tensors = [t.detach() for t in tensors]
+    for t in tensors:
+        if t.dim() == 0:
+            raise HorovodInternalError(f"{what} needs tensors with a dim 0")
+    ctx = _member_context(process_set, what)
+    n = ctx.size
+    mine = torch.tensor([t.shape[0] for t in tensors], dtype=torch.int64,
+                        device=st.device)
+    rows = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(rows, mine, group=ctx.group)
+    sizes = torch.stack(rows).tolist()  # [rank][tensor] dim 0
+    pending = []
+    for idxs in _by_dtype(tensors).values():
+        row = [math.prod(tensors[i].shape[1:]) for i in idxs]
+        lengths = [sum(sizes[r][i] * w for i, w in zip(idxs, row))
+                   for r in range(n)]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
+        longest = max(lengths)
+        if flat.numel() < longest:
+            flat = torch.cat([flat, flat.new_zeros(longest - flat.numel())])
+        parts = [torch.empty_like(flat) for _ in range(n)]
+        work = dist.all_gather(parts, flat, group=ctx.group, async_op=True)
+        pending.append((idxs, row, parts, work))
+
+    def finish():
+        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        for idxs, row, parts, work in pending:
+            work.wait()
+            pieces = {i: [] for i in idxs}
+            for r, part in enumerate(parts):
+                off = 0
+                for i, w in zip(idxs, row):
+                    m = sizes[r][i] * w
+                    pieces[i].append(part[off:off + m].view(
+                        (sizes[r][i],) + tuple(tensors[i].shape[1:])))
+                    off += m
+            for i in idxs:
+                out[i] = torch.cat(pieces[i])
+        return out
+
+    return [w for _, _, _, w in pending], finish
+
 
 def allgather(tensor, name=None, process_set=None):
-    """Concatenate every rank's ``tensor`` along dim 0, in rank order;
-    the first dimension may differ between ranks."""
+    """Concatenate every member's ``tensor`` along dim 0, in set-rank
+    order; the first dimension may differ between ranks."""
     del name
-    st = _require_init()
-    require_global(process_set)
-    t = tensor.detach().contiguous()
-    n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
-    sizes = [torch.empty_like(n) for _ in range(st.size)]
-    dist.all_gather(sizes, n)
-    sizes = [int(s.item()) for s in sizes]
-    longest = max(sizes)
-    if t.shape[0] < longest:
-        pad = t.new_zeros((longest - t.shape[0],) + tuple(t.shape[1:]))
-        t = torch.cat([t, pad])
-    parts = [torch.empty_like(t) for _ in range(st.size)]
-    dist.all_gather(parts, t)
-    return torch.cat([p[:s] for p, s in zip(parts, sizes)])
+    return _grouped_allgather_start([tensor], process_set,
+                                    "allgather")[1]()[0]
 
 
 def allgather_async(tensor, name=None, process_set=None) -> int:
-    out = allgather(tensor, name=name, process_set=process_set)
-    return _register(lambda: out)
+    del name
+    works, finish = _grouped_allgather_start([tensor], process_set,
+                                             "allgather")
+    return _register(lambda: finish()[0], *works)
+
+
+def grouped_allgather(tensors, name=None, process_set=None):
+    """Allgather a list of tensors: one gather per dtype (and one of the
+    sizes), dim 0 may differ between ranks."""
+    del name
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    return _grouped_allgather_start(tensors, process_set,
+                                    "grouped_allgather")[1]()
+
+
+def grouped_allgather_async(tensors, name=None, process_set=None) -> int:
+    del name
+    works, finish = _grouped_allgather_start(list(tensors), process_set,
+                                             "grouped_allgather")
+    return _register(finish, *works)
+
+
+# -- alltoall ----------------------------------------------------------------
+
+def _alltoall_start(tensor, splits, process_set):
+    """Exchange dim-0 chunks between the set's ranks. Equal chunks
+    (``splits`` None: dim 0 divides by the set's size), or ``splits[j]``
+    rows to set rank j, after an exchange of the split sizes (the JAX
+    package's ``alltoall_splits_exchange``). Returns (works, finish)."""
+    st = _require_init()
+    _reject_sparse(tensor, "alltoall")
+    ctx = _member_context(process_set, "alltoall")
+    x = tensor.detach().contiguous()
+    n = ctx.size
+    if splits is None:
+        _check_dim0(x, n, "alltoall")
+        out = torch.empty_like(x)
+        work = dist.all_to_all_single(out, x, group=ctx.group,
+                                      async_op=True)
+
+        def finish_equal():
+            work.wait()
+            return out
+
+        return [work], finish_equal
+    send = [int(s) for s in torch.as_tensor(splits).reshape(-1).tolist()]
+    if len(send) != n or min(send) < 0 or sum(send) != x.shape[0]:
+        raise HorovodInternalError(
+            f"alltoall splits {send} must give each of the {n} ranks of "
+            f"the set a count and sum to dim0 {x.shape[0]}")
+    sent = torch.tensor(send, dtype=torch.int64, device=st.device)
+    got = torch.empty_like(sent)
+    dist.all_to_all_single(got, sent, group=ctx.group)
+    recv = got.tolist()
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    work = dist.all_to_all_single(out, x, output_split_sizes=recv,
+                                  input_split_sizes=send, group=ctx.group,
+                                  async_op=True)
+
+    def finish_split():
+        work.wait()
+        return out, torch.tensor(recv, dtype=torch.int32,
+                                 device=tensor.device)
+
+    return [work], finish_split
+
+
+def alltoall(tensor, splits=None, name=None, process_set=None):
+    """Exchange dim-0 chunks between the set's ranks (torch/mpi_ops.py
+    alltoall): chunk j goes to set rank j, and the result holds the
+    chunks for this rank in set-rank order. With ``splits`` (rows for
+    each set rank, summing to dim 0) it returns ``(output,
+    received_splits)``, the int32 counts received from each rank."""
+    del name
+    return _alltoall_start(tensor, splits, process_set)[1]()
+
+
+def alltoall_async(tensor, splits=None, name=None, process_set=None) -> int:
+    del name
+    works, finish = _alltoall_start(tensor, splits, process_set)
+    return _register(finish, *works)
+
+
+# -- broadcast / barrier / join ----------------------------------------------
+
+def _broadcast_ctx(tensor, root_rank, process_set):
+    _require_init()
+    _reject_sparse(tensor, "broadcast")
+    ctx = set_context(process_set)
+    if root_rank not in ctx.ranks:
+        raise HorovodInternalError(
+            f"broadcast root {root_rank} not in process set {ctx.ranks}")
+    return ctx
 
 
 def broadcast(tensor, root_rank: int = 0, name=None, process_set=None):
-    """``root_rank``'s tensor on every rank; returns a new tensor."""
+    """``root_rank``'s tensor (a global rank, a member of the set) on
+    every member; returns a new tensor."""
     del name
+    _reject_sparse(tensor, "broadcast")
     return broadcast_(tensor.detach().clone(), root_rank,
                       process_set=process_set)
 
@@ -432,42 +668,56 @@ def broadcast(tensor, root_rank: int = 0, name=None, process_set=None):
 def broadcast_(tensor, root_rank: int = 0, name=None, process_set=None):
     """In-place :func:`broadcast`."""
     del name
-    _require_init()
-    require_global(process_set)
-    dist.broadcast(tensor, src=root_rank)
+    ctx = _broadcast_ctx(tensor, root_rank, process_set)
+    if ctx.member:
+        dist.broadcast(tensor, src=root_rank, group=ctx.group)
     return tensor
+
+
+def _broadcast_async_start(buf, root_rank, process_set) -> int:
+    ctx = _broadcast_ctx(buf, root_rank, process_set)
+    works = ([dist.broadcast(buf, src=root_rank, group=ctx.group,
+                             async_op=True)] if ctx.member else [])
+
+    def finish():
+        for w in works:
+            w.wait()
+        return buf
+
+    return _register(finish, *works)
 
 
 def broadcast_async(tensor, root_rank: int = 0, name=None,
                     process_set=None) -> int:
     del name
-    _require_init()
-    require_global(process_set)
-    buf = tensor.detach().clone()
-    work = dist.broadcast(buf, src=root_rank, async_op=True)
-
-    def finish():
-        work.wait()
-        return buf
-
-    return _register(finish, work)
+    _reject_sparse(tensor, "broadcast")
+    return _broadcast_async_start(tensor.detach().clone(), root_rank,
+                                  process_set)
 
 
 def broadcast_async_(tensor, root_rank: int = 0, name=None,
                      process_set=None) -> int:
     del name
-    _require_init()
-    require_global(process_set)
-    work = dist.broadcast(tensor, src=root_rank, async_op=True)
-
-    def finish():
-        work.wait()
-        return tensor
-
-    return _register(finish, work)
+    return _broadcast_async_start(tensor, root_rank, process_set)
 
 
 def barrier(process_set=None) -> None:
+    """Block until every member of the set arrives (a non-member
+    returns at once)."""
     _require_init()
-    require_global(process_set)
-    dist.barrier()
+    ctx = set_context(process_set)
+    if ctx.member:
+        dist.barrier(group=ctx.group)
+
+
+def join(device=None) -> int:
+    """Ragged-end data parallelism (torch/mpi_ops.py:1250), in the JAX
+    package's form without its eager runtime: a barrier over the world
+    that returns 0, the last joined rank. Uneven data is handled inside
+    the step with :func:`masked_allreduce`. Real join accounting, where
+    joined ranks add zeros to the collectives still pending on the
+    others, belongs to the eager negotiation runtime (ROADMAP queue A
+    entry 9)."""
+    del device
+    barrier()
+    return 0

@@ -302,9 +302,12 @@ def _check_block(block, length: int, what: str) -> int:
 
 def _check_world(n: int, what: str, process_set) -> None:
     from ..core.basics import _require_init
-    from ..core.process_sets import require_global
+    from ..core.process_sets import set_context
 
-    require_global(process_set)
+    if set_context(process_set).group is not None:
+        raise ValueError(
+            f"{what} runs over the whole world; over a proper subset the "
+            "DistributedOptimizer moves the gradients uncompressed")
     size = _require_init().size
     if int(n) != size:
         raise ValueError(f"{what}: n={n} but the world has {size} ranks")

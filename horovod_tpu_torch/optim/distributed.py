@@ -1,5 +1,5 @@
 """DistributedOptimizer: a torch optimizer whose gradients are averaged
-over every rank before it steps.
+(or Adasum-combined) over the ranks of a process set before it steps.
 
 The surface of the JAX package's ``horovod_tpu/torch``
 ``DistributedOptimizer`` (the reference Horovod's), with the JAX
@@ -17,7 +17,16 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   sequence of collectives on every rank;
 * Average is a SUM scaled by ``1/n`` afterwards (with
   ``gradient_predivide_factor`` f: ``1/f`` before, ``f/n`` after), in
-  the wire dtype of the compressor, as the JAX package does;
+  the wire dtype of the compressor, as the JAX package does; n is the
+  size of ``process_set`` (default: the world), whose group carries the
+  reduction; a rank outside the set reduces nothing;
+* ``op=Adasum`` combines each fused bucket as a whole
+  (``ops/adasum.py``: the dot and norms run over the bucket, in the JAX
+  plan's layout), between the compressor's compress and decompress and
+  with no postscale, as ``horovod_tpu/optim/distributed.py:102-107``
+  does: the hook issues the bucket's first level and ``synchronize()``
+  runs the rest, bucket by bucket in plan order. It needs the world (a
+  power of two of ranks), not a proper subset;
 * under the int8 wire (``Compression.int8``, ``HOROVOD_COMPRESSION=int8``)
   a floating bucket of a SUM or Average takes the quantized SUM of
   ``ops/quantized_collectives.py`` instead, enqueued whole from the
@@ -26,8 +35,18 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   dequantizes. Average divides the dequantized SUM by n. The residual is
   one float32 tensor per bucket, in the bucket's layout, zero at
   construction and private to the rank (``error_feedback_residual``);
-  ``int8-raw`` keeps none. Other ops and integer buckets move
-  uncompressed, as in the JAX package;
+  ``int8-raw`` keeps none. Other ops (Adasum too), a proper subset and
+  integer buckets move uncompressed, as in the JAX package;
+* a sparse gradient (``nn.Embedding(sparse=True)``) is reduced by
+  ``ops/sparse.sparse_allreduce`` outside the buckets, in
+  ``synchronize()`` after the buckets are issued, in leaf order; its
+  slot in its bucket carries zeros;
+* ``groups`` replaces the fusion plan by explicit buckets, as the JAX
+  package's torch adapter has it: an int n chunks the parameters (in
+  ``named_parameters`` order) into n groups, a list of lists names
+  them; each group is one bucket of each of its dtypes, issued when all
+  its members' hooks have fired; a parameter in no group is a bucket of
+  its own. ``groups=None`` keeps the plan's buckets;
 * ``synchronize()`` issues whatever is left (a parameter that got no
   gradient this step reduces as zeros), waits, and unpacks the results
   into ``.grad``; ``step()`` synchronizes and then steps the wrapped
@@ -48,8 +67,11 @@ import torch
 import torch.distributed as dist
 
 from ..core.basics import _require_init
+from ..core.process_sets import set_context
 from ..ops import quantized_collectives as qc
+from ..ops.adasum import require_world, start_adasum
 from ..ops.collectives import ReduceOp, dist_op, resolve_op, scale_
+from ..ops.sparse import sparse_allreduce
 from ..ops.fusion import (flatten_order, flax_path, pack_buckets_by_plan,
                           pytree_bucket_plan, unflatten_buckets_by_plan)
 from .compression import (Compression, NoneCompressor,
@@ -58,30 +80,43 @@ from .compression import (Compression, NoneCompressor,
 
 class _DistributedOptimizer:
 
+    #: whether this rank takes part in the reduction (not outside the
+    #: optimizer's process set), and the set's group (None: the world's)
+    _member = True
+    _group = None
+    _process_set = None
+    #: whether sparse gradients may take the sparse path (ZeRO: no)
+    _takes_sparse = True
+
     def __init__(self, optimizer, named_parameters=None, compression=None,
                  backward_passes_per_step: int = 1, op=ReduceOp.AVERAGE,
                  gradient_predivide_factor: float = 1.0,
-                 fusion_threshold_bytes: Optional[int] = None):
+                 fusion_threshold_bytes: Optional[int] = None,
+                 process_set=None, groups=None):
         st = _require_init()
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         op = resolve_op(None, op)
         if gradient_predivide_factor != 1.0 and op != ReduceOp.AVERAGE:
             raise ValueError("gradient_predivide_factor needs op=Average")
+        ctx = set_context(process_set)
+        if op == ReduceOp.ADASUM:
+            require_world(process_set)
         if compression is None:
             compression = Compression.from_knobs(st.knobs)
         wire = compressor_wire_spec(compression)
         int8 = wire is not None and wire.kind == "int8"
-        if int8 and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
-            # the quantized collective has SUM semantics: other ops move
-            # uncompressed, as in the JAX package
+        if int8 and (op not in (ReduceOp.SUM, ReduceOp.AVERAGE)
+                     or ctx.group is not None):
+            # the quantized collective has SUM semantics over the whole
+            # world: other ops and proper subsets move uncompressed, as
+            # in the JAX package
             compression, wire, int8 = NoneCompressor, None, False
         if int8 and st.knobs.hierarchical_allreduce:
             raise NotImplementedError(
                 "HOROVOD_HIERARCHICAL_ALLREDUCE with the int8 wire: the "
                 "two-level quantized allreduce (ops/hierarchical.py) is "
-                "not ported yet (ROADMAP item 8's remainder; it needs "
-                "item 10's process sets)")
+                "not ported yet (ROADMAP queue A entry 7)")
         self._opt = optimizer
         self._compression = compression
         #: the WireSpec of the floating buckets' wire (None: uncompressed)
@@ -89,7 +124,9 @@ class _DistributedOptimizer:
         self._op = op
         self._k = backward_passes_per_step
         self._predivide = gradient_predivide_factor
-        self._size = st.size
+        self._size = ctx.size
+        self._member, self._group = ctx.member, ctx.group
+        self._process_set = process_set
 
         if named_parameters is not None:
             named = list(named_parameters)
@@ -103,7 +140,7 @@ class _DistributedOptimizer:
         if missing:
             raise ValueError(f"{len(missing)} parameters of the optimizer "
                              "are not in named_parameters")
-        self._plan(named, fusion_threshold_bytes)
+        self._plan(named, fusion_threshold_bytes, groups=groups)
         # the int8 wire's block, and this rank's error-feedback residual
         # of each floating bucket (none under int8-raw or at world 1)
         self._int8_block = wire.block if int8 else None
@@ -118,23 +155,28 @@ class _DistributedOptimizer:
         self._install_hooks()
 
     def _plan(self, named, fusion_threshold_bytes,
-              backward_order: Optional[bool] = None) -> None:
+              backward_order: Optional[bool] = None, groups=None) -> None:
         """Order the parameters that take gradients as the flax tree of
-        their names flattens, plan their buckets, and map each to its
-        bucket."""
+        their names flattens, plan their buckets (``groups``: the
+        groups' buckets), and map each to its bucket."""
         dups = [n for n, c in Counter(n for n, _ in named).items() if c > 1]
         if dups:
             raise ValueError(f"duplicate parameter names: {sorted(dups)}")
+        members = None if groups is None else _group_members(named, groups)
         named = [(n, p) for n, p in named if p.requires_grad]
         paths = [flax_path(n) for n, _ in named]
         order = flatten_order(paths)
         self._params = [named[i][1] for i in order]
         self._names = [named[i][0] for i in order]
-        self._plans = pytree_bucket_plan(
-            [(paths[i], tuple(named[i][1].shape), named[i][1].dtype)
-             for i in order],
-            threshold_bytes=fusion_threshold_bytes,
-            backward_order=backward_order)
+        if members is None:
+            self._plans = pytree_bucket_plan(
+                [(paths[i], tuple(named[i][1].shape), named[i][1].dtype)
+                 for i in order],
+                threshold_bytes=fusion_threshold_bytes,
+                backward_order=backward_order)
+        else:
+            self._plans = _group_plans(self._params, members)
+        self._leaf_of = {id(p): i for i, p in enumerate(self._params)}
         self._bucket_of: Dict[int, int] = {}
         for b, plan in enumerate(self._plans):
             for (i, _, _, _) in plan:
@@ -146,18 +188,24 @@ class _DistributedOptimizer:
         self._lock = threading.Lock()
         self._reset()
         self._hooks = []
-        if self._size > 1:
+        if self._reduces():
             for p in self._params:
                 self._hooks.append(
                     p.register_post_accumulate_grad_hook(self._hook))
 
     # -- per-step state --------------------------------------------------
 
+    def _reduces(self) -> bool:
+        """Whether this rank reduces anything: a member of a set of more
+        than one rank."""
+        return self._size > 1 and self._member
+
     def _reset(self) -> None:
         self._passes = {id(p): 0 for p in self._params}
         self._missing = [len(plan) for plan in self._plans]
         self._next = 0      # next bucket to issue, in plan order
         self._pending: List = []
+        self._sparse: List[int] = []  # leaves whose gradient is sparse
 
     def _hook(self, p: torch.Tensor) -> None:
         with self._lock:
@@ -170,6 +218,13 @@ class _DistributedOptimizer:
                     f"gradients were computed more than "
                     f"backward_passes_per_step={self._k} times before "
                     "step() / synchronize()")
+            if p.grad.is_sparse:
+                if not self._takes_sparse or self._op == ReduceOp.ADASUM:
+                    raise TypeError(
+                        "sparse gradients reduce by gathering slices, with "
+                        "op Average or Sum and the DistributedOptimizer "
+                        f"only; {self._names[self._leaf_of[key]]} has one")
+                self._sparse.append(self._leaf_of[key])
             self._missing[self._bucket_of[key]] -= 1
             while (self._next < len(self._plans)
                    and self._missing[self._next] == 0):
@@ -178,12 +233,17 @@ class _DistributedOptimizer:
 
     def _grads(self, b: int) -> List[torch.Tensor]:
         """The gradients of every leaf, after giving bucket ``b``'s leaves
-        that got none this step zeros."""
+        that got none this step zeros; a sparse gradient's slot holds
+        zeros."""
+        grads = [p.grad for p in self._params]
         for (i, _, _, _) in self._plans[b]:
             p = self._params[i]
             if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        return [p.grad for p in self._params]
+                p.grad = grads[i] = torch.zeros_like(p)
+            elif p.grad.is_sparse:
+                grads[i] = torch.zeros(p.shape, dtype=p.dtype,
+                                       device=p.device)
+        return grads
 
     def _issue(self, b: int) -> None:
         """Pack bucket ``b`` and start its reduction."""
@@ -197,7 +257,13 @@ class _DistributedOptimizer:
             self._pending.append((b, self._start_int8(b, bucket)))
             return
         wire, ctx = self._compression.compress(bucket)
-        work = dist.all_reduce(wire, op=dist_op(self._op), async_op=True)
+        if self._op == ReduceOp.ADASUM:
+            finish_adasum = start_adasum(wire)
+            self._pending.append((b, lambda: self._compression.decompress(
+                finish_adasum(), ctx)))
+            return
+        work = dist.all_reduce(wire, op=dist_op(self._op),
+                               group=self._group, async_op=True)
 
         def finish():
             work.wait()
@@ -237,8 +303,9 @@ class _DistributedOptimizer:
 
     def synchronize(self) -> None:
         """Finish this step's reduction: issue the buckets not issued
-        yet, wait for all, and write the results into ``.grad``."""
-        if self._size <= 1:
+        yet, reduce the sparse gradients, wait for all, and write the
+        results into ``.grad``."""
+        if not self._reduces():
             if self._k > 1:
                 for p in self._params:
                     if p.grad is not None:
@@ -249,14 +316,21 @@ class _DistributedOptimizer:
                 self._issue(self._next)
                 self._next += 1
             pending, self._pending = self._pending, []
+            sparse = sorted(self._sparse)
             self._reset()
+        for i in sparse:
+            p = self._params[i]
+            g = p.grad / self._k if self._k > 1 else p.grad
+            p.grad = sparse_allreduce(g, op=self._op,
+                                      process_set=self._process_set)
         for b, finish in pending:
             out = finish()
             leaves = unflatten_buckets_by_plan([out], [self._plans[b]],
                                                len(self._params))
             for (i, _, _, _) in self._plans[b]:
                 g = self._params[i].grad
-                g.copy_(leaves[i].to(g.dtype))
+                if not g.is_sparse:
+                    g.copy_(leaves[i].to(g.dtype))
 
     def step(self, closure=None):
         self.synchronize()
@@ -302,20 +376,83 @@ class _DistributedOptimizer:
         return getattr(self._opt, item)
 
 
+def _group_members(named, groups) -> List[List[torch.Tensor]]:
+    """The parameters of each group (the JAX package's torch adapter,
+    ``horovod_tpu/torch/__init__.py:539-603``): an int n chunks the
+    parameters that take gradients, in ``named`` order, into n groups;
+    a list of lists names them, each a registered parameter at most
+    once."""
+    if not (isinstance(groups, list) or
+            (isinstance(groups, int) and not isinstance(groups, bool)
+             and groups > 0)):
+        raise ValueError("groups should be a positive integer or a list of "
+                         "lists of torch.Tensor (reference optimizer.py:89)")
+    if isinstance(groups, int):
+        grad_params = [p for _, p in named if p.requires_grad]
+        n = min(groups, len(grad_params)) or 1
+        size = (len(grad_params) + n - 1) // n
+        return [grad_params[i * size:(i + 1) * size] for i in range(n)]
+    registered = {id(p) for _, p in named}
+    seen = set()
+    for sub in groups:
+        for p in sub:
+            if not isinstance(p, torch.Tensor):
+                raise ValueError("groups must consist of torch.Tensor")
+            if id(p) not in registered:
+                # an unregistered member has no hook and would hold its
+                # whole group back
+                raise ValueError("groups may only contain parameters "
+                                 "registered with this optimizer "
+                                 "(named_parameters / param_groups)")
+            if id(p) in seen:
+                raise ValueError("a parameter can only appear once in "
+                                 "groups")
+            seen.add(id(p))
+    return [list(sub) for sub in groups]
+
+
+def _group_plans(params: List[torch.Tensor],
+                 members: List[List[torch.Tensor]]) -> List:
+    """Bucket plans of the groups: each group's members that take
+    gradients, in the group's order, one bucket per dtype; then each
+    parameter in no group as a bucket of its own, in ``params`` order."""
+    index = {id(p): i for i, p in enumerate(params)}
+    grouped = [[p for p in sub if id(p) in index] for sub in members]
+    seen = {id(p) for sub in grouped for p in sub}
+    grouped += [[p] for p in params if id(p) not in seen]
+    plans = []
+    for sub in grouped:
+        by_dtype: dict = {}
+        for p in sub:
+            by_dtype.setdefault(p.dtype, []).append(p)
+        for ps in by_dtype.values():
+            plan, off = [], 0
+            for p in ps:
+                plan.append((index[id(p)], off, p.numel(), tuple(p.shape)))
+                off += p.numel()
+            plans.append(plan)
+    return plans
+
+
 def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
                          backward_passes_per_step: int = 1,
                          op=ReduceOp.AVERAGE,
                          gradient_predivide_factor: float = 1.0,
-                         fusion_threshold_bytes: Optional[int] = None):
+                         fusion_threshold_bytes: Optional[int] = None,
+                         process_set=None, groups=None):
     """Wrap a torch optimizer so that ``step()`` applies gradients
-    averaged (``op``) over every rank. ``named_parameters`` names the
+    averaged (``op``: Average, Sum, Adasum, ...) over the ranks of
+    ``process_set`` (default: every rank). ``named_parameters`` names the
     parameters (their flax names order the fusion buckets); without it
     they are named by position. ``compression=None`` takes the
     compressor the ``HOROVOD_COMPRESSION`` knob selects (default none).
-    ``fusion_threshold_bytes`` overrides ``HOROVOD_FUSION_THRESHOLD``."""
+    ``fusion_threshold_bytes`` overrides ``HOROVOD_FUSION_THRESHOLD``;
+    ``groups`` (an int or a list of lists of parameters) replaces the
+    fusion plan by explicit buckets."""
     return _DistributedOptimizer(
         optimizer, named_parameters=named_parameters,
         compression=compression,
         backward_passes_per_step=backward_passes_per_step, op=op,
         gradient_predivide_factor=gradient_predivide_factor,
-        fusion_threshold_bytes=fusion_threshold_bytes)
+        fusion_threshold_bytes=fusion_threshold_bytes,
+        process_set=process_set, groups=groups)

@@ -1,20 +1,23 @@
-"""Parameter, optimizer-state and object broadcast.
+"""Parameter, optimizer-state and object broadcast, and the object
+allgather.
 
 The counterpart of the JAX package's ``optim/functions.py`` with the
 in-place semantics of its ``horovod_tpu/torch`` surface (the reference
-Horovod's ``torch/functions.py``): every rank ends with root's values.
+Horovod's ``torch/functions.py``): every member of ``process_set``
+(default: every rank) ends with root's values; ``root_rank`` is a
+global rank, and a rank outside the set keeps its own.
 """
 
 from __future__ import annotations
 
-import io
 import pickle
 from typing import Any, Optional
 
 import torch
 
 from ..core.basics import _require_init
-from ..ops.collectives import broadcast_
+from ..core.process_sets import set_context
+from ..ops.collectives import allgather, broadcast_
 
 
 def broadcast_parameters(params, root_rank: int = 0,
@@ -36,7 +39,8 @@ def broadcast_object(obj: Any, root_rank: int = 0,
     (length first). Unpickles only bytes this program's root wrote."""
     del name
     st = _require_init()
-    if st.size == 1:
+    ctx = set_context(process_set)
+    if ctx.size == 1 or not ctx.member:
         return obj
     if st.rank == root_rank:
         data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
@@ -52,6 +56,30 @@ def broadcast_object(obj: Any, root_rank: int = 0,
         buf.copy_(payload)
     broadcast_(buf, root_rank, process_set=process_set)
     return pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def allgather_object(obj: Any, name: Optional[str] = None,
+                     process_set=None) -> list:
+    """Every member's ``obj``, in set-rank order (torch/functions.py:236):
+    each pickled, the lengths and then the bytes all-gathered. Unpickles
+    only bytes this program's ranks wrote."""
+    del name
+    st = _require_init()
+    ctx = set_context(process_set)
+    if ctx.size == 1 and ctx.member:
+        return [obj]
+    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(
+        st.device)
+    lengths = allgather(torch.tensor([payload.numel()], dtype=torch.int64,
+                                     device=st.device),
+                        process_set=process_set).tolist()
+    blob = allgather(payload, process_set=process_set).cpu().numpy()
+    out, off = [], 0
+    for n in lengths:
+        out.append(pickle.loads(blob[off:off + n].tobytes()))
+        off += n
+    return out
 
 
 def broadcast_optimizer_state(optimizer, root_rank: int = 0,

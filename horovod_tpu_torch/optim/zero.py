@@ -246,6 +246,8 @@ class _ShardedOptimizer(_DistributedOptimizer):
     (each bucket issued in plan order as backward completes it) with the
     ZeRO-1 stages in place of the all-reduce."""
 
+    _takes_sparse = False
+
     def __init__(self, optimizer: Callable, named_parameters,
                  compression=None, fusion_threshold_bytes=None,
                  bucket_backward_order=None):

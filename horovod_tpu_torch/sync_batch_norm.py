@@ -1,15 +1,17 @@
-"""SyncBatchNorm: batch normalization with statistics over every rank.
+"""SyncBatchNorm: batch normalization with statistics over the ranks.
 
 The port of the JAX package's ``sync_batch_norm.py`` (itself after the
 reference Horovod's ``torch/sync_batch_norm.py``): each rank takes the
-float32 mean of x and of x^2 over its own batch, and the world averages
-them with one ``all_reduce`` of the stacked ``[2, C]`` tensor (the JAX
-module's ``lax.pmean``; equal batches on every rank make that the global
-batch's statistics). The backward averages the gradients of the two
-statistics over the world the same way: the transpose of a mean over
-the ranks is a mean over the ranks, as in ``lax.pmean``'s transpose and
-the reference's backward. In a world of one, or before ``init()``, it
-is plain local BatchNorm.
+float32 mean of x and of x^2 over its own batch, and the ranks of
+``process_set`` (default: the world) average them with one
+``all_reduce`` of the stacked ``[2, C]`` tensor on the set's group (the
+JAX module's ``lax.pmean`` over the set's replica groups; equal batches
+on every rank make that the set's batch's statistics). The backward
+averages the gradients of the two statistics over the same ranks: the
+transpose of a mean over the ranks is a mean over the ranks, as in
+``lax.pmean``'s transpose and the reference's backward. In a world of
+one, before ``init()``, and on a rank outside the set (a singleton
+group in the JAX module) it is plain local BatchNorm.
 
 What the JAX module computes, kept as it is: momentum 0.99, variance
 ``E[x^2] - mean^2`` with no clamp, and the normalization in x's dtype
@@ -24,41 +26,41 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .core.process_sets import require_global
+from .core.process_sets import set_context
 from .core.state import global_state
 
 
-class _WorldMean(torch.autograd.Function):
-    """The mean over the ranks of a tensor, with the mean over the ranks
-    of its gradient as the backward."""
+class _SetMean(torch.autograd.Function):
+    """The mean over a group's ranks of a tensor, with the mean over the
+    ranks of its gradient as the backward."""
 
     @staticmethod
-    def forward(ctx, t, size):
-        ctx.size = size
+    def forward(ctx, t, size, group):
+        ctx.size, ctx.group = size, group
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out / size
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.contiguous().clone()
-        dist.all_reduce(out)
-        return out / ctx.size, None
+        dist.all_reduce(out, group=ctx.group)
+        return out / ctx.size, None, None
 
 
 class SyncBatchNorm(nn.Module):
-    """BatchNorm whose training statistics are averaged over the world.
+    """BatchNorm whose training statistics are averaged over the ranks.
 
     ``features`` channels on the last axis (the JAX layout);
     ``scale``/``bias`` parameters and ``mean``/``var`` running buffers
     (float32) named as flax names them. ``.eval()`` normalizes with the
-    running statistics. Only the global process set is supported
-    (others come with ROADMAP item 10)."""
+    running statistics. ``process_set`` (a registered set; default the
+    world) is the ranks whose statistics are averaged."""
 
     def __init__(self, features: int, *, momentum: float = 0.99,
                  epsilon: float = 1e-5, process_set=None):
         super().__init__()
-        require_global(process_set)
+        self.process_set = process_set
         self.momentum, self.epsilon = momentum, epsilon
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -70,9 +72,10 @@ class SyncBatchNorm(nn.Module):
             xf = x.to(torch.float32)
             axes = tuple(range(x.dim() - 1))
             stats = torch.stack([xf.mean(axes), (xf * xf).mean(axes)])
-            st = global_state()
-            if st.initialized and st.size > 1:
-                stats = _WorldMean.apply(stats, st.size)
+            if global_state().initialized:
+                ctx = set_context(self.process_set)
+                if ctx.member and ctx.size > 1:
+                    stats = _SetMean.apply(stats, ctx.size, ctx.group)
             mean, mean2 = stats[0], stats[1]
             var = mean2 - mean * mean
             m = self.momentum

@@ -281,6 +281,11 @@ _TRAINING_MODULES = [
         "ops.flash_attention", "optim.distributed", "optim.functions",
         "utils.mfu", "parallel.train", "examples.gpt2_pretraining")]
 
+_ADASUM_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "ops.adasum", "ops.sparse", "sync_batch_norm",
+        "examples.adasum_gpt2")]
+
 _LAUNCHER_MODULES = [
     "horovod_tpu_torch." + m for m in (
         "runner", "runner.launch", "runner.api", "runner.exec_run",
@@ -291,14 +296,16 @@ _LAUNCHER_MODULES = [
 
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
-    without pulling in jax or horovod_tpu; the training slice's and the
-    launcher's modules are among those walked."""
+    without pulling in jax or horovod_tpu; the training slice's, the
+    Adasum slice's (Adasum, sparse slices, process sets, the Adasum
+    example) and the launcher's modules are among those walked."""
+    walked = _TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        f"assert set({_TRAINING_MODULES + _LAUNCHER_MODULES!r})"
+        f"assert set({walked!r})"
         " <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

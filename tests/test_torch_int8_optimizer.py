@@ -79,7 +79,7 @@ def test_hierarchical_allreduce_with_int8_raises(monkeypatch):
     monkeypatch.setenv("HOROVOD_HIERARCHICAL_ALLREDUCE", "1")
     hvd.init(device="cpu")
     lin = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="entry 7"):
         hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1),
                                  compression=hvd.Compression.int8)
     # other wires do not take the quantized path

@@ -180,5 +180,8 @@ def test_sync_batch_norm_world_of_one_is_local_batch_norm():
     before = m.mean.clone()
     m(torch.from_numpy(d["x"]))
     assert torch.equal(m.mean, before)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        hvd.SyncBatchNorm(16, process_set=hvd.ProcessSet([0]))
+    # a set of every rank is the global set: local BatchNorm in a world
+    # of one
+    ms = hvd.SyncBatchNorm(16, process_set=hvd.ProcessSet([0]))
+    np.testing.assert_allclose(ms(torch.from_numpy(d["x"])).detach().numpy(),
+                               np.asarray(want), rtol=0, atol=1e-5)
