@@ -21,10 +21,11 @@ Phases, in order; the first failure exits non-zero:
    append+attend and matmul kernels' SASS where cuobjdump is installed;
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
-   GPT-2 medium's [8, 16, 1024, 64] bf16, row by row, and there kernels
-   that skip one tile of the kernels' own tiling must fail the same
-   check; B1-B3 and SDPA timed by CUDA events and by the profiler's
-   device time; the LayerNorm forward element by element at the
+   GPT-2 medium's [8, 16, 1024, 64] and Llama-2's [2, 32, 4096, 128]
+   bf16, row by row, and there kernels that skip one tile of the
+   kernels' own tiling must fail the same check; B1-B3 and SDPA timed
+   by CUDA events and by the profiler's device time, and ptxas's lines
+   of the head_dim-128 instantiations; the LayerNorm forward element by element at the
    serving and training shapes and on each of its routes, where a row
    of its partition left as stale memory must fail, timed L2-hot and,
    at [8192, 1024], L2-cold; LayerNorm backward at [8192, 1024], dx row
@@ -150,6 +151,37 @@ Phases, in order; the first failure exits non-zero:
    allreduce, join, allgather_object and a sparse allreduce of an
    ``nn.Embedding(50257, 1024, sparse=True)`` gradient over NCCL at
    world 1;
+4h. train GPT-2 medium over the two-level wire (``ops/hierarchical.py``)
+   in a world of four emulated on the card as two domains of two
+   (``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2``), 2 x 1024 a rank, 3 steps: (a)
+   float32 inner legs and the int8 outer leg with error feedback (block
+   256) on every bucket of the plan, each rank stepping its own AdamW:
+   buckets, residuals and parameters bitwise the plain versions'
+   composition, the ranks bitwise equal, B12 and B13 exactly 12 a step a
+   rank and B11, B14 none (without residuals B11 12, B12 none), each of
+   ``HIER_FAULTS`` (the outer gather in reversed peer order, the shard
+   residual stashed one shard late, a rank dropped from the inner
+   reduce-scatter) caught, a falling loss; beside it phase 4b's flat
+   int8 wire on the same gradients, each wire's relative L2 to the
+   float32 mean, each leg's bytes a rank a step and one rank's outer-leg
+   kernels' device ms; (b) the float32 and bf16 wires through the same
+   composition within ``HIER_WIRE_TOL`` of the exact sum; (c) the knobs
+   at world 1 over NCCL: the flat route, the collectives' inputs back
+   bitwise and phase 4's losses bitwise;
+4i. train Llama-2 at its width (hidden 4096, 32 heads of 128, MLP 11008,
+   vocab 32000, untied head; depth cut to 12) and context (seq 4096,
+   batch 2) through the port of ``examples/llama_adasum.py`` with
+   ``--flash --remat`` at world 1 over NCCL, 4 steps: a falling loss,
+   B1 24 and B2, B3 12 a step by the launch counts and by kernel name in
+   a profiled fifth step of the example's own, the parameters after 4
+   steps bitwise a plain ``torch.optim.Adam`` twin's; step ms, tokens/s,
+   MFU, peak memory, the profiled step's device time by group;
+4j. checkpoint GPT-2 medium at world 1 (phase 4's model, batch 8 x 1024,
+   AdamW): 2 steps, ``save_model`` with AdamW's state, ``load_model``
+   into a fresh model and optimizer, 2 more steps, bitwise 4
+   uninterrupted steps; the same through ``save_fsdp``/``load_fsdp``
+   with the FullyShardedOptimizer; bytes written, save and load
+   seconds;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -179,8 +211,8 @@ Phases, in order; the first failure exits non-zero:
    must run B17 on the decode route, and the same decode-step profile;
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
-   step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 5
-   and 5b and the
+   step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
+   ((a)'s kernel composition), 4i, 4j, 5 and 5b and the
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
@@ -707,6 +739,18 @@ def _flash_pairs(tq, tk, causal, q_off, k_off):
 #: in exact arithmetic (a query seeing one key: dP - delta cancels) and
 #: come out as float32 rounding noise of ~2e-6 on both sides
 FLASH_TOL = {torch.bfloat16: (1.5e-2, 1e-5), torch.float32: (1e-4, 1e-5)}
+#: the per-row tolerance of the Llama-2 case ([2, 32, 4096, 128] bf16
+#: causal), (rtol, atol). atol is twice FLASH_TOL's: the float32 noise
+#: on the dQ rows that are 0 in exact arithmetic grows with the length
+#: of the dot products behind dP - delta, so with head_dim; at 128 the
+#: worst such row (query 0 of a head, plain norm 4.1e-6) read an error
+#: of 1.23e-5 against FLASH_TOL's 1e-5 (NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md). rtol is below FLASH_TOL's 1.5e-2 so that the one-tile skips
+#: fail at this shape too: a skip of the last Q/dO tile in the first
+#: block of keys, whose gradient the 4,000 earlier queries set, reads
+#: 1.37e-2 to 1.54e-2 of a dK/dV row's norm at T = 4096, where every
+#: row the relative term sets read at most 5.5e-3
+LLAMA_FLASH_TOL = (1e-2, 2e-5)
 
 
 def _row_share(got, want, rtol, atol):
@@ -772,19 +816,23 @@ def check_flash(seed):
     """B1, B2, B3 at GPT-2 medium's attention ([8, 16, 1024, 64] bf16,
     causal), plus a non-causal, a padded-T and an offset case at batch
     2, BERT-Large's non-causal shape, every other head_dim in bf16 (one
-    case with rows that see no key) and float32 twice. Every case feeds
+    case with rows that see no key), float32 twice, and Llama-2's
+    attention ([2, 32, 4096, 128] bf16 causal: timed, with the tile
+    skips, and the head_dim-128 instantiations' ptxas lines). Every
+    case feeds
     the kernel and the plain version the same inputs (the backward gets
     the plain forward's lse and delta). Each row is held to
-    ``FLASH_TOL``; in the main case, kernels that skip one tile must
-    fail that check, and the kernels and SDPA are timed."""
+    ``FLASH_TOL`` (the Llama-2 case to ``LLAMA_FLASH_TOL``); in the two
+    timed cases, kernels that skip one tile must fail that check, and
+    the kernels and SDPA are timed."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     out = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
 
     def case(name, b, h, tq, tk, causal, q_off=0, k_off=0, timed=False,
-             d=64, dtype=torch.bfloat16):
-        rtol, atol = FLASH_TOL[dtype]
+             d=64, dtype=torch.bfloat16, tol=None):
+        rtol, atol = tol or FLASH_TOL[dtype]
 
         def mk(t):
             return torch.randn(b, h, t, d, generator=g, device="cuda").to(
@@ -801,20 +849,28 @@ def check_flash(seed):
         torch.cuda.synchronize()
         got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
         want = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
-        errs, shares, rels = {}, {}, {}
+        errs, shares, rels, worst = {}, {}, {}, {}
         for what in got:
             _require(bool(torch.isfinite(got[what]).all()),
                      f"flash {name}: {what} not finite")
             errs[what] = _rel_err(got[what], want[what])[0]
-            shares[what] = _row_share(got[what], want[what], rtol,
-                                      atol).max().item()
+            row_shares = _row_share(got[what], want[what], rtol,
+                                    atol).reshape(-1)
+            i = int(row_shares.argmax())
+            shares[what] = row_shares[i].item()
             rels[what] = _row_rel(got[what], want[what], rtol, atol)
+            w = want[what].float().reshape(-1, d)[i]
+            worst[what] = {"row": i % want[what].shape[2],
+                           "plain_norm": w.norm().item(),
+                           "err_norm": (got[what].float().reshape(-1, d)[i]
+                                        - w).norm().item()}
         lse_err = (lse - lse_r).abs().max().item()
         skips = (_tile_skip_shares(fa, q, k, v, dout, lse_r, delta, got,
                                    want, args, rtol, atol)
                  if timed else None)
         print(json.dumps({"flash_case": name, "row_share_max": shares,
                           "row_rel_l2_max": rels, "lse_err": lse_err,
+                          "worst_row": worst,
                           "tile_skip_share_min": skips}))
         for what, share in shares.items():
             _require(share <= 1, f"flash {name}: a row of {what} is "
@@ -906,6 +962,15 @@ def check_flash(seed):
          dtype=torch.float32)
     case("B=1 H=4 Tq=64 Tk=96 D=16 f32 causal, key_offset=40", 1, 4, 64, 96,
          True, k_off=40, d=16, dtype=torch.float32)
+    # Llama-2's attention (phase 4i): head_dim 128 at its context
+    case("B=2 H=32 T=4096 D=128 bf16 causal (Llama-2)", 2, 32, 4096, 4096,
+         True, timed=True, d=128, tol=LLAMA_FLASH_TOL)
+    from horovod_tpu_torch.ops import _build
+
+    print(json.dumps({"ptxas_head_dim_128": [
+        f"{src} {fn}: {line}" for src, fn, line in ptxas_lines(
+            _build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        if re.search(r"[<,]128[,>]", fn)]}))
     return out
 
 
@@ -2589,7 +2654,7 @@ def profile_train_step(step, *inputs,
     """Where one training step's device time goes: ``torch.profiler``
     over one step; kernels by device time and the device busy share
     (kernel time over wall time, a lower bound: the profiler adds host
-    time)."""
+    time). Returns the window's kernel events."""
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
@@ -2629,6 +2694,7 @@ def profile_train_step(step, *inputs,
         "elementwise_top": [
             {"name": e.key[:300], "ms": _dev_us(e) / 1e3, "calls": e.count}
             for e in sorted(other, key=_dev_us, reverse=True)[:15]]}))
+    return kernels
 
 
 def train_gpt2(seed, ledger):
@@ -2894,7 +2960,8 @@ def train_int8(seed, ledger):
     point through NCCL in a world of one, on the largest bucket with a
     residual, bitwise against the plain composition; (c) the wire's
     byte accounting of the plan. Launch counts are zeroed just before
-    (a) and (b) and read just after."""
+    (a) and (b) and read just after. Returns one rank's stage kernels'
+    device ms a step at world 4."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import quantized_collectives as qc
@@ -2962,6 +3029,7 @@ def train_int8(seed, ledger):
         "one_rank_stage_device_ms_total": sum(
             v for k, v in stages.items() if not k.startswith("copies"))}))
     torch.cuda.empty_cache()
+    return sum(v for k, v in stages.items() if not k.startswith("copies"))
 
 
 # ---------------------------------------------------------------------------
@@ -4758,6 +4826,726 @@ def train_adasum(seed, ledger):
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the two-level (hierarchical) wire, a world of four emulated on
+# the card as two domains of two
+# ---------------------------------------------------------------------------
+
+HIER_RANKS, HIER_BLOCK, HIER_STEPS = 4, 2, 3
+#: the int8 outer leg's kernels, in the order one rank runs them
+HIER_KERNELS = ("quant_ef_rows", "accum_rows", "quant_rows", "dequant_flat")
+#: the faults every one of which the checks must catch: the outer gather
+#: in reversed peer order, the shard residual stashed one shard past its
+#: place, one rank left out of the inner reduce-scatter
+HIER_FAULTS = ("outer_peer_order", "residual_offset", "drop_inner_rank")
+#: elementwise limits of (b)'s float wires against the exact (float64)
+#: sum of the four ranks' gradients, in units of the element's sum of
+#: |gradients|: float32 rounds twice (an inner and an outer add, 2^-24
+#: each), bf16 four times (the inner float32 add, two casts and an add
+#: at 2^-8), with a unit of slack
+HIER_WIRE_TOL = {"float32": 3 * 2.0 ** -24, "bf16": 4 * 2.0 ** -8}
+
+
+@contextlib.contextmanager
+def _hier_fault(name):
+    """One of ``HIER_FAULTS`` patched into ``ops/hierarchical.py``'s
+    stages (the emulation calls them through the module)."""
+    from horovod_tpu_torch.ops import hierarchical as hier
+
+    if name == "outer_peer_order":
+        attr = "stage_outer_accumulate"
+        orig = hier.stage_outer_accumulate
+
+        def faulty(qg, sg, n, length, block):
+            return orig(qg.reshape(n, -1).flip(0).reshape(-1).contiguous(),
+                        sg.reshape(n, -1).flip(0).reshape(-1).contiguous(),
+                        n, length, block)
+    elif name == "residual_offset":
+        attr = "_stash_shard_residual"
+        orig = hier._stash_shard_residual
+
+        def faulty(like, shard_res, shard_len):
+            buf = torch.zeros(like.numel(), dtype=torch.float32,
+                              device=like.device)
+            k = min(shard_len, like.numel() - shard_len)
+            buf[shard_len:shard_len + k] = shard_res.reshape(-1)[:k]
+            return buf.reshape(like.shape)
+    elif name == "drop_inner_rank":
+        attr = "stage_inner_reduce"
+        orig = hier.stage_inner_reduce
+
+        def faulty(chunks):
+            return orig(chunks[:-1])
+    else:
+        raise ValueError(f"unknown fault {name!r}")
+    setattr(hier, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(hier, attr, orig)
+
+
+def _leg_bytes(sizes, n, block, wire_block):
+    """Bytes one rank sends a step on each leg (ring algorithms: a
+    reduce-scatter or an all-gather over g ranks sends g - 1 chunks), on
+    the two-level int8 wire with inner domains of ``block`` and on the
+    flat int8 wire, from the plan's bucket sizes (float32 payloads)."""
+    outer = n // block
+    two = {"inner_reduce_scatter_float32": 0, "outer_all_gather_int8": 0,
+           "outer_all_gather_scales": 0, "inner_all_gather_float32": 0}
+    flat = {"all_to_all_int8_and_scales": 0, "all_gather_int8_and_scales": 0}
+    for L in sizes:
+        lp = -(-L // block) * block
+        k = lp // block
+        m = -(-k // wire_block) * wire_block
+        two["inner_reduce_scatter_float32"] += (block - 1) * k * 4
+        two["outer_all_gather_int8"] += (outer - 1) * m
+        two["outer_all_gather_scales"] += (outer - 1) * (m // wire_block) * 4
+        two["inner_all_gather_float32"] += (block - 1) * k * 4
+        c = -(-L // (n * wire_block)) * wire_block
+        flat["all_to_all_int8_and_scales"] += (n - 1) * (c + c // wire_block
+                                                         * 4)
+        flat["all_gather_int8_and_scales"] += (n - 1) * (c + c // wire_block
+                                                         * 4)
+    two["outer_total"] = (two["outer_all_gather_int8"]
+                          + two["outer_all_gather_scales"])
+    return {"two_level": two, "flat_int8": flat,
+            "float32_ring_allreduce": sum(2 * (n - 1) * -(-L // n) * 4
+                                          for L in sizes)}
+
+
+def _hier_stage_ms(plans, block, wire_block):
+    """Device ms of one rank's outer-leg kernels a step on the plan at
+    inner domains of ``block``: B12 on its float32 shard of each bucket,
+    B13 over the ``HIER_RANKS // block`` peers' rows; the copies that
+    stand for the exchanges left out."""
+    from horovod_tpu_torch.ops import hierarchical as hier
+
+    n_outer = HIER_RANKS // block
+    g = torch.Generator(device="cuda").manual_seed(12)
+    shards = [torch.randn(-(-size // block), generator=g, device="cuda")
+              * 1e-3 for size in _bucket_sizes(plans)]
+    res = [torch.zeros_like(s) for s in shards]
+    rows = []
+    for s, r in zip(shards, res):
+        q, sc, _ = hier.stage_outer_quantize(s, r, wire_block)
+        rows.append((torch.cat([q] * n_outer), torch.cat([sc] * n_outer)))
+
+    def one_rank():
+        for s, r, (qg, sg) in zip(shards, res, rows):
+            hier.stage_outer_quantize(s, r, wire_block)
+            hier.stage_outer_accumulate(qg, sg, n_outer, s.numel(),
+                                        wire_block)
+
+    one_rank()
+    torch.cuda.synchronize()
+    with _profiled() as prof:
+        one_rank()
+        torch.cuda.synchronize()
+    by = {}
+    for e in _kernel_events(prof):
+        name = ("quant_ef_rows" if "quantize_kernel<true>" in e.key
+                else "accum_rows" if "accum_kernel" in e.key
+                else "other (slicing)")
+        by[name] = by.get(name, 0.0) + _dev_us(e) / 1e3
+    return by
+
+
+def hier_world(seed, weights_seed=0, steps=HIER_STEPS):
+    """(a) GPT-2 medium (24 x 1024, vocab 50257; weights from
+    ``weights_seed``) trained ``steps`` AdamW steps over the two-level
+    int8 wire with error feedback (block 256) in a world of four
+    emulated on the card as two domains of two
+    (``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2``): phase 4b's global batch of
+    8 x 1024 split into four rank shards of 2 x 1024, each rank's
+    gradients from the kernel path, every bucket of the optimizer's plan
+    through ``emulated_hierarchical_psum`` (the inner reduce-scatter as
+    sums in rank order, B12 on each rank's shard, the outer gather as a
+    concatenation, B13 over the peers, the inner gather as a
+    concatenation), four residual sets carried, and each rank stepping
+    its own parameter buckets with its own AdamW on the reduced mean.
+    Beside it the plain versions' composition, on the same gradients
+    with residuals of its own, and a plain rank's parameters: every
+    reduced bucket, residual and parameter bitwise equal to the
+    kernels'; the four ranks' reduced buckets and parameters bitwise
+    equal; B12 and B13 exactly 12 a step a rank, B11 and B14 none; the
+    loss falls. Also, on the same gradients: each of ``HIER_FAULTS`` in
+    the kernels' composition must leave the plain one's bits in some
+    bucket within two steps; phase 4b's flat int8 wire (its own
+    residuals) and each wire's relative L2 to the float32 mean; one step
+    without residuals (B11 12 a rank, B12 none); (b)'s float32 and bf16
+    wires against the exact sum. Returns the readings and the launch
+    counts of the main run."""
+    from horovod_tpu_torch.models.transformer import (GPT2_MEDIUM,
+                                                      Transformer)
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import hierarchical as hier
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.ops.fusion import (pack_buckets_by_plan,
+                                              unflatten_buckets_by_plan)
+    from horovod_tpu_torch.optim.compression import WireSpec
+
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    with torch.device("cuda"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(True))
+    model.init_params(torch.Generator(device="cuda").manual_seed(
+        weights_seed))
+    plans, params = gpt2_medium_plan(model)
+    n, block, nb = HIER_RANKS, HIER_BLOCK, len(plans)
+    wire = WireSpec("int8", QUANT_BLOCK, True)
+    rows = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                               (2 * n, 1024))
+    tokens = [torch.from_numpy(rows[2 * r:2 * r + 2]).cuda()
+              for r in range(n)]
+
+    def flat_params():
+        return [b.detach().clone() for b in pack_buckets_by_plan(
+            [p.detach() for p in params], plans)]
+
+    def adamw(bufs):
+        return torch.optim.AdamW(bufs, lr=1e-4, weight_decay=1e-4)
+
+    ranks = [flat_params() for _ in range(n)]
+    plain = flat_params()
+    opts, plain_opt = [adamw(b) for b in ranks], adamw(plain)
+
+    def zero_res():
+        return [[torch.zeros_like(ranks[0][b]) for _ in range(n)]
+                for b in range(nb)]
+
+    res_k, res_p, res_f, res_fault = (zero_res(), zero_res(), zero_res(),
+                                      zero_res())
+    caught = {f: [0, 0] for f in HIER_FAULTS}
+    losses, launches, rel, rel_flat, stage_ms = [], [], [], [], []
+    wires = {}
+    for step in range(steps):
+        step_losses, grads = _rank_grads(model, params, plans, tokens)
+        losses.append(float(np.mean(step_losses)))
+        counts = {k: 0 for k in HIER_KERNELS}
+        plain_red, step_rel, step_flat, secs = [], [], [], 0.0
+        for b in range(nb):
+            xs = [grads[r][b] for r in range(n)]
+            torch.cuda.synchronize()
+            before = _launch_snapshot()
+            t0 = time.perf_counter()
+            ys, errs = hier.emulated_hierarchical_psum(xs, block, wire,
+                                                       res_k[b])
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            delta = _launch_delta(before)
+            for k in HIER_KERNELS:
+                counts[k] += delta[k]
+            with _plain_quantized():
+                pys, perrs = hier.emulated_hierarchical_psum(xs, block,
+                                                             wire, res_p[b])
+            for r in range(n):
+                _require(_equal(ys[r], ys[0]),
+                         f"hierarchical step {step} bucket {b}: rank {r}'s "
+                         "reduced bucket differs from rank 0's")
+                _require(_equal(pys[r], ys[r]) and _equal(perrs[r], errs[r]),
+                         f"hierarchical step {step} bucket {b} rank {r}: "
+                         "the reduced bucket or residual is not bitwise the "
+                         "plain composition's")
+            if step < 2:  # each fault, on the healthy run's inputs
+                for f in HIER_FAULTS:
+                    carried = f == "residual_offset"
+                    with _hier_fault(f):
+                        fys, fres = hier.emulated_hierarchical_psum(
+                            xs, block, wire,
+                            res_fault[b] if carried else res_k[b])
+                    if carried:
+                        res_fault[b] = fres
+                    caught[f][step] += not all(_equal(fy, y) for fy, y
+                                               in zip(fys, ys))
+                    del fys, fres
+            res_k[b], res_p[b] = errs, perrs
+            # AVERAGE: a true division of each rank's own sum, as the
+            # optimizer divides
+            for r in range(n):
+                ranks[r][b].grad = ys[r] / n
+            plain_red.append(pys[0])
+            del ys, pys
+            mean = sum(xs) / n
+            step_rel.append(((ranks[0][b].grad - mean).norm()
+                             / mean.norm().clamp_min(1e-30)).item())
+            sums, res_f[b] = qc.emulated_quantized_psum(xs, n, QUANT_BLOCK,
+                                                        res_f[b])
+            step_flat.append(((sums[0] / n - mean).norm()
+                              / mean.norm().clamp_min(1e-30)).item())
+            del sums, mean
+            if step == 0:
+                before = _launch_snapshot()
+                hier.emulated_hierarchical_psum(xs, block, wire)
+                raw = _launch_delta(before)
+                for k in HIER_KERNELS:
+                    wires.setdefault("int8 raw, launches", {k: 0 for k in
+                                                            HIER_KERNELS})
+                    wires["int8 raw, launches"][k] += raw[k]
+            if step == steps - 1:
+                exact = sum(x.double() for x in xs)
+                scale = sum(x.double().abs() for x in xs).clamp_min(1e-300)
+                for kind, w in (("float32", None),
+                                ("bf16", WireSpec("bf16"))):
+                    ws, _ = hier.emulated_hierarchical_psum(xs, block, w)
+                    err = (ws[0].double() - exact).abs()
+                    got = wires.setdefault(kind, {
+                        "worst_error_per_sum_abs": 0.0,
+                        "tol": HIER_WIRE_TOL[kind], "rel_l2_max": 0.0})
+                    got["worst_error_per_sum_abs"] = max(
+                        got["worst_error_per_sum_abs"],
+                        (err / scale).max().item())
+                    got["rel_l2_max"] = max(
+                        got["rel_l2_max"],
+                        (err.norm() / exact.norm()).item())
+                    del ws, err
+                del exact, scale
+        launches.append(counts)
+        stage_ms.append(secs * 1e3)
+        rel.append(step_rel)
+        rel_flat.append(step_flat)
+        for r in range(n):
+            opts[r].step()
+            opts[r].zero_grad(set_to_none=True)
+        for b in range(nb):
+            plain[b].grad = plain_red[b] / n
+        plain_opt.step()
+        plain_opt.zero_grad(set_to_none=True)
+        for b in range(nb):
+            _require(_equal(plain[b], ranks[0][b]),
+                     f"hierarchical step {step} bucket {b}: the parameters "
+                     "are not bitwise the plain composition's")
+            for r in range(1, n):
+                _require(_equal(ranks[r][b], ranks[0][b]),
+                         f"hierarchical step {step} bucket {b}: rank {r}'s "
+                         "parameters differ from rank 0's")
+        leaves = unflatten_buckets_by_plan(ranks[0], plans, len(params))
+        with torch.no_grad():
+            for p, leaf in zip(params, leaves):
+                p.copy_(leaf.view_as(p))
+        del plain_red, grads, leaves
+        torch.cuda.empty_cache()
+    for kind in ("float32", "bf16"):
+        worst = wires[kind]["worst_error_per_sum_abs"]
+        _require(worst <= HIER_WIRE_TOL[kind],
+                 f"hierarchical {kind} wire: an element is {worst:.3e} of "
+                 "its sum of |gradients| from the exact sum (limit "
+                 f"{HIER_WIRE_TOL[kind]:.3e})")
+    want = n * nb
+    for step, counts in enumerate(launches):
+        got = (counts["quant_ef_rows"], counts["accum_rows"],
+               counts["quant_rows"], counts["dequant_flat"])
+        _require(got == (want, want, 0, 0),
+                 f"hierarchical step {step}: B12, B13, B11, B14 launched "
+                 f"{got}, not ({want}, {want}, 0, 0): 12 buckets a rank")
+    raw = wires["int8 raw, launches"]
+    _require((raw["quant_rows"], raw["quant_ef_rows"], raw["accum_rows"],
+              raw["dequant_flat"]) == (want, 0, want, 0),
+             f"hierarchical without residuals launched {raw}")
+    for f, counts in caught.items():
+        _require(any(counts), f"hierarchical fault {f} left every bucket's "
+                              "bits as they were: the checks would pass it")
+    _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+             f"hierarchical training loss did not fall: {losses}")
+    sizes = _bucket_sizes(plans)
+    del model, ranks, plain, opts, plain_opt, res_k, res_p, res_f, res_fault
+    torch.cuda.empty_cache()
+    return {"seed": seed, "buckets": nb, "bucket_elements": sizes,
+            "losses": losses, "rel_l2_max_by_step": [max(r) for r in rel],
+            "flat_int8_rel_l2_max_by_step": [max(r) for r in rel_flat],
+            "rel_l2_by_bucket_last_step": rel[-1],
+            "flat_int8_rel_l2_by_bucket_last_step": rel_flat[-1],
+            "launches_by_step": launches, "stage_wall_ms": stage_ms,
+            "faults_buckets_differing_steps_1_2": caught, "wires": wires,
+            "leg_bytes_per_rank_step": _leg_bytes(sizes, n, block,
+                                                  QUANT_BLOCK),
+            "one_rank_outer_leg_device_ms": _hier_stage_ms(plans, block,
+                                                           QUANT_BLOCK)}
+
+
+def hier_world_one(in_process_losses):
+    """(c) The knobs at world 1 over NCCL (``HOROVOD_HIERARCHICAL_ALLREDUCE``,
+    ``_ALLGATHER``, ``_LOCAL_SIZE=2``, the int8 wire): ``resolve_block``
+    gives 1, so every call takes the flat route. ``allreduce`` and
+    ``allgather`` return their input bitwise; ``hierarchical_psum`` with
+    the int8 wire and a residual is the plain composition's bits; GPT-2
+    medium through ``make_lm_train_step`` (batch 8 x 1024, AdamW, phase
+    4's seed, weights and batch) gives phase 4's first four losses
+    bitwise. Returns the readings."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch.ops import hierarchical as hier
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.optim.compression import WireSpec
+
+    env = {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+           "HOROVOD_HIERARCHICAL_ALLGATHER": "1",
+           "HOROVOD_HIERARCHICAL_LOCAL_SIZE": str(HIER_BLOCK),
+           "HOROVOD_COMPRESSION": "int8"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        hvd.init()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    try:
+        _require(hvd.nccl_enabled() and hvd.size() == 1,
+                 "phase 4h (c) needs a world of one over NCCL")
+        _require(hier.resolve_block(1, HIER_BLOCK) == 1
+                 and hier.hierarchy_enabled_for("allreduce", None)
+                 and hier.hierarchy_enabled_for("allgather", None),
+                 "phase 4h (c): the knobs did not reach the world of one")
+        g = torch.Generator(device="cuda").manual_seed(21)
+        x = torch.randn(1 << 20, generator=g, device="cuda")
+        r = torch.randn(1 << 20, generator=g, device="cuda") * 1e-6
+        _require(_bitwise(hvd.allreduce(x, op=hvd.Sum), x)
+                 and _bitwise(hvd.allreduce(x, op=hvd.Average), x)
+                 and _bitwise(hvd.allgather(x.reshape(1024, -1)),
+                              x.reshape(1024, -1)),
+                 "phase 4h (c): a collective at world 1 is not its input")
+        y, new_r = hier.hierarchical_psum(x, HIER_BLOCK,
+                                          WireSpec("int8", QUANT_BLOCK),
+                                          residual=r)
+        with _plain_quantized():
+            (py,), (pr,) = qc.emulated_quantized_psum([x], 1, QUANT_BLOCK,
+                                                      [r])
+        _require(_equal(y, py) and _equal(new_r, pr),
+                 "phase 4h (c): hierarchical_psum at world 1 is not the "
+                 "flat wire's plain composition")
+        cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+        factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                    weight_decay=1e-4)
+        tokens = torch.from_numpy(synthetic_tokens(
+            cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+        model, step = hvd.make_lm_train_step(
+            cfg, factory, attention_fn=make_flash_attention_fn(causal=True))
+        _require(step.optimizer.wire.kind == "int8"
+                 and step.optimizer._hier_block == 1,
+                 "phase 4h (c): the int8 optimizer's two-level block is "
+                 "not 1")
+        losses = [float(step(tokens)) for _ in range(4)]
+        _require(losses == in_process_losses[:4],
+                 f"phase 4h (c): losses {losses} under the knobs are not "
+                 f"phase 4's {in_process_losses[:4]}")
+        del model, step
+        torch.cuda.empty_cache()
+        return {"world": 1, "backend": "nccl", "resolve_block": 1,
+                "wire": "int8 block 256 ef",
+                "losses_bitwise_phase4": losses}
+    finally:
+        hvd.shutdown()
+
+
+def train_hierarchical(seed, ledger, in_process_losses, flat_stage_ms):
+    """Phase 4h: (a) and (b) :func:`hier_world`, (c)
+    :func:`hier_world_one`. Launch counts are zeroed just before (a)'s
+    reductions and read just after."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    world = hier_world(seed)
+    ledger["train_hierarchical"] = {
+        k: sum(s[k] for s in world["launches_by_step"])
+        for k in HIER_KERNELS}
+    world["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stage = world["one_rank_outer_leg_device_ms"]
+    print(json.dumps({
+        "phase": "train_hierarchical (a, b) world 4 emulated as 2 x 2",
+        "model": "GPT-2 medium 24x1024", "batch": "4 x 2x1024",
+        "wire": "two-level: float32 inner legs, int8 block 256 ef outer",
+        "phase4b_flat_one_rank_stage_device_ms": flat_stage_ms,
+        "one_rank_outer_leg_device_ms_total": sum(
+            v for k, v in stage.items() if not k.startswith("other")),
+        **world}))
+    print(json.dumps({"phase": "train_hierarchical (c) world 1 nccl",
+                      **hier_world_one(in_process_losses)}))
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: Llama-2 under Adasum at width 4096 (head_dim 128)
+# ---------------------------------------------------------------------------
+
+LLAMA_STEPS = 4
+LLAMA_LAYERS = 12
+#: the Llama example's flags at Llama-2's width and context, depth cut
+LLAMA_ARGS = ["--layers", str(LLAMA_LAYERS), "--hidden", "4096", "--vocab",
+              "32000", "--seq-len", "4096", "--batch-size", "2", "--flash",
+              "--remat", "--steps", str(LLAMA_STEPS)]
+LLAMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: a step's launches: the forward of each block twice under remat
+LLAMA_LAUNCHES = {"flash_fwd": 2 * LLAMA_LAYERS,
+                  "flash_bwd_dq": LLAMA_LAYERS,
+                  "flash_bwd_dkv": LLAMA_LAYERS}
+
+
+def train_llama(seed, ledger):
+    """Phase 4i. The Llama example's ``main`` (``LLAMA_ARGS``: hidden
+    4096, 32 heads of 128, MLP 11008, vocab 32000, untied head, seq 4096,
+    batch 2, ``--flash --remat``, depth 12) at world 1 over NCCL: a
+    falling loss, B1 exactly 24 and B2, B3 12 each a step by the launch
+    counts and by kernel name in one more step of the example's own
+    (``stats["step"]``), profiled, and the parameters after its
+    ``LLAMA_STEPS`` steps bitwise those of the same steps under a plain
+    ``torch.optim.Adam`` (the twin, built after the example's model is
+    freed). Prints step ms, tokens/s, MFU (6 N tokens, N without the
+    input embedding, a lookup, plus the causal attention's 6 B T^2
+    hidden a layer, over 989 TFLOP/s), the peak memory and the profiled
+    step's device time by group."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import llama_adasum
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops import _build
+
+    del seed  # the example draws its own weights and batch (seed 0)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _build.reset_launches()
+    llama_adasum.main(LLAMA_ARGS, stats)
+    torch.cuda.synchronize()
+    ledger["train_llama"] = {k: _build.LAUNCHES[k] for k in LLAMA_KERNELS}
+    losses = stats["losses"]
+    _require(len(losses) == LLAMA_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0],
+             f"Llama example losses did not fall: {losses}")
+    for k, per in LLAMA_LAUNCHES.items():
+        _require(ledger["train_llama"][k] == per * LLAMA_STEPS,
+                 f"Llama example: {k} launched {ledger['train_llama'][k]} "
+                 f"times in {LLAMA_STEPS} steps, not {per} a step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model, tok = stats["model"], stats["tokens"]
+    cfg, n_params = model.cfg, stats["n_params"]
+    step_ms, rates = stats["step_ms"], stats["tokens_per_s"]
+    got = {k: v.detach().to("cpu") for k, v in model.state_dict().items()}
+    kernels = profile_train_step(
+        stats["step"], what=f"one Llama-2 step of the example "
+                            f"({LLAMA_LAYERS} x 4096, head_dim 128, seq "
+                            "4096, batch 2, --flash --remat, Adam under "
+                            "op=Adasum)")
+    by_name = {k: sum(e.count for e in kernels if k + "_" in e.key)
+               for k in LLAMA_KERNELS}
+    for k, c in by_name.items():
+        _require(c == LLAMA_LAUNCHES[k],
+                 f"profiled Llama step: {c} kernels named {k}*, not "
+                 f"{LLAMA_LAUNCHES[k]}")
+    del stats, model, kernels
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # the twin: the same steps under a plain torch.optim.Adam
+    with torch.device("cuda"):
+        twin = Transformer(cfg, attention_fn=llama_adasum.
+                           make_flash_attention_fn(causal=True))
+    twin.init_params(torch.Generator(device="cuda").manual_seed(0))
+    adam = torch.optim.Adam(twin.parameters(), lr=3e-4)
+
+    def twin_step():
+        causal_lm_loss(twin(tok), tok)[0].backward()
+        adam.step()
+        adam.zero_grad(set_to_none=True)
+
+    for _ in range(LLAMA_STEPS):
+        twin_step()
+    differ = [k for k, v in twin.state_dict().items()
+              if not _bitwise(v.detach().to("cpu"), got[k])]
+    _require(not differ, "the Llama example at world 1 is not bitwise "
+                         f"plain Adam's steps: {differ}")
+    del twin, adam, got
+    torch.cuda.empty_cache()
+    tokens = 2 * 4096
+    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size
+    flops = (6 * n_matmul * tokens
+             + cfg.num_layers * 6 * 2 * 4096 ** 2 * cfg.hidden_size)
+    med = float(np.median(step_ms[1:]))
+    print(json.dumps({
+        "phase": "train_llama world 1",
+        "model": f"Llama-2 {cfg.num_layers} x {cfg.hidden_size}, "
+                 f"{cfg.num_heads} heads of {cfg.head_dim}, MLP "
+                 f"{cfg.mlp_dim}, vocab {cfg.vocab_size}, untied head",
+        "params": n_params, "params_in_flops": n_matmul,
+        "args": LLAMA_ARGS, "backend": "nccl",
+        "losses": losses, "step_ms": step_ms, "tokens_per_s": rates,
+        "step_ms_median_after_first": med,
+        "tokens_per_s_median_after_first": tokens / (med / 1e3),
+        "model_flops_per_step": flops,
+        "mfu": flops / (med / 1e3) / PEAK_OPS["bf16"],
+        "peak_mem_gb": peak, "bitwise_plain_adam": True,
+        "launches_per_step": {k: ledger["train_llama"][k] / LLAMA_STEPS
+                              for k in LLAMA_KERNELS},
+        "profiled_step_kernels": by_name}))
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: checkpoint, save and resume
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 2  # steps before the save, and after the load
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def train_checkpoint(ledger):
+    """Phase 4j. GPT-2 medium (phase 4's model: batch 8 x 1024,
+    ``--flash --fused-norm``, AdamW, phase 4's weights and batch) at
+    world 1 over NCCL: (a) the DistributedOptimizer, ``CKPT_STEPS``
+    steps, ``save_model`` with AdamW's state into a temporary directory,
+    ``load_model`` into a fresh model (other weights) and optimizer,
+    ``CKPT_STEPS`` more: parameters and losses bitwise ``2 x CKPT_STEPS``
+    uninterrupted steps; (b) the same through ``save_fsdp``/``load_fsdp``
+    with a FullyShardedOptimizer (``make_lm_train_step``), against its
+    own uninterrupted steps. Prints the bytes written and the save and
+    load seconds; the directory is removed in a ``finally``. Launch
+    counts are zeroed just before the runs and read just after."""
+    import shutil
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import (GPT2_MEDIUM,
+                                                      Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    flash = make_flash_attention_fn(causal=True)
+    spec = ("AdamW", {"lr": 1e-4, "weight_decay": 1e-4})
+    factory = functools.partial(torch.optim.AdamW, **spec[1])
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    out = {}
+    hvd.init()
+    root = tempfile.mkdtemp(prefix="hvd_ckpt_")
+    try:
+        _require(hvd.nccl_enabled() and hvd.size() == 1,
+                 "phase 4j needs a world of one over NCCL")
+
+        def fresh(weights_seed):
+            with torch.device("cuda"):
+                model = Transformer(cfg, attention_fn=flash)
+            model.init_params(torch.Generator(device="cuda").manual_seed(
+                weights_seed))
+            return model
+
+        def train(model, opt, steps):
+            losses = []
+            for _ in range(steps):
+                loss = causal_lm_loss(model(tokens), tokens)[0]
+                loss.backward()
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                losses.append(loss.item())
+            return losses
+
+        def distributed(model):
+            return hvd.DistributedOptimizer(
+                factory(model.parameters()),
+                named_parameters=model.named_parameters())
+
+        _build.reset_launches()
+        model = fresh(0)
+        ref_losses = train(model, distributed(model), 2 * CKPT_STEPS)
+        ref = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model
+        torch.cuda.empty_cache()
+        model = fresh(0)
+        opt = distributed(model)
+        losses = train(model, opt, CKPT_STEPS)
+        path = os.path.join(root, "model")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_model(path, model, opt_state=opt, optimizer_spec=spec,
+                        metadata={"step": CKPT_STEPS})
+        save_s = time.perf_counter() - t0
+        written = _dir_bytes(path)
+        del model, opt
+        torch.cuda.empty_cache()
+        model = fresh(1)  # other weights: the load must overwrite them
+        t0 = time.perf_counter()
+        m = ckpt.load_model(path, model=model)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _require(m.metadata == {"step": CKPT_STEPS},
+                 f"phase 4j: metadata {m.metadata}")
+        losses += train(model, m.optimizer, CKPT_STEPS)
+        diff = _first_difference(model.state_dict(), ref)
+        _require(diff is None and losses == ref_losses,
+                 f"phase 4j (a): resumed training is not bitwise the "
+                 f"uninterrupted steps: {diff}, losses {losses} vs "
+                 f"{ref_losses}")
+        out["distributed_optimizer"] = {
+            "losses": losses, "bitwise": True, "bytes_written": written,
+            "save_s": save_s, "load_s": load_s}
+        del model, m, ref
+        shutil.rmtree(path)
+        torch.cuda.empty_cache()
+
+        # (b) FSDP at world 1
+        def fsdp():
+            return hvd.make_lm_train_step(
+                cfg, hvd.FullyShardedOptimizer(factory), attention_fn=flash)
+
+        _, fstep = fsdp()
+        ref_losses = [float(fstep(tokens)) for _ in range(2 * CKPT_STEPS)]
+        ref = fstep.state_dict()
+        del fstep
+        torch.cuda.empty_cache()
+        _, fstep = fsdp()
+        losses = [float(fstep(tokens)) for _ in range(CKPT_STEPS)]
+        path = os.path.join(root, "fsdp")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_fsdp(path, fstep.optimizer.shards, fstep.layout,
+                       opt_state=fstep.optimizer,
+                       metadata={"step": CKPT_STEPS})
+        save_s = time.perf_counter() - t0
+        written = _dir_bytes(path)
+        del fstep
+        torch.cuda.empty_cache()
+        _, fstep = fsdp()
+        t0 = time.perf_counter()
+        _, _, meta = ckpt.load_fsdp(path, optimizer=fstep.optimizer)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        losses += [float(fstep(tokens)) for _ in range(CKPT_STEPS)]
+        diff = _first_difference(fstep.state_dict(), ref)
+        _require(diff is None and losses == ref_losses
+                 and meta == {"step": CKPT_STEPS},
+                 f"phase 4j (b): resumed FSDP training is not bitwise the "
+                 f"uninterrupted steps: {diff}, losses {losses} vs "
+                 f"{ref_losses}")
+        torch.cuda.synchronize()
+        ledger["train_checkpoint"] = {k: _build.LAUNCHES[k]
+                                      for k in TRAIN_KERNELS}
+        out["fsdp"] = {"losses": losses, "bitwise": True,
+                       "bytes_written": written, "save_s": save_s,
+                       "load_s": load_s,
+                       "buckets": len(fstep.layout.plans)}
+        del fstep, ref
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        hvd.shutdown()
+    print(json.dumps({"phase": "train_checkpoint world 1",
+                      "model": "GPT-2 medium 24x1024, batch 8x1024, AdamW",
+                      "steps": f"{CKPT_STEPS} + save/load + {CKPT_STEPS}",
+                      **out}))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -5756,9 +6544,10 @@ def _kernel_name(mangled):
     return mangled
 
 
-def print_ptxas(_build, names):
-    """The ptxas report of each named kernel source: registers, shared
-    memory and spills, by kernel."""
+def ptxas_lines(_build, names):
+    """``(source, kernel, line)`` of each ptxas register, shared-memory
+    and spill line of the named kernel sources' build logs."""
+    out = []
     for name in names:
         log = (_build.BUILD_DIR / f"{name}.log")
         fn = ""
@@ -5768,7 +6557,15 @@ def print_ptxas(_build, names):
             elif "Function properties for" in line:
                 fn = _kernel_name(line.split()[-1])
             elif "registers" in line or "spill" in line:
-                print(f"ptxas {name} {fn}: {line.strip()}")
+                out.append((name, fn, line.strip()))
+    return out
+
+
+def print_ptxas(_build, names):
+    """The ptxas report of each named kernel source: registers, shared
+    memory and spills, by kernel."""
+    for name, fn, line in ptxas_lines(_build, names):
+        print(f"ptxas {name} {fn}: {line}")
 
 
 def _cuobjdump():
@@ -5981,12 +6778,15 @@ def main(argv=None) -> int:
     # phases 4 and 5: training; phases 6 and 7: serving
     ledger = {}
     in_process_rate, in_process_losses = train_gpt2(args.seed, ledger)
-    train_int8(args.seed, ledger)
+    flat_stage_ms = train_int8(args.seed, ledger)
     train_zero(args.seed, ledger)
     train_gpt2_fused_ce(args.seed, ledger)
     launch_gpt2(ledger, in_process_rate, in_process_losses)
     train_fsdp(args.seed, ledger, in_process_losses, in_process_rate)
     train_adasum(args.seed, ledger)
+    train_hierarchical(args.seed, ledger, in_process_losses, flat_stage_ms)
+    train_llama(args.seed, ledger)
+    train_checkpoint(ledger)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

@@ -58,6 +58,8 @@ reference its tests compare against.
 
 __version__ = "0.1.0"
 
+from . import checkpoint
+from .checkpoint import LoadedModel, load_model, save_model
 from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                           cuda_enabled, ddl_built, device, gloo_built,
                           gloo_enabled, init, is_initialized, local_rank,
@@ -92,6 +94,7 @@ from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               reducescatter_async, synchronize)
 from .ops.batchnorm import FusedBatchNorm, fused_batch_norm
 from .ops.decode_attention import decode_append_attend
+from .ops.hierarchical import hierarchical_allgather, hierarchical_psum
 from .ops.flash_attention import (flash_attention, flash_attention_bhtd,
                                   make_flash_attention_fn)
 from .ops.layernorm import FusedLayerNorm, fused_layer_norm
@@ -131,14 +134,16 @@ __all__ = [
     "grouped_reducescatter_async", "alltoall", "alltoall_async",
     "grouped_allgather", "grouped_allgather_async", "join",
     "masked_allreduce", "sparse_allreduce", "IndexedSlices",
-    "adasum_allreduce", "hierarchical_adasum", "maybe_pack_rows",
+    "adasum_allreduce", "hierarchical_adasum", "hierarchical_psum",
+    "hierarchical_allgather", "maybe_pack_rows",
     "pack_rows_fused", "matmul_reduce_scatter",
     # training
     "DistributedOptimizer", "ShardedOptimizer", "FullyShardedOptimizer",
     "reshard_state",
     "Compression", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allgather_object",
-    "make_lm_train_step",
+    "make_lm_train_step", "checkpoint", "save_model", "load_model",
+    "LoadedModel",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
     "SyncBatchNorm",
     # models

@@ -74,9 +74,15 @@ class Knobs:
     # (ops/quantized_collectives.py) and a CPU tensor their plain
     # versions.
     fused_collectives: bool = False
-    # two-level (local x cross) allreduce; the port has no process sets
-    # for it yet, so the int8 wire refuses it rather than running flat
+    # two-level (inner x outer) collectives (ops/hierarchical.py): the
+    # global set's SUM/AVERAGE allreduce (and the DistributedOptimizer's
+    # int8 buckets) as an inner reduce-scatter, an outer allreduce and
+    # an inner all-gather; the global allgather as an inner then an
+    # outer gather. local_size: ranks per inner domain (0: the
+    # launcher's ranks per host, HOROVOD_LOCAL_SIZE)
     hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    hierarchical_local_size: int = 0
 
     # --- backward-interleaved collective scheduler (ops/overlap.py) ---
     # "off" (default), "stage" or "double", as in the JAX package.
@@ -151,6 +157,9 @@ class Knobs:
             fused_collectives=_env_bool("FUSED_COLLECTIVES", False),
             hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE",
                                              False),
+            hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER",
+                                             False),
+            hierarchical_local_size=_env_int("HIERARCHICAL_LOCAL_SIZE", 0),
             overlap_schedule=_env("OVERLAP_SCHEDULE", "") or "off",
             fsdp=_env_bool("FSDP", True),
             fsdp_prefetch=_env_int("FSDP_PREFETCH", 1),

@@ -213,11 +213,13 @@ def _norm(cfg: TransformerConfig) -> nn.Module:
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float):
-    """float32 ``(cos, sin)`` tables ``[max_len, head_dim / 2]``."""
+    """float32 ``(cos, sin)`` tables ``[max_len, head_dim / 2]``, on the
+    default device (a model built under ``torch.device("cuda")`` gets
+    them on the card)."""
     inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
     freqs = np.outer(np.arange(max_len), inv)
-    return (torch.from_numpy(np.cos(freqs)).to(torch.float32),
-            torch.from_numpy(np.sin(freqs)).to(torch.float32))
+    return (torch.tensor(np.cos(freqs), dtype=torch.float32),
+            torch.tensor(np.sin(freqs), dtype=torch.float32))
 
 
 def apply_rope(x, cos, sin, positions):

@@ -157,8 +157,8 @@ def hierarchical_adasum(x: torch.Tensor,
     divide by it and the number of nodes must be a power of two.
     Collective: it registers (or finds) the nodes' and the cross-node
     process sets on every rank."""
-    from ..core.process_sets import add_or_get_process_set
     from .collectives import Sum, allgather, reducescatter
+    from .hierarchical import block_sets
 
     st = _require_init()
     nloc = st.local_size if local_size is None else int(local_size)
@@ -170,14 +170,9 @@ def hierarchical_adasum(x: torch.Tensor,
         d0 = x.shape[0] if x.dim() else "(a scalar)"
         raise HorovodInternalError(
             f"hierarchical_adasum: dim0 {d0} % local size {nloc} != 0")
-    nodes = st.size // nloc
-    adasum_distances(nodes)
-    node_sets = [add_or_get_process_set(range(k * nloc, (k + 1) * nloc))
-                 for k in range(nodes)]
-    cross_sets = [add_or_get_process_set(range(j, st.size, nloc))
-                  for j in range(nloc)]
-    node = node_sets[st.rank // nloc]
+    adasum_distances(st.size // nloc)
+    node, cross = block_sets(nloc)
     shard = reducescatter(x, op=Sum, process_set=node)
     shard = (shard / nloc).to(x.dtype)
-    shard = start_adasum(shard, cross_sets[st.rank % nloc].ranks)()
+    shard = start_adasum(shard, cross.ranks)()
     return allgather(shard, process_set=node)

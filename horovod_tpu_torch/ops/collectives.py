@@ -158,6 +158,18 @@ def synchronize(handle: int):
 
 # -- allreduce ---------------------------------------------------------------
 
+def _two_level(kind: str, op, process_set) -> int:
+    """The inner domain's size when the knobs route this collective
+    through two levels (``ops/hierarchical.py``): the global set's SUM
+    or AVERAGE allreduce, or its allgather (``op`` None); 1 keeps the
+    flat route."""
+    from .hierarchical import two_level_block
+
+    if op not in (None, ReduceOp.SUM, ReduceOp.AVERAGE):
+        return 1
+    return two_level_block(kind, process_set)
+
+
 def _allreduce_start(tensor, average, compression, op, prescale_factor,
                      postscale_factor, process_set, out=None):
     """Enqueue one allreduce; returns (works, finish)."""
@@ -201,21 +213,33 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
     # already have made one)
     buf = wire.clone() if wire.data_ptr() == tensor.data_ptr() else wire
     scale_(buf, prescale_factor)
-    work = dist.all_reduce(buf, op=dist_op(op), group=ctx.group,
-                           async_op=True)
+    block = _two_level("allreduce", op, process_set)
+    if block > 1:
+        # two levels (ops/hierarchical.py); AVERAGE divides the sum
+        from .hierarchical import start_hierarchical_psum
+
+        summed, _ = start_hierarchical_psum(buf, block)
+        works = []
+    else:
+        works = [dist.all_reduce(buf, op=dist_op(op), group=ctx.group,
+                                 async_op=True)]
+
+        def summed():
+            works[0].wait()
+            return buf
 
     def finish():
-        work.wait()
+        red = summed()
         if op == ReduceOp.AVERAGE:
-            average_(buf, ctx.size)
-        scale_(buf, postscale_factor)
-        res = compression.decompress(buf, wctx)
+            average_(red, ctx.size)
+        scale_(red, postscale_factor)
+        res = compression.decompress(red, wctx)
         if out is None:
             return res
         out.copy_(res)
         return out
 
-    return [work], finish
+    return works, finish
 
 
 def allreduce(tensor, average=None, name=None, compression=None, op=None,
@@ -295,6 +319,15 @@ def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
             flat = scale_(adasum_allreduce(flat, process_set=process_set),
                           postscale_factor)
             pending.append((idxs, flat, None))
+            continue
+        block = _two_level("allreduce", op, process_set)
+        if block > 1:
+            from .hierarchical import hierarchical_psum
+
+            flat = hierarchical_psum(flat, block)
+            if op == ReduceOp.AVERAGE:
+                average_(flat, ctx.size)
+            pending.append((idxs, scale_(flat, postscale_factor), None))
             continue
         pending.append((idxs, flat,
                         dist.all_reduce(flat, op=dist_op(op),
@@ -489,12 +522,12 @@ _all_gather_single = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
 
-def _all_gather_tiled(x: torch.Tensor, n: int):
-    """Start an all-gather of a flat contiguous tensor over the world's
-    ``n`` ranks: the output is every rank's tensor, concatenated in rank
-    order. Returns ``(output, work)``."""
+def _all_gather_tiled(x: torch.Tensor, n: int, group=None):
+    """Start an all-gather of a flat contiguous tensor over the ``n``
+    ranks of ``group`` (default: the world): the output is every rank's
+    tensor, concatenated in rank order. Returns ``(output, work)``."""
     out = x.new_empty(n * x.numel())
-    return out, _all_gather_single(out, x, async_op=True)
+    return out, _all_gather_single(out, x, group=group, async_op=True)
 
 
 # -- allgather ---------------------------------------------------------------
@@ -552,8 +585,16 @@ def _grouped_allgather_start(tensors, process_set, what):
 
 def allgather(tensor, name=None, process_set=None):
     """Concatenate every member's ``tensor`` along dim 0, in set-rank
-    order; the first dimension may differ between ranks."""
+    order; the first dimension may differ between ranks. With
+    ``HOROVOD_HIERARCHICAL_ALLGATHER`` the global set's gather runs in
+    two levels (``ops/hierarchical.py``), to the same result."""
     del name
+    block = _two_level("allgather", None, process_set)
+    if block > 1:
+        from .hierarchical import hierarchical_allgather
+
+        _reject_sparse(tensor, "allgather")
+        return hierarchical_allgather(tensor.detach(), block)
     return _grouped_allgather_start([tensor], process_set,
                                     "allgather")[1]()[0]
 

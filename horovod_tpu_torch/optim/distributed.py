@@ -36,7 +36,12 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   one float32 tensor per bucket, in the bucket's layout, zero at
   construction and private to the rank (``error_feedback_residual``);
   ``int8-raw`` keeps none. Other ops (Adasum too), a proper subset and
-  integer buckets move uncompressed, as in the JAX package;
+  integer buckets move uncompressed, as in the JAX package. With
+  ``HOROVOD_HIERARCHICAL_ALLREDUCE`` the quantized SUM runs in two
+  levels (``ops/hierarchical.py``: a float32 reduce-scatter within each
+  domain of ``HOROVOD_HIERARCHICAL_LOCAL_SIZE`` ranks, the int8 leg
+  across the domains, an all-gather within), and the bucket's residual
+  holds this rank's shard residual at its head, as in the JAX package;
 * a sparse gradient (``nn.Embedding(sparse=True)``) is reduced by
   ``ops/sparse.sparse_allreduce`` outside the buckets, in
   ``synchronize()`` after the buckets are issued, in leaf order; its
@@ -68,6 +73,7 @@ import torch.distributed as dist
 
 from ..core.basics import _require_init
 from ..core.process_sets import set_context
+from ..ops import hierarchical
 from ..ops import quantized_collectives as qc
 from ..ops.adasum import require_world, start_adasum
 from ..ops.collectives import ReduceOp, dist_op, resolve_op, scale_
@@ -112,11 +118,12 @@ class _DistributedOptimizer:
             # world: other ops and proper subsets move uncompressed, as
             # in the JAX package
             compression, wire, int8 = NoneCompressor, None, False
-        if int8 and st.knobs.hierarchical_allreduce:
-            raise NotImplementedError(
-                "HOROVOD_HIERARCHICAL_ALLREDUCE with the int8 wire: the "
-                "two-level quantized allreduce (ops/hierarchical.py) is "
-                "not ported yet (ROADMAP queue A entry 7)")
+        # the int8 buckets' two-level route (ops/hierarchical.py): inner
+        # domains of this many ranks, 1 for the flat wire
+        self._hier_block = (hierarchical.two_level_block("allreduce")
+                            if int8 else 1)
+        if self._hier_block > 1:
+            hierarchical.block_sets(self._hier_block)  # collective
         self._opt = optimizer
         self._compression = compression
         #: the WireSpec of the floating buckets' wire (None: uncompressed)
@@ -278,11 +285,19 @@ class _DistributedOptimizer:
         self._pending.append((b, finish))
 
     def _start_int8(self, b: int, bucket: torch.Tensor):
-        """Enqueue bucket ``b``'s quantized SUM up to its gathers; carry
-        its new residual. Returns the bucket's finish."""
-        finish_sum, err = qc.start_quantized_psum(
-            bucket.to(torch.float32), self._size, self._int8_block,
-            self._residuals.get(b))
+        """Enqueue bucket ``b``'s quantized SUM up to its gathers, flat
+        or in two levels (the quantized outer leg of
+        ``ops/hierarchical.py``, whose residual is the shard's at the
+        bucket residual's head); carry its new residual. Returns the
+        bucket's finish."""
+        if self._hier_block > 1:
+            finish_sum, err = hierarchical.start_hierarchical_psum(
+                bucket.to(torch.float32), self._hier_block, self.wire,
+                self._residuals.get(b))
+        else:
+            finish_sum, err = qc.start_quantized_psum(
+                bucket.to(torch.float32), self._size, self._int8_block,
+                self._residuals.get(b))
         if err is not None:
             self._residuals[b] = err
         dtype = bucket.dtype

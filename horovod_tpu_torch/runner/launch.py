@@ -10,9 +10,8 @@ worker's ``--device cpu``), bootstrapped by rank 0's TCP store
 
 A flag whose feature the port does not have yet — elastic training
 and the control-plane retry it brings, the sharded control plane,
-autotune, timeline/profiler/flight recorder, hierarchical
-collectives, the mesh, the negotiation runtime's cycle, stall and cache
-knobs — is refused
+autotune, timeline/profiler/flight recorder, the mesh, the negotiation
+runtime's cycle, stall and cache knobs — is refused
 when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -37,7 +36,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
-    7: "hierarchical (two-level) collectives",
     8: "elastic training, preemption and recovery",
     9: "the eager negotiation runtime",
     11: "model, sequence and pipeline parallelism (the mesh)",
@@ -65,9 +63,6 @@ UNPORTED = {
         "timeline_filename", "timeline_mark_cycles", "prof_every",
         "prof_dir", "prof_duty_cycle", "flight_recorder", "flight_dir"),
         13),
-    **dict.fromkeys((
-        "hierarchical_allreduce", "hierarchical_allgather",
-        "hierarchical_local_size"), 7),
     "mesh": 11,
     **dict.fromkeys((
         "cycle_time_ms", "cache_capacity", "stall_check_disable",

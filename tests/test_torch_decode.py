@@ -294,12 +294,19 @@ _LAUNCHER_MODULES = [
         "utils.retry", "utils.faults", "utils.logging", "utils.metrics")]
 
 
+_HIERARCHY_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "ops.hierarchical", "checkpoint", "examples.llama_adasum")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
     Adasum slice's (Adasum, sparse slices, process sets, the Adasum
-    example) and the launcher's modules are among those walked."""
-    walked = _TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
+    example), the launcher's and the two-level wire's, checkpoint's and
+    Llama example's modules are among those walked."""
+    walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
+              + _HIERARCHY_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

@@ -26,8 +26,9 @@ device, for 3 steps:
   the same global batch and weights: losses and parameters within the
   limits stated at ``test_world_of_two_int8``, and the loss falls.
 
-``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` with the int8 wire raises: the
-two-level quantized allreduce is not ported.
+``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` with the int8 wire takes the
+two-level route (flat at world 1; the worlds of 4, 6 and 8 are
+``tests/test_torch_hierarchical.py``'s).
 """
 
 import dataclasses
@@ -76,15 +77,25 @@ def _fresh_port():
 
 
 def test_hierarchical_allreduce_with_int8_raises(monkeypatch):
+    """The knob is honoured: the int8 optimizer takes the two-level
+    route (ops/hierarchical.py, held against the JAX package by
+    tests/test_torch_hierarchical.py), which at world 1 resolves to the
+    flat wire; only a residual without the int8 wire raises."""
+    from horovod_tpu_torch.ops import hierarchical
+
     monkeypatch.setenv("HOROVOD_HIERARCHICAL_ALLREDUCE", "1")
+    monkeypatch.setenv("HOROVOD_HIERARCHICAL_LOCAL_SIZE", "2")
     hvd.init(device="cpu")
     lin = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="entry 7"):
-        hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1),
-                                 compression=hvd.Compression.int8)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1),
+                                   compression=hvd.Compression.int8)
+    assert opt.wire.kind == "int8" and opt._hier_block == 1
     # other wires do not take the quantized path
     hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=1),
                              compression=hvd.Compression.bf16)
+    with pytest.raises(hvd.HorovodInternalError, match="int8 wire"):
+        hierarchical.hierarchical_psum(torch.ones(3), 2,
+                                       residual=torch.zeros(3))
 
 
 _WORKER = r'''
