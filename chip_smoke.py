@@ -182,6 +182,22 @@ Phases, in order; the first failure exits non-zero:
    uninterrupted steps; the same through ``save_fsdp``/``load_fsdp``
    with the FullyShardedOptimizer; bytes written, save and load
    seconds;
+4k. train through the port of ``examples/gpt2_elastic.py`` at GPT-2
+   medium's width (24 x 1024, 16 heads of 64, vocab 50257, batch 8 x
+   1024, ``--flash``, 30 steps, a commit every 10) at world 1 over NCCL:
+   (a) in process, a falling loss, B1-B3 exactly 24 a step, step ms,
+   tokens/s and each commit's seconds, and ``device_prefetch`` of four
+   token batches to the card; (b) under the elastic launcher
+   (``--min-np 1 --max-np 1 --host-discovery-script``,
+   ``--emergency-checkpoint``), the worker sent SIGTERM after its first
+   commit: it exits 83, the host is not blacklisted, and the second
+   round recovers from the emergency rung; (c) with
+   ``HOROVOD_TPU_FAULT_SPEC=worker:kill:rank=0:step=2`` and two hosts
+   (localhost, 127.0.0.1) discovered: the first round dies, localhost
+   is blacklisted, the second round runs on 127.0.0.1 from step 0; in
+   (b) and (c) every parameter and Adam moment ends bitwise (a)'s (by
+   sha256); the emergency write's seconds and bytes, the seconds from
+   the exit to the next round's first step, each job's seconds;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -212,7 +228,8 @@ Phases, in order; the first failure exits non-zero:
 8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
    step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
-   ((a)'s kernel composition), 4i, 4j, 5 and 5b and the
+   ((a)'s kernel composition), 4i, 4j, 4k (in process and the
+   launched workers' second rounds), 5 and 5b and the
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
@@ -5546,6 +5563,366 @@ def train_checkpoint(ledger):
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: elastic training, preemption and the recovery ladder
+# ---------------------------------------------------------------------------
+
+#: the elastic example at GPT-2 medium's width: 16 heads of 64, MLP 4096
+ELASTIC_ARGS = ["--layers", "24", "--hidden", "1024", "--vocab", "50257",
+                "--seq-len", "1024", "--batch-size", "8", "--flash",
+                "--steps", "30", "--commit-every", "10"]
+ELASTIC_STEPS = 30
+ELASTIC_COMMIT_EVERY = 10
+ELASTIC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+ELASTIC_LAYERS = 24
+#: a launcher run of phase 4k that takes longer fails the smoke
+ELASTIC_TIMEOUT_S = 420.0
+#: (c)'s fault: rank 0's worker dies at its second commit (step 20)
+ELASTIC_KILL_SPEC = "worker:kill:rank=0:step=2"
+
+
+def _elastic_digests(model, adam):
+    """sha256 of the bytes of every parameter and of Adam's two moments
+    and step count for it, by name."""
+    import hashlib
+
+    def digest(t):
+        a = t.detach().contiguous().cpu().reshape(-1).view(
+            torch.uint8).numpy()
+        return hashlib.sha256(a).hexdigest()
+
+    out = {}
+    for name, p in model.named_parameters():
+        out[name] = digest(p)
+        for key, v in adam.state[p].items():
+            out[f"{name}/{key}"] = digest(v)
+    return out
+
+
+def _elastic_round():
+    """This worker's elastic round and host, from the launcher's
+    rendezvous store."""
+    from horovod_tpu_torch.runner.http import http_client
+    from horovod_tpu_torch.runner.util.hosts import SlotInfo
+
+    addr = os.environ["HVD_TPU_RENDEZVOUS_ADDR"]
+    port = int(os.environ["HVD_TPU_RENDEZVOUS_PORT"])
+    rank = os.environ.get("HOROVOD_RANK", "0")
+    rnd = int(http_client.get(addr, port, "rendezvous", "round"))
+    slot = SlotInfo.from_response_string(http_client.get(
+        addr, port, "rendezvous", f"rank_{rank}").decode())
+    return rnd, slot.hostname
+
+
+def elastic_worker(out_path):
+    """Phase 4k's worker, run by the elastic launcher: the example's
+    ``main`` at ``ELASTIC_ARGS``; writes the digests, the launch counts,
+    the commit seconds and the wall time of its first step to
+    ``out_path``. A respawned round drops the fault spec, so that only
+    the first round dies at its commit."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import gpt2_elastic
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import faults
+
+    rnd, host = _elastic_round()
+    if rnd:
+        os.environ.pop("HOROVOD_TPU_FAULT_SPEC", None)
+        faults.reset()
+    print(f"elastic worker: round {rnd} on {host}", flush=True)
+    real, first = gpt2_elastic.allreduce, []
+
+    def timed(x, *args, **kwargs):  # the step's loss: once a step
+        out = real(x, *args, **kwargs)
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.time())
+        return out
+
+    gpt2_elastic.allreduce = timed
+    _build.reset_launches()
+    stats = {}
+    gpt2_elastic.main(ELASTIC_ARGS, stats)
+    torch.cuda.synchronize()
+    with open(out_path, "w") as f:
+        json.dump({"round": rnd, "host": host,
+                   "digests": _elastic_digests(stats["model"],
+                                               stats["optimizer"]),
+                   "launches": {k: _build.LAUNCHES[k]
+                                for k in ELASTIC_KERNELS},
+                   "losses": stats["losses"],
+                   "commit_s": stats["commit_s"],
+                   "first_step_unix": first[0]}, f)
+    hvd.shutdown()
+    return 0
+
+
+def _children(pid):
+    """The pids whose parent is ``pid`` (from /proc)."""
+    kids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            kids.append(int(entry))
+    return kids
+
+
+def _elastic_launch(args, out_path, env_extra=None, on_line=None):
+    """Run the elastic launcher over ``elastic_worker``; each output line
+    is stamped with ``time.time()`` and handed to ``on_line(t, line,
+    proc)``. Returns ``(exit code, [(t, line)], t0, t1)``. Past
+    ``ELASTIC_TIMEOUT_S`` the launcher gets SIGTERM (its driver stops the
+    round's workers) and the smoke fails."""
+    import signal
+    import threading
+
+    argv = _launcher(*args, sys.executable,
+                     os.path.join(HERE, "chip_smoke.py"),
+                     "--elastic-worker", out_path)
+    env = _child_env()
+    env.update(env_extra or {})
+    t0 = time.time()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def pump():
+        for line in proc.stdout:
+            t = time.time()
+            lines.append((t, line.rstrip("\n")))
+            if on_line is not None:
+                on_line(t, lines[-1][1], proc)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=ELASTIC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        raise SmokeFailure("elastic launch ran over "
+                           f"{ELASTIC_TIMEOUT_S} s:\n"
+                           + "\n".join(l for _, l in lines[-30:]))
+    t1 = time.time()
+    reader.join(timeout=30)
+    for t, line in lines:
+        print(f"elastic +{t - t0:.2f} s: {line}")
+    return rc, lines, t0, t1
+
+
+def _elastic_line(lines, text):
+    return next(((t, l) for t, l in lines if text in l), (None, None))
+
+
+def train_elastic(ledger):
+    """Phase 4k. The port of ``examples/gpt2_elastic.py`` at GPT-2
+    medium's width (``ELASTIC_ARGS``: 24 x 1024, 16 heads of 64, vocab
+    50257, batch 8 x 1024, ``--flash``, 30 steps, a commit every 10) at
+    world 1 over NCCL:
+
+    (a) in process through its ``main``: a falling loss, B1-B3 exactly
+        24 a step by the launch counts; each commit interval's ms a step
+        and tokens/s, each ``commit()``'s seconds; the sha256 of every
+        parameter's and Adam moment's bytes after 30 steps; and
+        ``hvd.data.device_prefetch`` of four token batches to the card,
+        each equal to its rows;
+    (b) preempted: ``launch -np 1 --min-np 1 --max-np 1
+        --host-discovery-script`` (``echo localhost:1``)
+        ``--emergency-checkpoint``, the worker ``elastic_worker``; after
+        the worker's ``step 10:`` line the worker (the launcher's child,
+        found under /proc) gets SIGTERM: it must exit 83 (the driver's
+        "preempted; host stays eligible" line, no blacklisting), the
+        second round runs on localhost and recovers from the emergency
+        rung at commit epoch 1 or later (its log names the rung), and its
+        digests are (a)'s, bitwise; SIGTERM -> exit seconds, the file's
+        bytes, exit -> the second round's first step, the job's seconds;
+    (c) killed: ``HOROVOD_TPU_FAULT_SPEC=worker:kill:rank=0:step=2`` and a
+        discovery script printing ``localhost:1`` and ``127.0.0.1:1``:
+        the first round dies at its second commit, localhost is
+        blacklisted, the second round runs on 127.0.0.1 from step 0 (no
+        peer, no emergency file) and the launcher exits 0 with (a)'s
+        digests, bitwise.
+
+    Each run's launch counts are zeroed just before it and read just
+    after (the workers' own, for (b) and (c))."""
+    import gc
+    import shutil
+    import signal
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.examples import gpt2_elastic
+    from horovod_tpu_torch.ops import _build
+
+    per_step = ELASTIC_LAYERS
+    report = {"phase": "train_elastic",
+              "model": "GPT-2 medium width 24x1024, batch 8x1024, Adam"}
+    torch.cuda.empty_cache()
+
+    # (a) in process
+    stats = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    gpt2_elastic.main(ELASTIC_ARGS, stats)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    ledger["train_elastic"] = {k: _build.LAUNCHES[k] for k in
+                               ELASTIC_KERNELS}
+    for k in ELASTIC_KERNELS:
+        _require(ledger["train_elastic"][k] == per_step * ELASTIC_STEPS,
+                 f"phase 4k (a): {k} launched {ledger['train_elastic'][k]}"
+                 f" times in {ELASTIC_STEPS} steps, not {per_step} a step")
+    losses = stats["losses"]
+    _require(len(losses) == ELASTIC_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0],
+             f"phase 4k (a): losses did not fall: {losses}")
+    want = _elastic_digests(stats["model"], stats["optimizer"])
+    report["a_in_process"] = {
+        "losses_first_last": [losses[0], losses[-1]],
+        "interval_step_ms": stats["interval_step_ms"],
+        "tokens_per_s": stats["tokens_per_s"],
+        "commit_s": stats["commit_s"], "wall_s": wall_a,
+        "digests": len(want), "launches": ledger["train_elastic"]}
+    # the data helpers' card path: device_prefetch's pinned copies on a
+    # side stream, each batch equal to a blocking copy
+    from horovod_tpu_torch.data import device_prefetch
+
+    rows = [gpt2_elastic.tokens(50257, 8, 1024, r, 4) for r in range(4)]
+    got = list(device_prefetch(iter(rows), size=2))
+    _require(len(got) == 4 and all(
+        g.is_cuda and torch.equal(g.cpu(), torch.from_numpy(w))
+        for g, w in zip(got, rows)),
+        "phase 4k: device_prefetch's batches differ from their rows")
+    report["a_in_process"]["device_prefetch"] = "4 batches equal"
+    # the run armed the preemption handler in this process: disarm it
+    elastic.preemption.uninstall()
+    hvd.shutdown()
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="hvd_elastic_")
+    try:
+        one = os.path.join(root, "one.sh")
+        with open(one, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\n")
+        two = os.path.join(root, "two.sh")
+        with open(two, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\necho 127.0.0.1:1\n")
+        for path in (one, two):
+            os.chmod(path, 0o755)
+
+        # (b) preempted after the worker's first commit
+        emergency = os.path.join(root, "emergency.pkl")
+        out_b = os.path.join(root, "b.json")
+        sent = {}
+
+        def preempt(t, line, proc):
+            if "sigterm" in sent or "step 10:" not in line:
+                return
+            workers = [pid for pid in _children(proc.pid)
+                       if "--elastic-worker" in open(
+                           f"/proc/{pid}/cmdline").read()]
+            if workers:
+                sent["sigterm"], sent["pid"] = time.time(), workers[0]
+                os.kill(workers[0], signal.SIGTERM)
+
+                def gone():
+                    while os.path.exists(f"/proc/{workers[0]}"):
+                        time.sleep(0.02)
+                    sent["exit"] = time.time()
+
+                import threading
+
+                threading.Thread(target=gone, daemon=True).start()
+
+        rc, lines, t0, t1 = _elastic_launch(
+            ["-np", "1", "--min-np", "1", "--max-np", "1",
+             "--host-discovery-script", one,
+             "--emergency-checkpoint", emergency], out_b, on_line=preempt)
+        text = "\n".join(l for _, l in lines[-40:])
+        _require(rc == 0 and "exit" in sent,
+                 f"phase 4k (b): launcher exit {rc}, signal {sent}:\n"
+                 + text)
+        _, pre = _elastic_line(lines, "rank 0 on localhost preempted")
+        _require(pre is not None and _elastic_line(
+            lines, "blacklisting")[1] is None,
+                 "phase 4k (b): the worker did not exit 83, or localhost "
+                 "was blacklisted:\n" + text)
+        _, rung = _elastic_line(lines, "recovered state from emergency "
+                                       "snapshot (commit epoch ")
+        epoch = int(rung.rsplit("epoch ", 1)[1].split(")")[0]) if rung \
+            else 0
+        _, second = _elastic_line(lines, "elastic worker: round 1 on "
+                                         "localhost")
+        _require(epoch >= 1 and second is not None,
+                 "phase 4k (b): no second round on localhost recovering "
+                 "from the emergency rung:\n" + text)
+        with open(out_b) as f:
+            got_b = json.load(f)
+        diff = sorted(k for k in want if got_b["digests"].get(k) != want[k])
+        _require(not diff and len(got_b["digests"]) == len(want),
+                 f"phase 4k (b): {len(diff)} tensors differ from (a), "
+                 f"e.g. {diff[:4]}")
+        resumed = ELASTIC_STEPS - epoch * ELASTIC_COMMIT_EVERY
+        for k in ELASTIC_KERNELS:
+            _require(got_b["launches"][k] == per_step * resumed,
+                     f"phase 4k (b): {k} launched {got_b['launches'][k]} "
+                     f"times in the second round's {resumed} steps")
+        ledger["train_elastic_preempted"] = got_b["launches"]
+        report["b_preempted"] = {
+            "bitwise": True, "recovered_epoch": epoch,
+            "sigterm_to_exit_s": sent["exit"] - sent["sigterm"],
+            "emergency_bytes": os.path.getsize(emergency),
+            "exit_to_first_step_s": got_b["first_step_unix"] - sent["exit"],
+            "job_s": t1 - t0, "a_wall_s": wall_a,
+            "second_round_commit_s": got_b["commit_s"]}
+        os.remove(emergency)
+
+        # (c) killed at its second commit
+        out_c = os.path.join(root, "c.json")
+        rc, lines, t0, t1 = _elastic_launch(
+            ["-np", "1", "--min-np", "1", "--max-np", "1",
+             "--host-discovery-script", two], out_c,
+            env_extra={"HOROVOD_TPU_FAULT_SPEC": ELASTIC_KILL_SPEC})
+        text = "\n".join(l for _, l in lines[-40:])
+        _require(rc == 0, f"phase 4k (c): launcher exit {rc}:\n" + text)
+        _, black = _elastic_line(lines, "blacklisting failed host localhost")
+        _, second = _elastic_line(lines, "elastic worker: round 1 on "
+                                         "127.0.0.1")
+        _require(black is not None and second is not None,
+                 "phase 4k (c): localhost not blacklisted, or no second "
+                 "round on 127.0.0.1:\n" + text)
+        with open(out_c) as f:
+            got_c = json.load(f)
+        diff = sorted(k for k in want if got_c["digests"].get(k) != want[k])
+        _require(not diff and len(got_c["digests"]) == len(want),
+                 f"phase 4k (c): {len(diff)} tensors differ from (a), "
+                 f"e.g. {diff[:4]}")
+        for k in ELASTIC_KERNELS:
+            _require(got_c["launches"][k] == per_step * ELASTIC_STEPS,
+                     f"phase 4k (c): {k} launched {got_c['launches'][k]} "
+                     f"times in the second round's {ELASTIC_STEPS} steps")
+        ledger["train_elastic_killed"] = got_c["launches"]
+        report["c_killed"] = {"bitwise": True, "job_s": t1 - t0,
+                              "blacklisted": "localhost",
+                              "second_round_host": "127.0.0.1"}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(report))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -6708,6 +7085,9 @@ def main(argv=None) -> int:
                          "and print what each kept of the kernels launched "
                          "as it opened, with and without a spin kernel "
                          "first (profiler_probe)")
+    ap.add_argument("--elastic-worker", metavar="OUT",
+                    help="phase 4k's worker under the elastic launcher "
+                         "(elastic_worker), not a smoke")
     args = ap.parse_args(argv)
 
     # phase 1
@@ -6720,6 +7100,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.elastic_worker:
+        return elastic_worker(args.elastic_worker)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6787,6 +7169,7 @@ def main(argv=None) -> int:
     train_hierarchical(args.seed, ledger, in_process_losses, flat_stage_ms)
     train_llama(args.seed, ledger)
     train_checkpoint(ledger)
+    train_elastic(ledger)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

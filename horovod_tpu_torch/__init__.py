@@ -30,6 +30,16 @@ NVIDIA Hopper GPUs:
   world-wide ones, and Inception V3 and VGG-16
   (``python -m horovod_tpu_torch.examples.resnet50_synthetic --model``),
   and MNIST (``python -m horovod_tpu_torch.examples.mnist``);
+* **elastic training** (``hvd.elastic``): ``TorchState`` commits a
+  model, optimizer and plain values to host memory, ``@hvd.elastic.run``
+  restores and re-joins the world when a collective fails, a SIGTERM
+  writes the last commit as an emergency snapshot and exits 83, commits
+  can be replicated to ring partners, and a restarted worker recovers
+  from the freshest verified source; the launcher's
+  ``--host-discovery-script`` runs rounds under the ``ElasticDriver``,
+  blacklisting failed hosts (``python -m
+  horovod_tpu_torch.examples.gpt2_elastic``); ``hvd.data``'s
+  ``ElasticSampler`` and loaders and ``hvd.callbacks`` go with it;
 * **serving**: continuous-batching decode
   (:class:`~horovod_tpu_torch.serving.scheduler.DecodeScheduler`) over a
   slotted KV cache
@@ -58,7 +68,7 @@ reference its tests compare against.
 
 __version__ = "0.1.0"
 
-from . import checkpoint
+from . import callbacks, checkpoint, data, elastic
 from .checkpoint import LoadedModel, load_model, save_model
 from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                           cuda_enabled, ddl_built, device, gloo_built,
@@ -67,8 +77,8 @@ from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                           mpi_threads_supported, nccl_built, nccl_enabled,
                           rank, rocm_built, shutdown, size, xla_built,
                           xla_enabled)
-from .core.exceptions import (HorovodInternalError, NotInitializedError,
-                              ProcessSetError)
+from .core.exceptions import (HorovodInternalError, HostsUpdatedInterrupt,
+                              NotInitializedError, ProcessSetError)
 from .core.knobs import Knobs
 from .core.process_sets import (ProcessSet, add_or_get_process_set,
                                  add_process_set, get_process_set_by_id,
@@ -120,7 +130,8 @@ __all__ = [
     "mpi_built", "mpi_enabled", "mpi_threads_supported", "gloo_built",
     "gloo_enabled", "nccl_built", "nccl_enabled", "cuda_built",
     "cuda_enabled", "rocm_built", "ddl_built", "ccl_built", "xla_built",
-    "xla_enabled", "HorovodInternalError", "NotInitializedError",
+    "xla_enabled", "HorovodInternalError", "HostsUpdatedInterrupt",
+    "NotInitializedError",
     "ProcessSetError", "Knobs", "ProcessSet", "global_process_set",
     "add_process_set", "add_or_get_process_set", "remove_process_set",
     "get_process_set_by_id",
@@ -143,7 +154,7 @@ __all__ = [
     "Compression", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allgather_object",
     "make_lm_train_step", "checkpoint", "save_model", "load_model",
-    "LoadedModel",
+    "LoadedModel", "elastic", "data", "callbacks",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
     "SyncBatchNorm",
     # models

@@ -25,6 +25,8 @@ spec:
   over them, wraps it in ``DistributedOptimizer`` with the saved
   wrapper config (each overridable) and restores its state. Tensors
   land on the model's device, or on ``device``.
+* :func:`orbax_rung` is the elastic recovery ladder's last rung over a
+  :func:`save_model` checkpoint.
 * :func:`save_fsdp` (on every rank) writes this rank's parameter rows
   and shard state, never gathering them, as ``rank_NNNNN.pt``, and rank
   0 writes ``horovod_tpu_torch_fsdp.json`` with the layout's world and
@@ -287,6 +289,61 @@ def load_model(path: str, model: Optional[torch.nn.Module] = None,
     return LoadedModel(params=named, optimizer=optimizer,
                        opt_state=opt_state,
                        metadata=dict(spec.get("metadata", {})))
+
+
+def orbax_rung(path: str, attrs: Optional[Dict[str, str]] = None):
+    """The checkpoint rung of the elastic recovery ladder
+    (``elastic/replication.run_recovery_ladder``; the JAX package's
+    ``checkpoint.orbax_rung``, ``horovod_tpu/checkpoint.py:139-180``,
+    whose name it keeps; the checkpoint under it is :func:`save_model`'s
+    ``torch.save`` file, read as :func:`load_model` reads it): a
+    callable ``fn(state) -> bool`` that restores the checkpoint into
+    elastic-state attributes when the fresher rungs fall through.
+
+    ``attrs`` maps a state attribute to the checkpoint's entry,
+    ``"params"`` or ``"opt_state"`` (default: ``model`` and ``params``
+    take the parameters, ``optimizer`` and ``opt_state`` the optimizer's
+    state dict). A module attribute gets the parameters copied in place
+    by name, an optimizer attribute loads the state dict, any other
+    attribute is replaced; attributes the state does not have, or the
+    checkpoint does not carry, are left alone. Attach it before
+    ``hvd.elastic.run``::
+
+        state = hvd.elastic.TorchState(model=model, optimizer=opt)
+        state.orbax_restore = hvd.checkpoint.orbax_rung("/ckpt/latest")
+    """
+    mapping = dict(attrs) if attrs else {
+        "model": "params", "params": "params",
+        "optimizer": "opt_state", "opt_state": "opt_state"}
+
+    def _restore(state) -> bool:
+        root = os.path.abspath(path)
+        spec = _read_spec(root, _SPEC_FILE)
+        raw = _load_state(root, "cpu")
+        if not spec.get("has_opt_state"):
+            raw.pop("opt_state", None)
+        restored = False
+        for attr, key in mapping.items():
+            if key not in raw or attr not in state._known:
+                continue
+            target = getattr(state, attr)
+            if isinstance(target, torch.nn.Module):
+                named = dict(target.named_parameters())
+                missing = sorted(set(raw[key]) ^ set(named))
+                if missing:
+                    raise ValueError(f"checkpoint at {root} and the model "
+                                     f"differ in parameters {missing}")
+                with torch.no_grad():
+                    for k, p in named.items():
+                        p.copy_(raw[key][k])
+            elif hasattr(target, "load_state_dict") and key == "opt_state":
+                target.load_state_dict(raw[key])
+            else:
+                setattr(state, attr, raw[key])
+            restored = True
+        return restored
+
+    return _restore
 
 
 # -- fully-sharded parameters -------------------------------------------------

@@ -6,7 +6,9 @@ the slot environment the launcher exports (``horovod_tpu_torch.runner``'s,
 the same as the JAX package's:
 ``HOROVOD_RANK/SIZE/LOCAL_RANK/LOCAL_SIZE/CROSS_RANK/CROSS_SIZE`` and
 ``HVD_TPU_COORDINATOR_ADDRESS``; ``HVD_TPU_X`` beats ``HOROVOD_X``) and
-sets up a ``torch.distributed`` process group over it: NCCL on the card
+sets up a ``torch.distributed`` process group over it (rank 0 hosts the
+TCP store at ``HVD_TPU_COORDINATOR_ADDRESS``; each world formed on it
+gets a prefix of its own, see ``_world_store``): NCCL on the card
 (``torch.cuda.set_device(local_rank)``), or gloo when the caller passes
 ``device="cpu"``. Without that environment the world is one process;
 its process group lives in an in-process store, so the collectives
@@ -14,7 +16,8 @@ still run through the backend. Without a card and without
 ``device="cpu"``, ``init()`` raises, and so it does when the local rank
 has no card of its own (more slots on a host than cards). It also sets
 up logging, fault injection and the control-plane retry policy from the
-knobs.
+knobs, and, with ``HOROVOD_REPLICATION``, the peer replication of
+elastic commits.
 
 A process group the caller set up before ``init()`` is adopted as it
 is (its rank and size win over the environment) and left alone at
@@ -86,7 +89,7 @@ def init(device: Optional[str] = None,
                     f"a world of {size} ranks needs the coordinator "
                     "address (HVD_TPU_COORDINATOR_ADDRESS=host:port), as "
                     "the launcher exports it")
-            dist.init_process_group(backend, init_method=f"tcp://{addr}",
+            dist.init_process_group(backend, store=_world_store(addr, rank),
                                     world_size=size, rank=rank)
             owns = True
         else:
@@ -104,6 +107,36 @@ def init(device: Optional[str] = None,
         st.initialized = True
     for ps in process_sets or ():
         _ps.add_process_set(ps)
+    if st.knobs.replication_enabled:
+        # peer replication of elastic commits (elastic/replication.py)
+        from ..elastic import replication
+
+        replication.configure(st.knobs)
+
+
+#: coordinator address -> [its TCP store, the worlds formed on it]
+_STORES: dict = {}
+
+
+def _world_store(addr: str, rank: int):
+    """The store a world forms on: rank 0's TCP store at ``addr``, kept
+    for the life of the process, under a prefix of its own for each
+    world formed on it. An elastic re-init (``shutdown()`` then
+    ``init()`` on every rank) forms its new world under the next prefix
+    of the same store, so a rank that re-joins before rank 0 has torn
+    its world down can never register in a store about to close. The
+    ranks count their worlds alike: each forms the same ones."""
+    from torch.distributed.constants import default_pg_timeout
+
+    entry = _STORES.get(addr)
+    if entry is None:
+        host, port = addr.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), is_master=rank == 0,
+                              timeout=default_pg_timeout,
+                              wait_for_workers=False)
+        entry = _STORES[addr] = [store, 0]
+    entry[1] += 1
+    return dist.PrefixStore(f"hvd_world_{entry[1]}", entry[0])
 
 
 def _check_card(local_rank: int) -> None:
@@ -138,7 +171,16 @@ def _configure_control_plane(knobs: Knobs) -> None:
 
 
 def shutdown() -> None:
-    """Tear down the state; end the process group if init() made it."""
+    """Tear down the state; end the process group if init() made it.
+    The world's DistributedOptimizers are detached and the replicator
+    stops, so an elastic re-init keeps nothing of the old world."""
+    import sys
+
+    for name, fn in (("optim.distributed", "detach_all"),
+                     ("elastic.replication", "on_shutdown")):
+        mod = sys.modules.get(f"horovod_tpu_torch.{name}")
+        if mod is not None:
+            getattr(mod, fn)()
     st = global_state()
     with st.lock:
         if st.owns_group and dist.is_initialized():

@@ -114,6 +114,23 @@ class Knobs:
     # first
     fsdp_offload_duty: float = 1.0
 
+    # --- elastic training (elastic/, runner/elastic/) ---
+    elastic_timeout_seconds: float = 600.0
+    reset_limit: int = 0  # 0 = unlimited
+    # SIGTERM handler (elastic/preemption.py): write the last commit as
+    # the emergency snapshot and exit with the code the driver does not
+    # blacklist
+    preemption_enabled: bool = True
+    emergency_checkpoint: str = ""  # rank 0's emergency snapshot path
+    # async peer replication of each commit (elastic/replication.py)
+    replication_enabled: bool = False
+    replication_partners: int = 1
+    replication_chunk_bytes: int = 1 << 20
+    replication_duty_cycle: float = 0.02
+    # on entry to elastic.run: restore from the freshest verified source
+    # (peer replica, emergency snapshot, checkpoint)
+    recovery_ladder: bool = True
+
     # --- inference serving ---
     serving_queue_limit: int = 256
     serving_request_timeout_seconds: float = 30.0
@@ -166,6 +183,17 @@ class Knobs:
             fsdp_regather=_env_bool("FSDP_REGATHER", True),
             fsdp_offload=_env_bool("FSDP_OFFLOAD", False),
             fsdp_offload_duty=_env_float("FSDP_OFFLOAD_DUTY", 1.0),
+            elastic_timeout_seconds=_env_float("ELASTIC_TIMEOUT", 600.0),
+            reset_limit=_env_int("RESET_LIMIT", 0),
+            preemption_enabled=_env_bool("PREEMPTION", True),
+            emergency_checkpoint=_env("EMERGENCY_CHECKPOINT", "") or "",
+            replication_enabled=_env_bool("REPLICATION", False),
+            replication_partners=_env_int("REPLICATION_PARTNERS", 1),
+            replication_chunk_bytes=_env_int("REPLICATION_CHUNK_BYTES",
+                                             1 << 20),
+            replication_duty_cycle=_env_float("REPLICATION_DUTY_CYCLE",
+                                              0.02),
+            recovery_ladder=_env_bool("RECOVERY_LADDER", True),
             serving_queue_limit=_env_int("SERVING_QUEUE_LIMIT", 256),
             serving_request_timeout_seconds=_env_float(
                 "SERVING_REQUEST_TIMEOUT", 30.0),

@@ -25,13 +25,19 @@ tensor and leaves its input alone, except the in-place ``*_`` forms.
 ``allreduce`` routes sparse slices (``ops/sparse.py``'s IndexedSlices
 or a sparse COO tensor) to ``sparse_allreduce``, and ``op=Adasum`` to
 ``ops/adasum.py``; a collective without sparse semantics refuses sparse
-slices. The private tiled exchanges are :func:`_all_to_all_tiled`,
+slices. A collective whose peer went away fails in the process group
+(gloo's closed socket raises ``RuntimeError``, NCCL's
+``DistBackendError``); :func:`lost_peer` turns that into
+``HorovodInternalError``, which ``elastic.run`` catches, where the
+collective is waited on: ``synchronize``, the blocking forms, and the
+optimizers' bucket waits. The private tiled exchanges are :func:`_all_to_all_tiled`,
 :func:`_all_gather_tiled` (the int8 wire) and
 :func:`_reduce_scatter_tiled` (ZeRO); they run over the world.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import math
 from typing import Callable, List, Optional, Sequence
@@ -40,7 +46,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.basics import _require_init
-from ..core.exceptions import HorovodInternalError, ProcessSetError
+from ..core.exceptions import (HorovodInternalError, HorovodTpuError,
+                               ProcessSetError)
 from ..core.process_sets import set_context
 from ..optim.compression import Compression
 from .sparse import is_sparse
@@ -125,6 +132,20 @@ def _reject_sparse(tensor, what: str) -> None:
             "(reference tensorflow/__init__.py:56)")
 
 
+@contextlib.contextmanager
+def lost_peer():
+    """Raise a process group's failure inside the block as
+    ``HorovodInternalError`` (usable as a decorator too). Out-of-memory
+    and not-implemented errors, and the package's own, pass as they
+    are."""
+    try:
+        yield
+    except (HorovodTpuError, NotImplementedError, torch.OutOfMemoryError):
+        raise
+    except RuntimeError as e:
+        raise HorovodInternalError(f"collective failed: {e}") from e
+
+
 def _register(finish: Callable[[], object], *works) -> int:
     """A handle for ``finish``, done when every one of ``works`` is."""
     st = _require_init()
@@ -145,6 +166,7 @@ def poll(handle: int) -> bool:
     return all(w.is_completed() for w in works)
 
 
+@lost_peer()
 def synchronize(handle: int):
     """Wait for the collective behind ``handle``; returns its result."""
     st = _require_init()
@@ -242,6 +264,7 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
     return works, finish
 
 
+@lost_peer()
 def allreduce(tensor, average=None, name=None, compression=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0, process_set=None):
     """Reduce ``tensor`` over the set's ranks; returns a new tensor (the
@@ -264,6 +287,7 @@ def allreduce_async(tensor, average=None, name=None, op=None,
     return _register(finish, *works)
 
 
+@lost_peer()
 def allreduce_(tensor, average=None, name=None, op=None, prescale_factor=1.0,
                postscale_factor=1.0, process_set=None):
     """In-place :func:`allreduce`."""
@@ -353,6 +377,7 @@ def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
     return [w for _, _, w in pending if w is not None], finish
 
 
+@lost_peer()
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
                       name=None, op=None, prescale_factor=1.0,
                       postscale_factor=1.0, process_set=None):
@@ -460,6 +485,7 @@ def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
     return [w for _, _, w in pending], finish
 
 
+@lost_peer()
 def reducescatter(tensor, op=None, name=None, prescale_factor=1.0,
                   postscale_factor=1.0, process_set=None):
     """Reduce ``tensor`` over the set's ranks and scatter dim 0: set
@@ -482,6 +508,7 @@ def reducescatter_async(tensor, op=None, name=None, prescale_factor=1.0,
     return _register(lambda: finish()[0], *works)
 
 
+@lost_peer()
 def grouped_reducescatter(tensors: Sequence[torch.Tensor], op=None,
                           name=None, prescale_factor=1.0,
                           postscale_factor=1.0, process_set=None):
@@ -583,6 +610,7 @@ def _grouped_allgather_start(tensors, process_set, what):
     return [w for _, _, _, w in pending], finish
 
 
+@lost_peer()
 def allgather(tensor, name=None, process_set=None):
     """Concatenate every member's ``tensor`` along dim 0, in set-rank
     order; the first dimension may differ between ranks. With
@@ -606,6 +634,7 @@ def allgather_async(tensor, name=None, process_set=None) -> int:
     return _register(lambda: finish()[0], *works)
 
 
+@lost_peer()
 def grouped_allgather(tensors, name=None, process_set=None):
     """Allgather a list of tensors: one gather per dtype (and one of the
     sizes), dim 0 may differ between ranks."""
@@ -669,6 +698,7 @@ def _alltoall_start(tensor, splits, process_set):
     return [work], finish_split
 
 
+@lost_peer()
 def alltoall(tensor, splits=None, name=None, process_set=None):
     """Exchange dim-0 chunks between the set's ranks (torch/mpi_ops.py
     alltoall): chunk j goes to set rank j, and the result holds the
@@ -706,6 +736,7 @@ def broadcast(tensor, root_rank: int = 0, name=None, process_set=None):
                       process_set=process_set)
 
 
+@lost_peer()
 def broadcast_(tensor, root_rank: int = 0, name=None, process_set=None):
     """In-place :func:`broadcast`."""
     del name
@@ -742,6 +773,7 @@ def broadcast_async_(tensor, root_rank: int = 0, name=None,
     return _broadcast_async_start(tensor, root_rank, process_set)
 
 
+@lost_peer()
 def barrier(process_set=None) -> None:
     """Block until every member of the set arrives (a non-member
     returns at once)."""

@@ -59,12 +59,16 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
 * ``backward_passes_per_step`` k: gradients accumulate over k backward
   passes and their mean (sum / k) is reduced on the k-th, as the JAX
   package's ``_AccumState`` does; call ``step()`` once every k passes;
-* in a world of one rank nothing is packed or reduced.
+* in a world of one rank nothing is packed or reduced;
+* ``shutdown()`` detaches every optimizer of its world (its hooks go,
+  and a step that would reduce raises): after an elastic re-init a
+  ``train`` function wraps its optimizer anew, on the new world.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import Counter
 from typing import Dict, List, Optional
 
@@ -76,12 +80,23 @@ from ..core.process_sets import set_context
 from ..ops import hierarchical
 from ..ops import quantized_collectives as qc
 from ..ops.adasum import require_world, start_adasum
-from ..ops.collectives import ReduceOp, dist_op, resolve_op, scale_
+from ..ops.collectives import (ReduceOp, dist_op, lost_peer, resolve_op,
+                               scale_)
 from ..ops.sparse import sparse_allreduce
 from ..ops.fusion import (flatten_order, flax_path, pack_buckets_by_plan,
                           pytree_bucket_plan, unflatten_buckets_by_plan)
 from .compression import (Compression, NoneCompressor,
                           compressor_wire_spec, wire_applies)
+
+
+#: the optimizers whose gradient hooks are live; shutdown() detaches them
+_LIVE: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def detach_all() -> None:
+    """Detach every live optimizer (``core/basics.shutdown``)."""
+    for opt in list(_LIVE):
+        opt._detach()
 
 
 class _DistributedOptimizer:
@@ -195,10 +210,26 @@ class _DistributedOptimizer:
         self._lock = threading.Lock()
         self._reset()
         self._hooks = []
+        self._detached = False
         if self._reduces():
             for p in self._params:
                 self._hooks.append(
                     p.register_post_accumulate_grad_hook(self._hook))
+            _LIVE.add(self)
+
+    def _detach(self) -> None:
+        """Remove the hooks: the world they reduce over has shut down."""
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+        self._detached = True
+        _LIVE.discard(self)
+
+    def _check_attached(self) -> None:
+        if self._detached:
+            raise RuntimeError(
+                "this DistributedOptimizer belongs to a world that was "
+                "shut down; wrap the optimizer again after init()")
 
     # -- per-step state --------------------------------------------------
 
@@ -326,6 +357,7 @@ class _DistributedOptimizer:
                     if p.grad is not None:
                         p.grad.div_(self._k)
             return
+        self._check_attached()
         with self._lock:
             while self._next < len(self._plans):
                 self._issue(self._next)
@@ -339,7 +371,8 @@ class _DistributedOptimizer:
             p.grad = sparse_allreduce(g, op=self._op,
                                       process_set=self._process_set)
         for b, finish in pending:
-            out = finish()
+            with lost_peer():
+                out = finish()
             leaves = unflatten_buckets_by_plan([out], [self._plans[b]],
                                                len(self._params))
             for (i, _, _, _) in self._plans[b]:

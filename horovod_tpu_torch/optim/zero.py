@@ -59,7 +59,7 @@ import torch
 from ..core.basics import _require_init
 from ..ops import ring_pack
 from ..ops.collectives import (ReduceOp, _all_gather_tiled,
-                               _reduce_scatter_tiled)
+                               _reduce_scatter_tiled, lost_peer)
 from ..ops.fusion import (BucketPlan, pack_buckets_by_plan,
                           plan_bucket_lengths)
 from .compression import (Compression, compressor_wire_spec,
@@ -287,6 +287,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
         ``.grad`` (the parameters' ``.grad`` keep this rank's own)."""
         if self._size <= 1:
             return
+        self._check_attached()
         with self._lock:
             while self._next < len(self._plans):
                 self._issue(self._next)
@@ -295,7 +296,8 @@ class _ShardedOptimizer(_DistributedOptimizer):
             self._reset()
         shards = [None] * len(self._plans)
         for b, finish in pending:
-            shards[b] = finish()
+            with lost_peer():
+                shards[b] = finish()
         for t, g in zip(self.shards.tensors, shards):
             t.grad = g
 
@@ -306,8 +308,9 @@ class _ShardedOptimizer(_DistributedOptimizer):
         loss = self.shards.step([t.grad for t in self.shards.tensors])
         gathers = [_all_gather_tiled(t, self._size)
                    for t in self.shards.tensors]
-        for _, work in gathers:
-            work.wait()
+        with lost_peer():
+            for _, work in gathers:
+                work.wait()
         stage_write(self._params, self._plans, [g for g, _ in gathers])
         return loss
 

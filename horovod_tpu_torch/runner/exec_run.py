@@ -17,10 +17,14 @@ slot env differs from the JAX package's in these keys only:
 * the native eager runtime's coordinator keys
   (``HVD_TPU_NATIVE_COORDINATOR_ADDR/PORT``) are not exported: the port
   has no such runtime yet (ROADMAP queue A entry 9);
-* no rendezvous HTTP store is started and its address
-  (``HOROVOD_GLOO_RENDEZVOUS_*``, ``HVD_TPU_RENDEZVOUS_*``) is not
-  exported: no worker of the port reads it until elastic training
-  (entry 8), which starts ``http_server.RendezvousServer``;
+* a static launch starts no rendezvous HTTP store and exports no
+  ``HOROVOD_GLOO_RENDEZVOUS_*``/``HVD_TPU_RENDEZVOUS_*``: only an
+  elastic round has one (``launch_slots(rendezvous=...)``: the elastic
+  driver's ``http_server.RendezvousServer``, which already published
+  the round's assignments; its address reaches every worker, whose
+  notification service, replica store and recovery ladder use it,
+  ``horovod_tpu/runner/exec_run.py:59-62, 118-140``). The data plane
+  still meets at rank 0's TCP store;
 * with NICs given or probed, ``launch_slots`` also exports
   ``NCCL_SOCKET_IFNAME`` and ``GLOO_SOCKET_IFNAME`` (unless already
   set), and a remote worker receives ``NCCL_*``, ``GLOO_*``, ``CUDA_*``
@@ -56,8 +60,11 @@ def slot_env(
     slot: SlotInfo,
     base_env: Dict[str, str],
     coordinator_address: str,
+    rendezvous_addr: Optional[str] = None,
+    rendezvous_port: int = 0,
 ) -> Dict[str, str]:
-    """Per-slot worker environment (reference gloo_run.py:66-101)."""
+    """Per-slot worker environment (reference gloo_run.py:66-101); the
+    rendezvous store's address when the launch has one."""
     env = dict(base_env)
     pairs = {
         "RANK": slot.rank,
@@ -70,6 +77,11 @@ def slot_env(
     for name, v in pairs.items():
         env[f"HOROVOD_{name}"] = str(v)
         env[f"HVD_TPU_{name}"] = str(v)
+    if rendezvous_addr:
+        env["HOROVOD_GLOO_RENDEZVOUS_ADDR"] = rendezvous_addr
+        env["HOROVOD_GLOO_RENDEZVOUS_PORT"] = str(rendezvous_port)
+        env["HVD_TPU_RENDEZVOUS_ADDR"] = rendezvous_addr
+        env["HVD_TPU_RENDEZVOUS_PORT"] = str(rendezvous_port)
     env["HOROVOD_CONTROLLER"] = DATA_PLANE
     env["HOROVOD_CPU_OPERATIONS"] = DATA_PLANE
     # the torch.distributed TCP store: rank 0's init() binds it on its
@@ -120,11 +132,16 @@ def launch_slots(
     exec_fn: Optional[Callable] = None,
     nics: Optional[List[str]] = None,
     nics_explicit: bool = True,
+    rendezvous=None,
+    abort: Optional[threading.Event] = None,
 ) -> List[int]:
     """Spawn one worker per slot; any failure terminates all others.
 
     Returns per-slot exit codes. `exec_fn(command, env, slot, events)` is
     injectable for tests (reference pattern: mocked ssh in test_run.py).
+    ``rendezvous``: an elastic round's ``RendezvousServer``, which has
+    published this round's assignments; the workers get its address.
+    ``abort``, once set, stops every slot as a failure does.
     """
     host_addr = routable_host_address()
     if all(is_local_host(slot.hostname) for slot in assignments):
@@ -175,6 +192,9 @@ def launch_slots(
         env = dict(env)
         env[ENV_SECRET] = make_secret_key().decode()
 
+    rdv_port = rendezvous.port if rendezvous is not None else 0
+    rdv_addr = host_addr if rendezvous is not None else None
+
     failure = threading.Event()
     codes: List[Optional[int]] = [None] * len(assignments)
     # set when a slot's thread is done with its process: after it reaped
@@ -182,12 +202,13 @@ def launch_slots(
     done = [threading.Event() for _ in assignments]
 
     def run_slot(i: int, slot: SlotInfo):
-        wenv = slot_env(slot, env, coordinator)
+        wenv = slot_env(slot, env, coordinator, rdv_addr, rdv_port)
         fn = exec_fn
         if fn is None:
             fn = _exec_local if is_local_host(slot.hostname) else _exec_ssh
         try:
-            codes[i] = fn(command, wenv, slot, [failure])
+            codes[i] = fn(command, wenv, slot,
+                          [failure] + ([abort] if abort else []))
         except BaseException:
             codes[i] = 1
             raise

@@ -8,10 +8,19 @@ plane is ``torch.distributed`` (NCCL on the card, gloo with the
 worker's ``--device cpu``), bootstrapped by rank 0's TCP store
 (``runner/exec_run.py``).
 
-A flag whose feature the port does not have yet — elastic training
-and the control-plane retry it brings, the sharded control plane,
-autotune, timeline/profiler/flight recorder, the mesh, the negotiation
-runtime's cycle, stall and cache knobs — is refused
+``--host-discovery-script`` (or ``--min-np``/``--max-np``) runs the
+job elastically (``_run_elastic``, ``horovod_tpu/runner/launch.py:504-
+560``): an ``ElasticDriver`` (``runner/elastic/``) polls the script,
+launches each round's workers with the rendezvous store's address,
+blacklists a host whose worker failed, keeps a preempted one (exit 83),
+and starts a new round until one succeeds; ``--emergency-checkpoint``,
+``--replication``, ``--no-preemption`` and the retry flags reach the
+workers' knobs, ``--rendezvous-state-dir`` makes the driver's store
+durable.
+
+A flag whose feature the port does not have yet — the sharded control
+plane, autotune, timeline/profiler/flight recorder, the mesh, the
+negotiation runtime's cycle, stall and cache knobs — is refused
 when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -21,6 +30,10 @@ Usage:
         python -m horovod_tpu_torch.examples.gpt2_pretraining --flash
     python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2 \
         python train.py --device cpu
+    python -m horovod_tpu_torch.runner.launch -np 2 --min-np 1 \
+        --max-np 4 --host-discovery-script ./discover.sh \
+        --emergency-checkpoint /ckpt/emergency.pkl \
+        python -m horovod_tpu_torch.examples.gpt2_elastic --flash
 """
 
 from __future__ import annotations
@@ -36,7 +49,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
-    8: "elastic training, preemption and recovery",
     9: "the eager negotiation runtime",
     11: "model, sequence and pipeline parallelism (the mesh)",
     12: "autotune",
@@ -46,13 +58,6 @@ ENTRIES = {
 
 #: argparse dest of a flag the port refuses -> its ROADMAP queue A entry
 UNPORTED = {
-    **dict.fromkeys((
-        "min_np", "max_np", "host_discovery_script", "slots",
-        "elastic_timeout", "reset_limit", "cooldown_range",
-        "vanish_grace", "spawn_join", "preemption",
-        "emergency_checkpoint", "replication", "replication_partners",
-        "rendezvous_state_dir", "retry_max_attempts", "retry_base_delay",
-        "retry_max_delay"), 8),
     **dict.fromkeys((
         "root_replicas", "root_state_dir", "root_lease_ttl",
         "root_heartbeat", "pod_relays"), 14),
@@ -447,6 +452,39 @@ def _run_static(args) -> int:
     return failed[0] if failed else (0 if codes else 1)
 
 
+def _run_elastic(args) -> int:
+    from .elastic.discovery import HostDiscoveryScript, HostManager
+    from .elastic.driver import ElasticDriver
+    from .elastic.settings import ElasticSettings
+
+    if not args.host_discovery_script:
+        raise ValueError(
+            "elastic mode requires --host-discovery-script "
+            "(reference launch.py:676)")
+    settings = ElasticSettings(
+        min_np=args.min_np or args.np or 1,
+        max_np=args.max_np,
+        timeout_s=args.elastic_timeout or 600.0,
+        reset_limit=args.reset_limit or 0,
+        cooldown_range=tuple(args.cooldown_range)
+        if args.cooldown_range else None,
+        # None falls back to the HOROVOD_ELASTIC_* knobs
+        host_vanish_grace_s=args.vanish_grace,
+        spawn_join_timeout_s=args.spawn_join,
+    )
+    discovery = HostDiscoveryScript(args.host_discovery_script, args.slots)
+    env = config_parser.env_from_args(args, dict(os.environ))
+    driver = ElasticDriver(
+        HostManager(discovery, settings.cooldown_range),
+        settings,
+        command=args.command,
+        env=env,
+        nics=args.nics.split(",") if args.nics else None,
+        rendezvous_state_dir=args.rendezvous_state_dir or None,
+    )
+    return driver.run()
+
+
 def _check_build() -> int:
     """Availability table (reference launch.py:110 check_build): the
     port's framework, its controllers and tensor operations
@@ -504,6 +542,8 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         return 2
     if args.command and args.command[0] == "--":
         args.command = args.command[1:]
+    if is_elastic(args):
+        return _run_elastic(args)
     return _run_static(args)
 
 

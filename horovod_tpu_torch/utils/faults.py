@@ -26,11 +26,11 @@ Actions:
 * ``flap``  — cooperative: ``inject()`` returns the action name and the
   call site implements the behavior (discovery returns an empty host
   set for one poll).
-* ``corrupt`` — cooperative here, like ``flap``: the JAX package's
-  ``corrupt()`` gate, which flips ``nbytes`` (default 8) bytes of a
-  serialized payload, comes with the checkpoint and replication sites
-  that call it (ROADMAP queue A entry 8); ``nbytes`` parses as a rule
-  parameter so a spec fires as it does there.
+* ``corrupt`` — at a payload site (:func:`corrupt`: the emergency
+  snapshot's ``emergency.payload``, the replica's
+  ``replication.payload``) XOR-flips ``nbytes`` (default 8) bytes at
+  positions drawn from the rule's seeded rng; at an ``inject()`` site,
+  which has no payload, it is cooperative like ``flap``.
 
 A rule's ``point`` matches an injection point exactly or as a
 dot-prefix (``http`` matches ``http.put``). Remaining ``key=value``
@@ -54,7 +54,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from . import metrics as _metrics
 
@@ -229,12 +229,26 @@ def _fired_rules(point: str, ctx: Dict[str, object]) -> List[_Rule]:
     return fired
 
 
-def _run_actions(fired: List[_Rule], point: str) -> Optional[str]:
+def _flip_bytes(data: bytes, rule: _Rule) -> bytes:
+    """XOR-flip ``rule.nbytes`` bytes of ``data`` at positions drawn
+    from the rule's seeded rng: the same damage every run."""
+    if not data:
+        return data
+    buf = bytearray(data)
+    for _ in range(max(1, min(len(buf), rule.nbytes))):
+        buf[rule._rng.randrange(len(buf))] ^= 0xFF
+    return bytes(buf)
+
+
+def _run_actions(fired: List[_Rule], point: str,
+                 data: Optional[bytes] = None,
+                 ) -> Tuple[Optional[str], Optional[bytes]]:
     """Execute fired rules' actions. Every fired rule is recorded and
     its non-raising action executed BEFORE any error rule raises:
     consider() already spent the rules' times/probability budget, so a
-    raise must not swallow a co-fired delay/flap/kill or its
-    accounting. Returns the last cooperative action's name."""
+    raise must not swallow a co-fired delay/flap/kill/corrupt or its
+    accounting. Returns the last cooperative action's name and the
+    (possibly damaged) payload."""
     coop: Optional[str] = None
     error_rule: Optional[_Rule] = None
     for rule in fired:
@@ -243,6 +257,8 @@ def _run_actions(fired: List[_Rule], point: str) -> Optional[str]:
             _sleep(rule.secs)
         elif rule.action == "error":
             error_rule = error_rule or rule
+        elif rule.action == "corrupt" and data is not None:
+            data = _flip_bytes(data, rule)
         elif rule.action != "kill":
             coop = rule.action
     for rule in fired:
@@ -253,7 +269,7 @@ def _run_actions(fired: List[_Rule], point: str) -> Optional[str]:
             f"injected fault at {point}"
             + (f" [{error_rule.text}]" if error_rule.text else "")
         )
-    return coop
+    return coop, data
 
 
 def inject(point: str, **ctx) -> Optional[str]:
@@ -268,7 +284,19 @@ def inject(point: str, **ctx) -> Optional[str]:
     """
     if not _enabled:
         return None
-    return _run_actions(_fired_rules(point, ctx), point)
+    coop, _ = _run_actions(_fired_rules(point, ctx), point)
+    return coop
+
+
+def corrupt(point: str, data: bytes, **ctx) -> bytes:
+    """Pass a serialized payload through the corruption gate at a named
+    point. A matching ``corrupt`` rule flips ``nbytes`` bytes of it;
+    co-fired error/delay/kill rules act as in :func:`inject`. Returns
+    ``data`` itself when injection is off or no rule fires."""
+    if not _enabled:
+        return data
+    _, out = _run_actions(_fired_rules(point, ctx), point, data)
+    return out if out is not None else data
 
 
 # Worker processes are spawned by the launcher with the spec in their

@@ -2,11 +2,15 @@
 counters and gauges that the control plane feeds.
 
 The JAX package's ``utils/metrics.py``, cut to what the launcher's
-utilities call: ``record_retry`` and ``record_retry_giveup``
-(``utils/retry.py``) and ``record_fault`` (``utils/faults.py``). Its
-histograms, per-step ``StepStats``, the Prometheus exposition, the
-metrics push and the flight-recorder hooks come with the observability
-entry (ROADMAP queue A entry 13).
+utilities and elastic training call: ``record_retry`` and
+``record_retry_giveup`` (``utils/retry.py``), ``record_fault``
+(``utils/faults.py``), ``record_elastic_event`` and
+``record_recovery_rung`` (``elastic/``, ``runner/elastic/``;
+``horovod_tpu/utils/metrics.py:1245, 1284``) and the replicator's
+``record_replication``/``record_replication_error``. Its histograms,
+per-step ``StepStats``, the Prometheus exposition, the metrics push and
+the flight-recorder hooks come with the observability entry (ROADMAP
+queue A entry 13).
 
 Cost discipline: off by default, and every record function begins with
 ``if not _enabled: return``, so a disabled site costs one predicted
@@ -186,6 +190,51 @@ def record_fault(point: str, action: str) -> None:
         "Injected faults fired, by point and action",
         ("point", "action"),
     ).labels(point, action).inc()
+
+
+def record_elastic_event(kind: str) -> None:
+    """An elastic lifecycle transition (round, reset, hosts_updated,
+    sync, blacklist, worker_preempted)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_elastic_events_total",
+        "Elastic lifecycle transitions, by event", ("event",),
+    ).labels(kind).inc()
+
+
+def record_recovery_rung(rung: str) -> None:
+    """One state recovery, by the ladder rung that supplied the
+    snapshot: peer / emergency / orbax / local / none."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_recovery_rung_total",
+        "State recoveries, by ladder rung (peer/emergency/orbax/"
+        "local/none)", ("rung",),
+    ).labels(rung).inc()
+
+
+def record_replication(nbytes: int, n_partners: int) -> None:
+    """One committed snapshot shipped to ring partners."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_replication_snapshots_total",
+        "Committed snapshots replicated to ring partners").inc()
+    registry.counter(
+        "hvd_replication_bytes_total",
+        "Snapshot payload bytes shipped to ring partners",
+    ).inc(nbytes * max(n_partners, 1))
+
+
+def record_replication_error() -> None:
+    """A replication attempt that reached no ring partner."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_replication_errors_total",
+        "Snapshot replications that reached no ring partner").inc()
 
 
 def reset() -> None:

@@ -236,3 +236,45 @@ def configure(knobs) -> None:
         max_elapsed_s=float(
             getattr(knobs, "retry_max_elapsed_seconds", 60.0)),
     ))
+
+
+class Outage:
+    """Log-spam suppressor for best-effort loops (snapshot replication):
+    an outage logs ONE warning when it starts and one line when it
+    ends, not one warning per attempt."""
+
+    def __init__(self, logger, what: str):
+        self._logger = logger
+        self._what = what
+        self._down = False
+        self._failures = 0
+
+    @property
+    def down(self) -> bool:
+        return self._down
+
+    @property
+    def failures(self) -> int:
+        return self._failures
+
+    def failure(self, err: object = None) -> bool:
+        """Record one failed attempt; True (and a warning) only on the
+        first failure of an outage."""
+        self._failures += 1
+        if self._down:
+            return False
+        self._down = True
+        self._logger.warning(
+            "%s failing (%s); suppressing further warnings until it "
+            "recovers", self._what, err,
+        )
+        return True
+
+    def success(self) -> bool:
+        """Record one success; True (and a recovery line) when an outage
+        was in progress."""
+        if not self._down:
+            return False
+        self._down = False
+        self._logger.info("%s recovered", self._what)
+        return True

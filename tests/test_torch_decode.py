@@ -254,6 +254,15 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "LOG_LEVEL": "DEBUG",
     "LOG_HIDE_TIME": "1",
     "LOG_RANK": "1",
+    "ELASTIC_TIMEOUT": "120",
+    "RESET_LIMIT": "3",
+    "PREEMPTION": "0",
+    "EMERGENCY_CHECKPOINT": "/ckpt/e.pkl",
+    "REPLICATION": "1",
+    "REPLICATION_PARTNERS": "2",
+    "REPLICATION_CHUNK_BYTES": "4096",
+    "REPLICATION_DUTY_CYCLE": "0.5",
+    "RECOVERY_LADDER": "0",
 }
 
 
@@ -298,15 +307,25 @@ _HIERARCHY_MODULES = [
     "horovod_tpu_torch." + m for m in (
         "ops.hierarchical", "checkpoint", "examples.llama_adasum")]
 
+_ELASTIC_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "elastic", "elastic.state", "elastic.preemption",
+        "elastic.replication", "runner.elastic", "runner.elastic.driver",
+        "runner.elastic.discovery", "runner.elastic.registration",
+        "runner.elastic.settings", "runner.elastic.worker", "data",
+        "data.sampler", "data.data_loader_base", "callbacks",
+        "examples.gpt2_elastic")]
+
 
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
     Adasum slice's (Adasum, sparse slices, process sets, the Adasum
     example), the launcher's and the two-level wire's, checkpoint's and
-    Llama example's modules are among those walked."""
+    Llama example's, and the elastic slice's modules are among those
+    walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
-              + _HIERARCHY_MODULES)
+              + _HIERARCHY_MODULES + _ELASTIC_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

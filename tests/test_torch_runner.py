@@ -5,6 +5,7 @@ then parity cases that feed the same inputs to both launchers, and the
 refusal of every flag whose feature the port does not have yet."""
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -780,6 +781,71 @@ def test_fsdp_and_overlap_flags_reach_the_workers_knobs(action,
     monkeypatch.setenv(var, value)
     assert getattr(Knobs.from_env(), action.dest) == \
         getattr(JKnobs.from_env(), action.dest)
+
+
+# ------------------------------------------------------ elastic flags
+
+#: ROADMAP queue A entry 8's flags, refused until the elastic slice
+_ELASTIC = [a for a in _FLAGS if a.dest in (
+    "min_np", "max_np", "host_discovery_script", "slots",
+    "elastic_timeout", "reset_limit", "cooldown_range", "vanish_grace",
+    "spawn_join", "preemption", "emergency_checkpoint", "replication",
+    "replication_partners", "rendezvous_state_dir", "retry_max_attempts",
+    "retry_base_delay", "retry_max_delay")]
+
+
+def _captured_elastic_run(launch_mod, driver_mod, argv, monkeypatch):
+    """Run ``launch_mod``'s command line with its ElasticDriver replaced
+    by a recorder: what the launcher built, without a round."""
+    seen = {}
+
+    class Recorder:
+        def __init__(self, host_manager, settings, command, env, **kw):
+            seen.update(settings=dataclasses.asdict(settings),
+                        command=command, env=env,
+                        script=host_manager._discovery._script,
+                        slots=host_manager._discovery._default_slots,
+                        cooldown=host_manager._cooldown_range,
+                        nics=kw.get("nics"),
+                        state_dir=kw.get("rendezvous_state_dir"))
+
+        def run(self):
+            return 0
+
+    monkeypatch.setattr(driver_mod, "ElasticDriver", Recorder)
+    assert launch_mod.run_commandline(argv) == 0
+    return seen
+
+
+def test_elastic_flags_are_the_seventeen_of_entry_8():
+    assert len(_ELASTIC) == 17
+    assert 8 not in launch.ENTRIES
+    assert not any(a.dest in launch.UNPORTED for a in _ELASTIC)
+
+
+@pytest.mark.parametrize("action", _ELASTIC,
+                         ids=[a.option_strings[-1] for a in _ELASTIC])
+def test_elastic_flag_is_accepted_and_reaches_the_driver(action,
+                                                         monkeypatch):
+    """Each of entry 8's flags is accepted, and the launcher hands the
+    elastic driver the JAX launcher's worker env, ElasticSettings,
+    discovery script and slots, cooldown and rendezvous state dir."""
+    from horovod_tpu.runner.elastic import driver as jax_driver
+    from horovod_tpu_torch.runner.elastic import driver as port_driver
+
+    argv = _flag_argv(action)
+    if action.dest != "host_discovery_script":
+        argv += ["--host-discovery-script", "./discover.sh"]
+    argv += ["python", "train.py"]
+    assert launch.unported_flags(launch.parse_args(argv), argv) == []
+    for k in list(os.environ):
+        if k.startswith(("HOROVOD_", "HVD_TPU_")):
+            monkeypatch.delenv(k)
+    mine = _captured_elastic_run(launch, port_driver, argv, monkeypatch)
+    theirs = _captured_elastic_run(jax_launch, jax_driver, argv,
+                                   monkeypatch)
+    assert mine == theirs
+    assert mine["command"] == ["python", "train.py"]
 
 
 # ------------------------------------------------------ unported flags
