@@ -198,6 +198,30 @@ Phases, in order; the first failure exits non-zero:
    (b) and (c) every parameter and Adam moment ends bitwise (a)'s (by
    sha256); the emergency write's seconds and bytes, the seconds from
    the exit to the next round's first step, each job's seconds;
+4l. carry GPT-2 medium's gradient buckets through the eager negotiation
+   runtime (``HVD_TPU_NATIVE=1``: the C++ controller, the plan cache,
+   the ``DistExecutor`` on a process group of its own) at world 1 over
+   NCCL (24 x 1024, batch 8 x 1024, ``--flash --fused-norm``, AdamW):
+   (a) 10 steps whose 12 buckets go through
+   ``hvd.grouped_allreduce_async(op=Average)``, every parameter and loss
+   bitwise the same steps without the runtime, the plan frozen after
+   the warmup and the later steps negotiating 0 bytes, step ms beside
+   the steps without it, the controller's cycles and the executor's
+   host seconds; (b) the same on the int8 + error-feedback wire (block
+   256): each fused batch's sum and residual bitwise the plain
+   composition of B11-B14 on the same buffer, B11-B14 exactly once a
+   fused batch a step, a falling loss, one step profiled; (c) a bucket
+   written behind a spin kernel on the producer's stream arrives
+   through the ready event, and with that wait monkeypatched out it
+   must not; (d) in a process of its own, an executor that blocks makes
+   the watchdog raise "stalled" within its limit plus 1.5 s, and the
+   world then shuts down; (e) phase 4e's launched GPT-2 medium with
+   ``HVD_TPU_NATIVE=1 --cycle-time-ms 2 --cache-capacity 256
+   --stall-abort-seconds 120``: the runtime's line with those knobs and
+   the published port, the ``[0]iter 0`` loss as phase 4e prints it,
+   and through ``runner.run`` the published port and the knobs in the
+   worker's runtime, its broadcasts through the runtime, and the loss
+   bitwise phase 4's step 1;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -229,7 +253,8 @@ Phases, in order; the first failure exits non-zero:
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
    step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
    ((a)'s kernel composition), 4i, 4j, 4k (in process and the
-   launched workers' second rounds), 5 and 5b and the
+   launched workers' second rounds), 4l ((a), (b) and (e)'s ``run()``
+   worker), 5 and 5b and the
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
@@ -3618,17 +3643,19 @@ def _child_env():
     return env
 
 
-def _stream(argv, timeout=LAUNCH_TIMEOUT_S):
+def _stream(argv, timeout=LAUNCH_TIMEOUT_S, env_extra=None):
     """Run ``argv`` (a launcher command line) from the checkout's root,
-    its stderr merged into its stdout, and stamp each line with the
-    seconds since the start: ``(exit code, [(seconds, line)], wall
-    seconds)``. Past ``timeout`` the launcher gets SIGTERM, which stops
-    its workers too, then SIGKILL; the smoke fails."""
+    with ``env_extra`` added to the environment, its stderr merged into
+    its stdout, and stamp each line with the seconds since the start:
+    ``(exit code, [(seconds, line)], wall seconds)``. Past ``timeout``
+    the launcher gets SIGTERM, which stops its workers too, then
+    SIGKILL; the smoke fails."""
     import signal
     import threading
 
     t0 = time.perf_counter()
-    proc = subprocess.Popen(argv, cwd=HERE, env=_child_env(),
+    proc = subprocess.Popen(argv, cwd=HERE,
+                            env=dict(_child_env(), **(env_extra or {})),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     lines = []
@@ -5923,6 +5950,538 @@ def train_elastic(ledger):
 
 
 # ---------------------------------------------------------------------------
+# phase 4l: the eager negotiation runtime carrying GPT-2 medium's buckets
+# ---------------------------------------------------------------------------
+
+EAGER_STEPS = 10
+#: GPT-2 medium's DistributedOptimizer buckets at the 128 MiB threshold
+EAGER_BUCKETS = 12
+#: the int8 wire of (b)
+EAGER_BLOCK = 256
+#: ``torch.cuda._sleep`` cycles ahead of the bucket's write in (c):
+#: about 70 ms at the H100's boost clock, far longer than a negotiation
+#: cycle and the execute thread's handoff
+EAGER_SPIN_CYCLES = 1 << 27
+#: (c)'s bucket: 16 Mi float32 (64 MiB), of the order of a bucket
+EAGER_READY_NUMEL = 1 << 24
+#: (d): the watchdog, and how much later than it the raise may come (a
+#: few of the watchdog's 0.25 s wait slices)
+EAGER_STALL_ABORT_S = 2.0
+EAGER_STALL_SLACK_S = 1.5
+#: (e): the launcher's flags of the runtime's knobs
+EAGER_LAUNCH_FLAGS = ["--cycle-time-ms", "2", "--cache-capacity", "256",
+                      "--stall-abort-seconds", "120"]
+INT8_KERNELS = ("quant_rows", "quant_ef_rows", "accum_rows", "dequant_flat")
+
+
+class _EagerBucketsAdamW(torch.optim.AdamW):
+    """AdamW whose step first averages the gradients' fusion buckets
+    through the eager runtime: ``hvd.grouped_allreduce_async`` of every
+    bucket of the plan, ``op=Average`` (one all-or-nothing group, fused
+    by the controller, executed by the ``DistExecutor``), the results
+    written back into ``.grad``. ``bind`` gives it the plan once the
+    model exists."""
+
+    def bind(self, plans, params):
+        self.plans, self.ordered = plans, params
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops.fusion import (pack_buckets_by_plan,
+                                                  unflatten_buckets_by_plan)
+
+        buckets = pack_buckets_by_plan([p.grad for p in self.ordered],
+                                       self.plans)
+        reduced = hvd.synchronize(hvd.grouped_allreduce_async(
+            buckets, op=hvd.Average, name="gpt2.grad"))
+        for p, g in zip(self.ordered, unflatten_buckets_by_plan(
+                reduced, self.plans, len(self.ordered))):
+            p.grad.copy_(g)
+        return super().step(closure)
+
+
+def _eager_gpt2(cfg, optimizer_cls):
+    """GPT-2 medium (random weights from seed 0, flash attention) and a
+    step at world 1: the causal-LM loss weighted as
+    ``make_lm_train_step`` weights it at world 1 (``1 / n`` of the valid
+    targets), AdamW (lr 1e-4, weight decay 1e-4) of ``optimizer_cls``."""
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      causal_lm_nll)
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    with torch.device("cuda"):
+        model = Transformer(cfg, attention_fn=make_flash_attention_fn(
+            causal=True))
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    opt = optimizer_cls(model.parameters(), lr=1e-4, weight_decay=1e-4)
+
+    def step(tokens):
+        nll, count = causal_lm_nll(model(tokens), tokens)
+        n = count.double().clamp(min=1)
+        (nll * (1 / n).float()).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return float(nll.detach().double().float() / n.float())
+
+    return model, opt, step
+
+
+class _RecordingExecutor:
+    """The runtime's executor with a record of every batch it ran: the
+    packed float32 input, the bucket's error-feedback residual before
+    and after, and the outputs (phase 4l (b) holds them against the
+    plain composition)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.log = []
+
+    def __getattr__(self, item):
+        return getattr(self.inner, item)
+
+    def __call__(self, batch, tensors):
+        mine = tuple(batch.names)
+        before = {k: v.clone() for k, v in self.inner._wire_residuals.items()
+                  if k[0] == mine}
+        flat = torch.cat([tensors[n].reshape(-1) for n in batch.names])
+        out = self.inner(batch, tensors)
+        key, res = next((k, v) for k, v in
+                        self.inner._wire_residuals.items() if k[0] == mine)
+        self.log.append((list(batch.names), flat.to(torch.float32),
+                         before.get(key), res,
+                         [out[n] for n in batch.names]))
+        return out
+
+
+def _eager_int8_plain(log):
+    """Each recorded batch's sum and residual against the plain versions
+    of B11-B14 composed on the same buffer and residual (world 1):
+    bitwise. Returns the number of batches held."""
+    from horovod_tpu_torch.ops.quantized_collectives import \
+        emulated_quantized_psum
+
+    with _plain_quantized():
+        for names, flat, res, new_res, outs in log:
+            if res is None:
+                res = torch.zeros_like(flat)
+            (y,), (err,) = emulated_quantized_psum([flat], 1, EAGER_BLOCK,
+                                                   [res])
+            got = torch.cat([o.reshape(-1) for o in outs])
+            _require(_bitwise(got, y.to(got.dtype)) and _bitwise(new_res,
+                                                                 err),
+                     f"phase 4l (b): batch {names[:2]}... is not the plain "
+                     "composition of B11-B14 on its buffer")
+    return len(log)
+
+
+class _BlockingExecutor:
+    """An executor that blocks (a stuck data plane) until the watchdog's
+    abort releases it; the abort also aborts the inner executor's
+    group."""
+
+    def __init__(self, inner):
+        import threading
+
+        self.inner = inner
+        self.wire = inner.wire
+        self.release = threading.Event()
+
+    def __call__(self, batch, tensors):
+        self.release.wait(timeout=60.0)
+        return {}
+
+    def abort(self):
+        self.release.set()
+        self.inner.abort()
+
+
+def eager_stall_worker() -> int:
+    """Phase 4l (d), in a process of its own (a stuck card must not hold
+    the smoke): the runtime with ``stall_abort_s`` =
+    ``EAGER_STALL_ABORT_S`` and an executor that blocks; the waiting
+    thread must raise "stalled" and the world must then shut down.
+    Prints one JSON line."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.exceptions import HorovodInternalError
+    from horovod_tpu_torch.core.state import global_state
+
+    os.environ["HVD_TPU_NATIVE"] = "1"
+    os.environ["HOROVOD_STALL_ABORT_S"] = str(EAGER_STALL_ABORT_S)
+    hvd.init()
+    rt = global_state().eager_runtime
+    rt._executor = _BlockingExecutor(rt._executor)
+    h = hvd.allreduce_async(torch.ones(1 << 20, device="cuda"),
+                            name="stuck", op=hvd.Sum)
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        hvd.synchronize(h)
+    except HorovodInternalError as e:
+        raised = str(e)
+    raise_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hvd.shutdown()
+    print(json.dumps({"raised": raised, "raise_s": raise_s,
+                      "shutdown_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def launched_eager_step():
+    """``runner.run``'s function for phase 4l (e): one GPT-2 medium step
+    through the example's ``main`` (``RUN_ARGS``) with the eager runtime
+    live (the caller's env), metrics on to count the runtime's batches;
+    its launch counts zeroed just before and read just after, the
+    runtime's facts read before shutdown."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.examples import gpt2_pretraining
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import metrics
+
+    metrics.enable()
+    stats = {}
+    _build.reset_launches()
+    gpt2_pretraining.main(RUN_ARGS, stats)
+    torch.cuda.synchronize()
+    st = global_state()
+    rt, k = st.eager_runtime, st.knobs
+    fused = metrics.registry.snapshot().get("hvd_fused_tensors_total", {})
+    out = {"device": str(hvd.device()), "size": hvd.size(),
+           "launches": dict(_build.LAUNCHES), "losses": stats["losses"],
+           "runtime": rt is not None,
+           "coordinator_port": rt.coordinator_port if rt else None,
+           "published_port": int(os.environ.get(
+               "HVD_TPU_NATIVE_COORDINATOR_PORT", "0")),
+           "knobs": [k.cycle_time_ms, k.cache_capacity,
+                     k.stall_abort_time_seconds],
+           "fused_tensors_by_op": fused,
+           "snapshot": rt.metrics_snapshot() if rt else None}
+    stats.clear()
+    hvd.shutdown()
+    metrics.reset()
+    return out
+
+
+def _eager_launch(ledger, in_process_losses):
+    """Phase 4l (e): phase 4e's launched GPT-2 medium with the runtime:
+    the command line with ``EAGER_LAUNCH_FLAGS`` and ``HVD_TPU_NATIVE=1``
+    (exit 0, the runtime's line with the flags' values and the published
+    port, the ``[0]iter 0`` loss as phase 4e prints it), and
+    ``runner.run(launched_eager_step, np=1)`` with the same knobs: its
+    runtime got the published port and the knobs, the example's
+    broadcasts ran through it, B1-B5 exactly ``STEP_LAUNCHES``, and its
+    loss bitwise phase 4's step 1 (phase 4e's ``run()`` leg)."""
+    import importlib
+
+    from horovod_tpu_torch.runner import run
+
+    torch.cuda.empty_cache()
+    env = {"HVD_TPU_NATIVE": "1", "HOROVOD_LOG_LEVEL": "INFO"}
+    rc, lines, wall = _stream(
+        _launcher("-np", "1", "-H", "localhost:1", *EAGER_LAUNCH_FLAGS,
+                  *_gpt2(*LAUNCH_ARGS)), env_extra=env)
+    text = "\n".join(l for _, l in lines[-30:])
+    _require(rc == 0, f"phase 4l (e): launch exit {rc}:\n{text}")
+    rt_line = next((l for _, l in lines if "eager runtime: rank 0 of 1"
+                    in l), None)
+    m = rt_line and re.search(
+        r"coordinator ([\d.]+):(\d+), cycle 2.0 ms, cache 256, "
+        r"stall abort 120.0 s", rt_line)
+    _require(m and int(m.group(2)) > 0,
+             f"phase 4l (e): no runtime line with the flags' knobs and a "
+             f"published port: {rt_line!r}\n{text}")
+    _, iter_line = _first(lines, "[0]iter 0: ")
+    want = f"(loss {in_process_losses[LAUNCH_STEPS - 1]:.3f})"
+    _require(iter_line is not None and iter_line.endswith(want),
+             f"phase 4l (e): [0]iter 0 line {iter_line!r}, phase 4e "
+             f"prints {want}")
+    _, rate_line = _first(lines, "[0]tokens/sec on 1 rank(s): ")
+    smoke = importlib.import_module("chip_smoke")
+    run_env = dict(_child_env(), HVD_TPU_NATIVE="1",
+                   HOROVOD_CYCLE_TIME="2", HOROVOD_CACHE_CAPACITY="256",
+                   HOROVOD_STALL_ABORT_S="120")
+    t0 = time.perf_counter()
+    res = run(smoke.launched_eager_step, np=1, env=run_env)[0]
+    run_s = time.perf_counter() - t0
+    _require(res["runtime"] and res["device"] == "cuda:0"
+             and res["size"] == 1
+             and res["coordinator_port"] == res["published_port"] > 0
+             and res["knobs"] == [2.0, 256, 120.0],
+             f"phase 4l (e): run(): runtime {res['runtime']}, port "
+             f"{res['coordinator_port']} of {res['published_port']}, "
+             f"knobs {res['knobs']}")
+    _require(res["fused_tensors_by_op"].get("broadcast", 0) > 0,
+             "phase 4l (e): the example's broadcasts did not run through "
+             f"the runtime: {res['fused_tensors_by_op']}")
+    _require(res["losses"] == in_process_losses[:1],
+             f"phase 4l (e): run() losses {res['losses']}, phase 4's step "
+             f"1 {in_process_losses[0]!r}")
+    _exact_launches(res["launches"], 1, "phase 4l (e) run()")
+    ledger["eager_launch_run"] = res["launches"]
+    return {"cli": {"rc": rc, "wall_s": wall, "runtime_line": rt_line,
+                    "iter0_loss": iter_line.rsplit("(loss ", 1)[1][:-1],
+                    "tokens_per_s": float(rate_line.split(": ")[1].split()[0])
+                    if rate_line else None},
+            "run": {"wall_s": run_s, "losses": res["losses"],
+                    "coordinator_port": res["coordinator_port"],
+                    "fused_tensors_by_op": res["fused_tensors_by_op"],
+                    "executor_batches": res["snapshot"]["executor_batches"],
+                    "bytes_negotiated": res["snapshot"]["bytes_negotiated"]}}
+
+
+def _eager_ready_wait():
+    """Phase 4l (c): a bucket written on the producer's stream behind a
+    spin kernel reaches the runtime's stream only through the ready
+    event: with the wait, the average (world 1) is the bucket; with the
+    wait monkeypatched out, the runtime reads it before the write and
+    the result must differ."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import eager_runtime
+
+    src = torch.randn(EAGER_READY_NUMEL, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(5))
+
+    def produce(k):
+        buf = torch.full_like(src, float("nan"))
+        torch.cuda._sleep(EAGER_SPIN_CYCLES)
+        buf.copy_(src * k)
+        out = hvd.synchronize(hvd.grouped_allreduce_async(
+            [buf], op=hvd.Average, name="ready"))[0]
+        torch.cuda.synchronize()
+        return _bitwise(out, src * k)
+
+    torch.cuda.synchronize()
+    waited = [produce(k) for k in (1.0, 2.0)]
+    saved = eager_runtime._wait_ready
+    eager_runtime._wait_ready = lambda stream, events: None
+    try:
+        dropped = [produce(k) for k in (3.0, 4.0)]
+    finally:
+        eager_runtime._wait_ready = saved
+    _require(all(waited), "phase 4l (c): the bucket did not arrive "
+                          f"through the ready event: {waited}")
+    _require(not any(dropped), "phase 4l (c): with the ready-event wait "
+                               "dropped the runtime still read the "
+                               f"written bucket: {dropped}")
+    return {"with_wait_bitwise": waited, "dropped_wait_bitwise": dropped,
+            "spin_cycles": EAGER_SPIN_CYCLES,
+            "bucket_mib": EAGER_READY_NUMEL * 4 / 2 ** 20}
+
+
+def train_eager(seed, ledger, in_process_losses):
+    """Phase 4l: the eager negotiation runtime (``HVD_TPU_NATIVE=1``,
+    ``ops/eager_runtime.py``: the C++ controller, the plan cache, the
+    ``DistExecutor`` on a process group of its own) carrying GPT-2
+    medium's gradient buckets at world 1 over NCCL (24 x 1024, batch 8 x
+    1024, flash attention and fused norms, AdamW):
+
+    (a) ``EAGER_STEPS`` steps whose 12 buckets (``gpt2_medium_plan``) go
+        through ``hvd.grouped_allreduce_async(op=Average)`` into the
+        runtime, against the same steps without it: every parameter and
+        loss bitwise, the plan frozen after the warmup, the later steps
+        negotiating 0 bytes, step ms beside the steps without the
+        runtime, the controller's cycles, the executor's host seconds;
+    (b) the same on the int8 + error-feedback wire (block 256): each
+        fused batch's sum and residual bitwise the plain composition of
+        B11-B14 on the same buffer, B11-B14 launched exactly once each a
+        fused batch a step, a falling loss, one step profiled;
+    (c) a dropped ready-event wait must lose the bucket
+        (``_eager_ready_wait``);
+    (d) the stall watchdog in a process of its own
+        (``eager_stall_worker``): "stalled" within the watchdog plus
+        ``EAGER_STALL_SLACK_S``, then the world shuts down;
+    (e) phase 4e's launched GPT-2 medium with the runtime
+        (``_eager_launch``).
+
+    Launch counts are zeroed just before each run and read just after."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.eager_runtime import DistExecutor
+    from horovod_tpu_torch.optim.compression import WireSpec
+
+    t_phase = time.perf_counter()
+    report = {"phase": "eager", "model": "GPT-2 medium 24x1024, 16 heads",
+              "batch": "8x1024", "steps": EAGER_STEPS}
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    os.environ["HVD_TPU_NATIVE"] = "1"
+    try:
+        hvd.init()
+        rt = global_state().eager_runtime
+        _require(rt is not None and isinstance(rt._executor, DistExecutor),
+                 "phase 4l: hvd.init() with HVD_TPU_NATIVE=1 started no "
+                 "runtime on a DistExecutor")
+        tokens = torch.from_numpy(synthetic_tokens(
+            cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+
+        def timed(step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(tokens)
+            torch.cuda.synchronize()
+            return loss, (time.perf_counter() - t0) * 1e3
+
+        # the same steps without the runtime
+        model, _, step = _eager_gpt2(cfg, torch.optim.AdamW)
+        ref = [timed(step) for _ in range(EAGER_STEPS)]
+        ref_losses = [l for l, _ in ref]
+        ref_state = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+        del model, step
+        torch.cuda.empty_cache()
+
+        # (a) the float32 wire
+        model, opt, step = _eager_gpt2(cfg, _EagerBucketsAdamW)
+        plans, params = gpt2_medium_plan(model)
+        _require(len(plans) == EAGER_BUCKETS,
+                 f"phase 4l: {len(plans)} buckets, not {EAGER_BUCKETS}")
+        opt.bind(plans, params)
+        snap0 = rt.metrics_snapshot()
+        _build.reset_launches()
+        steps = []
+        for _ in range(EAGER_STEPS):
+            before = rt.metrics_snapshot()
+            loss, ms = timed(step)
+            after = rt.metrics_snapshot()
+            steps.append({
+                "loss": loss, "ms": ms,
+                "negotiated_bytes": after["bytes_negotiated"]
+                - before["bytes_negotiated"],
+                "fast_path": after["fast_path_active"] == 1,
+                "batches": after["executor_batches"]
+                - before["executor_batches"],
+                "executor_ms": (after["executor_seconds"]
+                                - before["executor_seconds"]) * 1e3,
+                "cycles": after["cycles"] - before["cycles"],
+                "coordinator_work_us": after["work_us"] - before["work_us"]})
+        counts = dict(_build.LAUNCHES)
+        ledger["eager_a"] = counts
+        _exact_launches(counts, EAGER_STEPS, "phase 4l (a)")
+        diff = _first_difference(model.state_dict(), ref_state)
+        losses = [s["loss"] for s in steps]
+        _require(diff is None and losses == ref_losses,
+                 f"phase 4l (a): not bitwise the steps without the "
+                 f"runtime: {diff}, losses {losses} vs {ref_losses}")
+        frozen = [i for i, s in enumerate(steps) if s["fast_path"]]
+        _require(frozen and frozen == list(range(frozen[0], EAGER_STEPS)),
+                 f"phase 4l (a): the plan did not freeze and stay: "
+                 f"{[s['fast_path'] for s in steps]}")
+        zero = [s["negotiated_bytes"] == 0 for s in steps[frozen[0]:]]
+        _require(all(zero), "phase 4l (a): steps after the freeze "
+                 f"negotiated {[s['negotiated_bytes'] for s in steps]}")
+        snap1 = rt.metrics_snapshot()
+        report["a"] = {
+            "bitwise_params_and_losses": True, "buckets": len(plans),
+            "freeze_step": frozen[0] + 1, "zero_byte_steps": len(zero),
+            "losses": losses,
+            "phase4_losses_bitwise": ref_losses[:TRAIN_STEPS]
+            == in_process_losses,
+            "steps": steps, "ref_step_ms": [ms for _, ms in ref],
+            "step_ms_median": float(np.median([s["ms"] for s in steps])),
+            "ref_step_ms_median": float(np.median([ms for _, ms in ref])),
+            "runtime_totals": {k: snap1[k] - snap0[k] for k in (
+                "cycles", "busy_cycles", "work_us", "wait_us",
+                "bytes_negotiated", "responses", "executor_seconds",
+                "executor_batches", "fast_path_steps", "cache_hits")},
+            "launches_per_step": {k: counts[k] / EAGER_STEPS
+                                  for k in STEP_LAUNCHES}}
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+        # (b) the int8 + error-feedback wire
+        rt.set_wire(WireSpec("int8", EAGER_BLOCK, error_feedback=True))
+        recorder = _RecordingExecutor(rt._executor)
+        rt._executor = recorder
+        model, opt, step = _eager_gpt2(cfg, _EagerBucketsAdamW)
+        opt.bind(*gpt2_medium_plan(model))
+        total = {}
+        b_steps = []
+        for i in range(EAGER_STEPS):
+            recorder.log = []
+            _build.reset_launches()
+            loss, ms = timed(step)
+            counts = dict(_build.LAUNCHES)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            batches = len(recorder.log)
+            _exact_launches(counts, 1, f"phase 4l (b) step {i + 1}")
+            # each fused batch: B12 on its buffer and residual, B13 and
+            # B11 on its shard, B14 on the gathered codes
+            for name in INT8_KERNELS:
+                _require(counts[name] == batches,
+                         f"phase 4l (b) step {i + 1}: {name} launched "
+                         f"{counts[name]} times for {batches} batches")
+            held = _eager_int8_plain(recorder.log)
+            b_steps.append({"loss": loss, "ms": ms, "batches": held,
+                            "fast_path": rt.fast_path_stats()["active"]})
+        ledger["eager_b"] = total
+        b_losses = [s["loss"] for s in b_steps]
+        _require(all(np.isfinite(b_losses)) and b_losses[-1] < b_losses[0],
+                 f"phase 4l (b): the loss did not fall: {b_losses}")
+        recorder.log = []
+        with _profiled() as prof:
+            step(tokens)
+            torch.cuda.synchronize()
+        names = (("quantize_kernel<true>", "quant_ef_rows"),
+                 ("quantize_kernel<false>", "quant_rows"),
+                 ("accum_kernel", "accum_rows"),
+                 ("dequant_kernel", "dequant_flat"), ("nccl", "nccl"))
+        by = {}
+        for e in _kernel_events(prof):
+            name = next((v for k, v in names if k in e.key.lower()
+                         or k in e.key), None)
+            if name is not None:
+                by[name] = by.get(name, 0.0) + _dev_us(e) / 1e3
+        report["b"] = {
+            "wire": f"int8 block {EAGER_BLOCK} ef",
+            "bitwise_plain_composition": True, "steps": b_steps,
+            "int8_launches_per_step": {k: total[k] / EAGER_STEPS
+                                       for k in INT8_KERNELS},
+            "profiled_step_device_ms": by,
+            "step_ms_median": float(np.median([s["ms"] for s in b_steps]))}
+        rt._executor = recorder.inner
+        rt.set_wire(None)
+        del model, opt, step, recorder
+        torch.cuda.empty_cache()
+
+        # (c) the ready event
+        report["c"] = _eager_ready_wait()
+        hvd.shutdown()
+    finally:
+        os.environ.pop("HVD_TPU_NATIVE", None)
+        if hvd.is_initialized():
+            hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # (d) the stall watchdog, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                           "--eager-stall-worker"], cwd=HERE,
+                          env=_child_env(), capture_output=True, text=True,
+                          timeout=180)
+    line = next((l for l in reversed(proc.stdout.splitlines())
+                 if l.startswith("{")), None)
+    _require(proc.returncode == 0 and line,
+             f"phase 4l (d): exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    d = json.loads(line)
+    _require(d["raised"] and "stalled" in d["raised"]
+             and d["raise_s"] < EAGER_STALL_ABORT_S + EAGER_STALL_SLACK_S,
+             f"phase 4l (d): {d}")
+    report["d"] = {**d, "abort_s": EAGER_STALL_ABORT_S,
+                   "process_s": time.perf_counter() - t0}
+
+    # (e) the launcher
+    report["e"] = _eager_launch(ledger, in_process_losses)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -7088,6 +7647,9 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-worker", metavar="OUT",
                     help="phase 4k's worker under the elastic launcher "
                          "(elastic_worker), not a smoke")
+    ap.add_argument("--eager-stall-worker", action="store_true",
+                    help="phase 4l (d)'s process (eager_stall_worker), "
+                         "not a smoke")
     args = ap.parse_args(argv)
 
     # phase 1
@@ -7102,6 +7664,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     if args.elastic_worker:
         return elastic_worker(args.elastic_worker)
+    if args.eager_stall_worker:
+        return eager_stall_worker()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -7170,6 +7734,7 @@ def main(argv=None) -> int:
     train_llama(args.seed, ledger)
     train_checkpoint(ledger)
     train_elastic(ledger)
+    train_eager(args.seed, ledger, in_process_losses)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

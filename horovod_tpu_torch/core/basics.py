@@ -26,6 +26,13 @@ is (its rank and size win over the environment) and left alone at
 ``init(process_sets=[...])`` registers those process sets, in order,
 once the world is up, as ``add_process_set`` would (collective: every
 rank passes the same list).
+
+With ``HVD_TPU_NATIVE=1`` (``Knobs.native_eager``) ``init()`` also
+starts the eager negotiation runtime (``ops/eager_runtime.py``): the
+C++ controller, whose rank 0 binds ``HVD_TPU_NATIVE_COORDINATOR_PORT``
+at ``HVD_TPU_NATIVE_COORDINATOR_ADDR`` (the launcher publishes both),
+and a ``DistExecutor`` on a process group of its own, created
+collectively here. ``shutdown()`` stops it first.
 """
 
 from __future__ import annotations
@@ -105,6 +112,13 @@ def init(device: Optional[str] = None,
         st.cross_rank, st.cross_size = cross_rank, cross_size
         st.process_set_table = _ps.ProcessSetTable(size)
         st.initialized = True
+    if st.knobs.native_eager:
+        try:
+            _start_native_eager(st)
+        except BaseException:
+            # no world without the runtime it was asked for
+            shutdown()
+            raise
     for ps in process_sets or ():
         _ps.add_process_set(ps)
     if st.knobs.replication_enabled:
@@ -112,6 +126,54 @@ def init(device: Optional[str] = None,
         from ..elastic import replication
 
         replication.configure(st.knobs)
+
+
+def _start_native_eager(st) -> None:
+    """Start the background negotiation runtime and its data plane (the
+    reference's InitializeHorovodOnce spawning BackgroundThreadLoop,
+    operations.cc:827, 401; ``horovod_tpu/core/basics.py:315-346``).
+    Where the JAX package gives a world of one the loopback executor,
+    the port's world always has a process group, so every world gets a
+    ``DistExecutor`` on a group of its own (ROADMAP queue C)."""
+    import os
+
+    from ..ops.eager_runtime import EagerRuntime, make_dist_executor
+
+    addr = os.environ.get("HVD_TPU_NATIVE_COORDINATOR_ADDR", "127.0.0.1")
+    port = int(os.environ.get("HVD_TPU_NATIVE_COORDINATOR_PORT", "0") or 0)
+    if st.size > 1 and port == 0:
+        raise RuntimeError(
+            "HVD_TPU_NATIVE=1 with several processes needs the launcher "
+            "to publish HVD_TPU_NATIVE_COORDINATOR_ADDR/PORT (hvdrun "
+            "does; see runner/exec_run.py slot_env)")
+    k = st.knobs
+    st.eager_runtime = EagerRuntime(
+        rank=st.rank,
+        size=st.size,
+        coordinator_addr=addr,
+        coordinator_port=port,
+        executor=make_dist_executor(),
+        cycle_ms=k.cycle_time_ms,
+        fusion_threshold=k.fusion_threshold_bytes,
+        cache_capacity=k.cache_capacity if k.cache_enabled else 0,
+        # the inspector is off at 0 (stall_inspector.h enabled())
+        stall_warning_s=(k.stall_warning_time_seconds
+                         if k.stall_check_enabled else 0.0),
+        stall_shutdown_s=k.stall_shutdown_time_seconds,
+        stall_abort_s=k.stall_abort_time_seconds,
+        fast_path=k.eager_fast_path,
+        fast_path_warmup=k.eager_fast_path_warmup,
+        device=st.device,
+    )
+    from ..optim.compression import resolve_wire
+    from ..utils.logging import get_logger
+
+    wire = resolve_wire(k)
+    get_logger().info(
+        "eager runtime: rank %d of %d, coordinator %s:%d, cycle %s ms, "
+        "cache %d, stall abort %s s, wire %s", st.rank, st.size, addr,
+        port, k.cycle_time_ms, k.cache_capacity if k.cache_enabled else 0,
+        k.stall_abort_time_seconds, wire.describe() if wire else "none")
 
 
 #: coordinator address -> [its TCP store, the worlds formed on it]
@@ -183,6 +245,9 @@ def shutdown() -> None:
             getattr(mod, fn)()
     st = global_state()
     with st.lock:
+        if st.eager_runtime is not None:
+            st.eager_runtime.shutdown()
+            st.eager_runtime = None
         if st.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         elif dist.is_initialized():

@@ -84,6 +84,34 @@ class Knobs:
     hierarchical_allgather: bool = False
     hierarchical_local_size: int = 0
 
+    # --- the eager negotiation runtime (ops/eager_runtime.py) ---
+    # HVD_TPU_NATIVE=1: init() starts the C++ controller and the runtime,
+    # and the top-level collectives (and, at world > 1, the
+    # DistributedOptimizer's buckets) go through enqueue -> negotiation
+    # -> fused execution -> synchronize
+    native_eager: bool = False
+    # the controller's negotiation cycle (operations.cc:515)
+    cycle_time_ms: float = 1.0
+    # response-cache entries; HOROVOD_CACHE_CAPACITY=0 turns it off
+    cache_capacity: int = 1024
+    cache_enabled: bool = True
+    # stall inspector (stall_inspector.h:75-83): a warning after this
+    # long, a shutdown of the world's pending collectives after that (0:
+    # never)
+    stall_check_enabled: bool = True
+    stall_warning_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    # the runtime's watchdog: a collective wait making no progress for
+    # this long raises HorovodInternalError, which elastic.run catches
+    # (0: waits are bounded only by their callers)
+    stall_abort_time_seconds: float = 0.0
+    # the steady-state plan cache (HOROVOD_EAGER_FAST_PATH): after this
+    # many identical enqueue sequences the negotiated fusion buckets and
+    # their order are frozen and later steps skip the coordinator; any
+    # deviation falls back to negotiation
+    eager_fast_path: bool = True
+    eager_fast_path_warmup: int = 3
+
     # --- backward-interleaved collective scheduler (ops/overlap.py) ---
     # "off" (default), "stage" or "double", as in the JAX package.
     # The port's replicated optimizers train through the hook-driven
@@ -177,6 +205,18 @@ class Knobs:
             hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER",
                                              False),
             hierarchical_local_size=_env_int("HIERARCHICAL_LOCAL_SIZE", 0),
+            native_eager=_env_bool("NATIVE", False),
+            cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
+            cache_capacity=_env_int("CACHE_CAPACITY", 1024),
+            cache_enabled=_env_int("CACHE_CAPACITY", 1024) > 0,
+            stall_check_enabled=not _env_bool("STALL_CHECK_DISABLE", False),
+            stall_warning_time_seconds=_env_float(
+                "STALL_CHECK_TIME_SECONDS", 60.0),
+            stall_shutdown_time_seconds=_env_float(
+                "STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            stall_abort_time_seconds=_env_float("STALL_ABORT_S", 0.0),
+            eager_fast_path=_env_bool("EAGER_FAST_PATH", True),
+            eager_fast_path_warmup=_env_int("EAGER_FAST_PATH_WARMUP", 3),
             overlap_schedule=_env("OVERLAP_SCHEDULE", "") or "off",
             fsdp=_env_bool("FSDP", True),
             fsdp_prefetch=_env_int("FSDP_PREFETCH", 1),

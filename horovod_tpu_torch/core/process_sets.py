@@ -17,7 +17,10 @@ validates locally first (duplicate ranks, ranks out of range, a set
 that exists already, removing id 0, an unknown id), before any
 cross-rank traffic; :func:`add_process_set` then checks, with one small
 all-gather over the world, that every rank asked for the same ranks,
-and raises on every rank if not.
+and raises on every rank if not. With the eager runtime live
+(``HVD_TPU_NATIVE=1``) a set is also registered with its controller,
+negotiated, and its executor makes a group of its own for the set;
+removal deregisters it there first.
 """
 
 from __future__ import annotations
@@ -185,7 +188,18 @@ def add_process_set(ranks_or_set) -> ProcessSet:
     table.check(ps)
     _agree(ps.ranks)
     ps.group = dist.new_group(ps.ranks)
-    return table.add(ps)
+    ps = table.add(ps)
+    rt = global_state().eager_runtime
+    if rt is not None:
+        # negotiated registration with the eager runtime, which makes
+        # the set's group of its own (horovod_tpu/core/process_sets.py:
+        # 189-191)
+        try:
+            rt.register_process_set(ps.process_set_id, ps.ranks)
+        except Exception:
+            table.remove(ps.process_set_id)
+            raise
+    return ps
 
 
 def add_or_get_process_set(ranks: Sequence[int]) -> ProcessSet:
@@ -211,6 +225,11 @@ def remove_process_set(ps_or_id) -> None:
     ps = table.get(pid)
     if pid == 0:
         raise ProcessSetError("cannot remove the global process set")
+    rt = global_state().eager_runtime
+    if rt is not None:
+        # deregister with the runtime before the local table changes
+        # (horovod_tpu/core/process_sets.py:235-236)
+        rt.deregister_process_set(pid)
     _world_barrier()
     if ps.included():
         dist.destroy_process_group(ps.group)

@@ -30,9 +30,21 @@ slices. A collective whose peer went away fails in the process group
 ``DistBackendError``); :func:`lost_peer` turns that into
 ``HorovodInternalError``, which ``elastic.run`` catches, where the
 collective is waited on: ``synchronize``, the blocking forms, and the
-optimizers' bucket waits. The private tiled exchanges are :func:`_all_to_all_tiled`,
-:func:`_all_gather_tiled` (the int8 wire) and
-:func:`_reduce_scatter_tiled` (ZeRO); they run over the world.
+optimizers' bucket waits. The private tiled exchanges are
+:func:`_all_to_all_tiled`, :func:`_all_gather_tiled` (the int8 wire) and
+:func:`_reduce_scatter_tiled` (ZeRO); they run over the world or a
+given group.
+
+With the eager negotiation runtime live (``HVD_TPU_NATIVE=1``,
+``ops/eager_runtime.py``) a member's collective goes through it, as in
+the JAX package (``horovod_tpu/ops/collectives.py:560-600``): it is
+enqueued by name (``name``; unnamed calls get ``<op>.noname.<n>``, so
+the ranks must issue them in one order), negotiated with the other
+ranks, fused and executed by the runtime's executor; the grouped forms
+go as one all-or-nothing group. ``allgather`` is then ragged by
+negotiation, ``alltoall`` negotiates its splits matrix, ``barrier`` on
+the world is negotiated and ``join`` does the join accounting. Adasum
+and sparse slices keep their own paths.
 """
 
 from __future__ import annotations
@@ -178,6 +190,93 @@ def synchronize(handle: int):
     return finish()
 
 
+# -- the eager negotiation runtime -------------------------------------------
+
+#: op kind -> the controller's op code (``_native`` OP_*)
+_NATIVE_OPS = {"allreduce": 0, "allgather": 1, "broadcast": 2,
+               "alltoall": 3, "reducescatter": 4}
+_AUTO_NAME_COUNTERS: dict = {}
+
+
+def _auto_name(op_kind: str) -> str:
+    """``<op>.noname.<n>``: the ranks name an unnamed collective alike by
+    issuing it in the same order."""
+    import itertools
+
+    c = _AUTO_NAME_COUNTERS.setdefault(op_kind, itertools.count())
+    return f"{op_kind}.noname.{next(c)}"
+
+
+def _leaf_names(name: Optional[str], n: int, op_kind: str) -> List[str]:
+    """Per-tensor names of a call: the first keeps ``name``, later ones
+    get ``.k`` suffixes; unnamed tensors get automatic names."""
+    if name is None:
+        return [_auto_name(op_kind) for _ in range(n)]
+    return [name if i == 0 else f"{name}.{i}" for i in range(n)]
+
+
+def _native_rt(process_set=None):
+    """``(runtime, process set id)`` when this collective goes through
+    the eager negotiation runtime (``HVD_TPU_NATIVE=1``): a member's
+    collective on the world or on a set registered with it; ``(None,
+    0)`` otherwise. A non-member keeps the semantics without the
+    runtime (its input back, or ``ProcessSetError``)."""
+    st = _require_init()
+    rt = st.eager_runtime
+    if rt is None:
+        return None, 0
+    ctx = set_context(process_set)
+    if not ctx.member:
+        return None, 0
+    sid = 0 if ctx.group is None else process_set.process_set_id
+    if sid and rt.process_set_members(sid) is None:
+        raise HorovodInternalError(
+            f"process set {sid} is not registered with the native "
+            "runtime; call add_process_set on every rank first "
+            "(reference process_sets.py:123)")
+    return rt, sid
+
+
+class _NativeWork:
+    """The runtime's handles of one call, as a work ``poll`` can ask."""
+
+    def __init__(self, rt, handles):
+        self.rt, self.handles = rt, handles
+
+    def is_completed(self) -> bool:
+        return all(self.rt.poll(h) for h in self.handles)
+
+
+def _native_start(rt, op_kind, tensors, op=ReduceOp.SUM, prescale=1.0,
+                  postscale=1.0, root_rank=0, name=None, splits=None,
+                  grouped=False, process_set_id=0):
+    """Enqueue ``tensors`` through the runtime in one batched round
+    (``horovod_tpu/ops/collectives.py:1269-1314``): a grouped call tags
+    them as one all-or-nothing group (reference group_table.h:25), its
+    tag derived from the names so every rank computes the same one.
+    Returns ``(works, finish)``; ``finish()`` gives each tensor's
+    result in order."""
+    import hashlib
+
+    names = _leaf_names(name, len(tensors), op_kind)
+    group, group_size = None, 0
+    if grouped and len(names) > 1:
+        group = hashlib.sha1("|".join(names).encode()).hexdigest()[:16]
+        group_size = len(names)
+    hs = rt.enqueue_batch([
+        dict(name=n, tensor=t.detach(), op=_NATIVE_OPS[op_kind],
+             reduce_op=int(op), root_rank=int(root_rank),
+             prescale=float(prescale), postscale=float(postscale),
+             splits=splits, group=group, group_size=group_size,
+             process_set_id=process_set_id)
+        for n, t in zip(names, tensors)])
+
+    def finish():
+        return [rt.synchronize(h) for h in hs]
+
+    return [_NativeWork(rt, hs)], finish
+
+
 # -- allreduce ---------------------------------------------------------------
 
 def _two_level(kind: str, op, process_set) -> int:
@@ -193,7 +292,7 @@ def _two_level(kind: str, op, process_set) -> int:
 
 
 def _allreduce_start(tensor, average, compression, op, prescale_factor,
-                     postscale_factor, process_set, out=None):
+                     postscale_factor, process_set, out=None, name=None):
     """Enqueue one allreduce; returns (works, finish)."""
     op = resolve_op(average, op)
     if is_sparse(tensor):
@@ -231,6 +330,17 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
         res = tensor if out is not None else tensor.detach().clone()
         return [], lambda: res
     wire, wctx = compression.compress(tensor.detach())
+    rt, sid = _native_rt(process_set)
+    if rt is not None:
+        works, reduced = _native_start(
+            rt, "allreduce", [wire], op, prescale_factor, postscale_factor,
+            name=name, process_set_id=sid)
+
+        def finish_native():
+            res = compression.decompress(reduced()[0], wctx)
+            return res if out is None else out.copy_(res)
+
+        return works, finish_native
     # a private copy: the input is never written (the wire cast may
     # already have made one)
     buf = wire.clone() if wire.data_ptr() == tensor.data_ptr() else wire
@@ -268,22 +378,21 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
 def allreduce(tensor, average=None, name=None, compression=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0, process_set=None):
     """Reduce ``tensor`` over the set's ranks; returns a new tensor (the
-    input itself, copied, on a non-member). ``name`` is accepted for
-    parity and unused."""
-    del name
+    input itself, copied, on a non-member). ``name`` names it in the
+    eager runtime (``HVD_TPU_NATIVE=1``), where the ranks negotiate by
+    name; without a name the ranks' calls are paired by order."""
     _, finish = _allreduce_start(tensor, average, compression, op,
                                  prescale_factor, postscale_factor,
-                                 process_set)
+                                 process_set, name=name)
     return finish()
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
                     process_set=None) -> int:
-    del name
     works, finish = _allreduce_start(tensor, average, None, op,
                                      prescale_factor, postscale_factor,
-                                     process_set)
+                                     process_set, name=name)
     return _register(finish, *works)
 
 
@@ -291,19 +400,18 @@ def allreduce_async(tensor, average=None, name=None, op=None,
 def allreduce_(tensor, average=None, name=None, op=None, prescale_factor=1.0,
                postscale_factor=1.0, process_set=None):
     """In-place :func:`allreduce`."""
-    del name
     _, finish = _allreduce_start(tensor, average, None, op, prescale_factor,
-                                 postscale_factor, process_set, out=tensor)
+                                 postscale_factor, process_set, out=tensor,
+                                 name=name)
     return finish()
 
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
                      process_set=None) -> int:
-    del name
     works, finish = _allreduce_start(tensor, average, None, op,
                                      prescale_factor, postscale_factor,
-                                     process_set, out=tensor)
+                                     process_set, out=tensor, name=name)
     return _register(finish, *works)
 
 
@@ -316,13 +424,22 @@ def _by_dtype(tensors) -> dict:
 
 
 def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
-                   process_set):
+                   process_set, name=None):
     """One allreduce per dtype over the dense tensors' flat
     concatenation (in order; Adasum combines each concatenation as a
     whole); sparse members reduce one by one through the sparse path.
-    Returns (works, finish)."""
+    With the eager runtime, dense tensors go as one all-or-nothing group
+    and the controller fuses them. Returns (works, finish)."""
     op = resolve_op(average, op)
     tensors = list(tensors)
+    if tensors and op != ReduceOp.ADASUM and \
+            not any(is_sparse(t) for t in tensors):
+        rt, sid = _native_rt(process_set)
+        if rt is not None:
+            return _native_start(rt, "allreduce", tensors, op,
+                                 prescale_factor, postscale_factor,
+                                 name=name, grouped=True,
+                                 process_set_id=sid)
     sparse = {i: _allreduce_start(t, None, None, op, 1.0, 1.0,
                                   process_set)[1]
               for i, t in enumerate(tensors) if is_sparse(t)}
@@ -381,18 +498,17 @@ def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
                       name=None, op=None, prescale_factor=1.0,
                       postscale_factor=1.0, process_set=None):
-    """Reduce a list of tensors in one collective per dtype."""
-    del name
+    """Reduce a list of tensors in one collective per dtype (through
+    the eager runtime: one negotiated group, fused by the controller)."""
     return _grouped_start(tensors, average, op, prescale_factor,
-                          postscale_factor, process_set)[1]()
+                          postscale_factor, process_set, name=name)[1]()
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             prescale_factor=1.0, postscale_factor=1.0,
                             process_set=None) -> int:
-    del name
     works, finish = _grouped_start(tensors, average, op, prescale_factor,
-                                   postscale_factor, process_set)
+                                   postscale_factor, process_set, name=name)
     return _register(finish, *works)
 
 
@@ -443,7 +559,7 @@ def _check_dim0(t: torch.Tensor, n: int, what: str) -> None:
 
 
 def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
-                         process_set, what):
+                         process_set, what, name=None):
     """Enqueue one reduce-scatter per dtype over ``tensors``, each split
     into ``n`` chunks along dim 0 and packed rank-major (chunk r of every
     tensor, in order), so that one collective hands set rank r its chunk
@@ -458,6 +574,11 @@ def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
     n = ctx.size
     for t in tensors:
         _check_dim0(t, n, what)
+    rt, sid = _native_rt(process_set)
+    if rt is not None:
+        return _native_start(rt, "reducescatter", tensors, op,
+                             prescale_factor, postscale_factor, name=name,
+                             grouped=len(tensors) > 1, process_set_id=sid)
     pending = []
     for idxs in _by_dtype(tensors).values():
         packed = torch.cat([tensors[i].detach().reshape(n, -1)
@@ -491,20 +612,18 @@ def reducescatter(tensor, op=None, name=None, prescale_factor=1.0,
     """Reduce ``tensor`` over the set's ranks and scatter dim 0: set
     rank r gets chunk r of ``n`` equal chunks (dim 0 must divide evenly,
     as in the JAX package). ``op`` is Average (default) or Sum; returns
-    a new tensor. ``name`` is accepted for parity and unused."""
-    del name
+    a new tensor. ``name`` names it in the eager runtime."""
     _, finish = _reducescatter_start([tensor], op, prescale_factor,
                                      postscale_factor, process_set,
-                                     "reducescatter")
+                                     "reducescatter", name=name)
     return finish()[0]
 
 
 def reducescatter_async(tensor, op=None, name=None, prescale_factor=1.0,
                         postscale_factor=1.0, process_set=None) -> int:
-    del name
     works, finish = _reducescatter_start([tensor], op, prescale_factor,
                                          postscale_factor, process_set,
-                                         "reducescatter")
+                                         "reducescatter", name=name)
     return _register(lambda: finish()[0], *works)
 
 
@@ -513,34 +632,32 @@ def grouped_reducescatter(tensors: Sequence[torch.Tensor], op=None,
                           name=None, prescale_factor=1.0,
                           postscale_factor=1.0, process_set=None):
     """Reduce-scatter a list of tensors in one collective per dtype."""
-    del name
     tensors = list(tensors)
     if not tensors:
         return []
     return _reducescatter_start(tensors, op, prescale_factor,
                                 postscale_factor, process_set,
-                                "grouped_reducescatter")[1]()
+                                "grouped_reducescatter", name=name)[1]()
 
 
 def grouped_reducescatter_async(tensors, op=None, name=None,
                                 prescale_factor=1.0, postscale_factor=1.0,
                                 process_set=None) -> int:
-    del name
     works, finish = _reducescatter_start(
-        tensors, op, prescale_factor, postscale_factor, process_set,
-        "grouped_reducescatter")
+        list(tensors), op, prescale_factor, postscale_factor, process_set,
+        "grouped_reducescatter", name=name)
     return _register(finish, *works)
 
 
 # -- the int8 wire's tiled exchanges -----------------------------------------
 
-def _all_to_all_tiled(x: torch.Tensor):
-    """Start an all-to-all of a flat contiguous tensor over the world: its
-    chunk j (of ``size`` equal chunks) goes to rank j, and the output
-    holds every rank's chunk for this rank, in rank order. Returns
-    ``(output, work)``."""
+def _all_to_all_tiled(x: torch.Tensor, group=None):
+    """Start an all-to-all of a flat contiguous tensor over the ranks of
+    ``group`` (default: the world): its chunk j (of as many equal chunks
+    as ranks) goes to rank j, and the output holds every rank's chunk
+    for this rank, in rank order. Returns ``(output, work)``."""
     out = torch.empty_like(x)
-    return out, dist.all_to_all_single(out, x, async_op=True)
+    return out, dist.all_to_all_single(out, x, group=group, async_op=True)
 
 
 # torch 2.13 renames all_gather_into_tensor to all_gather_single and
@@ -559,7 +676,7 @@ def _all_gather_tiled(x: torch.Tensor, n: int, group=None):
 
 # -- allgather ---------------------------------------------------------------
 
-def _grouped_allgather_start(tensors, process_set, what):
+def _grouped_allgather_start(tensors, process_set, what, name=None):
     """Gather every member's tensors along dim 0 (which may differ
     between ranks): one small all-gather of the dim-0 sizes, then one
     all-gather per dtype of each rank's tensors, flattened,
@@ -572,6 +689,11 @@ def _grouped_allgather_start(tensors, process_set, what):
         if t.dim() == 0:
             raise HorovodInternalError(f"{what} needs tensors with a dim 0")
     ctx = _member_context(process_set, what)
+    rt, sid = _native_rt(process_set)
+    if rt is not None:
+        # the controller negotiates each rank's dim 0 (ragged)
+        return _native_start(rt, "allgather", tensors, name=name,
+                             grouped=len(tensors) > 1, process_set_id=sid)
     n = ctx.size
     mine = torch.tensor([t.shape[0] for t in tensors], dtype=torch.int64,
                         device=st.device)
@@ -615,22 +737,21 @@ def allgather(tensor, name=None, process_set=None):
     """Concatenate every member's ``tensor`` along dim 0, in set-rank
     order; the first dimension may differ between ranks. With
     ``HOROVOD_HIERARCHICAL_ALLGATHER`` the global set's gather runs in
-    two levels (``ops/hierarchical.py``), to the same result."""
-    del name
+    two levels (``ops/hierarchical.py``), to the same result; through
+    the eager runtime it is negotiated, ragged."""
     block = _two_level("allgather", None, process_set)
-    if block > 1:
+    if block > 1 and _native_rt(process_set)[0] is None:
         from .hierarchical import hierarchical_allgather
 
         _reject_sparse(tensor, "allgather")
         return hierarchical_allgather(tensor.detach(), block)
-    return _grouped_allgather_start([tensor], process_set,
-                                    "allgather")[1]()[0]
+    return _grouped_allgather_start([tensor], process_set, "allgather",
+                                    name=name)[1]()[0]
 
 
 def allgather_async(tensor, name=None, process_set=None) -> int:
-    del name
     works, finish = _grouped_allgather_start([tensor], process_set,
-                                             "allgather")
+                                             "allgather", name=name)
     return _register(lambda: finish()[0], *works)
 
 
@@ -638,24 +759,22 @@ def allgather_async(tensor, name=None, process_set=None) -> int:
 def grouped_allgather(tensors, name=None, process_set=None):
     """Allgather a list of tensors: one gather per dtype (and one of the
     sizes), dim 0 may differ between ranks."""
-    del name
     tensors = list(tensors)
     if not tensors:
         return []
     return _grouped_allgather_start(tensors, process_set,
-                                    "grouped_allgather")[1]()
+                                    "grouped_allgather", name=name)[1]()
 
 
 def grouped_allgather_async(tensors, name=None, process_set=None) -> int:
-    del name
     works, finish = _grouped_allgather_start(list(tensors), process_set,
-                                             "grouped_allgather")
+                                             "grouped_allgather", name=name)
     return _register(finish, *works)
 
 
 # -- alltoall ----------------------------------------------------------------
 
-def _alltoall_start(tensor, splits, process_set):
+def _alltoall_start(tensor, splits, process_set, name=None):
     """Exchange dim-0 chunks between the set's ranks. Equal chunks
     (``splits`` None: dim 0 divides by the set's size), or ``splits[j]``
     rows to set rank j, after an exchange of the split sizes (the JAX
@@ -665,8 +784,30 @@ def _alltoall_start(tensor, splits, process_set):
     ctx = _member_context(process_set, "alltoall")
     x = tensor.detach().contiguous()
     n = ctx.size
+    send = None
     if splits is None:
         _check_dim0(x, n, "alltoall")
+    else:
+        send = [int(s) for s in
+                torch.as_tensor(splits).reshape(-1).tolist()]
+        if len(send) != n or min(send) < 0 or sum(send) != x.shape[0]:
+            raise HorovodInternalError(
+                f"alltoall splits {send} must give each of the {n} ranks "
+                f"of the set a count and sum to dim0 {x.shape[0]}")
+    rt, sid = _native_rt(process_set)
+    if rt is not None:
+        # the controller negotiates the splits matrix
+        works, exchanged = _native_start(rt, "alltoall", [x], name=name,
+                                         splits=send, process_set_id=sid)
+
+        def finish_native():
+            out, recv = exchanged()[0]
+            if send is None:
+                return out
+            return out, recv.to(torch.int32).to(tensor.device)
+
+        return works, finish_native
+    if splits is None:
         out = torch.empty_like(x)
         work = dist.all_to_all_single(out, x, group=ctx.group,
                                       async_op=True)
@@ -676,11 +817,6 @@ def _alltoall_start(tensor, splits, process_set):
             return out
 
         return [work], finish_equal
-    send = [int(s) for s in torch.as_tensor(splits).reshape(-1).tolist()]
-    if len(send) != n or min(send) < 0 or sum(send) != x.shape[0]:
-        raise HorovodInternalError(
-            f"alltoall splits {send} must give each of the {n} ranks of "
-            f"the set a count and sum to dim0 {x.shape[0]}")
     sent = torch.tensor(send, dtype=torch.int64, device=st.device)
     got = torch.empty_like(sent)
     dist.all_to_all_single(got, sent, group=ctx.group)
@@ -705,13 +841,11 @@ def alltoall(tensor, splits=None, name=None, process_set=None):
     chunks for this rank in set-rank order. With ``splits`` (rows for
     each set rank, summing to dim 0) it returns ``(output,
     received_splits)``, the int32 counts received from each rank."""
-    del name
-    return _alltoall_start(tensor, splits, process_set)[1]()
+    return _alltoall_start(tensor, splits, process_set, name=name)[1]()
 
 
 def alltoall_async(tensor, splits=None, name=None, process_set=None) -> int:
-    del name
-    works, finish = _alltoall_start(tensor, splits, process_set)
+    works, finish = _alltoall_start(tensor, splits, process_set, name=name)
     return _register(finish, *works)
 
 
@@ -730,67 +864,82 @@ def _broadcast_ctx(tensor, root_rank, process_set):
 def broadcast(tensor, root_rank: int = 0, name=None, process_set=None):
     """``root_rank``'s tensor (a global rank, a member of the set) on
     every member; returns a new tensor."""
-    del name
     _reject_sparse(tensor, "broadcast")
-    return broadcast_(tensor.detach().clone(), root_rank,
+    return broadcast_(tensor.detach().clone(), root_rank, name=name,
                       process_set=process_set)
+
+
+def _broadcast_start(buf, root_rank, process_set, name=None):
+    """Start the broadcast of ``buf`` in place; returns (works,
+    finish)."""
+    ctx = _broadcast_ctx(buf, root_rank, process_set)
+    if not ctx.member:
+        return [], lambda: buf
+    rt, sid = _native_rt(process_set)
+    if rt is not None:
+        works, received = _native_start(rt, "broadcast", [buf],
+                                        root_rank=root_rank, name=name,
+                                        process_set_id=sid)
+        return works, lambda: buf.copy_(received()[0])
+    work = dist.broadcast(buf, src=root_rank, group=ctx.group,
+                          async_op=True)
+
+    def finish():
+        work.wait()
+        return buf
+
+    return [work], finish
 
 
 @lost_peer()
 def broadcast_(tensor, root_rank: int = 0, name=None, process_set=None):
     """In-place :func:`broadcast`."""
-    del name
-    ctx = _broadcast_ctx(tensor, root_rank, process_set)
-    if ctx.member:
-        dist.broadcast(tensor, src=root_rank, group=ctx.group)
-    return tensor
-
-
-def _broadcast_async_start(buf, root_rank, process_set) -> int:
-    ctx = _broadcast_ctx(buf, root_rank, process_set)
-    works = ([dist.broadcast(buf, src=root_rank, group=ctx.group,
-                             async_op=True)] if ctx.member else [])
-
-    def finish():
-        for w in works:
-            w.wait()
-        return buf
-
-    return _register(finish, *works)
+    return _broadcast_start(tensor, root_rank, process_set, name)[1]()
 
 
 def broadcast_async(tensor, root_rank: int = 0, name=None,
                     process_set=None) -> int:
-    del name
     _reject_sparse(tensor, "broadcast")
-    return _broadcast_async_start(tensor.detach().clone(), root_rank,
-                                  process_set)
+    works, finish = _broadcast_start(tensor.detach().clone(), root_rank,
+                                     process_set, name)
+    return _register(finish, *works)
 
 
 def broadcast_async_(tensor, root_rank: int = 0, name=None,
                      process_set=None) -> int:
-    del name
-    return _broadcast_async_start(tensor, root_rank, process_set)
+    works, finish = _broadcast_start(tensor, root_rank, process_set, name)
+    return _register(finish, *works)
 
 
 @lost_peer()
 def barrier(process_set=None) -> None:
     """Block until every member of the set arrives (a non-member
-    returns at once)."""
-    _require_init()
+    returns at once). With the eager runtime the world's barrier is
+    negotiated, so it cannot overtake a collective enqueued before it
+    (``horovod_tpu/ops/collectives.py:1181-1184``)."""
+    st = _require_init()
     ctx = set_context(process_set)
+    if st.eager_runtime is not None and ctx.group is None:
+        st.eager_runtime.barrier()
+        return
     if ctx.member:
         dist.barrier(group=ctx.group)
 
 
+@lost_peer()
 def join(device=None) -> int:
-    """Ragged-end data parallelism (torch/mpi_ops.py:1250), in the JAX
-    package's form without its eager runtime: a barrier over the world
-    that returns 0, the last joined rank. Uneven data is handled inside
-    the step with :func:`masked_allreduce`. Real join accounting, where
-    joined ranks add zeros to the collectives still pending on the
-    others, belongs to the eager negotiation runtime (ROADMAP queue A
-    entry 9)."""
+    """Ragged-end data parallelism (torch/mpi_ops.py:1250, JoinOp
+    collective_operations.h:325). With the eager runtime
+    (``HVD_TPU_NATIVE=1``) a rank that ran out of data joins: the
+    collectives still pending on the other ranks complete with zeros
+    from it, and the call returns once every rank has joined. Without
+    the runtime it is a barrier over the world, and uneven data is
+    handled inside the step with :func:`masked_allreduce`. Returns 0
+    either way, as the JAX package does
+    (``horovod_tpu/ops/eager_runtime.py:1112-1129``)."""
     del device
+    rt = _require_init().eager_runtime
+    if rt is not None:
+        return rt.join_sync()
     barrier()
     return 0

@@ -342,19 +342,23 @@ def stage_dequantize(qa: torch.Tensor, sa: torch.Tensor, length: int,
 
 
 def start_quantized_psum(flat: torch.Tensor, n: int, block: int,
-                         residual: Optional[torch.Tensor] = None):
+                         residual: Optional[torch.Tensor] = None,
+                         group=None):
     """Enqueue :func:`fused_quantized_psum` on a flat float32 payload up
-    to its gathers: stage 1, the all-to-alls, stage 2, the all-gathers.
-    Returns ``(finish, err)``: ``finish()`` waits for the gathers and
-    returns the float32 sum ``(L,)`` (stage 3); ``err`` is the new
-    residual (None without one). With NCCL nothing here blocks the host:
-    a wait only orders the current stream after the exchange."""
+    to its gathers: stage 1, the all-to-alls, stage 2, the all-gathers,
+    over the ``n`` ranks of ``group`` (default: the world). Returns
+    ``(finish, err)``: ``finish()`` waits for the gathers and returns
+    the float32 sum ``(L,)`` (stage 3); ``err`` is the new residual
+    (None without one). With NCCL nothing here blocks the host: a wait
+    only orders the current stream after the exchange."""
     q, s, err = stage_quantize(flat, residual, n, block)
-    (qg, wq), (sg, ws) = _all_to_all_tiled(q), _all_to_all_tiled(s)
+    (qg, wq), (sg, ws) = (_all_to_all_tiled(q, group),
+                          _all_to_all_tiled(s, group))
     wq.wait()
     ws.wait()
     q3, s3 = stage_reduce(qg, sg, n, block)
-    (qa, wq), (sa, ws) = _all_gather_tiled(q3, n), _all_gather_tiled(s3, n)
+    (qa, wq), (sa, ws) = (_all_gather_tiled(q3, n, group),
+                          _all_gather_tiled(s3, n, group))
     length = flat.numel()
 
     def finish() -> torch.Tensor:

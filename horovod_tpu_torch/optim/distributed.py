@@ -59,6 +59,17 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
 * ``backward_passes_per_step`` k: gradients accumulate over k backward
   passes and their mean (sum / k) is reduced on the k-th, as the JAX
   package's ``_AccumState`` does; call ``step()`` once every k passes;
+* with the eager negotiation runtime live (``HVD_TPU_NATIVE=1``) and
+  a world of more than one rank, the hooks only pack the buckets, and
+  ``synchronize()`` submits the step's whole bucket set as one grouped
+  ``grouped_allreduce_async`` into the runtime (``name="hvd.grad"``;
+  Average as a SUM with a ``1/n`` postscale), whose executor owns the
+  wire: under the int8 wire the buckets go uncompressed and the
+  executor quantizes each fused batch with a residual of its own; a
+  cast compressor whose kind differs from the executor's wire warns
+  once and the executor's wire wins, as
+  ``horovod_tpu/optim/distributed.py:255-310`` has it. Adasum keeps
+  its own path;
 * in a world of one rank nothing is packed or reduced;
 * ``shutdown()`` detaches every optimizer of its world (its hooks go,
   and a step that would reduce raises): after an elastic re-init a
@@ -108,6 +119,9 @@ class _DistributedOptimizer:
     _process_set = None
     #: whether sparse gradients may take the sparse path (ZeRO: no)
     _takes_sparse = True
+    #: the eager runtime that carries the buckets (None: the hooks'
+    #: direct collectives)
+    _rt = None
 
     def __init__(self, optimizer, named_parameters=None, compression=None,
                  backward_passes_per_step: int = 1, op=ReduceOp.AVERAGE,
@@ -149,6 +163,9 @@ class _DistributedOptimizer:
         self._size = ctx.size
         self._member, self._group = ctx.member, ctx.group
         self._process_set = process_set
+        # the eager runtime carries the buckets when it is live
+        self._rt = (st.eager_runtime if self._reduces()
+                    and op != ReduceOp.ADASUM else None)
 
         if named_parameters is not None:
             named = list(named_parameters)
@@ -167,7 +184,8 @@ class _DistributedOptimizer:
         # of each floating bucket (none under int8-raw or at world 1)
         self._int8_block = wire.block if int8 else None
         self._residuals: Dict[int, torch.Tensor] = {}
-        if int8 and wire.error_feedback and self._size > 1:
+        if (int8 and wire.error_feedback and self._size > 1
+                and self._rt is None):
             for b, plan in enumerate(self._plans):
                 first = self._params[plan[0][0]]
                 if wire_applies(wire, first.dtype):
@@ -244,6 +262,8 @@ class _DistributedOptimizer:
         self._next = 0      # next bucket to issue, in plan order
         self._pending: List = []
         self._sparse: List[int] = []  # leaves whose gradient is sparse
+        # (bucket, packed gradients) for the eager runtime
+        self._native: List = []
 
     def _hook(self, p: torch.Tensor) -> None:
         with self._lock:
@@ -290,6 +310,9 @@ class _DistributedOptimizer:
             bucket.div_(self._k)
         if self._predivide != 1.0:
             scale_(bucket, 1.0 / self._predivide)
+        if self._rt is not None:
+            self._native.append((b, bucket))
+            return
         if self._int8_block is not None and wire_applies(self.wire,
                                                          bucket.dtype):
             self._pending.append((b, self._start_int8(b, bucket)))
@@ -345,6 +368,40 @@ class _DistributedOptimizer:
 
         return finish
 
+    def _reduce_native(self, native) -> List:
+        """Reduce the step's buckets through the eager runtime as one
+        grouped allreduce and wait; returns each bucket's (b, finish)."""
+        from ..ops.collectives import _grouped_start
+
+        rt_wire = self._rt._executor_wire()
+        wire = self.wire
+        # whenever the executor carries a wire it owns compression for
+        # these buckets (compressing here too would stack two wires);
+        # a kind that differs from the optimizer's means the knob wins
+        owns = wire is not None and rt_wire is not None
+        if owns and rt_wire.kind != wire.kind:
+            _warn_wire_mismatch_once(wire.kind, rt_wire.kind)
+        if wire is not None and wire.kind == "int8" and rt_wire is None:
+            # the int8 collective needs the executor's wire; without the
+            # knob the executor reduces at full precision
+            _warn_wire_mismatch_once(wire.kind, "none")
+        raw = owns or (wire is not None and wire.kind == "int8")
+        wires, ctxs = [], []
+        for _, bucket in native:
+            w, c = (bucket, None) if raw else \
+                self._compression.compress(bucket)
+            wires.append(w)
+            ctxs.append(c)
+        average = self._op == ReduceOp.AVERAGE
+        post = self._predivide / self._size if average else 1.0
+        reduced = _grouped_start(
+            wires, None, ReduceOp.SUM if average else self._op, 1.0, post,
+            self._process_set, name="hvd.grad")[1]()
+        if not raw:
+            reduced = [self._compression.decompress(r, c)
+                       for r, c in zip(reduced, ctxs)]
+        return [(b, (lambda r=r: r)) for (b, _), r in zip(native, reduced)]
+
     # -- public surface --------------------------------------------------
 
     def synchronize(self) -> None:
@@ -363,8 +420,12 @@ class _DistributedOptimizer:
                 self._issue(self._next)
                 self._next += 1
             pending, self._pending = self._pending, []
+            native = self._native
             sparse = sorted(self._sparse)
             self._reset()
+        if native:
+            with lost_peer():
+                pending += self._reduce_native(native)
         for i in sparse:
             p = self._params[i]
             g = p.grad / self._k if self._k > 1 else p.grad
@@ -422,6 +483,24 @@ class _DistributedOptimizer:
         if item == "_opt":  # not set yet: __init__ raised
             raise AttributeError(item)
         return getattr(self._opt, item)
+
+
+_WIRE_MISMATCH_WARNED: set = set()
+
+
+def _warn_wire_mismatch_once(optimizer_kind: str, executor_kind: str) -> None:
+    """The optimizer's compressor and the eager executor's wire differ:
+    the executor's wire carries the buckets. Said once per pair."""
+    if (optimizer_kind, executor_kind) in _WIRE_MISMATCH_WARNED:
+        return
+    _WIRE_MISMATCH_WARNED.add((optimizer_kind, executor_kind))
+    from ..utils.logging import get_logger
+
+    get_logger().warning(
+        "DistributedOptimizer compression %r differs from the eager "
+        "runtime executor's wire %r; the executor's wire (the "
+        "HOROVOD_COMPRESSION knob at init) carries the buckets",
+        optimizer_kind, executor_kind)
 
 
 def _group_members(named, groups) -> List[List[torch.Tensor]]:

@@ -9,14 +9,16 @@ kill everything if any slot fails (:137-199). The JAX package's
 A slot is one process on one card: ``core/basics.init()`` binds
 ``cuda:HOROVOD_LOCAL_RANK`` and joins a ``torch.distributed`` world
 (NCCL; gloo with ``--device cpu``) whose TCP store rank 0 binds at
-``HVD_TPU_COORDINATOR_ADDRESS`` — a free port on rank 0's host. The
-slot env differs from the JAX package's in these keys only:
+``HVD_TPU_COORDINATOR_ADDRESS`` — a free port on rank 0's host. Each
+slot also gets the eager negotiation runtime's coordinator,
+``HVD_TPU_NATIVE_COORDINATOR_ADDR/PORT`` (rank 0's host and another
+free port there), which rank 0's C++ controller binds under
+``HVD_TPU_NATIVE=1``, as the JAX package publishes them
+(``horovod_tpu/runner/exec_run.py:72-82``). The slot env differs from
+the JAX package's in these keys only:
 
 * ``HOROVOD_CONTROLLER`` and ``HOROVOD_CPU_OPERATIONS`` name the port's
   data plane, ``torch.distributed``, not ``xla``;
-* the native eager runtime's coordinator keys
-  (``HVD_TPU_NATIVE_COORDINATOR_ADDR/PORT``) are not exported: the port
-  has no such runtime yet (ROADMAP queue A entry 9);
 * a static launch starts no rendezvous HTTP store and exports no
   ``HOROVOD_GLOO_RENDEZVOUS_*``/``HVD_TPU_RENDEZVOUS_*``: only an
   elastic round has one (``launch_slots(rendezvous=...)``: the elastic
@@ -62,9 +64,11 @@ def slot_env(
     coordinator_address: str,
     rendezvous_addr: Optional[str] = None,
     rendezvous_port: int = 0,
+    native_coordinator_port: int = 0,
 ) -> Dict[str, str]:
     """Per-slot worker environment (reference gloo_run.py:66-101); the
-    rendezvous store's address when the launch has one."""
+    rendezvous store's address when the launch has one, and the eager
+    runtime's coordinator when ``native_coordinator_port`` is given."""
     env = dict(base_env)
     pairs = {
         "RANK": slot.rank,
@@ -89,6 +93,14 @@ def slot_env(
     env["HVD_TPU_COORDINATOR_ADDRESS"] = coordinator_address
     env["HVD_TPU_NUM_PROCESSES"] = str(slot.size)
     env["HVD_TPU_PROCESS_ID"] = str(slot.rank)
+    # the eager runtime (HVD_TPU_NATIVE=1): rank 0's C++ controller
+    # binds this port on its host and every rank dials it; published
+    # always, harmless when the runtime is off
+    if native_coordinator_port:
+        env["HVD_TPU_NATIVE_COORDINATOR_ADDR"] = (
+            coordinator_address.rsplit(":", 1)[0])
+        env["HVD_TPU_NATIVE_COORDINATOR_PORT"] = str(
+            native_coordinator_port)
     return env
 
 
@@ -177,14 +189,18 @@ def launch_slots(
                 if nic in by_iface:
                     host_addr = by_iface[nic]
                     break
-    # The TCP store runs inside the rank-0 *worker*, so the coordinator
-    # address must name rank 0's host. A local rank 0 gets a port probed
-    # free here; a remote one's ports cannot be probed from here, so a
-    # port free on this host is the guess (the JAX launcher guesses its
-    # rendezvous port + 19).
+    # The TCP store and the eager runtime's controller run inside the
+    # rank-0 *worker*, so their address must name rank 0's host. A
+    # local rank 0 gets ports probed free here; a remote one's ports
+    # cannot be probed from here, so ports free on this host are the
+    # guess (the JAX launcher guesses its rendezvous port + 19 and + 23).
     rank0_host = assignments[0].hostname
     rank0_addr = host_addr if is_local_host(rank0_host) else rank0_host
-    coordinator = f"{rank0_addr}:{find_free_port()}"
+    store_port = find_free_port()
+    coordinator = f"{rank0_addr}:{store_port}"
+    native_port = find_free_port()
+    while native_port == store_port:
+        native_port = find_free_port()
 
     if ENV_SECRET not in env:
         from .util.secret import make_secret_key
@@ -202,7 +218,8 @@ def launch_slots(
     done = [threading.Event() for _ in assignments]
 
     def run_slot(i: int, slot: SlotInfo):
-        wenv = slot_env(slot, env, coordinator, rdv_addr, rdv_port)
+        wenv = slot_env(slot, env, coordinator, rdv_addr, rdv_port,
+                        native_coordinator_port=native_port)
         fn = exec_fn
         if fn is None:
             fn = _exec_local if is_local_host(slot.hostname) else _exec_ssh

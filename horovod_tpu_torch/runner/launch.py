@@ -18,10 +18,14 @@ and starts a new round until one succeeds; ``--emergency-checkpoint``,
 workers' knobs, ``--rendezvous-state-dir`` makes the driver's store
 durable.
 
+``--cycle-time-ms``, ``--cache-capacity`` and the stall flags set the
+eager negotiation runtime's knobs (``HVD_TPU_NATIVE=1`` in the workers'
+environment starts it), and every slot gets the runtime's coordinator
+address (``runner/exec_run.py``).
+
 A flag whose feature the port does not have yet — the sharded control
-plane, autotune, timeline/profiler/flight recorder, the mesh, the
-negotiation runtime's cycle, stall and cache knobs — is refused
-when given (on the command line or in ``--config-file``): the launcher
+plane, autotune, timeline/profiler/flight recorder, the mesh — is
+refused when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
 
@@ -49,7 +53,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
-    9: "the eager negotiation runtime",
     11: "model, sequence and pipeline parallelism (the mesh)",
     12: "autotune",
     13: "observability: timeline, profiler, flight recorder",
@@ -69,10 +72,6 @@ UNPORTED = {
         "prof_dir", "prof_duty_cycle", "flight_recorder", "flight_dir"),
         13),
     "mesh": 11,
-    **dict.fromkeys((
-        "cycle_time_ms", "cache_capacity", "stall_check_disable",
-        "stall_warning_time_seconds", "stall_shutdown_time_seconds",
-        "stall_abort_s"), 9),
 }
 
 
@@ -487,17 +486,26 @@ def _run_elastic(args) -> int:
 
 def _check_build() -> int:
     """Availability table (reference launch.py:110 check_build): the
-    port's framework, its controllers and tensor operations
-    (``torch.distributed``'s NCCL and gloo), CUDA, and the ``nvcc`` that
-    ``ops/_build.py`` compiles the kernels with."""
+    port's framework, its controllers (``torch.distributed``'s NCCL and
+    gloo, and the eager runtime's native control plane, built here if
+    it is not yet) and tensor operations, CUDA, and the ``nvcc`` that
+    ``ops/_build.py`` compiles the kernels with
+    (``horovod_tpu/runner/launch.py:583-602``)."""
     import torch
 
     from .. import __version__
+    from .. import _native
     from ..core import basics
     from ..ops import _build
 
     def mark(ok: bool) -> str:
         return "X" if ok else " "
+
+    try:
+        _native.build()
+        native = True
+    except (OSError, RuntimeError):
+        native = False
 
     try:
         nvcc = _build._nvcc()
@@ -510,9 +518,12 @@ def _check_build() -> int:
     print("\nAvailable Controllers:")
     print(f"    [{mark(basics.nccl_built())}] NCCL (torch.distributed)")
     print(f"    [{mark(basics.gloo_built())}] Gloo (torch.distributed)")
+    print(f"    [{mark(native)}] Native eager control plane "
+          f"(libhvd_torch_core)")
     print("\nAvailable Tensor Operations:")
     print(f"    [{mark(basics.nccl_built())}] NCCL")
     print(f"    [{mark(basics.gloo_built())}] Gloo")
+    print(f"    [{mark(native)}] Negotiated eager (DistExecutor)")
     print(f"    [{mark(basics.cuda_built())}] CUDA "
           f"{torch.version.cuda or 'not built'}, {cards} card(s) visible")
     print("\nKernel build (ops/_build.py):")

@@ -4,8 +4,13 @@ The port of the JAX package's ``utils/faults.py``: a spec string —
 ``HOROVOD_TPU_FAULT_SPEC`` (the launcher's ``--fault-spec``) — compiles
 into rules that fire at named injection points. The port's points are
 the HTTP key/value client's verbs (``http.put``, ``http.get``,
-``http.delete``) and its server (``http.server``, a 503); later entries
-thread in their own (elastic discovery, worker exec, negotiation).
+``http.delete``) and its server (``http.server``, a 503), the elastic
+driver's and workers' (``discovery.poll``, ``worker.register``,
+``rendezvous.init``, ``driver.exec``, ``worker.notify``, ``worker``),
+and the eager runtime's (``ops/eager_runtime.py``): ``collective`` at
+every enqueue (an ``error`` there is raised as
+``HorovodInternalError``) and ``eager.fast_path`` when a plan would
+freeze (an ``error`` vetoes it and the runtime stays on negotiation).
 
 Spec grammar (entries separated by ``;`` or ``,``; fields by ``:``)::
 

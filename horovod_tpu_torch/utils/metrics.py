@@ -7,7 +7,10 @@ utilities and elastic training call: ``record_retry`` and
 (``utils/faults.py``), ``record_elastic_event`` and
 ``record_recovery_rung`` (``elastic/``, ``runner/elastic/``;
 ``horovod_tpu/utils/metrics.py:1245, 1284``) and the replicator's
-``record_replication``/``record_replication_error``. Its histograms,
+``record_replication``/``record_replication_error``, and the eager
+runtime's counters and gauge (``ops/eager_runtime.py``:
+``record_stall_abort``, ``record_fused_batch``, ``set_queue_depth``;
+``horovod_tpu/utils/metrics.py:903-919, 1235, 1297``). Its histograms,
 per-step ``StepStats``, the Prometheus exposition, the metrics push and
 the flight-recorder hooks come with the observability entry (ROADMAP
 queue A entry 13).
@@ -235,6 +238,42 @@ def record_replication_error() -> None:
     registry.counter(
         "hvd_replication_errors_total",
         "Snapshot replications that reached no ring partner").inc()
+
+
+def record_stall_abort() -> None:
+    """A stalled collective converted into HorovodInternalError by the
+    negotiation watchdog (HOROVOD_STALL_ABORT_S)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_stall_aborts_total",
+        "Collectives aborted by the stall watchdog").inc()
+
+
+def record_fused_batch(op: str, n_tensors: int, nbytes: int) -> None:
+    """One negotiated fused batch executed by the eager runtime's data
+    plane: the tensors it carried and their bytes, by op (the counter
+    half of the JAX ``record_batch_execution``; its latency histogram
+    comes with the histograms)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_fused_tensors_total",
+        "Tensors carried by executed fused batches", ("op",),
+    ).labels(op).inc(n_tensors)
+    registry.counter(
+        "hvd_fused_batch_bytes_total",
+        "Bytes carried by executed fused batches", ("op",),
+    ).labels(op).inc(nbytes)
+
+
+def set_queue_depth(n: int) -> None:
+    """Pending tensors in the eager runtime's input table."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_eager_queue_depth",
+        "Tensors enqueued and awaiting negotiation/execution").set(n)
 
 
 def reset() -> None:

@@ -263,6 +263,15 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "REPLICATION_CHUNK_BYTES": "4096",
     "REPLICATION_DUTY_CYCLE": "0.5",
     "RECOVERY_LADDER": "0",
+    "NATIVE": "1",
+    "CYCLE_TIME": "2.5",
+    "CACHE_CAPACITY": "0",
+    "STALL_CHECK_DISABLE": "1",
+    "STALL_CHECK_TIME_SECONDS": "5",
+    "STALL_SHUTDOWN_TIME_SECONDS": "9",
+    "STALL_ABORT_S": "3",
+    "EAGER_FAST_PATH": "0",
+    "EAGER_FAST_PATH_WARMUP": "5",
 }
 
 
@@ -317,15 +326,20 @@ _ELASTIC_MODULES = [
         "examples.gpt2_elastic")]
 
 
+_EAGER_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "_native", "ops.eager_runtime")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
     Adasum slice's (Adasum, sparse slices, process sets, the Adasum
     example), the launcher's and the two-level wire's, checkpoint's and
-    Llama example's, and the elastic slice's modules are among those
-    walked."""
+    Llama example's, the elastic slice's and the eager runtime's (the
+    ctypes layer and the runtime) modules are among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
-              + _HIERARCHY_MODULES + _ELASTIC_MODULES)
+              + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

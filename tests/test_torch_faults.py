@@ -3,10 +3,12 @@ under chaos, in the port (horovod_tpu_torch.utils.faults/retry/metrics,
 runner/http): the cases of tests/test_faults.py that reach only these
 modules, with the same names and assertions.
 
-The JAX file's cases of the per-step JSONL record (StepStats, ROADMAP
-queue A entry 13), elastic discovery and preemption (entry 8), and the
-stall watchdog and the collectives' fault point (entry 9) come with
-those entries.
+So do the eager runtime's (``ops/eager_runtime.py``): its stall
+watchdog and the collectives' ``collective`` fault point
+(``tests/test_faults.py:492-551``). The JAX file's cases of the
+per-step JSONL record (StepStats, ROADMAP queue A entry 13) come with
+that entry; elastic discovery and preemption are held in
+tests/test_torch_elastic_*.py.
 
 Everything here is deterministic: retry schedules run on a fake clock
 (zero real sleeping) and fault rules are seeded.
@@ -525,3 +527,67 @@ def test_init_configures_logging_faults_and_retry(monkeypatch):
     finally:
         hvd.shutdown()
         get_logger().setLevel(logging.WARNING)
+
+
+# ------------------------------------------------------ stall watchdog
+
+def test_stall_watchdog_aborts_stuck_collective():
+    import threading
+
+    import torch
+
+    from horovod_tpu_torch.core.exceptions import HorovodInternalError
+    from horovod_tpu_torch.ops.eager_runtime import EagerRuntime
+
+    release = threading.Event()
+
+    def stuck_executor(batch, tensors):
+        release.wait(timeout=30.0)  # the data plane never completes
+        return {}
+
+    metrics.enable()
+    rt = EagerRuntime(
+        rank=0, size=1, executor=stuck_executor, cycle_ms=1.0,
+        stall_abort_s=0.4,
+    )
+    try:
+        h = rt.allreduce_async("stuck", torch.ones(4))
+        with pytest.raises(HorovodInternalError, match="stalled"):
+            rt.synchronize(h, timeout_s=10.0)
+        snap = metrics.registry.snapshot()
+        assert snap["hvd_stall_aborts_total"][""] == 1.0
+    finally:
+        release.set()
+        rt.shutdown()
+
+
+def test_no_watchdog_when_disabled_completes_normally():
+    import torch
+
+    from horovod_tpu_torch.ops.eager_runtime import EagerRuntime
+
+    rt = EagerRuntime(rank=0, size=1, cycle_ms=1.0, stall_abort_s=0.0)
+    try:
+        h = rt.allreduce_async("fine", torch.ones(3))
+        out = rt.synchronize(h, timeout_s=10.0)
+        assert torch.equal(out, torch.ones(3))
+    finally:
+        rt.shutdown()
+
+
+def test_collective_fault_point_raises_internal_error():
+    import torch
+
+    from horovod_tpu_torch.core.exceptions import HorovodInternalError
+    from horovod_tpu_torch.ops.eager_runtime import EagerRuntime
+
+    faults.configure("collective:error:name=g1")
+    rt = EagerRuntime(rank=0, size=1, cycle_ms=1.0)
+    try:
+        with pytest.raises(HorovodInternalError):
+            rt.allreduce_async("g1", torch.ones(2))
+        # other tensors unaffected
+        h = rt.allreduce_async("g2", torch.ones(2))
+        rt.synchronize(h, timeout_s=10.0)
+    finally:
+        rt.shutdown()

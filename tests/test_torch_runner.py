@@ -276,9 +276,10 @@ def test_parse_args_elastic():
 def test_run_static_env_protocol():
     """Injected exec captures the per-slot env (reference gloo_run env
     protocol, gloo_run.py:66-101), and the keys the port changes: the
-    data plane's name, no native-coordinator or rendezvous keys (no
-    worker reads them), and rank 0's TCP store address on a local
-    port."""
+    data plane's name, no rendezvous keys (a static launch has no
+    rendezvous store), rank 0's TCP store address on a local port, and
+    the eager runtime's coordinator on rank 0's host at another port,
+    as the JAX launcher publishes it."""
     captured = {}
 
     def fake_exec(command, env, slot, events):
@@ -308,8 +309,7 @@ def test_run_static_env_protocol():
     for env in (env0, env1):
         assert env["HOROVOD_CONTROLLER"] == "torch.distributed"
         assert env["HOROVOD_CPU_OPERATIONS"] == "torch.distributed"
-        assert not any(k.startswith(("HVD_TPU_NATIVE_",
-                                     "HVD_TPU_RENDEZVOUS_",
+        assert not any(k.startswith(("HVD_TPU_RENDEZVOUS_",
                                      "HOROVOD_GLOO_RENDEZVOUS_"))
                        for k in env)
         assert "NCCL_SOCKET_IFNAME" not in env  # no NICs given
@@ -317,6 +317,11 @@ def test_run_static_env_protocol():
     assert host == "127.0.0.1" and 0 < int(port) < 65536
     assert env1["HVD_TPU_COORDINATOR_ADDRESS"] == \
         env0["HVD_TPU_COORDINATOR_ADDRESS"]
+    native = int(env0["HVD_TPU_NATIVE_COORDINATOR_PORT"])
+    assert 0 < native < 65536 and native != int(port)
+    for env in (env0, env1):
+        assert env["HVD_TPU_NATIVE_COORDINATOR_ADDR"] == "127.0.0.1"
+        assert env["HVD_TPU_NATIVE_COORDINATOR_PORT"] == str(native)
 
 
 def test_run_static_failure_kills_all():
@@ -727,22 +732,21 @@ def test_config_file_matches_jax(tmp_path):
 def test_slot_env_matches_jax_but_for_the_listed_keys():
     slot = SlotInfo("h1", 3, 1, 1, 8, 4, 2)
     base = {"PATH": "/bin", "HOROVOD_NICS": "eth0", "X": "y"}
-    mine = slot_env(slot, base, "h0:4261")
+    mine = slot_env(slot, base, "h0:4261", native_coordinator_port=4265)
     theirs = jax_exec_run.slot_env(
         jax_hosts.SlotInfo("h1", 3, 1, 1, 8, 4, 2), base, "10.0.0.1",
         4242, "h0:4261", native_coordinator_port=4265)
     differ = {k for k in set(mine) | set(theirs)
               if mine.get(k) != theirs.get(k)}
     assert differ == {"HOROVOD_CONTROLLER", "HOROVOD_CPU_OPERATIONS",
-                      "HVD_TPU_NATIVE_COORDINATOR_ADDR",
-                      "HVD_TPU_NATIVE_COORDINATOR_PORT",
                       "HOROVOD_GLOO_RENDEZVOUS_ADDR",
                       "HOROVOD_GLOO_RENDEZVOUS_PORT",
                       "HVD_TPU_RENDEZVOUS_ADDR", "HVD_TPU_RENDEZVOUS_PORT"}
     assert mine["HOROVOD_CONTROLLER"] == "torch.distributed"
     assert mine["HOROVOD_CPU_OPERATIONS"] == "torch.distributed"
     assert theirs["HOROVOD_CONTROLLER"] == "xla"
-    assert "HVD_TPU_NATIVE_COORDINATOR_PORT" not in mine
+    assert mine["HVD_TPU_NATIVE_COORDINATOR_ADDR"] == "h0"
+    assert mine["HVD_TPU_NATIVE_COORDINATOR_PORT"] == "4265"
     assert "HVD_TPU_RENDEZVOUS_PORT" not in mine
     assert theirs["HVD_TPU_RENDEZVOUS_PORT"] == "4242"
     assert base == {"PATH": "/bin", "HOROVOD_NICS": "eth0", "X": "y"}
@@ -864,6 +868,77 @@ def test_unported_flag_is_refused_with_its_entry(action, capsys):
     entry = launch.UNPORTED[action.dest]
     assert f"{action.option_strings[-1]} is not in horovod_tpu_torch" in err
     assert f"ROADMAP queue A entry {entry} " in err
+
+
+#: ROADMAP queue A entry 9's flags, refused until the eager runtime:
+#: their value, each knob it sets, and the runtime argument it reaches
+_EAGER = {
+    "cycle_time_ms": (("cycle_time_ms",), "cycle_ms", 2.5),
+    "cache_capacity": (("cache_capacity",), "cache_capacity", 3),
+    "stall_check_disable": (("stall_check_enabled",), "stall_warning_s",
+                            0.0),
+    "stall_warning_time_seconds": (("stall_warning_time_seconds",),
+                                   "stall_warning_s", 2.5),
+    "stall_shutdown_time_seconds": (("stall_shutdown_time_seconds",),
+                                    "stall_shutdown_s", 2.5),
+    "stall_abort_s": (("stall_abort_time_seconds",), "stall_abort_s", 2.5),
+}
+_EAGER_FLAGS = [a for a in _FLAGS if a.dest in _EAGER]
+
+
+@pytest.mark.parametrize("action", _EAGER_FLAGS,
+                         ids=[a.option_strings[-1] for a in _EAGER_FLAGS])
+def test_eager_flag_reaches_the_knobs_and_the_runtime(action, monkeypatch):
+    """Each of entry 9's flags is accepted, exported into the slot env as
+    the JAX launcher exports it, read by the worker's knobs as the JAX
+    package reads them, and handed to the eager runtime's constructor
+    by init()'s _start_native_eager, with the published coordinator."""
+    import types
+
+    import torch
+
+    from horovod_tpu.core.knobs import Knobs as JKnobs
+    from horovod_tpu_torch.core import basics
+    from horovod_tpu_torch.core.knobs import Knobs
+    from horovod_tpu_torch.ops import eager_runtime
+
+    fields, arg, value = _EAGER[action.dest]
+    argv = _flag_argv(action) + ["python", "train.py"]
+    mine, theirs = launch.parse_args(argv), jax_launch.parse_args(argv)
+    assert launch.unported_flags(mine, argv) == []
+    env = config_parser.env_from_args(mine, {})
+    assert env == jax_config_parser.env_from_args(theirs, {})
+    assert len(env) == 1
+    wenv = slot_env(SlotInfo("localhost", 0, 0, 0, 1, 1, 1), env,
+                    "localhost:4261", native_coordinator_port=4265)
+    for k in list(os.environ):
+        if k.startswith(("HOROVOD_", "HVD_TPU_")):
+            monkeypatch.delenv(k)
+    for k, v in wenv.items():
+        if k.startswith(("HOROVOD_", "HVD_TPU_")):
+            monkeypatch.setenv(k, v)
+    knobs = Knobs.from_env()
+    for field in fields:
+        assert getattr(knobs, field) == getattr(JKnobs.from_env(), field)
+        assert getattr(knobs, field) != getattr(Knobs(), field), field
+    seen = {}
+
+    class Recorder:
+        def __init__(self, **kw):
+            seen.update(kw)
+
+    monkeypatch.setattr(eager_runtime, "EagerRuntime", Recorder)
+    monkeypatch.setattr(eager_runtime, "make_dist_executor",
+                        lambda: "executor")
+    st = types.SimpleNamespace(knobs=knobs, rank=0, size=1,
+                               device=torch.device("cpu"),
+                               eager_runtime=None)
+    basics._start_native_eager(st)
+    assert isinstance(st.eager_runtime, Recorder)
+    assert seen[arg] == value
+    assert seen["coordinator_addr"] == "localhost"
+    assert seen["coordinator_port"] == 4265
+    assert seen["executor"] == "executor"
 
 
 def test_unported_flags_at_their_defaults_are_accepted(tmp_path, capfd):
