@@ -239,26 +239,47 @@ Phases, in order; the first failure exits non-zero:
    and equal to ``causal_lm_loss`` of the same model;
 6. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
-   continuous-batching scheduler: 16 requests of 32..700 prompt tokens,
-   32 new tokens each; 4 of them again one at a time must give the
-   same tokens; a profiled window of 8 full-batch decode steps shows
-   where a step's time goes; B16's launches must split by route as
-   the engine's calls say (prefills of 16 rows or more on the prefill
-   route, decode steps on the decode route); the first-token logits
+   continuous-batching scheduler, every decode and prefill step replayed
+   from its CUDA graph (captured by ``warmup``: each graph's capture
+   seconds and memory): 16 requests of 32..700 prompt tokens, 32 new
+   tokens each, then the same serve through the uncaptured steps, whose
+   tokens must be the same bitwise; 4 of them again one at a time must
+   give the same tokens; decode steps with ``return_logits`` bitwise
+   through the graph and the uncaptured step; B16's launches, reckoned
+   as each graph's capture launches times its replays (the wrappers
+   count at capture, not at replay, and must count nothing during a
+   graphed serve), must split by route as the engine's calls say
+   (prefills of 16 rows or more on the prefill route, decode steps on
+   the decode route); a profiled window of 8 full-batch decode steps,
+   graphed and uncaptured, shows where a step's time goes and must hold
+   12 decode-route B16 and 25 B4 kernels a step; the first-token logits
    must agree with the plain (unfused, cache-free) forward of the same
    weights;
-7. a short serve on an int8 KV cache (4 requests), whose decode steps
-   must run B17 on the decode route, and the same decode-step profile;
-8. print the ``{"kernels": [...]}`` line: each kernel's launches on the
+7. the same on an int8 KV cache (16 requests of 16 new tokens), whose
+   decode steps must run B17 on the decode route;
+8. the serving tier over HTTP: phase 6's model saved with
+   ``checkpoint.save_model`` and its serving metadata, a ``--registry``
+   and two ``--decode`` replica processes on the card (``python -m
+   horovod_tpu_torch.serving.replica_set``, 8 slots x 1024, bf16 cache)
+   behind an in-process front door: the 16 prompts streamed
+   concurrently must get phase 6's tokens bitwise; again, with one
+   replica SIGTERMed once every stream has its first token: its streams
+   complete, it exits 83, later requests reach the other replica, no
+   client sees a failure; and an MLP's predict tier through a
+   ``--checkpoint`` replica, groups of 64, 10, 3 and 1 concurrent
+   clients, each answer bitwise the module's forward of the padded
+   batch, with each group's batch fill; in this process an evicted
+   predict graph must free its memory;
+9. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
    step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
    ((a)'s kernel composition), 4i, 4j, 4k (in process and the
    launched workers' second rounds), 4l ((a), (b) and (e)'s ``run()``
-   worker), 5 and 5b and the
+   worker), 5 and 5b and the graphed
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
-9. print ``{"ok": true, "device": {...}}`` as the last line.
+10. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -6984,7 +7005,7 @@ def train_mnist_and_entry():
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: serving GPT-2 small
+# phases 6 and 7: serving GPT-2 small from a CUDA graph per step
 # ---------------------------------------------------------------------------
 
 def _drive(sched, reqs, max_iters):
@@ -7019,14 +7040,42 @@ def _engine_calls(engine):
         del engine._prefill, engine.decode
 
 
+def _replays(engine):
+    return {key: step.replays for key, step in engine.graphs.items()}
+
+
+def _reckoned_launches(engine, before):
+    """The launches of the engine's graphs replayed since ``before``
+    (``_replays``): each graph's launches counted at its capture, times
+    its replays since. A replay runs the captured kernels without
+    passing through their wrappers, so the wrappers' counters tick at
+    capture and not at replay."""
+    out = {}
+    for key, step in engine.graphs.items():
+        n = step.replays - before.get(key, 0)
+        for name, count in step.launches.items():
+            out[name] = out.get(name, 0) + count * n
+    return out
+
+
+def _mb(nbytes):
+    return nbytes / 2 ** 20
+
+
 def serve(engine, prompts, max_new, label, ledger):
     """Serve ``prompts`` through the scheduler with the launch counts
-    zeroed just before and read just after; returns the tokens. The
-    append+attend launches must split by route as the engine's calls
-    say: one a layer on B16's prefill route for each prefill of 16 rows
-    or more (prompts run through a float32 cache), on the decode route
-    for each shorter prefill and each decode step (B16 on a float cache,
-    B17 on an int8 one), none on the CUDA cores."""
+    zeroed just before and read just after; returns the tokens and the
+    run's numbers. On the card each step replays its graph, so the
+    launches of the run are reckoned from the graphs (capture launches
+    times replays in the run), and the wrappers must count nothing in
+    it: no step ran outside its graph and none was captured. Under the
+    engine's private ``_uncaptured`` the wrappers count every launch
+    themselves. Either way the append+attend launches must split by
+    route as the engine's calls say: one a layer on B16's prefill route
+    for each prefill of 16 rows or more (prompts run through a float32
+    cache), on the decode route for each shorter prefill and each decode
+    step (B16 on a float cache, B17 on an int8 one), none on the CUDA
+    cores."""
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import decode_attention as da
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
@@ -7034,30 +7083,46 @@ def serve(engine, prompts, max_new, label, ledger):
     sched = DecodeScheduler(engine, queue_limit=len(prompts),
                             default_timeout_s=600.0, stats_every=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with _engine_calls(engine) as calls:
         _build.reset_launches()
         da.reset_route_launches()
+        before = _replays(engine)
         t0 = time.perf_counter()
         reqs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
         _drive(sched, reqs, 100 * max_new * len(prompts))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ledger[label] = dict(_build.LAUNCHES)
+    direct = dict(_build.LAUNCHES)
+    direct.update({f"route:{r}": n for r, n in da.ROUTE_LAUNCHES.items()})
+    reckoned = _reckoned_launches(engine, before)
+    graphed = not engine._uncaptured
+    if graphed:
+        _require(not any(direct.values()),
+                 f"{label}: kernels launched outside their graphs during "
+                 f"the serve: {direct}")
+        counts = reckoned
+    else:
+        _require(not any(reckoned.values()),
+                 f"{label}: graphs replayed in an uncaptured serve")
+        counts = direct
+    ledger[label] = {k: v for k, v in counts.items()
+                     if not k.startswith("route:")}
     layers = engine.cfg.num_layers
     long = sum(b >= da.PREFILL_MIN_T for b in calls["prefill_buckets"])
     short = len(calls["prefill_buckets"]) - long
     steps = layers * calls["decode_steps"]
     want = {"cuda_core": 0, "prefill": layers * long,
             "decode": layers * short + steps}
-    routes = dict(da.ROUTE_LAUNCHES)
+    routes = {r: counts.get(f"route:{r}", 0) for r in da.ROUTES}
     _require(routes == want, f"{label}: append_attend routes {routes}, "
                              f"expected {want} from the engine's calls "
                              f"{calls}")
     int8 = steps if engine.spec.dtype == "int8" else 0
-    _require(ledger[label]["append_attend_int8"] == int8,
+    _require(counts.get("append_attend_int8", 0) == int8,
              f"{label}: append_attend_int8 launched "
-             f"{ledger[label]['append_attend_int8']} times, expected {int8} "
-             "(one a layer a decode step on an int8 cache)")
+             f"{counts.get('append_attend_int8', 0)} times, expected "
+             f"{int8} (one a layer a decode step on an int8 cache)")
     outs = []
     for r in reqs:
         toks, reason = r.result(0.0)
@@ -7071,9 +7136,9 @@ def serve(engine, prompts, max_new, label, ledger):
     ttft = [r.first_token_t - r.enqueue_t for r in reqs]
     tpot = [(r.done_t - r.first_token_t) / (len(r.tokens) - 1)
             for r in reqs]
-    stats = {"phase": label, "requests": len(reqs), "succeeded": len(outs),
-             "failed": 0, "tokens": n_tok, "wall_s": wall,
-             "tokens_per_s": n_tok / wall,
+    stats = {"phase": label, "graphed": graphed, "requests": len(reqs),
+             "succeeded": len(outs), "failed": 0, "tokens": n_tok,
+             "wall_s": wall, "tokens_per_s": n_tok / wall,
              "ttft_p50_ms": _pct(ttft, 50) * 1e3,
              "ttft_max_ms": max(ttft) * 1e3,
              "tpot_p50_ms": _pct(tpot, 50) * 1e3,
@@ -7081,18 +7146,116 @@ def serve(engine, prompts, max_new, label, ledger):
              "prefills": len(calls["prefill_buckets"]),
              "decode_steps": calls["decode_steps"],
              "append_attend_routes": routes,
+             "launches": ledger[label],
+             "peak_allocated_mb": _mb(torch.cuda.max_memory_allocated()),
+             "reserved_mb": _mb(torch.cuda.memory_reserved()),
              "scheduler": sched.stats()}
     print(json.dumps(stats))
-    return outs
+    return outs, stats
+
+
+def warm(engine, label):
+    """``engine.warmup()``: every graph's capture seconds and the memory
+    the graphs and their static buffers took."""
+    torch.cuda.synchronize()
+    alloc, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    graphs = engine.graphs
+    _require(all(s.graph is not None for s in graphs.values()),
+             f"{label}: warmup left a step without its graph")
+    print(json.dumps({
+        "warmup": label, "seconds": time.perf_counter() - t0,
+        "graphs": len(graphs),
+        "capture_s": {" ".join(map(str, k)): s.capture_s
+                      for k, s in graphs.items()},
+        "graph_allocated_mb": _mb(torch.cuda.memory_allocated() - alloc),
+        "graph_reserved_mb": _mb(torch.cuda.memory_reserved() - reserved),
+    }))
+
+
+def serve_both(engine, prompts, max_new, label, ledger):
+    """The serve through the graphs, then the same serve through the
+    uncaptured steps (the engine's private ``_uncaptured``): the tokens
+    must be the same, bitwise. Returns the graphed serve's tokens and
+    both runs' numbers."""
+    graphed, g_stats = serve(engine, prompts, max_new, label, ledger)
+    engine._uncaptured = True
+    try:
+        uncaptured, u_stats = serve(engine, prompts, max_new,
+                                    f"{label}_uncaptured", {})
+    finally:
+        engine._uncaptured = False
+    _require(uncaptured == graphed,
+             f"{label}: the graphed serve's tokens differ from the "
+             "uncaptured steps'")
+    print(json.dumps({"graphed_vs_uncaptured": label,
+                      "tokens_bitwise": True,
+                      **{f"{k}": [g_stats[k], u_stats[k]] for k in (
+                          "wall_s", "tokens_per_s", "ttft_p50_ms",
+                          "tpot_p50_ms", "peak_allocated_mb")}}))
+    return graphed, g_stats, u_stats
+
+
+def check_return_logits(engine, prompts, steps=3):
+    """Every slot prefilled, then ``steps + 1`` decode steps with
+    ``return_logits`` through the graph (its first call captures it, the
+    rest replay it) and, from the same cache state, through the
+    uncaptured step: the next tokens and the ``[slots, vocab]`` logits
+    bitwise."""
+    slots = [engine.claim_slot() for _ in range(engine.slots)]
+    toks = np.zeros(engine.slots, np.int32)
+    lens = np.zeros(engine.slots, np.int32)
+    for s, p in zip(slots, prompts):
+        toks[s], _ = engine.prefill(s, p)
+        lens[s] = len(p)
+    snap = {k: v.clone() for k, v in engine._cache.items()}
+    runs = []
+    for uncaptured in (False, True):
+        engine._uncaptured = uncaptured
+        try:
+            for k, v in engine._cache.items():
+                v.copy_(snap[k])  # in place: the graphs hold the address
+            t, ln, out = toks.copy(), lens.copy(), []
+            for _ in range(steps + 1):
+                nxt, logits = engine.decode(t, ln, return_logits=True)
+                out.append((nxt, logits))
+                t, ln = nxt, ln + 1
+            runs.append(out)
+        finally:
+            engine._uncaptured = False
+    for i, ((gn, gl), (un, ul)) in enumerate(zip(*runs)):
+        _require(np.array_equal(gn, un) and np.array_equal(gl, ul),
+                 f"return_logits step {i}: the graph's tokens or logits "
+                 "differ from the uncaptured step's")
+        _require(np.isfinite(gl).all(), "non-finite decode logits")
+    key = ("decode", engine.slots, engine.max_len, True)
+    _require(engine.graphs[key].replays == steps,
+             f"the return_logits graph replayed "
+             f"{engine.graphs[key].replays} times, not {steps}")
+    for s in slots:
+        engine.release_slot(s)
+    del snap
+    torch.cuda.empty_cache()
+    print(json.dumps({"return_logits_bitwise": {
+        "cache": engine.spec.dtype, "replayed_steps": steps,
+        "logits_shape": list(runs[0][0][1].shape)}}))
 
 
 def profile_decode(engine, prompts, steps=8):
     """Where a decode step's time goes: ``torch.profiler`` over
-    ``steps`` scheduler iterations with every slot occupied. Prints the
-    device busy share (kernel time over wall time; the profiler's own
-    host cost makes the share a lower bound), the append+attend
-    kernels' device time per step (B16 or B17, by the cache) and the
-    kernels by device time per step."""
+    ``steps`` scheduler iterations with every slot occupied, each one
+    decode step (a graph replay, or the uncaptured step under the
+    engine's ``_uncaptured``). Prints the device busy share (kernel time
+    over wall time; the profiler's own host cost makes the share a lower
+    bound), the append+attend kernels' device time per step (B16 or B17,
+    by the cache), the kernels by device time per step, and requires
+    the device records to hold one decode-route append+attend a layer
+    and one LayerNorm forward per norm (two a layer and the final one) a
+    step: the launch counts reckoned from the graphs, confirmed on the
+    card. Returns the reading."""
     from torch.profiler import ProfilerActivity
 
     from horovod_tpu_torch.serving.scheduler import DecodeScheduler
@@ -7114,19 +7277,50 @@ def profile_decode(engine, prompts, steps=8):
     kernels = _kernel_events(prof)
     busy_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:8]
-    attend_us = sum(_dev_us(e) for e in kernels
-                    if "attend" in e.key or "decode_cluster" in e.key)
-    print(json.dumps({
+    attend = [e for e in kernels
+              if "attend" in e.key or "decode_cluster" in e.key]
+    attend_us = sum(_dev_us(e) for e in attend)
+    layers = engine.cfg.num_layers
+    per_step = {
+        "layernorm_fwd": sum(e.count for e in kernels
+                             if "layernorm_fwd" in e.key) / steps,
+        "append_attend": sum(e.count for e in kernels
+                             if "decode_cluster" in e.key) / steps,
+        "append_attend_other_routes": sum(
+            e.count for e in attend
+            if "decode_cluster" not in e.key) / steps}
+    want = {"layernorm_fwd": 2 * layers + 1, "append_attend": layers,
+            "append_attend_other_routes": 0}
+    _require(per_step == want,
+             f"decode step kernels in the profile {per_step}, expected "
+             f"{want}")
+    reading = {
         "profile": f"decode, all {engine.slots} slots occupied, "
                    f"{engine.spec.dtype} cache",
+        "graphed": not getattr(engine, "_uncaptured", True),
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_ms_per_step": busy_us / 1e3 / steps,
         "append_attend_ms_per_step": attend_us / 1e3 / steps,
         "device_busy_share": (busy_us / 1e6 / wall) if busy_us else None,
         "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "path_kernels_per_step": per_step,
         "top": [{"name": e.key[:60], "ms_per_step": _dev_us(e) / 1e3 / steps,
-                 "calls_per_step": e.count / steps} for e in top]}))
+                 "calls_per_step": e.count / steps} for e in top]}
+    print(json.dumps(reading))
+    return reading
+
+
+def profile_decode_both(engine, prompts):
+    """``profile_decode`` through the graphs and through the uncaptured
+    step."""
+    graphed = profile_decode(engine, prompts)
+    engine._uncaptured = True
+    try:
+        uncaptured = profile_decode(engine, prompts)
+    finally:
+        engine._uncaptured = False
+    return graphed, uncaptured
 
 
 def _gpt2_small(seed):
@@ -7145,7 +7339,33 @@ def _gpt2_small(seed):
     return cfg, model, prompts
 
 
+#: new tokens a request of phase 6 (and 8), and of phase 7
+SERVE_MAX_NEW = 32
+SERVE_INT8_MAX_NEW = 16
+
+
+def serve_engine(engine, prompts, max_new, label, ledger):
+    """One cache's serve (phases 6 and 7): capture every graph, serve
+    ``prompts`` through the graphs and through the uncaptured steps
+    (bitwise), four of them one at a time (bitwise the batch), decode
+    steps with ``return_logits`` (bitwise), and profile a decode step
+    both ways. Returns the graphed tokens."""
+    warm(engine, label)
+    batched, _, _ = serve_both(engine, prompts, max_new, label, ledger)
+    for i in (0, 5, 10, 15):
+        alone, _ = serve(engine, [prompts[i]], max_new,
+                         f"{label}_alone_{i}", {})
+        _require(alone[0] == batched[i],
+                 f"{label}: request {i}'s tokens one at a time differ from "
+                 "the continuous batch")
+    print(f"{label}: 4 requests one at a time equal the batched run")
+    check_return_logits(engine, prompts)
+    profile_decode_both(engine, prompts)
+    return batched
+
+
 def serve_gpt2(seed, ledger):
+    """Phases 6, 7 and 8. Returns phase 6's tokens."""
     from horovod_tpu_torch.models.transformer import Transformer
     from horovod_tpu_torch.serving.decode import GenerationEngine
 
@@ -7157,21 +7377,10 @@ def serve_gpt2(seed, ledger):
     plain.eval()
 
     # phase 6: bf16 KV cache
+    t_phase = time.perf_counter()
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="bf16")
-    t0 = time.perf_counter()
-    engine.warmup()
-    torch.cuda.synchronize()
-    print(f"serve bf16: warmup {time.perf_counter() - t0:.2f} s "
-          f"({len(engine.prefill_buckets)} prefill buckets + decode)")
-    batched = serve(engine, prompts, 32, "serve_bf16", ledger)
-    for i in (0, 5, 10, 15):
-        alone = serve(engine, [prompts[i]], 32,
-                      f"serve_bf16_alone_{i}", {})
-        _require(alone[0] == batched[i],
-                 f"request {i}: one-at-a-time tokens differ from the "
-                 "continuous batch")
-    print("serve bf16: 4 requests one at a time equal the batched run")
-    profile_decode(engine, prompts)
+    batched = serve_engine(engine, prompts, SERVE_MAX_NEW, "serve_bf16",
+                           ledger)
 
     # the first-token logits against the plain forward of the same
     # weights (no kernel: unfused norms, cache-free attention)
@@ -7192,17 +7401,371 @@ def serve_gpt2(seed, ledger):
         "max_abs_err": logit_err, "tol": logit_tol,
         "max_abs_logit": float(np.abs(ref).max()),
         "same_argmax": bool(first == int(ref.argmax()))}}))
-    del engine
+    del engine, plain
     torch.cuda.empty_cache()
+    print(json.dumps({"phase_s": {"6": time.perf_counter() - t_phase}}))
 
     # phase 7: int8 KV cache
+    t_phase = time.perf_counter()
     engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype="int8")
-    engine.warmup()
-    serve(engine, prompts[:4], 16, "serve_int8", ledger)
+    serve_engine(engine, prompts, SERVE_INT8_MAX_NEW, "serve_int8", ledger)
     _require(engine._cache["k"].dtype == torch.int8,
              "int8 serve did not hold an int8 cache")
-    profile_decode(engine, prompts)
     del engine
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase_s": {"7": time.perf_counter() - t_phase}}))
+
+    # phase 8: over HTTP, from replica processes
+    t_phase = time.perf_counter()
+    serve_http(seed, cfg, model, prompts, batched)
+    print(json.dumps({"phase_s": {"8": time.perf_counter() - t_phase}}))
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving tier over HTTP (registry, replicas, front door)
+# ---------------------------------------------------------------------------
+
+#: the decode replicas' knobs: phase 6's bucket and cache
+HTTP_DECODE_ENV = {"HOROVOD_SERVING_DECODE_BUCKETS": "8x1024",
+                   "HOROVOD_SERVING_KV_DTYPE": "bf16"}
+#: the predict tier: an MLP on flattened 28 x 28 images, the default
+#: buckets, and the groups of concurrent one-example clients; the
+#: replica's batching window outlasts a group's arrival, so each group
+#: is one batch, padded to the smallest covering bucket
+MLP_IN, MLP_FEATURES = 784, (128, 64, 10)
+MLP_BUCKETS = (1, 4, 16, 64)
+MLP_GROUPS = (64, 10, 3, 1)
+MLP_WAIT_MS = 2000
+#: seconds a replica (checkpoint restore and graph capture) may take to
+#: report ready
+HTTP_READY_S = 240.0
+
+
+class _Proc:
+    """A serving process of phase 8: ``python -m
+    horovod_tpu_torch.serving.replica_set ...`` from the checkout's root,
+    its output pumped into ``lines`` by a thread."""
+
+    def __init__(self, args, key, env_extra=None):
+        import threading
+
+        env = dict(_child_env(), HVD_TPU_SECRET_KEY=key.decode(),
+                   **(env_extra or {}))
+        self.argv = [sys.executable, "-m",
+                     "horovod_tpu_torch.serving.replica_set", *args]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.argv, cwd=HERE, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0,
+                               line.rstrip("\n")))
+
+    def ready(self, prefix, timeout=HTTP_READY_S):
+        """(seconds to the READY line, its port)."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            for t, line in self.lines:
+                if line.startswith(prefix):
+                    return t, int(line.rsplit("port=", 1)[1])
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise SmokeFailure(f"{' '.join(self.argv[3:])}: no {prefix} line "
+                           f"(exit {self.proc.poll()}):\n" + "\n".join(
+                               l for _, l in self.lines[-30:]))
+
+    def stop(self):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode
+
+
+def _stream_all(addr, prompts, max_new, key, on_first=None):
+    """Stream every prompt concurrently through ``addr``'s
+    /v1/generate: per prompt the tokens, the seconds to the first token
+    and to the end, and the error if one reached the client."""
+    import threading
+
+    from horovod_tpu_torch.serving import generate_stream_remote
+
+    res = [None] * len(prompts)
+    start = threading.Barrier(len(prompts))
+
+    def client(i):
+        start.wait()
+        t0 = time.perf_counter()
+        toks, first_t, err = [], None, None
+        try:
+            for chunk in generate_stream_remote(
+                    addr, {"prompt": prompts[i], "max_new_tokens": max_new},
+                    300.0, key=key):
+                if chunk.get("tokens") and first_t is None:
+                    first_t = time.perf_counter() - t0
+                    if on_first is not None:
+                        on_first()
+                toks.extend(int(t) for t in chunk.get("tokens", ()))
+                if chunk.get("error"):
+                    err = chunk["error"]
+        except Exception as e:  # noqa: BLE001 — reported as a failure
+            err = f"{type(e).__name__}: {e}"
+        res[i] = {"tokens": toks, "ttft_s": first_t,
+                  "end_s": time.perf_counter() - t0, "error": err}
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return res, time.perf_counter() - t0
+
+
+def _http_round(label, res, wall, want):
+    """Check one round of streams against phase 6's tokens and print its
+    numbers."""
+    failed = [i for i, r in enumerate(res) if r is None or r["error"]]
+    _require(not failed, f"phase 8 {label}: {len(failed)} client-visible "
+                         f"failures: {[res[i] for i in failed[:3]]}")
+    differ = [i for i, r in enumerate(res) if r["tokens"] != want[i]]
+    _require(not differ, f"phase 8 {label}: requests {differ} got tokens "
+                         "that are not phase 6's")
+    n_tok = sum(len(r["tokens"]) for r in res)
+    ttft = [r["ttft_s"] for r in res]
+    tpot = [(r["end_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1)
+            for r in res]
+    stats = {"phase": f"serve_http {label}", "requests": len(res),
+             "failed": 0, "tokens": n_tok, "tokens_bitwise_phase_6": True,
+             "wall_s": wall, "tokens_per_s": n_tok / wall,
+             "ttft_p50_ms": _pct(ttft, 50) * 1e3,
+             "ttft_max_ms": max(ttft) * 1e3,
+             "tpot_p50_ms": _pct(tpot, 50) * 1e3,
+             "tpot_max_ms": max(tpot) * 1e3}
+    print(json.dumps(stats))
+    return stats
+
+
+def _predict_groups(addr, key, mlp, rng):
+    """The predict tier's check: each group of one-example clients sent
+    at once is one batch of the replica, padded to the covering bucket;
+    every answer must be bitwise the module's forward of that padded
+    batch in this process. Rows are matched by input, since the replica
+    orders a batch by arrival; that a row's output does not depend on
+    its place in the batch is checked here first, by permuting each
+    bucket's batch. Returns each group's batch fill."""
+    import threading
+
+    from horovod_tpu_torch.serving import predict_remote
+
+    with torch.inference_mode():
+        for b in MLP_BUCKETS:
+            x = torch.randn(b, MLP_IN, device="cuda")
+            perm = torch.randperm(b, device="cuda")
+            _require(torch.equal(mlp(x)[perm], mlp(x[perm])),
+                     f"phase 8: the MLP's rows at bucket {b} depend on "
+                     "their place in the batch")
+    fills = []
+    for k in MLP_GROUPS:
+        bucket = min(b for b in MLP_BUCKETS if b >= k)
+        xs = rng.randn(k, MLP_IN).astype(np.float32)
+        got = [None] * k
+        start = threading.Barrier(k)
+
+        def client(i):
+            start.wait()
+            try:
+                got[i] = predict_remote(addr, xs[i:i + 1], 60.0, key=key)
+            except Exception as e:  # noqa: BLE001 — a failure below
+                got[i] = e
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(k)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        bad = [g for g in got if not isinstance(g, np.ndarray)]
+        _require(not bad, f"phase 8 predict: group of {k}: {bad[:3]}")
+        padded = np.zeros((bucket, MLP_IN), np.float32)
+        padded[:k] = xs
+        with torch.inference_mode():
+            want = mlp(torch.from_numpy(padded).cuda()).cpu().numpy()[:k]
+        differ = [i for i in range(k)
+                  if not np.array_equal(got[i][0], want[i])]
+        _require(not differ,
+                 f"phase 8 predict: group of {k} (bucket {bucket}): "
+                 f"answers {differ[:5]} are not the module's forward of "
+                 "the padded batch bitwise")
+        fills.append({"clients": k, "bucket": bucket,
+                      "batch_fill": k / bucket})
+    return fills
+
+
+def check_graph_eviction(mlp_dir):
+    """An ``InferenceEngine`` on the predict tier's checkpoint in this
+    process: its four bucket graphs captured, then an engine limited to
+    one graph captures a fifth (a float16 request), evicting the four:
+    the memory the card holds for the engine must shrink. Returns the
+    reserved MB before and after."""
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine.from_checkpoint(mlp_dir, buckets=MLP_BUCKETS)
+    eng.warmup((MLP_IN,))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    eng.MAX_CACHED_EXECUTABLES = 1
+    eng(np.zeros((1, MLP_IN), np.float16))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    _require(eng.cached_executables == 1 and after < before,
+             f"phase 8 (e): evicting 4 graphs left {eng.cached_executables} "
+             f"cached and the reserved memory at {after} bytes from "
+             f"{before}")
+    return _mb(before), _mb(after)
+
+
+def serve_http(seed, cfg, model, prompts, want):
+    """Phase 8. Phase 6's GPT-2 small saved with ``checkpoint.save_model``
+    and its serving metadata; a ``--registry``, two ``--decode``
+    replicas on the card (``HTTP_DECODE_ENV``) registered to it, and an
+    in-process front door (``ReplicaSet`` behind a ``ServingServer``).
+    (a) After one request alone, the 16 prompts streamed concurrently
+    through the front door with ``generate_stream_remote``: every token
+    bitwise phase 6's;
+    TTFT, TPOT and tokens/s on the client's clock. (b) The same again,
+    and replica 0 SIGTERMed once every stream has its first token: its
+    streams complete, it exits 83, and (c) 16 more requests reach replica
+    1, with no failure any client sees, all tokens bitwise phase 6's.
+    (d) The MLP predict tier through a ``--checkpoint`` replica
+    (``_predict_groups``), 64 concurrent clients first. (e) An evicted
+    predict graph frees its memory (``check_graph_eviction``)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.elastic.preemption import PREEMPTED_EXIT_CODE
+    from horovod_tpu_torch.models.mlp import MLP
+    from horovod_tpu_torch.runner.compute_service import ComputeClient
+    from horovod_tpu_torch.runner.util.secret import make_secret_key
+    from horovod_tpu_torch.serving import (SERVING_DECODE_KIND, SERVING_KIND,
+                                           ReplicaSet, ServingServer)
+    from horovod_tpu_torch.serving.decode import config_to_meta
+
+    key = make_secret_key()
+    root = tempfile.mkdtemp(prefix="hvd_serving_")
+    procs = []
+    front = None
+    try:
+        lm_dir, mlp_dir = (os.path.join(root, n) for n in ("lm", "mlp"))
+        checkpoint.save_model(lm_dir, model, metadata={"serving": {
+            "model": "transformer_lm", "config": config_to_meta(cfg)}})
+        mlp = MLP(MLP_IN, MLP_FEATURES).cuda()
+        mlp.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        mlp.eval()
+        checkpoint.save_model(mlp_dir, mlp, metadata={"serving": {
+            "model": "mlp", "features": list(MLP_FEATURES),
+            "input_shape": [MLP_IN], "dtype": "float32"}})
+
+        registry = _Proc(["--registry", "--port", "0"], key)
+        procs.append(registry)
+        _, reg_port = registry.ready("SERVING_REGISTRY_READY")
+        reg = f"127.0.0.1:{reg_port}"
+        decode = [_Proc(["--decode", "--checkpoint", lm_dir, "--index",
+                         str(i), "--register", reg], key, HTTP_DECODE_ENV)
+                  for i in range(2)]
+        predict = _Proc(["--checkpoint", mlp_dir, "--index", "0",
+                         "--register", reg, "--buckets",
+                         ",".join(map(str, MLP_BUCKETS)), "--max-wait-ms",
+                         str(MLP_WAIT_MS)], key)
+        procs += decode + [predict]
+        ready = [p.ready("SERVING_REPLICA_READY")[0]
+                 for p in decode + [predict]]
+        client = ComputeClient([("127.0.0.1", reg_port)], key)
+        replicas = client.wait_for_workers(SERVING_DECODE_KIND, 2,
+                                           timeout_s=60.0)
+        _require(sorted(replicas) == [0, 1],
+                 f"phase 8: decode replicas registered {replicas}")
+        rs = ReplicaSet(replicas, key=key)
+        front = ServingServer(generate_fn=rs.generate, key=key)
+        addr = f"127.0.0.1:{front.start()}"
+
+        # one request first: a client process's first requests import
+        # urllib's lazy modules, 0.3-0.9 s under 16 concurrent threads
+        # (seen on the CPU as on the card), which is not the tier's time
+        res, wall = _stream_all(addr, prompts[:1], SERVE_MAX_NEW, key)
+        _require(not res[0]["error"] and res[0]["tokens"] == want[0],
+                 f"phase 8: the first request got {res[0]}")
+        print(json.dumps({"serve_http first request": {
+            "ttft_ms": res[0]["ttft_s"] * 1e3, "wall_s": wall}}))
+        # (a)
+        res, wall = _stream_all(addr, prompts, SERVE_MAX_NEW, key)
+        stats_a = _http_round("(a) two replicas", res, wall, want)
+
+        # (b) SIGTERM replica 0 once every stream has its first token
+        import signal
+
+        started = threading.Semaphore(0)
+        sent = {}
+
+        def preempt():
+            for _ in prompts:
+                started.acquire()
+            sent["t"] = time.perf_counter()
+            decode[0].proc.send_signal(signal.SIGTERM)
+        killer = threading.Thread(target=preempt, daemon=True)
+        killer.start()
+        res, wall = _stream_all(addr, prompts, SERVE_MAX_NEW, key,
+                                on_first=started.release)
+        killer.join(timeout=60)
+        _require("t" in sent, "phase 8 (b): the streams never all started")
+        stats_b = _http_round("(b) replica 0 SIGTERMed mid-load", res,
+                              wall, want)
+        rc = decode[0].proc.wait(timeout=120)
+        exit_s = time.perf_counter() - sent["t"]
+        _require(rc == PREEMPTED_EXIT_CODE,
+                 f"phase 8 (b): the SIGTERMed replica exited {rc}, not "
+                 f"{PREEMPTED_EXIT_CODE}:\n" + "\n".join(
+                     l for _, l in decode[0].lines[-20:]))
+        # (c) later requests reach replica 1
+        res, wall = _stream_all(addr, prompts, SERVE_MAX_NEW, key)
+        stats_c = _http_round("(c) after the drain", res, wall, want)
+        _require(0 in rs.dead and 1 not in rs.dead,
+                 f"phase 8 (c): dead replicas {rs.dead}")
+
+        # (d)
+        workers = client.wait_for_workers(SERVING_KIND, 1, timeout_s=60.0)
+        fills = _predict_groups(workers[0], key, mlp,
+                                np.random.RandomState(seed))
+        # (e)
+        evict_mb = check_graph_eviction(mlp_dir)
+        print(json.dumps({"serve_http": {
+            "graph_eviction_reserved_mb": evict_mb,
+            "replicas_ready_s": ready, "sigterm_to_exit_83_s": exit_s,
+            "dead": rs.dead, "predict_batch_fill": fills,
+            "rounds": [stats_a["tokens_per_s"], stats_b["tokens_per_s"],
+                       stats_c["tokens_per_s"]]}}))
+    finally:
+        if front is not None:
+            front.shutdown()
+        codes = [p.stop() for p in reversed(procs)]
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"serve_http_exit_codes": codes[::-1]}))
 
 
 #: kernels the profiles of ``--profiles`` run
@@ -7304,9 +7867,11 @@ def profiles(seed):
     step time and tokens/s) and then one profiled step
     (``profile_train_step``: the LayerNorm group's device time and
     launches), a decode step of GPT-2 small with every slot occupied on
-    a bf16 and on an int8 cache (``profile_decode``), and one ResNet-50
-    training step with the fused BatchNorm after one warm-up step
-    (``profile_resnet_step``). Enforces nothing."""
+    a bf16 and on an int8 cache, replayed from its graph and uncaptured
+    (``profile_decode_both``; a tree without graphs runs its eager step
+    twice), and one ResNet-50 training step with the fused BatchNorm
+    after one warm-up step (``profile_resnet_step``). Enforces nothing
+    but the decode step's kernel counts."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.examples import (gpt2_pretraining,
                                             resnet50_synthetic)
@@ -7334,7 +7899,7 @@ def profiles(seed):
     for kv in ("bf16", "int8"):
         engine = GenerationEngine(model, slots=8, max_len=1024, kv_dtype=kv)
         engine.warmup()
-        profile_decode(engine, prompts)
+        profile_decode_both(engine, prompts)
         del engine
     del model
     torch.cuda.empty_cache()
@@ -7721,7 +8286,7 @@ def main(argv=None) -> int:
             print(json.dumps({"kernel": name, **c}))
     check_fused_ce(args.seed)
 
-    # phases 4 and 5: training; phases 6 and 7: serving
+    # phases 4 and 5: training; phases 6, 7 and 8: serving
     ledger = {}
     in_process_rate, in_process_losses = train_gpt2(args.seed, ledger)
     flat_stage_ms = train_int8(args.seed, ledger)
@@ -7745,7 +8310,7 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         _require(n > 0, f"kernel {name} was not launched on its path")
 
-    # phase 8
+    # phase 9
     kernels = []
     for name, source, replaces, tpu in KERNELS:
         cases = checks[name]

@@ -160,6 +160,12 @@ class Knobs:
     recovery_ladder: bool = True
 
     # --- inference serving ---
+    # padded batch-size buckets the engine captures a CUDA graph for;
+    # requests are coalesced into the smallest covering bucket
+    serving_buckets: str = "1,4,16,64"
+    # dynamic-batching window: how long the batcher holds the first
+    # request of a batch open for co-arrivals
+    serving_max_wait_ms: float = 5.0
     serving_queue_limit: int = 256
     serving_request_timeout_seconds: float = 30.0
 
@@ -170,6 +176,12 @@ class Knobs:
     serving_prefill_buckets: str = ""
     serving_decode_max_new: int = 64
     serving_decode_stats_every: int = 50
+
+    # --- autotune (queue A entry 12) ---
+    # the training run's tuned-configuration cache; a serving replica
+    # would warm-start from it, which the port refuses until the
+    # autotuner is ported
+    autotune_cache: str = ""
 
     # --- fault injection (utils/faults.py) ---
     # canonical env HOROVOD_TPU_FAULT_SPEC; empty = disabled no-op
@@ -234,6 +246,9 @@ class Knobs:
             replication_duty_cycle=_env_float("REPLICATION_DUTY_CYCLE",
                                               0.02),
             recovery_ladder=_env_bool("RECOVERY_LADDER", True),
+            serving_buckets=_env("SERVING_BUCKETS", "1,4,16,64")
+            or "1,4,16,64",
+            serving_max_wait_ms=_env_float("SERVING_MAX_WAIT_MS", 5.0),
             serving_queue_limit=_env_int("SERVING_QUEUE_LIMIT", 256),
             serving_request_timeout_seconds=_env_float(
                 "SERVING_REQUEST_TIMEOUT", 30.0),
@@ -246,6 +261,7 @@ class Knobs:
             serving_decode_max_new=_env_int("SERVING_DECODE_MAX_NEW", 64),
             serving_decode_stats_every=_env_int(
                 "SERVING_DECODE_STATS_EVERY", 50),
+            autotune_cache=_env("AUTOTUNE_CACHE", "") or "",
             # canonical name first so it wins when both are set
             fault_spec=(os.environ.get("HOROVOD_TPU_FAULT_SPEC", "")
                         or _env("FAULT_SPEC") or ""),

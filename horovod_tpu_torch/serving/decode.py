@@ -14,14 +14,23 @@ The PyTorch counterpart of the JAX package's ``serving/decode.py``:
   rows are quantized once, on write, with optim/compression.py's block
   math; decode iterations dequantize for the read and never
   re-quantize old rows.
-* **Programs**: PyTorch runs eagerly, so there is nothing to compile
-  ahead of time: ``warmup`` runs each prefill bucket and the decode
-  step once, which builds the CUDA kernels. Prompts are padded to a
-  power-of-two prefill bucket as in the JAX package, so a sequence's
+* **A CUDA graph per program**: where the JAX package compiles an
+  AOT executable per shape, the engine captures one CUDA graph per
+  executable key, ``("decode", slots, max_len, return_logits)`` and
+  ``("prefill", bucket)``, and replays it. Each graph reads static
+  input buffers on the card (filled with ``copy_`` from pinned host
+  buffers before the replay) and writes static outputs that are copied
+  back after it. ``warmup`` builds every graph the scheduler uses:
+  each step runs once uncaptured on the capture's side stream (the
+  kernels' modules load and the decode route's one-time occupancy
+  query is answered there), then is captured. On the CPU, which has no
+  graphs, the same step functions run directly. Prompts are padded to
+  a power-of-two prefill bucket as in the JAX package, so a sequence's
   arithmetic does not depend on its neighbours or on its slot.
 * **In place**: the cache buffers are updated in place (the kernels
-  write the replaced rows into the buffer), where the JAX package
-  rebinds them functionally and donates the old ones.
+  write the replaced rows into the buffer) and never rebound, since a
+  graph holds their addresses; the JAX package rebinds them
+  functionally and donates the old ones.
 
 The model side is models/transformer.py's ``kv_cache`` path; each
 layer's append+attend runs ops/decode_attention.py's kernel on the card.
@@ -32,7 +41,8 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +52,9 @@ import torch
 from ..ops.decode_attention import (_dequantize_rows,  # noqa: F401
                                     _quantize_rows, append_rows_int8_ref,
                                     append_rows_ref, decode_append_attend)
-from .engine import serving_knobs
+from ..utils import faults
+from .engine import (GraphStep, resolve_device, run_step, serving_knobs,
+                     to_device, to_host)
 
 KV_DTYPES = ("fp32", "bf16", "int8")
 
@@ -240,17 +252,6 @@ def config_from_meta(d: Dict[str, Any]):
 # generation engine
 # ---------------------------------------------------------------------------
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "GenerationEngine runs on a CUDA device by default and "
-                "found none; pass device='cpu' to serve on the host "
-                "through the plain PyTorch path")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
-
-
 class GenerationEngine:
     """Prefill + single-token greedy decode over a slotted cache.
 
@@ -259,13 +260,19 @@ class GenerationEngine:
     first generated token, ``decode`` advances EVERY slot one token
     (callers ignore the outputs of inactive slots). The scheduler
     (serving/scheduler.py) owns which sequence occupies which slot and
-    when; this class owns shapes and the cache.
+    when; this class owns shapes, the graphs and the cache.
 
     ``model`` is a ``models.transformer.Transformer``; ``params``, when
     given, is a state dict loaded into it (e.g. from
-    ``models.convert.params_from_flax``). Thread-safety: one lock around
-    execution (one device per replica).
+    ``models.convert.params_from_flax``). On the card every decode and
+    prefill step replays a CUDA graph (one per executable key, captured
+    by :meth:`warmup` or on first use); the graphs replay one at a time
+    and share one memory pool. Thread-safety: one lock around the graph
+    cache, execution and capture (one device per replica; a capture
+    must not overlap other work on the card).
     """
+
+    MAX_CACHED_EXECUTABLES = 16
 
     def __init__(
         self,
@@ -280,7 +287,7 @@ class GenerationEngine:
         eos_id: Optional[int] = None,
         device=None,
     ):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "GenerationEngine")
         cfg = model.cfg
         if not cfg.causal:
             raise ValueError(
@@ -311,6 +318,8 @@ class GenerationEngine:
             head_dim=cfg.head_dim, dtype=parse_kv_dtype(kv_dtype),
             block=int(kv_block), compute_dtype=cfg.dtype,
         )
+        # written in place by every step and never rebound: the graphs
+        # hold these addresses
         self._cache = self.spec.allocate(self.device)
         if prefill_buckets is None:
             knob = sk.serving_prefill_buckets or ""
@@ -324,9 +333,51 @@ class GenerationEngine:
             if int(b) <= self.spec.max_len)))
         if not self._prefill_buckets:
             raise ValueError("no prefill bucket fits under max_len")
+        # the steps' static inputs: decode's tokens and lengths, and the
+        # prefill's slot and prompt length as device scalars (each
+        # bucket has its own token buffer and local cache)
+        dev = self.device
+        self._tokens = torch.zeros(self.spec.slots, dtype=torch.int32,
+                                   device=dev)
+        self._lengths = torch.zeros(self.spec.slots, dtype=torch.int32,
+                                    device=dev)
+        self._slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._length = torch.ones(1, dtype=torch.int64, device=dev)
+        self._pinned: Dict[str, torch.Tensor] = {}
+        self._graphs: "OrderedDict[Tuple, GraphStep]" = OrderedDict()
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(dev) if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        #: the same steps without their graphs (a private check that a
+        #: replay gives the uncaptured step's bits; no public switch)
+        self._uncaptured = False
         self._lock = threading.Lock()
         self._free = list(range(self.spec.slots))
         self._slot_lock = threading.Lock()
+
+    # -- construction from a checkpoint -------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **kwargs) -> "GenerationEngine":
+        """Restore a generation-capable LM checkpoint
+        (``checkpoint.save_model``) with metadata ``{"serving":
+        {"model": "transformer_lm", "config": {...}, "eos": id}}``
+        (save side: :func:`config_to_meta`)."""
+        from ..checkpoint import load_params
+        from ..models.transformer import Transformer
+        from .engine import SERVING_META_KEY
+
+        params, metadata = load_params(path, device="cpu")
+        meta = dict(metadata.get(SERVING_META_KEY, {}))
+        if meta.get("model") != TRANSFORMER_LM:
+            raise ValueError(
+                f"checkpoint is not a generation LM (metadata model = "
+                f"{meta.get('model')!r}; expected {TRANSFORMER_LM!r})")
+        cfg = config_from_meta(meta.get("config", {}))
+        kwargs.setdefault("eos_id", meta.get("eos"))
+        eng = cls(Transformer(cfg), params, **kwargs)
+        eng.metadata = metadata
+        return eng
 
     # -- shape bookkeeping ---------------------------------------------------
 
@@ -341,6 +392,18 @@ class GenerationEngine:
     @property
     def prefill_buckets(self) -> Tuple[int, ...]:
         return self._prefill_buckets
+
+    @property
+    def cached_executables(self) -> int:
+        """Graphs (on the CPU: steps) currently cached."""
+        return len(self._graphs)
+
+    @property
+    def graphs(self) -> Dict[Tuple, GraphStep]:
+        """The cached steps by executable key (a copy): each one's
+        capture launches, replays and capture seconds."""
+        with self._lock:
+            return dict(self._graphs)
 
     @property
     def free_slots(self) -> int:
@@ -369,17 +432,110 @@ class GenerationEngine:
             f"{self._prefill_buckets[-1]} (cache max_len "
             f"{self.spec.max_len})")
 
+    # -- the steps and their graphs -----------------------------------------
+
+    def _step(self, key: Tuple, build: Callable[[], GraphStep]) -> GraphStep:
+        """The cached step of ``key`` (under the lock); a new one is
+        captured by its first run."""
+        step = self._graphs.get(key)
+        if step is not None:
+            self._graphs.move_to_end(key)
+            return step
+        step = build()
+        self._graphs[key] = step
+        while len(self._graphs) > self.MAX_CACHED_EXECUTABLES:
+            self._graphs.popitem(last=False)[1].free()
+        return step
+
+    def _decode_step(self, return_logits: bool = False) -> GraphStep:
+        spec = self.spec
+
+        def build():
+            def decode_fn():
+                with torch.inference_mode():
+                    cache = SlottedKVCache(spec, self._cache)
+                    logits = self.model(self._tokens[:, None],
+                                        positions=self._lengths[:, None],
+                                        kv_cache=cache)
+                    last = logits[:, -1].to(torch.float32)
+                    nxt = torch.argmax(last, dim=-1).to(torch.int32)
+                    # without return_logits the [slots, vocab] logits
+                    # never leave the card
+                    return (nxt, last) if return_logits else (nxt,)
+
+            return GraphStep(key, decode_fn)
+
+        key = ("decode", spec.slots, spec.max_len, bool(return_logits))
+        return self._step(key, build)
+
+    def _prefill_step(self, bucket: int) -> GraphStep:
+        spec = self.spec
+        local_spec = dataclasses.replace(spec, slots=1, max_len=bucket,
+                                         dtype="fp32")
+
+        def build():
+            # the prompt runs through a LOCAL float32 cache (M = the
+            # bucket), a static buffer of this step: prefill attention
+            # is the causal forward through the same cache path; the
+            # rows are then converted to the slotted cache's storage
+            # (cast, or int8-quantized once) and copied into the slot
+            local = local_spec.allocate(self.device)
+            tokens = torch.zeros((1, bucket), dtype=torch.int32,
+                                 device=self.device)
+            pos = torch.arange(bucket, dtype=torch.int32,
+                               device=self.device)[None]
+
+            def prefill_fn():
+                with torch.inference_mode():
+                    for buf in local.values():
+                        buf.zero_()
+                    logits = self.model(
+                        tokens, positions=pos,
+                        kv_cache=SlottedKVCache(local_spec, local))
+                    last = logits[0].index_select(
+                        0, self._length - 1)[0].to(torch.float32)
+                    first = torch.argmax(last)
+                    for name in ("k", "v"):
+                        rows = local[name]  # [1, L, KH, bucket, D] f32
+                        if spec.dtype == "int8":
+                            codes, scales = _quantize_rows(
+                                rows, spec.resolved_block)
+                            self._cache[name][..., :bucket, :].index_copy_(
+                                0, self._slot, codes)
+                            self._cache[name + "_scale"][
+                                ..., :bucket, :].index_copy_(
+                                    0, self._slot, scales)
+                        else:
+                            dst = self._cache[name]
+                            dst[..., :bucket, :].index_copy_(
+                                0, self._slot, rows.to(dst.dtype))
+                    return first, last
+
+            return GraphStep(key, prefill_fn, {"tokens": tokens})
+
+        key = ("prefill", bucket)
+        return self._step(key, build)
+
+    def _run(self, step: GraphStep) -> Tuple[torch.Tensor, ...]:
+        """The step's outputs: its graph's replay on the card (captured
+        here on first use), the step itself on the CPU. Call under the
+        execution lock, with the static inputs filled."""
+        return run_step(step, self._stream, self._pool,
+                        uncaptured=self._uncaptured)
+
     def warmup(self) -> None:
-        """Run every prefill bucket and the decode step once, so the
-        first request of each shape pays no kernel build. Writes only
-        stale rows, so it needs every slot free."""
+        """Build the decode graph and every prefill bucket's graph, so no
+        request pays a capture. Writes only stale rows, so it needs
+        every slot free."""
         with self._slot_lock:
             if len(self._free) != self.spec.slots:
                 raise RuntimeError("warmup needs every cache slot free")
-        for b in self._prefill_buckets:
-            self._prefill(0, np.zeros((1, b), np.int32), 1)
         zeros = np.zeros(self.spec.slots, np.int32)
-        self.decode(zeros, zeros)
+        with self._lock:
+            for b in self._prefill_buckets:
+                self._run_prefill(self._prefill_step(b), 0,
+                                  np.zeros((1, b), np.int32), 1)
+            self._run_decode(self._decode_step(), zeros, zeros)
 
     # -- execution -----------------------------------------------------------
 
@@ -402,34 +558,32 @@ class GenerationEngine:
         return self._prefill(slot, padded, n)
 
     def _prefill(self, slot: int, padded: np.ndarray, n: int):
-        spec = self.spec
         bucket = padded.shape[1]
-        # the prompt runs through a LOCAL float32 cache (M = the bucket):
-        # prefill attention is the causal forward through the same cache
-        # path; the rows are then converted to the slotted cache's
-        # storage (cast, or int8-quantized once) and inserted at the slot
-        local_spec = dataclasses.replace(spec, slots=1, max_len=bucket,
-                                         dtype="fp32")
-        with self._lock, torch.inference_mode():
-            local = SlottedKVCache(local_spec,
-                                   local_spec.allocate(self.device))
-            tok = torch.from_numpy(padded).to(self.device)
-            pos = torch.arange(bucket, dtype=torch.int32,
-                               device=self.device)[None]
-            logits = self.model(tok, positions=pos, kv_cache=local)
-            last = logits[0, n - 1].to(torch.float32)
-            first = torch.argmax(last)
-            for name in ("k", "v"):
-                rows = local.buffers[name]  # [1, L, KH, bucket, D] f32
-                dst = slice(slot, slot + 1)
-                if spec.dtype == "int8":
-                    codes, scales = _quantize_rows(rows, spec.resolved_block)
-                    self._cache[name][dst, :, :, :bucket] = codes
-                    self._cache[name + "_scale"][dst, :, :, :bucket] = scales
-                else:
-                    self._cache[name][dst, :, :, :bucket] = rows.to(
-                        self._cache[name].dtype)
-            return int(first), last.cpu().numpy()
+        with self._lock:
+            step = self._prefill_step(bucket)
+            faults.inject("serving.decode_prefill", bucket=bucket)
+            first, last = self._run_prefill(step, slot, padded, n)
+        return int(first), last
+
+    def _run_prefill(self, step: GraphStep, slot: int, padded: np.ndarray,
+                     n: int) -> Tuple[np.ndarray, ...]:
+        """Fill the prefill's static inputs and run it (under the
+        lock); the first token and the float32 logits, on the host."""
+        to_device(step.inputs["tokens"], padded, self._pinned,
+                  f"prefill{padded.shape[1]}")
+        to_device(self._slot, np.array([slot], np.int64), self._pinned,
+                  "slot")
+        to_device(self._length, np.array([n], np.int64), self._pinned,
+                  "length")
+        return to_host(self._run(step), self._pinned)
+
+    def _run_decode(self, step: GraphStep, tokens: np.ndarray,
+                    lengths: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """Fill the decode step's static inputs and run it (under the
+        lock); its outputs on the host."""
+        to_device(self._tokens, tokens, self._pinned, "tokens")
+        to_device(self._lengths, lengths, self._pinned, "lengths")
+        return to_host(self._run(step), self._pinned)
 
     def decode(self, tokens: np.ndarray, lengths: np.ndarray,
                return_logits: bool = False,
@@ -446,16 +600,11 @@ class GenerationEngine:
             raise ValueError(
                 f"decode positions must lie in [0, max_seq_len "
                 f"{self.cfg.max_seq_len}), got {lengths.tolist()}")
-        with self._lock, torch.inference_mode():
-            cache = SlottedKVCache(spec, self._cache)
-            tok = torch.from_numpy(tokens).to(self.device)[:, None]
-            pos = torch.from_numpy(lengths).to(self.device)[:, None]
-            logits = self.model(tok, positions=pos, kv_cache=cache)
-            last = logits[:, -1].to(torch.float32)
-            nxt = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
-            if return_logits:
-                return nxt, last.cpu().numpy()
-            return nxt, None
+        with self._lock:
+            step = self._decode_step(return_logits)
+            faults.inject("serving.decode_step")
+            out = self._run_decode(step, tokens, lengths)
+        return out[0], (out[1] if return_logits else None)
 
     def cache_nbytes(self) -> int:
         return self.spec.nbytes()

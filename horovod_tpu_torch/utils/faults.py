@@ -10,7 +10,12 @@ driver's and workers' (``discovery.poll``, ``worker.register``,
 and the eager runtime's (``ops/eager_runtime.py``): ``collective`` at
 every enqueue (an ``error`` there is raised as
 ``HorovodInternalError``) and ``eager.fast_path`` when a plan would
-freeze (an ``error`` vetoes it and the runtime stays on negotiation).
+freeze (an ``error`` vetoes it and the runtime stays on negotiation),
+and the serving tier's (``serving/``): ``serving.admit`` at a batcher
+admission, ``serving.replica_exec`` before each executed predict batch,
+``serving.dispatch`` before each routed attempt of the front door, and
+``serving.decode_prefill`` / ``serving.decode_step`` before each
+generation step.
 
 Spec grammar (entries separated by ``;`` or ``,``; fields by ``:``)::
 

@@ -234,6 +234,8 @@ def test_engine_without_device_raises_when_no_cuda(flax_lm, monkeypatch):
 
 
 _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
+    "SERVING_BUCKETS": "2,8;32",
+    "SERVING_MAX_WAIT_MS": "12.5",
     "SERVING_QUEUE_LIMIT": "7",
     "SERVING_REQUEST_TIMEOUT": "2.5",
     "SERVING_KV_DTYPE": "int8",
@@ -272,6 +274,7 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "STALL_ABORT_S": "3",
     "EAGER_FAST_PATH": "0",
     "EAGER_FAST_PATH_WARMUP": "5",
+    "AUTOTUNE_CACHE": "/ckpt/tune.json",
 }
 
 
@@ -331,15 +334,24 @@ _EAGER_MODULES = [
         "_native", "ops.eager_runtime")]
 
 
+_SERVING_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "serving", "serving.engine", "serving.batcher", "serving.server",
+        "serving.replica_set", "runner.compute_service")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
     Adasum slice's (Adasum, sparse slices, process sets, the Adasum
     example), the launcher's and the two-level wire's, checkpoint's and
-    Llama example's, the elastic slice's and the eager runtime's (the
-    ctypes layer and the runtime) modules are among those walked."""
+    Llama example's, the elastic slice's, the eager runtime's (the
+    ctypes layer and the runtime) and the serving tier's (engine,
+    batcher, server, replica set, registry) modules are among those
+    walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
-              + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES)
+              + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
+              + _SERVING_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"
