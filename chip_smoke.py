@@ -10,6 +10,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py --profiler-probe 32   # what profiler windows
                                                 # keep as the process ages
     python3 chip_smoke.py --adasum-sweep 8   # phase 4g's limit's readings
+    python3 chip_smoke.py --mesh-sweep 8     # phase 4m's limits' readings
+    python -m horovod_tpu_torch.examples.local_world -np 4 -- \
+        python3 chip_smoke.py --mesh-world   # phase 4m on four cards
 
 Phases, in order; the first failure exits non-zero:
 
@@ -22,7 +25,9 @@ Phases, in order; the first failure exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
    GPT-2 medium's [8, 16, 1024, 64] and Llama-2's [2, 32, 4096, 128]
-   bf16, row by row, and there kernels that skip one tile of the
+   bf16, and at phase 4m's ring blocks ([8, 16, 256, 64], query_offset
+   768, key_offset 0, 256, 512 and 768, causal), row by row, and in the
+   timed cases kernels that skip one tile of the
    kernels' own tiling must fail the same check; B1-B3 and SDPA timed
    by CUDA events and by the profiler's device time, and ptxas's lines
    of the head_dim-128 instantiations; the LayerNorm forward element by element at the
@@ -222,6 +227,24 @@ Phases, in order; the first failure exits non-zero:
    and through ``runner.run`` the published port and the knobs in the
    worker's runtime, its broadcasts through the runtime, and the loss
    bitwise phase 4's step 1;
+4m. train GPT-2 medium (24 x 1024, vocab 50257, ``--flash
+   --fused-norm``, AdamW, phase 4's weights and 8 x 1024 batch) through
+   ``make_lm_train_step(mesh=...)`` on worlds of four ranks emulated on
+   the card (threads on one stream, the tp/sp exchanges between them
+   through ``parallel/comm.ThreadComm``, every other line the real
+   path's): (a) tp = 4 (4 heads and a quarter of the MLP a rank, the
+   vocab and norms whole), (b) sp = 4 with ring attention ([8, 256] a
+   rank), (c) sp = 4 with Ulysses; each held at step 1 against phase
+   4's world-1 step (the loss, every gradient row by row, the ranks'
+   shards put back together; ``MESH_GRAD_TOL``), where its injected
+   faults (a dropped ``attn.out`` all-reduce, rank 1's ``fc2`` partial
+   left out; a skipped ring block, every ``key_offset`` 128 late; the
+   Ulysses all-to-all reversed) must fail, then 3 steps: a falling loss,
+   exact B1-B5 launches (tp and Ulysses 24 B1-B3 and 49 B4/B5 a rank a
+   step; the ring 1 + 2 + 3 + 4 blocks a layer), the whole parameters
+   bitwise across the ranks, step ms, tokens/s, peak memory; (d) a
+   world of one over NCCL with ``HOROVOD_MESH=dp=1,tp=1``: phase 4's
+   losses bitwise;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -269,13 +292,16 @@ Phases, in order; the first failure exits non-zero:
    ``--checkpoint`` replica, groups of 64, 10, 3 and 1 concurrent
    clients, each answer bitwise the module's forward of the padded
    batch, with each group's batch fill; in this process an evicted
-   predict graph must free its memory;
+   predict graph must free its memory and its pinned host buffers, and
+   across more shapes than the graph cache holds the engine's pinned
+   host bytes must stay within one shape's;
 9. print the ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
    step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
    ((a)'s kernel composition), 4i, 4j, 4k (in process and the
    launched workers' second rounds), 4l ((a), (b) and (e)'s ``run()``
-   worker), 5 and 5b and the graphed
+   worker), 4m (the emulated worlds' steps and (d)), 5 and 5b and the
+   graphed
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
    times;
@@ -1016,6 +1042,11 @@ def check_flash(seed):
          1000, 1000, True)
     case("B=2 H=16 Tq=200 Tk=1000 D=64 bf16 causal, query_offset=700", 2,
          16, 200, 1000, True, q_off=700)
+    # phase 4m's ring blocks: rank 3 of sp = 4 attends each rank's span
+    for k_off in (0, 256, 512, 768):
+        case(f"B=8 H=16 T=256 D=64 bf16 causal ring block, query_offset="
+             f"768, key_offset={k_off}", 8, 16, 256, 256, True, q_off=768,
+             k_off=k_off, timed=k_off == 768)
     # the other head_dim instantiations and float32, once each
     case("B=1 H=4 T=300 D=128 bf16 causal", 1, 4, 300, 300, True, d=128)
     case("B=1 H=4 T=333 D=32 bf16 non-causal", 1, 4, 333, 333, False, d=32)
@@ -6503,6 +6534,578 @@ def train_eager(seed, ledger, in_process_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 4m: GPT-2 medium on a tp = 4 and an sp = 4 mesh (ring, Ulysses),
+# four ranks emulated on the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_STEPS = 3  # launches counted over all three, timed from the second
+#: (name, mesh axes, sequence_parallel) of phase 4m's emulated worlds
+MESH_CASES = (("tp=4", {"tp": 4}, None),
+              ("sp=4 ring", {"sp": 4}, "ring"),
+              ("sp=4 ulysses", {"sp": 4}, "ulysses"))
+#: the faults each case's step-1 check must catch (``_mesh_fault``)
+MESH_FAULTS = {"tp=4": ("drop_attn_out_reduce", "fc2_partial_left_out"),
+               "sp=4 ring": ("skip_ring_block", "wrong_key_offset"),
+               "sp=4 ulysses": ("all_to_all_reversed",)}
+#: limits of phase 4m's step-1 check against phase 4's world-1 step on
+#: the same weights and batch. Each parameter's gradient is held row by
+#: row (a row's relative L2, its norm floored at 1% of the tensor's RMS
+#: row norm): over 8 batch seeds the healthy worst read 0.206 (tp = 4),
+#: 0.202 (ring) and 0.061 (Ulysses), the worst rows in the key kernels,
+#: whose gradient goes through dS = P * (dP - delta); the least fault
+#: read 1.13 (a skipped ring block), the others 8.6-97.7
+#: (``--mesh-sweep 8`` on an NVIDIA H100 80GB HBM3, 700 W; PERF.md). Both
+#: sides run the same kernels in bf16; the emulated ranks' products have
+#: other shapes (cuBLAS sums in another order) and the ring merges bf16
+#: block outputs by their lse. The loss (absolute; healthy worst 1.9e-4,
+#: faults 2.4e-4 to 1.0e-2) and the attention key biases (whose true
+#: gradient is 0: against the whole gradient's norm; healthy worst
+#: 7.7e-6) are held to sanity bounds only: the gradient rows catch the
+#: faults
+MESH_GRAD_TOL = 0.5
+MESH_LOSS_TOL = 1e-3
+MESH_KEY_BIAS_TOL = 1e-3
+
+
+def _card():
+    """The card's name and power limit as nvidia-smi gives them, to
+    stand beside the numbers they qualify."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def _mesh_launches(case):
+    """B1-B5 launches a step, over the four emulated ranks: B1-B3 once a
+    layer a rank (tp: its 4 heads; Ulysses: its 4 heads over the whole
+    sequence), the ring's blocks below the diagonal only (1 + 2 + 3 + 4
+    a layer over the ranks, as many of B2 and B3); the 49 norms once a
+    rank each."""
+    layers, n = 24, MESH_RANKS
+    flash = layers * (n * (n + 1) // 2 if "ring" in case else n)
+    return {"flash_fwd": flash, "flash_bwd_dq": flash,
+            "flash_bwd_dkv": flash, "layernorm_fwd": 49 * n,
+            "layernorm_bwd": 49 * n}
+
+
+def _mesh_grad_readings(full, ref):
+    """Phase 4m's step-1 gradient readings: each parameter's largest
+    row error (rows along its first dimension; a vector is one row) as
+    a share of the row's norm, floored at 1% of the tensor's RMS row
+    norm; the key biases' error over the whole gradient's norm."""
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in ref.values()))
+    rows, key_bias = {}, {}
+    for n, r in ref.items():
+        r = r.float()
+        d = full[n].float() - r
+        if n.endswith("attn.key.bias"):
+            key_bias[n] = (d.norm() / total).item()
+            continue
+        r2 = r.reshape(r.shape[0], -1) if r.dim() > 1 else r.reshape(1, -1)
+        rn = r2.norm(dim=1)
+        floor = 1e-2 * rn.square().mean().sqrt()
+        rows[n] = (d.reshape(r2.shape).norm(dim=1)
+                   / torch.clamp(rn, min=floor.item())).max().item()
+    worst = max(rows, key=rows.get)
+    return {"grad_row_rel_max": rows[worst], "grad_worst": worst,
+            "grad_row_rel_median": float(np.median(list(rows.values()))),
+            "key_bias_over_grad_norm_max": max(key_bias.values())}
+
+
+@contextlib.contextmanager
+def _mesh_fault(name, model, rank, sync):
+    """One injected fault of phase 4m, on every emulated rank (``sync``
+    is the ranks' barrier; the module-level patches are made by rank 0
+    between two barriers): the attention's output all-reduce dropped
+    (each rank keeps its partial), rank 1's ``fc2`` partial left out of
+    the MLP's all-reduce, the ring's block from rank 0 skipped on rank
+    3, every ring block's ``key_offset`` 128 positions late, or the
+    Ulysses all-to-all's chunks taken in reverse order."""
+    import importlib
+
+    from horovod_tpu_torch.parallel import comm as pc
+    from horovod_tpu_torch.parallel import tensor_parallel as tpm
+    from horovod_tpu_torch.parallel import ulysses as ul
+
+    # the package exports the function ring_attention under the module's
+    # name
+    ra = importlib.import_module("horovod_tpu_torch.parallel.ring_attention")
+
+    saved = {}
+    if name in ("drop_attn_out_reduce", "fc2_partial_left_out"):
+        tp = model.tp
+
+        class _LeftOut:
+            rank, size = tp.comm.rank, tp.comm.size
+
+            def all_reduce(self, t):
+                parts = tp.comm.all_gather(t)
+                return pc.sum_in_rank_order(parts[:1] + parts[2:])
+
+        class _Faulty(tpm.TensorParallel):
+            def reduce_out(self, x):
+                if name == "drop_attn_out_reduce":
+                    return x
+                return tpm._ReduceOut.apply(x, _LeftOut())
+
+        faulty = _Faulty(tp.comm)
+        for b in model.blocks:
+            if name == "drop_attn_out_reduce":
+                b.attn.tp = faulty
+            else:
+                b.mlp.tp = faulty
+        try:
+            yield
+        finally:
+            for b in model.blocks:
+                b.attn.tp = b.mlp.tp = tp
+        return
+    sync()
+    if rank == 0:
+        if name == "skip_ring_block":
+            blocks = saved["_blocks"] = ra._blocks
+
+            def skipping(r, n, causal):
+                for s, src, visible in blocks(r, n, causal):
+                    yield s, src, visible and not (r == n - 1 and src == 0)
+
+            ra._blocks = skipping
+        elif name == "wrong_key_offset":
+            fwd, bwd = saved["flash_fwd"], saved["flash_bwd"] = \
+                ra.flash_fwd, ra.flash_bwd
+            ra.flash_fwd = lambda *a: fwd(*a[:-1], a[-1] + 128)
+            ra.flash_bwd = lambda *a: bwd(*a[:-1], a[-1] + 128)
+        elif name == "all_to_all_reversed":
+            a2a = saved["_all_to_all"] = ul._all_to_all
+
+            def reversed_a2a(x, comm, split, cat):
+                chunks = [c.contiguous() for c in x.chunk(comm.size, split)]
+                return torch.cat(comm.all_to_all(chunks)[::-1], dim=cat)
+
+            ul._all_to_all = reversed_a2a
+        else:
+            raise ValueError(f"no phase 4m fault {name!r}")
+    sync()
+    try:
+        yield
+    finally:
+        sync()
+        if rank == 0:
+            for attr, fn in saved.items():
+                setattr(ul if attr == "_all_to_all" else ra, attr, fn)
+        sync()
+
+
+def mesh_world(cfg, tokens, axes, sequence_parallel, faults=(),
+               steps=MESH_STEPS):
+    """One emulated world of phase 4m: ``MESH_RANKS`` threads on the
+    card, each rank building ``make_lm_train_step(cfg, AdamW, mesh=...)``
+    on its own ``Mesh`` whose live axis runs over a ``ThreadComm``
+    (``parallel/comm.py``; every other line of the step is the real
+    path's). Each rank takes the step-1 backward on ``tokens`` (its rows
+    and span of them), then each fault's, then ``steps`` training steps,
+    timed from the second. Returns rank 0's view: its loss, every rank's
+    gradients (rank 0's only under sp, where every rank's must be bitwise
+    the same), each fault's, the step losses, seconds, the launches of
+    the steps, the peak memory and whether the parameters that every
+    rank holds whole are bitwise the same on every rank."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.parallel import comm as pc
+    from horovod_tpu_torch.parallel import mesh as pm
+    from horovod_tpu_torch.parallel import sharding as psh
+
+    layout = pm.make_mesh(world=MESH_RANKS, **axes)
+    (axis,) = axes
+    world = pc.ThreadWorld(MESH_RANKS)
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    flash = (make_flash_attention_fn(causal=True)
+             if sequence_parallel is None else None)
+    def grads_of(model, rank, sync):
+        g = {n: p.grad for n, p in model.named_parameters()}
+        if axis == "sp":
+            every = sync(g)
+            same = all(torch.equal(every[0][n], v) for n, v in g.items())
+            _require(same, f"phase 4m {axes}: rank {rank}'s gradients are "
+                           "not bitwise rank 0's")
+            return every[0] if rank == 0 else None
+        return g
+
+    def rank_fn(rank):
+        def sync(value=None):
+            return world.exchange(rank, value)
+
+        mesh = pm.Mesh(layout.axis_names, layout.shape, rank,
+                       comms={axis: pc.ThreadComm(world, rank)})
+        model, step = hvd.make_lm_train_step(
+            cfg, factory, mesh=mesh, attention_fn=flash,
+            sequence_parallel=sequence_parallel)
+        out = {"specs": step.specs}
+        out["loss"] = float(step.backward(tokens))
+        out["grads"] = grads_of(model, rank, sync)
+        step.optimizer.zero_grad(set_to_none=True)
+        out["faults"] = {}
+        for name in faults:
+            with _mesh_fault(name, model, rank, sync):
+                loss = float(step.backward(tokens))
+            out["faults"][name] = {"loss": loss,
+                                   "grads": grads_of(model, rank, sync)}
+            step.optimizer.zero_grad(set_to_none=True)
+        sync()
+        if rank == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+        losses, secs = [], []
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            losses.append(step(tokens))
+            sync()
+            if rank == 0:
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        sync()
+        out["losses"] = [float(x) for x in losses]
+        if rank == 0:
+            torch.cuda.synchronize()
+            out["launches"] = dict(_build.LAUNCHES)
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["secs"] = secs
+        whole = {n: p.detach() for n, p in model.named_parameters()
+                 if step.specs is None
+                 or all(e is None for e in step.specs[n])}
+        every = sync(whole)
+        out["replicated_bitwise"] = all(
+            torch.equal(every[0][n], v) for n, v in whole.items())
+        out["replicated_params"] = len(whole)
+        out["all_grads"] = sync(out["grads"]) if axis == "tp" else None
+        out["all_fault_grads"] = {
+            name: sync(out["faults"][name]["grads"]) if axis == "tp"
+            else None for name in faults}
+        return out
+
+    results = pc.run_ranks([world], rank_fn, MESH_RANKS)
+    top = results[0]
+    _require(all(r["replicated_bitwise"] for r in results),
+             f"phase 4m {axes}: a parameter every rank holds whole differs "
+             "between the ranks after the steps")
+    _require(all(r["losses"] == top["losses"] and r["loss"] == top["loss"]
+                 for r in results),
+             f"phase 4m {axes}: the ranks' losses differ")
+    specs = top["specs"]
+    if axis == "tp":
+        top["full"] = psh.unshard_params(top["all_grads"], specs, layout)
+        top["fault_full"] = {
+            name: psh.unshard_params(g, specs, layout)
+            for name, g in top["all_fault_grads"].items()}
+    else:
+        top["full"] = top["grads"]
+        top["fault_full"] = {name: f["grads"]
+                             for name, f in top["faults"].items()}
+    del results
+    return top
+
+
+def _mesh_reference(cfg, tokens):
+    """Phase 4's world-1 step on the same weights and batch (seed 0,
+    flash attention, fused norms): its step-1 loss and gradients."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    model, step = hvd.make_lm_train_step(
+        cfg, factory, attention_fn=make_flash_attention_fn(causal=True))
+    loss = float(step.backward(tokens))
+    ref = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    return loss, ref
+
+
+def _mesh_case_readings(name, top, ref_loss, ref):
+    out = {"loss": top["loss"], "loss_err": abs(top["loss"] - ref_loss),
+           **_mesh_grad_readings(top["full"], ref), "faults": {}}
+    for f, grads in top["fault_full"].items():
+        out["faults"][f] = {
+            "loss_err": abs(top["faults"][f]["loss"] - ref_loss),
+            **_mesh_grad_readings(grads, ref)}
+    return out
+
+
+def _mesh_within(r):
+    return (r["loss_err"] <= MESH_LOSS_TOL
+            and r["grad_row_rel_max"] <= MESH_GRAD_TOL
+            and r["key_bias_over_grad_norm_max"] <= MESH_KEY_BIAS_TOL)
+
+
+def mesh_sweep(n_seeds):
+    """``--mesh-sweep N``: phase 4m's step-1 readings on the batches of
+    seeds 0..N-1 (healthy) and of its injected faults on seed 0's, each
+    case against the world-1 step: the limits' evidence."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    hvd.init()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    for seed in range(n_seeds):
+        tokens = torch.from_numpy(np.random.RandomState(1000 + seed).randint(
+            0, cfg.vocab_size, (8, 1024))).cuda()
+        ref_loss, ref = _mesh_reference(cfg, tokens)
+        for name, axes, sp in MESH_CASES:
+            top = mesh_world(cfg, tokens, axes, sp,
+                             faults=MESH_FAULTS[name] if seed == 0 else (),
+                             steps=0)
+            print(json.dumps({"mesh_sweep": name, "seed": seed,
+                              **_mesh_case_readings(name, top, ref_loss,
+                                                    ref)}))
+            del top
+            torch.cuda.empty_cache()
+        del ref
+    hvd.shutdown()
+
+
+def _row_sums(g, ref, spec, mesh):
+    """This rank's share of a parameter's per-row squared error and
+    squared norm (rows along the whole tensor's first dimension, a
+    vector one row): its slice's, placed at its rows and divided by the
+    number of ranks that hold the same slice, so that a SUM over the
+    world is the whole tensor's."""
+    from horovod_tpu_torch.parallel import sharding as psh
+
+    spec = spec or ()
+    want = psh.local_slice(ref, spec, mesh).float()
+    d = g.float() - want
+    if ref.dim() > 1:
+        d, want = d.reshape(d.shape[0], -1), want.reshape(d.shape[0], -1)
+    else:
+        d, want = d.reshape(1, -1), want.reshape(1, -1)
+    rows = ref.shape[0] if ref.dim() > 1 else 1
+    lo = 0
+    if d.shape[0] != rows:  # this rank holds a block of the rows
+        axes = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+        lo = mesh.group_index(axes) * d.shape[0]
+    err = torch.zeros(rows, device=ref.device, dtype=torch.float64)
+    nrm = torch.zeros_like(err)
+    err[lo:lo + d.shape[0]] = d.double().square().sum(1)
+    nrm[lo:lo + d.shape[0]] = want.double().square().sum(1)
+    split = math.prod(mesh.axis_size(a) for e in spec if e
+                      for a in (e if isinstance(e, tuple) else (e,)))
+    holders = mesh.size // split
+    return err / holders, nrm / holders
+
+
+def mesh_world_worker() -> int:
+    """``--mesh-world``: one rank of a real world of four cards
+    (``python -m horovod_tpu_torch.examples.local_world -np 4 -- python3
+    chip_smoke.py --mesh-world``), NCCL between them: phase 4m's cases
+    on real process groups. Each rank takes the gradients of phase 4's
+    weights and batch on its own card (the whole model, the mean loss),
+    then each case's step-1 gradients (under tp its slices) and three
+    timed steps. The rows' squared errors and norms sum over the world
+    (``_row_sums``), each case is held to phase 4m's limits, and rank 0
+    prints the readings, step ms, tokens/s, peak memory and launches a
+    rank a step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import (GPT2_MEDIUM,
+                                                      Transformer,
+                                                      causal_lm_loss)
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.collectives import Sum, allreduce
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    _require(hvd.size() == MESH_RANKS,
+             f"--mesh-world needs {MESH_RANKS} ranks, has {hvd.size()}")
+    _build.build(TRAIN_KERNELS)
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    flash = make_flash_attention_fn(causal=True)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    with torch.device("cuda"):
+        model = Transformer(cfg, attention_fn=flash)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    loss, _ = causal_lm_loss(model(tokens), tokens)
+    loss.backward()
+    ref_loss = loss.item()
+    ref = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, loss
+    torch.cuda.empty_cache()
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    report = {"mesh_world": f"{MESH_RANKS} cards, NCCL", "card": _card(),
+              "ref_loss": ref_loss, "tol": MESH_GRAD_TOL}
+    for name, axes, sp in MESH_CASES:
+        spec = ",".join(f"{a}={s}" for a, s in axes.items())
+        model, step = hvd.make_lm_train_step(
+            cfg, factory, mesh=spec, attention_fn=None if sp else flash,
+            sequence_parallel=sp)
+        loss = float(step.backward(tokens))
+        readings = {}
+        for n, p in model.named_parameters():
+            err, nrm = _row_sums(p.grad, ref[n],
+                                 (step.specs or {}).get(n), step.mesh)
+            err, nrm = allreduce(err, op=Sum), allreduce(nrm, op=Sum)
+            if n.endswith("attn.key.bias"):
+                continue  # a true gradient of 0
+            norm = nrm.sqrt()
+            floor = 1e-2 * norm.square().mean().sqrt()
+            readings[n] = (err.sqrt() / norm.clamp(min=floor.item())
+                           ).max().item()
+        step.optimizer.zero_grad(set_to_none=True)
+        worst = max(readings, key=readings.get)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, secs = [], []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(tokens)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        step_s = float(np.median(secs[1:]))
+        report[name] = {
+            "loss": loss, "loss_err": abs(loss - ref_loss),
+            "grad_row_rel_max": readings[worst], "grad_worst": worst,
+            "losses": losses, "step_ms": step_s * 1e3,
+            "step_ms_all": [x * 1e3 for x in secs],
+            "tokens_per_s": 8 * 1024 / step_s,
+            "peak_mem_gb_rank": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {k: _build.LAUNCHES[k] / MESH_STEPS
+                                  for k in TRAIN_KERNELS}}
+        _require(readings[worst] <= MESH_GRAD_TOL
+                 and report[name]["loss_err"] <= MESH_LOSS_TOL,
+                 f"--mesh-world {name}: {report[name]}")
+        _require(losses[-1] < losses[0], f"--mesh-world {name}: {losses}")
+        del model, step
+        torch.cuda.empty_cache()
+    if hvd.rank() == 0:
+        print(json.dumps(report), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+def train_mesh(seed, ledger, in_process_losses):
+    """Phase 4m: GPT-2 medium at full width (24 x 1024, 16 heads, vocab
+    50257, ``--flash --fused-norm``, AdamW, seed 0, phase 4's 8 x 1024
+    batch) through ``make_lm_train_step(mesh=...)`` on worlds of four
+    ranks emulated on the card (``mesh_world``):
+
+    (a) tp = 4: each rank 4 heads and a quarter of the MLP, the vocab
+        and the norms whole (``_prune_spec``);
+    (b) sp = 4 with ring attention: each rank the [8, 256] span;
+    (c) sp = 4 with Ulysses;
+
+    each held at step 1 against phase 4's world-1 step on the same
+    weights and batch (the loss, every gradient row by row; the ranks'
+    shards put back together), with its injected faults failing the
+    same check, then 3 steps with a falling loss, exact B1-B5 launches,
+    the whole parameters bitwise across the ranks, step ms, tokens/s
+    and peak memory; and (d) a world of one over NCCL with
+    ``HOROVOD_MESH=dp=1,tp=1``: phase 4's losses bitwise."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    report = {"phase": "mesh", "card": _card(),
+              "model": "GPT-2 medium 24x1024, 16 heads",
+              "batch": "8x1024", "ranks": MESH_RANKS,
+              "emulated": "threads on one card, one stream",
+              "tol": {"loss": MESH_LOSS_TOL, "grad_row_rel": MESH_GRAD_TOL,
+                      "key_bias": MESH_KEY_BIAS_TOL}}
+    hvd.init()
+    ref_loss, ref = _mesh_reference(cfg, tokens)
+    _require(ref_loss == in_process_losses[0],
+             f"phase 4m: the world-1 step's loss {ref_loss} is not phase "
+             f"4's {in_process_losses[0]}")
+    total = {}
+    for name, axes, sp in MESH_CASES:
+        t0 = time.perf_counter()
+        top = mesh_world(cfg, tokens, axes, sp, faults=MESH_FAULTS[name])
+        r = _mesh_case_readings(name, top, ref_loss, ref)
+        want = {k: v * MESH_STEPS for k, v in _mesh_launches(name).items()}
+        got = {k: top["launches"][k] for k in want}
+        step_s = float(np.median(top["secs"][1:]))
+        r.update(losses=top["losses"], launches=got,
+                 launches_per_step=_mesh_launches(name),
+                 replicated_params=top["replicated_params"],
+                 replicated_bitwise=True, step_ms=step_s * 1e3,
+                 step_ms_all=[x * 1e3 for x in top["secs"]],
+                 tokens_per_s=8 * 1024 / step_s,
+                 peak_mem_gb_world=top["peak_bytes"] / 1e9,
+                 peak_mem_gb_per_rank=top["peak_bytes"] / 1e9 / MESH_RANKS,
+                 case_s=time.perf_counter() - t0)
+        report[name] = r
+        print(json.dumps({"phase": "mesh", "case": name, **r}))
+        del top
+        torch.cuda.empty_cache()
+        _require(_mesh_within(r),
+                 f"phase 4m {name}: step 1 against the world-1 step reads "
+                 f"{r}")
+        for f, fr in r["faults"].items():
+            _require(not _mesh_within(fr),
+                     f"phase 4m {name}: the fault {f} passes: {fr}")
+        _require(got == want, f"phase 4m {name}: launches {got}, not {want}")
+        _require(all(np.isfinite(r["losses"]))
+                 and r["losses"][-1] < r["losses"][0],
+                 f"phase 4m {name}: losses {r['losses']}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    del ref
+    hvd.shutdown()
+
+    # (d) a trivial mesh changes nothing
+    os.environ["HOROVOD_MESH"] = "dp=1,tp=1"
+    try:
+        hvd.init()
+        _require(hvd.mesh().sizes == {"dp": 1, "tp": 1},
+                 f"phase 4m (d): hvd.mesh() is {hvd.mesh()!r}")
+        factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                    weight_decay=1e-4)
+        _build.reset_launches()
+        _, step = hvd.make_lm_train_step(
+            cfg, factory, attention_fn=make_flash_attention_fn(causal=True))
+        losses = [float(step(tokens)) for _ in range(MESH_STEPS)]
+        torch.cuda.synchronize()
+        for k, v in _build.LAUNCHES.items():
+            if v:
+                total[k] = total.get(k, 0) + v
+        del step
+        _require(losses == in_process_losses[:MESH_STEPS],
+                 f"phase 4m (d): HOROVOD_MESH=dp=1,tp=1 losses {losses} "
+                 f"are not phase 4's {in_process_losses[:MESH_STEPS]}")
+        report["d"] = {"mesh": "dp=1,tp=1", "losses": losses,
+                       "bitwise_phase4": True}
+    finally:
+        hvd.shutdown()
+        del os.environ["HOROVOD_MESH"]
+    ledger["train_mesh"] = total
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -7618,8 +8221,12 @@ def check_graph_eviction(mlp_dir):
     """An ``InferenceEngine`` on the predict tier's checkpoint in this
     process: its four bucket graphs captured, then an engine limited to
     one graph captures a fifth (a float16 request), evicting the four:
-    the memory the card holds for the engine must shrink. Returns the
-    reserved MB before and after."""
+    the memory the card holds for the engine must shrink, and no evicted
+    step may keep a pinned host buffer. Then, still limited to one
+    graph, requests of five more shapes (buckets x dtypes), more than
+    ``MAX_CACHED_EXECUTABLES`` (its default) keys in all: the engine's
+    pinned host bytes must stay at most the largest one key's buffers.
+    Returns the reserved MB before and after and the pinned bytes."""
     from horovod_tpu_torch.serving import InferenceEngine
 
     eng = InferenceEngine.from_checkpoint(mlp_dir, buckets=MLP_BUCKETS)
@@ -7627,6 +8234,10 @@ def check_graph_eviction(mlp_dir):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
+    warm = list(eng._cache.values())
+    _require(all(st.pinned for st in warm) and eng.pinned_bytes > 0,
+             "phase 8 (e): the warmed steps hold no pinned buffers")
+    limit = eng.MAX_CACHED_EXECUTABLES
     eng.MAX_CACHED_EXECUTABLES = 1
     eng(np.zeros((1, MLP_IN), np.float16))
     torch.cuda.synchronize()
@@ -7636,7 +8247,25 @@ def check_graph_eviction(mlp_dir):
              f"phase 8 (e): evicting 4 graphs left {eng.cached_executables} "
              f"cached and the reserved memory at {after} bytes from "
              f"{before}")
-    return _mb(before), _mb(after)
+    _require(not any(st.pinned for st in warm),
+             "phase 8 (e): an evicted step kept its pinned host buffers")
+    keys, peak, bound = 5, 0, 0
+    for n, dtype in ((1, np.float32), (3, np.float16), (10, np.float32),
+                     (50, np.float16), (64, np.float32)):
+        eng(np.zeros((n, MLP_IN), dtype))
+        bucket = eng.bucket_for(n)
+        # the input buffer, and an output of at most 8 bytes a value
+        bound = max(bound, bucket * (MLP_IN * np.dtype(dtype).itemsize
+                                     + MLP_FEATURES[-1] * 8))
+        peak = max(peak, eng.pinned_bytes)
+    keys += 5
+    _require(keys > eng.MAX_CACHED_EXECUTABLES and peak <= bound,
+             f"phase 8 (e): {keys} keys (limit {limit}) held up to {peak} "
+             f"pinned host bytes, more than one key's {bound}")
+    eng.MAX_CACHED_EXECUTABLES = limit
+    return {"reserved_mb": [_mb(before), _mb(after)],
+            "keys": keys, "max_cached": 1,
+            "pinned_bytes_max": peak, "pinned_bytes_bound": bound}
 
 
 def serve_http(seed, cfg, model, prompts, want):
@@ -7755,7 +8384,7 @@ def serve_http(seed, cfg, model, prompts, want):
         # (e)
         evict_mb = check_graph_eviction(mlp_dir)
         print(json.dumps({"serve_http": {
-            "graph_eviction_reserved_mb": evict_mb,
+            "graph_eviction": evict_mb,
             "replicas_ready_s": ready, "sigterm_to_exit_83_s": exit_s,
             "dead": rs.dead, "predict_batch_fill": fills,
             "rounds": [stats_a["tokens_per_s"], stats_b["tokens_per_s"],
@@ -8199,6 +8828,11 @@ def main(argv=None) -> int:
                          "training step time, the training-step, "
                          "decode-step (bf16 and int8 cache) and ResNet-50 "
                          "step profiles, to compare two trees in one call")
+    ap.add_argument("--mesh-sweep", type=int, default=0, metavar="N",
+                    help="only build the flash and norm kernels and print "
+                         "phase 4m's step-1 readings of seeds 0..N-1 and "
+                         "of its injected faults (MESH_GRAD_TOL's "
+                         "evidence)")
     ap.add_argument("--adasum-sweep", type=int, default=0, metavar="N",
                     help="only build the flash kernels and print phase "
                          "4g's readings of seeds 0..N-1 and of the "
@@ -8212,6 +8846,10 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-worker", metavar="OUT",
                     help="phase 4k's worker under the elastic launcher "
                          "(elastic_worker), not a smoke")
+    ap.add_argument("--mesh-world", action="store_true",
+                    help="one rank of phase 4m's cases on a real world of "
+                         "four cards (mesh_world_worker; under "
+                         "examples/local_world -np 4), not a smoke")
     ap.add_argument("--eager-stall-worker", action="store_true",
                     help="phase 4l (d)'s process (eager_stall_worker), "
                          "not a smoke")
@@ -8231,6 +8869,8 @@ def main(argv=None) -> int:
         return elastic_worker(args.elastic_worker)
     if args.eager_stall_worker:
         return eager_stall_worker()
+    if args.mesh_world:
+        return mesh_world_worker()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -8252,7 +8892,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     secs = _build.build(PROFILE_KERNELS if args.profiles
-                        else ADASUM_KERNELS if args.adasum_sweep else None)
+                        else ADASUM_KERNELS if args.adasum_sweep
+                        else TRAIN_KERNELS if args.mesh_sweep else None)
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     if args.profiles:
@@ -8260,6 +8901,9 @@ def main(argv=None) -> int:
         return 0
     if args.adasum_sweep:
         adasum_sweep(args.adasum_sweep)
+        return 0
+    if args.mesh_sweep:
+        mesh_sweep(args.mesh_sweep)
         return 0
     print_ptxas(_build, secs)
     print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -8300,6 +8944,7 @@ def main(argv=None) -> int:
     train_checkpoint(ledger)
     train_elastic(ledger)
     train_eager(args.seed, ledger, in_process_losses)
+    train_mesh(args.seed, ledger, in_process_losses)
     train_resnet(args.seed, ledger)
     train_cnns(ledger)
     train_mnist_and_entry()

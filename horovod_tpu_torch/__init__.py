@@ -30,6 +30,12 @@ NVIDIA Hopper GPUs:
   world-wide ones, and Inception V3 and VGG-16
   (``python -m horovod_tpu_torch.examples.resnet50_synthetic --model``),
   and MNIST (``python -m horovod_tpu_torch.examples.mnist``);
+* **tensor and sequence parallelism** on a device mesh
+  (``hvd.mesh()``, ``HOROVOD_MESH="dp=2,tp=2"``, ``parallel/``):
+  ``make_lm_train_step(mesh=..., sequence_parallel="ring"|"ulysses")``
+  keeps this rank's slices of the weights by the JAX package's sharding
+  rules and issues the Megatron exchanges, ring attention or Ulysses
+  over the sp axis;
 * **elastic training** (``hvd.elastic``): ``TorchState`` commits a
   model, optimizer and plain values to host memory, ``@hvd.elastic.run``
   restores and re-joins the world when a collective fails, a SIGTERM
@@ -73,7 +79,7 @@ from .checkpoint import LoadedModel, load_model, save_model
 from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                           cuda_enabled, ddl_built, device, gloo_built,
                           gloo_enabled, init, is_initialized, local_rank,
-                          local_size, mpi_built, mpi_enabled,
+                          local_size, mesh, mpi_built, mpi_enabled,
                           mpi_threads_supported, nccl_built, nccl_enabled,
                           rank, rocm_built, shutdown, size, xla_built,
                           xla_enabled)
@@ -126,7 +132,7 @@ from .sync_batch_norm import SyncBatchNorm
 __all__ = [
     # basics
     "init", "shutdown", "is_initialized", "size", "rank", "local_size",
-    "local_rank", "cross_size", "cross_rank", "device",
+    "local_rank", "cross_size", "cross_rank", "device", "mesh",
     "mpi_built", "mpi_enabled", "mpi_threads_supported", "gloo_built",
     "gloo_enabled", "nccl_built", "nccl_enabled", "cuda_built",
     "cuda_enabled", "rocm_built", "ddl_built", "ccl_built", "xla_built",

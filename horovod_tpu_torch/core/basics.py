@@ -25,7 +25,10 @@ is (its rank and size win over the environment) and left alone at
 
 ``init(process_sets=[...])`` registers those process sets, in order,
 once the world is up, as ``add_process_set`` would (collective: every
-rank passes the same list).
+rank passes the same list). Then it builds the device mesh
+``HOROVOD_MESH`` names (``"dp=2,tp=2"``; unset: one ``dp`` axis over
+the world), registering a process set for each slice of each live axis
+(collective too); ``mesh()`` returns it.
 
 With ``HVD_TPU_NATIVE=1`` (``Knobs.native_eager``) ``init()`` also
 starts the eager negotiation runtime (``ops/eager_runtime.py``): the
@@ -121,6 +124,15 @@ def init(device: Optional[str] = None,
             raise
     for ps in process_sets or ():
         _ps.add_process_set(ps)
+    from ..parallel.mesh import mesh_from_spec
+
+    try:
+        # collective: every rank registers the mesh's axis groups
+        st.mesh = mesh_from_spec(st.knobs.mesh_spec, st.size,
+                                 st.rank).bind()
+    except BaseException:
+        shutdown()
+        raise
     if st.knobs.replication_enabled:
         # peer replication of elastic commits (elastic/replication.py)
         from ..elastic import replication
@@ -291,6 +303,13 @@ def cross_size() -> int:
 
 def cross_rank() -> int:
     return _require_init().cross_rank
+
+
+def mesh():
+    """The device mesh (``parallel/mesh.Mesh``) ``HOROVOD_MESH`` names
+    over the world, bound to it; without the knob one ``dp`` axis over
+    every rank."""
+    return _require_init().mesh
 
 
 def device() -> torch.device:

@@ -159,6 +159,11 @@ class Knobs:
     # (peer replica, emergency snapshot, checkpoint)
     recovery_ladder: bool = True
 
+    # --- mesh (parallel/mesh.py) ---
+    # comma-separated axis spec, e.g. "dp=8" or "dp=4,tp=2"; empty = one
+    # flat data-parallel axis over the world
+    mesh_spec: str = ""
+
     # --- inference serving ---
     # padded batch-size buckets the engine captures a CUDA graph for;
     # requests are coalesced into the smallest covering bucket
@@ -273,4 +278,5 @@ class Knobs:
             log_level=_env("LOG_LEVEL", "WARNING") or "WARNING",
             log_hide_timestamp=_env_bool("LOG_HIDE_TIME", False),
             log_rank=_env_bool("LOG_RANK", False),
+            mesh_spec=_env("MESH", "") or "",
         )

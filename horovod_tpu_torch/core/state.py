@@ -3,8 +3,9 @@
 The counterpart of the JAX package's ``core/state.py``. Where that holds
 a device mesh, this holds the ``torch.distributed`` process group the
 collectives run on, the device they run on, the rank/size fields read
-from the launcher's environment, the knobs, the process-set table, the
-eager negotiation runtime and the handles of asynchronous collectives.
+from the launcher's environment, the device mesh, the knobs, the
+process-set table, the eager negotiation runtime and the handles of
+asynchronous collectives.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ class GlobalState:
         self.local_size = 1
         self.cross_rank = 0
         self.cross_size = 1
+        # the device mesh (parallel/mesh.Mesh) HOROVOD_MESH names, bound
+        # to the world
+        self.mesh: Optional[Any] = None
         # the eager negotiation runtime (ops/eager_runtime.py), live
         # when init() ran with HVD_TPU_NATIVE=1
         self.eager_runtime: Optional[Any] = None

@@ -6,9 +6,9 @@ contract), ``AsyncDataLoaderMixin`` (a background thread filling a
 bounded queue; ``close()`` drains it), ``ShardedDataLoader`` and
 ``device_prefetch``. Where the JAX loader places a host batch on the
 mesh with a named sharding, the port's world is one process a card:
-each rank's loader yields its own rows and ``ShardedDataLoader`` puts
-them on the rank's device (a ``mesh`` is the model/sequence/pipeline
-mesh of ROADMAP queue A entry 11, not here). ``device_prefetch`` keeps
+``ShardedDataLoader`` puts a rank's rows on its device, the rows of its
+coordinate on the mesh's data axes when given a ``mesh`` (each batch
+then the global one). ``device_prefetch`` keeps
 ``size`` batches in flight: each copied into pinned host memory and on
 to the card by a ``non_blocking`` copy on a side stream, whose event the
 consuming stream waits on.
@@ -16,6 +16,7 @@ consuming stream waits on.
 
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from typing import Any, Iterator, Optional
@@ -134,28 +135,51 @@ def _default_device(device) -> torch.device:
 
 
 class ShardedDataLoader(BaseDataLoader):
-    """Wrap an iterable of this rank's host batches (arrays, tensors, or
+    """Wrap an iterable of host batches (arrays, tensors, or
     dicts/lists/tuples of them), placing each on ``device`` (default:
-    the rank's, ``hvd.device()``, after ``init()``; else the CPU)."""
+    the rank's, ``hvd.device()``, after ``init()``; else the CPU).
 
-    def __init__(self, source, mesh=None, axis: Optional[str] = None,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedDataLoader(mesh=...): the device mesh is not in "
-                "horovod_tpu_torch yet (ROADMAP queue A entry 11); each "
-                "rank's loader yields its own rows")
-        del axis
+    Without ``mesh`` each batch is this rank's own rows. With ``mesh``
+    (a ``parallel.mesh.Mesh``) each batch is the global batch and the
+    rank keeps its rows of every leaf (dimension 0): the block at its
+    row-major position over ``axis`` (an axis name or a tuple of them;
+    default the mesh's live data axes, dp and fsdp), as the JAX
+    package's loader shards the batch dimension over the axis. Ranks
+    that differ only in tp or sp get the same rows."""
+
+    def __init__(self, source, mesh=None, axis=None, device=None):
         self._source = source
+        self._mesh = mesh
+        if mesh is not None and axis is None:
+            from ..parallel.mesh import data_axes
+
+            axis = data_axes(mesh)
+        self._axes = (axis,) if isinstance(axis, str) else tuple(axis or ())
         self._device = device
 
     def __len__(self) -> int:
         return len(self._source)
 
+    def _rows(self, x):
+        mesh = self._mesh
+        n = math.prod(mesh.axis_size(a) for a in self._axes)
+        if n == 1 or x.dim() == 0:  # a scalar has no rows to split
+            return x
+        if x.shape[0] % n:
+            raise ValueError(
+                f"a leaf of {x.shape[0]} rows does not split over the "
+                f"{n} ranks of mesh axes {self._axes}")
+        k = x.shape[0] // n
+        i = mesh.group_index(self._axes)
+        return x[i * k:(i + 1) * k]
+
     def _iterate(self):
         dev = _default_device(self._device)
         for batch in self._source:
-            yield _tree_map(lambda x: _leaf_tensor(x).to(dev), batch)
+            yield _tree_map(
+                lambda x: self._rows(_leaf_tensor(x)).to(dev)
+                if self._mesh is not None else _leaf_tensor(x).to(dev),
+                batch)
 
 
 def device_prefetch(iterator, device=None, size: int = 2):

@@ -14,7 +14,8 @@ and ``var`` buffers. Nothing in them is particular to the ResNet: they
 convert Inception V3 (``ConvBN_i.Conv_0`` / ``.BatchNorm_0``), VGG-16,
 ``MLP`` and ``MnistNet`` (convolution biases, Dense kernels ``[in,
 out]`` in both, VGG's and MNIST's flatten in NHWC order in both) and the
-MNIST example's ``ConvNet`` as they are.
+MNIST example's ``ConvNet`` as they are. :func:`shards_from_flax` gives
+one rank's slices of a transformer tree on a tensor-parallel mesh.
 """
 
 from __future__ import annotations
@@ -49,6 +50,18 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def shards_from_flax(tree: Mapping[str, Any], mesh, rules=None,
+                     rank: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """One rank's shards of a flax param tree: :func:`params_from_flax`,
+    then the slice of each tensor that ``rank`` (default: the mesh's own)
+    keeps on ``mesh`` (``parallel.mesh.Mesh``) by ``rules`` (default the
+    transformer rules; ``parallel.sharding.shard_params``)."""
+    from ..parallel.sharding import shard_params
+
+    return shard_params(params_from_flax(tree), mesh, rules, rank)
 
 
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

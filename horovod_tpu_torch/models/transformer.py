@@ -24,6 +24,11 @@ default attention on the training / one-shot path. With ``kv_cache``
 the attention appends the new K/V rows into a slotted cache and
 attends over it (serving/decode.py, ops/decode_attention.py).
 
+Under tensor parallelism (``parallel/tensor_parallel.parallelize``) the
+modules hold ``tp``, the tp group's exchanges, and run on whatever
+slices their parameters hold: the local heads and MLP width come from
+the kernels' shapes.
+
 ``remat=True`` recomputes each block's forward during the backward
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations, as the JAX package's ``nn.remat`` does.
@@ -137,14 +142,26 @@ class Dense(nn.Module):
         else:
             self.register_parameter("bias", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
-        lead = x.shape[:x.dim() - len(self.in_shape)]
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """``tp`` (``parallel/tensor_parallel.TensorParallel``): the
+        kernel may be this rank's slice, its shapes are the kernel's. A
+        split contracted dimension (row-parallel) all-reduces the product
+        before the bias; a split output dimension (column-parallel)
+        reads its chunk of a whole bias."""
+        k = len(self.in_shape)
+        in_shape, out_shape = self.kernel.shape[:k], self.kernel.shape[k:]
+        n_in, n_out = math.prod(in_shape), math.prod(out_shape)
+        lead = x.shape[:x.dim() - k]
         kernel = self.kernel.to(self.dtype).reshape(n_in, n_out)
         y = torch.matmul(x.to(self.dtype).reshape(*lead, n_in), kernel)
-        y = y.reshape(*lead, *self.out_shape)
+        y = y.reshape(*lead, *out_shape)
+        if tp is not None and n_in != math.prod(self.in_shape):
+            y = tp.reduce_out(y)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            bias = self.bias
+            if tp is not None and bias.shape != out_shape:
+                bias = tp.local_bias(bias, out_shape)
+            y = y + bias.to(self.dtype)
         return y
 
 
@@ -155,14 +172,27 @@ class Embed(nn.Module):
     def __init__(self, vocab: int, features: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
+        self.vocab = vocab
         self.embedding = nn.Parameter(torch.zeros(vocab, features))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+        if tp is not None and self.vocab_split:
+            return tp.embed(self.embedding, tokens).to(self.dtype)
         return self.embedding[tokens].to(self.dtype)
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype),
-                            self.embedding.to(self.dtype).t())
+    def attend(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        split = tp is not None and self.vocab_split
+        if split:
+            x = tp.copy_in(x)
+        logits = torch.matmul(x.to(self.dtype),
+                              self.embedding.to(self.dtype).t())
+        return tp.gather_last(logits) if split else logits
+
+    @property
+    def vocab_split(self) -> bool:
+        """Whether the table holds a slice of the vocab (tensor
+        parallelism)."""
+        return self.embedding.shape[0] != self.vocab
 
 
 class LayerNorm(nn.Module):
@@ -279,6 +309,10 @@ def dot_product_attention(q, k, v, *, causal: bool, mask=None):
 
 
 class Attention(nn.Module):
+    #: the tp group's exchanges when the kernels are this rank's heads
+    #: (parallel/tensor_parallel.parallelize)
+    tp = None
+
     def __init__(self, cfg: TransformerConfig, attention_fn=None):
         super().__init__()
         self.cfg = cfg
@@ -294,13 +328,16 @@ class Attention(nn.Module):
     def forward(self, x, positions, mask=None, kv_cache=None, layer=0,
                 rope=None):
         cfg = self.cfg
-        q = self.query(x)
-        k = self.key(x)
-        v = self.value(x)
-        if cfg.position == "rope":
-            cos, sin = rope
-            q = apply_rope(q, cos, sin, positions)
-            k = apply_rope(k, cos, sin, positions)
+        if self.tp is not None:
+            q, k, v = self._split_qkv(x, positions, rope)
+        else:
+            q = self.query(x)
+            k = self.key(x)
+            v = self.value(x)
+            if cfg.position == "rope":
+                cos, sin = rope
+                q = apply_rope(q, cos, sin, positions)
+                k = apply_rope(k, cos, sin, positions)
         if kv_cache is not None:
             # serving path: the new tokens' K/V append into the slotted
             # cache and attention runs over the whole cache slice under
@@ -321,10 +358,37 @@ class Attention(nn.Module):
                     "(q, k, v) and would silently drop the padding mask; "
                     "pre-mask the inputs or use the default attention")
             out = self.attention_fn(q, k, v)
-        return self.out(out)
+        return self.out(out, self.tp)
+
+    def _split_qkv(self, x, positions, rope):
+        """q, k, v of this rank's heads (tensor parallelism). Query heads
+        split over tp with whole k/v kernels (GQA, ``kv_heads`` not
+        divisible by tp) take the kv heads their heads read, k and v
+        entering the parallel region after their projection; heads not
+        divisible by tp leave the whole attention replicated."""
+        cfg, tp = self.cfg, self.tp
+        q_split = self.query.kernel.shape[1] != cfg.num_heads
+        kv_split = self.key.kernel.shape[1] != cfg.kv_heads
+        xs = tp.copy_in(x) if q_split else x
+        q = self.query(xs, tp)
+        k = self.key(xs if kv_split else x, tp)
+        v = self.value(xs if kv_split else x, tp)
+        if cfg.position == "rope":
+            cos, sin = rope
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+        if q_split and not kv_split:
+            rep = cfg.num_heads // cfg.kv_heads
+            k, v = (tp.local(torch.repeat_interleave(tp.copy_in(t), rep,
+                                                     dim=2), q.shape)
+                    for t in (k, v))
+        return q, k, v
 
 
 class Mlp(nn.Module):
+    #: the tp group's exchanges when the kernels are this rank's slice
+    tp = None
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
@@ -338,11 +402,14 @@ class Mlp(nn.Module):
         self.fc2 = Dense((F_,), (S,), cfg.dtype, bias)
 
     def forward(self, x):
+        tp = self.tp
+        if tp is not None and self.fc2.kernel.shape[0] != self.cfg.mlp_dim:
+            x = tp.copy_in(x)
         if self.cfg.activation == "swiglu":
-            h = F.silu(self.gate(x)) * self.up(x)
+            h = F.silu(self.gate(x, tp)) * self.up(x, tp)
         else:
-            h = F.gelu(self.fc1(x), approximate="tanh")
-        return self.fc2(h)
+            h = F.gelu(self.fc1(x, tp), approximate="tanh")
+        return self.fc2(h, tp)
 
 
 class Block(nn.Module):
@@ -366,6 +433,9 @@ class Transformer(nn.Module):
     rope/RMS/swiglu). Parameter names follow the flax tree
     (``block_0.attn.query.kernel``, ...). ``attention_fn(q, k, v)``
     replaces the default attention on ``[B, T, H, D]`` tensors."""
+
+    #: the tp group's exchanges (parallel/tensor_parallel.parallelize)
+    tp = None
 
     def __init__(self, cfg: TransformerConfig, attention_fn=None):
         super().__init__()
@@ -428,7 +498,7 @@ class Transformer(nn.Module):
         B, T = tokens.shape
         if positions is None:
             positions = torch.arange(T, device=tokens.device).expand(B, T)
-        x = self.tok_emb(tokens)
+        x = self.tok_emb(tokens, self.tp)
         if cfg.position == "learned":
             x = x + self.pos_emb[positions].to(cfg.dtype)
         rope = ((self.rope_cos, self.rope_sin) if cfg.position == "rope"
@@ -445,8 +515,11 @@ class Transformer(nn.Module):
         if return_hidden:
             return x
         if cfg.tie_embeddings:
-            return self.tok_emb.attend(x)
-        return self.lm_head(x)
+            return self.tok_emb.attend(x, self.tp)
+        tp = self.tp
+        if tp is None or self.lm_head.kernel.shape[1] == cfg.vocab_size:
+            return self.lm_head(x)
+        return tp.gather_last(self.lm_head(tp.copy_in(x), tp))
 
 
 # -- task heads / losses ----------------------------------------------------
@@ -464,8 +537,15 @@ def causal_lm_nll(logits, tokens, ignore_index: int = -1):
     the float32 next-token cross-entropy summed over valid, in-range
     targets and the count of targets that are not ``ignore_index``
     (not clamped), so several ranks' batches can share one mean."""
-    targets = tokens[:, 1:]
-    lg = logits[:, :-1].to(torch.float32)
+    return lm_nll(logits[:, :-1], tokens[:, 1:], ignore_index)
+
+
+def lm_nll(logits, targets, ignore_index: int = -1):
+    """:func:`causal_lm_nll`'s sums with the targets given: ``logits``
+    ``[B, T, V]`` of the positions whose next tokens are ``targets``
+    ``[B, T]`` (a sequence span's, whose last target is the next span's
+    first token)."""
+    lg = logits.to(torch.float32)
     valid = targets != ignore_index
     # out-of-range ids (sentinels, padding artifacts) contribute zero
     in_range = (targets >= 0) & (targets < lg.shape[-1])

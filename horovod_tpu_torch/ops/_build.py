@@ -20,8 +20,9 @@ threads, too much shared memory) is an error here and not a silent
 no-op.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds
-one where it launches its kernel and nowhere else, so a caller can show
-that a run went through the kernels (``chip_smoke.py``).
+one (``count_launch``) where it launches its kernel and nowhere else,
+so a caller can show that a run went through the kernels
+(``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -67,9 +68,20 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (under a lock: the emulated
+    ranks of ``parallel/comm.run_ranks`` launch from several threads)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def sources() -> Dict[str, Path]:

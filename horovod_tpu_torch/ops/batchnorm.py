@@ -266,7 +266,7 @@ def _launch(name: str, x2: torch.Tensor, *args) -> None:
     err = fn(*args, _DTYPE_CODES[x2.dtype], x2.device.index,
              _build.stream_handle(x2.device))
     _build.check(lib, err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
 
 
 def _ptr(t: Optional[torch.Tensor]):

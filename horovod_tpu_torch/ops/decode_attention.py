@@ -258,7 +258,7 @@ def _check_inputs(q, k_new, v_new, positions, slices, m: int, d: int):
 
 
 def _count(kernel: str, route: int, cluster: int) -> None:
-    _build.LAUNCHES[kernel] += 1
+    _build.count_launch(kernel)
     ROUTE_LAUNCHES[ROUTES[route]] += 1
     LAST_LAUNCH.update(route=ROUTES[route], cluster=cluster)
 

@@ -216,7 +216,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float,
         int(query_offset), int(key_offset), _DTYPE_CODES[q.dtype],
         q.device.index, _build.stream_handle(q.device))
     _build.check(lib, err, "flash_fwd")
-    _build.LAUNCHES["flash_fwd"] += 1
+    _build.count_launch("flash_fwd")
     return out, lse
 
 
@@ -251,7 +251,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
         _DTYPE_CODES[q.dtype], q.device.index,
         _build.stream_handle(q.device))
     _build.check(lib, err, "flash_bwd_dq")
-    _build.LAUNCHES["flash_bwd_dq"] += 1
+    _build.count_launch("flash_bwd_dq")
     return dq
 
 
@@ -275,7 +275,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
         int(key_offset), _DTYPE_CODES[q.dtype], q.device.index,
         _build.stream_handle(q.device))
     _build.check(lib, err, "flash_bwd_dkv")
-    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    _build.count_launch("flash_bwd_dkv")
     return dk, dv
 
 
@@ -283,18 +283,37 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
 # autograd and the public functions
 # ---------------------------------------------------------------------------
 
+def flash_fwd(q, k, v, causal: bool, scale: float, query_offset: int = 0,
+              key_offset: int = 0):
+    """``(O, lse)`` of ``[B, H, T, D]`` operands: B1 on a CUDA tensor,
+    :func:`flash_attention_ref` on a CPU one."""
+    if q.is_cuda:
+        return flash_fwd_cuda(q, k, v, causal, scale, query_offset,
+                              key_offset)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, scale, query_offset,
+                                   key_offset)
+    raise ValueError(f"no flash-attention kernel for {q.device}")
+
+
+def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
+              query_offset: int = 0, key_offset: int = 0):
+    """``(dq, dk, dv)`` from ``lse`` and ``delta``: B2 and B3 on CUDA
+    tensors, :func:`flash_bwd_ref` on CPU ones."""
+    args = (causal, scale, query_offset, key_offset)
+    if q.is_cuda:
+        dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *args)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *args)
+        return dq, dk, dv
+    return flash_bwd_ref(q, k, v, dout, lse, delta, *args)
+
+
 class _FlashFn(torch.autograd.Function):
     """[B, H, T, D] flash attention core; backward through B2 and B3."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_off, k_off):
-        if q.is_cuda:
-            out, lse = flash_fwd_cuda(q, k, v, causal, scale, q_off, k_off)
-        elif q.device.type == "cpu":
-            out, lse = flash_attention_ref(q, k, v, causal, scale, q_off,
-                                           k_off)
-        else:
-            raise ValueError(f"no flash-attention kernel for {q.device}")
+        out, lse = flash_fwd(q, k, v, causal, scale, q_off, k_off)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, q_off, k_off)
         return out
@@ -305,13 +324,7 @@ class _FlashFn(torch.autograd.Function):
         dout = dout.to(q.dtype)
         delta = torch.sum(dout.to(torch.float32) * out.to(torch.float32),
                           dim=-1)
-        if q.is_cuda:
-            dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *ctx.args)
-            dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta,
-                                        *ctx.args)
-        else:
-            dq, dk, dv = flash_bwd_ref(q, k, v, dout, lse, delta,
-                                       *ctx.args)
+        dq, dk, dv = flash_bwd(q, k, v, dout, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

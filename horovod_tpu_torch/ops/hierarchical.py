@@ -18,8 +18,8 @@ sets strided across them (:func:`block_groups`). Each runs on a
 registered process set (``core/process_sets.py``), so the first call
 with a block registers the world's inner and outer sets, on every rank:
 it is collective, as ``add_process_set`` is. The JAX package's two-axis
-form (a mesh whose last axis is the inner domain) comes with the mesh
-(ROADMAP queue A entry 11).
+form (a mesh whose last axis is the inner domain) is a later part of
+ROADMAP queue A entry 11.
 
 The outer leg of :func:`hierarchical_psum` takes a wire
 (``optim/compression.py`` ``WireSpec``); the inner legs always run at

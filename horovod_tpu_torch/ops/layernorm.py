@@ -185,7 +185,7 @@ def layer_norm_cuda(x2: torch.Tensor, gamma: torch.Tensor,
         int(rms), _DTYPE_CODES[x2.dtype],
         x2.device.index, _build.stream_handle(x2.device))
     _build.check(lib, err, "layernorm_fwd")
-    _build.LAUNCHES["layernorm_fwd"] += 1
+    _build.count_launch("layernorm_fwd")
     return y
 
 
@@ -223,7 +223,7 @@ def layer_norm_bwd_cuda(x2: torch.Tensor, dy2: torch.Tensor,
         _DTYPE_CODES[x2.dtype], x2.device.index,
         _build.stream_handle(x2.device))
     _build.check(lib, err, "layernorm_bwd")
-    _build.LAUNCHES["layernorm_bwd"] += 1
+    _build.count_launch("layernorm_bwd")
     return dx, dg, db
 
 

@@ -164,7 +164,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
         fn.restype = ctypes.c_int
     err = fn(*args, device.index, _build.stream_handle(device))
     _build.check(lib, err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
 
 
 def _check(what: str, t: torch.Tensor, dtype: torch.dtype,

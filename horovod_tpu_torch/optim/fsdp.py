@@ -30,8 +30,8 @@ Where the port differs: a world of one rank is a layout too (rows of
 ``(1, L_i)``: the buckets themselves), so the FSDP step also runs on one
 card; the JAX package's ``param_row_specs`` and ``param_row_shardings``
 place the rows on a device mesh, which a world of one process per card
-does not have (each rank already holds only its rows): they come with
-the mesh (ROADMAP queue A entry 11). ``save_fsdp`` / ``load_fsdp`` come
+does not have (each rank already holds only its rows): they are a
+later part of the mesh's entry (ROADMAP queue A entry 11). ``save_fsdp`` / ``load_fsdp`` come
 with the checkpointer (entry 8).
 """
 
@@ -420,8 +420,11 @@ class UnboundOptimizer:
         self._build = build
         self._hvd_overlap_info = info
 
-    def bind(self, named_parameters):
-        return self._build(named_parameters)
+    def bind(self, named_parameters, **kwargs):
+        """The optimizer over ``named_parameters``; ``kwargs`` go to its
+        constructor (``process_set=`` for a ZeRO-1 optimizer on a mesh's
+        data axis)."""
+        return self._build(named_parameters, **kwargs)
 
 
 def FullyShardedOptimizer(optimizer: Callable, named_parameters=None,

@@ -57,12 +57,13 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..core.basics import _require_init
+from ..core.process_sets import set_context
 from ..ops import ring_pack
 from ..ops.collectives import (ReduceOp, _all_gather_tiled,
                                _reduce_scatter_tiled, lost_peer)
 from ..ops.fusion import (BucketPlan, pack_buckets_by_plan,
                           plan_bucket_lengths)
-from .compression import (Compression, compressor_wire_spec,
+from .compression import (Compression, NoneCompressor, compressor_wire_spec,
                           quantized_reduce_scatter_rows, wire_applies)
 from .distributed import _DistributedOptimizer
 
@@ -85,12 +86,14 @@ def _int8(wire, dtype) -> bool:
 
 
 def _start_scatter_bucket(rows: torch.Tensor, n: int, wire,
-                          residual: Optional[torch.Tensor] = None):
+                          residual: Optional[torch.Tensor] = None,
+                          group=None):
     """Start the reduce-scatter of one padded ``(n, k)`` gradient bucket
     to this rank's AVERAGED ``(k,)`` shard on ``wire``; returns
     ``finish()``, which waits and gives the shard (``(shard,
     new_residual)`` with a residual). On the float32 wire the SUM is
-    reduce-scattered and divided by n; a cast wire does both in its
+    reduce-scattered (over ``group``, default the world) and divided by
+    n; a cast wire does both in its
     dtype and casts back; the int8 wire runs
     ``compression.quantized_reduce_scatter_rows`` (its float32 SUM,
     divided by n), with this rank's error-feedback ``residual`` when
@@ -109,7 +112,7 @@ def _start_scatter_bucket(rows: torch.Tensor, n: int, wire,
     flat = rows.reshape(-1)
     if wire_applies(wire, rows.dtype):
         flat = flat.to(wire.wire_dtype)
-    out, work = _reduce_scatter_tiled(flat.contiguous(), n)
+    out, work = _reduce_scatter_tiled(flat.contiguous(), n, group)
 
     def finish():
         work.wait()
@@ -250,17 +253,25 @@ class _ShardedOptimizer(_DistributedOptimizer):
 
     def __init__(self, optimizer: Callable, named_parameters,
                  compression=None, fusion_threshold_bytes=None,
-                 bucket_backward_order=None):
+                 bucket_backward_order=None, process_set=None):
         st = _require_init()
+        ctx = set_context(process_set)
         if compression is None:
             compression = Compression.from_knobs(st.knobs)
+        if ctx.group is not None and _int8(compressor_wire_spec(compression),
+                                           torch.float32):
+            # the quantized exchange runs over the whole world: a proper
+            # subset moves float32, as the DistributedOptimizer's does
+            compression = NoneCompressor
         self._compression = compression
         #: the WireSpec of the gradient reduce-scatter (None: float32)
         self.wire = compressor_wire_spec(compression)
         self._op = ReduceOp.AVERAGE
         self._k = 1
         self._predivide = 1.0
-        self._size = st.size
+        self._size = ctx.size
+        self._member, self._group = ctx.member, ctx.group
+        self._process_set = process_set
         self._int8_block = None
         self._residuals = {}
         self._plan(list(named_parameters), fusion_threshold_bytes,
@@ -269,7 +280,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
         self.shards: Optional[RankShards] = None
         if self._size > 1:
             self.shards = RankShards(optimizer, self._params, self._plans,
-                                     self._size, st.rank)
+                                     self._size, ctx.rank)
             self._opt = self.shards.optimizer
         else:
             self._opt = optimizer(self._params)
@@ -279,7 +290,8 @@ class _ShardedOptimizer(_DistributedOptimizer):
         """Pack bucket ``b`` (B6) and start its reduce-scatter."""
         rows = stage_pack(self._grads(b), self._plans[b], self._size)
         self._pending.append(
-            (b, _start_scatter_bucket(rows, self._size, self.wire)))
+            (b, _start_scatter_bucket(rows, self._size, self.wire,
+                                      group=self._group)))
 
     def synchronize(self) -> None:
         """Issue the buckets not issued yet, wait for the reduce-scatters,
@@ -306,7 +318,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
             return self._opt.step(closure)
         self.synchronize()
         loss = self.shards.step([t.grad for t in self.shards.tensors])
-        gathers = [_all_gather_tiled(t, self._size)
+        gathers = [_all_gather_tiled(t, self._size, self._group)
                    for t in self.shards.tensors]
         with lost_peer():
             for _, work in gathers:

@@ -1,128 +1,315 @@
-"""The data-parallel causal-LM training step.
+"""The causal-LM training step, data-, tensor- and sequence-parallel.
 
-The data-parallel subset of the JAX package's ``parallel/train.py``
-``make_lm_train_step``: every rank takes its own rows of the global
-batch. The step routes by the optimizer's kind, as the JAX package's
-does:
+The JAX package's ``parallel/train.py`` ``make_lm_train_step`` jits one
+step over a mesh, XLA partitioning it by the parameters' shardings.
+The port runs one process a rank, so the step keeps this rank's shards
+(``parallel/sharding.py``) and issues the exchanges itself:
 
-* a ``FullyShardedOptimizer`` (``fsdp``): the fully-sharded step
-  (:func:`_maybe_fsdp_step_fn`; HOROVOD_FSDP gates it);
-* otherwise (a ``DistributedOptimizer`` or a ZeRO-1
-  ``ShardedOptimizer``) the hook-driven step, whatever
-  HOROVOD_OVERLAP_SCHEDULE says: its hooks already issue each bucket of
-  the backward-ordered plan at the boundary where the JAX package's
-  staged schedule issues it (``ops/overlap.py``).
+* the rows of the global batch split over the data axes (dp, fsdp),
+  each rank taking its own (``data.ShardedDataLoader(mesh=...)``
+  hands them out);
+* tp splits heads, MLP width and a vocab the axis divides; the
+  exchanges are ``parallel/tensor_parallel.py``'s;
+* sp splits the sequence: a rank takes its span of its rows (global
+  positions; the targets run one token past the span) and attention
+  runs over the ring (``ring_attention.py``) or by all-to-all
+  (``ulysses.py``). The parameters are whole on every sp rank: their
+  gradients are summed over the sp axis as the backward produces them;
+* the loss is the global batch's mean, ``Σ nll / Σ valid`` over every
+  rank's targets, its two sums reduced over the sp and data axes (not
+  over tp, whose ranks hold the same sums);
+* the gradients reduce over the data axes: the ``DistributedOptimizer``
+  or ZeRO-1 ``ShardedOptimizer`` runs on the data axis's process set.
 
-Tensor, sequence and pipeline parallel steps are not ported yet
-(ROADMAP queue A entry 11, item 14).
+Without a mesh the step takes ``hvd.mesh()`` (``HOROVOD_MESH``; unset,
+one dp axis over the world: the data-parallel step of earlier slices,
+bit for bit). A ``FullyShardedOptimizer`` (``fsdp``) takes the
+fully-sharded step (:func:`_fsdp_step_fn`; HOROVOD_FSDP gates it)
+over a mesh whose only live axis, if any, is one data axis: its
+world. Every
+other optimizer takes the hook-driven step, whatever
+HOROVOD_OVERLAP_SCHEDULE says: its hooks already issue each bucket of
+the backward-ordered plan at the boundary where the JAX package's
+staged schedule issues it (``ops/overlap.py``).
+
+Not ported yet (ROADMAP queue A entry 11): a live fsdp axis under a
+replicated optimizer (the JAX package's ZeRO-3 by the rules' fsdp
+entries), the ep and pp axes (MoE, the pipeline) and ``fused_ce`` with
+a vocab-split head; each raises.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from ..core.basics import _require_init
-from ..models.transformer import Transformer, TransformerConfig, causal_lm_nll
+from ..models.transformer import (Transformer, TransformerConfig,
+                                  causal_lm_nll, lm_nll)
 from ..ops.collectives import Sum, allreduce
 from ..ops.fused_cross_entropy import fused_linear_cross_entropy
 from ..ops.overlap import schedule_mode
 from ..optim.distributed import DistributedOptimizer
 from ..optim.functions import broadcast_parameters
+from . import sharding as sharding_lib
+from .comm import SelfComm
+from .mesh import AXIS_ORDER, DATA_AXES, Mesh, data_axes, mesh_from_spec
+from .ring_attention import make_ring_attention_fn
+from .tensor_parallel import TensorParallel, parallelize
+from .ulysses import make_ulysses_attention_fn
+
+#: the later part of ROADMAP queue A entry 11 each refused axis waits for
+_LATER = {"fsdp": "a live fsdp axis under a replicated optimizer (the "
+                  "rules' fsdp entries, ZeRO-3 by sharding)",
+          "ep": "expert parallelism (models/moe.py)",
+          "pp": "pipeline parallelism"}
+
+
+def sp_attention_fn(mesh: Mesh, kind: str = "ring", causal: bool = True):
+    """``attention_fn`` running over the mesh's sp axis: ring attention
+    (``kind="ring"``) or Ulysses (``"ulysses"``); an sp axis of size 1
+    is a ring of one."""
+    comm = mesh.comm("sp") or SelfComm()
+    if kind == "ring":
+        return make_ring_attention_fn(comm, causal)
+    if kind == "ulysses":
+        return make_ulysses_attention_fn(comm, causal)
+    raise ValueError(f"sequence_parallel={kind!r}: 'ring' or 'ulysses'")
+
+
+def _resolve_mesh(mesh, st) -> Mesh:
+    """The step's mesh: ``hvd.mesh()`` for None, a spec string parsed
+    over the world, a :class:`Mesh` bound to it (collective)."""
+    if mesh is None:
+        from ..core.basics import mesh as global_mesh
+
+        return global_mesh()
+    if isinstance(mesh, str):
+        mesh = mesh_from_spec(mesh, st.size, st.rank)
+    return mesh.bind()
+
+
+def _is_fsdp(optimizer) -> bool:
+    info = getattr(optimizer, "_hvd_overlap_info", None)
+    return info is not None and info.get("kind") == "fsdp"
+
+
+def _keep_shards(model, specs, mesh) -> None:
+    """Replace each parameter of ``model`` by this rank's slice of it."""
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name) if mod_name else model
+            local = sharding_lib.local_slice(p, specs[name], mesh)
+            if local.shape != p.shape:
+                mod._parameters[leaf] = torch.nn.Parameter(
+                    local.contiguous().clone(),
+                    requires_grad=p.requires_grad)
+
+
+def _sum_grads_over(model, comm) -> None:
+    """Sum each parameter's gradient over ``comm``'s ranks as the
+    backward produces it (a hook on the leaf, before accumulation)."""
+    for p in model.parameters():
+        if p.requires_grad:
+            p.register_hook(comm.all_reduce)
 
 
 def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
                        attention_fn=None, device=None, mesh=None,
                        sequence_parallel: Optional[str] = None,
-                       fused_ce: bool = False):
-    """Build ``(model, step)`` for data-parallel causal-LM training.
+                       rules=None, fused_ce: bool = False):
+    """Build ``(model, step)`` for causal-LM training on ``mesh``.
 
     ``optimizer`` is either a factory of the inner torch optimizer over
     the parameters (e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4,
     weight_decay=1e-4)``), which the step wraps in
-    ``DistributedOptimizer`` after broadcasting rank 0's weights, or an
-    optimizer of this package given no parameters
-    (``ShardedOptimizer(factory)``, ``FullyShardedOptimizer(factory)``),
-    which the step binds to the model. The model is built on ``device``
-    (default: the device ``init()`` chose) with random weights from
-    seed 0. ``step(tokens) -> loss`` runs the forward, the causal-LM
-    loss, the backward and the optimizer step on this rank's ``[B, T]``
-    rows of the global batch. As in the JAX package's step, the loss is
-    the global batch's mean, ``Σ nll / Σ valid`` over every rank's
-    targets (``ignore_index`` -1 excluded), and the gradients are its
-    gradients, however unevenly the ranks' targets are padded; the step
-    returns that loss. ``step.optimizer`` is the optimizer.
+    ``DistributedOptimizer`` over the mesh's data axis after
+    broadcasting its first rank's weights over it, or an optimizer of
+    this package given no parameters (``ShardedOptimizer(factory)``,
+    ``FullyShardedOptimizer(factory)``), which the step binds to the
+    model. The model is built on ``device`` (default: the device
+    ``init()`` chose) with random weights from seed 0; on a mesh with
+    a live tp axis each rank keeps its slices of them by ``rules``
+    (default ``sharding.TRANSFORMER_RULES``).
+
+    ``mesh``: a :class:`~horovod_tpu_torch.parallel.mesh.Mesh`, a spec
+    (``"dp=2,tp=2"``) or None (``hvd.mesh()``). ``sequence_parallel``
+    (``"ring"`` or ``"ulysses"``) runs attention over the sp axis; it
+    replaces ``attention_fn``. ``step(tokens) -> loss`` runs the
+    forward, the causal-LM loss, the backward and the optimizer step on
+    this rank's ``[B, T]`` rows of the global batch (the rows of its
+    data coordinate; ranks that differ only in tp or sp pass the same
+    rows), of which it keeps its sequence span under sp. As in the JAX
+    package's step, the loss is the global batch's mean, ``Σ nll / Σ
+    valid`` over every target (``ignore_index`` -1 excluded), and the
+    gradients are its gradients, however unevenly the targets are
+    padded; the step returns that loss. ``step.optimizer`` is the
+    optimizer, ``step.mesh`` the mesh, ``step.specs`` each parameter's
+    spec (None without tp) and ``step.backward(tokens)`` the step
+    without the optimizer's (the gradients left in ``.grad``; the
+    loss returned).
 
     ``fused_ce`` computes the LM head and the loss together with
     :func:`~horovod_tpu_torch.ops.fused_cross_entropy.fused_linear_cross_entropy`
     (vocab blocks, the logits never whole in memory) from the model's
-    pre-head activations: the same two sums, ``Σ nll`` and the valid
-    count, so the same denominator and backward.
+    pre-head activations: the same two sums, so the same denominator
+    and backward; a vocab split over tp raises.
 
     Under a ``FullyShardedOptimizer`` the returned model's parameters
     live on the meta device (the rows are in ``step.optimizer.shards``;
-    ``step.state_dict()`` gathers a full copy). ``mesh`` and
-    ``sequence_parallel`` raise: ROADMAP queue A entry 11 (item 14)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "tensor-, sequence- and pipeline-parallel meshes are not "
-            "ported yet (ROADMAP queue A entry 11, item 14); the port "
-            "trains data-parallel and fully-sharded only")
-    if sequence_parallel is not None:
-        raise NotImplementedError(
-            "sequence-parallel (ring/Ulysses) steps are not ported yet "
-            "(ROADMAP queue A entry 11, item 14)")
+    ``step.state_dict()`` gathers a full copy)."""
     st = _require_init()
     schedule_mode(st.knobs)  # an unknown HOROVOD_OVERLAP_SCHEDULE raises
     device = st.device if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_lm_train_step: no CUDA device; pass "
                            "device='cpu' to train on the CPU")
+    if sequence_parallel not in (None, "ring", "ulysses"):
+        raise ValueError(f"sequence_parallel={sequence_parallel!r}: None, "
+                         "'ring' or 'ulysses'")
+    mesh = _resolve_mesh(mesh, st)
+    live = mesh.live_axes()
+    unknown = [a for a in live if a not in AXIS_ORDER]
+    if unknown:
+        raise ValueError(f"mesh axes {unknown} are none of {AXIS_ORDER}")
+    if _is_fsdp(optimizer):
+        if sequence_parallel is not None:
+            raise ValueError(
+                "the FSDP step does not compose with manual sequence "
+                "parallelism yet — use ShardedOptimizer or the "
+                "DistributedOptimizer for sp meshes")
+        axes = data_axes(mesh)
+        extra = [a for a in live if a not in DATA_AXES]
+        if extra or len(axes) > 1:
+            raise ValueError(
+                f"the FSDP step shards parameters over one live data axis "
+                f"(the world); mesh has data axes {axes} and extra live "
+                f"axes {extra}")
+        with torch.device(device):
+            model = Transformer(cfg, attention_fn=attention_fn)
+        model.init_params(torch.Generator(device=device).manual_seed(0))
+        return model, _fsdp_step_fn(cfg, model, optimizer, fused_ce)
+    for axis, what in _LATER.items():
+        if mesh.axis_size(axis) > 1:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP queue A entry 11); "
+                f"the mesh {mesh!r} has a live {axis} axis")
+    if sequence_parallel is None and mesh.axis_size("sp") > 1:
+        raise ValueError("a live sp axis needs sequence_parallel='ring' or "
+                         "'ulysses'")
+    if sequence_parallel is not None:
+        if attention_fn is not None:
+            raise ValueError("sequence_parallel chooses the attention; "
+                             "pass no attention_fn with it")
+        attention_fn = sp_attention_fn(mesh, sequence_parallel, cfg.causal)
     with torch.device(device):
         model = Transformer(cfg, attention_fn=attention_fn)
     model.init_params(torch.Generator(device=device).manual_seed(0))
 
-    fsdp = _maybe_fsdp_step_fn(cfg, model, optimizer, fused_ce)
-    if fsdp is not None:
-        return model, fsdp
-    broadcast_parameters(model.state_dict(), root_rank=0)
+    tp_comm, sp_comm = mesh.comm("tp"), mesh.comm("sp")
+    specs = None
+    if tp_comm is not None:
+        specs = sharding_lib.make_param_shardings(
+            model.named_parameters(), mesh, rules)
+        _keep_shards(model, specs, mesh)
+        parallelize(model, TensorParallel(tp_comm))
+        head = (model.tok_emb.embedding.shape[0] if cfg.tie_embeddings
+                else model.lm_head.kernel.shape[1])
+        if fused_ce and head != cfg.vocab_size:
+            raise NotImplementedError(
+                "fused_ce with a vocab split over tp is not ported yet "
+                "(ROADMAP queue A entry 11); the split head gathers its "
+                "logits whole")
+    if sp_comm is not None:
+        _sum_grads_over(model, sp_comm)
+    data = [a for a in DATA_AXES if mesh.axis_size(a) > 1]
+    n_data = math.prod(mesh.axis_size(a) for a in data)
+    data_set = mesh.process_set(data)
+    if not mesh.emulated:
+        # the data axis starts from its first rank's weights (an
+        # emulated rank's data axis is itself)
+        root = 0 if data_set is None else data_set.ranks[0]
+        broadcast_parameters(model.state_dict(), root_rank=root,
+                             process_set=data_set)
     if getattr(optimizer, "_hvd_overlap_info", None) is None:
         opt = DistributedOptimizer(optimizer(model.parameters()),
-                                   named_parameters=model.named_parameters())
-    else:
+                                   named_parameters=model.named_parameters(),
+                                   process_set=data_set)
+    elif data_set is None:
         opt = optimizer.bind(model.named_parameters())
+    else:
+        opt = optimizer.bind(model.named_parameters(), process_set=data_set)
+
+    sp_size = mesh.axis_size("sp")
+    sp_rank = mesh.coord("sp")
+
+    def local_inputs(tokens):
+        """(inputs, positions, targets) of this rank's span; targets
+        None when the span is the whole row (the usual shift)."""
+        if sp_size == 1 and sequence_parallel is None:
+            return tokens, None, None
+        b, t = tokens.shape
+        if t % sp_size:
+            raise ValueError(f"sequence length {t} does not split over "
+                             f"{sp_size} sp ranks")
+        n = t // sp_size
+        lo, hi = sp_rank * n, (sp_rank + 1) * n
+        targets = tokens[:, lo + 1:hi + 1]
+        if targets.shape[1] < n:  # the last span: no token follows
+            targets = torch.cat([targets, targets.new_full(
+                (b, n - targets.shape[1]), -1)], dim=1)
+        positions = torch.arange(lo, hi, device=tokens.device).expand(b, n)
+        return tokens[:, lo:hi], positions, targets
 
     def nll_sums(tokens):
+        inputs, positions, targets = local_inputs(tokens)
         if fused_ce:
-            hidden = model(tokens, return_hidden=True)
-            targets = tokens[:, 1:]
+            hidden = model(inputs, positions, return_hidden=True)
+            if targets is None:
+                hidden, targets = hidden[:, :-1], inputs[:, 1:]
             w = (model.tok_emb.embedding.t() if cfg.tie_embeddings
                  else model.lm_head.kernel)
             return fused_linear_cross_entropy(
-                hidden[:, :-1], w, targets, valid=targets != -1,
-                mean=False)
-        return causal_lm_nll(model(tokens), tokens)
+                hidden, w, targets, valid=targets != -1, mean=False)
+        logits = model(inputs, positions)
+        if targets is None:
+            return causal_lm_nll(logits, inputs)
+        return lm_nll(logits, targets)
+
+    def backward(tokens: torch.Tensor) -> torch.Tensor:
+        nll, count = nll_sums(tokens)
+        w, loss = _global_mean_weight(nll, count, n_data, data_set,
+                                      sp_comm, not mesh.emulated)
+        (nll * w).backward()
+        return loss
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
-        nll, count = nll_sums(tokens)
-        w, loss = _global_mean_weight(nll, count, st.size)
-        (nll * w).backward()
+        loss = backward(tokens)
         opt.step()
         opt.zero_grad(set_to_none=True)
         return loss
 
-    step.optimizer = opt
+    step.optimizer, step.mesh, step.specs = opt, mesh, specs
+    step.backward = backward
     return model, step
 
 
-def _global_mean_weight(nll, count, size):
-    """One denominator for every rank, before the backward: the
-    reduction averages ``Σ nll_r · size / n``, which is the gradient of
-    the global mean ``Σ_r Σ nll_r / n``. Returns ``(size / n, the
-    global mean)``."""
-    sums = allreduce(torch.stack([nll.detach().double(), count.double()]),
-                     op=Sum)
+def _global_mean_weight(nll, count, size, process_set=None, sp=None,
+                        data: bool = True):
+    """One denominator for every rank, before the backward: the data
+    axis's ``size`` ranks average ``Σ nll_r · size / n``, which is the
+    gradient of the global mean ``Σ_r Σ nll_r / n``; the sums reduce
+    over the sp ranks (``sp``, a communicator) and, with ``data``, the
+    data ranks (``process_set``, None: the world), not over tp. Returns
+    ``(size / n, the global mean)``."""
+    sums = torch.stack([nll.detach().double(), count.double()])
+    if sp is not None:
+        sums = sp.all_reduce(sums)
+    if data:
+        sums = allreduce(sums, op=Sum, process_set=process_set)
     n = sums[1].clamp(min=1)
     return (size / n).float(), sums[0].float() / n.float()
 
@@ -170,10 +357,10 @@ def _params_to_meta(model) -> None:
                     requires_grad=p.requires_grad)
 
 
-def _maybe_fsdp_step_fn(cfg, model, optimizer, fused_ce):
-    """The fully-sharded step when ``optimizer`` is a
-    ``FullyShardedOptimizer``, else None (every other optimizer takes
-    its path bit for bit whatever HOROVOD_FSDP says). Every rank draws
+def _fsdp_step_fn(cfg, model, optimizer, fused_ce):
+    """The fully-sharded step of a ``FullyShardedOptimizer`` (every
+    other optimizer takes its path bit for bit whatever HOROVOD_FSDP
+    says). Every rank draws
     the same seed-0 weights, keeps its rows of each bucket
     (``optimizer.bind``) and frees the rest: the model's parameters move
     to the meta device, and the step gathers them bucket by bucket
@@ -183,9 +370,6 @@ def _maybe_fsdp_step_fn(cfg, model, optimizer, fused_ce):
     from ..ops import overlap as overlap_mod
     from ..optim import fsdp as fsdp_mod
 
-    info = getattr(optimizer, "_hvd_overlap_info", None)
-    if info is None or info.get("kind") != "fsdp":
-        return None
     st = _require_init()
     if not st.knobs.fsdp:
         raise ValueError(

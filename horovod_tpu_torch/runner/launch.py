@@ -24,7 +24,7 @@ environment starts it), and every slot gets the runtime's coordinator
 address (``runner/exec_run.py``).
 
 A flag whose feature the port does not have yet — the sharded control
-plane, autotune, timeline/profiler/flight recorder, the mesh — is
+plane, autotune, timeline/profiler/flight recorder — is
 refused when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -71,7 +71,6 @@ UNPORTED = {
         "timeline_filename", "timeline_mark_cycles", "prof_every",
         "prof_dir", "prof_duty_cycle", "flight_recorder", "flight_dir"),
         13),
-    "mesh": 11,
 }
 
 

@@ -139,10 +139,12 @@ class GraphStep:
     captured outputs; ``launches`` holds the kernel launches counted
     while it was captured (a replay launches the same kernels without
     passing through their wrappers, so the counters do not tick) and
-    ``replays`` how often it ran since."""
+    ``replays`` how often it ran since. ``pinned`` holds the pinned host
+    buffers its inputs and outputs travel through (``to_device``,
+    ``to_host``), which go with it."""
 
     __slots__ = ("key", "fn", "inputs", "graph", "outputs", "launches",
-                 "replays", "capture_s")
+                 "replays", "capture_s", "pinned")
 
     def __init__(self, key: Tuple, fn: Callable[[], Tuple],
                  inputs: Optional[Dict[str, torch.Tensor]] = None):
@@ -154,12 +156,15 @@ class GraphStep:
         self.launches: Dict[str, int] = {}
         self.replays = 0
         self.capture_s = 0.0
+        self.pinned: Dict[str, torch.Tensor] = {}
 
     def free(self) -> None:
-        """Drop the graph and its outputs, freeing their memory."""
+        """Drop the graph, its outputs and its pinned host buffers,
+        freeing their memory."""
         if self.graph is not None:
             self.graph.reset()
         self.graph, self.outputs = None, ()
+        self.pinned.clear()
 
 
 def capture_step(step: GraphStep, stream, pool=None) -> Tuple:
@@ -279,9 +284,9 @@ class InferenceEngine:
     ):
         if mesh is not None or sharding_rules is not None:
             raise NotImplementedError(
-                "InferenceEngine(mesh=...) places parameters by the "
-                "parallel/ sharding rules, which are not ported yet "
-                "(ROADMAP queue A entry 11)")
+                "InferenceEngine(mesh=...) (parameters placed by the "
+                "parallel/ sharding rules, requests replicated over the "
+                "mesh) is not ported yet (ROADMAP queue A entry 11)")
         if serving_knobs().autotune_cache:
             raise NotImplementedError(
                 "the autotune warm start (HOROVOD_AUTOTUNE_CACHE) is not "
@@ -307,7 +312,6 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        self._pinned: Dict[str, torch.Tensor] = {}
 
     @classmethod
     def from_checkpoint(
@@ -343,6 +347,14 @@ class InferenceEngine:
         /healthz so probes can tell a warm replica from one that will
         capture on the next cold shape."""
         return len(self._cache)
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Bytes of pinned host memory the cached steps hold (their
+        input and output buffers; an evicted step's go with it)."""
+        return sum(b.numel() * b.element_size()
+                   for step in self._cache.values()
+                   for b in step.pinned.values())
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket covering ``n`` examples (callers split
@@ -398,8 +410,8 @@ class InferenceEngine:
 
     def _execute(self, step: GraphStep, xb: np.ndarray) -> np.ndarray:
         """Run ``step`` on the padded batch ``xb`` (under the lock)."""
-        to_device(step.inputs["x"], xb, self._pinned, str(step.key))
-        return to_host(run_step(step, self._stream), self._pinned)[0]
+        to_device(step.inputs["x"], xb, step.pinned, "x")
+        return to_host(run_step(step, self._stream), step.pinned)[0]
 
     def _run(self, bucket: int, xb: np.ndarray) -> np.ndarray:
         with self._lock:

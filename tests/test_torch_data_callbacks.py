@@ -272,8 +272,27 @@ def test_sharded_loader_places_batches_and_refuses_a_mesh():
     assert all(torch.is_tensor(b["x"]) and b["x"].device.type == "cpu"
                for b in out)
     assert [int(b["i"]) for b in out] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        ShardedDataLoader(_Range(3), mesh=object())
+    # with a mesh each batch is the global one: a rank keeps the rows of
+    # its coordinate on the data axis (ranks that differ only in tp keep
+    # the same), a scalar stays whole
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+
+    batches = [{"x": np.arange(8).reshape(4, 2) + 10 * i, "i": i}
+               for i in range(2)]
+    for rank, rows in ((0, [0, 1]), (1, [0, 1]), (2, [2, 3]), (3, [2, 3])):
+        mesh = make_mesh(dp=2, tp=2, world=4, rank=rank)
+        out = list(ShardedDataLoader(batches, mesh=mesh, device="cpu"))
+        assert len(out) == 2
+        for i, b in enumerate(out):
+            assert torch.equal(b["x"], torch.from_numpy(batches[i]["x"][rows]))
+            assert int(b["i"]) == i
+    mesh = make_mesh(dp=2, tp=2, world=4, rank=3)
+    out = list(ShardedDataLoader(batches, mesh=mesh, axis="tp",
+                                 device="cpu"))
+    assert torch.equal(out[0]["x"], torch.from_numpy(batches[0]["x"][2:]))
+    with pytest.raises(ValueError, match="does not split"):
+        list(ShardedDataLoader([{"x": np.zeros((3, 2))}], mesh=mesh,
+                               device="cpu"))
 
 
 @pytest.mark.parametrize("size", [0, 1, 2, 5])

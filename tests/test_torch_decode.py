@@ -275,6 +275,7 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "EAGER_FAST_PATH": "0",
     "EAGER_FAST_PATH_WARMUP": "5",
     "AUTOTUNE_CACHE": "/ckpt/tune.json",
+    "MESH": "dp=2,tp=2",
 }
 
 
@@ -340,18 +341,26 @@ _SERVING_MODULES = [
         "serving.replica_set", "runner.compute_service")]
 
 
+_MESH_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "parallel", "parallel.mesh", "parallel.comm", "parallel.sharding",
+        "parallel.tensor_parallel", "parallel.ring_attention",
+        "parallel.ulysses", "models.convert")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
     Adasum slice's (Adasum, sparse slices, process sets, the Adasum
     example), the launcher's and the two-level wire's, checkpoint's and
     Llama example's, the elastic slice's, the eager runtime's (the
-    ctypes layer and the runtime) and the serving tier's (engine,
-    batcher, server, replica set, registry) modules are among those
-    walked."""
+    ctypes layer and the runtime), the serving tier's (engine,
+    batcher, server, replica set, registry) and the mesh's (mesh,
+    communicators, sharding rules, tensor parallelism, ring attention,
+    Ulysses, the converter's shards) modules are among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
-              + _SERVING_MODULES)
+              + _SERVING_MODULES + _MESH_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

@@ -271,8 +271,8 @@ def test_make_lm_train_step_routes_fsdp_and_knob_gates():
     """A FullyShardedOptimizer routes make_lm_train_step to the FSDP
     step (its model's parameters on the meta device, the rows in the
     optimizer); HOROVOD_FSDP=0 makes it raise; the knob does not touch
-    the DistributedOptimizer step; meshes and sequence parallelism
-    raise, citing ROADMAP queue A entry 11."""
+    the DistributedOptimizer step; a mesh whose one data axis is the
+    world takes the same step, and sequence parallelism raises."""
     hvd.init(device="cpu")
     cfg = tt.TransformerConfig(dtype=torch.float32, **_CFG)
     factory = functools.partial(torch.optim.AdamW, lr=LR)
@@ -293,10 +293,17 @@ def test_make_lm_train_step_routes_fsdp_and_knob_gates():
                           hvd.optim.distributed._DistributedOptimizer)
     finally:
         knobs.fsdp = True
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        hvd.make_lm_train_step(cfg, hvd.FullyShardedOptimizer(factory),
-                               mesh="dp=1,fsdp=2")
-    with pytest.raises(NotImplementedError, match="entry 11"):
+    # a mesh whose one data axis is the world is the FSDP step's own
+    # world (here of one rank): the same step; sequence parallelism
+    # raises, as in the JAX package
+    tokens = torch.randint(0, 64, (2, 16))
+    _, plain = hvd.make_lm_train_step(
+        cfg, hvd.FullyShardedOptimizer(factory), device="cpu")
+    _, on_mesh = hvd.make_lm_train_step(
+        cfg, hvd.FullyShardedOptimizer(factory), mesh="fsdp=1",
+        device="cpu")
+    assert float(on_mesh(tokens)) == float(plain(tokens))
+    with pytest.raises(ValueError, match="sequence"):
         hvd.make_lm_train_step(cfg, hvd.FullyShardedOptimizer(factory),
                                sequence_parallel="ring")
 

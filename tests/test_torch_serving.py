@@ -176,6 +176,28 @@ def test_engine_step_cache_is_an_lru_of_the_jax_size(monkeypatch):
                                np.full((2, 3), 2.0))
 
 
+def test_evicted_step_takes_its_pinned_buffers(monkeypatch):
+    """A step's pinned host buffers (its input's and outputs' staging on
+    the card) belong to it: eviction frees them with the graph, and the
+    engine's pinned bytes count only the cached steps'. On the CPU
+    nothing is pinned, so the buffers are stood in by plain tensors."""
+    monkeypatch.setattr(InferenceEngine, "MAX_CACHED_EXECUTABLES", 2)
+    eng = InferenceEngine(lambda p, x: x * 2, {}, buckets=(1, 4),
+                          device="cpu")
+    assert not hasattr(eng, "_pinned") and eng.pinned_bytes == 0
+    steps = []
+    for n, width in ((1, 3), (3, 3), (2, 5)):
+        eng(np.ones((n, width), np.float32))
+        step = eng._cache[next(reversed(eng._cache))]
+        step.pinned["x"] = torch.zeros(4, width)
+        steps.append(step)
+    assert steps[0].pinned == {}  # evicted by the third shape
+    assert all(s.pinned for s in steps[1:])
+    assert eng.pinned_bytes == 4 * (3 + 5) * 4
+    steps[1].free()
+    assert steps[1].pinned == {} and steps[1].graph is None
+
+
 def test_engine_refuses_what_is_not_ported(monkeypatch, flax_mlp):
     with pytest.raises(NotImplementedError, match="entry 11"):
         InferenceEngine(lambda p, x: x, {}, mesh=object(), device="cpu")
