@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
                                                 # keep as the process ages
     python3 chip_smoke.py --adasum-sweep 8   # phase 4g's limit's readings
     python3 chip_smoke.py --mesh-sweep 8     # phase 4m's limits' readings
+    python3 chip_smoke.py --pipe-sweep 8     # phase 4n's limits' readings
     python -m horovod_tpu_torch.examples.local_world -np 4 -- \
         python3 chip_smoke.py --mesh-world   # phase 4m on four cards
 
@@ -245,6 +246,28 @@ Phases, in order; the first failure exits non-zero:
    bitwise across the ranks, step ms, tokens/s, peak memory; (d) a
    world of one over NCCL with ``HOROVOD_MESH=dp=1,tp=1``: phase 4's
    losses bitwise;
+4n. train GPT-2 medium (24 x 1024, ``--flash --fused-norm``, AdamW,
+   phase 4's weights and 8 x 1024 batch) pipelined over pp = 4 stages of
+   6 blocks, emulated on the card as phase 4m's ranks are (only the pp
+   communicator substituted): (a) GPipe at M = 4 (and M = 8, step 1
+   only), (b) 1F1B at M = 4 and M = 8, each held at step 1 against
+   phase 4's world-1 step (the loss and every gradient row; the 1F1B
+   runs also on the batch with rows 4-7 all padding, against the
+   world-1 step on it; ``PIPE_GRAD_TOL``, ``PIPE_LOSS_TOL``), the
+   replicated gradients bitwise the same on every stage, where a zeroed
+   backward hop and S copies of the head's cotangent (GPipe), and a
+   backward one slot early and a fully padded microbatch counted as 1
+   (1F1B) must fail; then 3 AdamW steps: a falling loss, exact B1-B5
+   launches (``_pipe_launches``, and by kernel name in a profiled step),
+   the replicated parameters bitwise across the stages, step ms,
+   tokens/s; (c) each case's step memory (the world's peak over what
+   was resident; 1F1B's at M = 8 below GPipe's) and each rank's bytes
+   saved for the backward; (d) ``MoeMlp`` at GPT-2 medium's width with
+   Mixtral's routing (8 experts, top 2, bf16, 8192 tokens): the dense
+   path against the EP path over four emulated ranks (nothing dropped),
+   and at capacity factor 1.25 against the drop rule's plain reference
+   (pairs must drop), row by row (``MOE_ROW_TOL``), where a reversed
+   return all-to-all must fail; forward + backward ms;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -259,7 +282,10 @@ Phases, in order; the first failure exits non-zero:
    losses, images/s, MFU, peak memory, one profiled step each;
 5c. train MNIST for one epoch through its example's ``main`` (a falling
    loss, the test accuracy), then call ``entry()`` once: its loss finite
-   and equal to ``causal_lm_loss`` of the same model;
+   and equal to ``causal_lm_loss`` of the same model; then
+   ``dryrun_multichip(4)``, its four ranks emulated on the card: the dp x
+   tp x sp step with ring attention, GPipe and 1F1B on pp = 2, three
+   ``OK`` lines with finite losses;
 6. serve GPT-2 small at full width (random weights from the seed,
    ``fused_norm=True``, bf16 KV cache, 8 slots x 1024) under the
    continuous-batching scheduler, every decode and prefill step replayed
@@ -295,12 +321,14 @@ Phases, in order; the first failure exits non-zero:
    predict graph must free its memory and its pinned host buffers, and
    across more shapes than the graph cache holds the engine's pinned
    host bytes must stay within one shape's;
-9. print the ``{"kernels": [...]}`` line: each kernel's launches on the
+9. print each phase's seconds (``{"phase_seconds": ...}``) and the
+   ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
    step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
    ((a)'s kernel composition), 4i, 4j, 4k (in process and the
    launched workers' second rounds), 4l ((a), (b) and (e)'s ``run()``
-   worker), 4m (the emulated worlds' steps and (d)), 5 and 5b and the
+   worker), 4m (the emulated worlds' steps and (d)), 4n (the trained
+   cases' steps), 5c's dry run, 5 and 5b and the
    graphed
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
@@ -7106,6 +7134,666 @@ def train_mesh(seed, ledger, in_process_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 4n: pipeline parallelism (GPipe, 1F1B) and experts, four ranks
+# emulated on the card
+# ---------------------------------------------------------------------------
+
+PIPE_RANKS = 4
+PIPE_STEPS = 3  # launches counted over all three, timed from the second
+#: the stage whose backward hop is zeroed, or whose backward runs a slot
+#: early, in the faults (a middle stage: the last one's backward follows
+#: its forward in the next slot, so one slot early is still right)
+PIPE_FAULT_STAGE = 1
+#: (schedule, microbatches, faults, training steps) of phase 4n's worlds;
+#: GPipe at M = 8 runs its step-1 check and its memory reading only
+PIPE_CASES = (
+    ("gpipe", 4, ("zero_bwd_hop", "head_cotangent_every_stage"),
+     PIPE_STEPS),
+    ("gpipe", 8, (), 0),
+    ("1f1b", 4, ("backward_slot_early", "padded_microbatch_counts_1"),
+     PIPE_STEPS),
+    ("1f1b", 8, ("backward_slot_early", "padded_microbatch_counts_1"),
+     PIPE_STEPS))
+#: the rows of phase 4's batch whose targets (all of them) the padded runs
+#: mark -1: microbatches 2-3 at M = 4, 4-7 at M = 8, no valid target
+PIPE_PADDED_ROWS = slice(4, 8)
+#: limits of phase 4n's step-1 check against phase 4's world-1 step on
+#: the same weights and batch, read as phase 4m's (``_mesh_grad_readings``):
+#: each parameter's worst gradient row and the loss (absolute). The
+#: rows catch a zeroed backward hop (the stages before it get no
+#: gradient) and S copies of the head's cotangent (every block's
+#: gradient S times too large); only the loss catches a fully padded
+#: microbatch counted as 1 (the gradients shrink by n / (n + 2) or
+#: n / (n + 4)). Readings: PERF.md, ``--pipe-sweep``
+PIPE_GRAD_TOL = 0.5
+PIPE_LOSS_TOL = 1e-3
+PIPE_KEY_BIAS_TOL = 1e-3
+#: phase 4n (d): MoeMlp at GPT-2 medium's width with Mixtral's routing
+MOE_DIMS = dict(hidden_size=1024, mlp_dim=4096, num_experts=8, top_k=2)
+MOE_TOKENS, MOE_RANKS = 8192, 4
+#: capacity factors: nothing drops (EP against the dense path), and
+#: Switch's 1.25 (EP against the dense path with the drop rule's gates)
+MOE_AMPLE, MOE_CAPACITY = 8.0, 1.25
+#: limit of each output and input-gradient row's relative L2 (its norm
+#: floored at 1% of the RMS row norm) between the EP path and its
+#: reference: bf16 expert products of other shapes and the k
+#: contributions rounded one add at a time. Readings: ``--pipe-sweep``
+MOE_ROW_TOL = 5e-2
+
+
+def _pipe_launches(schedule, m, layers=24, stages=PIPE_RANKS):
+    """B1-B5 launches a step over the emulated world, reckoned from the
+    schedules: GPipe runs each block once a microbatch, forward and
+    backward, and ``ln_final`` once on every stage (the head runs on
+    every stage's copy of the outputs, as the JAX function returns the
+    logits on every device); 1F1B runs the forward on every stage but
+    the last, each stage's again inside its backward (the recompute),
+    and ``ln_final`` once a microbatch on the last stage."""
+    blocks = layers * m
+    if schedule == "gpipe":
+        return {"flash_fwd": blocks, "flash_bwd_dq": blocks,
+                "flash_bwd_dkv": blocks, "layernorm_fwd": 2 * blocks + stages,
+                "layernorm_bwd": 2 * blocks + stages}
+    fwd = blocks * (stages - 1) // stages
+    return {"flash_fwd": fwd + blocks, "flash_bwd_dq": blocks,
+            "flash_bwd_dkv": blocks, "layernorm_fwd": 2 * (fwd + blocks) + m,
+            "layernorm_bwd": 2 * blocks + m}
+
+
+class _Saved:
+    __slots__ = ("owner", "key", "t")
+
+    def __init__(self, owner, key, t):
+        self.owner, self.key, self.t = owner, key, t
+
+    def __del__(self):
+        self.owner.release(self.key)
+
+
+class _SavedBytes:
+    """The bytes autograd holds for the backward: the storages of the
+    tensors saved for it, each counted once while a saved tensor holds
+    it, live and at their peak (``saved_tensors_hooks``, which act on the
+    thread that enters them: each emulated rank counts its own)."""
+
+    def __init__(self):
+        self.live, self.now, self.peak = {}, 0, 0
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(
+            self._pack, lambda saved: saved.t)
+
+    def _pack(self, t):
+        storage = t.untyped_storage()
+        key = storage.data_ptr()
+        n, size = self.live.get(key, (0, storage.nbytes()))
+        if n == 0:
+            self.now += size
+            self.peak = max(self.peak, self.now)
+        self.live[key] = (n + 1, size)
+        return _Saved(self, key, t)
+
+    def release(self, key):
+        n, size = self.live[key]
+        if n > 1:
+            self.live[key] = (n - 1, size)
+        else:
+            del self.live[key]
+            self.now -= size
+
+
+class _ZeroBackwardHop:
+    """A pp communicator whose backward hop delivers zeros (after the
+    real exchange: the ranks' hops still pair up)."""
+
+    def __init__(self, comm):
+        self.comm, self.rank, self.size = comm, comm.rank, comm.size
+
+    def __getattr__(self, name):
+        return getattr(self.comm, name)
+
+    def hop_backward(self, t):
+        return torch.zeros_like(self.comm.hop_backward(t))
+
+
+@contextlib.contextmanager
+def _pipe_fault(name, mesh, rank, sync):
+    """One injected fault of phase 4n on every emulated rank (``sync``
+    is the ranks' barrier; the module-level patches are made by rank 0
+    between two barriers): stage ``PIPE_FAULT_STAGE``'s backward hop
+    delivering zeros; the last stage's outputs handed every stage's
+    cotangent (their sum, S copies); stage ``PIPE_FAULT_STAGE``'s 1F1B
+    backward one slot early (it finds no gradient yet); a microbatch
+    with no valid target counted as 1. None: no fault."""
+    from horovod_tpu_torch.parallel import pipeline as pl
+
+    if name is None:
+        yield
+        return
+    saved = {}
+    sync()
+    if name == "zero_bwd_hop":
+        if rank == PIPE_FAULT_STAGE:
+            saved["comm"] = mesh._comms["pp"]
+            mesh._comms["pp"] = _ZeroBackwardHop(saved["comm"])
+    elif rank == 0:
+        if name == "head_cotangent_every_stage":
+            share = saved["_hand_back_cotangent"] = pl._hand_back_cotangent
+            pl._hand_back_cotangent = lambda g, comm: share(
+                comm.all_reduce(g), comm)
+        elif name == "backward_slot_early":
+            slot = saved["_slot_ops"] = pl._slot_ops
+
+            def early(t, s, S, M):
+                f, b = slot(t, s, S, M)
+                return (f, slot(t + 1, s, S, M)[1]
+                        if s == PIPE_FAULT_STAGE else b)
+
+            pl._slot_ops = early
+        elif name == "padded_microbatch_counts_1":
+            count = saved["_microbatch_count"] = pl._microbatch_count
+            pl._microbatch_count = lambda t: torch.clamp(count(t), min=1)
+        else:
+            raise ValueError(f"no phase 4n fault {name!r}")
+    sync()
+    try:
+        yield
+    finally:
+        sync()
+        if "comm" in saved:
+            mesh._comms["pp"] = saved.pop("comm")
+        if rank == 0:
+            for attr, fn in saved.items():
+                setattr(pl, attr, fn)
+        sync()
+
+
+def pipe_world(cfg, tokens, padded, schedule, m, faults=(),
+               steps=PIPE_STEPS, profile=False):
+    """One emulated world of phase 4n: ``PIPE_RANKS`` threads on the
+    card, rank s holding stage s (``parallel.build_stage``: its 6 blocks
+    and the replicated rest, seed 0, flash attention), the pp axis's
+    hops between them through ``ThreadComm``s
+    (``parallel.mesh.emulated_meshes``), every other line the real
+    path's. Each rank takes the step-1 backward of ``schedule``
+    (``pipeline_lm_train_step_gpipe`` or ``_1f1b``) at ``m``
+    microbatches on ``tokens`` (the world's peak memory and each rank's
+    saved bytes read around it), then, under 1F1B, the same on
+    ``padded``, then each fault's (the count fault on ``padded``), then
+    ``steps`` AdamW steps (the last one profiled with ``profile``).
+    Returns rank 0's view: the loss, the whole gradient (each stage's
+    blocks; the replicated rest, which must be bitwise the same on every
+    rank), each run's, the step losses, seconds, launches and kernels by
+    name, the peak, and whether the replicated parameters end bitwise
+    the same on every rank."""
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.parallel import comm as pc
+    from horovod_tpu_torch.parallel import mesh as pm
+    from horovod_tpu_torch.parallel import pipeline as pl
+
+    meshes, worlds = pm.emulated_meshes(pm.make_mesh(world=PIPE_RANKS,
+                                                     pp=PIPE_RANKS))
+    barrier = pc.ThreadWorld(PIPE_RANKS)
+    step_fn = (pl.pipeline_lm_train_step_gpipe if schedule == "gpipe"
+               else pl.pipeline_lm_train_step_1f1b)
+    flash = make_flash_attention_fn(causal=True)
+
+    def whole(every):
+        """Each stage's blocks and rank 0's replicated rest, which must
+        be every rank's bitwise."""
+        out = {}
+        for r, g in enumerate(every):
+            for n, v in g.items():
+                if n.startswith("block_"):
+                    out[n] = v
+                elif r == 0:
+                    out[n] = v
+                else:
+                    _require(torch.equal(v, every[0][n]),
+                             f"phase 4n {schedule} M={m}: rank {r}'s {n} "
+                             "is not bitwise rank 0's")
+        return out
+
+    def rank_fn(rank):
+        def sync(value=None):
+            return barrier.exchange(rank, value)
+
+        mesh = meshes[rank]
+        model = pl.build_stage(cfg, mesh, attention_fn=flash)
+
+        def backward(t):
+            return float(step_fn(cfg, model, t, mesh, m))
+
+        def grads():
+            return whole(sync({n: p.grad for n, p in
+                               model.named_parameters()}))
+
+        out = {}
+        sync()
+        if rank == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out["base_bytes"] = torch.cuda.memory_allocated()
+        sync()
+        saved = _SavedBytes()
+        with saved.hooks:
+            out["loss"] = backward(tokens)
+        sync()
+        if rank == 0:
+            torch.cuda.synchronize()
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["saved_peak_bytes"] = sync(saved.peak)
+        out["grads"] = grads()
+        runs = [("padded", None, padded)] if schedule == "1f1b" else []
+        runs += [(f, f, padded if f == "padded_microbatch_counts_1"
+                  else tokens) for f in faults]
+        out["runs"] = {}
+        for label, fault, t in runs:
+            with _pipe_fault(fault, mesh, rank, sync):
+                loss = backward(t)
+            out["runs"][label] = {"loss": loss, "grads": grads()}
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                weight_decay=1e-4)
+        sync()
+        if rank == 0:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+        losses, secs = [], []
+        with contextlib.ExitStack() as stack:
+            for i in range(steps):
+                sync()
+                if rank == 0 and profile and i == steps - 1:
+                    prof = stack.enter_context(_profiled())
+                sync()
+                t0 = time.perf_counter()
+                losses.append(backward(tokens))
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                sync()
+                if rank == 0:
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+            sync()
+        if rank == 0:
+            out["launches"] = dict(_build.LAUNCHES)
+            out["secs"] = secs
+            if profile and steps:
+                events = _kernel_events(prof)
+                out["by_name"] = {k: sum(e.count for e in events
+                                         if k + "_" in e.key)
+                                  for k in TRAIN_KERNELS}
+        out["losses"] = losses
+        rest = {n: p.detach() for n, p in model.named_parameters()
+                if not n.startswith("block_")}
+        every = sync(rest)
+        out["replicated_bitwise"] = all(
+            torch.equal(every[0][n], v) for n, v in rest.items())
+        sync()
+        return out
+
+    results = pc.run_ranks(worlds + [barrier], rank_fn, PIPE_RANKS)
+    top = results[0]
+    _require(all(r["replicated_bitwise"] for r in results),
+             f"phase 4n {schedule} M={m}: a replicated parameter differs "
+             "between the ranks after the steps")
+    _require(all(r["losses"] == top["losses"] and r["loss"] == top["loss"]
+                 for r in results),
+             f"phase 4n {schedule} M={m}: the ranks' losses differ")
+    del results
+    return top
+
+
+def _pipe_readings(top, ref_loss, ref, pad_loss, pad_ref):
+    out = {"loss": top["loss"], "loss_err": abs(top["loss"] - ref_loss),
+           **_mesh_grad_readings(top["grads"], ref), "runs": {}}
+    for label, run in top["runs"].items():
+        padded = label in ("padded", "padded_microbatch_counts_1")
+        want_loss, want = (pad_loss, pad_ref) if padded else (ref_loss, ref)
+        out["runs"][label] = {"loss_err": abs(run["loss"] - want_loss),
+                              **_mesh_grad_readings(run["grads"], want)}
+    return out
+
+
+def _pipe_within(r):
+    return (r["loss_err"] <= PIPE_LOSS_TOL
+            and r["grad_row_rel_max"] <= PIPE_GRAD_TOL
+            and r["key_bias_over_grad_norm_max"] <= PIPE_KEY_BIAS_TOL)
+
+
+def _pipe_tokens(cfg, seed_offset=None):
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+
+    if seed_offset is None:  # phase 4's batch
+        tokens = torch.from_numpy(synthetic_tokens(
+            cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    else:
+        tokens = torch.from_numpy(np.random.RandomState(seed_offset).randint(
+            0, cfg.vocab_size, (8, 1024))).cuda()
+    padded = tokens.clone()
+    padded[PIPE_PADDED_ROWS, 1:] = -1
+    return tokens, padded
+
+
+def _moe_row_rel(got, want):
+    """Each row's relative L2 error, its norm floored at 1% of the RMS
+    row norm; the largest."""
+    got, want = got.float(), want.float()
+    rn = want.norm(dim=-1)
+    floor = 1e-2 * rn.square().mean().sqrt()
+    return ((got - want).norm(dim=-1)
+            / torch.clamp(rn, min=floor.item())).max().item()
+
+
+def _moe_ep(layer, x, cot, cf, fault=None, timed=0):
+    """The EP path over ``MOE_RANKS`` ranks emulated on the card (threads,
+    ``ThreadComm``), each rank its rows of ``x``: the outputs, input
+    gradients of ``Σ y · cot``, aux losses, (token, k) pairs dropped and
+    the wall ms of ``timed`` more forward + backward passes of the world
+    (the median); with ``fault="reversed_return"`` the return all-to-all
+    takes its chunks in reverse order."""
+    from horovod_tpu_torch.models import moe as moe_mod
+    from horovod_tpu_torch.parallel import comm as pc
+
+    world = pc.ThreadWorld(MOE_RANKS)
+    n = x.shape[0] // MOE_RANKS
+    saved = moe_mod._combine
+    if fault == "reversed_return":
+        def reversed_return(out, comm):
+            back = saved(out, comm)  # the ranks' results, in rank order
+            return torch.cat(back.chunk(comm.size, 0)[::-1], 0)
+
+        moe_mod._combine = reversed_return
+
+    def rank_fn(r):
+        ep = moe_mod.MoeMlp(**MOE_DIMS, capacity_factor=cf,
+                            dtype=torch.bfloat16,
+                            ep=pc.ThreadComm(world, r)).cuda()
+        ep.load_state_dict(layer.state_dict())
+
+        def fwd_bwd():
+            xr = x[r * n:(r + 1) * n].detach().clone().requires_grad_()
+            y, aux = ep(xr)
+            (y.float() * cot[r * n:(r + 1) * n]).sum().backward()
+            ep.zero_grad(set_to_none=True)
+            return xr, y, aux
+
+        xr, y, aux = fwd_bwd()
+        _, idx, _, _ = ep.route(xr.detach())
+        _, keep = moe_mod.bucket_positions(idx.reshape(-1), ep.num_experts,
+                                           ep.capacity(n))
+        ms = []
+        for _ in range(timed):
+            world.exchange(r, None)
+            t0 = time.perf_counter()
+            fwd_bwd()
+            world.exchange(r, None)
+            if r == 0:
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return (y.detach(), xr.grad, aux.item(), int((~keep).sum()),
+                float(np.median(ms)) if ms else None)
+
+    try:
+        res = pc.run_ranks([world], rank_fn, MOE_RANKS)
+    finally:
+        moe_mod._combine = saved
+    return (torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res]),
+            [r[2] for r in res], sum(r[3] for r in res), res[0][4])
+
+
+def _moe_dropped_reference(layer, x, cot, cf):
+    """The drop rule's plain reference: each rank's rows through the
+    dense path with the gate of every (token, k) pair past its expert's
+    capacity (on that rank's tokens) zeroed; outputs and input
+    gradients."""
+    from horovod_tpu_torch.models import moe as moe_mod
+
+    n = x.shape[0] // MOE_RANKS
+    ys, dxs = [], []
+    for r in range(MOE_RANKS):
+        xr = x[r * n:(r + 1) * n].detach().clone().requires_grad_()
+        _, idx, gates, _ = layer.route(xr)
+        _, keep = moe_mod.bucket_positions(
+            idx.reshape(-1), layer.num_experts,
+            int(cf * layer.top_k * n / layer.num_experts) + 1)
+        gates = gates * keep.reshape(gates.shape)
+        y = layer._dense(xr, idx, gates, layer.w_in.to(torch.bfloat16),
+                         layer.w_out.to(torch.bfloat16))
+        (y.float() * cot[r * n:(r + 1) * n]).sum().backward()
+        ys.append(y.detach())
+        dxs.append(xr.grad)
+    layer.zero_grad(set_to_none=True)
+    return torch.cat(ys), torch.cat(dxs)
+
+
+def check_moe(seed, faults=True):
+    """Phase 4n (d): ``MoeMlp`` at GPT-2 medium's width with Mixtral's
+    routing (``MOE_DIMS``, bf16, ``MOE_TOKENS`` tokens sharing a random
+    direction, so that routing is uneven): the dense path
+    against the EP path over ``MOE_RANKS`` emulated ranks at
+    ``MOE_AMPLE`` (nothing drops), and the EP path at ``MOE_CAPACITY``
+    against the drop rule's plain reference, outputs and input
+    gradients row by row (``MOE_ROW_TOL``); a reversed return
+    all-to-all must fail. Forward + backward ms of the dense path and of
+    the emulated EP world."""
+    from horovod_tpu_torch.models.moe import MoeMlp
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    layer = MoeMlp(**MOE_DIMS, dtype=torch.bfloat16).cuda().init_params(g)
+    h = MOE_DIMS["hidden_size"]
+    # tokens that share a direction (as a layer's activations do) route
+    # unevenly: at capacity factor 1.25 the favoured experts overflow
+    x = (torch.randn(MOE_TOKENS, h, generator=g, device="cuda")
+         + torch.randn(h, generator=g, device="cuda")).to(torch.bfloat16)
+    cot = torch.randn(x.shape, generator=g, device="cuda")
+
+    def dense():
+        xd = x.detach().clone().requires_grad_()
+        y, aux = layer(xd)
+        (y.float() * cot).sum().backward()
+        layer.zero_grad(set_to_none=True)
+        return y.detach(), xd.grad, aux.item()
+
+    y, dx, aux = dense()
+    out = {"dims": MOE_DIMS, "tokens": MOE_TOKENS, "ranks": MOE_RANKS,
+           "dtype": "bf16", "tol": MOE_ROW_TOL}
+    ey, edx, eaux, dropped, _ = _moe_ep(layer, x, cot, MOE_AMPLE)
+    out["ample"] = {"capacity_factor": MOE_AMPLE, "dropped": dropped,
+                    "y_row_rel_max": _moe_row_rel(ey, y),
+                    "dx_row_rel_max": _moe_row_rel(edx, dx),
+                    "aux_dense": aux, "aux_ranks": eaux}
+    ry, rdx = _moe_dropped_reference(layer, x, cot, MOE_CAPACITY)
+    cy, cdx, _, dropped, ep_ms = _moe_ep(layer, x, cot, MOE_CAPACITY,
+                                         timed=3)
+    out["capacity"] = {"capacity_factor": MOE_CAPACITY, "dropped": dropped,
+                       "dropped_share": dropped / (MOE_TOKENS
+                                                   * MOE_DIMS["top_k"]),
+                       "y_row_rel_max": _moe_row_rel(cy, ry),
+                       "dx_row_rel_max": _moe_row_rel(cdx, rdx),
+                       "ep_world_fwd_bwd_ms": ep_ms}
+    if faults:
+        fy, fdx, _, _, _ = _moe_ep(layer, x, cot, MOE_AMPLE,
+                                   "reversed_return")
+        out["faults"] = {"reversed_return": {
+            "y_row_rel_max": _moe_row_rel(fy, y),
+            "dx_row_rel_max": _moe_row_rel(fdx, dx)}}
+    return layer, x, cot, out
+
+
+def _moe_within(r):
+    return max(r["y_row_rel_max"], r["dx_row_rel_max"]) <= MOE_ROW_TOL
+
+
+def _wall_ms(fn, iters=3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def pipe_sweep(n_seeds):
+    """``--pipe-sweep N``: phase 4n's step-1 readings on the batches of
+    seeds 0..N-1 (healthy) and of its injected faults on seed 0's, each
+    case against the world-1 step; and (d)'s MoE readings for seeds
+    0..N-1 with its fault on seed 0: the limits' evidence."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    hvd.init()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    for seed in range(n_seeds):
+        tokens, padded = _pipe_tokens(cfg, 1000 + seed)
+        ref_loss, ref = _mesh_reference(cfg, tokens)
+        pad_loss, pad_ref = _mesh_reference(cfg, padded)
+        for schedule, m, faults, _ in PIPE_CASES:
+            top = pipe_world(cfg, tokens, padded, schedule, m,
+                             faults=faults if seed == 0 else (), steps=0)
+            print(json.dumps({"pipe_sweep": f"{schedule} M={m}",
+                              "seed": seed, **_pipe_readings(
+                                  top, ref_loss, ref, pad_loss, pad_ref)}),
+                  flush=True)
+            del top
+            torch.cuda.empty_cache()
+        del ref, pad_ref
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    for seed in range(n_seeds):
+        _, _, _, r = check_moe(seed, faults=seed == 0)
+        print(json.dumps({"moe_sweep": seed, **r}), flush=True)
+        torch.cuda.empty_cache()
+
+
+def train_pipeline(seed, ledger, in_process_losses):
+    """Phase 4n: GPT-2 medium at full width (24 x 1024, 16 heads, vocab
+    50257, flash attention and fused norms, AdamW, seed 0, phase 4's 8 x
+    1024 batch) pipelined over pp = 4 ranks emulated on the card
+    (``pipe_world``: 6 blocks a stage):
+
+    (a) GPipe at M = 4, its faults (a zeroed backward hop; S copies of
+        the head's cotangent), 3 steps; GPipe at M = 8, step 1 only;
+    (b) 1F1B at M = 4 and M = 8 (the input ring reused), the padded
+        batch, its faults (a backward one slot early; a fully padded
+        microbatch counted as 1), 3 steps;
+    (c) the world's peak memory around each step 1 and each rank's
+        bytes saved for the backward; 1F1B's at M = 8 must be below
+        GPipe's;
+
+    each held at step 1 against phase 4's world-1 step on the same
+    weights and batch (the padded runs against the world-1 step on the
+    padded batch: the loss and every gradient row, ``PIPE_GRAD_TOL``,
+    ``PIPE_LOSS_TOL``), each fault failing the same check, the
+    replicated gradients and parameters bitwise the same on every rank,
+    a falling loss, exact B1-B5 launches (``_pipe_launches``, confirmed
+    by kernel name in a profiled step of each trained case), step ms,
+    tokens/s; and (d) ``check_moe``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    tokens, padded = _pipe_tokens(cfg)
+    card = _card()
+    report = {"phase": "pipeline", "card": card,
+              "model": "GPT-2 medium 24x1024, 16 heads, pp=4 (6 blocks a "
+                       "stage)", "batch": "8x1024", "ranks": PIPE_RANKS,
+              "emulated": "threads on one card, one stream",
+              "tol": {"loss": PIPE_LOSS_TOL, "grad_row_rel": PIPE_GRAD_TOL,
+                      "key_bias": PIPE_KEY_BIAS_TOL}}
+    hvd.init()
+    ref_loss, ref = _mesh_reference(cfg, tokens)
+    _require(ref_loss == in_process_losses[0],
+             f"phase 4n: the world-1 step's loss {ref_loss} is not phase "
+             f"4's {in_process_losses[0]}")
+    pad_loss, pad_ref = _mesh_reference(cfg, padded)
+    total, peaks = {}, {}
+    for schedule, m, faults, steps in PIPE_CASES:
+        name = f"{schedule} M={m}"
+        t0 = time.perf_counter()
+        top = pipe_world(cfg, tokens, padded, schedule, m, faults, steps,
+                         profile=steps > 0)
+        r = _pipe_readings(top, ref_loss, ref, pad_loss, pad_ref)
+        per_step = _pipe_launches(schedule, m)
+        r.update(losses=top["losses"],
+                 peak_mem_gb_world=top["peak_bytes"] / 1e9,
+                 step_mem_gb_world=(top["peak_bytes"]
+                                    - top["base_bytes"]) / 1e9,
+                 saved_gb_per_rank=[b / 1e9
+                                    for b in top["saved_peak_bytes"]],
+                 launches_per_step=per_step, case_s=time.perf_counter() - t0)
+        peaks[name] = top["peak_bytes"] - top["base_bytes"]
+        if steps:
+            want = {k: v * steps for k, v in per_step.items()}
+            got = {k: top["launches"][k] for k in want}
+            step_s = float(np.median(top["secs"][1:]))
+            r.update(launches=got, profiled_step_kernels=top["by_name"],
+                     step_ms=step_s * 1e3,
+                     step_ms_all=[x * 1e3 for x in top["secs"]],
+                     tokens_per_s=8 * 1024 / step_s)
+        report[name] = r
+        print(json.dumps({"phase": "pipeline", "case": name, "card": card,
+                          **r}), flush=True)
+        del top
+        torch.cuda.empty_cache()
+        _require(_pipe_within(r), f"phase 4n {name}: step 1 against the "
+                                  f"world-1 step reads {r}")
+        for label, run in r["runs"].items():
+            ok = _pipe_within(run)
+            _require(ok == (label == "padded"),
+                     f"phase 4n {name}: the run {label} "
+                     f"{'fails' if label == 'padded' else 'passes'}: {run}")
+        if steps:
+            _require(got == want,
+                     f"phase 4n {name}: launches {got}, not {want}")
+            _require(r["profiled_step_kernels"] == per_step,
+                     f"phase 4n {name}: the profiled step's kernels "
+                     f"{r['profiled_step_kernels']}, not {per_step}")
+            _require(all(np.isfinite(r["losses"]))
+                     and r["losses"][-1] < r["losses"][0],
+                     f"phase 4n {name}: losses {r['losses']}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+    _require(peaks["1f1b M=8"] < peaks["gpipe M=8"],
+             f"phase 4n (c): 1F1B's step at M = 8 takes "
+             f"{peaks['1f1b M=8'] / 1e9:.2f} GB, GPipe's "
+             f"{peaks['gpipe M=8'] / 1e9:.2f} GB")
+    del ref, pad_ref
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    layer, x, cot, moe = check_moe(seed)
+    _require(moe["ample"]["dropped"] == 0,
+             f"phase 4n (d): {moe['ample']['dropped']} pairs dropped at "
+             f"capacity factor {MOE_AMPLE}")
+    _require(_moe_within(moe["ample"]) and _moe_within(moe["capacity"])
+             and moe["capacity"]["dropped"] > 0,
+             f"phase 4n (d): {moe}")
+    _require(not _moe_within(moe["faults"]["reversed_return"]),
+             f"phase 4n (d): the reversed return all-to-all passes: {moe}")
+
+    def dense_step():
+        xd = x.detach().clone().requires_grad_()
+        y, _ = layer(xd)
+        (y.float() * cot).sum().backward()
+        layer.zero_grad(set_to_none=True)
+
+    moe["dense_fwd_bwd_ms"] = _wall_ms(dense_step)
+    moe["case_s"] = time.perf_counter() - t0
+    moe["card"] = card
+    report["moe"] = moe
+    print(json.dumps({"phase": "pipeline", "case": "moe", **moe}),
+          flush=True)
+    del layer, x, cot
+    ledger["train_pipeline"] = total
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -7571,15 +8259,24 @@ def train_cnns(ledger):
         torch.cuda.empty_cache()
 
 
-def train_mnist_and_entry():
+#: ranks of phase 5c's ``dryrun_multichip`` (emulated on the card)
+DRYRUN_RANKS = 4
+
+
+def train_mnist_and_entry(ledger):
     """MNIST for one epoch through the example's ``main`` (world of one
     over NCCL; the mean loss of the last 4 steps must be below the first
     4's), then ``entry()`` once: its loss finite and ``causal_lm_loss``
-    of the same model and tokens, within 1e-6 relative."""
+    of the same model and tokens, within 1e-6 relative; then
+    ``dryrun_multichip(DRYRUN_RANKS)`` (its ranks emulated on the card):
+    its three ``OK`` lines, each loss finite."""
+    import io
+
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.entry import entry
+    from horovod_tpu_torch.entry import dryrun_multichip, entry
     from horovod_tpu_torch.examples import mnist
     from horovod_tpu_torch.models.transformer import causal_lm_loss
+    from horovod_tpu_torch.ops import _build
 
     stats = {}
     t0 = time.perf_counter()
@@ -7596,15 +8293,30 @@ def train_mnist_and_entry():
         ref = causal_lm_loss(model(tokens), tokens)[0].item()
     _require(np.isfinite(loss) and abs(loss - ref) <= 1e-6 * abs(ref),
              f"entry(): loss {loss} vs causal_lm_loss {ref}")
+    del model, tokens
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        dryrun_multichip(DRYRUN_RANKS)
+    torch.cuda.synchronize()
+    ledger["dryrun"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    lines = text.getvalue().splitlines()
+    oks = [ln for ln in lines if " OK: " in ln]
+    losses_ok = [float(ln.rsplit("loss=", 1)[1]) for ln in oks]
+    _require(len(oks) == 3 and all(np.isfinite(losses_ok)),
+             f"dryrun_multichip({DRYRUN_RANKS}): {lines}")
     print(json.dumps({
         "phase": "mnist_and_entry",
         "mnist": {"steps": len(losses), "first_losses": losses[:4],
                   "last_losses": losses[-4:], "test_acc": acc,
                   "wall_s": wall},
-        "entry": {"model": "GPT-2 small, seq 512", "tokens": list(
-            tokens.shape), "loss": loss, "causal_lm_loss": ref}}))
-    del model, tokens
-    torch.cuda.empty_cache()
+        "entry": {"model": "GPT-2 small, seq 512", "tokens": [4, 512],
+                  "loss": loss, "causal_lm_loss": ref},
+        "dryrun_multichip": {"ranks": DRYRUN_RANKS, "emulated": True,
+                             "lines": oks, "launches": ledger["dryrun"],
+                             "wall_s": time.perf_counter() - t0}}))
 
 
 # ---------------------------------------------------------------------------
@@ -8833,6 +9545,12 @@ def main(argv=None) -> int:
                          "phase 4m's step-1 readings of seeds 0..N-1 and "
                          "of its injected faults (MESH_GRAD_TOL's "
                          "evidence)")
+    ap.add_argument("--pipe-sweep", type=int, default=0, metavar="N",
+                    help="only build the flash and norm kernels and print "
+                         "phase 4n's step-1 readings of seeds 0..N-1 and "
+                         "of its injected faults, and (d)'s MoE readings "
+                         "(PIPE_GRAD_TOL's, PIPE_LOSS_TOL's and "
+                         "MOE_ROW_TOL's evidence)")
     ap.add_argument("--adasum-sweep", type=int, default=0, metavar="N",
                     help="only build the flash kernels and print phase "
                          "4g's readings of seeds 0..N-1 and of the "
@@ -8893,7 +9611,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     secs = _build.build(PROFILE_KERNELS if args.profiles
                         else ADASUM_KERNELS if args.adasum_sweep
-                        else TRAIN_KERNELS if args.mesh_sweep else None)
+                        else TRAIN_KERNELS if args.mesh_sweep
+                        or args.pipe_sweep else None)
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     if args.profiles:
@@ -8904,6 +9623,9 @@ def main(argv=None) -> int:
         return 0
     if args.mesh_sweep:
         mesh_sweep(args.mesh_sweep)
+        return 0
+    if args.pipe_sweep:
+        pipe_sweep(args.pipe_sweep)
         return 0
     print_ptxas(_build, secs)
     print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -8931,24 +9653,36 @@ def main(argv=None) -> int:
     check_fused_ce(args.seed)
 
     # phases 4 and 5: training; phases 6, 7 and 8: serving
-    ledger = {}
-    in_process_rate, in_process_losses = train_gpt2(args.seed, ledger)
-    flat_stage_ms = train_int8(args.seed, ledger)
-    train_zero(args.seed, ledger)
-    train_gpt2_fused_ce(args.seed, ledger)
-    launch_gpt2(ledger, in_process_rate, in_process_losses)
-    train_fsdp(args.seed, ledger, in_process_losses, in_process_rate)
-    train_adasum(args.seed, ledger)
-    train_hierarchical(args.seed, ledger, in_process_losses, flat_stage_ms)
-    train_llama(args.seed, ledger)
-    train_checkpoint(ledger)
-    train_elastic(ledger)
-    train_eager(args.seed, ledger, in_process_losses)
-    train_mesh(args.seed, ledger, in_process_losses)
-    train_resnet(args.seed, ledger)
-    train_cnns(ledger)
-    train_mnist_and_entry()
-    serve_gpt2(args.seed, ledger)
+    ledger, seconds = {}, {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    in_process_rate, in_process_losses = timed("4", train_gpt2, args.seed,
+                                               ledger)
+    flat_stage_ms = timed("4b", train_int8, args.seed, ledger)
+    timed("4c", train_zero, args.seed, ledger)
+    timed("4d", train_gpt2_fused_ce, args.seed, ledger)
+    timed("4e", launch_gpt2, ledger, in_process_rate, in_process_losses)
+    timed("4f", train_fsdp, args.seed, ledger, in_process_losses,
+          in_process_rate)
+    timed("4g", train_adasum, args.seed, ledger)
+    timed("4h", train_hierarchical, args.seed, ledger, in_process_losses,
+          flat_stage_ms)
+    timed("4i", train_llama, args.seed, ledger)
+    timed("4j", train_checkpoint, ledger)
+    timed("4k", train_elastic, ledger)
+    timed("4l", train_eager, args.seed, ledger, in_process_losses)
+    timed("4m", train_mesh, args.seed, ledger, in_process_losses)
+    timed("4n", train_pipeline, args.seed, ledger, in_process_losses)
+    timed("5", train_resnet, args.seed, ledger)
+    timed("5b", train_cnns, ledger)
+    timed("5c", train_mnist_and_entry, ledger)
+    timed("6-8", serve_gpt2, args.seed, ledger)
+    print(json.dumps({"phase_seconds": seconds}))
     launches = {name: sum(counts.get(name, 0) for counts in ledger.values())
                 for name, *_ in KERNELS}
     print(json.dumps({"launches_by_phase": ledger}))

@@ -15,7 +15,9 @@ convert Inception V3 (``ConvBN_i.Conv_0`` / ``.BatchNorm_0``), VGG-16,
 ``MLP`` and ``MnistNet`` (convolution biases, Dense kernels ``[in,
 out]`` in both, VGG's and MNIST's flatten in NHWC order in both) and the
 MNIST example's ``ConvNet`` as they are. :func:`shards_from_flax` gives
-one rank's slices of a transformer tree on a tensor-parallel mesh.
+one rank's slices of a transformer tree on a tensor-parallel mesh,
+:func:`stage_from_flax` one pipeline stage's blocks and the replicated
+rest, and :func:`moe_from_flax` converts a ``MoeMlp``'s tree.
 """
 
 from __future__ import annotations
@@ -62,6 +64,30 @@ def shards_from_flax(tree: Mapping[str, Any], mesh, rules=None,
     from ..parallel.sharding import shard_params
 
     return shard_params(params_from_flax(tree), mesh, rules, rank)
+
+
+def stage_from_flax(tree: Mapping[str, Any], mesh,
+                    rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """One pipeline stage's state dict from a flax transformer tree: the
+    blocks of ``rank``'s (default: the mesh's own) pp stage, under their
+    global names, and everything that is not a block (the embedding,
+    positions, ``ln_final``, the head), for a model from
+    ``parallel.pipeline.build_stage``."""
+    S = mesh.axis_size("pp")
+    n = sum(1 for k in tree if re.fullmatch(r"block_\d+", k))
+    s = (mesh.coords if rank is None else mesh.coords_of(rank)).get("pp", 0)
+    keep = range(s * n // S, (s + 1) * n // S)
+    return OrderedDict(
+        (k, v) for k, v in params_from_flax(tree).items()
+        if not k.startswith("block_")
+        or int(k.split(".", 1)[0][len("block_"):]) in keep)
+
+
+def moe_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``MoeMlp`` tree (``router/{kernel,bias}``, ``w_in`` ``[e,
+    hidden, 2·mlp]``, ``w_out`` ``[e, mlp, hidden]``) -> a state dict for
+    ``models.moe.MoeMlp``; the layouts agree, nothing is transposed."""
+    return params_from_flax(tree)
 
 
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

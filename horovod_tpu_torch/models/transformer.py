@@ -437,14 +437,22 @@ class Transformer(nn.Module):
     #: the tp group's exchanges (parallel/tensor_parallel.parallelize)
     tp = None
 
-    def __init__(self, cfg: TransformerConfig, attention_fn=None):
+    def __init__(self, cfg: TransformerConfig, attention_fn=None,
+                 layers: Optional[range] = None):
         super().__init__()
         self.cfg = cfg
+        #: the blocks this model holds (a pipeline stage's range,
+        #: parallel/pipeline.py; default all), under their global names
+        self.layers = range(cfg.num_layers) if layers is None else layers
+        if not (0 <= self.layers.start <= self.layers.stop
+                <= cfg.num_layers and self.layers.step == 1):
+            raise ValueError(f"layers {self.layers} are not a range of "
+                             f"the {cfg.num_layers} blocks")
         self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
         if cfg.position == "learned":
             self.pos_emb = nn.Parameter(
                 torch.zeros(cfg.max_seq_len, cfg.hidden_size))
-        for i in range(cfg.num_layers):
+        for i in self.layers:
             self.add_module(f"block_{i}", Block(cfg, attention_fn))
         self.ln_final = _norm(cfg)
         if not cfg.tie_embeddings:
@@ -458,8 +466,36 @@ class Transformer(nn.Module):
 
     @property
     def blocks(self):
-        return [getattr(self, f"block_{i}")
-                for i in range(self.cfg.num_layers)]
+        return [getattr(self, f"block_{i}") for i in self.layers]
+
+    def _init_order(self):
+        """``(name, parameter, owner module)`` of the whole model's
+        parameters in ``named_parameters``' order for every layer; a
+        block this model does not hold yields a scratch block's, so the
+        draws that follow it are the whole model's."""
+        scratch = None
+        for name, p in self.named_parameters():
+            if name.startswith("block_") or name.startswith("ln_final.") \
+                    or name.startswith("lm_head."):
+                continue
+            yield name, p, self._owner(name)
+        for i in range(self.cfg.num_layers):
+            if i in self.layers:
+                block = getattr(self, f"block_{i}")
+            else:
+                if scratch is None:
+                    scratch = Block(self.cfg).to(self.tok_emb.embedding.device)
+                block = scratch
+            for n, p in block.named_parameters():
+                yield f"block_{i}.{n}", p, block.get_submodule(
+                    n.rsplit(".", 1)[0])
+        for name, p in self.named_parameters():
+            if name.startswith("ln_final.") or name.startswith("lm_head."):
+                yield name, p, self._owner(name)
+
+    def _owner(self, name):
+        mod = name.rpartition(".")[0]
+        return self.get_submodule(mod) if mod else self
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Transformer":
@@ -467,14 +503,15 @@ class Transformer(nn.Module):
         (std 0.02) embeddings, ``pos_emb`` and untied LM head,
         xavier-uniform dense kernels (fans of the kernel flattened to
         ``[in, out]``), zero biases and unit norm scales. ``generator``
-        must live on the parameters' device."""
-        for name, p in self.named_parameters():
+        must live on the parameters' device. A model that holds some of
+        the blocks (a pipeline stage) gets the whole model's draws for
+        them."""
+        for name, p, mod in self._init_order():
             leaf = name.rsplit(".", 1)[-1]
             if name in ("tok_emb.embedding", "pos_emb",
                         "lm_head.kernel"):
                 p.normal_(0.0, 0.02, generator=generator)
             elif leaf == "kernel":
-                mod = self.get_submodule(name.rsplit(".", 1)[0])
                 fan_in = math.prod(mod.in_shape)
                 fan_out = math.prod(mod.out_shape)
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
@@ -494,26 +531,45 @@ class Transformer(nn.Module):
         decode) and ``positions`` their absolute positions, which must
         stay below ``max_seq_len`` (the positional tables are not
         clamped)."""
-        cfg = self.cfg
-        B, T = tokens.shape
+        if len(self.layers) != self.cfg.num_layers:
+            raise ValueError(f"a model of blocks {self.layers} is a pipeline "
+                             "stage: it runs through parallel/pipeline.py")
         if positions is None:
+            B, T = tokens.shape
             positions = torch.arange(T, device=tokens.device).expand(B, T)
+        x = self.embed(tokens, positions)
+        x = self.run_blocks(x, positions, mask, kv_cache)
+        if return_hidden:
+            return self.ln_final(x)
+        return self.head(x)
+
+    def embed(self, tokens, positions):
+        """The token embedding plus the learned positions' rows."""
         x = self.tok_emb(tokens, self.tp)
-        if cfg.position == "learned":
-            x = x + self.pos_emb[positions].to(cfg.dtype)
+        if self.cfg.position == "learned":
+            x = x + self.pos_emb[positions].to(self.cfg.dtype)
+        return x
+
+    def run_blocks(self, x, positions, mask=None, kv_cache=None):
+        """The blocks this model holds, in order (recomputed in the
+        backward under ``cfg.remat``)."""
+        cfg = self.cfg
         rope = ((self.rope_cos, self.rope_sin) if cfg.position == "rope"
                 else None)
         remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks):
+        for i, block in zip(self.layers, self.blocks):
             if remat:
                 x = checkpoint(block, x, positions, mask, None, i, rope,
                                use_reentrant=False)
             else:
                 x = block(x, positions, mask, kv_cache=kv_cache, layer=i,
                           rope=rope)
+        return x
+
+    def head(self, x):
+        """``ln_final`` and the LM head: logits."""
+        cfg = self.cfg
         x = self.ln_final(x)
-        if return_hidden:
-            return x
         if cfg.tie_embeddings:
             return self.tok_emb.attend(x, self.tp)
         tp = self.tp

@@ -8,7 +8,13 @@ slice's rank order:
 * ``all_to_all(chunks)`` -> the chunk each rank addressed to this one
   (``chunks[j]`` goes to rank j), a list in rank order;
 * ``send_recv(t)`` -> the ``t`` of the previous rank on the ring, this
-  rank's going to the next one.
+  rank's going to the next one;
+* ``hop_forward(t)`` and ``hop_backward(t)``: the pipeline's hops along
+  the chain (not the ring): forward, rank i's ``t`` to rank i + 1, rank
+  0 receiving zeros; backward, rank i + 1's to rank i, the last rank
+  receiving zeros (the JAX package's ``fwd_perm`` and ``bwd_perm``).
+  Every rank calls each hop, an idle one with zeros, or the ranks'
+  exchanges no longer pair up.
 
 ``all_reduce(t)`` is built on ``all_gather``: the ranks' tensors summed
 in rank order in float32 and rounded once to ``t``'s dtype
@@ -91,6 +97,31 @@ class GroupComm(_Comm):
             work.wait()
         return out
 
+    def hop_forward(self, t):
+        return self._hop(t, +1)
+
+    def hop_backward(self, t):
+        return self._hop(t, -1)
+
+    def _hop(self, t, step):
+        """``t`` to the rank ``step`` along the chain, the rank ``-step``
+        along it received (zeros at the chain's end): P2P operations on
+        the chain's edges only."""
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        to, frm = self.rank + step, self.rank - step
+        ops = []
+        if 0 <= to < self.size:
+            ops.append(dist.P2POp(dist.isend, t, self.ranks[to], self.group))
+        if 0 <= frm < self.size:
+            ops.append(dist.P2POp(dist.irecv, out, self.ranks[frm],
+                                  self.group))
+        else:
+            out.zero_()
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out
+
 
 class SelfComm(_Comm):
     """The exchanges of an axis of one rank: each gives back its input
@@ -106,6 +137,11 @@ class SelfComm(_Comm):
 
     def send_recv(self, t):
         return t
+
+    def hop_forward(self, t):
+        return torch.zeros_like(t)
+
+    hop_backward = hop_forward
 
 
 class ThreadWorld:
@@ -146,6 +182,17 @@ class ThreadComm(_Comm):
 
     def send_recv(self, t):
         return self.world.exchange(self.rank, t)[(self.rank - 1) % self.size]
+
+    def hop_forward(self, t):
+        return self._hop(t, +1)
+
+    def hop_backward(self, t):
+        return self._hop(t, -1)
+
+    def _hop(self, t, step):
+        frm = self.rank - step
+        got = self.world.exchange(self.rank, t)
+        return got[frm] if 0 <= frm < self.size else torch.zeros_like(t)
 
 
 def run_ranks(worlds: Sequence[ThreadWorld], fn: Callable[[int], object],

@@ -269,6 +269,28 @@ def mesh_from_spec(spec: str, world: int, rank: int = 0) -> Mesh:
     return Mesh(names, shape, rank)
 
 
+def emulated_meshes(layout: Mesh, timeout: float = 600.0):
+    """``layout``'s ranks emulated in one process: every slice of every
+    live axis a ``comm.ThreadWorld``, and each rank's :class:`Mesh`
+    carrying, on each live axis, a ``comm.ThreadComm`` of its slice.
+    Returns ``(meshes, worlds)``, a mesh a rank; run the ranks with
+    ``comm.run_ranks(worlds, fn, layout.size)``. An emulated mesh has no
+    process sets."""
+    from .comm import ThreadComm, ThreadWorld
+
+    comms: List[Dict[str, object]] = [{} for _ in range(layout.size)]
+    worlds = []
+    for axis in layout.live_axes():
+        for ranks in layout.slices((axis,)):
+            world = ThreadWorld(len(ranks), timeout=timeout)
+            worlds.append(world)
+            for i, r in enumerate(ranks):
+                comms[r][axis] = ThreadComm(world, i)
+    meshes = [Mesh(layout.axis_names, layout.shape, r, comms=comms[r])
+              for r in range(layout.size)]
+    return meshes, worlds
+
+
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:
     """Mesh axes of size > 1 over which the batch is sharded (the
     gradient-reduction world); empty if neither dp nor fsdp is present

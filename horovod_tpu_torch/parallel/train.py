@@ -32,10 +32,14 @@ HOROVOD_OVERLAP_SCHEDULE says: its hooks already issue each bucket of
 the backward-ordered plan at the boundary where the JAX package's
 staged schedule issues it (``ops/overlap.py``).
 
+A live pp or ep axis raises ``ValueError``: the JAX step's rules name
+neither axis, so there it only repeats the same work. Pipelines train
+through ``parallel/pipeline.py`` (``pipeline_lm_train_step_1f1b``) and
+experts route over an ep axis in ``models/moe.MoeMlp``.
+
 Not ported yet (ROADMAP queue A entry 11): a live fsdp axis under a
 replicated optimizer (the JAX package's ZeRO-3 by the rules' fsdp
-entries), the ep and pp axes (MoE, the pipeline) and ``fused_ce`` with
-a vocab-split head; each raises.
+entries) and ``fused_ce`` with a vocab-split head; each raises.
 """
 
 from __future__ import annotations
@@ -62,9 +66,12 @@ from .ulysses import make_ulysses_attention_fn
 
 #: the later part of ROADMAP queue A entry 11 each refused axis waits for
 _LATER = {"fsdp": "a live fsdp axis under a replicated optimizer (the "
-                  "rules' fsdp entries, ZeRO-3 by sharding)",
-          "ep": "expert parallelism (models/moe.py)",
-          "pp": "pipeline parallelism"}
+                  "rules' fsdp entries, ZeRO-3 by sharding)"}
+
+#: the axes this step refuses, and where their work is done instead
+_ELSEWHERE = {"pp": "pipelines train through "
+                    "parallel.pipeline.pipeline_lm_train_step_1f1b",
+              "ep": "experts route over an ep axis in models.moe.MoeMlp"}
 
 
 def sp_attention_fn(mesh: Mesh, kind: str = "ring", causal: bool = True):
@@ -192,6 +199,12 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
             model = Transformer(cfg, attention_fn=attention_fn)
         model.init_params(torch.Generator(device=device).manual_seed(0))
         return model, _fsdp_step_fn(cfg, model, optimizer, fused_ce)
+    for axis, where in _ELSEWHERE.items():
+        if mesh.axis_size(axis) > 1:
+            raise ValueError(
+                f"make_lm_train_step neither pipelines nor routes experts: "
+                f"a live {axis} axis (mesh {mesh!r}) would only repeat its "
+                f"work; {where}")
     for axis, what in _LATER.items():
         if mesh.axis_size(axis) > 1:
             raise NotImplementedError(

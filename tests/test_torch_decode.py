@@ -348,6 +348,12 @@ _MESH_MODULES = [
         "parallel.ulysses", "models.convert")]
 
 
+_PIPELINE_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "parallel.pipeline", "models.moe", "entry",
+        "examples.pipeline_pretraining")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
@@ -355,12 +361,14 @@ def test_no_jax_in_port_or_chip_smoke():
     example), the launcher's and the two-level wire's, checkpoint's and
     Llama example's, the elastic slice's, the eager runtime's (the
     ctypes layer and the runtime), the serving tier's (engine,
-    batcher, server, replica set, registry) and the mesh's (mesh,
+    batcher, server, replica set, registry), the mesh's (mesh,
     communicators, sharding rules, tensor parallelism, ring attention,
-    Ulysses, the converter's shards) modules are among those walked."""
+    Ulysses, the converter's shards) and the pipeline's (GPipe and
+    1F1B, the experts' layer, the dry run, the pipeline example)
+    modules are among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
-              + _SERVING_MODULES + _MESH_MODULES)
+              + _SERVING_MODULES + _MESH_MODULES + _PIPELINE_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"
@@ -380,6 +388,26 @@ def test_no_jax_in_port_or_chip_smoke():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "CLEAN" in out.stdout, out.stderr
+
+
+def test_chip_smoke_defines_each_name_once():
+    """Every function, class and constant at chip_smoke.py's top level
+    is defined once: a later definition of a name would silently replace
+    the earlier one for every phase that calls it."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    seen = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        else:
+            continue
+        for name in names:
+            seen.setdefault(name, []).append(node.lineno)
+    assert not {k: v for k, v in seen.items() if len(v) > 1}
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -302,9 +302,12 @@ def test_global_mean_over_uneven_padding(world):
 def test_refusals():
     """What the mesh path does not take raises, as the JAX package's
     step does (a FullyShardedOptimizer with sequence parallelism, or
-    with live axes other than its one data axis: ValueError) or naming
-    the later part of ROADMAP queue A entry 11 (a live fsdp axis under
-    a replicated optimizer, the ep and pp axes, the fused loss with a
+    with live axes other than its one data axis: ValueError), naming
+    where the work is done instead (a live pp or ep axis, which the JAX
+    step's rules never name, so that there it only repeats the same
+    work: ValueError naming ``pipeline_lm_train_step_1f1b`` and
+    ``MoeMlp``) or naming the later part of ROADMAP queue A entry 11 (a
+    live fsdp axis under a replicated optimizer, the fused loss with a
     vocab split over tp). The meshes are layouts whose live axes carry
     a stand-in communicator: each call raises before any exchange."""
     cfg = tt.TransformerConfig(dtype=torch.float32, **CFGS["llama"])
@@ -327,9 +330,12 @@ def test_refusals():
             build(fsdp, mesh=mesh(fsdp=2, tp=2))
         with pytest.raises(ValueError, match="data axes"):
             build(fsdp, mesh=mesh(dp=2, fsdp=2))
-        for axis in ("fsdp", "ep", "pp"):
-            with pytest.raises(NotImplementedError, match="entry 11"):
-                build(mesh=mesh(**{axis: 2}))
+        with pytest.raises(NotImplementedError, match="entry 11"):
+            build(mesh=mesh(fsdp=2))
+        with pytest.raises(ValueError, match="pipeline_lm_train_step_1f1b"):
+            build(mesh=mesh(pp=2))
+        with pytest.raises(ValueError, match="MoeMlp"):
+            build(mesh=mesh(ep=2))
         with pytest.raises(NotImplementedError, match="entry 11"):
             build(mesh=mesh(tp=2), fused_ce=True)
         with pytest.raises(ValueError, match="sequence_parallel"):
