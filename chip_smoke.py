@@ -12,8 +12,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py --adasum-sweep 8   # phase 4g's limit's readings
     python3 chip_smoke.py --mesh-sweep 8     # phase 4m's limits' readings
     python3 chip_smoke.py --pipe-sweep 8     # phase 4n's limits' readings
+    python3 chip_smoke.py --fsdp-sweep 8     # phase 4o's limits' readings
     python -m horovod_tpu_torch.examples.local_world -np 4 -- \
-        python3 chip_smoke.py --mesh-world   # phase 4m on four cards
+        python3 chip_smoke.py --mesh-world   # phases 4m, 4o on four cards
 
 Phases, in order; the first failure exits non-zero:
 
@@ -171,7 +172,11 @@ Phases, in order; the first failure exits non-zero:
    int8 wire on the same gradients, each wire's relative L2 to the
    float32 mean, each leg's bytes a rank a step and one rank's outer-leg
    kernels' device ms; (b) the float32 and bf16 wires through the same
-   composition within ``HIER_WIRE_TOL`` of the exact sum; (c) the knobs
+   composition within ``HIER_WIRE_TOL`` of the exact sum; beside (a)
+   the two-axis form's decision: the world mesh ``HOROVOD_MESH=dcn=2,
+   ici=2`` names with no local-size knob gives (a)'s block of 2 by the
+   int8 optimizer's rule (``hierarchical.mesh_block``) and by the axes
+   (``hierarchical.axes_block``), so its route is (a)'s; (c) the knobs
    at world 1 over NCCL: the flat route, the collectives' inputs back
    bitwise and phase 4's losses bitwise;
 4i. train Llama-2 at its width (hidden 4096, 32 heads of 128, MLP 11008,
@@ -268,6 +273,20 @@ Phases, in order; the first failure exits non-zero:
    and at capacity factor 1.25 against the drop rule's plain reference
    (pairs must drop), row by row (``MOE_ROW_TOL``), where a reversed
    return all-to-all must fail; forward + backward ms;
+4o. train GPT-2 medium (24 x 1024, ``--flash --fused-norm``, AdamW,
+   phase 4's weights and 8 x 1024 batch) with a live fsdp axis under the
+   replicated optimizer (``parallel/fsdp_axis.py``, ZeRO-3 by the
+   rules), four ranks emulated on the card as phase 4m's are, on (a)
+   fsdp = 4, (b) dp = 2, fsdp = 2 and (c) fsdp = 2, tp = 2: each held
+   at step 1 against phase 4's world-1 step (the loss and every gradient
+   row; ``FSDP_AXIS_GRAD_TOL``), where the shards gathered in reversed
+   rank order, a weight-gradient shard left as the rank's partial and a
+   whole parameter's gradient not summed over fsdp must fail; then 3
+   AdamW steps: a falling loss, exact B1-B5 launches (24 B1-B3 and 49
+   B4/B5 a rank a step; and by kernel name in a profiled step), each
+   rank's parameter and AdamW-state bytes exactly its specs' share
+   (beside world 1's), the bytes gathered and reduce-scattered a step,
+   peak memory, step ms, tokens/s;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -317,7 +336,9 @@ Phases, in order; the first failure exits non-zero:
    client sees a failure; and an MLP's predict tier through a
    ``--checkpoint`` replica, groups of 64, 10, 3 and 1 concurrent
    clients, each answer bitwise the module's forward of the padded
-   batch, with each group's batch fill; in this process an evicted
+   batch, with each group's batch fill, and in this process the MLP's
+   ``InferenceEngine(mesh=hvd.mesh(), sharding_rules=RESNET_RULES)``
+   bitwise the engine without a mesh at every bucket, graphed; an evicted
    predict graph must free its memory and its pinned host buffers, and
    across more shapes than the graph cache holds the engine's pinned
    host bytes must stay within one shape's;
@@ -328,7 +349,8 @@ Phases, in order; the first failure exits non-zero:
    ((a)'s kernel composition), 4i, 4j, 4k (in process and the
    launched workers' second rounds), 4l ((a), (b) and (e)'s ``run()``
    worker), 4m (the emulated worlds' steps and (d)), 4n (the trained
-   cases' steps), 5c's dry run, 5 and 5b and the
+   cases' steps), 4o (the emulated worlds' steps), 5c's dry run, 5 and
+   5b and the
    graphed
    serving runs of phases 6 and 7 (counts zeroed
    just before each run and read just after), error, tolerance and
@@ -5140,6 +5162,17 @@ def hier_world(seed, weights_seed=0, steps=HIER_STEPS):
 
     res_k, res_p, res_f, res_fault = (zero_res(), zero_res(), zero_res(),
                                       zero_res())
+    # the two-axis form: the block the world mesh HOROVOD_MESH=dcn=2,
+    # ici=2 names gives, with no local-size knob: (a)'s, so its route is
+    # the one below
+    from horovod_tpu_torch.parallel.mesh import mesh_from_spec
+
+    two_axis = mesh_from_spec("dcn=2,ici=2", n)
+    mesh_block = (hier.mesh_block(two_axis),
+                  hier.axes_block(("dcn", "ici"), two_axis))
+    _require(mesh_block == (block, block),
+             f"hierarchical: the dcn=2,ici=2 mesh's blocks (mesh, axes) "
+             f"are {mesh_block}, not (a)'s {block}")
     caught = {f: [0, 0] for f in HIER_FAULTS}
     losses, launches, rel, rel_flat, stage_ms = [], [], [], [], []
     wires = {}
@@ -5280,6 +5313,8 @@ def hier_world(seed, weights_seed=0, steps=HIER_STEPS):
             "rel_l2_by_bucket_last_step": rel[-1],
             "flat_int8_rel_l2_by_bucket_last_step": rel_flat[-1],
             "launches_by_step": launches, "stage_wall_ms": stage_ms,
+            "two_axis_dcn2_ici2": {
+                "blocks_mesh_axes": list(mesh_block), "route": "(a)'s"},
             "faults_buckets_differing_steps_1_2": caught, "wires": wires,
             "leg_bytes_per_rank_step": _leg_bytes(sizes, n, block,
                                                   QUANT_BLOCK),
@@ -6934,11 +6969,13 @@ def _row_sums(g, ref, spec, mesh):
 def mesh_world_worker() -> int:
     """``--mesh-world``: one rank of a real world of four cards
     (``python -m horovod_tpu_torch.examples.local_world -np 4 -- python3
-    chip_smoke.py --mesh-world``), NCCL between them: phase 4m's cases
-    on real process groups. Each rank takes the gradients of phase 4's
-    weights and batch on its own card (the whole model, the mean loss),
-    then each case's step-1 gradients (under tp its slices) and three
-    timed steps. The rows' squared errors and norms sum over the world
+    chip_smoke.py --mesh-world``), NCCL between them: phase 4m's and
+    phase 4o's cases on real process groups. Each rank takes the
+    gradients of phase 4's weights and batch on its own card (the whole
+    model, the mean loss), then each case's step-1 gradients (under tp
+    and fsdp its slices; its rows of the batch under a data axis,
+    reduced over dp by the optimizer's ``synchronize``) and three timed
+    steps. The rows' squared errors and norms sum over the world
     (``_row_sums``), each case is held to phase 4m's limits, and rank 0
     prints the readings, step ms, tokens/s, peak memory and launches a
     rank a step."""
@@ -6951,6 +6988,7 @@ def mesh_world_worker() -> int:
     from horovod_tpu_torch.ops.collectives import Sum, allreduce
     from horovod_tpu_torch.ops.flash_attention import \
         make_flash_attention_fn
+    from horovod_tpu_torch.parallel.sharding import batch_slices
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6975,12 +7013,16 @@ def mesh_world_worker() -> int:
                                 weight_decay=1e-4)
     report = {"mesh_world": f"{MESH_RANKS} cards, NCCL", "card": _card(),
               "ref_loss": ref_loss, "tol": MESH_GRAD_TOL}
-    for name, axes, sp in MESH_CASES:
+    cases = MESH_CASES + tuple((n, a, None) for n, a in FSDP_AXIS_CASES)
+    for name, axes, sp in cases:
         spec = ",".join(f"{a}={s}" for a, s in axes.items())
         model, step = hvd.make_lm_train_step(
             cfg, factory, mesh=spec, attention_fn=None if sp else flash,
             sequence_parallel=sp)
-        loss = float(step.backward(tokens))
+        rows, _ = batch_slices(step.mesh, *tokens.shape)
+        mine = tokens[rows]
+        loss = float(step.backward(mine))
+        step.optimizer.synchronize()
         readings = {}
         for n, p in model.named_parameters():
             err, nrm = _row_sums(p.grad, ref[n],
@@ -7001,7 +7043,7 @@ def mesh_world_worker() -> int:
         for _ in range(MESH_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            losses.append(float(step(tokens)))
+            losses.append(float(step(mine)))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         step_s = float(np.median(secs[1:]))
@@ -7788,6 +7830,362 @@ def train_pipeline(seed, ledger, in_process_losses):
           flush=True)
     del layer, x, cot
     ledger["train_pipeline"] = total
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4o: GPT-2 medium on a live fsdp axis under a replicated optimizer
+# (ZeRO-3 by the sharding rules), four ranks emulated on the card
+# ---------------------------------------------------------------------------
+
+FSDP_AXIS_RANKS = 4
+FSDP_AXIS_STEPS = 3  # launches counted over all three, timed from the second
+#: (name, mesh axes) of phase 4o's emulated worlds
+FSDP_AXIS_CASES = (("fsdp=4", {"fsdp": 4}),
+                   ("dp=2,fsdp=2", {"dp": 2, "fsdp": 2}),
+                   ("fsdp=2,tp=2", {"fsdp": 2, "tp": 2}))
+#: the faults every case's step-1 check must catch (``_FaultyFsdpComm``):
+#: the shards gathered in reversed rank order; a weight-gradient shard
+#: left as the rank's own partial, not reduce-scattered; a whole
+#: parameter's gradient not summed over fsdp
+FSDP_AXIS_FAULTS = ("gather_reversed", "scatter_left_partial",
+                    "whole_grad_unsummed")
+#: limits of phase 4o's step-1 check against phase 4's world-1 step on the
+#: same weights and batch, read as phase 4m's (``_mesh_grad_readings``):
+#: each parameter's worst gradient row and the loss (absolute); the
+#: attention key biases (a true gradient of 0) against the whole
+#: gradient's norm. Over 8 batch seeds the healthy worst row read 0.065
+#: (fsdp = 4 and dp = 2 x fsdp = 2, the same bits) and 0.206 (fsdp = 2 x
+#: tp = 2, in a key kernel, as phase 4m's tp); the least fault 1.107 (a
+#: shard left as the rank's partial), the others 1.34 (a whole gradient
+#: unsummed) and 6.7 up (reversed gathers) (``--fsdp-sweep 8`` on an
+#: NVIDIA H100 80GB HBM3, 700 W; PERF.md): phase 4m's 0.5 sits between.
+#: The loss (healthy worst 2.3e-4, faults 0 to 8.8e-5: a fault moves only
+#: the gradients) and the key biases (healthy 6.0e-6) are sanity bounds
+FSDP_AXIS_GRAD_TOL = MESH_GRAD_TOL
+FSDP_AXIS_LOSS_TOL = 1e-3
+FSDP_AXIS_KEY_BIAS_TOL = 1e-3
+
+
+class _FaultyFsdpComm:
+    """The fsdp communicator of one rank with one of phase 4o's faults;
+    everything else is the real communicator's."""
+
+    def __init__(self, comm, fault):
+        self.comm, self.fault = comm, fault
+        self.rank, self.size = comm.rank, comm.size
+
+    def all_gather(self, t):
+        parts = self.comm.all_gather(t)
+        return parts[::-1] if self.fault == "gather_reversed" else parts
+
+    def all_reduce(self, t):
+        if self.fault == "whole_grad_unsummed":
+            return t
+        return self.comm.all_reduce(t)
+
+    def reduce_scatter(self, t):
+        if self.fault == "scatter_left_partial":
+            return t.chunk(self.size)[self.rank].clone()
+        return self.comm.reduce_scatter(t)
+
+
+def _fsdp_axis_launches():
+    """B1-B5 launches a step over the four emulated ranks: B1-B3 once a
+    layer a rank (each rank its rows; under tp its heads), the 49 norms
+    once a rank each. The gathers launch none of them."""
+    n = FSDP_AXIS_RANKS
+    return {"flash_fwd": 24 * n, "flash_bwd_dq": 24 * n,
+            "flash_bwd_dkv": 24 * n, "layernorm_fwd": 49 * n,
+            "layernorm_bwd": 49 * n}
+
+
+def _adamw_state_bytes(opt):
+    return sum(t.numel() * t.element_size() for s in opt.state.values()
+               for k, t in s.items() if k != "step")
+
+
+def fsdp_axis_world(cfg, tokens, axes, faults=(), steps=FSDP_AXIS_STEPS,
+                    profile=False):
+    """One emulated world of phase 4o: ``FSDP_AXIS_RANKS`` threads on the
+    card, each rank building ``make_lm_train_step(cfg, AdamW, mesh=...)``
+    on its own ``Mesh`` (``parallel.mesh.emulated_meshes``: every live
+    axis over ``ThreadComm``s; the dp average through its communicator;
+    every other line the real path's), taking its rows of ``tokens``.
+    Each rank takes the step-1 backward, then each fault's
+    (``_FaultyFsdpComm`` as the step's fsdp communicator), then
+    ``steps`` AdamW steps (the last one profiled with ``profile``).
+    Returns rank 0's view: the loss, every rank's gradient slices put
+    back together, each fault's, the step losses, seconds, launches and
+    kernels by name, the peak memory, every rank's resident parameter
+    and AdamW-state bytes and its bytes gathered and reduce-scattered in
+    one step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import \
+        make_flash_attention_fn
+    from horovod_tpu_torch.parallel import comm as pc
+    from horovod_tpu_torch.parallel import mesh as pm
+    from horovod_tpu_torch.parallel import sharding as psh
+
+    layout = pm.make_mesh(world=FSDP_AXIS_RANKS, **axes)
+    meshes, worlds = pm.emulated_meshes(layout)
+    barrier = pc.ThreadWorld(FSDP_AXIS_RANKS)
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4,
+                                weight_decay=1e-4)
+    flash = make_flash_attention_fn(causal=True)
+
+    def rank_fn(rank):
+        def sync(value=None):
+            return barrier.exchange(rank, value)
+
+        mesh = meshes[rank]
+        model, step = hvd.make_lm_train_step(cfg, factory, mesh=mesh,
+                                             attention_fn=flash)
+        rows, _ = psh.batch_slices(mesh, *tokens.shape)
+        mine = tokens[rows]
+        opt, fsdp = step.optimizer, step.fsdp
+
+        def backward():
+            loss = float(step.backward(mine))
+            opt.synchronize()
+            g = {n: p.grad for n, p in model.named_parameters()}
+            every = sync(g)
+            opt.zero_grad(set_to_none=True)
+            if rank != 0:
+                return loss, None
+            # ranks that differ only in dp hold the same slices, reduced
+            # to the same bits
+            for r, other in enumerate(every):
+                twin = dict(layout.coords_of(r), dp=0)
+                _require(all(torch.equal(v, every[layout.rank_of(twin)][n])
+                             for n, v in other.items()),
+                         f"phase 4o {axes}: rank {r}'s gradients are not "
+                         "its dp twin's bits")
+            return loss, psh.unshard_params(every, step.specs, layout)
+
+        out = {"specs": step.specs}
+        out["loss"], out["full"] = backward()
+        out["faults"] = {}
+        real = fsdp.comm
+        for name in faults:
+            fsdp.comm = _FaultyFsdpComm(real, name)
+            try:
+                loss, full = backward()
+            finally:
+                fsdp.comm = real
+            out["faults"][name] = {"loss": loss, "full": full}
+        sync()
+        if rank == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+        losses, secs, moved = [], [], []
+        with contextlib.ExitStack() as stack:
+            for i in range(steps):
+                sync()
+                if rank == 0 and profile and i == steps - 1:
+                    prof = stack.enter_context(_profiled())
+                sync()
+                before = (fsdp.gathered_bytes, fsdp.scattered_bytes)
+                t0 = time.perf_counter()
+                losses.append(step(mine))
+                sync()
+                if rank == 0:
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                moved.append((fsdp.gathered_bytes - before[0],
+                              fsdp.scattered_bytes - before[1]))
+            sync()
+        out["losses"] = [float(x) for x in losses]
+        if rank == 0:
+            torch.cuda.synchronize()
+            out["launches"] = dict(_build.LAUNCHES)
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["secs"] = secs
+            if profile and steps:
+                events = _kernel_events(prof)
+                out["by_name"] = {k: sum(e.count for e in events
+                                         if k + "_" in e.key)
+                                  for k in TRAIN_KERNELS}
+        held = sum(p.numel() for p in model.parameters())
+        out["resident"] = sync({
+            "param_elements": held,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "adamw_state_bytes": _adamw_state_bytes(opt),
+            "gathered_bytes_step": moved[-1][0] if moved else 0,
+            "scattered_bytes_step": moved[-1][1] if moved else 0})
+        return out
+
+    results = pc.run_ranks(worlds + [barrier], rank_fn, FSDP_AXIS_RANKS)
+    top = results[0]
+    _require(all(r["losses"] == top["losses"] and r["loss"] == top["loss"]
+                 for r in results),
+             f"phase 4o {axes}: the ranks' losses differ")
+    del results
+    return top
+
+
+def _fsdp_axis_readings(top, ref_loss, ref):
+    out = {"loss": top["loss"], "loss_err": abs(top["loss"] - ref_loss),
+           **_mesh_grad_readings(top["full"], ref), "faults": {}}
+    for f, run in top["faults"].items():
+        out["faults"][f] = {"loss_err": abs(run["loss"] - ref_loss),
+                            **_mesh_grad_readings(run["full"], ref)}
+    return out
+
+
+def _fsdp_axis_within(r):
+    return (r["loss_err"] <= FSDP_AXIS_LOSS_TOL
+            and r["grad_row_rel_max"] <= FSDP_AXIS_GRAD_TOL
+            and r["key_bias_over_grad_norm_max"] <= FSDP_AXIS_KEY_BIAS_TOL)
+
+
+def _fsdp_axis_reckoning(cfg, axes):
+    """``(elements a rank holds, elements of the model)`` by the rules'
+    pruned specs on the case's layout (``fsdp_axis.param_counts``)."""
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.parallel import fsdp_axis
+    from horovod_tpu_torch.parallel import mesh as pm
+    from horovod_tpu_torch.parallel import sharding as psh
+
+    layout = pm.make_mesh(world=FSDP_AXIS_RANKS, **axes)
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape)
+                  for n, p in Transformer(cfg).named_parameters()}
+    specs = psh.make_param_shardings(
+        {n: torch.empty(s, device="meta") for n, s in shapes.items()},
+        layout)
+    return fsdp_axis.param_counts(specs, shapes, layout)
+
+
+def fsdp_sweep(n_seeds):
+    """``--fsdp-sweep N``: phase 4o's step-1 readings on the batches of
+    seeds 0..N-1 (healthy) and of its injected faults on seed 0's, each
+    case against the world-1 step: the limits' evidence."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    hvd.init()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    for seed in range(n_seeds):
+        tokens = torch.from_numpy(np.random.RandomState(1000 + seed).randint(
+            0, cfg.vocab_size, (8, 1024))).cuda()
+        ref_loss, ref = _mesh_reference(cfg, tokens)
+        for name, axes in FSDP_AXIS_CASES:
+            top = fsdp_axis_world(
+                cfg, tokens, axes,
+                faults=FSDP_AXIS_FAULTS if seed == 0 else (), steps=0)
+            r = _fsdp_axis_readings(top, ref_loss, ref)
+            print(json.dumps({"fsdp_sweep": name, "seed": seed, **r}),
+                  flush=True)
+            del top
+            torch.cuda.empty_cache()
+        del ref
+    hvd.shutdown()
+
+
+def train_fsdp_axis(seed, ledger, in_process_losses):
+    """Phase 4o: GPT-2 medium at full width (24 x 1024, 16 heads, vocab
+    50257, flash attention and fused norms, AdamW, seed 0, phase 4's 8 x
+    1024 batch) through ``make_lm_train_step(mesh=...)`` with a live fsdp
+    axis under the replicated optimizer (``parallel/fsdp_axis.py``: each
+    rank its slices of the rules' fsdp dimensions and AdamW's state of
+    them, a block's weights gathered when it runs and regathered for its
+    backward, their gradients reduce-scattered), four ranks emulated on
+    the card (``fsdp_axis_world``) on (a) fsdp = 4, (b) dp = 2, fsdp = 2
+    and (c) fsdp = 2, tp = 2; each held at step 1 against phase 4's
+    world-1 step on the same weights and batch (the loss and every
+    gradient row, ``FSDP_AXIS_GRAD_TOL``), its faults failing the same
+    check, then 3 steps with a falling loss, exact B1-B5 launches
+    (``_fsdp_axis_launches``, confirmed by kernel name in a profiled
+    step), each rank's resident parameter and AdamW-state bytes exactly
+    the reckoning from the specs (beside world 1's), the bytes gathered
+    and reduce-scattered a step, the peak memory, step ms and tokens/s."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    card = _card()
+    report = {"phase": "fsdp_axis", "card": card,
+              "model": "GPT-2 medium 24x1024, 16 heads",
+              "batch": "8x1024", "ranks": FSDP_AXIS_RANKS,
+              "emulated": "threads on one card, one stream",
+              "tol": {"loss": FSDP_AXIS_LOSS_TOL,
+                      "grad_row_rel": FSDP_AXIS_GRAD_TOL,
+                      "key_bias": FSDP_AXIS_KEY_BIAS_TOL}}
+    hvd.init()
+    ref_loss, ref = _mesh_reference(cfg, tokens)
+    _require(ref_loss == in_process_losses[0],
+             f"phase 4o: the world-1 step's loss {ref_loss} is not phase "
+             f"4's {in_process_losses[0]}")
+    total = {}
+    per_step = _fsdp_axis_launches()
+    for name, axes in FSDP_AXIS_CASES:
+        t0 = time.perf_counter()
+        top = fsdp_axis_world(cfg, tokens, axes, FSDP_AXIS_FAULTS,
+                              profile=True)
+        r = _fsdp_axis_readings(top, ref_loss, ref)
+        held, whole = _fsdp_axis_reckoning(cfg, axes)
+        want = {k: v * FSDP_AXIS_STEPS for k, v in per_step.items()}
+        got = {k: top["launches"][k] for k in want}
+        step_s = float(np.median(top["secs"][1:]))
+        resident = top["resident"]
+        r.update(losses=top["losses"], launches=got,
+                 launches_per_step=per_step,
+                 profiled_step_kernels=top["by_name"],
+                 param_elements_rank=held, param_elements_world1=whole,
+                 share_of_world1=held / whole,
+                 resident_gb_rank=[(x["param_bytes"]
+                                    + x["adamw_state_bytes"]) / 1e9
+                                   for x in resident],
+                 resident_gb_world1=12 * whole / 1e9,
+                 gathered_gb_rank_step=[x["gathered_bytes_step"] / 1e9
+                                        for x in resident],
+                 reduce_scattered_gb_rank_step=[
+                     x["scattered_bytes_step"] / 1e9 for x in resident],
+                 step_ms=step_s * 1e3,
+                 step_ms_all=[x * 1e3 for x in top["secs"]],
+                 tokens_per_s=8 * 1024 / step_s,
+                 peak_mem_gb_world=top["peak_bytes"] / 1e9,
+                 peak_mem_gb_per_rank=top["peak_bytes"] / 1e9
+                 / FSDP_AXIS_RANKS,
+                 case_s=time.perf_counter() - t0)
+        report[name] = r
+        print(json.dumps({"phase": "fsdp_axis", "case": name, "card": card,
+                          **r}), flush=True)
+        del top
+        torch.cuda.empty_cache()
+        _require(_fsdp_axis_within(r),
+                 f"phase 4o {name}: step 1 against the world-1 step reads "
+                 f"{r}")
+        for f, fr in r["faults"].items():
+            _require(not _fsdp_axis_within(fr),
+                     f"phase 4o {name}: the fault {f} passes: {fr}")
+        _require(got == want, f"phase 4o {name}: launches {got}, not {want}")
+        _require(r["profiled_step_kernels"] == per_step,
+                 f"phase 4o {name}: the profiled step's kernels "
+                 f"{r['profiled_step_kernels']}, not {per_step}")
+        _require(all(np.isfinite(r["losses"]))
+                 and r["losses"][-1] < r["losses"][0],
+                 f"phase 4o {name}: losses {r['losses']}")
+        _require(all(x["param_elements"] == held
+                     and x["adamw_state_bytes"] == 8 * held
+                     and x["param_bytes"] == 4 * held for x in resident),
+                 f"phase 4o {name}: resident {resident}, not {held} "
+                 "elements a rank by the specs")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    del ref
+    hvd.shutdown()
+    ledger["train_fsdp_axis"] = total
     report["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps(report))
     torch.cuda.empty_cache()
@@ -8929,6 +9327,41 @@ def _predict_groups(addr, key, mlp, rng):
     return fills
 
 
+def check_mesh_engine(mlp_dir):
+    """Phase 8 (d)'s engine on the world's mesh: the predict tier's MLP
+    in ``InferenceEngine(mesh=hvd.mesh(), sharding_rules=RESNET_RULES)``
+    (a world of one over NCCL) against the engine without a mesh, each
+    bucket's request twice (the lazily built graph's uncaptured first
+    run, then its replay): bitwise, every bucket graphed. Returns the
+    buckets and the resident and shard bytes."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.sharding import RESNET_RULES
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    hvd.init()
+    try:
+        plain = InferenceEngine.from_checkpoint(mlp_dir, buckets=MLP_BUCKETS)
+        meshed = InferenceEngine.from_checkpoint(
+            mlp_dir, buckets=MLP_BUCKETS, mesh=hvd.mesh(),
+            sharding_rules=RESNET_RULES)
+        rng = np.random.RandomState(8)
+        for b in MLP_BUCKETS:
+            x = rng.randn(b, MLP_IN).astype(np.float32)
+            for _ in range(2):
+                _require(np.array_equal(meshed(x), plain(x)),
+                         f"phase 8 (d): the mesh engine at bucket {b} is "
+                         "not bitwise the engine without a mesh")
+        graphed = [s.graph is not None for s in meshed._cache.values()]
+        _require(len(graphed) == len(MLP_BUCKETS) and all(graphed),
+                 f"phase 8 (d): the mesh engine's steps graphed {graphed}")
+        return {"mesh": hvd.mesh().sizes, "buckets": list(MLP_BUCKETS),
+                "bitwise_unmeshed": True, "graphed": True,
+                "resident_param_bytes": meshed.resident_param_bytes,
+                "shard_param_bytes": meshed.shard_param_bytes}
+    finally:
+        hvd.shutdown()
+
+
 def check_graph_eviction(mlp_dir):
     """An ``InferenceEngine`` on the predict tier's checkpoint in this
     process: its four bucket graphs captured, then an engine limited to
@@ -8993,7 +9426,8 @@ def serve_http(seed, cfg, model, prompts, want):
     streams complete, it exits 83, and (c) 16 more requests reach replica
     1, with no failure any client sees, all tokens bitwise phase 6's.
     (d) The MLP predict tier through a ``--checkpoint`` replica
-    (``_predict_groups``), 64 concurrent clients first. (e) An evicted
+    (``_predict_groups``), 64 concurrent clients first, and the MLP on
+    the world's mesh (``check_mesh_engine``). (e) An evicted
     predict graph frees its memory (``check_graph_eviction``)."""
     import shutil
     import tempfile
@@ -9093,10 +9527,11 @@ def serve_http(seed, cfg, model, prompts, want):
         workers = client.wait_for_workers(SERVING_KIND, 1, timeout_s=60.0)
         fills = _predict_groups(workers[0], key, mlp,
                                 np.random.RandomState(seed))
+        mesh_engine = check_mesh_engine(mlp_dir)
         # (e)
         evict_mb = check_graph_eviction(mlp_dir)
         print(json.dumps({"serve_http": {
-            "graph_eviction": evict_mb,
+            "graph_eviction": evict_mb, "mesh_engine": mesh_engine,
             "replicas_ready_s": ready, "sigterm_to_exit_83_s": exit_s,
             "dead": rs.dead, "predict_batch_fill": fills,
             "rounds": [stats_a["tokens_per_s"], stats_b["tokens_per_s"],
@@ -9551,6 +9986,11 @@ def main(argv=None) -> int:
                          "of its injected faults, and (d)'s MoE readings "
                          "(PIPE_GRAD_TOL's, PIPE_LOSS_TOL's and "
                          "MOE_ROW_TOL's evidence)")
+    ap.add_argument("--fsdp-sweep", type=int, default=0, metavar="N",
+                    help="only build the flash and norm kernels and print "
+                         "phase 4o's step-1 readings of seeds 0..N-1 and "
+                         "of its injected faults (FSDP_AXIS_GRAD_TOL's "
+                         "evidence)")
     ap.add_argument("--adasum-sweep", type=int, default=0, metavar="N",
                     help="only build the flash kernels and print phase "
                          "4g's readings of seeds 0..N-1 and of the "
@@ -9612,7 +10052,7 @@ def main(argv=None) -> int:
     secs = _build.build(PROFILE_KERNELS if args.profiles
                         else ADASUM_KERNELS if args.adasum_sweep
                         else TRAIN_KERNELS if args.mesh_sweep
-                        or args.pipe_sweep else None)
+                        or args.pipe_sweep or args.fsdp_sweep else None)
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     if args.profiles:
@@ -9626,6 +10066,9 @@ def main(argv=None) -> int:
         return 0
     if args.pipe_sweep:
         pipe_sweep(args.pipe_sweep)
+        return 0
+    if args.fsdp_sweep:
+        fsdp_sweep(args.fsdp_sweep)
         return 0
     print_ptxas(_build, secs)
     print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -9678,6 +10121,7 @@ def main(argv=None) -> int:
     timed("4l", train_eager, args.seed, ledger, in_process_losses)
     timed("4m", train_mesh, args.seed, ledger, in_process_losses)
     timed("4n", train_pipeline, args.seed, ledger, in_process_losses)
+    timed("4o", train_fsdp_axis, args.seed, ledger, in_process_losses)
     timed("5", train_resnet, args.seed, ledger)
     timed("5b", train_cnns, ledger)
     timed("5c", train_mnist_and_entry, ledger)

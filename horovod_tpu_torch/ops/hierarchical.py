@@ -17,9 +17,24 @@ numbers local ranks: inner domains are contiguous blocks, the outer
 sets strided across them (:func:`block_groups`). Each runs on a
 registered process set (``core/process_sets.py``), so the first call
 with a block registers the world's inner and outer sets, on every rank:
-it is collective, as ``add_process_set`` is. The JAX package's two-axis
-form (a mesh whose last axis is the inner domain) is a later part of
-ROADMAP queue A entry 11.
+it is collective, as ``add_process_set`` is.
+
+The block comes from one of two places (:func:`two_level_block`):
+
+* a world whose mesh (``hvd.mesh()``, ``HOROVOD_MESH``) has 2+ live
+  axes takes the JAX package's two-axis form: the inner domain is the
+  last live axis, whose ranks are contiguous blocks since the mesh is
+  row-major, the outer domain the product of the others
+  (:func:`mesh_block`). The collectives take it when the knob is on;
+  the int8 ``DistributedOptimizer`` always (:func:`int8_block`), as
+  ``horovod_tpu/optim/distributed.py:46-63`` does;
+* a world of one live axis takes ``HOROVOD_HIERARCHICAL_LOCAL_SIZE``
+  (0: the launcher's ranks per host), when the knob is on.
+
+:func:`hierarchical_psum` and :func:`hierarchical_allgather` also take
+the mesh's axes in place of a block, as the JAX functions take their
+axes: the inner domain is the last axis given, even of one rank, and
+the outer the others (:func:`axes_block`).
 
 The outer leg of :func:`hierarchical_psum` takes a wire
 (``optim/compression.py`` ``WireSpec``); the inner legs always run at
@@ -37,8 +52,8 @@ full precision:
   shard residual (:func:`_stash_shard_residual`), the rest zeros.
 
 With ``block`` 1 (no knob value and one host, a block that does not
-divide the world, or a block of the whole world) the call takes the
-flat route: ``quantized_psum`` for int8, a cast, an all-reduce and a
+divide the world, or a block of the whole world; not so for axes) the
+call takes the flat route: ``quantized_psum`` for int8, a cast, an all-reduce and a
 cast back for the float wires.
 
 The stages around the exchanges (:func:`stage_inner_reduce`,
@@ -51,7 +66,7 @@ wire.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -105,17 +120,73 @@ def hierarchy_enabled_for(op_kind: str, process_set) -> bool:
     return False
 
 
+def mesh_block(mesh=None) -> int:
+    """The inner domain a mesh of 2+ live axes gives (default: the
+    world's, ``hvd.mesh()``): the size of its last live axis, whose
+    ranks are contiguous blocks in the row-major mesh; 0 for a mesh of
+    fewer live axes."""
+    if mesh is None:
+        mesh = _require_init().mesh
+    live = () if mesh is None else mesh.live_axes()
+    return mesh.axis_size(live[-1]) if len(live) > 1 else 0
+
+
 def two_level_block(op_kind: str, process_set=None) -> int:
-    """The one routing decision of the collectives and the optimizer:
-    the inner domain's size when the knobs send this collective through
-    two levels (:func:`hierarchy_enabled_for`, and a block that
+    """The one routing decision of the collectives: the inner domain's
+    size when the knobs send this collective through two levels
+    (:func:`hierarchy_enabled_for`), from the world's mesh when it has
+    2+ live axes (:func:`mesh_block`), else a block that
     :func:`resolve_block` keeps above 1 for
-    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE``); 1 leaves it on its flat
+    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE``; 1 leaves it on its flat
     route."""
     if not hierarchy_enabled_for(op_kind, process_set):
         return 1
     st = _require_init()
-    return resolve_block(st.size, st.knobs.hierarchical_local_size)
+    return mesh_block(st.mesh) or resolve_block(
+        st.size, st.knobs.hierarchical_local_size)
+
+
+def int8_block() -> int:
+    """The int8 ``DistributedOptimizer``'s route over the world: the
+    mesh's inner domain whenever the world has 2+ live axes, knob or
+    not; otherwise :func:`two_level_block`."""
+    st = _require_init()
+    return mesh_block(st.mesh) or two_level_block("allreduce")
+
+
+def axes_block(axes: Sequence[str], mesh=None) -> int:
+    """The inner domain of the two-axis form over ``axes`` of the
+    world's mesh (default ``hvd.mesh()``): the size of the last axis
+    given. The axes must be the mesh's, in its order, and hold every
+    live axis (the sum is over the world); an axis after the last one
+    given must have size 1 (its ranks would not be contiguous)."""
+    if mesh is None:
+        mesh = _require_init().mesh
+    axes = tuple(axes)
+    names = mesh.axis_names
+    if not axes or any(a not in names for a in axes) or \
+            list(axes) != sorted(axes, key=names.index):
+        raise ValueError(f"axes {axes} are not axes of {mesh!r} in its "
+                         "order")
+    missing = [a for a in mesh.live_axes() if a not in axes]
+    after = [a for a in names[names.index(axes[-1]) + 1:]
+             if mesh.axis_size(a) > 1]
+    if missing or after:
+        raise ValueError(f"axes {axes} of {mesh!r} must hold every live "
+                         f"axis, the inner one last; {missing or after} "
+                         "left out")
+    return mesh.axis_size(axes[-1])
+
+
+def _resolve(world: int, block) -> Tuple[int, bool]:
+    """``(inner domain size, whether the call takes two levels)`` of a
+    block or of the mesh's axes (:func:`axes_block`: two levels even
+    with an inner or an outer domain of one rank, as the JAX package's
+    two-axis form)."""
+    if isinstance(block, (tuple, list)):
+        return axes_block(block), True
+    block = resolve_block(world, block)
+    return block, block > 1
 
 
 def block_sets(block: int):
@@ -193,36 +264,56 @@ def _all_reduce(t: torch.Tensor, group=None):
                            async_op=True)
 
 
-def start_hierarchical_psum(x: torch.Tensor, block: int = 0, wire=None,
+def start_hierarchical_psum(x: torch.Tensor,
+                            block: Union[int, Sequence[str]] = 0, wire=None,
                             residual: Optional[torch.Tensor] = None):
     """Enqueue :func:`hierarchical_psum` of ``x`` up to its outer
     exchange. Returns ``(finish, new_residual)``: ``finish()`` returns
     the sum in ``x``'s shape and dtype; ``new_residual`` (x-shaped
     float32, the shard residual at its head) is None without a
-    residual. ``block`` 0 resolves as :func:`resolve_block` does."""
+    residual. ``block`` 0 resolves as :func:`resolve_block` does; the
+    mesh's axes as :func:`axes_block` does."""
     _check_wire(wire, residual)
     st = _require_init()
     world = st.size
-    block = resolve_block(world, block)
-    if block == 1:
+    block, two = _resolve(world, block)
+    if not two:
         return _start_flat(x, world, wire, residual)
     from ..core.process_sets import set_context
 
-    inner, outer = (set_context(ps) for ps in block_sets(block))
+    if 1 < block < world:
+        inner, outer = (set_context(ps).group for ps in block_sets(block))
+    else:
+        # the two-axis form with a domain of one rank, which exchanges
+        # nothing, beside one of every rank: the world's group
+        inner = outer = None
     n_outer = world // block
     flat = _pad_flat(x.detach().reshape(-1).contiguous(), block)
     from .collectives import _all_gather_tiled, _reduce_scatter_tiled
 
-    rs, work = _reduce_scatter_tiled(flat, block, inner.group)
-    work.wait()
+    if block > 1:
+        rs, work = _reduce_scatter_tiled(flat, block, inner)
+        work.wait()
+    else:  # an inner domain of one rank
+        rs = flat
     shard_len = rs.numel()
+
+    def gather_outer(t):
+        if n_outer == 1:
+            return t, None
+        return _all_gather_tiled(t, n_outer, outer)
+
     if wire is None or wire.kind in ("fp16", "bf16"):
         wire_rs = rs if wire is None else rs.to(wire.wire_dtype)
-        outer_work = _all_reduce(wire_rs, outer.group)
+        if wire_rs.data_ptr() == flat.data_ptr():
+            wire_rs = wire_rs.clone()  # the input is never written
+        outer_work = (_all_reduce(wire_rs, outer) if n_outer > 1
+                      else None)
         err = None
 
         def outer_sum() -> torch.Tensor:
-            outer_work.wait()
+            if outer_work is not None:
+                outer_work.wait()
             return wire_rs.to(rs.dtype)
     else:
         shard = rs.to(torch.float32)
@@ -230,18 +321,20 @@ def start_hierarchical_psum(x: torch.Tensor, block: int = 0, wire=None,
             residual.detach().reshape(-1)[:shard_len].to(
                 torch.float32).contiguous()
         q, s, err = stage_outer_quantize(shard, res, wire.block)
-        (qg, wq), (sg, ws) = (_all_gather_tiled(q, n_outer, outer.group),
-                              _all_gather_tiled(s, n_outer, outer.group))
+        (qg, wq), (sg, ws) = gather_outer(q), gather_outer(s)
 
         def outer_sum() -> torch.Tensor:
-            wq.wait()
-            ws.wait()
+            for w in (wq, ws):
+                if w is not None:
+                    w.wait()
             return stage_outer_accumulate(qg, sg, n_outer, shard_len,
                                           wire.block).to(rs.dtype)
 
     def finish() -> torch.Tensor:
-        full, w = _all_gather_tiled(outer_sum(), block, inner.group)
-        w.wait()
+        full = outer_sum()
+        if block > 1:
+            full, w = _all_gather_tiled(full, block, inner)
+            w.wait()
         return full[:x.numel()].reshape(x.shape)
 
     new_res = None if err is None else \
@@ -271,12 +364,13 @@ def _start_flat(x, world, wire, residual):
     return finish, None
 
 
-def hierarchical_psum(x: torch.Tensor, block: int = 0, wire=None,
-                      residual: Optional[torch.Tensor] = None):
+def hierarchical_psum(x: torch.Tensor, block: Union[int, Sequence[str]] = 0,
+                      wire=None, residual: Optional[torch.Tensor] = None):
     """The SUM of ``x`` over the world in two levels, equal in value to
     a flat all-reduce (exactly where the sums' order does not matter,
     to the wire's quantization otherwise). ``block``: ranks per inner
-    domain (0: ``local_size()``). ``wire``: the outer leg's
+    domain (0: ``local_size()``), or the axes of the world's mesh
+    (``("dcn", "ici")``: the two-axis form, :func:`axes_block`). ``wire``: the outer leg's
     ``WireSpec`` (None: full precision). ``residual`` (int8 error
     feedback): float32 of ``x``'s shape, whose head holds this rank's
     shard residual; the call then returns ``(y, new_residual)``."""
@@ -285,10 +379,14 @@ def hierarchical_psum(x: torch.Tensor, block: int = 0, wire=None,
     return y if residual is None else (y, err)
 
 
-def hierarchical_allgather(x: torch.Tensor, block: int = 0) -> torch.Tensor:
+def hierarchical_allgather(x: torch.Tensor,
+                           block: Union[int, Sequence[str]] = 0
+                           ) -> torch.Tensor:
     """Dim-0 concatenation of every rank's ``x`` in global rank order,
     in two levels: a gather within the inner domain, then one across
-    the domains (dim 0 may differ between ranks)."""
+    the domains (dim 0 may differ between ranks). ``block`` as in
+    :func:`hierarchical_psum`; a domain of one rank, or of every rank,
+    gathers in one level."""
     from .collectives import _grouped_allgather_start
 
     def gather(t, process_set):
@@ -296,8 +394,8 @@ def hierarchical_allgather(x: torch.Tensor, block: int = 0) -> torch.Tensor:
                                         "allgather")[1]()[0]
 
     st = _require_init()
-    block = resolve_block(st.size, block)
-    if block == 1:
+    block, _ = _resolve(st.size, block)
+    if block in (1, st.size):
         return gather(x, None)
     inner, outer = block_sets(block)
     g = gather(x, inner)

@@ -36,12 +36,14 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   one float32 tensor per bucket, in the bucket's layout, zero at
   construction and private to the rank (``error_feedback_residual``);
   ``int8-raw`` keeps none. Other ops (Adasum too), a proper subset and
-  integer buckets move uncompressed, as in the JAX package. With
-  ``HOROVOD_HIERARCHICAL_ALLREDUCE`` the quantized SUM runs in two
-  levels (``ops/hierarchical.py``: a float32 reduce-scatter within each
-  domain of ``HOROVOD_HIERARCHICAL_LOCAL_SIZE`` ranks, the int8 leg
-  across the domains, an all-gather within), and the bucket's residual
-  holds this rank's shard residual at its head, as in the JAX package;
+  integer buckets move uncompressed, as in the JAX package. On a world
+  whose mesh has 2+ live axes, and with
+  ``HOROVOD_HIERARCHICAL_ALLREDUCE`` on any world, the quantized SUM
+  runs in two levels (``ops/hierarchical.py``: a float32 reduce-scatter
+  within each domain of the mesh's last live axis, or of
+  ``HOROVOD_HIERARCHICAL_LOCAL_SIZE`` ranks, the int8 leg across the
+  domains, an all-gather within), and the bucket's residual holds this
+  rank's shard residual at its head, as in the JAX package;
 * a sparse gradient (``nn.Embedding(sparse=True)``) is reduced by
   ``ops/sparse.sparse_allreduce`` outside the buckets, in
   ``synchronize()`` after the buckets are issued, in leaf order; its
@@ -148,9 +150,9 @@ class _DistributedOptimizer:
             # in the JAX package
             compression, wire, int8 = NoneCompressor, None, False
         # the int8 buckets' two-level route (ops/hierarchical.py): inner
-        # domains of this many ranks, 1 for the flat wire
-        self._hier_block = (hierarchical.two_level_block("allreduce")
-                            if int8 else 1)
+        # domains of this many ranks (the mesh's last live axis on a
+        # world of 2+ live axes), 1 for the flat wire
+        self._hier_block = hierarchical.int8_block() if int8 else 1
         if self._hier_block > 1:
             hierarchical.block_sets(self._hier_block)  # collective
         self._opt = optimizer

@@ -30,9 +30,10 @@ Where the port differs: a world of one rank is a layout too (rows of
 ``(1, L_i)``: the buckets themselves), so the FSDP step also runs on one
 card; the JAX package's ``param_row_specs`` and ``param_row_shardings``
 place the rows on a device mesh, which a world of one process per card
-does not have (each rank already holds only its rows): they are a
-later part of the mesh's entry (ROADMAP queue A entry 11). ``save_fsdp`` / ``load_fsdp`` come
-with the checkpointer (entry 8).
+does not need: each rank already holds only its rows. (A live fsdp
+axis under a replicated optimizer, the rules' ZeRO-3 on a mesh, is
+``parallel/fsdp_axis.py``.) ``save_fsdp`` / ``load_fsdp`` come with the
+checkpointer (entry 8).
 """
 
 from __future__ import annotations

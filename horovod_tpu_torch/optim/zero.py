@@ -255,6 +255,11 @@ class _ShardedOptimizer(_DistributedOptimizer):
                  compression=None, fusion_threshold_bytes=None,
                  bucket_backward_order=None, process_set=None):
         st = _require_init()
+        live = () if st.mesh is None else st.mesh.live_axes()
+        if process_set is None and len(live) > 1:
+            raise ValueError(
+                "ShardedOptimizer shards over exactly one data-parallel "
+                f"axis; got live axes {live}")
         ctx = set_context(process_set)
         if compression is None:
             compression = Compression.from_knobs(st.knobs)
@@ -348,7 +353,9 @@ def ShardedOptimizer(optimizer: Callable, named_parameters=None,
                      fusion_threshold_bytes: Optional[int] = None,
                      bucket_backward_order: Optional[bool] = None,
                      params_sharded: bool = False):
-    """ZeRO-1 over every rank. ``optimizer`` makes the inner torch
+    """ZeRO-1 over every rank (a world whose mesh has 2+ live axes
+    raises ``ValueError``, as the JAX package's does; ``make_lm_train_step``
+    binds it to its data axis instead). ``optimizer`` makes the inner torch
     optimizer from a list of tensors (e.g. ``functools.partial(
     torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)``): it is built over
     this rank's shard of each bucket, so its state is 1/n. The buckets

@@ -19,7 +19,10 @@ slice's rank order:
 ``all_reduce(t)`` is built on ``all_gather``: the ranks' tensors summed
 in rank order in float32 and rounded once to ``t``'s dtype
 (:func:`sum_in_rank_order`), so every rank gets the same bits, and an
-in-process emulation of the world gets them too.
+in-process emulation of the world gets them too. ``reduce_scatter(t)``
+is built on ``all_to_all`` (a rank moves 1/n of ``t``'s bytes): ``t``'s
+first dimension splits into one chunk a rank, and rank j gets chunk j
+summed over the ranks the same way.
 
 :class:`GroupComm` runs them over a process set's ``torch.distributed``
 group (NCCL on the card, gloo on the CPU). :class:`ThreadComm` runs them
@@ -34,19 +37,34 @@ tensors in the order the host enqueued their kernels.
 from __future__ import annotations
 
 import threading
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 
-def sum_in_rank_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``parts[0] + parts[1] + ...`` in float32, rounded once to the
-    first part's dtype."""
-    acc = parts[0].to(torch.float32)
+def sum_in_rank_order(parts: Sequence[torch.Tensor],
+                      acc_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` in ``acc_dtype``, rounded once to
+    the first part's dtype."""
+    acc = parts[0].to(acc_dtype)
     for p in parts[1:]:
-        acc = acc + p.to(torch.float32)
+        acc = acc + p.to(acc_dtype)
     return acc.to(parts[0].dtype)
+
+
+def reduce_grads(params: Sequence[torch.Tensor], comm,
+                 average: bool = False) -> None:
+    """Sum the parameters' ``.grad`` over ``comm``'s ranks, in rank
+    order, in one exchange; with ``average``, divide the sums by the
+    ranks' count, as the ``DistributedOptimizer`` averages."""
+    params = [p for p in params if p.grad is not None]
+    flat = comm.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]))
+    if average:
+        flat.div_(comm.size)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p).clone()
 
 
 class _Comm:
@@ -59,6 +77,16 @@ class _Comm:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The SUM over the ranks, in rank order (see module doc)."""
         return sum_in_rank_order(self.all_gather(t))
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of ``t`` (its first dimension split into
+        ``size`` equal chunks) summed over the ranks in rank order, in
+        float32 and rounded once to ``t``'s dtype."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter: dimension 0 of {tuple(t.shape)}"
+                             f" does not split over {self.size} ranks")
+        return sum_in_rank_order(self.all_to_all(
+            [c.contiguous() for c in t.chunk(self.size)]))
 
 
 class GroupComm(_Comm):
@@ -145,22 +173,28 @@ class SelfComm(_Comm):
 
 
 class ThreadWorld:
-    """The shared state of ``n`` emulated ranks: a slot each and a
-    barrier (``timeout`` seconds, so a rank that fails cannot hang the
-    others: :meth:`abort` breaks the barrier for them)."""
+    """The shared state of ``n`` emulated ranks: two rows of a slot a
+    rank, used in turns, and a barrier (``timeout`` seconds, so a rank
+    that fails cannot hang the others: :meth:`abort` breaks the barrier
+    for them)."""
 
     def __init__(self, n: int, timeout: float = 600.0):
         self.n = n
-        self.slots: List[object] = [None] * n
+        self._rows: Tuple[List[object], List[object]] = ([None] * n,
+                                                         [None] * n)
+        self._turn = [0] * n
         self.barrier = threading.Barrier(n, timeout=timeout)
 
     def exchange(self, rank: int, value) -> list:
-        """Every rank's ``value``, in rank order."""
-        self.slots[rank] = value
+        """Every rank's ``value``, in rank order. One barrier a call: a
+        rank writes a row again two calls later, when every rank has
+        passed the barrier between, so has read it."""
+        turn = self._turn[rank]
+        self._turn[rank] = turn ^ 1
+        row = self._rows[turn]
+        row[rank] = value
         self.barrier.wait()
-        out = list(self.slots)
-        self.barrier.wait()
-        return out
+        return list(row)
 
     def abort(self) -> None:
         self.barrier.abort()

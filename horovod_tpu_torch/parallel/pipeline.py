@@ -49,7 +49,7 @@ import torch
 
 from ..models.transformer import (Transformer, TransformerConfig,
                                   causal_lm_nll)
-from .comm import GroupComm, SelfComm
+from .comm import GroupComm, SelfComm, reduce_grads
 from .mesh import DATA_AXES, Mesh
 
 #: the live axes a pipeline runs on; any other only repeats its work
@@ -362,7 +362,7 @@ def pipeline_lm_train_step_gpipe(cfg: TransformerConfig,
     n = torch.clamp(sums[1], min=1)
     (nll / n).backward()
     if data is not None:
-        _reduce_grads(list(model.parameters()), data)
+        reduce_grads(list(model.parameters()), data)
     return sums[0] / n
 
 
@@ -439,15 +439,6 @@ def _microbatch_count(tokens_mb: torch.Tensor) -> torch.Tensor:
     return (tokens_mb[:, 1:] != -1).sum()
 
 
-def _reduce_grads(params: Sequence[torch.Tensor], comm) -> None:
-    """Sum the parameters' ``.grad`` over ``comm``'s ranks, in rank
-    order, in one exchange."""
-    params = [p for p in params if p.grad is not None]
-    flat = comm.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]))
-    for p, g in zip(params, flat.split([p.numel() for p in params])):
-        p.grad = g.view_as(p).clone()
-
-
 def pipeline_lm_train_step_1f1b(cfg: TransformerConfig, model: Transformer,
                                 tokens: torch.Tensor, mesh: Mesh,
                                 num_microbatches: int = 2,
@@ -491,5 +482,5 @@ def pipeline_lm_train_step_1f1b(cfg: TransformerConfig, model: Transformer,
     h.backward(d_xs)
     if data is not None:
         loss = data.all_reduce(loss)
-        _reduce_grads(list(model.parameters()), data)
+        reduce_grads(list(model.parameters()), data)
     return loss / n.to(torch.float32)

@@ -15,11 +15,17 @@ The port runs one process a rank, so the step keeps this rank's shards
   runs over the ring (``ring_attention.py``) or by all-to-all
   (``ulysses.py``). The parameters are whole on every sp rank: their
   gradients are summed over the sp axis as the backward produces them;
+* fsdp splits the rules' fsdp dimensions (ZeRO-3 by sharding): a rank
+  keeps its slices and the optimizer its state of them; a block's
+  weights are gathered when it runs and their gradients reduce-scattered
+  over fsdp (``fsdp_axis.py``), the whole parameters' summed over it;
 * the loss is the global batch's mean, ``Σ nll / Σ valid`` over every
   rank's targets, its two sums reduced over the sp and data axes (not
   over tp, whose ranks hold the same sums);
 * the gradients reduce over the data axes: the ``DistributedOptimizer``
-  or ZeRO-1 ``ShardedOptimizer`` runs on the data axis's process set.
+  or ZeRO-1 ``ShardedOptimizer`` runs on the data axis's process set,
+  over dp only when fsdp is live (its sum is the reduce-scatter's). On
+  an emulated mesh a live dp axis averages through its communicator.
 
 Without a mesh the step takes ``hvd.mesh()`` (``HOROVOD_MESH``; unset,
 one dp axis over the world: the data-parallel step of earlier slices,
@@ -37,9 +43,13 @@ neither axis, so there it only repeats the same work. Pipelines train
 through ``parallel/pipeline.py`` (``pipeline_lm_train_step_1f1b``) and
 experts route over an ep axis in ``models/moe.MoeMlp``.
 
-Not ported yet (ROADMAP queue A entry 11): a live fsdp axis under a
-replicated optimizer (the JAX package's ZeRO-3 by the rules' fsdp
-entries) and ``fused_ce`` with a vocab-split head; each raises.
+``fused_ce`` with a vocab split over tp raises ``ValueError``: the JAX
+step has no fused loss, and the port's (``fused_ce``) computes its
+vocab blocks whole.
+
+The model is built whole on every rank, then sliced; a model larger
+than a card needs the JAX package's init straight into the shards
+(``horovod_tpu/parallel/train.py`` ``init_fn``).
 """
 
 from __future__ import annotations
@@ -58,15 +68,12 @@ from ..ops.overlap import schedule_mode
 from ..optim.distributed import DistributedOptimizer
 from ..optim.functions import broadcast_parameters
 from . import sharding as sharding_lib
-from .comm import SelfComm
+from .comm import SelfComm, reduce_grads, sum_in_rank_order
+from .fsdp_axis import FsdpAxis
 from .mesh import AXIS_ORDER, DATA_AXES, Mesh, data_axes, mesh_from_spec
 from .ring_attention import make_ring_attention_fn
 from .tensor_parallel import TensorParallel, parallelize
 from .ulysses import make_ulysses_attention_fn
-
-#: the later part of ROADMAP queue A entry 11 each refused axis waits for
-_LATER = {"fsdp": "a live fsdp axis under a replicated optimizer (the "
-                  "rules' fsdp entries, ZeRO-3 by sharding)"}
 
 #: the axes this step refuses, and where their work is done instead
 _ELSEWHERE = {"pp": "pipelines train through "
@@ -205,11 +212,6 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
                 f"make_lm_train_step neither pipelines nor routes experts: "
                 f"a live {axis} axis (mesh {mesh!r}) would only repeat its "
                 f"work; {where}")
-    for axis, what in _LATER.items():
-        if mesh.axis_size(axis) > 1:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue A entry 11); "
-                f"the mesh {mesh!r} has a live {axis} axis")
     if sequence_parallel is None and mesh.axis_size("sp") > 1:
         raise ValueError("a live sp axis needs sequence_parallel='ring' or "
                          "'ulysses'")
@@ -223,38 +225,63 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
     model.init_params(torch.Generator(device=device).manual_seed(0))
 
     tp_comm, sp_comm = mesh.comm("tp"), mesh.comm("sp")
-    specs = None
-    if tp_comm is not None:
+    fsdp_comm = mesh.comm("fsdp")
+    specs = fsdp = None
+    if tp_comm is not None or fsdp_comm is not None:
         specs = sharding_lib.make_param_shardings(
             model.named_parameters(), mesh, rules)
         _keep_shards(model, specs, mesh)
+    if tp_comm is not None:
         parallelize(model, TensorParallel(tp_comm))
         head = (model.tok_emb.embedding.shape[0] if cfg.tie_embeddings
                 else model.lm_head.kernel.shape[1])
         if fused_ce and head != cfg.vocab_size:
-            raise NotImplementedError(
-                "fused_ce with a vocab split over tp is not ported yet "
-                "(ROADMAP queue A entry 11); the split head gathers its "
-                "logits whole")
+            raise ValueError(
+                "fused_ce with a vocab split over tp: the JAX package's "
+                "make_lm_train_step has no fused loss, and the port's "
+                "computes its vocab blocks whole; train the split head "
+                "without fused_ce")
+    if fsdp_comm is not None:
+        fsdp = FsdpAxis(model, specs, fsdp_comm)
     if sp_comm is not None:
         _sum_grads_over(model, sp_comm)
     data = [a for a in DATA_AXES if mesh.axis_size(a) > 1]
-    n_data = math.prod(mesh.axis_size(a) for a in data)
-    data_set = mesh.process_set(data)
+    # the optimizer reduces over the data axes but fsdp, whose sum the
+    # gathers' reduce-scatters and the whole parameters' hooks take
+    opt_axes = [a for a in data if fsdp is None or a != "fsdp"]
+    n_avg = math.prod(mesh.axis_size(a) for a in opt_axes)
+    emulated_dp = mesh.emulated and bool(opt_axes)
+    if emulated_dp and getattr(optimizer, "_hvd_overlap_info",
+                               None) is not None:
+        raise ValueError(
+            f"an emulated mesh has no process set over {tuple(opt_axes)} "
+            "to bind the optimizer to; pass a plain optimizer factory "
+            "(the step averages that axis through its communicator)")
+    opt_set = None if emulated_dp else mesh.process_set(opt_axes)
+    # the loss's sums reduce over each live data axis's communicator
+    # where the optimizer's set does not span them all
+    data_comms = ([mesh.comm(a) for a in data]
+                  if fsdp is not None or mesh.emulated else [])
+    data_set = None if data_comms else opt_set
     if not mesh.emulated:
-        # the data axis starts from its first rank's weights (an
-        # emulated rank's data axis is itself)
-        root = 0 if data_set is None else data_set.ranks[0]
+        # the optimizer's axis starts from its first rank's weights (an
+        # emulated rank's weights are every rank's, from the seed)
+        root = 0 if opt_set is None else opt_set.ranks[0]
         broadcast_parameters(model.state_dict(), root_rank=root,
-                             process_set=data_set)
+                             process_set=opt_set)
     if getattr(optimizer, "_hvd_overlap_info", None) is None:
-        opt = DistributedOptimizer(optimizer(model.parameters()),
-                                   named_parameters=model.named_parameters(),
-                                   process_set=data_set)
-    elif data_set is None:
+        if emulated_dp:
+            opt = _AxisAveraged(optimizer(model.parameters()),
+                                mesh.comm(opt_axes[0]))
+        else:
+            opt = DistributedOptimizer(
+                optimizer(model.parameters()),
+                named_parameters=model.named_parameters(),
+                process_set=opt_set)
+    elif opt_set is None:
         opt = optimizer.bind(model.named_parameters())
     else:
-        opt = optimizer.bind(model.named_parameters(), process_set=data_set)
+        opt = optimizer.bind(model.named_parameters(), process_set=opt_set)
 
     sp_size = mesh.axis_size("sp")
     sp_rank = mesh.coord("sp")
@@ -278,6 +305,12 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
         return tokens[:, lo:hi], positions, targets
 
     def nll_sums(tokens):
+        if fsdp is None:
+            return _nll_sums(tokens)
+        with fsdp.outer():
+            return _nll_sums(tokens)
+
+    def _nll_sums(tokens):
         inputs, positions, targets = local_inputs(tokens)
         if fused_ce:
             hidden = model(inputs, positions, return_hidden=True)
@@ -294,8 +327,9 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
 
     def backward(tokens: torch.Tensor) -> torch.Tensor:
         nll, count = nll_sums(tokens)
-        w, loss = _global_mean_weight(nll, count, n_data, data_set,
-                                      sp_comm, not mesh.emulated)
+        w, loss = _global_mean_weight(
+            nll, count, n_avg, data_set, sp_comm,
+            not mesh.emulated and not data_comms, data_comms)
         (nll * w).backward()
         return loss
 
@@ -306,23 +340,57 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
         return loss
 
     step.optimizer, step.mesh, step.specs = opt, mesh, specs
-    step.backward = backward
+    step.backward, step.fsdp = backward, fsdp
     return model, step
 
 
+class _AxisAveraged:
+    """The data-parallel average of an emulated mesh's live dp axis,
+    through its communicator (an emulated mesh has no process set):
+    :meth:`synchronize` sums every gradient over the axis in one
+    exchange (rank order, float32) and divides by its size, as the
+    ``DistributedOptimizer`` averages; :meth:`step` synchronizes first."""
+
+    def __init__(self, optimizer, comm):
+        self._opt, self.comm = optimizer, comm
+        self._synced = False
+
+    def synchronize(self) -> None:
+        if self._synced:
+            return
+        reduce_grads([p for g in self._opt.param_groups
+                      for p in g["params"]], self.comm, average=True)
+        self._synced = True
+
+    def step(self, closure=None):
+        self.synchronize()
+        return self._opt.step(closure)
+
+    def zero_grad(self, set_to_none: bool = True):
+        self._synced = False
+        self._opt.zero_grad(set_to_none=set_to_none)
+
+    def __getattr__(self, item):
+        return getattr(self._opt, item)
+
+
 def _global_mean_weight(nll, count, size, process_set=None, sp=None,
-                        data: bool = True):
+                        data: bool = True, data_comms=()):
     """One denominator for every rank, before the backward: the data
     axis's ``size`` ranks average ``Σ nll_r · size / n``, which is the
     gradient of the global mean ``Σ_r Σ nll_r / n``; the sums reduce
     over the sp ranks (``sp``, a communicator) and, with ``data``, the
-    data ranks (``process_set``, None: the world), not over tp. Returns
-    ``(size / n, the global mean)``."""
+    data ranks (``process_set``, None: the world), or over each of
+    ``data_comms`` in turn (float64, rank order: a live fsdp axis or an
+    emulated mesh), not over tp. Returns ``(size / n,
+    the global mean)``."""
     sums = torch.stack([nll.detach().double(), count.double()])
     if sp is not None:
         sums = sp.all_reduce(sums)
     if data:
         sums = allreduce(sums, op=Sum, process_set=process_set)
+    for c in data_comms:
+        sums = sum_in_rank_order(c.all_gather(sums), torch.float64)
     n = sums[1].clamp(min=1)
     return (size / n).float(), sums[0].float() / n.float()
 

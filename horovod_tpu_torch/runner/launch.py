@@ -53,7 +53,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
-    11: "model, sequence and pipeline parallelism (the mesh)",
     12: "autotune",
     13: "observability: timeline, profiler, flight recorder",
     14: "multipod and the sharded control plane",

@@ -20,9 +20,18 @@ The ``serving.replica_exec`` fault point fires before every executed
 batch, so the chaos tooling (utils/faults.py) can kill or error a
 replica mid-request and prove the dispatch tier's retry path works.
 
-Not ported yet, each refused with its queue A entry: a ``mesh``
-(entry 11) and the autotune warm start from ``HOROVOD_AUTOTUNE_CACHE``
-(entry 12).
+With ``mesh`` the parameters are placed by the ``parallel/`` sharding
+rules, as the JAX package places them: each rank computes its slice of
+every leaf (``engine.shards``, bitwise the JAX array's shard on that
+device), and requests are replicated over the mesh, so every rank
+returns the same output. The port cannot partition an arbitrary
+``apply_fn(params, x)`` as XLA does, so the bucket graphs read the
+whole leaves every rank loaded: a rank holds the whole parameters where
+a JAX device holds its shard (``engine.resident_param_bytes`` against
+``engine.shard_param_bytes``; ROADMAP queue C).
+
+Not ported yet: the autotune warm start from ``HOROVOD_AUTOTUNE_CACHE``
+(ROADMAP queue A entry 12), refused.
 
 The module also holds what both engines share: the serving knobs, the
 device rule (the card unless the caller asks for the CPU) and the
@@ -263,6 +272,11 @@ class InferenceEngine:
     is a client error (``ValueError``, an HTTP 400), not a model crash
     that would read as replica death to the dispatch tier. Runs on the
     card unless ``device="cpu"``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` over the world, e.g.
+    ``hvd.mesh()``) places the parameters by ``sharding_rules`` (default
+    ``parallel.sharding.TRANSFORMER_RULES``): this rank's slices in
+    ``shards``, the whole leaves in the graphs (module doc).
     """
 
     #: graphs kept per engine; beyond this the least recently used one
@@ -282,11 +296,9 @@ class InferenceEngine:
         feature_shape: Optional[Sequence[int]] = None,
         device=None,
     ):
-        if mesh is not None or sharding_rules is not None:
-            raise NotImplementedError(
-                "InferenceEngine(mesh=...) (parameters placed by the "
-                "parallel/ sharding rules, requests replicated over the "
-                "mesh) is not ported yet (ROADMAP queue A entry 11)")
+        if sharding_rules is not None and mesh is None:
+            raise ValueError("sharding_rules places parameters over a "
+                             "mesh; pass mesh= too")
         if serving_knobs().autotune_cache:
             raise NotImplementedError(
                 "the autotune warm start (HOROVOD_AUTOTUNE_CACHE) is not "
@@ -303,6 +315,10 @@ class InferenceEngine:
         elif hasattr(params, "items"):
             params = {str(k): torch.as_tensor(v).to(self.device)
                       for k, v in params.items()}
+        #: this rank's slice of each leaf by the rules (None: no mesh)
+        self.shards = None
+        if mesh is not None:
+            self.shards = self._place(params, mesh, sharding_rules)
         self._params = params
         self._cache: "OrderedDict[Tuple, GraphStep]" = OrderedDict()
         # one lock around the cache, execution and capture: a capture
@@ -334,6 +350,35 @@ class InferenceEngine:
         eng = cls(apply_fn, params, **kwargs)
         eng.metadata = metadata
         return eng
+
+    @staticmethod
+    def _place(params, mesh, rules):
+        """This rank's slice of each leaf of ``params`` by the rules on
+        ``mesh`` (a bare tensor is the leaf ``""``)."""
+        from ..parallel import sharding as sh
+
+        named = ({"": params} if isinstance(params, torch.Tensor)
+                 else dict(params))
+        specs = sh.make_param_shardings(named, mesh, rules)
+        return {n: sh.local_slice(t, specs[n], mesh).contiguous()
+                for n, t in named.items()}
+
+    @property
+    def resident_param_bytes(self) -> int:
+        """Bytes of the parameters the graphs read on this rank (whole,
+        with or without a mesh)."""
+        ps = (self._params.values() if hasattr(self._params, "values")
+              else [self._params])
+        return sum(t.numel() * t.element_size() for t in ps)
+
+    @property
+    def shard_param_bytes(self) -> int:
+        """Bytes of this rank's slices by the rules: what a JAX device
+        holds on the same mesh (the whole without a mesh)."""
+        if self.shards is None:
+            return self.resident_param_bytes
+        return sum(t.numel() * t.element_size()
+                   for t in self.shards.values())
 
     # -- bucket machinery ---------------------------------------------------
 

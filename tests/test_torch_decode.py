@@ -354,6 +354,12 @@ _PIPELINE_MODULES = [
         "examples.pipeline_pretraining")]
 
 
+_FSDP_AXIS_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "parallel.fsdp_axis", "parallel.train", "ops.hierarchical",
+        "serving.engine")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
@@ -363,12 +369,14 @@ def test_no_jax_in_port_or_chip_smoke():
     ctypes layer and the runtime), the serving tier's (engine,
     batcher, server, replica set, registry), the mesh's (mesh,
     communicators, sharding rules, tensor parallelism, ring attention,
-    Ulysses, the converter's shards) and the pipeline's (GPipe and
-    1F1B, the experts' layer, the dry run, the pipeline example)
-    modules are among those walked."""
+    Ulysses, the converter's shards), the pipeline's (GPipe and
+    1F1B, the experts' layer, the dry run, the pipeline example) and
+    the rest of the mesh's (the live fsdp axis, the step, the two-axis
+    wire, the engine on a mesh) modules are among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
-              + _SERVING_MODULES + _MESH_MODULES + _PIPELINE_MODULES)
+              + _SERVING_MODULES + _MESH_MODULES + _PIPELINE_MODULES
+              + _FSDP_AXIS_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

@@ -30,7 +30,8 @@ meshes of four emulated ranks (threads exchanging through
 ``parallel/comm.ThreadComm``): losses and every parameter bitwise the
 gloo world's. A ``FullyShardedOptimizer`` on ``fsdp=4`` (its one data
 axis) takes the losses of the mesh-less FSDP step bitwise. What the
-mesh path does not take raises (``test_refusals``).
+mesh path does not take raises (``test_refusals``); a live fsdp axis
+under a replicated optimizer is tests/test_torch_fsdp_axis.py's.
 """
 
 import functools
@@ -306,10 +307,15 @@ def test_refusals():
     where the work is done instead (a live pp or ep axis, which the JAX
     step's rules never name, so that there it only repeats the same
     work: ValueError naming ``pipeline_lm_train_step_1f1b`` and
-    ``MoeMlp``) or naming the later part of ROADMAP queue A entry 11 (a
-    live fsdp axis under a replicated optimizer, the fused loss with a
-    vocab split over tp). The meshes are layouts whose live axes carry
-    a stand-in communicator: each call raises before any exchange."""
+    ``MoeMlp``), or saying that the JAX step has no fused loss (the
+    fused loss with a vocab split over tp: ValueError). A bindable
+    optimizer on an emulated mesh with a live dp axis has no process set
+    to bind to (ValueError), where a plain factory averages that axis
+    through its communicator. A live fsdp
+    axis under a replicated optimizer builds (tests/test_torch_fsdp_axis.py
+    trains it): each rank keeps half of every fsdp dimension. The meshes
+    are layouts whose live axes carry a stand-in communicator: each call
+    raises, or builds, before any exchange."""
     cfg = tt.TransformerConfig(dtype=torch.float32, **CFGS["llama"])
     adam = functools.partial(torch.optim.Adam, lr=LR)
 
@@ -330,13 +336,19 @@ def test_refusals():
             build(fsdp, mesh=mesh(fsdp=2, tp=2))
         with pytest.raises(ValueError, match="data axes"):
             build(fsdp, mesh=mesh(dp=2, fsdp=2))
-        with pytest.raises(NotImplementedError, match="entry 11"):
-            build(mesh=mesh(fsdp=2))
+        model, step = build(mesh=mesh(fsdp=2))
+        kernel = model.block_0.mlp.gate.kernel
+        assert step.specs["block_0.mlp.gate.kernel"] == ("fsdp", None)
+        assert kernel.shape == (cfg.hidden_size // 2, cfg.mlp_dim)
+        assert step.fsdp is not None
+        for axes in ({"dp": 2}, {"dp": 2, "fsdp": 2}):
+            with pytest.raises(ValueError, match="no process set"):
+                build(hvd.ShardedOptimizer(adam), mesh=mesh(**axes))
         with pytest.raises(ValueError, match="pipeline_lm_train_step_1f1b"):
             build(mesh=mesh(pp=2))
         with pytest.raises(ValueError, match="MoeMlp"):
             build(mesh=mesh(ep=2))
-        with pytest.raises(NotImplementedError, match="entry 11"):
+        with pytest.raises(ValueError, match="no fused loss"):
             build(mesh=mesh(tp=2), fused_ce=True)
         with pytest.raises(ValueError, match="sequence_parallel"):
             build(mesh=mesh(sp=2))

@@ -5,8 +5,9 @@
   ``InferenceEngine`` on the same inputs, at every bucket and above the
   top one (float32, within 1e-5 relative + 1e-6);
 * ``parse_buckets`` and ``bucket_for`` as the JAX package answers them;
-* the dynamic batcher's scenarios of tests/test_serving.py (the mesh
-  case waits for ROADMAP queue A entry 11 and is refused);
+* the engine on the world's mesh (tests/test_serving.py's
+  ``test_engine_on_mesh_replicated``) and the dynamic batcher's
+  scenarios of tests/test_serving.py;
 * the server's auth and probes, ``/healthz`` telling idle from wedged,
   the replica set's failover, revival and 429 retry, the malformed-input
   400 and request-id propagation;
@@ -199,8 +200,9 @@ def test_evicted_step_takes_its_pinned_buffers(monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(monkeypatch, flax_mlp):
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        InferenceEngine(lambda p, x: x, {}, mesh=object(), device="cpu")
+    # rules place parameters over a mesh: without one they mean nothing
+    with pytest.raises(ValueError, match="mesh="):
+        InferenceEngine(lambda p, x: x, {}, sharding_rules=[], device="cpu")
     monkeypatch.setenv("HOROVOD_AUTOTUNE_CACHE", "/tmp/tune.json")
     with pytest.raises(NotImplementedError, match="entry 12"):
         InferenceEngine(lambda p, x: x, {}, device="cpu")
@@ -234,12 +236,35 @@ def test_batcher_rejects_request_larger_than_queue_capacity():
         bat.close()
 
 
-def test_engine_on_mesh_waits_for_entry_11():
-    """The JAX package's mesh case: parameters placed by the parallel/
-    sharding rules. Not ported (queue A entry 11): refused."""
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        InferenceEngine(lambda p, x: x, {}, buckets=(1, 4),
-                        mesh="dp=8", device="cpu")
+def test_engine_on_mesh_waits_for_entry_11(flax_mlp, ckpt):
+    """Entry 11 has come: the JAX package's
+    ``test_engine_on_mesh_replicated``. The parameters are placed by
+    the parallel/ sharding rules over the world's mesh (the catch-all
+    replicates the MLP's), the requests replicated, the numerics those
+    of the JAX engine on its mesh of 8 and bitwise the engine without a
+    mesh (a world of 2 x 2 over gloo is tests/test_torch_serving_mesh.py's)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    mod, params = flax_mlp
+    want = JaxEngine(lambda p, x: mod.apply({"params": p}, x), params,
+                     buckets=(1, 4), mesh=jax_make_mesh())
+    x = np.random.RandomState(1).randn(3, IN_DIM).astype(np.float32)
+    hvd.init(device="cpu")
+    try:
+        eng = InferenceEngine.from_checkpoint(ckpt, buckets=(1, 4),
+                                              mesh=hvd.mesh(), device="cpu")
+        plain = InferenceEngine.from_checkpoint(ckpt, buckets=(1, 4),
+                                                device="cpu")
+        got = eng(x)
+    finally:
+        hvd.shutdown()
+    np.testing.assert_allclose(got, want(x), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, _jax_forward(flax_mlp, x), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got, plain(x))
+    assert eng.shards.keys() == eng._params.keys()
+    assert eng.resident_param_bytes == eng.shard_param_bytes
 
 
 def test_batcher_coalesces_concurrent_requests():
