@@ -195,14 +195,19 @@ Phases, in order; the first failure exits non-zero:
    seconds;
 4k. train through the port of ``examples/gpt2_elastic.py`` at GPT-2
    medium's width (24 x 1024, 16 heads of 64, vocab 50257, batch 8 x
-   1024, ``--flash``, 30 steps, a commit every 10) at world 1 over NCCL:
+   1024, ``--flash``, 20 steps, a commit every 10) at world 1 over NCCL:
    (a) in process, a falling loss, B1-B3 exactly 24 a step, step ms,
    tokens/s and each commit's seconds, and ``device_prefetch`` of four
    token batches to the card; (b) under the elastic launcher
    (``--min-np 1 --max-np 1 --host-discovery-script``,
-   ``--emergency-checkpoint``), the worker sent SIGTERM after its first
-   commit: it exits 83, the host is not blacklisted, and the second
-   round recovers from the emergency rung; (c) with
+   ``--emergency-checkpoint``, ``--flight-dir``, ``HOROVOD_METRICS=1``
+   pushed every second), the worker sent SIGTERM after its first
+   commit, once the driver's ``/metrics`` (scraped then) holds rank 0's
+   pushed series labeled ``rank="0"`` and lints clean: it exits 83, the
+   host is not blacklisted, the driver persists its ``preemption`` dump
+   (a ``preempt`` record, the store's receipt in its header, read by
+   ``tools.flight_analyze``), and the second round recovers from the
+   emergency rung; (c) with
    ``HOROVOD_TPU_FAULT_SPEC=worker:kill:rank=0:step=2`` and two hosts
    (localhost, 127.0.0.1) discovered: the first round dies, localhost
    is blacklisted, the second round runs on 127.0.0.1 from step 0; in
@@ -287,6 +292,21 @@ Phases, in order; the first failure exits non-zero:
    rank's parameter and AdamW-state bytes exactly its specs' share
    (beside world 1's), the bytes gathered and reduce-scattered a step,
    peak memory, step ms, tokens/s;
+4p. train GPT-2 medium (24 x 1024, ``--flash --fused-norm``, AdamW
+   under the DistributedOptimizer, phase 4's weights and 8 x 1024 batch)
+   at world 1 over NCCL, 1 warm-up + 5 steps each inside
+   ``hvd.metrics.step()``, with ``HOROVOD_METRICS``,
+   ``HOROVOD_TPU_METRICS_FILE``, ``HOROVOD_TIMELINE`` (cycle marks) and
+   the flight recorder on, then with every knob off: the losses bitwise
+   equal (and phase 4's), B1-B5 exactly ``STEP_LAUNCHES`` a step in
+   both; the JSONL one record a step, each step's time within
+   ``OBSERVE_TIME_TOL`` of the smoke's clock, record 1 the plan's
+   fusion fields and the weights' broadcasts, no gradient bytes at world
+   1, ``tools.metrics_summary --check`` passing; the scrape lint-clean
+   with a step histogram of 6; the timeline anchored, balanced, one
+   broadcast span a weight and one ``FUSION_PLAN`` instant of the plan's
+   buckets; a manual and a SIGUSR2 dump parsed; ``tools.trace_merge``
+   merging timeline and dump; step ms on and off;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -349,7 +369,8 @@ Phases, in order; the first failure exits non-zero:
    ((a)'s kernel composition), 4i, 4j, 4k (in process and the
    launched workers' second rounds), 4l ((a), (b) and (e)'s ``run()``
    worker), 4m (the emulated worlds' steps and (d)), 4n (the trained
-   cases' steps), 4o (the emulated worlds' steps), 5c's dry run, 5 and
+   cases' steps), 4o (the emulated worlds' steps), 4p (the run with
+   telemetry on), 5c's dry run, 5 and
    5b and the
    graphed
    serving runs of phases 6 and 7 (counts zeroed
@@ -5708,11 +5729,14 @@ def train_checkpoint(ledger):
 # phase 4k: elastic training, preemption and the recovery ladder
 # ---------------------------------------------------------------------------
 
-#: the elastic example at GPT-2 medium's width: 16 heads of 64, MLP 4096
+#: the elastic example at GPT-2 medium's width: 16 heads of 64, MLP
+#: 4096. Its steps cut from 30 to 20 (a commit every 10 still
+#: gives (b) its first commit and (c) its second) to keep the whole
+#: smoke inside its time limit
 ELASTIC_ARGS = ["--layers", "24", "--hidden", "1024", "--vocab", "50257",
                 "--seq-len", "1024", "--batch-size", "8", "--flash",
-                "--steps", "30", "--commit-every", "10"]
-ELASTIC_STEPS = 30
+                "--steps", "20", "--commit-every", "10"]
+ELASTIC_STEPS = 20
 ELASTIC_COMMIT_EVERY = 10
 ELASTIC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 ELASTIC_LAYERS = 24
@@ -5861,6 +5885,70 @@ def _elastic_launch(args, out_path, env_extra=None, on_line=None):
     return rc, lines, t0, t1
 
 
+#: how long phase 4k (b) waits for the driver's scrape to hold rank 0's
+#: pushed series (the worker pushes every second)
+ELASTIC_SCRAPE_WAIT_S = 5.0
+
+
+def _driver_scrape(worker_pid):
+    """The elastic driver's ``GET /metrics``, found through the worker's
+    environment (its rendezvous address), once it holds rank 0's pushed
+    series (or after ``ELASTIC_SCRAPE_WAIT_S``)."""
+    import urllib.request
+
+    with open(f"/proc/{worker_pid}/environ", "rb") as f:
+        env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                   if b"=" in kv)
+    url = (f"http://{env[b'HVD_TPU_RENDEZVOUS_ADDR'].decode()}:"
+           f"{env[b'HVD_TPU_RENDEZVOUS_PORT'].decode()}/metrics")
+    deadline = time.monotonic() + ELASTIC_SCRAPE_WAIT_S
+    while True:
+        with urllib.request.urlopen(url, timeout=5) as r:
+            text = r.read().decode()
+        if 'rank="0"' in text or time.monotonic() > deadline:
+            return text
+        time.sleep(0.2)
+
+
+def _elastic_observed(scrape, driver_flight, worker_flight):
+    """Phase 4k (b)'s telemetry: the driver's scrape during the run holds
+    rank 0's pushed series, labeled, and lints clean; after the SIGTERM
+    the driver persisted the worker's dump, whose ``preempt`` record and
+    receipt stamp are there, and ``tools.flight_analyze`` reads it."""
+    from horovod_tpu_torch.tools import flight_analyze
+    from horovod_tpu_torch.utils import flight, metrics
+
+    lint = metrics.lint_exposition(scrape)
+    pushed = [line for line in scrape.splitlines()
+              if not line.startswith("#") and 'rank="0"' in line]
+    _require(lint == [] and any(
+        line.startswith("hvd_collectives_total{") for line in pushed),
+             f"phase 4k (b): the driver's scrape lints {lint[:3]} and has "
+             f"{len(pushed)} series of rank 0")
+    persisted = os.path.join(driver_flight, "flight_rank0.jsonl")
+    _require(os.path.exists(persisted),
+             f"phase 4k (b): the driver persisted no dump in {driver_flight}"
+             f" ({os.listdir(driver_flight) if os.path.isdir(driver_flight) else 'no directory'})")
+    with open(persisted) as f:
+        header, events = flight.parse_dump(f.read())
+    receipt = header.get("receipt", {})
+    _require(header.get("reason") == "preemption"
+             and any(e["kind"] == "preempt" for e in events)
+             and receipt.get("bytes", 0) > 0,
+             f"phase 4k (b): the persisted dump reads {header}")
+    rc, out = _quiet(flight_analyze.main, [persisted])
+    _require(rc == 0 and "dump: preemption" in out,
+             f"phase 4k (b): flight_analyze gave {rc}: {out}")
+    return {"scrape_series_rank0": len(pushed),
+            "scrape_bytes": len(scrape.encode()),
+            "dump_events": len(events),
+            "dump_bytes": os.path.getsize(persisted),
+            "dump_to_receipt_s": receipt["recv_time_unix"]
+            - header["time_unix"],
+            "worker_dump": os.path.exists(
+                os.path.join(worker_flight, "flight_rank0.jsonl"))}
+
+
 def _elastic_line(lines, text):
     return next(((t, l) for t, l in lines if text in l), (None, None))
 
@@ -5868,13 +5956,14 @@ def _elastic_line(lines, text):
 def train_elastic(ledger):
     """Phase 4k. The port of ``examples/gpt2_elastic.py`` at GPT-2
     medium's width (``ELASTIC_ARGS``: 24 x 1024, 16 heads of 64, vocab
-    50257, batch 8 x 1024, ``--flash``, 30 steps, a commit every 10) at
+    50257, batch 8 x 1024, ``--flash``, 20 steps, a commit every 10) at
     world 1 over NCCL:
 
     (a) in process through its ``main``: a falling loss, B1-B3 exactly
-        24 a step by the launch counts; each commit interval's ms a step
-        and tokens/s, each ``commit()``'s seconds; the sha256 of every
-        parameter's and Adam moment's bytes after 30 steps; and
+        ``ELASTIC_LAYERS`` a step by the launch counts; each commit
+        interval's ms a step and tokens/s, each ``commit()``'s seconds;
+        the sha256 of every
+        parameter's and Adam moment's bytes after 20 steps; and
         ``hvd.data.device_prefetch`` of four token batches to the card,
         each equal to its rows;
     (b) preempted: ``launch -np 1 --min-np 1 --max-np 1
@@ -5908,7 +5997,8 @@ def train_elastic(ledger):
 
     per_step = ELASTIC_LAYERS
     report = {"phase": "train_elastic",
-              "model": "GPT-2 medium width 24x1024, batch 8x1024, Adam"}
+              "model": f"GPT-2 medium width {ELASTIC_LAYERS}x1024, "
+                       "batch 8x1024, Adam"}
     torch.cuda.empty_cache()
 
     # (a) in process
@@ -5964,9 +6054,14 @@ def train_elastic(ledger):
         for path in (one, two):
             os.chmod(path, 0o755)
 
-        # (b) preempted after the worker's first commit
+        # (b) preempted after the worker's first commit, with metrics
+        # pushed to the driver's store every second and the flight
+        # recorder's dumps in a directory of the worker's (--flight-dir)
+        # and, persisted by the driver, one of its own
         emergency = os.path.join(root, "emergency.pkl")
         out_b = os.path.join(root, "b.json")
+        driver_flight = os.path.join(root, "driver_flight")
+        worker_flight = os.path.join(root, "worker_flight")
         sent = {}
 
         def preempt(t, line, proc):
@@ -5976,6 +6071,10 @@ def train_elastic(ledger):
                        if "--elastic-worker" in open(
                            f"/proc/{pid}/cmdline").read()]
             if workers:
+                try:
+                    sent["scrape"] = _driver_scrape(workers[0])
+                except (OSError, KeyError) as e:  # fails below
+                    sent["scrape"] = f"scrape failed: {e!r}"
                 sent["sigterm"], sent["pid"] = time.time(), workers[0]
                 os.kill(workers[0], signal.SIGTERM)
 
@@ -5991,7 +6090,11 @@ def train_elastic(ledger):
         rc, lines, t0, t1 = _elastic_launch(
             ["-np", "1", "--min-np", "1", "--max-np", "1",
              "--host-discovery-script", one,
-             "--emergency-checkpoint", emergency], out_b, on_line=preempt)
+             "--emergency-checkpoint", emergency,
+             "--flight-dir", worker_flight], out_b, on_line=preempt,
+            env_extra={"HOROVOD_METRICS": "1",
+                       "HOROVOD_METRICS_PUSH_INTERVAL_S": "1",
+                       "HOROVOD_FLIGHT_DIR": driver_flight})
         text = "\n".join(l for _, l in lines[-40:])
         _require(rc == 0 and "exit" in sent,
                  f"phase 4k (b): launcher exit {rc}, signal {sent}:\n"
@@ -6022,13 +6125,16 @@ def train_elastic(ledger):
                      f"phase 4k (b): {k} launched {got_b['launches'][k]} "
                      f"times in the second round's {resumed} steps")
         ledger["train_elastic_preempted"] = got_b["launches"]
+        observed = _elastic_observed(sent["scrape"], driver_flight,
+                                     worker_flight)
         report["b_preempted"] = {
             "bitwise": True, "recovered_epoch": epoch,
             "sigterm_to_exit_s": sent["exit"] - sent["sigterm"],
             "emergency_bytes": os.path.getsize(emergency),
             "exit_to_first_step_s": got_b["first_step_unix"] - sent["exit"],
             "job_s": t1 - t0, "a_wall_s": wall_a,
-            "second_round_commit_s": got_b["commit_s"]}
+            "second_round_commit_s": got_b["commit_s"],
+            "telemetry": observed}
         os.remove(emergency)
 
         # (c) killed at its second commit
@@ -8192,6 +8298,377 @@ def train_fsdp_axis(seed, ledger, in_process_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 4p: GPT-2 medium trained with every telemetry knob on, then off
+# ---------------------------------------------------------------------------
+
+OBSERVE_STEPS = 6  # 1 warm-up + 5, each inside hvd.metrics.step()
+#: a step record's host time against the smoke's clock around the same
+#: block after a sync (the loss is read inside the step, so the block
+#: ends with the device's work)
+OBSERVE_TIME_TOL = 0.05
+#: the knobs of phase 4p's first run (their values under a temporary
+#: directory); the second run sets every one of them off
+OBSERVE_KNOBS = ("HOROVOD_METRICS", "HOROVOD_TPU_METRICS_FILE",
+                 "HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES",
+                 "HOROVOD_FLIGHT_RECORDER", "HOROVOD_FLIGHT_DIR")
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: ``(result,
+    text)``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+class _TelemetryClock:
+    """The host seconds spent inside the telemetry calls of a training
+    step, measured by wrapping them: ``StepStats.begin_step`` and
+    ``end_step`` (the JSONL line, the step series), every
+    ``metrics.record_*``, the collectives' ``_count``, the fusion plan's
+    ``_record_plan``, the timeline's spans, instants and cycle marks and
+    ``flight.record``. A call made inside another wrapped call counts
+    once, in the outer; the wrapper's own two clock reads count with
+    it. ``seconds`` and ``calls`` are by name."""
+
+    def __init__(self):
+        import threading
+
+        self.seconds, self.calls, self._saved = {}, {}, []
+        self._depth = threading.local()
+
+    def _wrap(self, owner, attr, label):
+        fn = getattr(owner, attr)
+        clock = self
+
+        def timed(*args, **kwargs):
+            depth = getattr(clock._depth, "n", 0)
+            clock._depth.n = depth + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                clock._depth.n = depth
+                if depth == 0:
+                    clock.seconds[label] = clock.seconds.get(label, 0.0) + (
+                        time.perf_counter() - t0)
+                    clock.calls[label] = clock.calls.get(label, 0) + 1
+
+        self._saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def __enter__(self):
+        from horovod_tpu_torch.ops import collectives, fusion
+        from horovod_tpu_torch.utils import flight, metrics, timeline
+
+        for attr in ("begin_step", "end_step"):
+            self._wrap(metrics.StepStats, attr, f"StepStats.{attr}")
+        for attr in sorted(vars(metrics)):
+            if attr.startswith("record_"):
+                self._wrap(metrics, attr, f"metrics.{attr}")
+        self._wrap(collectives, "_count", "collectives._count")
+        self._wrap(fusion, "_record_plan", "fusion._record_plan")
+        for attr in ("activity_start", "activity_end", "instant",
+                     "mark_cycle_start"):
+            self._wrap(timeline.Timeline, attr, f"Timeline.{attr}")
+        self._wrap(flight, "record", "flight.record")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved.clear()
+
+    def total(self):
+        return sum(self.seconds.values())
+
+
+def _observed_run(cfg, tokens, knobs):
+    """One run of phase 4p under ``knobs`` (set in the environment for
+    ``init()`` and restored after): the step of ``make_lm_train_step``
+    (AdamW under the DistributedOptimizer, flash attention, fused
+    norms, seed 0's weights), ``OBSERVE_STEPS`` steps on ``tokens``,
+    each inside ``hvd.metrics.step()`` with its loss read inside it,
+    timed around the block after a sync. Returns the run's readings
+    and, still initialized, the model and step."""
+    import functools
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.flash_attention import make_flash_attention_fn
+
+    saved = {k: os.environ.get(k) for k in OBSERVE_KNOBS}
+    os.environ.update(knobs)
+    try:
+        hvd.init()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _build.reset_launches()
+    model, step = hvd.make_lm_train_step(
+        cfg, functools.partial(torch.optim.AdamW, lr=1e-4,
+                               weight_decay=1e-4),
+        attention_fn=make_flash_attention_fn(causal=True))
+    losses, host_s, tele_s = [], [], []
+    with _TelemetryClock() as clock:
+        for _ in range(OBSERVE_STEPS):
+            torch.cuda.synchronize()
+            before = clock.total()
+            t0 = time.perf_counter()
+            with hvd.metrics.step():
+                losses.append(step(tokens).item())
+            host_s.append(time.perf_counter() - t0)
+            tele_s.append(clock.total() - before)
+    launches = dict(_build.LAUNCHES)
+    _exact_launches(launches, OBSERVE_STEPS, "phase 4p")
+    return {"losses": losses, "host_s": host_s, "launches": launches,
+            "step_ms": float(np.median(host_s[1:])) * 1e3,
+            "telemetry_s": tele_s, "telemetry_by_call": {
+                k: {"calls": clock.calls[k], "s": clock.seconds[k]}
+                for k in sorted(clock.seconds)}}, model, step
+
+
+def _balanced(events):
+    """Whether every B of a (tid, name) has its E after it, nested."""
+    open_ = {}
+    for e in events:
+        key = (e["tid"], e["name"])
+        if e["ph"] == "B":
+            open_[key] = open_.get(key, 0) + 1
+        elif e["ph"] == "E":
+            if not open_.get(key):
+                return False
+            open_[key] -= 1
+    return not any(open_.values())
+
+
+def train_observed(seed, ledger, in_process_losses):
+    """Phase 4p: GPT-2 medium at full width (24 x 1024, vocab 50257,
+    bf16, flash attention and fused norms, AdamW under the
+    DistributedOptimizer, seed 0, phase 4's 8 x 1024 batch) at world 1
+    over NCCL, 1 warm-up + 5 steps each inside ``hvd.metrics.step()``,
+    first with ``HOROVOD_METRICS=1``, ``HOROVOD_TPU_METRICS_FILE``,
+    ``HOROVOD_TIMELINE`` (``..._MARK_CYCLES=1``) and the flight recorder
+    into a temporary directory, then with every knob off, on the same
+    weights and batches:
+
+    (a) the losses bitwise the telemetry-off run's (and phase 4's), B1-B5
+        exactly 24/24/24/49/49 a step in both runs;
+    (b) the JSONL one record a step, numbered 1-6, each ``step_time_s``
+        within ``OBSERVE_TIME_TOL`` of the smoke's clock around the same
+        block; record 1 the fusion plan's fields as the JAX package's
+        ``record_fusion_plan`` gives them for this plan and the
+        broadcasts of the weights, every record its loss's all-reduce
+        and no gradient bytes (a world of one reduces none, as in the
+        JAX package); ``tools.metrics_summary --check`` passes;
+    (c) ``hvd.metrics.scrape()`` lints clean and its step histogram
+        counts 6;
+    (d) after ``stop_timeline()`` the file parses as Chrome JSON, opens
+        with ``CLOCK_ANCHOR``, its B/E pairs balance, it holds one
+        ``XLA_COLLECTIVE`` span a broadcast weight and one
+        ``FUSION_PLAN`` instant naming the plan's bucket count;
+    (e) ``flight.dump("manual")`` and a SIGUSR2 dump to this process
+        each parse with ``parse_dump``, and ``tools.trace_merge`` merges
+        the timeline and the dump into one trace counting both sources.
+
+    Prints the median step ms with telemetry on and off, the host
+    milliseconds a step spent inside the telemetry calls in each run
+    (``_TelemetryClock``), the JSONL's, the exposition's and the dump's
+    bytes and the dump's seconds, beside the card's name and power
+    limit."""
+    import gc
+    import shutil
+    import signal
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch.tools import metrics_summary, trace_merge
+    from horovod_tpu_torch.utils import flight, metrics
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    card = _card()
+    root = tempfile.mkdtemp(prefix="hvd_observed_")
+    jsonl = os.path.join(root, "steps.jsonl")
+    trace = os.path.join(root, "timeline.json")
+    fdir = os.path.join(root, "flight")
+    report = {"phase": "train_observed", "card": card,
+              "model": "GPT-2 medium 24x1024, 16 heads", "batch": "8x1024",
+              "steps": OBSERVE_STEPS}
+    try:
+        on, model, step = _observed_run(cfg, tokens, {
+            "HOROVOD_METRICS": "1", "HOROVOD_TPU_METRICS_FILE": jsonl,
+            "HOROVOD_TIMELINE": trace, "HOROVOD_TIMELINE_MARK_CYCLES": "1",
+            "HOROVOD_FLIGHT_RECORDER": "1", "HOROVOD_FLIGHT_DIR": fdir})
+        ledger["train_observed"] = on["launches"]
+        plan = step.optimizer.bucket_plan
+        params = step.optimizer._params
+        threshold = hvd.Knobs.from_env().fusion_threshold_bytes
+        bucket_bytes = [sum(n for (_, _, n, _) in b)
+                        * params[b[0][0]].element_size() for b in plan]
+        bcast = {}
+        for t in model.state_dict().values():
+            c = bcast.setdefault(
+                f"broadcast/{str(t.dtype).split('.')[-1]}",
+                {"count": 0, "bytes": 0})
+            c["count"] += 1
+            c["bytes"] += t.numel() * t.element_size()
+        n_bcast = sum(c["count"] for c in bcast.values())
+        # (c) the exposition, live
+        text = metrics.scrape()
+        lint = metrics.lint_exposition(text)
+        _require(lint == [], f"phase 4p (c): the scrape lints {lint[:3]}")
+        _require("\nhvd_step_seconds_count 6\n" in text,
+                 "phase 4p (c): the step histogram does not count 6")
+        # (e) two dumps, each parsed
+        t0 = time.perf_counter()
+        path = flight.dump("manual")
+        dump_s = time.perf_counter() - t0
+        _require(path is not None, "phase 4p (e): the manual dump failed")
+        with open(path) as f:
+            header, events = flight.parse_dump(f.read())
+        _require(header.get("reason") == "manual"
+                 and header.get("events") == len(events),
+                 f"phase 4p (e): the manual dump reads {header}")
+        dump_bytes = os.path.getsize(path)
+        before = flight.dump_count()
+        os.kill(os.getpid(), signal.SIGUSR2)
+        deadline = time.monotonic() + 10
+        while flight.dump_count() == before and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with open(path) as f:
+            header, events = flight.parse_dump(f.read())
+        _require(header.get("reason") == "sigusr2"
+                 and events and events[-1]["kind"] == "signal_dump",
+                 f"phase 4p (e): the SIGUSR2 dump reads {header}")
+        # (d) the timeline
+        hvd.stop_timeline()
+        with open(trace) as f:
+            evs = json.load(f)
+        spans = [e for e in evs if e["name"] == "XLA_COLLECTIVE"
+                 and e["tid"] == "broadcast"]
+        plans = [e for e in evs if e["name"] == "FUSION_PLAN"]
+        _require(evs[0]["name"] == "CLOCK_ANCHOR" and _balanced(evs),
+                 "phase 4p (d): the timeline opens without its anchor or "
+                 "its B/E pairs do not balance")
+        _require(len(spans) == 2 * n_bcast,
+                 f"phase 4p (d): {len(spans)} broadcast span events, not "
+                 f"2 x {n_bcast}")
+        _require(len(plans) == 1
+                 and plans[0]["args"]["buckets"] == len(plan),
+                 f"phase 4p (d): FUSION_PLAN instants {plans}, not one "
+                 f"of {len(plan)} buckets")
+        del model, step
+        hvd.shutdown()  # closes the JSONL
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        off, model, step = _observed_run(cfg, tokens, {
+            "HOROVOD_METRICS": "0", "HOROVOD_TPU_METRICS_FILE": "",
+            "HOROVOD_TIMELINE": "", "HOROVOD_TIMELINE_MARK_CYCLES": "0",
+            "HOROVOD_FLIGHT_RECORDER": "0", "HOROVOD_FLIGHT_DIR": ""})
+        _require(not metrics.enabled() and not flight.enabled(),
+                 "phase 4p: the telemetry-off run records")
+        del model, step
+        hvd.shutdown()
+        flight.uninstall_handlers()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a)
+        _require(on["losses"] == off["losses"],
+                 f"phase 4p (a): losses {on['losses']} with telemetry, "
+                 f"{off['losses']} without")
+        _require(on["losses"][0] == in_process_losses[0],
+                 f"phase 4p (a): step 1's loss {on['losses'][0]} is not "
+                 f"phase 4's {in_process_losses[0]}")
+        _require(on["losses"][-1] < on["losses"][0],
+                 f"phase 4p (a): losses did not fall: {on['losses']}")
+        # (b) the JSONL
+        with open(jsonl) as f:
+            recs = [json.loads(line) for line in f]
+        _require([r["step"] for r in recs] == list(
+            range(1, OBSERVE_STEPS + 1)),
+                 f"phase 4p (b): records {[r['step'] for r in recs]}")
+        off_by = [abs(r["step_time_s"] - s) / s
+                  for r, s in zip(recs, on["host_s"])]
+        _require(max(off_by) <= OBSERVE_TIME_TOL,
+                 f"phase 4p (b): step_time_s off the clock by {off_by}")
+        fill = [min(b / threshold, 1.0) for b in bucket_bytes]
+        want_fusion = {"plans": 1, "buckets": len(plan),
+                       "fill_ratio_mean": sum(fill) / len(fill)}
+        _require(recs[0]["fusion"] == want_fusion,
+                 f"phase 4p (b): record 1's fusion {recs[0]['fusion']}, "
+                 f"not {want_fusion}")
+        got = {k: v for k, v in recs[0]["collectives"].items()
+               if k.startswith("broadcast/")}
+        _require(got == bcast, f"phase 4p (b): record 1's broadcasts "
+                               f"{got}, not the weights' {bcast}")
+        for r in recs:
+            _require(r["grad_bytes"] == 0 and "wire" not in r
+                     and r["collectives"].get("allreduce/float64") == {
+                         "count": 1, "bytes": 16},
+                     f"phase 4p (b): record {r['step']} reads {r}")
+            if r["step"] > 1:
+                _require(r["fusion"]["plans"] == 0,
+                         f"phase 4p (b): record {r['step']} plans again")
+        rc, out = _quiet(metrics_summary.main, [jsonl, "--check"])
+        _require(rc == 0, f"phase 4p (b): metrics_summary --check: {out}")
+        # (e) one merged trace of both sources
+        merged = os.path.join(root, "merged.json")
+        rc, out = _quiet(trace_merge.main, ["--timeline", trace,
+                                            "--flight", fdir,
+                                            "--out", merged])
+        merge = json.loads(out)
+        _require(rc == 0 and merge["by_source"].get("rank0/host", 0) > 0
+                 and merge["by_source"].get("rank0/flight", 0) > 0,
+                 f"phase 4p (e): trace_merge gave {rc}, {merge}")
+        report.update(
+            losses=on["losses"], bitwise_off=True,
+            launches_per_step={k: v / OBSERVE_STEPS
+                               for k, v in on["launches"].items()
+                               if k in STEP_LAUNCHES},
+            step_ms_on=on["step_ms"], step_ms_off=off["step_ms"],
+            on_over_off=on["step_ms"] / off["step_ms"],
+            step_ms_on_all=[x * 1e3 for x in on["host_s"]],
+            step_ms_off_all=[x * 1e3 for x in off["host_s"]],
+            telemetry_ms_on=[x * 1e3 for x in on["telemetry_s"]],
+            telemetry_ms_off=[x * 1e3 for x in off["telemetry_s"]],
+            telemetry_ms_on_median=float(
+                np.median(on["telemetry_s"][1:])) * 1e3,
+            telemetry_share_on=sum(on["telemetry_s"][1:])
+            / sum(on["host_s"][1:]),
+            telemetry_by_call_on=on["telemetry_by_call"],
+            telemetry_by_call_off=off["telemetry_by_call"],
+            step_time_s_vs_clock_max=max(off_by),
+            record_1={k: recs[0][k] for k in ("fusion", "grad_bytes")},
+            broadcasts=n_bcast, buckets=len(plan),
+            jsonl_bytes=os.path.getsize(jsonl),
+            exposition_bytes=len(text.encode()),
+            exposition_families=text.count("# TYPE "),
+            timeline_events=len(evs), timeline_bytes=os.path.getsize(trace),
+            flight_events=len(events), dump_bytes=dump_bytes,
+            dump_s=dump_s, merged_events=merge["events"],
+            merged_by_source=merge["by_source"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        # later phases start from the recorders' defaults
+        flight.reset()
+        metrics.reset()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -10122,6 +10599,7 @@ def main(argv=None) -> int:
     timed("4m", train_mesh, args.seed, ledger, in_process_losses)
     timed("4n", train_pipeline, args.seed, ledger, in_process_losses)
     timed("4o", train_fsdp_axis, args.seed, ledger, in_process_losses)
+    timed("4p", train_observed, args.seed, ledger, in_process_losses)
     timed("5", train_resnet, args.seed, ledger)
     timed("5b", train_cnns, ledger)
     timed("5c", train_mnist_and_entry, ledger)

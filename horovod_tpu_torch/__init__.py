@@ -46,6 +46,13 @@ NVIDIA Hopper GPUs:
   blacklisting failed hosts (``python -m
   horovod_tpu_torch.examples.gpt2_elastic``); ``hvd.data``'s
   ``ElasticSampler`` and loaders and ``hvd.callbacks`` go with it;
+* **observability**: ``hvd.metrics`` (counters, gauges, histograms,
+  the per-step JSONL of ``with hvd.metrics.step():``, the Prometheus
+  exposition and its push to the launcher's ``/metrics``), the host
+  timeline (``HOROVOD_TIMELINE``, :func:`start_timeline`) and the flight
+  recorder (``utils/flight.py``), read offline by ``python -m
+  horovod_tpu_torch.tools.metrics_summary``, ``flight_analyze`` and
+  ``trace_merge``;
 * **serving**: continuous-batching decode
   (:class:`~horovod_tpu_torch.serving.scheduler.DecodeScheduler`) over a
   slotted KV cache
@@ -128,6 +135,30 @@ from .parallel.train import make_lm_train_step
 from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
 from .serving.scheduler import DecodeScheduler, GenRequest
 from .sync_batch_norm import SyncBatchNorm
+from .utils import metrics  # hvd.metrics.step(), scrape(), ...
+
+
+def start_timeline(filename: str, mark_cycles: bool = False) -> None:
+    """Start writing the host timeline to ``filename`` at run time
+    (reference operations.cc:1048, the JAX package's
+    ``hvd.start_timeline``)."""
+    from .core.state import global_state
+    from .utils.timeline import Timeline
+
+    st = global_state()
+    if st.timeline is None:
+        st.timeline = Timeline(None)
+    st.timeline.start(filename, mark_cycles=mark_cycles)
+
+
+def stop_timeline() -> None:
+    """Stop the host timeline; its file closes as a JSON array."""
+    from .core.state import global_state
+
+    st = global_state()
+    if st.timeline is not None:
+        st.timeline.stop()
+
 
 __all__ = [
     # basics
@@ -163,6 +194,8 @@ __all__ = [
     "LoadedModel", "elastic", "data", "callbacks",
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
     "SyncBatchNorm",
+    # observability
+    "metrics", "start_timeline", "stop_timeline",
     # models
     "params_from_flax", "params_to_flax", "resnet_from_flax",
     "resnet_to_flax", "GPT2_SMALL", "GPT2_MEDIUM", "Transformer",

@@ -16,8 +16,9 @@ still run through the backend. Without a card and without
 ``device="cpu"``, ``init()`` raises, and so it does when the local rank
 has no card of its own (more slots on a host than cards). It also sets
 up logging, fault injection and the control-plane retry policy from the
-knobs, and, with ``HOROVOD_REPLICATION``, the peer replication of
-elastic commits.
+knobs, the host timeline, metrics and the flight recorder
+(``utils/timeline.py``, ``metrics.py``, ``flight.py``), and, with
+``HOROVOD_REPLICATION``, the peer replication of elastic commits.
 
 A process group the caller set up before ``init()`` is adopted as it
 is (its rank and size win over the environment) and left alone at
@@ -114,6 +115,7 @@ def init(device: Optional[str] = None,
         st.local_rank, st.local_size = local_rank, local_size
         st.cross_rank, st.cross_size = cross_rank, cross_size
         st.process_set_table = _ps.ProcessSetTable(size)
+        _configure_telemetry(st)
         st.initialized = True
     if st.knobs.native_eager:
         try:
@@ -244,6 +246,24 @@ def _configure_control_plane(knobs: Knobs) -> None:
     retry.configure(knobs)
 
 
+def _configure_telemetry(st) -> None:
+    """The host timeline (``HOROVOD_TIMELINE``), metrics
+    (``HOROVOD_METRICS``, ``HOROVOD_TPU_METRICS_FILE``) and the flight
+    recorder (on unless ``HOROVOD_FLIGHT_RECORDER=0``), in the JAX
+    package's order (``horovod_tpu/core/basics.py:212-236``), before the
+    eager runtime starts. The recorder takes the world's rank first: the
+    timeline's anchor names it (the JAX package reads the rank from the
+    launcher's environment, after its timeline has started)."""
+    from ..utils import flight, metrics
+    from ..utils.timeline import Timeline
+
+    flight.set_rank(st.rank)
+    st.timeline = Timeline(st.knobs.timeline_filename or None,
+                           mark_cycles=st.knobs.timeline_mark_cycles)
+    metrics.configure(st.knobs)
+    flight.configure(st.knobs)
+
+
 def shutdown() -> None:
     """Tear down the state; end the process group if init() made it.
     The world's DistributedOptimizers are detached and the replicator
@@ -260,6 +280,12 @@ def shutdown() -> None:
         if st.eager_runtime is not None:
             st.eager_runtime.shutdown()
             st.eager_runtime = None
+        if st.timeline is not None:
+            st.timeline.stop()
+        from ..utils import flight, metrics
+
+        metrics.on_shutdown()
+        flight.on_shutdown()
         if st.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         elif dist.is_initialized():

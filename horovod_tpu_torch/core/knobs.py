@@ -188,6 +188,32 @@ class Knobs:
     # autotuner is ported
     autotune_cache: str = ""
 
+    # --- timeline (utils/timeline.py) ---
+    # the Chrome trace file init() starts writing ("" = none), and the
+    # negotiation cycle's instants in it
+    timeline_filename: str = ""
+    timeline_mark_cycles: bool = False
+
+    # --- metrics (utils/metrics.py) ---
+    # counters, gauges, histograms and the step records; off by default
+    metrics_enabled: bool = False
+    # the per-step JSONL (canonical env HOROVOD_TPU_METRICS_FILE;
+    # HVD_TPU_METRICS_FILE and HOROVOD_METRICS_FILE are read too)
+    metrics_file: str = ""
+    # a standalone GET /metrics port; 0 = none (the rendezvous store
+    # mounts /metrics regardless)
+    metrics_port: int = 0
+    # a launched worker pushes its exposition to the rendezvous store
+    # this often; 0 = no push
+    metrics_push_interval_s: float = 5.0
+
+    # --- flight recorder (utils/flight.py) ---
+    # on by default: a black box that is off when the plane crashes is
+    # no black box
+    flight_recorder: bool = True
+    flight_dir: str = ""  # dump directory; "" = <tmpdir>/hvd_flight
+    flight_capacity: int = 4096  # events kept in the ring
+
     # --- fault injection (utils/faults.py) ---
     # canonical env HOROVOD_TPU_FAULT_SPEC; empty = disabled no-op
     fault_spec: str = ""
@@ -267,6 +293,18 @@ class Knobs:
             serving_decode_stats_every=_env_int(
                 "SERVING_DECODE_STATS_EVERY", 50),
             autotune_cache=_env("AUTOTUNE_CACHE", "") or "",
+            timeline_filename=_env("TIMELINE", "") or "",
+            timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),
+            metrics_enabled=_env_bool("METRICS", False),
+            # canonical name first so it wins when both are set
+            metrics_file=(os.environ.get("HOROVOD_TPU_METRICS_FILE", "")
+                          or _env("METRICS_FILE") or ""),
+            metrics_port=_env_int("METRICS_PORT", 0),
+            metrics_push_interval_s=_env_float("METRICS_PUSH_INTERVAL_S",
+                                               5.0),
+            flight_recorder=_env_bool("FLIGHT_RECORDER", True),
+            flight_dir=_env("FLIGHT_DIR", "") or "",
+            flight_capacity=_env_int("FLIGHT_CAPACITY", 4096),
             # canonical name first so it wins when both are set
             fault_spec=(os.environ.get("HOROVOD_TPU_FAULT_SPEC", "")
                         or _env("FAULT_SPEC") or ""),

@@ -4,8 +4,8 @@ The counterpart of the JAX package's ``core/state.py``. Where that holds
 a device mesh, this holds the ``torch.distributed`` process group the
 collectives run on, the device they run on, the rank/size fields read
 from the launcher's environment, the device mesh, the knobs, the
-process-set table, the eager negotiation runtime and the handles of
-asynchronous collectives.
+process-set table, the eager negotiation runtime, the host timeline and
+the handles of asynchronous collectives.
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ class GlobalState:
         # the eager negotiation runtime (ops/eager_runtime.py), live
         # when init() ran with HVD_TPU_NATIVE=1
         self.eager_runtime: Optional[Any] = None
+        # the host timeline (utils/timeline.Timeline); init() builds it,
+        # writing when HOROVOD_TIMELINE names a file
+        self.timeline: Optional[Any] = None
         # async collectives: handle -> (work, result-maker)
         self.handles: Dict[int, Any] = {}
         self.next_handle = 1

@@ -16,6 +16,8 @@ lost, and the elastic driver blacklists a healthy host. The handler:
   ``emergency.payload`` corruption gate, written to a temporary name,
   fsynced and renamed into place; the JAX package reads the file and
   writes ones this module reads;
+* records a ``preempt`` event in the flight recorder and dumps it
+  (reason ``preemption``), which ships the dump to the driver's store;
 * exits with :data:`PREEMPTED_EXIT_CODE` (83), which the elastic driver
   ends the round on without blacklisting the host.
 
@@ -192,7 +194,7 @@ class PreemptionHandler:
                     PREEMPTED_EXIT_CODE)
         # no metrics here: the handler may interrupt a holder of the
         # registry's locks; the driver counts the preemption from the
-        # exit code
+        # exit code. The flight recorder takes none of them
         try:
             if state is not None:
                 if path and _is_rank0():
@@ -204,6 +206,14 @@ class PreemptionHandler:
         except Exception as e:
             # the exit code must still say "preempted"
             LOG.error("preemption snapshot failed: %s", e)
+        # the black box second: the snapshot has the grace window first
+        from ..utils import flight
+
+        try:
+            flight.record("preempt", signum=signum)
+            flight.dump("preemption")
+        except Exception as e:
+            LOG.error("preemption flight dump failed: %s", e)
         exit_fn(PREEMPTED_EXIT_CODE)
 
 

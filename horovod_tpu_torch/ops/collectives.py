@@ -45,6 +45,14 @@ go as one all-or-nothing group. ``allgather`` is then ragged by
 negotiation, ``alltoall`` negotiates its splits matrix, ``barrier`` on
 the world is negotiated and ``join`` does the join accounting. Adasum
 and sparse slices keep their own paths.
+
+Telemetry, as the JAX package's eager dispatch has it
+(``horovod_tpu/ops/collectives.py:434-441``, ``:480-498``): every
+tensor a member issues is counted once by ``metrics.record_collective``
+(op, dtype, bytes), and each collective handed to ``torch.distributed``
+is a host span ``XLA_COLLECTIVE`` (its ``tid`` the op) on the timeline.
+The private tiled exchanges, which the optimizers run and account for
+per step, are neither.
 """
 
 from __future__ import annotations
@@ -62,6 +70,8 @@ from ..core.exceptions import (HorovodInternalError, HorovodTpuError,
                                ProcessSetError)
 from ..core.process_sets import set_context
 from ..optim.compression import Compression
+from ..utils import metrics
+from ..utils.timeline import XLA_COLLECTIVE, active_timeline
 from .sparse import is_sparse
 
 
@@ -188,6 +198,26 @@ def synchronize(handle: int):
         except KeyError:
             raise ValueError(f"unknown handle {handle}")
     return finish()
+
+
+# -- telemetry -----------------------------------------------------------------
+
+def _count(op_kind: str, tensors) -> None:
+    """Count each issued tensor (``metrics.record_collective``; its
+    dtype as numpy names it)."""
+    if not metrics.enabled():
+        return
+    for t in tensors:
+        metrics.record_collective(op_kind, str(t.dtype).split(".")[-1],
+                                  t.numel() * t.element_size())
+
+
+def _span(op_kind: str):
+    """The host span around a collective's dispatch."""
+    tl = active_timeline()
+    if tl is None:
+        return contextlib.nullcontext()
+    return tl.activity(op_kind, XLA_COLLECTIVE)
 
 
 # -- the eager negotiation runtime -------------------------------------------
@@ -318,6 +348,7 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
         # over the world only: a proper subset raises on every rank
         from .adasum import adasum_allreduce
 
+        _count("allreduce", [tensor])
         wire, wctx = compression.compress(tensor.detach())
         buf = scale_(wire.clone(), prescale_factor)
         red = scale_(adasum_allreduce(buf, process_set=process_set),
@@ -329,6 +360,7 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
     if not ctx.member:
         res = tensor if out is not None else tensor.detach().clone()
         return [], lambda: res
+    _count("allreduce", [tensor])
     wire, wctx = compression.compress(tensor.detach())
     rt, sid = _native_rt(process_set)
     if rt is not None:
@@ -353,8 +385,9 @@ def _allreduce_start(tensor, average, compression, op, prescale_factor,
         summed, _ = start_hierarchical_psum(buf, block)
         works = []
     else:
-        works = [dist.all_reduce(buf, op=dist_op(op), group=ctx.group,
-                                 async_op=True)]
+        with _span("allreduce"):
+            works = [dist.all_reduce(buf, op=dist_op(op), group=ctx.group,
+                                     async_op=True)]
 
         def summed():
             works[0].wait()
@@ -436,6 +469,7 @@ def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
             not any(is_sparse(t) for t in tensors):
         rt, sid = _native_rt(process_set)
         if rt is not None:
+            _count("allreduce", tensors)
             return _native_start(rt, "allreduce", tensors, op,
                                  prescale_factor, postscale_factor,
                                  name=name, grouped=True,
@@ -453,6 +487,7 @@ def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
         if not ctx.member:
             pending.append((idxs, flat, None))
             continue
+        _count("allreduce", [flat])
         scale_(flat, prescale_factor)
         if op == ReduceOp.ADASUM:
             from .adasum import adasum_allreduce
@@ -470,9 +505,10 @@ def _grouped_start(tensors, average, op, prescale_factor, postscale_factor,
                 average_(flat, ctx.size)
             pending.append((idxs, scale_(flat, postscale_factor), None))
             continue
-        pending.append((idxs, flat,
-                        dist.all_reduce(flat, op=dist_op(op),
-                                        group=ctx.group, async_op=True)))
+        with _span("allreduce"):
+            work = dist.all_reduce(flat, op=dist_op(op), group=ctx.group,
+                                   async_op=True)
+        pending.append((idxs, flat, work))
 
     def finish():
         out: List[Optional[torch.Tensor]] = [None] * len(tensors)
@@ -576,6 +612,7 @@ def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
         _check_dim0(t, n, what)
     rt, sid = _native_rt(process_set)
     if rt is not None:
+        _count("reducescatter", tensors)
         return _native_start(rt, "reducescatter", tensors, op,
                              prescale_factor, postscale_factor, name=name,
                              grouped=len(tensors) > 1, process_set_id=sid)
@@ -584,7 +621,9 @@ def _reducescatter_start(tensors, op, prescale_factor, postscale_factor,
         packed = torch.cat([tensors[i].detach().reshape(n, -1)
                             for i in idxs], dim=1).reshape(-1)
         scale_(packed, prescale_factor)  # a new tensor: inputs stay
-        out, work = _reduce_scatter_tiled(packed, n, ctx.group)
+        _count("reducescatter", [packed])
+        with _span("reducescatter"):
+            out, work = _reduce_scatter_tiled(packed, n, ctx.group)
         pending.append((idxs, out, work))
 
     def finish():
@@ -692,6 +731,7 @@ def _grouped_allgather_start(tensors, process_set, what, name=None):
     rt, sid = _native_rt(process_set)
     if rt is not None:
         # the controller negotiates each rank's dim 0 (ragged)
+        _count("allgather", tensors)
         return _native_start(rt, "allgather", tensors, name=name,
                              grouped=len(tensors) > 1, process_set_id=sid)
     n = ctx.size
@@ -710,7 +750,10 @@ def _grouped_allgather_start(tensors, process_set, what, name=None):
         if flat.numel() < longest:
             flat = torch.cat([flat, flat.new_zeros(longest - flat.numel())])
         parts = [torch.empty_like(flat) for _ in range(n)]
-        work = dist.all_gather(parts, flat, group=ctx.group, async_op=True)
+        _count("allgather", [flat])
+        with _span("allgather"):
+            work = dist.all_gather(parts, flat, group=ctx.group,
+                                   async_op=True)
         pending.append((idxs, row, parts, work))
 
     def finish():
@@ -794,6 +837,7 @@ def _alltoall_start(tensor, splits, process_set, name=None):
             raise HorovodInternalError(
                 f"alltoall splits {send} must give each of the {n} ranks "
                 f"of the set a count and sum to dim0 {x.shape[0]}")
+    _count("alltoall", [x])
     rt, sid = _native_rt(process_set)
     if rt is not None:
         # the controller negotiates the splits matrix
@@ -809,8 +853,9 @@ def _alltoall_start(tensor, splits, process_set, name=None):
         return works, finish_native
     if splits is None:
         out = torch.empty_like(x)
-        work = dist.all_to_all_single(out, x, group=ctx.group,
-                                      async_op=True)
+        with _span("alltoall"):
+            work = dist.all_to_all_single(out, x, group=ctx.group,
+                                          async_op=True)
 
         def finish_equal():
             work.wait()
@@ -822,9 +867,10 @@ def _alltoall_start(tensor, splits, process_set, name=None):
     dist.all_to_all_single(got, sent, group=ctx.group)
     recv = got.tolist()
     out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
-    work = dist.all_to_all_single(out, x, output_split_sizes=recv,
-                                  input_split_sizes=send, group=ctx.group,
-                                  async_op=True)
+    with _span("alltoall"):
+        work = dist.all_to_all_single(out, x, output_split_sizes=recv,
+                                      input_split_sizes=send,
+                                      group=ctx.group, async_op=True)
 
     def finish_split():
         work.wait()
@@ -875,14 +921,16 @@ def _broadcast_start(buf, root_rank, process_set, name=None):
     ctx = _broadcast_ctx(buf, root_rank, process_set)
     if not ctx.member:
         return [], lambda: buf
+    _count("broadcast", [buf])
     rt, sid = _native_rt(process_set)
     if rt is not None:
         works, received = _native_start(rt, "broadcast", [buf],
                                         root_rank=root_rank, name=name,
                                         process_set_id=sid)
         return works, lambda: buf.copy_(received()[0])
-    work = dist.broadcast(buf, src=root_rank, group=ctx.group,
-                          async_op=True)
+    with _span("broadcast"):
+        work = dist.broadcast(buf, src=root_rank, group=ctx.group,
+                              async_op=True)
 
     def finish():
         work.wait()

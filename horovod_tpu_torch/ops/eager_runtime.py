@@ -46,8 +46,8 @@ also aborts the executor's group and leaves the runtime able to shut
 down without joining a thread stuck in the data plane.
 
 Left for later entries: autotune (``autotune=True`` raises; ROADMAP
-queue A entry 12) and the flight recorder, timeline and latency
-histograms (entry 13). Adasum is reduced by ``ops/adasum.py`` outside
+queue A entry 12) and the flight recorder's events, timeline spans and
+latency histograms of the runtime (entry 13, part 3). Adasum is reduced by ``ops/adasum.py`` outside
 the runtime; the executor refuses it.
 """
 

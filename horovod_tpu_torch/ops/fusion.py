@@ -14,6 +14,13 @@ traversal order. So the port names each leaf by its flax path
 (``block_0.attn.query.kernel`` -> ``("block_0", "attn", "query",
 "kernel")``), orders leaves as that traversal does
 (:func:`flatten_order`), and never uses PyTorch's registration order.
+
+Each plan computed is a ``FUSION_PLAN`` instant on the host timeline
+(its tensors, buckets and threshold) and a ``metrics.record_fusion_plan``
+(the bucket count and each bucket's fill of the threshold), as the JAX
+package records its plans (``horovod_tpu/ops/fusion.py:84-104``). The
+port plans when an optimizer is built; the JAX package when its step
+is traced.
 """
 
 from __future__ import annotations
@@ -125,7 +132,29 @@ def pytree_bucket_plan(leaves: Sequence[Tuple[Path, Sequence[int],
             cur_bytes += nbytes
         if cur:
             plans.append(cur)
+    _record_plan(leaves, plans, threshold_bytes)
     return plans
+
+
+def _record_plan(leaves, plans: Sequence[BucketPlan],
+                 threshold_bytes: int) -> None:
+    """The plan's timeline instant and metrics."""
+    from ..utils import metrics
+    from ..utils.timeline import FUSION_PLAN, active_timeline
+
+    if metrics.enabled():
+        bucket_bytes = [
+            sum(size for (_, _, size, _) in plan)
+            * torch.empty((), dtype=leaves[plan[0][0]][2]).element_size()
+            for plan in plans]
+        metrics.record_fusion_plan(len(leaves), len(plans),
+                                   threshold_bytes, bucket_bytes)
+    tl = active_timeline()
+    if tl is not None:
+        tl.instant("fusion", FUSION_PLAN, args={
+            "tensors": len(leaves), "buckets": len(plans),
+            "threshold_bytes": threshold_bytes,
+        })
 
 
 def plan_bucket_lengths(plans: Sequence[BucketPlan]) -> List[int]:

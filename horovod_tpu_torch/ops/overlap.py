@@ -42,8 +42,7 @@ The exchanges are pluggable (:class:`WorldExchange` over
 ``torch.distributed``; :class:`EmulatedWorld` for a world of several
 ranks composed in one process, as ``chip_smoke.py`` runs one on a single
 card). The JAX package's metrics hooks (``_record_staged_step``,
-``_record_fsdp_step``) wait for the port's metrics (ROADMAP queue A
-entry 13); what they would record is left on the returned ``vag`` as
+``_record_fsdp_step``) come with ROADMAP queue A entry 13, part 3; what they would record is left on the returned ``vag`` as
 plain attributes: ``issue_log``, ``gather_log``, ``param_bytes``,
 ``gather_bytes``, ``regather_bytes``, ``offload_bytes``,
 ``peak_param_bytes`` and ``pinned_frac``.

@@ -72,7 +72,15 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   once and the executor's wire wins, as
   ``horovod_tpu/optim/distributed.py:255-310`` has it. Adasum keeps
   its own path;
-* in a world of one rank nothing is packed or reduced;
+* in a world of one rank nothing is packed or reduced (nor recorded,
+  as in the JAX package);
+* with metrics on, each executed step's reduction is recorded once
+  after ``synchronize()`` has waited for it:
+  ``metrics.record_grad_reduction`` (the buckets' bytes and count) and,
+  unless the eager runtime's executor owns the wire,
+  ``metrics.record_wire_bytes`` (those bytes against what the wire
+  sends), as ``horovod_tpu/optim/distributed.py:309-313, 342-376``
+  records them; no timeline span a bucket, as the JAX step has none;
 * ``shutdown()`` detaches every optimizer of its world (its hooks go,
   and a step that would reduce raises): after an elastic re-init a
   ``train`` function wraps its optimizer anew, on the new world.
@@ -98,8 +106,10 @@ from ..ops.collectives import (ReduceOp, dist_op, lost_peer, resolve_op,
 from ..ops.sparse import sparse_allreduce
 from ..ops.fusion import (flatten_order, flax_path, pack_buckets_by_plan,
                           pytree_bucket_plan, unflatten_buckets_by_plan)
+from ..utils import metrics
 from .compression import (Compression, NoneCompressor,
-                          compressor_wire_spec, wire_applies)
+                          compressor_wire_spec, wire_applies,
+                          wire_sent_bytes)
 
 
 #: the optimizers whose gradient hooks are live; shutdown() detaches them
@@ -442,6 +452,21 @@ class _DistributedOptimizer:
                 g = self._params[i].grad
                 if not g.is_sparse:
                     g.copy_(leaves[i].to(g.dtype))
+        if metrics.enabled():
+            self._record_reduction()
+
+    def _record_reduction(self) -> None:
+        """One executed reduction: the buckets' bytes at their dtypes
+        and, where this optimizer owns the wire, what the wire sent."""
+        sizes = [(sum(n for (_, _, n, _) in plan),
+                  self._params[plan[0][0]].dtype) for plan in self._plans]
+        total = sum(n * dt.itemsize for n, dt in sizes)
+        metrics.record_grad_reduction(total, len(sizes))
+        if self._rt is None:
+            metrics.record_wire_bytes(total, sum(
+                wire_sent_bytes(n, dt.itemsize, self.wire
+                                if wire_applies(self.wire, dt) else None)
+                for n, dt in sizes))
 
     def step(self, closure=None):
         self.synchronize()

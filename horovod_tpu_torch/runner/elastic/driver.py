@@ -14,14 +14,19 @@ and the worker-side state carries over through the elastic ``State``
 (``horovod_tpu_torch/elastic/``: the recovery ladder on entry, the
 sync from rank 0). A worker that exits with ``PREEMPTED_EXIT_CODE``
 (83) or dies of an outside SIGTERM ends its round ABORTED: its host was
-healthy and stays eligible (``driver.py:301-370`` there). Left out: the
-JAX driver's persisting of workers' flight-recorder dumps (ROADMAP
-queue A entry 13) and the control-plane supervisor it owns (entry 14).
+healthy and stays eligible (``driver.py:301-370`` there). A round that
+did not succeed everywhere leaves its workers' flight dumps (``PUT
+/flight/<rank>`` on the rendezvous store) in ``HOROVOD_FLIGHT_DIR``
+before the next round's ``init`` clears them
+(:meth:`ElasticDriver._persist_flight_dumps`). Left out: the
+control-plane supervisor the JAX driver owns (ROADMAP queue A entry 14).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import signal
 import threading
 import time
@@ -41,6 +46,21 @@ from .settings import ElasticSettings
 from .worker import get_worker_client
 
 LOG = logging.getLogger("horovod_tpu_torch.elastic")
+
+
+def _with_receipt(payload: bytes, receipt: dict) -> bytes:
+    """A dump whose header line (the first) carries ``receipt``; a dump
+    without a parseable header as it came."""
+    head, sep, rest = payload.partition(b"\n")
+    try:
+        header = json.loads(head)
+    except ValueError:
+        return payload
+    if not receipt or not isinstance(header, dict) \
+            or not header.get("flight_header"):
+        return payload
+    header["receipt"] = receipt
+    return json.dumps(header).encode() + sep + rest
 
 
 class ElasticDriver:
@@ -212,7 +232,55 @@ class ElasticDriver:
                     _metrics.record_elastic_event("blacklist")
                     LOG.warning("blacklisting failed host %s", host)
             self._host_manager.update_available_hosts()
+        if not states or any(s != SUCCESS for s in states.values()):
+            # the next round's init drops the dumps the dying workers
+            # shipped: write them to disk first
+            self._persist_flight_dumps()
         return states
+
+    def _persist_flight_dumps(self) -> None:
+        """Write the workers' flight dumps out of the rendezvous store
+        into ``HOROVOD_FLIGHT_DIR`` (default ``<tmpdir>/hvd_flight``) as
+        ``flight_rank<r>.jsonl``, for ``python -m
+        horovod_tpu_torch.tools.flight_analyze``
+        (``horovod_tpu/runner/elastic/driver.py:247-299``). Unlike the
+        JAX driver, each file's header also carries the store's receipt
+        (``"receipt": {"recv_time_unix", "bytes"}``), so the file says
+        when the driver got it; a file at that path newer than the
+        receipt (a worker's own later dump) is left alone."""
+        import tempfile
+
+        from ...utils.flight import FLIGHT_SCOPE
+        from ..http.http_server import FLIGHT_META_SCOPE
+
+        with self._rendezvous.lock:
+            dumps = dict(self._rendezvous.store.get(FLIGHT_SCOPE, {}))
+            meta = dict(self._rendezvous.store.get(FLIGHT_META_SCOPE, {}))
+        if not dumps:
+            return
+        directory = (os.environ.get("HVD_TPU_FLIGHT_DIR")
+                     or os.environ.get("HOROVOD_FLIGHT_DIR")
+                     or os.path.join(tempfile.gettempdir(), "hvd_flight"))
+        try:
+            os.makedirs(directory, exist_ok=True)
+            for rank_key, payload in dumps.items():
+                path = os.path.join(directory,
+                                    f"flight_rank{rank_key}.jsonl")
+                receipt = json.loads(meta[rank_key]) \
+                    if rank_key in meta else {}
+                if (os.path.exists(path) and os.path.getmtime(path)
+                        > receipt.get("recv_time_unix", 0.0)):
+                    continue
+                with open(path, "wb") as f:
+                    f.write(_with_receipt(payload, receipt))
+            LOG.warning(
+                "flight recorder: persisted dumps from ranks %s to %s; "
+                "analyze with: python -m "
+                "horovod_tpu_torch.tools.flight_analyze "
+                "%s/flight_rank*.jsonl", sorted(dumps), directory,
+                directory)
+        except OSError as e:
+            LOG.warning("could not persist flight dumps: %s", e)
 
     def _wrap_exec(self) -> Callable:
         """Exec wrapper recording each worker's exit in the registry

@@ -14,19 +14,20 @@ slot also gets the eager negotiation runtime's coordinator,
 ``HVD_TPU_NATIVE_COORDINATOR_ADDR/PORT`` (rank 0's host and another
 free port there), which rank 0's C++ controller binds under
 ``HVD_TPU_NATIVE=1``, as the JAX package publishes them
-(``horovod_tpu/runner/exec_run.py:72-82``). The slot env differs from
-the JAX package's in these keys only:
+(``horovod_tpu/runner/exec_run.py:72-82``). Every launch has a
+rendezvous HTTP store (``http_server.RendezvousServer``) whose address
+reaches each worker as ``HVD_TPU_RENDEZVOUS_ADDR/PORT`` (and
+``HOROVOD_GLOO_RENDEZVOUS_*``), as the JAX launcher exports it
+(``horovod_tpu/runner/exec_run.py:59-62, 118-140``): an elastic round
+passes its driver's (``launch_slots(rendezvous=...)``, its assignments
+already published); a static launch starts one, publishes the
+assignments and stops it when the slots are done. The workers' metric
+pushes, flight dumps, notification service, replica store and recovery
+ladder use it; the data plane still meets at rank 0's TCP store. The
+slot env differs from the JAX package's in these keys only:
 
 * ``HOROVOD_CONTROLLER`` and ``HOROVOD_CPU_OPERATIONS`` name the port's
   data plane, ``torch.distributed``, not ``xla``;
-* a static launch starts no rendezvous HTTP store and exports no
-  ``HOROVOD_GLOO_RENDEZVOUS_*``/``HVD_TPU_RENDEZVOUS_*``: only an
-  elastic round has one (``launch_slots(rendezvous=...)``: the elastic
-  driver's ``http_server.RendezvousServer``, which already published
-  the round's assignments; its address reaches every worker, whose
-  notification service, replica store and recovery ladder use it,
-  ``horovod_tpu/runner/exec_run.py:59-62, 118-140``). The data plane
-  still meets at rank 0's TCP store;
 * with NICs given or probed, ``launch_slots`` also exports
   ``NCCL_SOCKET_IFNAME`` and ``GLOO_SOCKET_IFNAME`` (unless already
   set), and a remote worker receives ``NCCL_*``, ``GLOO_*``, ``CUDA_*``
@@ -42,6 +43,7 @@ import sys
 import threading
 from typing import Callable, Dict, List, Optional
 
+from .http.http_server import RendezvousServer
 from .util import safe_shell_exec
 from .util.hosts import HostInfo, SlotInfo, get_host_assignments
 from .util.network import (
@@ -152,9 +154,25 @@ def launch_slots(
     Returns per-slot exit codes. `exec_fn(command, env, slot, events)` is
     injectable for tests (reference pattern: mocked ssh in test_run.py).
     ``rendezvous``: an elastic round's ``RendezvousServer``, which has
-    published this round's assignments; the workers get its address.
-    ``abort``, once set, stops every slot as a failure does.
+    published this round's assignments; without one the launch starts
+    its own, publishes ``assignments`` and stops it at the end. The
+    workers get its address. ``abort``, once set, stops every slot as a
+    failure does.
     """
+    own = rendezvous is None
+    if own:
+        rendezvous = RendezvousServer()
+        rendezvous.init(assignments)
+    try:
+        return _launch(command, assignments, env, exec_fn, nics,
+                       nics_explicit, rendezvous, abort)
+    finally:
+        if own:
+            rendezvous.shutdown_server()
+
+
+def _launch(command, assignments, env, exec_fn, nics, nics_explicit,
+            rendezvous, abort) -> List[int]:
     host_addr = routable_host_address()
     if all(is_local_host(slot.hostname) for slot in assignments):
         # single-host world: loopback always routes; the outbound-NIC
@@ -208,8 +226,7 @@ def launch_slots(
         env = dict(env)
         env[ENV_SECRET] = make_secret_key().decode()
 
-    rdv_port = rendezvous.port if rendezvous is not None else 0
-    rdv_addr = host_addr if rendezvous is not None else None
+    rdv_port, rdv_addr = rendezvous.port, host_addr
 
     failure = threading.Event()
     codes: List[Optional[int]] = [None] * len(assignments)

@@ -16,10 +16,12 @@ path.
 The JAX client's shard routing over a sharded root tier
 (``ShardClient``, ``HOROVOD_ROOT_ADDRS``) comes with ROADMAP queue A
 entry 14; every verb here goes straight to the given address.
+``server_clock`` pings the store's ``GET /clock`` once, unretried.
 """
 
 from __future__ import annotations
 
+import json
 import time
 import urllib.error
 import urllib.request
@@ -66,6 +68,18 @@ def get(addr: str, port: int, scope: str, key: str) -> Optional[bytes]:
     return retry.default_policy().call(
         _do, point="http.get", retryable=_retryable
     )
+
+
+def server_clock(addr: str, port: int,
+                 timeout_s: float = 2.0) -> "tuple[float, float]":
+    """One ping to the store's ``GET /clock``, without retries (it is a
+    measurement, and a backed-off retry would smear its round trip):
+    ``(server time_unix, round trip seconds)``."""
+    t0 = time.monotonic()
+    with urllib.request.urlopen(
+            f"http://{addr}:{port}/clock", timeout=timeout_s) as resp:
+        body = json.loads(resp.read())
+    return float(body["time_unix"]), time.monotonic() - t0
 
 
 def delete(addr: str, port: int, scope: str, key: str) -> None:

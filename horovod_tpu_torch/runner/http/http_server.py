@@ -17,18 +17,32 @@ marks it dirty, a flusher writes an atomic pickle snapshot of the store,
 the bound port and the round, and a server built on an existing
 snapshot reloads it and binds the same port, so a restarted driver
 resumes the job (``horovod_tpu/runner/http/http_server.py:369-540,
-1143-1235``). A static launch starts neither server: its workers meet at
-rank 0's TCP store (``runner/exec_run.py``).
+1143-1235``). A static launch starts a ``RendezvousServer`` too
+(``runner/exec_run.py``); its data plane meets at rank 0's TCP store.
 
-The JAX server's sharded root tier (``ShardReplica``, ``replica_main``,
-relay batches, ``/shard_map``, the request count; entry 14), its
-``/metrics``, ``/health`` and ``/clock`` routes, flight-dump receipts
-and the clearing of the flight, metrics and health scopes at a new
-round (entry 13) are not here.
+Beside the scope/key paths (always two segments), every server answers
+the telemetry routes (``horovod_tpu/runner/http/http_server.py:138-166,
+192-199, 234-245``):
+
+* ``GET /metrics``: this process's registry and every worker exposition
+  pushed to ``/metrics_push/<rank>``, each pushed series labeled
+  ``rank="<r>"`` (``utils/metrics.exposition``);
+* ``GET /clock``: ``{"time_unix": ...}``, the flight recorder's clock
+  alignment ping;
+* ``PUT /flight/<rank>`` stores a flight dump and stamps its receipt
+  (``{"recv_time_unix", "bytes"}``) under ``flight_meta/<rank>``.
+
+``RendezvousServer.init`` drops the ``flight``, ``flight_meta`` and
+``metrics_push`` scopes of the round before (the elastic driver writes
+the dumps to disk first). Not here: the JAX server's sharded root tier
+(``ShardReplica``, ``replica_main``, relay batches, ``/shard_map``, the
+request count; ROADMAP queue A entry 14), and its ``GET /health`` and
+the health scope's clearing (entry 13, part 2).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pickle
@@ -37,10 +51,13 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
-from ...utils import faults
+from ...utils import faults, metrics
+from ...utils.flight import FLIGHT_SCOPE
 from ..util.hosts import SlotInfo
 
 RENDEZVOUS_SCOPE = "rendezvous"
+#: the receipts of flight dumps, by rank (PUT /flight/<rank> stamps one)
+FLIGHT_META_SCOPE = "flight_meta"
 
 LOG = logging.getLogger("horovod_tpu_torch.runner")
 
@@ -66,6 +83,22 @@ class _KVHandler(BaseHTTPRequestHandler):
         return False
 
     def do_GET(self):
+        path = self.path.split("?", 1)[0].rstrip("/")
+        if path == "/metrics":
+            # one path segment: no scope/key path can collide with it
+            with self.server.lock:  # type: ignore[attr-defined]
+                pushed = dict(self.server.store.get(  # type: ignore
+                    metrics.METRICS_PUSH_SCOPE, {}))
+            ctype, body = metrics.exposition(pushed or None)
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if path == "/clock":
+            self._reply(200, json.dumps({"time_unix": time.time()}).encode())
+            return
         if self._injected_503():
             return
         sk = self._split()
@@ -90,8 +123,14 @@ class _KVHandler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0))
         body = self.rfile.read(length)
         with self.server.lock:  # type: ignore[attr-defined]
-            self.server.store.setdefault(  # type: ignore[attr-defined]
-                sk[0], {})[sk[1]] = body
+            store = self.server.store  # type: ignore[attr-defined]
+            store.setdefault(sk[0], {})[sk[1]] = body
+            if sk[0] == FLIGHT_SCOPE:
+                # the receipt: a second alignment anchor and an arrival
+                # order, even for a dump whose /clock probe failed
+                store.setdefault(FLIGHT_META_SCOPE, {})[sk[1]] = json.dumps(
+                    {"recv_time_unix": time.time(),
+                     "bytes": len(body)}).encode()
         self.server.dirty.set()  # type: ignore[attr-defined]
         self._reply(200, b"ok")
 
@@ -314,6 +353,13 @@ class RendezvousServer(KVStoreServer):
                 scope[f"rank_{slot.rank}"] = (
                     slot.to_response_string().encode()
                 )
+            # a new round is a new incarnation of the workers: the last
+            # round's dumps would skew straggler attribution, and
+            # departed ranks' pushes would serve on the scrape forever
+            # (the elastic driver persists the dumps before this)
+            for stale in (FLIGHT_SCOPE, FLIGHT_META_SCOPE,
+                          metrics.METRICS_PUSH_SCOPE):
+                self.store.pop(stale, None)
         self._round += 1
         # persist the new round before workers can see it: a driver crash
         # between publish and flush must not resurrect the previous one

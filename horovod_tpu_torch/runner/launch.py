@@ -23,8 +23,15 @@ eager negotiation runtime's knobs (``HVD_TPU_NATIVE=1`` in the workers'
 environment starts it), and every slot gets the runtime's coordinator
 address (``runner/exec_run.py``).
 
+``--timeline-filename``, ``--timeline-mark-cycles``,
+``--flight-recorder``/``--no-flight-recorder`` and ``--flight-dir`` set
+the workers' telemetry knobs (``HOROVOD_TIMELINE*``,
+``HOROVOD_FLIGHT_*``); every launch runs a rendezvous store whose
+``/metrics`` merges the workers' pushes and whose ``/flight/<rank>``
+holds their dumps (``runner/exec_run.py``).
+
 A flag whose feature the port does not have yet — the sharded control
-plane, autotune, timeline/profiler/flight recorder — is
+plane, autotune, the sampled step profiler — is
 refused when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -54,7 +61,7 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
     12: "autotune",
-    13: "observability: timeline, profiler, flight recorder",
+    13: "observability, part 2: the sampled step profiler",
     14: "multipod and the sharded control plane",
 }
 
@@ -66,10 +73,7 @@ UNPORTED = {
     **dict.fromkeys((
         "autotune", "autotune_bayes", "autotune_log", "autotune_cache",
         "autotune_mfu", "autotune_wire"), 12),
-    **dict.fromkeys((
-        "timeline_filename", "timeline_mark_cycles", "prof_every",
-        "prof_dir", "prof_duty_cycle", "flight_recorder", "flight_dir"),
-        13),
+    **dict.fromkeys(("prof_every", "prof_dir", "prof_duty_cycle"), 13),
 }
 
 

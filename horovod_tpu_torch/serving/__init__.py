@@ -24,7 +24,7 @@ The PyTorch counterpart of the JAX package's ``serving/``:
   spawn and drain replicas over the preemption (exit 83) contract.
 
 The metrics-driven ``ReplicaAutoscaler`` is not ported yet (ROADMAP
-queue A entry 13).
+queue A entry 13, part 3).
 """
 
 from .batcher import (  # noqa: F401

@@ -28,7 +28,7 @@ Fault points: ``serving.dispatch`` fires before every routed attempt
 (replica, engine.py), ``serving.admit`` at admission (batcher.py).
 
 Not ported yet: the metrics-driven ``ReplicaAutoscaler`` (it scrapes
-``/metrics``, ROADMAP queue A entry 13) and the registrations' mirror
+``/metrics``, ROADMAP queue A entry 13, part 3) and the registrations' mirror
 into a pod relay's KV (entry 14).
 """
 

@@ -7,8 +7,10 @@ Content-Length replies) carrying the launcher's per-job shared secret
 (``runner/util/secret.py``) as request authentication: when a key is
 set, every POST body must be accompanied by ``X-Hvd-Auth:
 hex(hmac_sha256(key, body))``. Probe routes stay unauthenticated.
-``GET /metrics`` answers 404: the metrics exposition is not ported yet
-(ROADMAP queue A entry 13).
+``GET /metrics`` answers 404: the serving records and this server's
+exposition come with ROADMAP queue A entry 13, part 3 (the registry and
+``/metrics`` on the rendezvous store came with part 1); ``GET /health``
+answers "off" until the fleet-health monitor (part 2).
 
 Protocol (the JAX package's, unchanged)::
 
@@ -121,12 +123,12 @@ class _ServingHandler(BaseHTTPRequestHandler):
                              srv.health())
         elif path == "/health":
             # the fleet-health verdict (health/*) comes with ROADMAP
-            # queue A entry 13; until then it is off
+            # queue A entry 13, part 2; until then it is off
             self._reply_json(200, {"health": "off", "alerts_active": 0})
         elif path == "/metrics":
-            self._reply_json(404, {"error": "the metrics exposition is "
+            self._reply_json(404, {"error": "the serving exposition is "
                                             "not ported yet (ROADMAP "
-                                            "queue A entry 13)"})
+                                            "queue A entry 13, part 3)"})
         else:
             self._reply_json(404, {"error": "not found"})
 

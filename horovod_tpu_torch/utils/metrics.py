@@ -1,34 +1,65 @@
-"""Runtime telemetry, the counter part: a thread-safe registry of
-counters and gauges that the control plane feeds.
+"""Runtime telemetry: the metrics registry and per-step stats.
 
-The JAX package's ``utils/metrics.py``, cut to what the launcher's
-utilities and elastic training call: ``record_retry`` and
-``record_retry_giveup`` (``utils/retry.py``), ``record_fault``
-(``utils/faults.py``), ``record_elastic_event`` and
-``record_recovery_rung`` (``elastic/``, ``runner/elastic/``;
-``horovod_tpu/utils/metrics.py:1245, 1284``) and the replicator's
-``record_replication``/``record_replication_error``, and the eager
-runtime's counters and gauge (``ops/eager_runtime.py``:
-``record_stall_abort``, ``record_fused_batch``, ``set_queue_depth``;
-``horovod_tpu/utils/metrics.py:903-919, 1235, 1297``). Its histograms,
-per-step ``StepStats``, the Prometheus exposition, the metrics push and
-the flight-recorder hooks come with the observability entry (ROADMAP
-queue A entry 13).
+The port of the JAX package's ``utils/metrics.py``: a thread-safe
+registry of counters, gauges and fixed-bucket histograms that the hot
+paths feed while training runs, exposed as
+
+* Prometheus text (:func:`scrape`, :func:`exposition`) on ``GET
+  /metrics``: mounted on the rendezvous/KV HTTP server
+  (``runner/http/http_server.py``), which merges the workers' pushes
+  (``PUT /metrics_push/<rank>``, :func:`start_metrics_push`) into one
+  rank-labeled cluster scrape, and, with ``HOROVOD_METRICS_PORT``, on a
+  standalone per-process endpoint (:func:`start_http_server`);
+* a JSON-lines log of one record per step (``HOROVOD_TPU_METRICS_FILE``,
+  :class:`StepStats`, closed by ``with hvd.metrics.step():``), read by
+  ``python -m horovod_tpu_torch.tools.metrics_summary``.
+
+The record sites: the eager collectives (``record_collective``,
+``ops/collectives.py``), the fusion plan (``record_fusion_plan``,
+``ops/fusion.py``), the DistributedOptimizer's executed reduction
+(``record_grad_reduction``, ``record_wire_bytes``,
+``optim/distributed.py``), closed timeline spans
+(``record_timeline_activity``, ``utils/timeline.py``), the control plane
+(``record_retry``/``record_retry_giveup``, ``record_fault``), elastic
+training (``record_elastic_event``, ``record_recovery_rung``,
+``record_replication``) and the eager runtime's counters
+(``record_stall_abort``, ``record_fused_batch``, ``set_queue_depth``).
+The retry, fault, recovery and elastic records also land in the flight
+recorder (``utils/flight.py``), which has its own gate. Still to come:
+the serving and decode records, the eager runtime's latency histograms
+and native-stats gauges (ROADMAP queue A entry 13, part 3), the
+profiler's MFU and attribution and the health observers (part 2), the
+autotuner's trail (entry 12); the pod label stays unset until entry 14.
 
 Cost discipline: off by default, and every record function begins with
 ``if not _enabled: return``, so a disabled site costs one predicted
-branch.
+branch and touches no lock. Enabled, an update is a dict lookup and a
+float add under its family's lock; no I/O happens on a hot path (the
+JSONL writes at step boundaries, the HTTP server and the push in their
+own threads).
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
+import json
+import os
+import re
 import threading
-from typing import Dict, Sequence
+import time
+import urllib.request
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from . import flight as _flight
 
 _enabled = False
+_configured = False  # True when configure() turned metrics on
 
 
 def enabled() -> bool:
+    """Whether telemetry is recording. Callers that assemble a larger
+    record (byte totals over buckets) gate on it to skip that work."""
     return _enabled
 
 
@@ -40,6 +71,34 @@ def enable() -> None:
 def disable() -> None:
     global _enabled
     _enabled = False
+
+
+# -- registry ----------------------------------------------------------------
+
+#: latency histogram buckets (seconds): 50 us .. 10 s
+LATENCY_BUCKETS: Tuple[float, ...] = (
+    50e-6, 100e-6, 250e-6, 500e-6, 1e-3, 2.5e-3, 5e-3, 10e-3, 25e-3,
+    50e-3, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+#: fill-ratio buckets (0..1] for the fusion buffers
+RATIO_BUCKETS: Tuple[float, ...] = (
+    0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0,
+)
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace('"', r"\"").replace("\n", r"\n")
+
+
+def _fmt(v: float) -> str:
+    if v != v:
+        return "NaN"
+    if v in (float("inf"), float("-inf")):
+        return "+Inf" if v > 0 else "-Inf"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
 
 
 class _Counter:
@@ -69,18 +128,38 @@ class _Gauge:
             self.value += v
 
 
+class _Histogram:
+    __slots__ = ("buckets", "counts", "sum", "count", "_lock")
+
+    def __init__(self, buckets: Sequence[float],
+                 lock: threading.Lock) -> None:
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self.counts = [0] * (len(self.buckets) + 1)  # the last: +Inf
+        self.sum = 0.0
+        self.count = 0
+        self._lock = lock
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self.counts[bisect.bisect_left(self.buckets, v)] += 1
+            self.sum += v
+            self.count += 1
+
+
 class MetricFamily:
     """One named metric with a fixed label set; children keyed by the
     label-value tuple (the Prometheus data model)."""
 
     def __init__(self, name: str, kind: str, help: str,
-                 labelnames: Sequence[str] = ()):
-        if kind not in ("counter", "gauge"):
+                 labelnames: Sequence[str] = (),
+                 buckets: Optional[Sequence[float]] = None):
+        if kind not in ("counter", "gauge", "histogram"):
             raise ValueError(f"unknown metric kind {kind!r}")
         self.name = name
         self.kind = kind
         self.help = help
         self.labelnames = tuple(labelnames)
+        self._buckets = tuple(buckets) if buckets else LATENCY_BUCKETS
         self._lock = threading.Lock()
         self._children: Dict[tuple, object] = {}
 
@@ -99,10 +178,14 @@ class MetricFamily:
             with self._lock:
                 child = self._children.get(key)
                 if child is None:
-                    # children share the family lock: value += v is a
-                    # read-modify-write
-                    cls = _Counter if self.kind == "counter" else _Gauge
-                    child = cls(self._lock)
+                    # children share the family lock: an update is a
+                    # read-modify-write (value += v; bucket, sum, count)
+                    if self.kind == "counter":
+                        child = _Counter(self._lock)
+                    elif self.kind == "gauge":
+                        child = _Gauge(self._lock)
+                    else:
+                        child = _Histogram(self._buckets, self._lock)
                     self._children[key] = child
         return child
 
@@ -112,27 +195,76 @@ class MetricFamily:
     def set(self, v: float) -> None:
         self.labels().set(v)
 
-    def snapshot(self) -> dict:
+    def observe(self, v: float) -> None:
+        self.labels().observe(v)
+
+    def _labelstr(self, key: tuple, extra: str = "") -> str:
+        parts = [f'{n}="{_escape_label(v)}"'
+                 for n, v in zip(self.labelnames, key)]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    def render(self) -> List[str]:
+        lines = [
+            f"# HELP {self.name} {self.help}",
+            f"# TYPE {self.name} {self.kind}",
+        ]
         with self._lock:
             items = sorted(self._children.items())
-        return {",".join(key): child.value for key, child in items}
+        for key, child in items:
+            if self.kind in ("counter", "gauge"):
+                lines.append(
+                    f"{self.name}{self._labelstr(key)} {_fmt(child.value)}")
+                continue
+            with self._lock:  # a consistent (counts, sum, count) triple
+                counts = list(child.counts)
+                hsum, hcount = child.sum, child.count
+            cum = 0
+            for b, c in zip(child.buckets, counts):
+                cum += c
+                le = 'le="' + _fmt(b) + '"'
+                lines.append(
+                    f"{self.name}_bucket{self._labelstr(key, le)} {cum}")
+            cum += counts[-1]
+            inf_labels = self._labelstr(key, 'le="+Inf"')
+            lines.append(f"{self.name}_bucket{inf_labels} {cum}")
+            lines.append(f"{self.name}_sum{self._labelstr(key)} {_fmt(hsum)}")
+            lines.append(f"{self.name}_count{self._labelstr(key)} {hcount}")
+        return lines
+
+    def snapshot(self) -> dict:
+        out = {}
+        with self._lock:
+            items = sorted(self._children.items())
+        for key, child in items:
+            k = ",".join(key)
+            if self.kind in ("counter", "gauge"):
+                out[k] = child.value
+            else:
+                with self._lock:
+                    out[k] = {"count": child.count, "sum": child.sum}
+        return out
 
 
 class MetricsRegistry:
-    """Thread-safe family registry."""
+    """Thread-safe family registry. (The JAX registry's pre-scrape
+    collector hooks feed the eager runtime's native stats; they come
+    with those, entry 13 part 3.)"""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._families: Dict[str, MetricFamily] = {}
 
     def _family(self, name: str, kind: str, help: str,
-                labelnames: Sequence[str] = ()) -> MetricFamily:
+                labelnames: Sequence[str] = (),
+                buckets: Optional[Sequence[float]] = None) -> MetricFamily:
         fam = self._families.get(name)
         if fam is None:
             with self._lock:
                 fam = self._families.get(name)
                 if fam is None:
-                    fam = MetricFamily(name, kind, help, labelnames)
+                    fam = MetricFamily(name, kind, help, labelnames, buckets)
                     self._families[name] = fam
         if fam.kind != kind or fam.labelnames != tuple(labelnames):
             raise ValueError(
@@ -148,6 +280,18 @@ class MetricsRegistry:
     def gauge(self, name, help="", labelnames=()) -> MetricFamily:
         return self._family(name, "gauge", help, labelnames)
 
+    def histogram(self, name, help="", labelnames=(),
+                  buckets=None) -> MetricFamily:
+        return self._family(name, "histogram", help, labelnames, buckets)
+
+    def render(self) -> str:
+        lines: List[str] = []
+        with self._lock:
+            fams = sorted(self._families.values(), key=lambda f: f.name)
+        for fam in fams:
+            lines.extend(fam.render())
+        return "\n".join(lines) + ("\n" if lines else "")
+
     def snapshot(self) -> dict:
         with self._lock:
             fams = sorted(self._families.values(), key=lambda f: f.name)
@@ -160,32 +304,511 @@ class MetricsRegistry:
 
 registry = MetricsRegistry()
 
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+#: the rendezvous KV scope workers push their expositions into (the
+#: source of the rendezvous server's aggregated /metrics)
+METRICS_PUSH_SCOPE = "metrics_push"
+
+
+def scrape() -> str:
+    """Prometheus text exposition of this process's registry."""
+    return registry.render()
+
+
+def exposition(
+    pushed: Optional[Dict[str, bytes]] = None,
+) -> Tuple[str, bytes]:
+    """``(content type, body)`` of a scrape served over HTTP: the one
+    definition the standalone endpoint and the rendezvous server mount.
+
+    With ``pushed`` (rank label -> exposition payload, as the rendezvous
+    server holds the workers' ``PUT /metrics_push/<rank>``) the scrape
+    is the cluster's: this process's series stay unlabeled and every
+    pushed series gains a ``rank="<r>"`` label (and ``pod="<pod>"`` for
+    a ``<rank>@<pod>`` key)."""
+    if not pushed:
+        return PROM_CONTENT_TYPE, scrape().encode()
+    payloads: List[Tuple[str, str]] = [("", scrape())]
+    for rank_label in sorted(pushed, key=lambda r: (len(r), r)):
+        body = pushed[rank_label]
+        text = (body.decode("utf-8", "replace")
+                if isinstance(body, (bytes, bytearray)) else str(body))
+        payloads.append((rank_label, text))
+    return PROM_CONTENT_TYPE, merge_expositions(payloads).encode()
+
+
+def merge_expositions(payloads: Iterable[Tuple[str, str]]) -> str:
+    """Merge Prometheus text payloads into one exposition, adding a
+    ``rank`` label to every sample of a payload with a non-empty label
+    (and a ``pod`` label when the label is ``<rank>@<pod>``). Families
+    are regrouped so that HELP/TYPE appear once, before all of a
+    family's samples, as parsers and :func:`lint_exposition` require."""
+    help_: Dict[str, str] = {}
+    type_: Dict[str, str] = {}
+    samples: Dict[str, List[str]] = {}
+    order: List[str] = []
+    for rank_label, text in payloads:
+        fam: Optional[str] = None
+        for line in text.splitlines():
+            if line.startswith("# HELP ") or line.startswith("# TYPE "):
+                name, _, tail = line[7:].partition(" ")
+                if not name:
+                    continue
+                target = help_ if line.startswith("# HELP ") else type_
+                target.setdefault(name, tail)
+                fam = name
+                continue
+            if not line.strip() or line.startswith("#"):
+                continue
+            key, _, val = line.rpartition(" ")
+            if not key:
+                continue
+            name, brace, labels = key.partition("{")
+            family = (
+                fam if fam and name in (
+                    fam, fam + "_bucket", fam + "_sum", fam + "_count")
+                else name
+            )
+            if rank_label:
+                rank_part, _, pod_part = str(rank_label).partition("@")
+                extra = f'rank="{_escape_label(rank_part)}"'
+                if pod_part:
+                    extra += f',pod="{_escape_label(pod_part)}"'
+                inner = labels[:-1] if brace else ""
+                line = (f"{name}{{" + (inner + "," if inner else "")
+                        + extra + f"}} {val}")
+            bucket = samples.get(family)
+            if bucket is None:
+                bucket = samples[family] = []
+                order.append(family)
+            bucket.append(line)
+    out: List[str] = []
+    for family in order:
+        if family in help_:
+            out.append(f"# HELP {family} {help_[family]}")
+        if family in type_:
+            out.append(f"# TYPE {family} {type_[family]}")
+        out.extend(samples[family])
+    return "\n".join(out) + ("\n" if out else "")
+
+
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"           # metric name
+    r"(?:\{(.*)\})?"                          # optional label block
+    r" (NaN|[+-]?Inf|-?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)$"
+)
+_LABEL_RE = re.compile(r'^[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"$')
+_PROM_KINDS = ("counter", "gauge", "histogram", "summary", "untyped")
+
+
+def _split_labels(block: str) -> List[str]:
+    """Split 'a="x",b="y,z"' on the commas outside quotes."""
+    parts, buf, in_q, esc = [], [], False, False
+    for ch in block:
+        if esc:
+            buf.append(ch)
+            esc = False
+        elif ch == "\\":
+            buf.append(ch)
+            esc = True
+        elif ch == '"':
+            buf.append(ch)
+            in_q = not in_q
+        elif ch == "," and not in_q:
+            parts.append("".join(buf))
+            buf = []
+        else:
+            buf.append(ch)
+    if buf:
+        parts.append("".join(buf))
+    return parts
+
+
+def lint_exposition(text: str) -> List[str]:
+    """Validate Prometheus text exposition; returns the problems (empty:
+    parseable). Checks the sample grammar, label syntax, TYPE kinds,
+    TYPE before samples, duplicate series, and histogram buckets
+    cumulative with a closing ``le="+Inf"``."""
+    errors: List[str] = []
+    typed: Dict[str, str] = {}
+    seen: set = set()
+    hist: Dict[Tuple[str, str], List[Tuple[float, float]]] = {}
+    for i, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            name, _, tail = line[7:].partition(" ")
+            if not name:
+                errors.append(f"line {i}: malformed comment header")
+                continue
+            if line.startswith("# TYPE "):
+                if tail not in _PROM_KINDS:
+                    errors.append(f"line {i}: unknown TYPE {tail!r}")
+                if name in typed:
+                    errors.append(f"line {i}: duplicate TYPE for {name}")
+                typed[name] = tail
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            errors.append(f"line {i}: unparseable sample: {line!r}")
+            continue
+        name, labels, val = m.groups()
+        label_parts = _split_labels(labels) if labels else []
+        for part in label_parts:
+            if not _LABEL_RE.match(part):
+                errors.append(f"line {i}: bad label {part!r}")
+        key = (name, labels or "")
+        if key in seen:
+            errors.append(f"line {i}: duplicate series {name}{{{labels}}}")
+        seen.add(key)
+        family = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[: -len(suffix)] in typed:
+                family = name[: -len(suffix)]
+                break
+        if family not in typed:
+            errors.append(f"line {i}: sample {name} precedes its TYPE header")
+        if typed.get(family) == "histogram" and name == family + "_bucket":
+            le, rest = None, []
+            for part in label_parts:
+                if part.startswith('le="'):
+                    le = part[4:-1]
+                else:
+                    rest.append(part)
+            if le is None:
+                errors.append(f"line {i}: histogram bucket missing le=")
+            else:
+                hist.setdefault((family, ",".join(rest)), []).append(
+                    (float("inf") if le == "+Inf" else float(le),
+                     float(m.group(3))))
+    for (family, series), buckets in hist.items():
+        buckets.sort(key=lambda b: b[0])
+        if not buckets or buckets[-1][0] != float("inf"):
+            errors.append(f'{family}{{{series}}}: histogram lacks le="+Inf"')
+        cum = -1.0
+        for le, v in buckets:
+            if v < cum:
+                errors.append(f"{family}{{{series}}}: bucket counts not "
+                              f"cumulative at le={le}")
+                break
+            cum = v
+    return errors
+
+
+# -- per-step aggregation ------------------------------------------------------
+
+class StepStats:
+    """Accumulates telemetry between ``begin_step`` and ``end_step`` and
+    emits one JSONL record a step: the step's host time, collectives by
+    op and dtype, the fusion plans and their fill, gradient and wire
+    bytes, the eager queue depth, elastic events and retries."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._log_fh = None
+        self._log_path = ""
+        self.step = 0
+        self._t0: Optional[float] = None
+        self._reset_interval()
+
+    def _reset_interval(self) -> None:
+        self.collectives: Dict[str, List[float]] = {}  # op/dtype -> [n, B]
+        # the eager runtime's negotiation latencies (entry 13, part 3,
+        # feeds them); the record carries the pair from the first step
+        self.neg_count = 0
+        self.neg_sum = 0.0
+        self.fusion_plans = 0
+        self.fusion_buckets = 0
+        self.fusion_fill_sum = 0.0
+        self.grad_bytes = 0
+        self.wire_logical = 0
+        self.wire_sent = 0
+        self.queue_depth = 0
+        self.elastic_events: List[str] = []
+        self.retries: Dict[str, int] = {}
+        self.retry_giveups: Dict[str, int] = {}
+
+    def add_collective(self, op: str, dtype: str, nbytes: int) -> None:
+        with self._lock:
+            ent = self.collectives.setdefault(f"{op}/{dtype}", [0, 0])
+            ent[0] += 1
+            ent[1] += int(nbytes)
+
+    def add_fusion(self, n_buckets: int, fill_sum: float) -> None:
+        with self._lock:
+            self.fusion_plans += 1
+            self.fusion_buckets += n_buckets
+            self.fusion_fill_sum += fill_sum
+
+    def add_grad_bytes(self, nbytes: int) -> None:
+        with self._lock:
+            self.grad_bytes += int(nbytes)
+
+    def add_wire(self, logical: int, sent: int) -> None:
+        with self._lock:
+            self.wire_logical += int(logical)
+            self.wire_sent += int(sent)
+
+    def add_elastic_event(self, kind: str) -> None:
+        with self._lock:
+            self.elastic_events.append(kind)
+
+    def add_retry(self, point: str) -> None:
+        with self._lock:
+            self.retries[point] = self.retries.get(point, 0) + 1
+
+    def add_retry_giveup(self, point: str) -> None:
+        with self._lock:
+            self.retry_giveups[point] = self.retry_giveups.get(point, 0) + 1
+
+    def set_queue_depth(self, n: int) -> None:
+        self.queue_depth = int(n)
+
+    def open_log(self, path: str) -> None:
+        with self._lock:
+            if self._log_fh is not None:
+                self._log_fh.close()
+            self._log_path = path
+            self._log_fh = open(path, "a")
+
+    def close_log(self) -> None:
+        with self._lock:
+            if self._log_fh is not None:
+                self._log_fh.close()
+                self._log_fh = None
+                self._log_path = ""
+
+    def begin_step(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def end_step(self, extra: Optional[dict] = None) -> dict:
+        """Close the interval: build the record, write it to the JSONL,
+        feed the step series of the registry, reset the accumulators."""
+        now = time.perf_counter()
+        dt = (now - self._t0) if self._t0 is not None else 0.0
+        self._t0 = None
+        with self._lock:
+            self.step += 1
+            record = {
+                "step": self.step,
+                "time_unix": time.time(),
+                "step_time_s": dt,
+                "collectives": {
+                    k: {"count": int(v[0]), "bytes": int(v[1])}
+                    for k, v in sorted(self.collectives.items())
+                },
+                "negotiation": {
+                    "count": self.neg_count, "sum_s": self.neg_sum,
+                },
+                "fusion": {
+                    "plans": self.fusion_plans,
+                    "buckets": self.fusion_buckets,
+                    "fill_ratio_mean": (
+                        self.fusion_fill_sum / self.fusion_buckets
+                        if self.fusion_buckets else 0.0
+                    ),
+                },
+                "grad_bytes": self.grad_bytes,
+                "queue_depth": self.queue_depth,
+                "elastic_events": list(self.elastic_events),
+            }
+            if self.wire_logical or self.wire_sent:
+                record["wire"] = {
+                    "logical_bytes": self.wire_logical,
+                    "sent_bytes": self.wire_sent,
+                }
+            if self.retries:
+                record["retries"] = dict(self.retries)
+            if self.retry_giveups:
+                record["retry_giveups"] = dict(self.retry_giveups)
+            if _pod_label:
+                record["pod"] = _pod_label
+            if extra:
+                record.update(extra)
+            # written under the lock: close_log (shutdown, maybe on
+            # another thread) takes it too
+            if self._log_fh is not None:
+                self._log_fh.write(json.dumps(record) + "\n")
+                self._log_fh.flush()
+            self._reset_interval()
+        if _enabled:
+            registry.counter(
+                "hvd_steps_total", "Completed training steps").inc()
+            registry.histogram(
+                "hvd_step_seconds", "Step wall time").observe(dt)
+        obs = _step_observer
+        if obs is not None:
+            obs(record)
+        return record
+
+
+step_stats = StepStats()
+
+# the step wrapper (begin_step() -> token, end_step(token)) runs around
+# every ``step()`` body, and the step observer gets each closed record;
+# the profiler and the health monitor (entry 13, part 2) fill them.
+# None, the default, costs one load and an is-None check a step
+_step_wrapper = None
+_step_observer = None
+
+
+def set_step_wrapper(wrapper) -> None:
+    """Install (or remove, None) the step wrapper: ``wrapper.begin_step()``
+    runs before the step body and returns a token,
+    ``wrapper.end_step(token)`` after it and before the record closes,
+    so what it adds to ``step_stats`` lands in the step's record."""
+    global _step_wrapper
+    _step_wrapper = wrapper
+
+
+def set_step_observer(fn) -> None:
+    """Install (or remove, None) the observer ``fn(record)``, called
+    after each record closes, outside the stats lock."""
+    global _step_observer
+    _step_observer = fn
+
+
+@contextlib.contextmanager
+def step(extra: Optional[dict] = None):
+    """Mark one training step: ``with hvd.metrics.step(): step_fn(...)``.
+    Its time is the host's, from entering to leaving the block: a caller
+    that wants the device's time reads a result of the step inside the
+    block. A no-op when metrics are off and no step wrapper is set."""
+    # both gates read once: an enable()/disable() mid-step must not
+    # split a begin from its end
+    w = _step_wrapper
+    en = _enabled
+    if not en and w is None:
+        yield step_stats
+        return
+    token = w.begin_step() if w is not None else None
+    if en:
+        step_stats.begin_step()
+    try:
+        yield step_stats
+    finally:
+        if w is not None:
+            w.end_step(token)
+        if en:
+            step_stats.end_step(extra)
+
+
+# -- record functions (each begins with the disabled fast path) ----------------
+
+def record_collective(op: str, dtype: str, nbytes: int) -> None:
+    """One issued eager collective (``ops/collectives.py``)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_collectives_total",
+        "Collectives issued, by op and dtype", ("op", "dtype"),
+    ).labels(op, dtype).inc()
+    registry.counter(
+        "hvd_collective_bytes_total",
+        "Payload bytes of issued collectives, by op and dtype",
+        ("op", "dtype"),
+    ).labels(op, dtype).inc(nbytes)
+    step_stats.add_collective(op, dtype, nbytes)
+
+
+def record_fusion_plan(n_tensors: int, n_buckets: int, threshold: int,
+                       bucket_bytes: Sequence[int] = ()) -> None:
+    """One fusion plan (``ops/fusion.pytree_bucket_plan``): its bucket
+    count and each bucket's fill of the threshold."""
+    if not _enabled:
+        return
+    registry.counter("hvd_fusion_plans_total", "Fusion plans computed").inc()
+    registry.counter(
+        "hvd_fusion_buckets_total", "Fusion buckets produced").inc(n_buckets)
+    registry.counter(
+        "hvd_fusion_tensors_total", "Tensors entering fusion plans"
+    ).inc(n_tensors)
+    fill_sum = 0.0
+    hist = registry.histogram(
+        "hvd_fusion_fill_ratio",
+        "Bucket bytes / fusion threshold per produced bucket",
+        buckets=RATIO_BUCKETS,
+    )
+    for b in bucket_bytes:
+        r = min(b / threshold, 1.0) if threshold else 0.0
+        hist.observe(r)
+        fill_sum += r
+    step_stats.add_fusion(n_buckets, fill_sum)
+
+
+def record_grad_reduction(nbytes: int, n_buckets: int) -> None:
+    """One executed gradient reduction: the DistributedOptimizer's
+    ``synchronize`` of a step (``optim/distributed.py``)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_grad_reduced_bytes_total",
+        "Gradient bytes moved by executed reductions").inc(nbytes)
+    registry.counter(
+        "hvd_grad_reductions_total", "Executed gradient reductions").inc()
+    step_stats.add_grad_bytes(nbytes)
+
+
+def record_wire_bytes(logical: int, sent: int) -> None:
+    """One step's gradient payload at logical precision against what the
+    ``HOROVOD_COMPRESSION`` wire moves (payload and scales); equal on
+    the uncompressed wire. ``tools.metrics_summary`` reports the
+    ratio."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_wire_bytes_logical_total",
+        "Collective payload bytes at logical precision").inc(int(logical))
+    registry.counter(
+        "hvd_wire_bytes_sent_total",
+        "Collective payload bytes on the compressed wire").inc(int(sent))
+    step_stats.add_wire(int(logical), int(sent))
+
+
+def record_timeline_activity(activity: str, seconds: float) -> None:
+    """A closed timeline span (``utils/timeline.py``) into a latency
+    histogram keyed by its activity."""
+    if not _enabled:
+        return
+    registry.histogram(
+        "hvd_timeline_activity_seconds",
+        "Host-side timeline phase durations, by activity", ("activity",),
+    ).labels(activity).observe(seconds)
+
 
 def record_retry(point: str) -> None:
-    """One backed-off retry of a control-plane call (utils/retry.py),
-    labeled by call point (http.put, http.get, ...)."""
+    """One backed-off retry of a control-plane call (``utils/retry.py``),
+    by call point (http.put, http.get, ...)."""
+    _flight.record("retry", point)  # the recorder has its own gate
     if not _enabled:
         return
     registry.counter(
         "hvd_retries_total",
         "Control-plane retries, by call point", ("point",),
     ).labels(point).inc()
+    step_stats.add_retry(point)
 
 
 def record_retry_giveup(point: str) -> None:
-    """A retried call that exhausted its attempts/deadline and
+    """A retried call that exhausted its attempts or deadline and
     re-raised."""
+    _flight.record("retry_giveup", point)
     if not _enabled:
         return
     registry.counter(
         "hvd_retry_giveups_total",
         "Control-plane retry give-ups, by call point", ("point",),
     ).labels(point).inc()
+    step_stats.add_retry_giveup(point)
 
 
 def record_fault(point: str, action: str) -> None:
-    """One injected fault fired (utils/faults.py), by injection point
-    and action — lets chaos runs prove the faults actually happened."""
+    """One injected fault fired (``utils/faults.py``), by injection point
+    and action."""
+    _flight.record("fault", point, action=action)
     if not _enabled:
         return
     registry.counter(
@@ -195,20 +818,20 @@ def record_fault(point: str, action: str) -> None:
     ).labels(point, action).inc()
 
 
-def record_elastic_event(kind: str) -> None:
-    """An elastic lifecycle transition (round, reset, hosts_updated,
-    sync, blacklist, worker_preempted)."""
+def record_stall_abort() -> None:
+    """A stalled collective converted into HorovodInternalError by the
+    negotiation watchdog (HOROVOD_STALL_ABORT_S)."""
     if not _enabled:
         return
     registry.counter(
-        "hvd_elastic_events_total",
-        "Elastic lifecycle transitions, by event", ("event",),
-    ).labels(kind).inc()
+        "hvd_stall_aborts_total",
+        "Collectives aborted by the stall watchdog").inc()
 
 
 def record_recovery_rung(rung: str) -> None:
     """One state recovery, by the ladder rung that supplied the
     snapshot: peer / emergency / orbax / local / none."""
+    _flight.record("recovery", rung)
     if not _enabled:
         return
     registry.counter(
@@ -216,6 +839,7 @@ def record_recovery_rung(rung: str) -> None:
         "State recoveries, by ladder rung (peer/emergency/orbax/"
         "local/none)", ("rung",),
     ).labels(rung).inc()
+    step_stats.add_elastic_event(f"recovery:{rung}")
 
 
 def record_replication(nbytes: int, n_partners: int) -> None:
@@ -240,21 +864,24 @@ def record_replication_error() -> None:
         "Snapshot replications that reached no ring partner").inc()
 
 
-def record_stall_abort() -> None:
-    """A stalled collective converted into HorovodInternalError by the
-    negotiation watchdog (HOROVOD_STALL_ABORT_S)."""
+def record_elastic_event(kind: str) -> None:
+    """An elastic lifecycle transition (round, reset, hosts_updated,
+    sync, blacklist, worker_preempted)."""
+    _flight.record("elastic", kind)
     if not _enabled:
         return
     registry.counter(
-        "hvd_stall_aborts_total",
-        "Collectives aborted by the stall watchdog").inc()
+        "hvd_elastic_events_total",
+        "Elastic lifecycle transitions, by event", ("event",),
+    ).labels(kind).inc()
+    step_stats.add_elastic_event(kind)
 
 
 def record_fused_batch(op: str, n_tensors: int, nbytes: int) -> None:
     """One negotiated fused batch executed by the eager runtime's data
     plane: the tensors it carried and their bytes, by op (the counter
     half of the JAX ``record_batch_execution``; its latency histogram
-    comes with the histograms)."""
+    comes with the eager runtime's records, entry 13 part 3)."""
     if not _enabled:
         return
     registry.counter(
@@ -274,10 +901,220 @@ def set_queue_depth(n: int) -> None:
     registry.gauge(
         "hvd_eager_queue_depth",
         "Tensors enqueued and awaiting negotiation/execution").set(n)
+    step_stats.set_queue_depth(n)
+
+
+# -- the standalone endpoint ---------------------------------------------------
+
+_http_server = None
+_http_thread = None
+
+
+def start_http_server(port: int = 0) -> int:
+    """Serve ``GET /metrics`` on a port of its own (0: a free one);
+    returns the bound port. Idempotent per process."""
+    global _http_server, _http_thread
+    if _http_server is not None:
+        return _http_server.server_address[1]
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class _Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_GET(self):
+            if self.path.split("?", 1)[0].rstrip("/") in ("", "/metrics"):
+                ctype, body = exposition()
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+            else:
+                body = b"not found"
+                self.send_response(404)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    _http_server = ThreadingHTTPServer(("0.0.0.0", port), _Handler)
+    _http_thread = threading.Thread(
+        target=_http_server.serve_forever, daemon=True, name="hvd-metrics")
+    _http_thread.start()
+    return _http_server.server_address[1]
+
+
+def stop_http_server() -> None:
+    global _http_server, _http_thread
+    if _http_server is not None:
+        _http_server.shutdown()
+        _http_server.server_close()
+        _http_server = None
+        _http_thread = None
+
+
+def http_port() -> Optional[int]:
+    return _http_server.server_address[1] if _http_server else None
+
+
+# -- the push to the rendezvous store ------------------------------------------
+
+_push_thread: Optional[threading.Thread] = None
+_push_stop: Optional[threading.Event] = None
+_push_policy = None
+_push_outage = None
+
+# the pod of this process under a multipod topology ("" = one pod);
+# stamped on the step records. Set by multipod (entry 14)
+_pod_label = ""
+
+
+def set_pod_label(label: str) -> None:
+    global _pod_label
+    _pod_label = str(label or "")
+
+
+def pod_label() -> str:
+    return _pod_label
+
+
+def _push_degradation():
+    """The push's bounded policy and outage tracker, built on first use:
+    a rendezvous outage costs one quick retry within the interval and
+    one warning, not one a push; the next interval is the real retry."""
+    global _push_policy, _push_outage
+    if _push_policy is None:
+        import logging
+
+        from . import retry as _retry
+
+        _push_policy = _retry.RetryPolicy(
+            max_attempts=2, base_delay_s=0.1, max_delay_s=0.25)
+        _push_outage = _retry.Outage(
+            logging.getLogger("horovod_tpu_torch.metrics"),
+            "metrics push to the rendezvous store")
+    return _push_policy, _push_outage
+
+
+def push_once(addr: str, port: int, rank: int) -> bool:
+    """PUT this process's exposition to ``/metrics_push/<rank>`` on the
+    rendezvous store. Best effort: a dead driver never stalls a worker,
+    and its outage warns once; returns whether the push landed."""
+    body = scrape().encode()
+    policy, outage = _push_degradation()
+
+    def _do() -> None:
+        req = urllib.request.Request(
+            f"http://{addr}:{port}/{METRICS_PUSH_SCOPE}/{rank}",
+            data=body, method="PUT")
+        with urllib.request.urlopen(req, timeout=2.0):
+            pass
+
+    try:
+        policy.call(_do, point="metrics.push")
+    except Exception as e:
+        outage.failure(e)
+        return False
+    outage.success()
+    return True
+
+
+def start_metrics_push(addr: str, port: int, rank: int,
+                       interval_s: float = 5.0) -> None:
+    """Start (or restart) the push loop: one push now, one an interval,
+    and a last one when it stops, so a short-lived worker still
+    publishes its final state."""
+    global _push_thread, _push_stop
+    stop_metrics_push()
+    stop = threading.Event()
+
+    def loop():
+        push_once(addr, port, rank)
+        while not stop.wait(max(interval_s, 0.05)):
+            push_once(addr, port, rank)
+        push_once(addr, port, rank)
+
+    t = threading.Thread(target=loop, daemon=True, name="hvd-metrics-push")
+    t.start()
+    _push_thread, _push_stop = t, stop
+
+
+def stop_metrics_push() -> None:
+    global _push_thread, _push_stop
+    if _push_thread is not None:
+        _push_stop.set()
+        _push_thread.join(timeout=5)
+        _push_thread = None
+        _push_stop = None
+
+
+def push_endpoint() -> Optional[Tuple[str, int]]:
+    """Where this worker's pushes and flight dumps go: the rendezvous
+    store whose address the launcher exported (the JAX package's
+    ``multipod.relay.push_endpoint`` without its pod-relay branch, which
+    comes with entry 14), or None outside a launched world."""
+    addr = (os.environ.get("HVD_TPU_RENDEZVOUS_ADDR")
+            or os.environ.get("HOROVOD_GLOO_RENDEZVOUS_ADDR"))
+    port = (os.environ.get("HVD_TPU_RENDEZVOUS_PORT")
+            or os.environ.get("HOROVOD_GLOO_RENDEZVOUS_PORT"))
+    if not addr or not port:
+        return None
+    try:
+        return addr, int(port)
+    except ValueError:
+        return None
+
+
+# -- lifecycle (core/basics.py calls these) --------------------------------------
+
+def configure(knobs) -> None:
+    """Turn telemetry on as the knobs ask (``HOROVOD_METRICS``,
+    ``HOROVOD_TPU_METRICS_FILE``, ``HOROVOD_METRICS_PORT``). Knobs that
+    ask for nothing leave a manual ``enable()`` alone. A launched worker
+    also pushes its exposition to the launcher's rendezvous store every
+    ``HOROVOD_METRICS_PUSH_INTERVAL_S``."""
+    global _configured
+    want = bool(knobs.metrics_enabled or knobs.metrics_file
+                or knobs.metrics_port)
+    if not want:
+        return
+    _configured = True
+    enable()
+    if knobs.metrics_file:
+        step_stats.open_log(knobs.metrics_file)
+    if knobs.metrics_port:
+        start_http_server(knobs.metrics_port)
+    endpoint = push_endpoint()
+    rank = (os.environ.get("HVD_TPU_RANK")
+            or os.environ.get("HOROVOD_RANK"))
+    interval = float(knobs.metrics_push_interval_s or 0.0)
+    if interval > 0 and endpoint is not None and rank is not None:
+        start_metrics_push(endpoint[0], endpoint[1], int(rank), interval)
+
+
+def on_shutdown() -> None:
+    """``shutdown()``: the last push, the step log and the endpoint
+    close; metrics turn off only if ``configure()`` turned them on."""
+    global _configured
+    stop_metrics_push()  # joins after a final push
+    step_stats.close_log()
+    stop_http_server()
+    if _configured:
+        _configured = False
+        disable()
 
 
 def reset() -> None:
-    """Test hook: clear every family and return to the disabled
-    state."""
+    """Test hook: clear every family and accumulator and return to the
+    disabled state."""
+    global _configured, _push_policy, _push_outage
+    _push_policy = _push_outage = None
+    set_pod_label("")
+    set_step_wrapper(None)
+    set_step_observer(None)
+    on_shutdown()
     disable()
+    _configured = False
     registry.clear()
+    step_stats.close_log()
+    step_stats.step = 0
+    step_stats._reset_interval()

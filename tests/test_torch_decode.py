@@ -276,6 +276,15 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "EAGER_FAST_PATH_WARMUP": "5",
     "AUTOTUNE_CACHE": "/ckpt/tune.json",
     "MESH": "dp=2,tp=2",
+    "TIMELINE": "/tmp/timeline.json",
+    "TIMELINE_MARK_CYCLES": "1",
+    "METRICS": "1",
+    "METRICS_FILE": "/tmp/steps.jsonl",
+    "METRICS_PORT": "9109",
+    "METRICS_PUSH_INTERVAL_S": "1.5",
+    "FLIGHT_RECORDER": "0",
+    "FLIGHT_DIR": "/tmp/flight",
+    "FLIGHT_CAPACITY": "77",
 }
 
 
@@ -360,6 +369,13 @@ _FSDP_AXIS_MODULES = [
         "serving.engine")]
 
 
+_OBSERVABILITY_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "utils.metrics", "utils.timeline", "utils.flight", "tools",
+        "tools.metrics_summary", "tools.flight_analyze",
+        "tools.trace_merge")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
@@ -372,11 +388,13 @@ def test_no_jax_in_port_or_chip_smoke():
     Ulysses, the converter's shards), the pipeline's (GPipe and
     1F1B, the experts' layer, the dry run, the pipeline example) and
     the rest of the mesh's (the live fsdp axis, the step, the two-axis
-    wire, the engine on a mesh) modules are among those walked."""
+    wire, the engine on a mesh) and observability's (metrics, the
+    timeline, the flight recorder, the three offline tools) modules are
+    among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
               + _SERVING_MODULES + _MESH_MODULES + _PIPELINE_MODULES
-              + _FSDP_AXIS_MODULES)
+              + _FSDP_AXIS_MODULES + _OBSERVABILITY_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

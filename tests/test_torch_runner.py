@@ -276,10 +276,11 @@ def test_parse_args_elastic():
 def test_run_static_env_protocol():
     """Injected exec captures the per-slot env (reference gloo_run env
     protocol, gloo_run.py:66-101), and the keys the port changes: the
-    data plane's name, no rendezvous keys (a static launch has no
-    rendezvous store), rank 0's TCP store address on a local port, and
-    the eager runtime's coordinator on rank 0's host at another port,
-    as the JAX launcher publishes it."""
+    data plane's name, the rendezvous store the static launch starts
+    (as the JAX launcher does: its address on loopback for a local
+    world), rank 0's TCP store address on a local port, and the eager
+    runtime's coordinator on rank 0's host at another port, as the JAX
+    launcher publishes it."""
     captured = {}
 
     def fake_exec(command, env, slot, events):
@@ -309,9 +310,12 @@ def test_run_static_env_protocol():
     for env in (env0, env1):
         assert env["HOROVOD_CONTROLLER"] == "torch.distributed"
         assert env["HOROVOD_CPU_OPERATIONS"] == "torch.distributed"
-        assert not any(k.startswith(("HVD_TPU_RENDEZVOUS_",
-                                     "HOROVOD_GLOO_RENDEZVOUS_"))
-                       for k in env)
+        assert env["HVD_TPU_RENDEZVOUS_ADDR"] == "127.0.0.1"
+        assert env["HOROVOD_GLOO_RENDEZVOUS_ADDR"] == "127.0.0.1"
+        assert env["HVD_TPU_RENDEZVOUS_PORT"] == \
+            env["HOROVOD_GLOO_RENDEZVOUS_PORT"] == \
+            env0["HVD_TPU_RENDEZVOUS_PORT"]
+        assert 0 < int(env["HVD_TPU_RENDEZVOUS_PORT"]) < 65536
         assert "NCCL_SOCKET_IFNAME" not in env  # no NICs given
     host, _, port = env0["HVD_TPU_COORDINATOR_ADDRESS"].rpartition(":")
     assert host == "127.0.0.1" and 0 < int(port) < 65536
