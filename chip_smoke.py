@@ -20,10 +20,15 @@ Phases, in order; the first failure exits non-zero:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build every kernel of ``horovod_tpu_torch/csrc/`` (one nvcc each, in
-   parallel) and print the build seconds, ptxas's registers, shared
-   memory and spills by kernel, and the count of tensor-core
-   instructions (``mma.sync``'s HMMA, ``wgmma``'s HGMMA) in the flash,
-   append+attend and matmul kernels' SASS where cuobjdump is installed;
+   parallel, at a lower priority; ``append_attend.cu`` as five
+   translation units and ``layernorm_bwd.cu`` as two, the slowest
+   compiles split) while phase 5b, which runs none of them,
+   trains on the card, and print the build's seconds and each nvcc's
+   CPU seconds, ptxas's registers, shared memory and spills by kernel,
+   and the count of tensor-core instructions (``mma.sync``'s HMMA,
+   ``wgmma``'s HGMMA) in the flash, append+attend and matmul kernels'
+   SASS where cuobjdump is installed (one cuobjdump a library, all at
+   once); after each phase a ``{"phase_done": ...}`` line, flushed;
 3. hold each kernel against its plain PyTorch version on the card, at
    its path's shapes and in its working dtypes (flash attention at
    GPT-2 medium's [8, 16, 1024, 64] and Llama-2's [2, 32, 4096, 128]
@@ -127,7 +132,7 @@ Phases, in order; the first failure exits non-zero:
    regather: the recompute), step ms and tokens/s beside phase 4's; (b)
    in a world of four emulated on the card (``EmulatedWorld``: a rank
    keeps its rows, a gather concatenates the ranks' rows on a side
-   stream with events), 2 x 1024 a rank, 3 steps on the float32 wire and
+   stream with events), 2 x 1024 a rank, 2 steps on the float32 wire and
    on the int8 wire with error feedback (block 256): every mode bitwise
    the gathered reference (losses, shards, residuals), the float32 wire
    bitwise ZeRO-1 on the same world, each B6 launch of a step bitwise
@@ -250,7 +255,7 @@ Phases, in order; the first failure exits non-zero:
    shards put back together; ``MESH_GRAD_TOL``), where its injected
    faults (a dropped ``attn.out`` all-reduce, rank 1's ``fc2`` partial
    left out; a skipped ring block, every ``key_offset`` 128 late; the
-   Ulysses all-to-all reversed) must fail, then 3 steps: a falling loss,
+   Ulysses all-to-all reversed) must fail, then 2 steps: a falling loss,
    exact B1-B5 launches (tp and Ulysses 24 B1-B3 and 49 B4/B5 a rank a
    step; the ring 1 + 2 + 3 + 4 blocks a layer), the whole parameters
    bitwise across the ranks, step ms, tokens/s, peak memory; (d) a
@@ -267,7 +272,7 @@ Phases, in order; the first failure exits non-zero:
    replicated gradients bitwise the same on every stage, where a zeroed
    backward hop and S copies of the head's cotangent (GPipe), and a
    backward one slot early and a fully padded microbatch counted as 1
-   (1F1B) must fail; then 3 AdamW steps: a falling loss, exact B1-B5
+   (1F1B) must fail; then 2 AdamW steps: a falling loss, exact B1-B5
    launches (``_pipe_launches``, and by kernel name in a profiled step),
    the replicated parameters bitwise across the stages, step ms,
    tokens/s; (c) each case's step memory (the world's peak over what
@@ -286,7 +291,7 @@ Phases, in order; the first failure exits non-zero:
    at step 1 against phase 4's world-1 step (the loss and every gradient
    row; ``FSDP_AXIS_GRAD_TOL``), where the shards gathered in reversed
    rank order, a weight-gradient shard left as the rank's partial and a
-   whole parameter's gradient not summed over fsdp must fail; then 3
+   whole parameter's gradient not summed over fsdp must fail; then 2
    AdamW steps: a falling loss, exact B1-B5 launches (24 B1-B3 and 49
    B4/B5 a rank a step; and by kernel name in a profiled step), each
    rank's parameter and AdamW-state bytes exactly its specs' share
@@ -306,7 +311,18 @@ Phases, in order; the first failure exits non-zero:
    with a step histogram of 6; the timeline anchored, balanced, one
    broadcast span a weight and one ``FUSION_PLAN`` instant of the plan's
    buckets; a manual and a SIGUSR2 dump parsed; ``tools.trace_merge``
-   merging timeline and dump; step ms on and off;
+   merging timeline and dump; step ms on and off; then (f) the sampled
+   profiler (``HOROVOD_PROF_EVERY=2``, duty 1.0, 6 N D declared) over
+   1 + 5 steps: exactly 3 samples, each with its sidecar and B1-B5
+   24/24/24/49/49 by name, its device ms within ``PROF_DEVICE_TOL`` of
+   ``_profiled``'s for the nearest unsampled step, the attribution's
+   parts summing to the step, ``hvd_mfu`` within ``PROF_MFU_TOL`` of 6 N
+   D over the step's host clock and 989e12, losses bitwise; a sample at
+   duty 0.02 holding the next off; (g) the health monitor with one step
+   slowed by a spin: the step-time envelope fires, the incident log has
+   the transition, the alert's forced sample captures the next step,
+   ``GET /health`` on a rendezvous store names rank 0, losses bitwise;
+   no ``HOROVOD_PROF_*`` or ``HOROVOD_HEALTH*`` knob left set;
 5. train ResNet-50 (224 px, 1000 classes) through the example's
    ``main`` with ``--fused-bn`` (world of one over NCCL, batch 128, 1
    warm-up + 5 timed steps on one batch), after checking the step-1
@@ -315,7 +331,8 @@ Phases, in order; the first failure exits non-zero:
    BatchNorm kernel must launch 53 times a step; one step is profiled,
    and there too each of B7-B10 must run 53 times and no column-sum
    kernel;
-5b. train Inception V3 (299 px, batch 256) and VGG-16 (224 px, batch
+5b. (run during phase 2's build: its readings share the host's cores
+   with nvcc) train Inception V3 (299 px, batch 256) and VGG-16 (224 px, batch
    128), bench.py's batches, through the same example's ``main``
    (``--model``), 1 warm-up + 3 timed steps each: finite, falling
    losses, images/s, MFU, peak memory, one profiled step each;
@@ -361,7 +378,9 @@ Phases, in order; the first failure exits non-zero:
    bitwise the engine without a mesh at every bucket, graphed; an evicted
    predict graph must free its memory and its pinned host buffers, and
    across more shapes than the graph cache holds the engine's pinned
-   host bytes must stay within one shape's;
+   host bytes must stay within one shape's; ``GET /health`` on the
+   front door, with this process's health monitor on, answers a verdict
+   ("ok"), not "off";
 9. print each phase's seconds (``{"phase_seconds": ...}``) and the
    ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
@@ -408,6 +427,18 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+#: the smoke's start on the host clock (``main`` resets it)
+SMOKE_T0 = time.perf_counter()
+
+
+def _phase_done(name, seconds):
+    """One flushed progress line at a phase's end, so that a run cut off
+    by its time limit shows where it stood."""
+    print(json.dumps({"phase_done": name, "seconds": round(seconds, 2),
+                      "elapsed": round(time.perf_counter() - SMOKE_T0, 2)}),
+          flush=True)
 
 
 def _require(cond, msg):
@@ -3837,7 +3868,9 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
     launcher's command line and its ``run()`` API; the one-card refusal
     of ``-np 2``; ``--check-build``. The launched runs start from phase
     4's seed, weights and batch, so their losses are phase 4's: the
-    ``run()`` step's bitwise, the command line's as printed."""
+    ``run()`` step's bitwise, the command line's as printed. The four
+    launches run together (``_concurrently``), so each's seconds and
+    rates are read with the others beside it."""
     import importlib
 
     from horovod_tpu_torch.runner import run
@@ -3847,9 +3880,27 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
     report = {"phase": "launch", "model": "GPT-2 medium 24x1024, 16 heads",
               "batch": "8x1024"}
 
+    # the four launches, independent processes, run together (each's
+    # seconds are read with the others beside it)
+    def timed_run():
+        # fn pickles by reference, so it must come from a module the
+        # worker can import, not from __main__
+        smoke = importlib.import_module("chip_smoke")
+        t0 = time.perf_counter()
+        res = run(smoke.launched_step, np=1, env=_child_env())[0]
+        return res, time.perf_counter() - t0
+
+    launched = _concurrently(
+        cli=(_stream, (_launcher("-np", "1", "-H", "localhost:1",
+                                 *_gpt2(*LAUNCH_ARGS)),), {}),
+        run=(timed_run, (), {}),
+        np2=(_stream, (_launcher("-np", "2", "-H", "localhost:2",
+                                 *_gpt2(*LAUNCH_ARGS)),), {}),
+        check_build=(_stream, (_launcher("--check-build"),),
+                     {"timeout": 120}))
+
     # (1) the command line, one slot
-    rc, lines, wall = _stream(_launcher("-np", "1", "-H", "localhost:1",
-                                        *_gpt2(*LAUNCH_ARGS)))
+    rc, lines, wall = launched["cli"]
     for t, line in lines:
         print(f"launch -np 1 +{t:.2f} s: {line}")
     _require(rc == 0, "launch -np 1: exit %d:\n%s"
@@ -3876,12 +3927,8 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
         "in_process_tokens_per_s": in_process_rate,
         "launched_over_in_process": launched_rate / in_process_rate}
 
-    # (2) run(fn, np=1): fn pickles by reference, so it must come from a
-    # module the worker can import, not from __main__
-    smoke = importlib.import_module("chip_smoke")
-    t0 = time.perf_counter()
-    res = run(smoke.launched_step, np=1, env=_child_env())[0]
-    run_s = time.perf_counter() - t0
+    # (2) run(fn, np=1)
+    res, run_s = launched["run"]
     _require(res["device"] == "cuda:0" and res["backend"] == "nccl"
              and res["size"] == 1,
              f"run(fn, np=1): device {res['device']}, backend "
@@ -3898,8 +3945,7 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
 
     # (3) two slots on this host
     cards = torch.cuda.device_count()
-    rc, lines, wall = _stream(_launcher("-np", "2", "-H", "localhost:2",
-                                        *_gpt2(*LAUNCH_ARGS)))
+    rc, lines, wall = launched["np2"]
     text = "\n".join(l for _, l in lines)
     if cards < 2:
         # rank 0 waits in init() for rank 1, which has no card: no step
@@ -3924,7 +3970,7 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
         report["np2_nccl"] = {"rc": rc, "wall_s": wall}
 
     # (4) --check-build on the card
-    rc, lines, _ = _stream(_launcher("--check-build"), timeout=120)
+    rc, lines, _ = launched["check_build"]
     text = "\n".join(l for _, l in lines)
     for need in ("[X] NCCL", "[X] CUDA", "[X] nvcc"):
         _require(rc == 0 and need in text,
@@ -3939,9 +3985,9 @@ def launch_gpt2(ledger, in_process_rate, in_process_losses):
 # the backward-interleaved overlap scheduler
 # ---------------------------------------------------------------------------
 
-FSDP_STEPS = 3
+FSDP_STEPS = 2
 #: steps timed after the checked ones (world 1), for the median step time
-FSDP_TIMED_STEPS = 5
+FSDP_TIMED_STEPS = 3
 FSDP_RANKS = 4
 #: the FSDP knobs of each mode (ops/overlap.fsdp_staged_value_and_grad)
 FSDP_MODES = (
@@ -3957,6 +4003,10 @@ FSDP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 #: exchange in the stream-ordering checks: ~20 ms at the H100's boost
 #: clock, more than a block's forward at 2 x 1024
 FSDP_DELAY_CYCLES = 40_000_000
+#: the spins the dropped reduce-scatter wait's check tries in turn, until
+#: the dropped exchange's spin is still running once its reader is
+#: enqueued (the fault was live)
+FSDP_SCATTER_SPINS = (FSDP_DELAY_CYCLES, 1 << 26, 1 << 28)
 
 
 def _fsdp_launches(cfg, buckets, regather, steps, ranks=1, int8=False):
@@ -4010,9 +4060,9 @@ def _set_fsdp_knobs(knobs, regather, prefetch, offload):
 def fsdp_world_one(in_process_losses, in_process_rate):
     """(a) GPT-2 medium (batch 8 x 1024, ``--flash --fused-norm``, AdamW,
     seed 0) through ``make_lm_train_step`` with a FullyShardedOptimizer
-    at world 1 over NCCL, 3 steps in each mode, against the
+    at world 1 over NCCL, 2 steps in each mode, against the
     DistributedOptimizer step on the same seed, weights and batch:
-    phase 4's losses and the parameters after 3 steps, bitwise. Launch
+    phase 4's losses and the parameters after 2 steps, bitwise. Launch
     counts zeroed just before each mode and read just after, exact from
     the stage plan. Returns the readings and the summed launches."""
     import horovod_tpu_torch as hvd
@@ -4095,7 +4145,8 @@ def fsdp_world_one(in_process_losses, in_process_rate):
 
 
 def _emulated_fsdp(cfg, init_named, batches, wire, mode, steps,
-                   side=None, snapshot=False, pack_check=False):
+                   side=None, snapshot=False, pack_check=False,
+                   on_enqueued=None):
     """FSDP on GPT-2 medium in a world of ``FSDP_RANKS`` emulated on the
     card (``EmulatedWorld``: each rank keeps only its rows; a gather is
     the concatenation of the ranks' rows, issued on a side stream with
@@ -4104,7 +4155,8 @@ def _emulated_fsdp(cfg, init_named, batches, wire, mode, steps,
     ``mode`` is ``"upfront"`` (the gathered reference) or one of
     ``FSDP_MODES``. Returns the losses, the final shards and residuals
     (and step 1's with ``snapshot``), the figures of one rank's last
-    step, and the launches."""
+    step, and the launches. ``on_enqueued()`` runs once a step's every
+    optimizer step is enqueued, before the host waits for the card."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       causal_lm_loss)
@@ -4155,6 +4207,8 @@ def _emulated_fsdp(cfg, init_named, batches, wire, mode, steps,
             for o, (_, g) in zip(opts, outs):
                 o.step(g)
                 o.zero_grad()
+            if on_enqueued is not None:
+                on_enqueued()
             losses.append([loss.item() for loss, _ in outs])
             ring_pack.maybe_pack_rows = orig
             if snapshot and t == 0:
@@ -4179,24 +4233,38 @@ def _emulated_fsdp(cfg, init_named, batches, wire, mode, steps,
     return out
 
 
-def _faulty_side(drop=None):
+def _faulty_side(drop=None, cycles=FSDP_DELAY_CYCLES):
     """A side stream with the faults of phase 4f (c): each exchange
-    behind a spin of ``FSDP_DELAY_CYCLES`` on the side stream, each
-    gather's output filled with NaN on the compute stream before it is
-    issued, and the compute stream's wait on ``drop`` (``(kind,
-    bucket)``) left out."""
+    behind a spin of ``cycles`` on the side stream, each gather's output
+    filled with NaN on the compute stream before it is issued, and the
+    compute stream's wait on ``drop`` (``(kind, bucket)``) left out. Its
+    ``dropped`` is the event recorded after the dropped exchange's spin:
+    still pending once the exchange's reader is enqueued, the fault was
+    live."""
     from horovod_tpu_torch.ops import overlap
 
     class FaultySide(overlap.SideStream):
+        dropped = None
+
+        def __init__(self, device):
+            super().__init__(device)
+            self._spun = {}
+
         def issue(self, start):
+            spun = torch.cuda.Event()
+
             def delayed():
-                torch.cuda._sleep(FSDP_DELAY_CYCLES)
+                torch.cuda._sleep(cycles)
+                spun.record()  # on the side stream, after its spin
                 return start()
-            return super().issue(delayed)
+            pending = super().issue(delayed)
+            self._spun[pending] = spun
+            return pending
 
         def consume(self, pending, kind, bucket):
             if (kind, bucket) != drop or pending.event is None:
                 return super().consume(pending, kind, bucket)
+            self.dropped = self._spun[pending]
             out = pending.finish()
             for t in overlap._tensors(out):
                 t.record_stream(torch.cuda.current_stream())
@@ -4362,7 +4430,7 @@ def _expected_issue_log(cfg, names, plans):
 
 def train_fsdp(seed, ledger, in_process_losses, in_process_rate):
     """Phase 4f. (a) :func:`fsdp_world_one`; (b) FSDP in a world of four
-    emulated on the card, GPT-2 medium at 2 x 1024 a rank, 3 steps on
+    emulated on the card, GPT-2 medium at 2 x 1024 a rank, 2 steps on
     the float32 wire and on the int8 wire with error feedback (block
     256), every mode bitwise against the gathered reference
     (``fsdp_value_and_grad(mode="upfront")``): losses, shards and
@@ -4477,12 +4545,37 @@ def train_fsdp(seed, ledger, in_process_losses, in_process_rate):
                             f"{drop}'s gather still read bitwise")
     # the last rank's last reduce-scatter: no later wait covers it, and
     # the exchanges are resolved right after that rank's backward. The
-    # fault runs first, on a batch no run drew before, so no block the
-    # allocator hands its pack can hold the right rows already
-    fresh = [torch.from_numpy(np.random.RandomState(seed + 1 + r).randint(
-        0, cfg.vocab_size, (2, 1024))).cuda() for r in range(n)]
-    broken_s = _emulated_fsdp(cfg, init_named, fresh, None, "regather", 1,
-                              side=delayed(("scatter", last), n - 1))
+    # fault is live only if the dropped exchange's spin still runs once
+    # its reader (the rank's optimizer step) is enqueued; a spin that
+    # ended first proves nothing, and the run is made again with a
+    # longer one. Each try draws a batch no run drew before and runs the
+    # fault first, so no block the allocator hands its pack can hold the
+    # right rows already
+    scatter_spins = []
+    for attempt, cycles in enumerate(FSDP_SCATTER_SPINS):
+        fresh = [torch.from_numpy(np.random.RandomState(
+            seed + 1 + n * attempt + r).randint(
+                0, cfg.vocab_size, (2, 1024))).cuda() for r in range(n)]
+        sides = {}
+
+        def scatter_side(r, cycles=cycles, sides=sides):
+            sides[r] = _faulty_side(
+                ("scatter", last) if r == n - 1 else None, cycles)
+            return sides[r]
+
+        live = []
+        broken_s = _emulated_fsdp(
+            cfg, init_named, fresh, None, "regather", 1, side=scatter_side,
+            on_enqueued=lambda: live.append(
+                sides[n - 1].dropped is not None
+                and not sides[n - 1].dropped.query()))
+        scatter_spins.append({"cycles": cycles, "live": live == [True]})
+        if live == [True]:
+            break
+        del broken_s
+    _require(live == [True], "FSDP's dropped reduce-scatter wait: the "
+                             "spin ended before its reader was enqueued "
+                             f"in every try {scatter_spins}")
     one = _emulated_fsdp(cfg, init_named, fresh, None, "regather", 1)
     scatter_ok = (broken_s["losses"] == one["losses"]
                   and _same_state(broken_s["final"], one["final"]))
@@ -4517,7 +4610,8 @@ def train_fsdp(seed, ledger, in_process_losses, in_process_rate):
                           "dropped_gather_wait_bitwise": broken_ok,
                           "dropped_bucket": drop,
                           "dropped_last_scatter_wait_bitwise": scatter_ok,
-                          "dropped_scatter_bucket": last},
+                          "dropped_scatter_bucket": last,
+                          "dropped_scatter_spins": scatter_spins},
         "one_rank_int8_step": prof,
         "launches": counts}))
     del runs, init_state, init_named, batches
@@ -5838,12 +5932,14 @@ def _children(pid):
     return kids
 
 
-def _elastic_launch(args, out_path, env_extra=None, on_line=None):
+def _elastic_launch(args, out_path, env_extra=None, on_line=None,
+                    label=""):
     """Run the elastic launcher over ``elastic_worker``; each output line
     is stamped with ``time.time()`` and handed to ``on_line(t, line,
-    proc)``. Returns ``(exit code, [(t, line)], t0, t1)``. Past
-    ``ELASTIC_TIMEOUT_S`` the launcher gets SIGTERM (its driver stops the
-    round's workers) and the smoke fails."""
+    proc)``, and printed after the run with ``label``. Returns ``(exit
+    code, [(t, line)], t0, t1)``. Past ``ELASTIC_TIMEOUT_S`` the launcher
+    gets SIGTERM (its driver stops the round's workers) and the smoke
+    fails."""
     import signal
     import threading
 
@@ -5880,9 +5976,34 @@ def _elastic_launch(args, out_path, env_extra=None, on_line=None):
                            + "\n".join(l for _, l in lines[-30:]))
     t1 = time.time()
     reader.join(timeout=30)
-    for t, line in lines:
-        print(f"elastic +{t - t0:.2f} s: {line}")
+    print("\n".join(f"elastic{label} +{t - t0:.2f} s: {line}"
+                    for t, line in lines))
     return rc, lines, t0, t1
+
+
+def _concurrently(**calls):
+    """Run each ``name=(fn, args, kwargs)`` on a thread of its own, all
+    at once; their results by name once all have returned. The first
+    exception any raised is raised again here, after every call ended."""
+    import threading
+
+    results, errors = {}, []
+
+    def one(name, fn, a, kw):
+        try:
+            results[name] = fn(*a, **kw)
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(name, *call))
+               for name, call in calls.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
 
 
 #: how long phase 4k (b) waits for the driver's scrape to hold rank 0's
@@ -5953,6 +6074,61 @@ def _elastic_line(lines, text):
     return next(((t, l) for t, l in lines if text in l), (None, None))
 
 
+def _elastic_in_process(ledger, report):
+    """Phase 4k (a): ``gpt2_elastic.main`` in this process (its launch
+    counts, falling loss, commit readings and the digests the launched
+    runs are held to) and ``hvd.data.device_prefetch``; returns the
+    digests and the run's seconds."""
+    import gc
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.data import device_prefetch
+    from horovod_tpu_torch.examples import gpt2_elastic
+    from horovod_tpu_torch.ops import _build
+
+    per_step = ELASTIC_LAYERS
+    stats = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    gpt2_elastic.main(ELASTIC_ARGS, stats)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    ledger["train_elastic"] = {k: _build.LAUNCHES[k] for k in
+                               ELASTIC_KERNELS}
+    for k in ELASTIC_KERNELS:
+        _require(ledger["train_elastic"][k] == per_step * ELASTIC_STEPS,
+                 f"phase 4k (a): {k} launched {ledger['train_elastic'][k]}"
+                 f" times in {ELASTIC_STEPS} steps, not {per_step} a step")
+    losses = stats["losses"]
+    _require(len(losses) == ELASTIC_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0],
+             f"phase 4k (a): losses did not fall: {losses}")
+    want = _elastic_digests(stats["model"], stats["optimizer"])
+    report["a_in_process"] = {
+        "losses_first_last": [losses[0], losses[-1]],
+        "interval_step_ms": stats["interval_step_ms"],
+        "tokens_per_s": stats["tokens_per_s"],
+        "commit_s": stats["commit_s"], "wall_s": wall_a,
+        "digests": len(want), "launches": ledger["train_elastic"]}
+    # the data helpers' card path: device_prefetch's pinned copies on a
+    # side stream, each batch equal to a blocking copy
+    rows = [gpt2_elastic.tokens(50257, 8, 1024, r, 4) for r in range(4)]
+    got = list(device_prefetch(iter(rows), size=2))
+    _require(len(got) == 4 and all(
+        g.is_cuda and torch.equal(g.cpu(), torch.from_numpy(w))
+        for g, w in zip(got, rows)),
+        "phase 4k: device_prefetch's batches differ from their rows")
+    report["a_in_process"]["device_prefetch"] = "4 batches equal"
+    # the run armed the preemption handler in this process: disarm it
+    elastic.preemption.uninstall()
+    hvd.shutdown()
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, wall_a
+
+
 def train_elastic(ledger):
     """Phase 4k. The port of ``examples/gpt2_elastic.py`` at GPT-2
     medium's width (``ELASTIC_ARGS``: 24 x 1024, 16 heads of 64, vocab
@@ -5983,64 +6159,20 @@ def train_elastic(ledger):
         peer, no emergency file) and the launcher exits 0 with (a)'s
         digests, bitwise.
 
+    (b) and (c) run at the same time (``_concurrently``), and (a) in this
+    process beside them (``_elastic_in_process``), so each's seconds are
+    read with the others beside it on the card and the host.
+
     Each run's launch counts are zeroed just before it and read just
     after (the workers' own, for (b) and (c))."""
-    import gc
     import shutil
     import signal
     import tempfile
-
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import elastic
-    from horovod_tpu_torch.examples import gpt2_elastic
-    from horovod_tpu_torch.ops import _build
 
     per_step = ELASTIC_LAYERS
     report = {"phase": "train_elastic",
               "model": f"GPT-2 medium width {ELASTIC_LAYERS}x1024, "
                        "batch 8x1024, Adam"}
-    torch.cuda.empty_cache()
-
-    # (a) in process
-    stats = {}
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    gpt2_elastic.main(ELASTIC_ARGS, stats)
-    torch.cuda.synchronize()
-    wall_a = time.perf_counter() - t0
-    ledger["train_elastic"] = {k: _build.LAUNCHES[k] for k in
-                               ELASTIC_KERNELS}
-    for k in ELASTIC_KERNELS:
-        _require(ledger["train_elastic"][k] == per_step * ELASTIC_STEPS,
-                 f"phase 4k (a): {k} launched {ledger['train_elastic'][k]}"
-                 f" times in {ELASTIC_STEPS} steps, not {per_step} a step")
-    losses = stats["losses"]
-    _require(len(losses) == ELASTIC_STEPS and all(np.isfinite(losses))
-             and losses[-1] < losses[0],
-             f"phase 4k (a): losses did not fall: {losses}")
-    want = _elastic_digests(stats["model"], stats["optimizer"])
-    report["a_in_process"] = {
-        "losses_first_last": [losses[0], losses[-1]],
-        "interval_step_ms": stats["interval_step_ms"],
-        "tokens_per_s": stats["tokens_per_s"],
-        "commit_s": stats["commit_s"], "wall_s": wall_a,
-        "digests": len(want), "launches": ledger["train_elastic"]}
-    # the data helpers' card path: device_prefetch's pinned copies on a
-    # side stream, each batch equal to a blocking copy
-    from horovod_tpu_torch.data import device_prefetch
-
-    rows = [gpt2_elastic.tokens(50257, 8, 1024, r, 4) for r in range(4)]
-    got = list(device_prefetch(iter(rows), size=2))
-    _require(len(got) == 4 and all(
-        g.is_cuda and torch.equal(g.cpu(), torch.from_numpy(w))
-        for g, w in zip(got, rows)),
-        "phase 4k: device_prefetch's batches differ from their rows")
-    report["a_in_process"]["device_prefetch"] = "4 batches equal"
-    # the run armed the preemption handler in this process: disarm it
-    elastic.preemption.uninstall()
-    hvd.shutdown()
-    del stats
-    gc.collect()
     torch.cuda.empty_cache()
 
     root = tempfile.mkdtemp(prefix="hvd_elastic_")
@@ -6087,14 +6219,43 @@ def train_elastic(ledger):
 
                 threading.Thread(target=gone, daemon=True).start()
 
-        rc, lines, t0, t1 = _elastic_launch(
-            ["-np", "1", "--min-np", "1", "--max-np", "1",
-             "--host-discovery-script", one,
-             "--emergency-checkpoint", emergency,
-             "--flight-dir", worker_flight], out_b, on_line=preempt,
-            env_extra={"HOROVOD_METRICS": "1",
-                       "HOROVOD_METRICS_PUSH_INTERVAL_S": "1",
-                       "HOROVOD_FLIGHT_DIR": driver_flight})
+        # (b) and (c), independent jobs on the one card, run together and
+        # beside (a): each is mostly its processes' start and the
+        # emergency file's write and read, and none holds a time limit
+        import threading
+
+        out_c = os.path.join(root, "c.json")
+        runs, failed = {}, []
+
+        def launch_b_and_c():
+            try:
+                runs.update(_concurrently(
+                    b=(_elastic_launch, (
+                        ["-np", "1", "--min-np", "1", "--max-np", "1",
+                         "--host-discovery-script", one,
+                         "--emergency-checkpoint", emergency,
+                         "--flight-dir", worker_flight], out_b), dict(
+                        on_line=preempt, label=" (b)",
+                        env_extra={"HOROVOD_METRICS": "1",
+                                   "HOROVOD_METRICS_PUSH_INTERVAL_S": "1",
+                                   "HOROVOD_FLIGHT_DIR": driver_flight})),
+                    c=(_elastic_launch, (
+                        ["-np", "1", "--min-np", "1", "--max-np", "1",
+                         "--host-discovery-script", two], out_c), dict(
+                        label=" (c)", env_extra={
+                            "HOROVOD_TPU_FAULT_SPEC": ELASTIC_KILL_SPEC}))))
+            except BaseException as e:  # raised again below, after (a)
+                failed.append(e)
+
+        jobs = threading.Thread(target=launch_b_and_c)
+        jobs.start()
+        try:
+            want, wall_a = _elastic_in_process(ledger, report)
+        finally:
+            jobs.join()
+        if failed:
+            raise failed[0]
+        rc, lines, t0, t1 = runs["b"]
         text = "\n".join(l for _, l in lines[-40:])
         _require(rc == 0 and "exit" in sent,
                  f"phase 4k (b): launcher exit {rc}, signal {sent}:\n"
@@ -6138,11 +6299,7 @@ def train_elastic(ledger):
         os.remove(emergency)
 
         # (c) killed at its second commit
-        out_c = os.path.join(root, "c.json")
-        rc, lines, t0, t1 = _elastic_launch(
-            ["-np", "1", "--min-np", "1", "--max-np", "1",
-             "--host-discovery-script", two], out_c,
-            env_extra={"HOROVOD_TPU_FAULT_SPEC": ELASTIC_KILL_SPEC})
+        rc, lines, t0, t1 = runs["c"]
         text = "\n".join(l for _, l in lines[-40:])
         _require(rc == 0, f"phase 4k (c): launcher exit {rc}:\n" + text)
         _, black = _elastic_line(lines, "blacklisting failed host localhost")
@@ -6393,16 +6550,32 @@ def _eager_launch(ledger, in_process_losses):
     ``runner.run(launched_eager_step, np=1)`` with the same knobs: its
     runtime got the published port and the knobs, the example's
     broadcasts ran through it, B1-B5 exactly ``STEP_LAUNCHES``, and its
-    loss bitwise phase 4's step 1 (phase 4e's ``run()`` leg)."""
+    loss bitwise phase 4's step 1 (phase 4e's ``run()`` leg). The two
+    run together (``_concurrently``), each's seconds read beside the
+    other."""
     import importlib
 
     from horovod_tpu_torch.runner import run
 
     torch.cuda.empty_cache()
     env = {"HVD_TPU_NATIVE": "1", "HOROVOD_LOG_LEVEL": "INFO"}
-    rc, lines, wall = _stream(
-        _launcher("-np", "1", "-H", "localhost:1", *EAGER_LAUNCH_FLAGS,
-                  *_gpt2(*LAUNCH_ARGS)), env_extra=env)
+    smoke = importlib.import_module("chip_smoke")
+    run_env = dict(_child_env(), HVD_TPU_NATIVE="1",
+                   HOROVOD_CYCLE_TIME="2", HOROVOD_CACHE_CAPACITY="256",
+                   HOROVOD_STALL_ABORT_S="120")
+
+    def timed_run():
+        t0 = time.perf_counter()
+        res = run(smoke.launched_eager_step, np=1, env=run_env)[0]
+        return res, time.perf_counter() - t0
+
+    # the command line and run(), independent processes, run together
+    both = _concurrently(
+        cli=(_stream, (_launcher("-np", "1", "-H", "localhost:1",
+                                 *EAGER_LAUNCH_FLAGS, *_gpt2(*LAUNCH_ARGS)),),
+             {"env_extra": env}),
+        run=(timed_run, (), {}))
+    rc, lines, wall = both["cli"]
     text = "\n".join(l for _, l in lines[-30:])
     _require(rc == 0, f"phase 4l (e): launch exit {rc}:\n{text}")
     rt_line = next((l for _, l in lines if "eager runtime: rank 0 of 1"
@@ -6419,13 +6592,7 @@ def _eager_launch(ledger, in_process_losses):
              f"phase 4l (e): [0]iter 0 line {iter_line!r}, phase 4e "
              f"prints {want}")
     _, rate_line = _first(lines, "[0]tokens/sec on 1 rank(s): ")
-    smoke = importlib.import_module("chip_smoke")
-    run_env = dict(_child_env(), HVD_TPU_NATIVE="1",
-                   HOROVOD_CYCLE_TIME="2", HOROVOD_CACHE_CAPACITY="256",
-                   HOROVOD_STALL_ABORT_S="120")
-    t0 = time.perf_counter()
-    res = run(smoke.launched_eager_step, np=1, env=run_env)[0]
-    run_s = time.perf_counter() - t0
+    res, run_s = both["run"]
     _require(res["runtime"] and res["device"] == "cuda:0"
              and res["size"] == 1
              and res["coordinator_port"] == res["published_port"] > 0
@@ -6514,7 +6681,7 @@ def train_eager(seed, ledger, in_process_losses):
         (``eager_stall_worker``): "stalled" within the watchdog plus
         ``EAGER_STALL_SLACK_S``, then the world shuts down;
     (e) phase 4e's launched GPT-2 medium with the runtime
-        (``_eager_launch``).
+        (``_eager_launch``); (d) and (e)'s processes run together.
 
     Launch counts are zeroed just before each run and read just after."""
     import horovod_tpu_torch as hvd
@@ -6678,12 +6845,19 @@ def train_eager(seed, ledger, in_process_losses):
             hvd.shutdown()
     torch.cuda.empty_cache()
 
-    # (d) the stall watchdog, in a process of its own
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                           "--eager-stall-worker"], cwd=HERE,
-                          env=_child_env(), capture_output=True, text=True,
-                          timeout=180)
+    # (d) the stall watchdog, in a process of its own, and (e) the
+    # launcher's processes, all run together
+    def stall_process():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--eager-stall-worker"], cwd=HERE, env=_child_env(),
+            capture_output=True, text=True, timeout=180)
+        return proc, time.perf_counter() - t0
+
+    both = _concurrently(d=(stall_process, (), {}),
+                         e=(_eager_launch, (ledger, in_process_losses), {}))
+    proc, process_s = both["d"]
     line = next((l for l in reversed(proc.stdout.splitlines())
                  if l.startswith("{")), None)
     _require(proc.returncode == 0 and line,
@@ -6693,10 +6867,8 @@ def train_eager(seed, ledger, in_process_losses):
              and d["raise_s"] < EAGER_STALL_ABORT_S + EAGER_STALL_SLACK_S,
              f"phase 4l (d): {d}")
     report["d"] = {**d, "abort_s": EAGER_STALL_ABORT_S,
-                   "process_s": time.perf_counter() - t0}
-
-    # (e) the launcher
-    report["e"] = _eager_launch(ledger, in_process_losses)
+                   "process_s": process_s}
+    report["e"] = both["e"]
     report["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps(report))
     torch.cuda.empty_cache()
@@ -6708,7 +6880,7 @@ def train_eager(seed, ledger, in_process_losses):
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4
-MESH_STEPS = 3  # launches counted over all three, timed from the second
+MESH_STEPS = 2  # launches counted over both, the second timed
 #: (name, mesh axes, sequence_parallel) of phase 4m's emulated worlds
 MESH_CASES = (("tp=4", {"tp": 4}, None),
               ("sp=4 ring", {"sp": 4}, "ring"),
@@ -7188,7 +7360,7 @@ def train_mesh(seed, ledger, in_process_losses):
     each held at step 1 against phase 4's world-1 step on the same
     weights and batch (the loss, every gradient row by row; the ranks'
     shards put back together), with its injected faults failing the
-    same check, then 3 steps with a falling loss, exact B1-B5 launches,
+    same check, then 2 steps with a falling loss, exact B1-B5 launches,
     the whole parameters bitwise across the ranks, step ms, tokens/s
     and peak memory; and (d) a world of one over NCCL with
     ``HOROVOD_MESH=dp=1,tp=1``: phase 4's losses bitwise."""
@@ -7287,7 +7459,7 @@ def train_mesh(seed, ledger, in_process_losses):
 # ---------------------------------------------------------------------------
 
 PIPE_RANKS = 4
-PIPE_STEPS = 3  # launches counted over all three, timed from the second
+PIPE_STEPS = 2  # launches counted over both, the second timed
 #: the stage whose backward hop is zeroed, or whose backward runs a slot
 #: early, in the faults (a middle stage: the last one's backward follows
 #: its forward in the next slot, so one slot early is still right)
@@ -7821,10 +7993,10 @@ def train_pipeline(seed, ledger, in_process_losses):
     (``pipe_world``: 6 blocks a stage):
 
     (a) GPipe at M = 4, its faults (a zeroed backward hop; S copies of
-        the head's cotangent), 3 steps; GPipe at M = 8, step 1 only;
+        the head's cotangent), 2 steps; GPipe at M = 8, step 1 only;
     (b) 1F1B at M = 4 and M = 8 (the input ring reused), the padded
         batch, its faults (a backward one slot early; a fully padded
-        microbatch counted as 1), 3 steps;
+        microbatch counted as 1), 2 steps;
     (c) the world's peak memory around each step 1 and each rank's
         bytes saved for the backward; 1F1B's at M = 8 must be below
         GPipe's;
@@ -7947,7 +8119,7 @@ def train_pipeline(seed, ledger, in_process_losses):
 # ---------------------------------------------------------------------------
 
 FSDP_AXIS_RANKS = 4
-FSDP_AXIS_STEPS = 3  # launches counted over all three, timed from the second
+FSDP_AXIS_STEPS = 2  # launches counted over both, the second timed
 #: (name, mesh axes) of phase 4o's emulated worlds
 FSDP_AXIS_CASES = (("fsdp=4", {"fsdp": 4}),
                    ("dp=2,fsdp=2", {"dp": 2, "fsdp": 2}),
@@ -8206,7 +8378,7 @@ def train_fsdp_axis(seed, ledger, in_process_losses):
     and (c) fsdp = 2, tp = 2; each held at step 1 against phase 4's
     world-1 step on the same weights and batch (the loss and every
     gradient row, ``FSDP_AXIS_GRAD_TOL``), its faults failing the same
-    check, then 3 steps with a falling loss, exact B1-B5 launches
+    check, then 2 steps with a falling loss, exact B1-B5 launches
     (``_fsdp_axis_launches``, confirmed by kernel name in a profiled
     step), each rank's resident parameter and AdamW-state bytes exactly
     the reckoning from the specs (beside world 1's), the bytes gathered
@@ -8386,21 +8558,19 @@ class _TelemetryClock:
         return sum(self.seconds.values())
 
 
-def _observed_run(cfg, tokens, knobs):
-    """One run of phase 4p under ``knobs`` (set in the environment for
-    ``init()`` and restored after): the step of ``make_lm_train_step``
-    (AdamW under the DistributedOptimizer, flash attention, fused
-    norms, seed 0's weights), ``OBSERVE_STEPS`` steps on ``tokens``,
-    each inside ``hvd.metrics.step()`` with its loss read inside it,
-    timed around the block after a sync. Returns the run's readings
-    and, still initialized, the model and step."""
+def _observed_step(cfg, knobs):
+    """``init()`` under ``knobs`` (set in the environment for it and
+    restored after, in a ``finally``) and phase 4p's step: the step of
+    ``make_lm_train_step`` (AdamW under the DistributedOptimizer, flash
+    attention, fused norms, seed 0's weights), launch counts zeroed.
+    Returns ``(model, step)``, still initialized."""
     import functools
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops.flash_attention import make_flash_attention_fn
 
-    saved = {k: os.environ.get(k) for k in OBSERVE_KNOBS}
+    saved = {k: os.environ.get(k) for k in knobs}
     os.environ.update(knobs)
     try:
         hvd.init()
@@ -8411,10 +8581,22 @@ def _observed_run(cfg, tokens, knobs):
             else:
                 os.environ[k] = v
     _build.reset_launches()
-    model, step = hvd.make_lm_train_step(
+    return hvd.make_lm_train_step(
         cfg, functools.partial(torch.optim.AdamW, lr=1e-4,
                                weight_decay=1e-4),
         attention_fn=make_flash_attention_fn(causal=True))
+
+
+def _observed_run(cfg, tokens, knobs):
+    """One run of phase 4p under ``knobs`` (``_observed_step``):
+    ``OBSERVE_STEPS`` steps on ``tokens``, each inside
+    ``hvd.metrics.step()`` with its loss read inside it, timed around the
+    block after a sync. Returns the run's readings and, still
+    initialized, the model and step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+
+    model, step = _observed_step(cfg, knobs)
     losses, host_s, tele_s = [], [], []
     with _TelemetryClock() as clock:
         for _ in range(OBSERVE_STEPS):
@@ -8432,6 +8614,279 @@ def _observed_run(cfg, tokens, knobs):
             "telemetry_s": tele_s, "telemetry_by_call": {
                 k: {"calls": clock.calls[k], "s": clock.seconds[k]}
                 for k in sorted(clock.seconds)}}, model, step
+
+
+#: phase 4p (f): the sampled profiler's knobs (a sample every 2 steps,
+#: no duty floor between them), the step's kernels a sample must hold by
+#: name (B1-B5, exactly as ``STEP_LAUNCHES``), the largest gap of a
+#: sampled step's device ms from ``_profiled``'s reading of the nearest
+#: unsampled step, of ``hvd_mfu`` from 6 N D over the step's host clock
+#: and the card's 989e12 FLOP/s, and of the attribution's parts' sum
+#: from 1; then a sample at the default duty cycle, whose floor must hold
+#: off the next step's
+PROF_KNOBS = {"HOROVOD_PROF_EVERY": "2", "HOROVOD_PROF_DUTY_CYCLE": "1.0"}
+PROF_KERNEL_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+                     "flash_bwd_dkv": "flash_bwd_dkv",
+                     "layernorm_fwd": "layernorm_fwd",
+                     "layernorm_bwd": "layernorm_bwd"}
+PROF_DEVICE_TOL = 0.05
+PROF_MFU_TOL = 0.01
+PROF_ATTR_TOL = 1e-6
+PROF_BUDGET_DUTY = 0.02
+#: phase 4p (g): the health monitor on, its detectors and one step-time
+#: envelope (``HOROVOD_HEALTH_RULES``, twice the rolling median: a host's
+#: hiccup of up to 2x fires nothing) warm after 3 steps, no periodic
+#: publish (its last one at shutdown); step 5 slowed by a spin of
+#: ``HEALTH_SLOW_STEPS`` times the median of steps 1-4 (the envelope's
+#: own reference) at the card's 1.98 GHz boost clock (longer at a lower
+#: clock), so it takes about 3x the reference
+HEALTH_KNOBS = {
+    "HOROVOD_HEALTH": "1", "HOROVOD_HEALTH_MIN_STEPS": "3",
+    "HOROVOD_HEALTH_INTERVAL_S": "3600",
+    "HOROVOD_HEALTH_RULES": "step_time_envelope:envelope:signal=step_time"
+                            ":factor=2:min=3:breach=1:clear=2"}
+HEALTH_SLOW_STEP = 5
+HEALTH_SLOW_STEPS = 2.0
+CARD_BOOST_HZ = 1.98e9
+#: the environment prefixes no phase may leave set
+PART2_KNOB_PREFIXES = ("HOROVOD_PROF_", "HOROVOD_HEALTH", "HVD_TPU_PROF_",
+                       "HVD_TPU_HEALTH")
+
+
+def _sample_readings(sample_dir):
+    """One profiler sample's directory: its sidecar, the card's spans
+    without the profiler's spins, each B1-B5 kernel's count by name, and
+    their device ms (the spans' summed durations)."""
+    from horovod_tpu_torch.utils import kineto, prof
+
+    with open(os.path.join(sample_dir, "hvd_prof_meta.json")) as f:
+        meta = json.load(f)
+    trace, _ = kineto.load_trace(os.path.join(sample_dir, prof.TRACE_FILE))
+    ops = kineto.op_events(trace, skip=(prof.SPIN_KERNEL,))
+    counts = {k: sum(name in o["name"] for o in ops)
+              for k, name in PROF_KERNEL_NAMES.items()}
+    return meta, ops, counts, sum(o["dur_us"] for o in ops) / 1e3
+
+
+def _sampled_run(cfg, tokens, root):
+    """Phase 4p (f): ``PROF_KNOBS`` and metrics on, 6 N D declared with
+    ``hvd.prof.set_step_flops``; 1 + 5 steps inside
+    ``hvd.metrics.step()``, the prof-unsampled steps 3 and 5 inside a
+    ``_profiled`` window, each step's body (the step and its loss read)
+    timed on the host's clock inside the block; every wait on the parse
+    thread ``prof.join``. Then a duty cycle of ``PROF_BUDGET_DUTY`` and
+    every step sampled: step 7 is, and its cost T's floor of T (1/d - 1)
+    must hold off step 8's. Returns the readings."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import metrics, prof
+
+    jsonl = os.path.join(root, "steps_prof.jsonl")
+    model, step = _observed_step(cfg, {
+        **PROF_KNOBS, "HOROVOD_PROF_DIR": os.path.join(root, "prof"),
+        "HOROVOD_METRICS": "1", "HOROVOD_TPU_METRICS_FILE": jsonl})
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = 6.0 * n_params * tokens.numel()
+    hvd.prof.set_step_flops(flops, n_chips=1)
+    losses, body_s, profiled_ms, launches = [], [], {}, {}
+    for i in range(1, OBSERVE_STEPS + 1):
+        torch.cuda.synchronize()
+        window = _profiled() if i in (3, 5) else contextlib.nullcontext()
+        with window as p:
+            with hvd.metrics.step():
+                t0 = time.perf_counter()
+                losses.append(step(tokens).item())
+                body_s.append(time.perf_counter() - t0)
+        if p is not None:
+            profiled_ms[i] = sum(_dev_us(e) for e in _kernel_events(p)) / 1e3
+        prof.join(30.0)
+    launches = dict(_build.LAUNCHES)
+    summary = prof.summary()
+    gauge = metrics.registry.snapshot()["hvd_mfu"][""]
+    # the budget at the default duty cycle
+    prof.configure(every=1, duty_cycle=PROF_BUDGET_DUTY,
+                   directory=os.path.join(root, "prof_budget"))
+    before = prof.overhead_s()
+    budget = []
+    for _ in range(2):
+        with hvd.metrics.step():
+            step(tokens).item()
+        t_body_end = time.perf_counter()
+        prof.join(30.0)
+        budget.append((prof.sample_count(), prof.overhead_s() - before,
+                       prof._next_ok_t - time.monotonic(),
+                       time.perf_counter() - t_body_end))
+    del model, step
+    hvd.shutdown()
+    with open(jsonl) as f:
+        recs = [json.loads(line) for line in f]
+    return {"losses": losses, "body_s": body_s, "profiled_ms": profiled_ms,
+            "launches": launches, "summary": summary, "gauge": gauge,
+            "flops": flops, "n_params": n_params, "records": recs,
+            "budget": budget}
+
+
+def _check_sampled(run, root, off_losses):
+    """Phase 4p (f)'s checks on ``_sampled_run``'s readings; the
+    report's part."""
+    samples = sorted(d for d in os.listdir(os.path.join(root, "prof",
+                                                        "rank0")))
+    s = run["summary"]
+    _require(samples == ["step2", "step4", "step6"]
+             and s["samples"] == 3 and s["errors"] == 0,
+             f"phase 4p (f): samples {samples}, summary {s}")
+    _require(run["losses"] == off_losses,
+             f"phase 4p (f): losses {run['losses']} with the profiler, "
+             f"{off_losses} without")
+    _exact_launches(run["launches"], OBSERVE_STEPS, "phase 4p (f)")
+    readings = {}
+    for name in samples:
+        i = int(name[4:])
+        meta, ops, counts, device_ms = _sample_readings(
+            os.path.join(root, "prof", "rank0", name))
+        want = {k: STEP_LAUNCHES[k] for k in PROF_KERNEL_NAMES}
+        _require(meta["step"] == i and counts == want,
+                 f"phase 4p (f): sample {name}'s kernels {counts}, not "
+                 f"{want} (a window that lost records)")
+        ref = run["profiled_ms"][min((3, 5), key=lambda j: abs(j - i))]
+        _require(abs(device_ms / ref - 1) <= PROF_DEVICE_TOL,
+                 f"phase 4p (f): sample {name}'s {device_ms} device ms, "
+                 f"_profiled's {ref}")
+        readings[name] = {"device_ms": device_ms, "profiled_ms": ref,
+                          "kernels": len(ops), "sidecar": meta}
+    # the last sample's attribution: the gauges' and the record's
+    attr = run["summary"]["attribution"]
+    parts = (attr["compute_us"] + attr["exposed_collective_us"]
+             + attr["idle_us"] + attr.get("host_gap_us", 0.0))
+    whole = max(attr.get("host_wall_us", 0.0), attr["device_wall_us"])
+    _require(attr["sampled_step"] == 6 and attr["compute_frac"] > 0
+             and abs(parts / whole - 1) <= PROF_ATTR_TOL,
+             f"phase 4p (f): attribution {attr}")
+    # hvd_mfu a step against 6 N D over the body's host clock
+    mfu_off = []
+    for rec, body in zip(run["records"], run["body_s"]):
+        want = run["flops"] / (body * PEAK_OPS["bf16"])
+        mfu_off.append(rec["mfu"] / want - 1)
+    _require(max(map(abs, mfu_off)) <= PROF_MFU_TOL
+             and run["gauge"] == run["records"][OBSERVE_STEPS - 1]["mfu"],
+             f"phase 4p (f): hvd_mfu off 6ND/(step x 989e12) by {mfu_off}")
+    # the budget: step 7 sampled at d = 0.02; its cost T holds step 8 off
+    (n7, t7, left7, since7), (n8, _, left8, since8) = run["budget"]
+    floor = t7 * (1 / PROF_BUDGET_DUTY - 1)
+    _require(n7 == 4 and n8 == 4 and left8 >= floor - since8 - since7
+             - 1.0,
+             f"phase 4p (f): the duty budget {run['budget']}: floor "
+             f"{floor} s")
+    return {"samples": readings, "attribution": attr,
+            "mfu": run["gauge"], "mfu_rel_off": mfu_off,
+            "overhead_s": s["overhead_s"],
+            "overhead_per_sample_s": s["overhead_s"] / 3,
+            "budget_sample_s": t7, "budget_floor_s": floor,
+            "budget_left_s": left8, "n_params": run["n_params"],
+            "step_ms": [x * 1e3 for x in run["body_s"]]}
+
+
+def _health_run(cfg, tokens, root, off_losses):
+    """Phase 4p (g): ``HEALTH_KNOBS`` on, its summaries published to a
+    ``RendezvousServer`` in this process and its incidents to a JSONL;
+    1 + 5 steps, step ``HEALTH_SLOW_STEP`` slowed by a spin of
+    ``HEALTH_SLOW_STEPS`` steps inside its block: the step-time envelope
+    fires, the incident log holds the transition, the alert's forced
+    profiler sample captures the next step (the profiler is otherwise
+    off), and after shutdown (whose
+    last tick publishes) ``GET /health`` on the store names rank 0.
+    Returns the report's part."""
+    import urllib.request
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner.http.http_server import RendezvousServer
+    from horovod_tpu_torch.utils import prof
+
+    incidents = os.path.join(root, "incidents.jsonl")
+    rdv = RendezvousServer()
+    port = rdv.start_server()
+    try:
+        model, step = _observed_step(cfg, {
+            **HEALTH_KNOBS, "HOROVOD_HEALTH_INCIDENT_FILE": incidents,
+            "HOROVOD_PROF_DIR": os.path.join(root, "prof_health"),
+            "HOROVOD_FLIGHT_DIR": os.path.join(root, "flight_health"),
+            "HVD_TPU_RENDEZVOUS_ADDR": "127.0.0.1",
+            "HVD_TPU_RENDEZVOUS_PORT": str(port)})
+        losses, verdicts, host_s = [], [], []
+        for i in range(1, OBSERVE_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hvd.metrics.step():
+                if i == HEALTH_SLOW_STEP:
+                    torch.cuda._sleep(int(HEALTH_SLOW_STEPS * CARD_BOOST_HZ
+                                          * np.median(host_s)))
+                losses.append(step(tokens).item())
+            host_s.append(time.perf_counter() - t0)
+            verdicts.append(hvd.health.verdict())
+            prof.join(30.0)
+        forced = prof.summary()
+        del model, step
+        hvd.shutdown()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=10) as r:
+            fleet = json.loads(r.read())
+    finally:
+        rdv.shutdown_server()
+    with open(incidents) as f:
+        recs = [json.loads(line) for line in f]
+    _require(losses == off_losses,
+             f"phase 4p (g): losses {losses} with health, {off_losses} "
+             "without")
+    _require([v["health"] for v in verdicts] == ["ok"] * (
+        HEALTH_SLOW_STEP - 1) + ["degraded"] * (
+        OBSERVE_STEPS - HEALTH_SLOW_STEP + 1),
+             f"phase 4p (g): verdicts {verdicts}, steps {host_s}")
+    _require([(r["rule"], r["state"], r["rank"]) for r in recs]
+             == [("step_time_envelope", "fire", 0)],
+             f"phase 4p (g): incidents {recs}")
+    # the profiler was off: the alert armed it for the one next step,
+    # the only step it counted, and disarmed it after
+    _require(forced["samples"] == 1 and forced["errors"] == 0
+             and forced["steps"] == OBSERVE_STEPS - HEALTH_SLOW_STEP
+             and not forced["active"],
+             f"phase 4p (g): the alert's capture {forced}")
+    _require(fleet["status"] == "degraded"
+             and fleet["suspected_straggler_ranks"] == [0]
+             and fleet["by_rank"]["0"]["alerts_active"]
+             == ["step_time_envelope"],
+             f"phase 4p (g): GET /health on the store: {fleet}")
+    return {"step_ms": [x * 1e3 for x in host_s], "incident": recs[0],
+            "forced_sample": forced["attribution"],
+            "store_verdict": {k: fleet[k] for k in (
+                "status", "ranks", "suspected_straggler_ranks")}}
+
+
+def _observed_part2(cfg, tokens, root, off_losses):
+    """Phase 4p (f) and (g), the sampled profiler and the health monitor
+    (``_sampled_run``, ``_health_run``), each from the profiler's reset
+    state; every knob they set is restored, and none is left in the
+    environment. Returns the report's part and its seconds."""
+    from horovod_tpu_torch.utils import prof
+
+    t0 = time.perf_counter()
+    out = {"prof": _check_sampled(_sampled_run(cfg, tokens, root), root,
+                                  off_losses)}
+    prof.reset()  # its counters and declared FLOPs outlive a shutdown
+    _free_cuda()
+    out["health"] = _health_run(cfg, tokens, root, off_losses)
+    prof.reset()
+    _free_cuda()
+    left = sorted(k for k in os.environ
+                  if k.startswith(PART2_KNOB_PREFIXES))
+    _require(not left, f"phase 4p: knobs left set: {left}")
+    return out, time.perf_counter() - t0
+
+
+def _free_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _balanced(events):
@@ -8475,7 +8930,9 @@ def train_observed(seed, ledger, in_process_losses):
         ``FUSION_PLAN`` instant naming the plan's bucket count;
     (e) ``flight.dump("manual")`` and a SIGUSR2 dump to this process
         each parse with ``parse_dump``, and ``tools.trace_merge`` merges
-        the timeline and the dump into one trace counting both sources.
+        the timeline and the dump into one trace counting both sources;
+    (f), (g) the sampled profiler and the health monitor
+        (``_observed_part2``), whose seconds this returns.
 
     Prints the median step ms with telemetry on and off, the host
     milliseconds a step spent inside the telemetry calls in each run
@@ -8490,8 +8947,9 @@ def train_observed(seed, ledger, in_process_losses):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
     from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch import health
     from horovod_tpu_torch.tools import metrics_summary, trace_merge
-    from horovod_tpu_torch.utils import flight, metrics
+    from horovod_tpu_torch.utils import flight, metrics, prof
 
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
@@ -8584,6 +9042,8 @@ def train_observed(seed, ledger, in_process_losses):
         flight.uninstall_handlers()
         gc.collect()
         torch.cuda.empty_cache()
+        # (f), (g): the sampled profiler and the health monitor
+        part2, part2_s = _observed_part2(cfg, tokens, root, off["losses"])
         # (a)
         _require(on["losses"] == off["losses"],
                  f"phase 4p (a): losses {on['losses']} with telemetry, "
@@ -8658,14 +9118,18 @@ def train_observed(seed, ledger, in_process_losses):
             timeline_events=len(evs), timeline_bytes=os.path.getsize(trace),
             flight_events=len(events), dump_bytes=dump_bytes,
             dump_s=dump_s, merged_events=merge["events"],
-            merged_by_source=merge["by_source"])
+            merged_by_source=merge["by_source"], part2=part2,
+            part2_s=part2_s)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         # later phases start from the recorders' defaults
         flight.reset()
+        prof.reset()
+        health.reset()
         metrics.reset()
     report["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps(report))
+    return part2_s
 
 
 # ---------------------------------------------------------------------------
@@ -9594,6 +10058,7 @@ def serve_gpt2(seed, ledger):
     del engine, plain
     torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {"6": time.perf_counter() - t_phase}}))
+    _phase_done("6", time.perf_counter() - t_phase)
 
     # phase 7: int8 KV cache
     t_phase = time.perf_counter()
@@ -9604,11 +10069,13 @@ def serve_gpt2(seed, ledger):
     del engine
     torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {"7": time.perf_counter() - t_phase}}))
+    _phase_done("7", time.perf_counter() - t_phase)
 
     # phase 8: over HTTP, from replica processes
     t_phase = time.perf_counter()
     serve_http(seed, cfg, model, prompts, batched)
     print(json.dumps({"phase_s": {"8": time.perf_counter() - t_phase}}))
+    _phase_done("8", time.perf_counter() - t_phase)
     del model
     torch.cuda.empty_cache()
 
@@ -9890,6 +10357,34 @@ def check_graph_eviction(mlp_dir):
             "pinned_bytes_max": peak, "pinned_bytes_bound": bound}
 
 
+def _front_door_health(addr):
+    """``GET /health`` and ``/healthz`` on phase 8's front door with this
+    process's health monitor on: a verdict ("ok", no alert), not "off".
+    The monitor is reset after."""
+    import urllib.request
+
+    from horovod_tpu_torch import health
+    from horovod_tpu_torch.utils import metrics
+
+    health.configure(enabled_override=True, endpoint=None,
+                     interval_s=3600.0, capture=False)
+    try:
+        with urllib.request.urlopen(f"http://{addr}/health",
+                                    timeout=10) as r:
+            verdict = json.loads(r.read())
+        with urllib.request.urlopen(f"http://{addr}/healthz",
+                                    timeout=10) as r:
+            probe = json.loads(r.read())
+    finally:
+        health.reset()
+        metrics.reset()
+    _require(verdict == {"health": "ok", "alerts_active": 0, "alerts": []}
+             and probe["health"] == "ok" and probe["status"] == "ok",
+             f"phase 8: the front door's /health {verdict}, /healthz "
+             f"{probe}")
+    return verdict
+
+
 def serve_http(seed, cfg, model, prompts, want):
     """Phase 8. Phase 6's GPT-2 small saved with ``checkpoint.save_model``
     and its serving metadata; a ``--registry``, two ``--decode``
@@ -9999,6 +10494,7 @@ def serve_http(seed, cfg, model, prompts, want):
         stats_c = _http_round("(c) after the drain", res, wall, want)
         _require(0 in rs.dead and 1 not in rs.dead,
                  f"phase 8 (c): dead replicas {rs.dead}")
+        door_health = _front_door_health(addr)
 
         # (d)
         workers = client.wait_for_workers(SERVING_KIND, 1, timeout_s=60.0)
@@ -10011,6 +10507,7 @@ def serve_http(seed, cfg, model, prompts, want):
             "graph_eviction": evict_mb, "mesh_engine": mesh_engine,
             "replicas_ready_s": ready, "sigterm_to_exit_83_s": exit_s,
             "dead": rs.dead, "predict_batch_fill": fills,
+            "front_door_health": door_health,
             "rounds": [stats_a["tokens_per_s"], stats_b["tokens_per_s"],
                        stats_c["tokens_per_s"]]}}))
     finally:
@@ -10337,7 +10834,25 @@ def _cuobjdump():
     return next((c for c in cands if os.path.exists(c)), None)
 
 
-def print_sass_mma(_build, names):
+def start_sass(_build, names):
+    """Start one ``cuobjdump -sass`` a named library, all at once, each
+    writing a temporary file (``print_sass_mma`` reads them). None where
+    cuobjdump is absent."""
+    import tempfile
+
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    started = {}
+    for name in names:
+        out = tempfile.TemporaryFile("w+")  # a pipe would block it
+        started[name] = (subprocess.Popen(
+            [tool, "-sass", str(_build._target(name))], stdout=out,
+            stderr=subprocess.DEVNULL, text=True), out)
+    return tool, started
+
+
+def print_sass_mma(started):
     """Count the tensor-core instructions in each kernel's SASS of the
     named libraries, with ``cuobjdump`` where it is installed:
     ``mma.sync``'s ``HMMA`` and ``wgmma``'s ``HGMMA`` (the substring
@@ -10345,17 +10860,20 @@ def print_sass_mma(_build, names):
     not use the tensor cores. Also counts its local-memory (register
     spill) instructions ``LDL``/``STL``, and how many of them lie inside
     a loop (between a backward branch and its target), where they cost
-    on every iteration. Informational; never fails."""
-    tool = _cuobjdump()
-    if tool is None:
+    on every iteration, from the disassemblies ``start_sass`` started.
+    Informational; never fails."""
+    if started is None:
         print("sass: cuobjdump is absent (CUDA toolkit, triton); HMMA "
               "and HGMMA counts not read")
         return
-    for name in names:
-        res = subprocess.run([tool, "-sass", str(_build._target(name))],
-                             capture_output=True, text=True, timeout=300)
+    tool, procs = started
+    for name, (proc, out) in procs.items():
+        proc.wait(timeout=300)
+        out.seek(0)
+        stdout = out.read()
+        out.close()
         counts, fn, local, loops = {}, None, {}, {}
-        for line in res.stdout.splitlines():
+        for line in stdout.splitlines():
             if "Function :" in line:
                 fn = _kernel_name(line.split("Function :")[1].strip())
                 counts[fn] = {"HMMA": 0, "HGMMA": 0}
@@ -10377,7 +10895,7 @@ def print_sass_mma(_build, names):
             counts[fn]["LDL+STL in loops"] = sum(
                 any(lo <= x <= hi for lo, hi in loops[fn]) for x in at)
         print(json.dumps({"sass_mma": name, "tool": tool,
-                          "rc": res.returncode, "counts": counts}))
+                          "rc": proc.returncode, "counts": counts}))
 
 
 KERNELS = [
@@ -10489,6 +11007,8 @@ def main(argv=None) -> int:
                     help="phase 4l (d)'s process (eager_stall_worker), "
                          "not a smoke")
     args = ap.parse_args(argv)
+    global SMOKE_T0
+    SMOKE_T0 = time.perf_counter()
 
     # phase 1
     if not torch.cuda.is_available():
@@ -10522,16 +11042,46 @@ def main(argv=None) -> int:
         profiler_probe(args.profiler_probe)
         return 0
 
-    # phase 2
+    # phase 2: the kernels' build; in a whole smoke phase 5b beside it,
+    # whose Inception V3 and VGG-16 run no kernel of the port, on the
+    # card while nvcc compiles on the host's cores
+    import threading
+
     from horovod_tpu_torch.ops import _build
 
+    ledger = {}
+    whole = not (args.profiles or args.adasum_sweep or args.mesh_sweep
+                 or args.pipe_sweep or args.fsdp_sweep or args.parity_sweep)
+    names = (PROFILE_KERNELS if args.profiles
+             else ADASUM_KERNELS if args.adasum_sweep
+             else TRAIN_KERNELS if args.mesh_sweep or args.pipe_sweep
+             or args.fsdp_sweep else None)
+    secs, failed, built_at = {}, [], []
+
+    def build():
+        try:
+            secs.update(_build.build(names))
+            built_at.append(time.perf_counter())
+        except BaseException as e:  # raised again below, after the join
+            failed.append(e)
+
     t0 = time.perf_counter()
-    secs = _build.build(PROFILE_KERNELS if args.profiles
-                        else ADASUM_KERNELS if args.adasum_sweep
-                        else TRAIN_KERNELS if args.mesh_sweep
-                        or args.pipe_sweep or args.fsdp_sweep else None)
-    print(f"build: {time.perf_counter() - t0:.2f} s wall "
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
+    try:
+        if whole:
+            t5b = time.perf_counter()
+            train_cnns(ledger)
+            cnn_s = round(time.perf_counter() - t5b, 2)
+            _phase_done("5b", cnn_s)
+    finally:
+        build_thread.join()
+    if failed:
+        raise failed[0]
+    print(f"build: {built_at[0] - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    print(json.dumps({"build_cpu_s": {
+        k: round(v, 2) for k, v in _build.CPU_SECONDS.items()}}))
     if args.profiles:
         profiles(args.seed)
         return 0
@@ -10548,14 +11098,23 @@ def main(argv=None) -> int:
         fsdp_sweep(args.fsdp_sweep)
         return 0
     print_ptxas(_build, secs)
-    print_sass_mma(_build, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                            "append_attend", "append_attend_int8",
-                            "matmul_pack"))
+    # all disassembled at once, and done before phase 3's profiler
+    # windows: a loaded host may lose a window's device records
+    print_sass_mma(start_sass(_build, (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "append_attend",
+        "append_attend_int8", "matmul_pack")))
     if args.parity_sweep:
         parity_sweep(args.parity_sweep)
         return 0
 
+    seconds = {"1": round(t0 - SMOKE_T0, 2),
+               "2": round(time.perf_counter() - t0, 2)}
+    _phase_done("2", seconds["2"])
+    if whole:
+        seconds["5b (inside 2)"] = cnn_s
+
     # phase 3
+    t0 = time.perf_counter()
     checks = {
         **check_flash(args.seed),
         "layernorm_fwd": check_layernorm(args.seed),
@@ -10571,14 +11130,15 @@ def main(argv=None) -> int:
         for c in cases:
             print(json.dumps({"kernel": name, **c}))
     check_fused_ce(args.seed)
+    seconds["3"] = round(time.perf_counter() - t0, 2)
+    _phase_done("3", seconds["3"])
 
     # phases 4 and 5: training; phases 6, 7 and 8: serving
-    ledger, seconds = {}, {}
-
     def timed(name, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
         seconds[name] = round(time.perf_counter() - t0, 2)
+        _phase_done(name, seconds[name])
         return out
 
     in_process_rate, in_process_losses = timed("4", train_gpt2, args.seed,
@@ -10599,9 +11159,12 @@ def main(argv=None) -> int:
     timed("4m", train_mesh, args.seed, ledger, in_process_losses)
     timed("4n", train_pipeline, args.seed, ledger, in_process_losses)
     timed("4o", train_fsdp_axis, args.seed, ledger, in_process_losses)
-    timed("4p", train_observed, args.seed, ledger, in_process_losses)
+    # 4p's seconds without (f) and (g), which have their own entry
+    part2_s = timed("4p", train_observed, args.seed, ledger,
+                    in_process_losses)
+    seconds["4p"] = round(seconds["4p"] - part2_s, 2)
+    seconds["4p (f), (g)"] = round(part2_s, 2)
     timed("5", train_resnet, args.seed, ledger)
-    timed("5b", train_cnns, ledger)
     timed("5c", train_mnist_and_entry, ledger)
     timed("6-8", serve_gpt2, args.seed, ledger)
     print(json.dumps({"phase_seconds": seconds}))

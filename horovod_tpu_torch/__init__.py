@@ -49,10 +49,14 @@ NVIDIA Hopper GPUs:
 * **observability**: ``hvd.metrics`` (counters, gauges, histograms,
   the per-step JSONL of ``with hvd.metrics.step():``, the Prometheus
   exposition and its push to the launcher's ``/metrics``), the host
-  timeline (``HOROVOD_TIMELINE``, :func:`start_timeline`) and the flight
-  recorder (``utils/flight.py``), read offline by ``python -m
-  horovod_tpu_torch.tools.metrics_summary``, ``flight_analyze`` and
-  ``trace_merge``;
+  timeline (``HOROVOD_TIMELINE``, :func:`start_timeline`), the flight
+  recorder (``utils/flight.py``), the sampled step profiler
+  (``hvd.prof``, ``HOROVOD_PROF_EVERY``: a ``torch.profiler`` window
+  every N steps, its attribution and ``hvd_mfu``) and the fleet-health
+  monitor (``hvd.health``, ``HOROVOD_HEALTH``: detectors, SLO rules,
+  ``GET /health``), read offline by ``python -m
+  horovod_tpu_torch.tools.metrics_summary``, ``flight_analyze``,
+  ``trace_merge`` and ``device_summary``;
 * **serving**: continuous-batching decode
   (:class:`~horovod_tpu_torch.serving.scheduler.DecodeScheduler`) over a
   slotted KV cache
@@ -135,7 +139,9 @@ from .parallel.train import make_lm_train_step
 from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
 from .serving.scheduler import DecodeScheduler, GenRequest
 from .sync_batch_norm import SyncBatchNorm
+from . import health  # hvd.health.verdict(), summary(), ...
 from .utils import metrics  # hvd.metrics.step(), scrape(), ...
+from .utils import prof  # hvd.prof.set_step_flops(), summary(), ...
 
 
 def start_timeline(filename: str, mark_cycles: bool = False) -> None:
@@ -195,7 +201,7 @@ __all__ = [
     "flash_attention", "flash_attention_bhtd", "make_flash_attention_fn",
     "SyncBatchNorm",
     # observability
-    "metrics", "start_timeline", "stop_timeline",
+    "metrics", "prof", "health", "start_timeline", "stop_timeline",
     # models
     "params_from_flax", "params_to_flax", "resnet_from_flax",
     "resnet_to_flax", "GPT2_SMALL", "GPT2_MEDIUM", "Transformer",

@@ -248,13 +248,19 @@ def _configure_control_plane(knobs: Knobs) -> None:
 
 def _configure_telemetry(st) -> None:
     """The host timeline (``HOROVOD_TIMELINE``), metrics
-    (``HOROVOD_METRICS``, ``HOROVOD_TPU_METRICS_FILE``) and the flight
-    recorder (on unless ``HOROVOD_FLIGHT_RECORDER=0``), in the JAX
-    package's order (``horovod_tpu/core/basics.py:212-236``), before the
-    eager runtime starts. The recorder takes the world's rank first: the
-    timeline's anchor names it (the JAX package reads the rank from the
-    launcher's environment, after its timeline has started)."""
-    from ..utils import flight, metrics
+    (``HOROVOD_METRICS``, ``HOROVOD_TPU_METRICS_FILE``), the flight
+    recorder (on unless ``HOROVOD_FLIGHT_RECORDER=0``), the sampled
+    profiler (``HOROVOD_PROF_EVERY``) and the health monitor
+    (``HOROVOD_HEALTH``), in the JAX package's order
+    (``horovod_tpu/core/basics.py:212-251``), before the eager runtime
+    starts: the profiler after flight, whose rank and sink its sidecar
+    reads, health last, since it installs metrics observers and
+    captures through flight and the profiler. The recorder takes the
+    world's rank first: the timeline's anchor names it (the JAX package
+    reads the rank from the launcher's environment, after its timeline
+    has started), and so does the health monitor's summary."""
+    from .. import health
+    from ..utils import flight, metrics, prof
     from ..utils.timeline import Timeline
 
     flight.set_rank(st.rank)
@@ -262,6 +268,8 @@ def _configure_telemetry(st) -> None:
                            mark_cycles=st.knobs.timeline_mark_cycles)
     metrics.configure(st.knobs)
     flight.configure(st.knobs)
+    prof.configure(st.knobs)
+    health.configure(st.knobs, rank=st.rank)
 
 
 def shutdown() -> None:
@@ -281,9 +289,12 @@ def shutdown() -> None:
             st.eager_runtime.shutdown()
             st.eager_runtime = None
         if st.timeline is not None:
-            st.timeline.stop()
-        from ..utils import flight, metrics
+            st.timeline.close()
+        from .. import health
+        from ..utils import flight, metrics, prof
 
+        health.on_shutdown()  # before metrics: removes its observers
+        prof.on_shutdown()  # before metrics: joins a parse in flight
         metrics.on_shutdown()
         flight.on_shutdown()
         if st.owns_group and dist.is_initialized():

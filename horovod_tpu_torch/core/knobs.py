@@ -207,12 +207,46 @@ class Knobs:
     # this often; 0 = no push
     metrics_push_interval_s: float = 5.0
 
+    # --- sampled step profiler (utils/prof.py) ---
+    # wrap every N-th hvd.metrics.step() in a torch.profiler window,
+    # read its trace off the step's thread (utils/kineto.py) and export
+    # the compute / exposed-wire / idle attribution; 0 = off (no step
+    # hook installed)
+    prof_every: int = 0
+    # the sample root; "" = <tmpdir>/hvd_prof/rank<r>
+    prof_dir: str = ""
+    # the most of the wall time the profiler may take: after a sample
+    # costing T the next waits T*(1/d - 1)
+    prof_duty_cycle: float = 0.02
+
     # --- flight recorder (utils/flight.py) ---
     # on by default: a black box that is off when the plane crashes is
     # no black box
     flight_recorder: bool = True
     flight_dir: str = ""  # dump directory; "" = <tmpdir>/hvd_flight
     flight_capacity: int = 4096  # events kept in the ring
+
+    # --- fleet-health monitor (health/) ---
+    # live straggler and anomaly detection and SLO alerting over the
+    # step and serving streams; off by default (the metrics-side
+    # observer slots stay None)
+    health_enabled: bool = False
+    # the rank summary's publish cadence to the fleet evaluator (the
+    # metrics push's endpoint); also the serving rules' evaluation tick
+    health_interval_s: float = 2.0
+    # the detectors' window (steps) and their warm-up before an anomaly
+    health_window: int = 32
+    health_min_steps: int = 8
+    # the step-time factor over the rolling median (or the autotuner's
+    # persisted baseline)
+    health_step_time_factor: float = 1.75
+    # the rule spec (health/rules.py grammar); "" = DEFAULT_RULES
+    health_rules: str = ""
+    # the incident JSONL (fire and clear transitions); "" = the step
+    # log's event lines only
+    health_incident_file: str = ""
+    # on a firing rule: a flight dump and a forced profiler sample
+    health_capture: bool = True
 
     # --- fault injection (utils/faults.py) ---
     # canonical env HOROVOD_TPU_FAULT_SPEC; empty = disabled no-op
@@ -305,6 +339,18 @@ class Knobs:
             flight_recorder=_env_bool("FLIGHT_RECORDER", True),
             flight_dir=_env("FLIGHT_DIR", "") or "",
             flight_capacity=_env_int("FLIGHT_CAPACITY", 4096),
+            prof_every=_env_int("PROF_EVERY", 0),
+            prof_dir=_env("PROF_DIR", "") or "",
+            prof_duty_cycle=_env_float("PROF_DUTY_CYCLE", 0.02),
+            health_enabled=_env_bool("HEALTH", False),
+            health_interval_s=_env_float("HEALTH_INTERVAL_S", 2.0),
+            health_window=_env_int("HEALTH_WINDOW", 32),
+            health_min_steps=_env_int("HEALTH_MIN_STEPS", 8),
+            health_step_time_factor=_env_float(
+                "HEALTH_STEP_TIME_FACTOR", 1.75),
+            health_rules=_env("HEALTH_RULES", "") or "",
+            health_incident_file=_env("HEALTH_INCIDENT_FILE", "") or "",
+            health_capture=_env_bool("HEALTH_CAPTURE", True),
             # canonical name first so it wins when both are set
             fault_spec=(os.environ.get("HOROVOD_TPU_FAULT_SPEC", "")
                         or _env("FAULT_SPEC") or ""),

@@ -726,29 +726,108 @@ struct FpDecodeRows {
   }
 };
 
+// The decode and prefill routes of one cache dtype, over both head dims.
+template <typename TC>
+cudaError_t decode_route(const void* q, void* kc, void* vc,
+                         long long slot_stride, const void* kn,
+                         const void* vn, const int* pos, void* out, int B,
+                         int T, int H, int KH, int M, int D, float scale,
+                         int device, cudaStream_t stream, int* cluster) {
+  return routed_head_dim(D, [&](auto dd) {
+    constexpr int kD = decltype(dd)::value;
+    using Rows = FpDecodeRows<TC>;
+    return launch_decode<Rows, kD>(
+        q, typename Rows::Cache{static_cast<TC*>(kc), static_cast<TC*>(vc),
+                                slot_stride},
+        kn, vn, pos, out, B, T, H, KH, M, scale, device, stream, cluster);
+  });
+}
+
+template <typename TC>
+cudaError_t prefill_route(const void* q, void* kc, void* vc,
+                          long long slot_stride, const void* kn,
+                          const void* vn, const int* pos, void* out, int B,
+                          int T, int H, int KH, int M, int D, float scale,
+                          cudaStream_t stream) {
+  return routed_head_dim(D, [&](auto dd) {
+    constexpr int kD = decltype(dd)::value;
+    return launch_prefill<TC, kD>(q, kc, vc, slot_stride, kn, vn, pos, out,
+                                  B, T, H, KH, M, scale, stream);
+  });
+}
+
+}  // namespace
+
+// The build compiles this file as five translation units at once
+// (ops/_build.py PARTS, -DHVD_PART=k), each emitting one share of the
+// routes' kernels: part 0 the entry point and the CUDA cores' kernels,
+// parts 1 and 2 the decode route over a bf16 and a float32 cache, parts
+// 3 and 4 the prefill route over them. Without HVD_PART one unit emits
+// them all.
+#ifdef HVD_PART
+#define HVD_EMITS_PART(k) (HVD_PART == (k))
+#else
+#define HVD_EMITS_PART(k) 1
+#endif
+
+namespace append_attend_parts {
+
+#define HVD_ROUTE_ARGS                                                     \
+  const void *q, void *kc, void *vc, long long slot_stride, const void *kn, \
+      const void *vn, const int *pos, void *out, int B, int T, int H,      \
+      int KH, int M, int D, float scale
+#define HVD_ROUTE_PASS \
+  q, kc, vc, slot_stride, kn, vn, pos, out, B, T, H, KH, M, D, scale
+
+cudaError_t decode_bf16_cache(HVD_ROUTE_ARGS, int device,
+                              cudaStream_t stream, int* cluster);
+cudaError_t decode_f32_cache(HVD_ROUTE_ARGS, int device,
+                             cudaStream_t stream, int* cluster);
+cudaError_t prefill_bf16_cache(HVD_ROUTE_ARGS, cudaStream_t stream);
+cudaError_t prefill_f32_cache(HVD_ROUTE_ARGS, cudaStream_t stream);
+
+#if HVD_EMITS_PART(1)
+cudaError_t decode_bf16_cache(HVD_ROUTE_ARGS, int device,
+                              cudaStream_t stream, int* cluster) {
+  return decode_route<bf16>(HVD_ROUTE_PASS, device, stream, cluster);
+}
+#endif
+
+#if HVD_EMITS_PART(2)
+cudaError_t decode_f32_cache(HVD_ROUTE_ARGS, int device,
+                             cudaStream_t stream, int* cluster) {
+  return decode_route<float>(HVD_ROUTE_PASS, device, stream, cluster);
+}
+#endif
+
+#if HVD_EMITS_PART(3)
+cudaError_t prefill_bf16_cache(HVD_ROUTE_ARGS, cudaStream_t stream) {
+  return prefill_route<bf16>(HVD_ROUTE_PASS, stream);
+}
+#endif
+
+#if HVD_EMITS_PART(4)
+cudaError_t prefill_f32_cache(HVD_ROUTE_ARGS, cudaStream_t stream) {
+  return prefill_route<float>(HVD_ROUTE_PASS, stream);
+}
+#endif
+
+#if HVD_EMITS_PART(0)
 // bf16 compute: the tensor-core prefill (T >= kPrefillMinT) or the
 // cluster decode route (fewer rows) where the shapes allow; a call either
 // refuses runs on the CUDA cores.
-template <typename TC>
-cudaError_t launch_bf16(const void* q, void* kc, void* vc,
-                        long long slot_stride, const void* kn, const void* vn,
-                        const int* pos, void* out, int B, int T, int H,
-                        int KH, int M, int D, float scale, int device,
+cudaError_t launch_bf16(HVD_ROUTE_ARGS, int c_dtype, int device,
                         cudaStream_t stream, int* route, int* cluster) {
+  const long long c_bytes = c_dtype == kBF16 ? 2 : 4;
   const bool rows16 =
       aligned16(q) && aligned16(kc) && aligned16(vc) && aligned16(kn) &&
-      aligned16(vn) && aligned16(out) &&
-      (slot_stride * (long long)sizeof(TC)) % 16 == 0;
+      aligned16(vn) && aligned16(out) && (slot_stride * c_bytes) % 16 == 0;
   const bool mma_dim = D == 64 || D == 128;
   if (rows16 && mma_dim && T < kPrefillMinT) {
-    const cudaError_t err = routed_head_dim(D, [&](auto dd) {
-      constexpr int kD = decltype(dd)::value;
-      using Rows = FpDecodeRows<TC>;
-      return launch_decode<Rows, kD>(
-          q, typename Rows::Cache{static_cast<TC*>(kc), static_cast<TC*>(vc),
-                                  slot_stride},
-          kn, vn, pos, out, B, T, H, KH, M, scale, device, stream, cluster);
-    });
+    const cudaError_t err =
+        c_dtype == kBF16
+            ? decode_bf16_cache(HVD_ROUTE_PASS, device, stream, cluster)
+            : decode_f32_cache(HVD_ROUTE_PASS, device, stream, cluster);
     if (err != cudaErrorNotSupported) {
       *route = kRouteDecode;
       return err;
@@ -762,20 +841,20 @@ cudaError_t launch_bf16(const void* q, void* kc, void* vc,
     }) == cudaSuccess;
     if (fits) {
       *route = kRoutePrefill;
-      return routed_head_dim(D, [&](auto dd) {
-        constexpr int kD = decltype(dd)::value;
-        return launch_prefill<TC, kD>(q, kc, vc, slot_stride, kn, vn, pos,
-                                      out, B, T, H, KH, M, scale, stream);
-      });
+      return c_dtype == kBF16 ? prefill_bf16_cache(HVD_ROUTE_PASS, stream)
+                              : prefill_f32_cache(HVD_ROUTE_PASS, stream);
     }
   }
   *route = kRouteCudaCores;
-  return launch_cuda_cores<bf16, TC>(q, kc, vc, slot_stride, kn, vn, pos,
-                                     out, B, T, H, KH, M, D, scale, stream);
+  if (c_dtype == kBF16)
+    return launch_cuda_cores<bf16, bf16>(HVD_ROUTE_PASS, stream);
+  return launch_cuda_cores<bf16, float>(HVD_ROUTE_PASS, stream);
 }
+#endif
 
-}  // namespace
+}  // namespace append_attend_parts
 
+#if HVD_EMITS_PART(0)
 // q, out: [B, T, H, D] contiguous, dtype q_dtype (also the dtype of the
 // new rows kn, vn: [B, T, KH, D] contiguous, and the compute dtype).
 // kc, vc: one layer's view of the cache, element (b, kh, m, d) at
@@ -797,12 +876,11 @@ extern "C" int hvd_append_attend(const void* q, void* kc, void* vc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *route = kRouteCudaCores;
   *cluster = 0;
-  if (q_dtype == kBF16 && c_dtype == kBF16)
-    return launch_bf16<bf16>(q, kc, vc, slot_stride, kn, vn, p, out, B, T, H,
-                             KH, M, D, scale, device, s, route, cluster);
-  if (q_dtype == kBF16 && c_dtype == kF32)
-    return launch_bf16<float>(q, kc, vc, slot_stride, kn, vn, p, out, B, T,
-                              H, KH, M, D, scale, device, s, route, cluster);
+  if (q_dtype == kBF16 && (c_dtype == kBF16 || c_dtype == kF32))
+    return append_attend_parts::launch_bf16(q, kc, vc, slot_stride, kn, vn,
+                                            p, out, B, T, H, KH, M, D, scale,
+                                            c_dtype, device, s, route,
+                                            cluster);
   if (q_dtype == kF32 && c_dtype == kF32)
     return launch_cuda_cores<float, float>(q, kc, vc, slot_stride, kn, vn, p,
                                            out, B, T, H, KH, M, D, scale, s);
@@ -811,3 +889,4 @@ extern "C" int hvd_append_attend(const void* q, void* kc, void* vc,
                                           out, B, T, H, KH, M, D, scale, s);
   return cudaErrorInvalidValue;
 }
+#endif

@@ -12,9 +12,13 @@
 // dtype codes passed by the Python wrappers
 enum HvdDtype : int { kF32 = 0, kBF16 = 1 };
 
+// One definition a library: a source built as several translation units
+// (ops/_build.py PARTS, -DHVD_PART=k) defines it in its part 0.
+#if !defined(HVD_PART) || HVD_PART == 0
 extern "C" const char* hvd_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

@@ -264,6 +264,35 @@ cudaError_t launch(const void* x, const void* dy, const float* gamma,
 
 }  // namespace
 
+// The build compiles this file as two translation units at once
+// (ops/_build.py PARTS, -DHVD_PART=k): part 0 the entry point and the
+// bf16 kernels, part 1 the float32 kernels. Without HVD_PART one unit
+// emits both.
+#ifdef HVD_PART
+#define HVD_EMITS_PART(k) (HVD_PART == (k))
+#else
+#define HVD_EMITS_PART(k) 1
+#endif
+
+namespace layernorm_bwd_parts {
+
+#define HVD_LN_ARGS                                                        \
+  const void *x, const void *dy, const float *gamma, void *dx, float *dg,  \
+      float *db, float *dg_part, float *db_part, unsigned int *ticket,     \
+      int n, int c, int blocks, float eps, int rms, cudaStream_t stream
+#define HVD_LN_PASS \
+  x, dy, gamma, dx, dg, db, dg_part, db_part, ticket, n, c, blocks, eps, \
+      rms, stream
+
+cudaError_t launch_f32(HVD_LN_ARGS);
+
+#if HVD_EMITS_PART(1)
+cudaError_t launch_f32(HVD_LN_ARGS) { return launch<float>(HVD_LN_PASS); }
+#endif
+
+}  // namespace layernorm_bwd_parts
+
+#if HVD_EMITS_PART(0)
 // x, dy, dx: [n, c] contiguous, dtype `dtype` (kF32 / kBF16), c <= 4096;
 // gamma, dg, db: [c] float32 (db and db_part null without a beta);
 // dg_part, db_part: [blocks, c] float32 scratch; ticket: one zeroed
@@ -290,7 +319,8 @@ extern "C" int hvd_layernorm_bwd(const void* x, const void* dy,
     return launch<__nv_bfloat16>(x, dy, g, dx, dgf, dbf, dgp, dbp, tk, n, c,
                                  blocks, eps, rms, s);
   if (dtype == kF32)
-    return launch<float>(x, dy, g, dx, dgf, dbf, dgp, dbp, tk, n, c, blocks,
-                         eps, rms, s);
+    return layernorm_bwd_parts::launch_f32(x, dy, g, dx, dgf, dbf, dgp, dbp,
+                                           tk, n, c, blocks, eps, rms, s);
   return cudaErrorInvalidValue;
 }
+#endif

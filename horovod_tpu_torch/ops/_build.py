@@ -5,7 +5,12 @@ Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, and
 loaded with ``ctypes``. The hash covers the source, the shared headers
 and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Several sources build in parallel, one ``nvcc`` each.
+never loaded. Several sources build in parallel, one ``nvcc`` each; a
+source in ``PARTS`` is compiled as several translation units at once,
+each with ``-DHVD_PART=k`` (the source emits one share of its template
+instantiations a part, and all of them without the define), then linked
+into its one library, so its compile does not set the build's wall
+time alone.
 
 No ``--use_fast_math``: the int8 cache's quantize-on-write and the int8
 wire's kernels need IEEE division and ``rintf`` to stay bitwise equal
@@ -43,6 +48,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: kernel source -> the translation units it is compiled as (see above)
+PARTS = {"append_attend": 5, "layernorm_bwd": 2}
+
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "layernorm_fwd": 0,
@@ -64,8 +72,13 @@ LAUNCHES: Dict[str, int] = {
     "matmul_pack": 0,
 }
 
+#: CPU seconds (user + system, with the compiler's own children) of each
+#: kernel source's last ``nvcc`` in this process
+CPU_SECONDS: Dict[str, float] = {}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_BUILDING = threading.Lock()
 
 
 _COUNT_LOCK = threading.Lock()
@@ -112,7 +125,22 @@ def _target(name: str) -> Path:
         h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(name, 1)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _compiles(name: str, tmp: Path):
+    """``[(command, output)]`` of one source's compile: one command
+    writing the library, or one a part writing its object file."""
+    src = str(CSRC / f"{name}.cu")
+    n = PARTS.get(name, 1)
+    if n == 1:
+        return [([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                  src], tmp)]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return [([_nvcc(), *flags, f"-DHVD_PART={k}", "-c", "-I", str(CSRC),
+              "-o", str(tmp.with_suffix(f".{k}.o")), src],
+             tmp.with_suffix(f".{k}.o")) for k in range(n)]
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -122,28 +150,75 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     output when a build fails. The ptxas report (registers, shared
     memory, spills) is kept beside each library as ``<name>.log``."""
     names = list(sources()) if names is None else list(names)
+    with _BUILDING:  # a build on another thread finishes first
+        return _build(names)
+
+
+def _build(names) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
     seconds = {}
+    jobs = {}  # name -> (tmp, target, t0, [(command, output)])
     for name in names:
         target = _target(name)
         if target.exists():
             seconds[name] = 0.0
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        jobs[name] = (tmp, target, time.perf_counter(), _compiles(name, tmp))
+    results = {}  # (name, k) -> (exit code, output)
+    tally = threading.Lock()  # not _LOCK, which library() holds here
+
+    # the compiles at a lower priority than their caller, which may run
+    # work of its own on the same cores meanwhile (nvcc's children
+    # inherit it)
+    nice = shutil.which("nice")
+    prefix = [nice, "-n", "10"] if nice else []
+
+    def run(name, k, cmd, t0):
+        # each nvcc's own wall seconds and its CPU seconds, children
+        # included; a split source's wall runs to its last part
+        proc = subprocess.Popen(prefix + cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, target, time.perf_counter())
+        out = proc.stdout.read()
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        cpu = usage.ru_utime + usage.ru_stime
+        with tally:
+            results[(name, k)] = (proc.returncode, out)
+            seconds[name] = max(seconds.get(name, 0.0),
+                                time.perf_counter() - t0)
+            CPU_SECONDS[name] = CPU_SECONDS.get(name, 0.0) + cpu
+            if len(jobs[name][3]) > 1:
+                CPU_SECONDS[f"{name}.{k}"] = cpu
+
+    for name in jobs:
+        CPU_SECONDS.pop(name, None)
+    waiters = [threading.Thread(target=run, args=(name, k, cmd, t0))
+               for name, (_, _, t0, cmds) in jobs.items()
+               for k, (cmd, _) in enumerate(cmds)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failures = []
-    for name, (proc, tmp, target, t0) in started.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_text(out)
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu "
-                            f"(exit {proc.returncode}):\n{out}")
+    for name, (tmp, target, t0, cmds) in jobs.items():
+        outs = [results[(name, k)] for k in range(len(cmds))]
+        log = "".join(out for _, out in outs)
+        ok = all(rc == 0 for rc, _ in outs)
+        if ok and len(cmds) > 1:
+            # the parts' objects into the one library
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+                 *(str(o) for _, o in cmds)], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            ok = link.returncode == 0
+            seconds[name] = time.perf_counter() - t0
+        for _, o in cmds:
+            if o != tmp:
+                o.unlink(missing_ok=True)
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if not ok:
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, target)

@@ -30,14 +30,16 @@ the telemetry routes (``horovod_tpu/runner/http/http_server.py:138-166,
 * ``GET /clock``: ``{"time_unix": ...}``, the flight recorder's clock
   alignment ping;
 * ``PUT /flight/<rank>`` stores a flight dump and stamps its receipt
-  (``{"recv_time_unix", "bytes"}``) under ``flight_meta/<rank>``.
+  (``{"recv_time_unix", "bytes"}``) under ``flight_meta/<rank>``;
+* ``GET /health``: the fleet-health verdict (``health/fleet.py``) over
+  every rank's summary pushed to ``/health/<rank>`` (which a GET reads
+  back raw), naming suspected straggler ranks.
 
-``RendezvousServer.init`` drops the ``flight``, ``flight_meta`` and
-``metrics_push`` scopes of the round before (the elastic driver writes
-the dumps to disk first). Not here: the JAX server's sharded root tier
-(``ShardReplica``, ``replica_main``, relay batches, ``/shard_map``, the
-request count; ROADMAP queue A entry 14), and its ``GET /health`` and
-the health scope's clearing (entry 13, part 2).
+``RendezvousServer.init`` drops the ``flight``, ``flight_meta``,
+``metrics_push`` and ``health`` scopes of the round before (the elastic
+driver writes the dumps to disk first). Not here: the JAX server's
+sharded root tier (``ShardReplica``, ``replica_main``, relay batches,
+``/shard_map``, the request count; ROADMAP queue A entry 14).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
+from ...health.fleet import HEALTH_SCOPE, evaluate_store
 from ...utils import faults, metrics
 from ...utils.flight import FLIGHT_SCOPE
 from ..util.hosts import SlotInfo
@@ -95,6 +98,14 @@ class _KVHandler(BaseHTTPRequestHandler):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+            return
+        if path == "/health":
+            # one path segment, like /metrics; GET /health/<rank> reads
+            # one raw summary through the scope namespace
+            with self.server.lock:  # type: ignore[attr-defined]
+                pushed = dict(self.server.store.get(  # type: ignore
+                    HEALTH_SCOPE, {}))
+            self._reply(200, json.dumps(evaluate_store(pushed)).encode())
             return
         if path == "/clock":
             self._reply(200, json.dumps({"time_unix": time.time()}).encode())
@@ -354,11 +365,13 @@ class RendezvousServer(KVStoreServer):
                     slot.to_response_string().encode()
                 )
             # a new round is a new incarnation of the workers: the last
-            # round's dumps would skew straggler attribution, and
-            # departed ranks' pushes would serve on the scrape forever
-            # (the elastic driver persists the dumps before this)
+            # round's dumps would skew straggler attribution, departed
+            # ranks' pushes would serve on the scrape forever, and their
+            # last health summaries would read as silent (suspected)
+            # ranks on every later verdict (the elastic driver persists
+            # the dumps before this)
             for stale in (FLIGHT_SCOPE, FLIGHT_META_SCOPE,
-                          metrics.METRICS_PUSH_SCOPE):
+                          metrics.METRICS_PUSH_SCOPE, HEALTH_SCOPE):
                 self.store.pop(stale, None)
         self._round += 1
         # persist the new round before workers can see it: a driver crash

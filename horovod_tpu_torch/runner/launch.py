@@ -24,14 +24,16 @@ environment starts it), and every slot gets the runtime's coordinator
 address (``runner/exec_run.py``).
 
 ``--timeline-filename``, ``--timeline-mark-cycles``,
-``--flight-recorder``/``--no-flight-recorder`` and ``--flight-dir`` set
-the workers' telemetry knobs (``HOROVOD_TIMELINE*``,
-``HOROVOD_FLIGHT_*``); every launch runs a rendezvous store whose
-``/metrics`` merges the workers' pushes and whose ``/flight/<rank>``
-holds their dumps (``runner/exec_run.py``).
+``--flight-recorder``/``--no-flight-recorder``, ``--flight-dir``,
+``--prof-every``, ``--prof-dir`` and ``--prof-duty-cycle`` set the
+workers' telemetry knobs (``HOROVOD_TIMELINE*``, ``HOROVOD_FLIGHT_*``,
+``HOROVOD_PROF_*``); every launch runs a rendezvous store whose
+``/metrics`` merges the workers' pushes, whose ``/flight/<rank>`` holds
+their dumps and whose ``/health`` judges their health summaries
+(``runner/exec_run.py``).
 
 A flag whose feature the port does not have yet — the sharded control
-plane, autotune, the sampled step profiler — is
+plane, autotune — is
 refused when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -61,7 +63,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
     12: "autotune",
-    13: "observability, part 2: the sampled step profiler",
     14: "multipod and the sharded control plane",
 }
 
@@ -73,7 +74,6 @@ UNPORTED = {
     **dict.fromkeys((
         "autotune", "autotune_bayes", "autotune_log", "autotune_cache",
         "autotune_mfu", "autotune_wire"), 12),
-    **dict.fromkeys(("prof_every", "prof_dir", "prof_duty_cycle"), 13),
 }
 
 
@@ -335,7 +335,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--prof-dir", dest="prof_dir",
                    help="Root directory for sampled profiler captures "
                         "(default <tmpdir>/hvd_prof/rank<r>); feed it "
-                        "to scripts/trace_merge.py.")
+                        "to tools.trace_merge --xplane.")
     p.add_argument("--prof-duty-cycle", dest="prof_duty_cycle",
                    type=float,
                    help="Cap on the fraction of wall time the sampled "

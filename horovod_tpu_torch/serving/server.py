@@ -9,8 +9,9 @@ set, every POST body must be accompanied by ``X-Hvd-Auth:
 hex(hmac_sha256(key, body))``. Probe routes stay unauthenticated.
 ``GET /metrics`` answers 404: the serving records and this server's
 exposition come with ROADMAP queue A entry 13, part 3 (the registry and
-``/metrics`` on the rendezvous store came with part 1); ``GET /health``
-answers "off" until the fleet-health monitor (part 2).
+``/metrics`` on the rendezvous store came with part 1). ``GET /health``
+answers this process's fleet-health verdict (``health.verdict()``: off,
+ok or degraded, with the firing rules), which ``/healthz`` folds in.
 
 Protocol (the JAX package's, unchanged)::
 
@@ -52,6 +53,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from .. import health as _health
 from . import tracing
 from .batcher import Draining, QueueFull, RequestTimeout
 
@@ -122,9 +124,9 @@ class _ServingHandler(BaseHTTPRequestHandler):
             self._reply_json(200 if not srv.draining else 503,
                              srv.health())
         elif path == "/health":
-            # the fleet-health verdict (health/*) comes with ROADMAP
-            # queue A entry 13, part 2; until then it is off
-            self._reply_json(200, {"health": "off", "alerts_active": 0})
+            # the verdict alone (the rendezvous store serves the same
+            # route for the training fleet)
+            self._reply_json(200, _health.verdict())
         elif path == "/metrics":
             self._reply_json(404, {"error": "the serving exposition is "
                                             "not ported yet (ROADMAP "
@@ -345,6 +347,10 @@ class ServingServer:
                 h.update(self._health_extra())
             except Exception:
                 pass
+        # the fleet-health verdict beside the slots and the queue, so a
+        # probe reads one route: "health" (off, ok, degraded), the
+        # active alerts' count and names
+        h.update(_health.verdict())
         return h
 
     def _inflight_delta(self, d: int) -> None:

@@ -1,31 +1,34 @@
-"""Merge per-rank host timelines, flight dumps and incident logs into
-ONE clock-aligned Chrome/Perfetto trace.
+"""Merge per-rank host timelines, flight dumps, profiler samples and
+incident logs into ONE clock-aligned Chrome/Perfetto trace.
 
 The port's recorders are separate views: the host timeline
 (``utils/timeline.py``, Chrome JSON per rank on a relative microsecond
-axis) and the flight recorder (``utils/flight.py``, JSONL dumps per
-rank on the wall clock). This tool fuses them:
+axis), the flight recorder (``utils/flight.py``, JSONL dumps per rank on
+the wall clock) and the sampled profiler (``utils/prof.py``, a
+``torch.profiler`` Chrome trace a sampled step with a
+``hvd_prof_meta.json`` sidecar). This tool fuses them:
 
 * every host timeline opens with a ``CLOCK_ANCHOR`` instant mapping its
   relative axis to the rank's wall clock;
-* every flight dump's header carries the rank's clock offset to the
-  rendezvous store (its ``GET /clock``), so the ranks' wall clocks map
-  onto one driver axis.
+* every flight dump's header and every profiler sidecar carries the
+  rank's clock offset to the rendezvous store (its ``GET /clock``), so
+  the ranks' wall clocks map onto one driver axis;
+* a sample's card spans are placed from its sidecar's wall start.
 
 Output is Chrome trace JSON (``traceEvents``) for Perfetto or
-chrome://tracing: one process a rank, with ``host:*``, ``flight`` and
-``incidents`` threads; host spans stay B/E pairs, flight events become
-thread-scoped instants, and health incident records (``--incidents``)
-process-scoped ``rule:state`` annotations. The twin of the JAX
-package's ``scripts/trace_merge.py`` without its device leg: merging a
-device trace (``--xplane`` there, a ``torch.profiler`` trace here)
-comes with the sampled profiler (ROADMAP queue A entry 13, part 2), and
-the flag is refused until then.
+chrome://tracing: one process a rank, with ``host:*``, ``device:*``,
+``flight`` and ``incidents`` threads; host spans stay B/E pairs, card
+spans become X completes, flight events thread-scoped instants, and
+health incident records (``--incidents``) process-scoped ``rule:state``
+annotations. The twin of the JAX package's ``scripts/trace_merge.py``;
+its ``--xplane`` flag keeps its name but reads ``utils/prof.py``'s
+sample directories, each a Chrome trace where the JAX tool reads an
+``.xplane.pb``.
 
 Usage:
     python -m horovod_tpu_torch.tools.trace_merge --out merged.json \\
         --timeline /tmp/t_rank0.json --timeline /tmp/t_rank1.json \\
-        --flight /tmp/hvd_flight
+        --flight /tmp/hvd_flight --xplane /tmp/hvd_prof/rank0
 
 Exit 0 when at least one source merged; the printed report counts
 events by rank and source (``--json`` writes it too).
@@ -39,12 +42,9 @@ import re
 import sys
 from typing import Dict, List, Optional, Tuple
 
+from ..utils import kineto
 from ..utils.flight import parse_dump
-
-#: what ``--xplane`` answers until the device leg is ported
-NO_DEVICE_LEG = ("trace_merge: --xplane (a device trace) is not in "
-                 "horovod_tpu_torch yet: it comes with the sampled "
-                 "profiler, ROADMAP queue A entry 13, part 2")
+from ..utils.prof import SPIN_KERNEL
 
 
 def _rank_from_name(path: str) -> int:
@@ -150,18 +150,76 @@ def load_incidents(path: str) -> List[dict]:
             for rank, evs in sorted(by_rank.items())]
 
 
+def find_prof_samples(root: str) -> List[str]:
+    """Profiler sample directories under a root: any directory holding
+    the ``hvd_prof_meta.json`` sidecar ``utils/prof.py`` writes a
+    capture."""
+    if os.path.isfile(os.path.join(root, "hvd_prof_meta.json")):
+        return [root]
+    return sorted(
+        os.path.dirname(p) for p in glob.glob(
+            os.path.join(root, "**", "hvd_prof_meta.json"),
+            recursive=True)
+    )
+
+
+def load_prof_sample(sample_dir: str) -> Optional[dict]:
+    """One profiler capture → rank, clock offset, the card's spans (the
+    host's, for a capture without a card) placed in the sample's
+    wall-clock window; the profiler's leading spins are left out."""
+    meta = {}
+    try:
+        with open(os.path.join(sample_dir, "hvd_prof_meta.json")) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        pass
+    try:
+        trace, _ = kineto.load_trace(sample_dir)
+    except kineto.TraceUnavailable as e:
+        print(f"trace_merge: {e}", file=sys.stderr)
+        return None
+    ops = (kineto.op_events(trace, skip=(SPIN_KERNEL,))
+           or kineto.op_events(trace, device_ops=False))
+    if not ops:
+        return None
+    rank = int(meta.get("rank", -1))
+    if rank < 0:
+        rank = _rank_from_name(sample_dir)
+    try:
+        t_start = float(meta["t_start_unix"])
+    except (KeyError, TypeError, ValueError):
+        # no wall anchor: the spans would land at the 1970 epoch and
+        # stretch the merged axis by decades; skip loudly instead
+        print(f"trace_merge: {sample_dir} has no usable "
+              "hvd_prof_meta.json wall anchor (torn sidecar?) — "
+              "sample skipped", file=sys.stderr)
+        return None
+    base_us = min(o["start_us"] for o in ops)
+    out = [(t_start + (o["start_us"] - base_us) / 1e6, o) for o in ops]
+    return {
+        "rank": rank,
+        "clock_offset_s": meta.get("clock_offset_s"),
+        "step": meta.get("step"),
+        "events": out,
+        "source": sample_dir,
+    }
+
+
 # ---------------------------------------------------------------------------
 # merge
 # ---------------------------------------------------------------------------
 
 def merge(timelines: List[dict], flights: List[dict],
+          samples: Optional[List[dict]] = None,
           incidents: Optional[List[dict]] = None) -> Tuple[dict, dict]:
     """(chrome_trace, report). Every source's wall stamps shift by its
-    rank's /clock offset (from its flight dump's header; a rank with no
-    probed offset uses 0: one host's ranks share a clock anyway), then
-    the merged axis rebases to the earliest event."""
+    rank's /clock offset (from its flight dump's header or its profiler
+    sidecar; a rank with no probed offset uses 0: one host's ranks share
+    a clock anyway), then the merged axis rebases to the earliest
+    event."""
+    samples = samples or []
     offsets: Dict[int, float] = {}
-    for src in flights:
+    for src in flights + samples:
         off = src.get("clock_offset_s")
         if off is not None and src["rank"] not in offsets:
             offsets[src["rank"]] = float(off)
@@ -175,6 +233,10 @@ def merge(timelines: List[dict], flights: List[dict],
         off = offsets.get(fl["rank"], 0.0)
         for t, e in fl["events"]:
             aligned.append((t + off, fl["rank"], "flight", e))
+    for sm in samples:
+        off = offsets.get(sm["rank"], 0.0)
+        for t, e in sm["events"]:
+            aligned.append((t + off, sm["rank"], "device", e))
     for inc in incidents or []:
         off = offsets.get(inc["rank"], 0.0)
         for t, e in inc["events"]:
@@ -227,11 +289,22 @@ def merge(timelines: List[dict], flights: List[dict],
             if ev["ph"] == "i":
                 ev["s"] = "t"
             trace.append(ev)
+        elif kind == "device":
+            trace.append({
+                "ph": "X",
+                "name": e["name"],
+                "cat": ("collective" if e.get("collective")
+                        else str(e.get("cat", "op"))),
+                "ts": round(ts, 3),
+                "dur": round(e["dur_us"], 3),
+                "pid": rank,
+                "tid": _tid(rank, f"device:{e.get('line', '')}"),
+            })
         elif kind == "incident":
             # annotation track: one process-scoped instant per alert
             # transition, named rule:state so a firing alert reads
-            # straight off the merged axis next to the spans it
-            # implicates
+            # straight off the merged axis next to the host and card
+            # spans it implicates
             trace.append({
                 "ph": "i",
                 "s": "p",
@@ -279,8 +352,9 @@ def main(argv=None) -> int:
                          "(repeatable)")
     ap.add_argument("--xplane", action="append", default=[],
                     metavar="DIR",
-                    help="a device trace: refused until the sampled "
-                         "profiler (ROADMAP queue A entry 13, part 2)")
+                    help="profiler capture dir (utils/prof.py) — a "
+                         "single sample or a rank root of samples "
+                         "(repeatable)")
     ap.add_argument("--incidents", action="append", default=[],
                     metavar="FILE",
                     help="health incident JSONL (or a step log with "
@@ -291,9 +365,6 @@ def main(argv=None) -> int:
     ap.add_argument("--json", dest="json_out", default="",
                     help="also write the merge report JSON here")
     args = ap.parse_args(argv)
-    if args.xplane:
-        print(NO_DEVICE_LEG, file=sys.stderr)
-        return 2
 
     timelines: List[dict] = []
     for pat in args.timeline:
@@ -310,12 +381,18 @@ def main(argv=None) -> int:
             fl = load_flight(path)
             if fl is not None:
                 flights.append(fl)
+    samples: List[dict] = []
+    for root in args.xplane:
+        for d in find_prof_samples(root):
+            sm = load_prof_sample(d)
+            if sm is not None:
+                samples.append(sm)
     incidents: List[dict] = []
     for pat in args.incidents:
         for path in (sorted(glob.glob(pat)) or [pat]):
             incidents.extend(load_incidents(path))
 
-    chrome, report = merge(timelines, flights, incidents)
+    chrome, report = merge(timelines, flights, samples, incidents)
     if not chrome["traceEvents"]:
         print("trace_merge: no events from any source", file=sys.stderr)
         return 1

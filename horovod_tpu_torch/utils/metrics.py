@@ -27,9 +27,13 @@ training (``record_elastic_event``, ``record_recovery_rung``,
 The retry, fault, recovery and elastic records also land in the flight
 recorder (``utils/flight.py``), which has its own gate. Still to come:
 the serving and decode records, the eager runtime's latency histograms
-and native-stats gauges (ROADMAP queue A entry 13, part 3), the
-profiler's MFU and attribution and the health observers (part 2), the
-autotuner's trail (entry 12); the pod label stays unset until entry 14.
+and native-stats gauges and the serving records' call sites (ROADMAP
+queue A entry 13, part 3), the autotuner's trail (entry 12); the pod
+label stays unset until entry 14. The sampled profiler
+(``utils/prof.py``) feeds ``record_mfu`` and ``record_step_attribution``
+through the step wrapper, and the health monitor (``health/``) reads
+each closed step record and serving latency sample through the
+observer slots.
 
 Cost discipline: off by default, and every record function begins with
 ``if not _enabled: return``, so a disabled site costs one predicted
@@ -528,6 +532,8 @@ class StepStats:
         self.wire_sent = 0
         self.queue_depth = 0
         self.elastic_events: List[str] = []
+        self.mfu = None  # model-FLOPs utilization of the step (0..1)
+        self.attribution = None  # the last sampled step's attribution
         self.retries: Dict[str, int] = {}
         self.retry_giveups: Dict[str, int] = {}
 
@@ -566,6 +572,31 @@ class StepStats:
 
     def set_queue_depth(self, n: int) -> None:
         self.queue_depth = int(n)
+
+    def set_mfu(self, mfu: float) -> None:
+        with self._lock:
+            self.mfu = float(mfu)
+
+    def set_attribution(self, attribution: dict) -> None:
+        """The last sampled step's device attribution (``utils/prof.py``).
+        It is parsed off the step's thread, so it lands in the record of
+        the step during which the parse finished; its ``sampled_step``
+        names the step measured."""
+        with self._lock:
+            self.attribution = dict(attribution)
+
+    def emit_event(self, kind: str, payload: dict) -> None:
+        """One out-of-band line in the JSONL, ``{"event": kind, kind:
+        payload}``, written at once rather than at a step's end (a health
+        incident); ``tools.metrics_summary`` keeps such lines apart from
+        the step records."""
+        with self._lock:
+            if self._log_fh is None:
+                return
+            rec = {"event": kind, "time_unix": time.time(),
+                   kind: dict(payload)}
+            self._log_fh.write(json.dumps(rec) + "\n")
+            self._log_fh.flush()
 
     def open_log(self, path: str) -> None:
         with self._lock:
@@ -620,6 +651,10 @@ class StepStats:
                     "logical_bytes": self.wire_logical,
                     "sent_bytes": self.wire_sent,
                 }
+            if self.mfu is not None:
+                record["mfu"] = self.mfu
+            if self.attribution is not None:
+                record["attribution"] = self.attribution
             if self.retries:
                 record["retries"] = dict(self.retries)
             if self.retry_giveups:
@@ -641,18 +676,24 @@ class StepStats:
                 "hvd_step_seconds", "Step wall time").observe(dt)
         obs = _step_observer
         if obs is not None:
-            obs(record)
+            try:
+                obs(record)
+            except Exception:
+                # a broken detector must not take the step loop down
+                pass
         return record
 
 
 step_stats = StepStats()
 
 # the step wrapper (begin_step() -> token, end_step(token)) runs around
-# every ``step()`` body, and the step observer gets each closed record;
-# the profiler and the health monitor (entry 13, part 2) fill them.
+# every ``step()`` body, the step observer gets each closed record and
+# the serving observer each serving latency sample; the profiler
+# (``utils/prof.py``) and the health monitor (``health/``) fill them.
 # None, the default, costs one load and an is-None check a step
 _step_wrapper = None
 _step_observer = None
+_serving_observer = None
 
 
 def set_step_wrapper(wrapper) -> None:
@@ -669,6 +710,14 @@ def set_step_observer(fn) -> None:
     after each record closes, outside the stats lock."""
     global _step_observer
     _step_observer = fn
+
+
+def set_serving_observer(fn) -> None:
+    """Install (or remove, None) the serving-latency observer
+    ``fn(kind, slo, seconds)``, kind one of ttft, tpot, queue_wait,
+    request: the health monitor's burn-rate feed."""
+    global _serving_observer
+    _serving_observer = fn
 
 
 @contextlib.contextmanager
@@ -894,6 +943,58 @@ def record_fused_batch(op: str, n_tensors: int, nbytes: int) -> None:
     ).labels(op).inc(nbytes)
 
 
+def record_mfu(mfu: float) -> None:
+    """Model-FLOPs utilization of the step just closed: the declared
+    model FLOPs over (step time x cards x the card's peak FLOP/s;
+    ``utils/mfu.py``), computed by ``utils/prof.py`` once
+    ``prof.set_step_flops`` declared the step's cost."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_mfu",
+        "Model-FLOPs utilization of the last completed step").set(
+            float(mfu))
+    step_stats.set_mfu(mfu)
+
+
+def record_step_attribution(attribution: dict) -> None:
+    """One sampled step's device attribution (``utils/prof.py`` ->
+    ``utils/kineto.attribute``): where its wall time went, compute,
+    exposed collective wire (collective time not hidden under compute)
+    and idle; ``measured_overlap_frac`` is the collective time the card
+    hid under compute."""
+    if not _enabled:
+        return
+    if "compute_frac" in attribution:
+        registry.gauge(
+            "hvd_step_compute_frac",
+            "Compute fraction of the last sampled step's wall time",
+        ).set(float(attribution["compute_frac"]))
+    if "exposed_wire_frac" in attribution:
+        registry.gauge(
+            "hvd_step_exposed_wire_frac",
+            "Exposed (un-overlapped) collective fraction of the last "
+            "sampled step's wall time",
+        ).set(float(attribution["exposed_wire_frac"]))
+    if "idle_frac" in attribution:
+        registry.gauge(
+            "hvd_step_idle_frac",
+            "Device-idle fraction of the last sampled step's wall "
+            "time").set(float(attribution["idle_frac"]))
+    overlap = attribution.get("measured_overlap_frac")
+    # -1: the sample held no collectives (overlap undefined); keeping the
+    # previous sample's value would pair a stale overlap with fresh
+    # fractions
+    registry.gauge(
+        "hvd_overlap_window_measured_frac",
+        "Measured overlapped share of collective time in the last "
+        "sampled step (1.0 = wire fully hidden under compute; -1 = no "
+        "collectives in the sample; the measured twin of "
+        "hvd_overlap_window_frac)",
+    ).set(-1.0 if overlap is None else float(overlap))
+    step_stats.set_attribution(attribution)
+
+
 def set_queue_depth(n: int) -> None:
     """Pending tensors in the eager runtime's input table."""
     if not _enabled:
@@ -905,6 +1006,88 @@ def set_queue_depth(n: int) -> None:
 
 
 # -- the standalone endpoint ---------------------------------------------------
+
+# -- serving latencies by SLO class (their call sites in ``serving/`` come
+# with ROADMAP queue A entry 13, part 3) -----------------------------------
+
+def record_serving_queue_wait(seconds: float,
+                              slo: str = "standard") -> None:
+    """One request's wait in the batching queue, admission to dispatch,
+    by SLO class."""
+    if not _enabled:
+        return
+    registry.histogram(
+        "hvd_serving_queue_wait_seconds",
+        "Request wait in the dynamic-batching queue, by SLO class",
+        ("slo",),
+    ).labels(slo).observe(seconds)
+    obs = _serving_observer
+    if obs is not None:
+        obs("queue_wait", slo, seconds)
+
+
+def record_serving_ttft(seconds: float, slo: str = "standard") -> None:
+    """Time to first token, admission to the first emitted token, by SLO
+    class; the health burn-rate rules read it."""
+    if not _enabled:
+        return
+    registry.histogram(
+        "hvd_serving_ttft_seconds",
+        "Time to first token per request, by SLO class", ("slo",),
+    ).labels(slo).observe(seconds)
+    obs = _serving_observer
+    if obs is not None:
+        obs("ttft", slo, seconds)
+
+
+def record_serving_tpot(seconds: float, slo: str = "standard") -> None:
+    """Time per output token: one decode iteration's wall time billed
+    to each live sequence it advanced, by SLO class."""
+    if not _enabled:
+        return
+    registry.histogram(
+        "hvd_serving_tpot_seconds",
+        "Time per output token for live sequences, by SLO class",
+        ("slo",),
+    ).labels(slo).observe(seconds)
+    obs = _serving_observer
+    if obs is not None:
+        obs("tpot", slo, seconds)
+
+
+# -- the fleet-health monitor (``health/``) -----------------------------------
+
+def set_alert_active(rule: str, active: bool) -> None:
+    """1 while the named health rule fires, 0 once it clears."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_alert_active",
+        "1 while the named health rule fires, by rule", ("rule",),
+    ).labels(rule).set(1.0 if active else 0.0)
+
+
+def record_health_anomaly(cls: str) -> None:
+    """One classified detector anomaly (straggler-host, slow-link,
+    input-bound, compute-regression, queue-saturation)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_health_anomalies_total",
+        "Detector anomalies, by classified cause", ("cause",),
+    ).labels(cls).inc()
+
+
+def record_health_incident(rule: str, state: str) -> None:
+    """One alert transition (fire or clear), by rule and state."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_health_incidents_total",
+        "Health alert transitions, by rule and state",
+        ("rule", "state"),
+    ).labels(rule, state).inc()
+
 
 _http_server = None
 _http_thread = None
@@ -1111,6 +1294,7 @@ def reset() -> None:
     set_pod_label("")
     set_step_wrapper(None)
     set_step_observer(None)
+    set_serving_observer(None)
     on_shutdown()
     disable()
     _configured = False

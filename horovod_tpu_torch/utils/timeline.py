@@ -102,6 +102,11 @@ class Timeline:
             self._thread.join(timeout=5.0)
             self._thread = None
 
+    def close(self) -> None:
+        """``stop``, by the JAX package's name (``shutdown()`` calls
+        it); closing a closed timeline does nothing."""
+        self.stop()
+
     @property
     def active(self) -> bool:
         return self._active
@@ -198,8 +203,8 @@ def profiler_trace(logdir: str):
     ``torch.profiler`` trace of the CPU and (with a card) CUDA
     activities, written as a Chrome trace under ``logdir`` when the
     block ends. The JAX package traces XLA (``jax.profiler.trace``)
-    instead; reading this trace into the merged timeline comes with the
-    sampled profiler (ROADMAP queue A entry 13, part 2)."""
+    instead. ``utils/kineto.py`` reads the trace, and
+    ``tools.device_summary`` summarizes it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

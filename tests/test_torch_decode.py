@@ -285,6 +285,17 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "FLIGHT_RECORDER": "0",
     "FLIGHT_DIR": "/tmp/flight",
     "FLIGHT_CAPACITY": "77",
+    "PROF_EVERY": "5",
+    "PROF_DIR": "/tmp/prof",
+    "PROF_DUTY_CYCLE": "0.25",
+    "HEALTH": "1",
+    "HEALTH_INTERVAL_S": "0.5",
+    "HEALTH_WINDOW": "16",
+    "HEALTH_MIN_STEPS": "3",
+    "HEALTH_STEP_TIME_FACTOR": "2.5",
+    "HEALTH_RULES": "env:envelope:signal=step_time:factor=2",
+    "HEALTH_INCIDENT_FILE": "/tmp/incidents.jsonl",
+    "HEALTH_CAPTURE": "0",
 }
 
 
@@ -373,7 +384,9 @@ _OBSERVABILITY_MODULES = [
     "horovod_tpu_torch." + m for m in (
         "utils.metrics", "utils.timeline", "utils.flight", "tools",
         "tools.metrics_summary", "tools.flight_analyze",
-        "tools.trace_merge")]
+        "tools.trace_merge", "utils.kineto", "utils.prof", "health",
+        "health.rules", "health.detectors", "health.fleet",
+        "tools.device_summary")]
 
 
 def test_no_jax_in_port_or_chip_smoke():
@@ -389,7 +402,8 @@ def test_no_jax_in_port_or_chip_smoke():
     1F1B, the experts' layer, the dry run, the pipeline example) and
     the rest of the mesh's (the live fsdp axis, the step, the two-axis
     wire, the engine on a mesh) and observability's (metrics, the
-    timeline, the flight recorder, the three offline tools) modules are
+    timeline, the flight recorder, the trace reader, the sampled
+    profiler, the health monitor, the four offline tools) modules are
     among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES

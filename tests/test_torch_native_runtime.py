@@ -137,20 +137,26 @@ def test_negotiation_orders_ranks_identically():
 
 
 def scenario_fusion(native, rt, rank, size):
-    # second tensor has a different dtype: must not fuse with the others
-    h1 = rt.enqueue("w1", native.OP_ALLREDUCE, "float32", [16])
-    h2 = rt.enqueue("w2", native.OP_ALLREDUCE, "float64", [16])
-    h3 = rt.enqueue("w3", native.OP_ALLREDUCE, "float32", [16])
+    # second tensor has a different dtype: must not fuse with the others.
+    # The three are one group, which the coordinator holds until every
+    # member is enqueued on every rank and then releases in one cycle
+    # (all-or-nothing group readiness), so no cycle can close between
+    # the enqueues
+    grouped = {"group": "fusion", "group_size": 3}
+    h1 = rt.enqueue("w1", native.OP_ALLREDUCE, "float32", [16], **grouped)
+    h2 = rt.enqueue("w2", native.OP_ALLREDUCE, "float64", [16], **grouped)
+    h3 = rt.enqueue("w3", native.OP_ALLREDUCE, "float32", [16], **grouped)
     log = _drain_until(rt, [h1, h2, h3])
     return log
 
 
 def test_fusion_groups_same_dtype_only():
-    """Tensors fuse only within one negotiation cycle: a 500 ms cycle
-    puts the three enqueues in one on a loaded machine, where 1 ms
-    cycles can split them (the JAX twin is timing-sensitive for that
-    reason)."""
-    out = _run_world(2, scenario_fusion, cycle_ms=500.0)
+    """Tensors fuse only within one negotiation cycle, and there only by
+    dtype. The three enqueues are certain to meet in one cycle by
+    structure: they are one group, held until all three are in on both
+    ranks (the JAX twin relies on the three landing in one 1 ms cycle,
+    which a loaded machine can split)."""
+    out = _run_world(2, scenario_fusion)
     assert out[0] == out[1]
     groups = [set(names) for _, names in out[0]]
     f32 = next(g for g in groups if "w1" in g)

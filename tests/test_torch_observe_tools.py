@@ -9,11 +9,14 @@ a gloo world of 2 under the static launcher:
 * ``flight_analyze`` gives the JAX script's report, text and JSON on
   the same dumps;
 * ``trace_merge`` gives the JAX script's merged trace and report on the
-  same timelines, flight dumps and incident log; its ``--xplane`` is
-  refused naming the part that brings it (a deliberate difference);
+  same timelines, flight dumps and incident log; its ``--xplane`` reads
+  the sampled profiler's directories, each a ``torch.profiler`` Chrome
+  trace (a deliberate difference: the JAX tool reads an xplane);
 * ``--timeline-filename``, ``--timeline-mark-cycles``,
-  ``--flight-recorder``/``--no-flight-recorder`` and ``--flight-dir``
-  reach the workers' knobs as the JAX launcher's do;
+  ``--flight-recorder``/``--no-flight-recorder``, ``--flight-dir`` and
+  ``--prof-every``/``--prof-dir``/``--prof-duty-cycle`` reach the
+  workers' knobs as the JAX launcher's do, and a launched worker reads
+  ``--prof-every``;
 * a static ``launch -np 2`` world over gloo: the launcher's rendezvous
   store serves the workers' pushes on ``/metrics`` labeled by rank
   (counters equal to the collectives each rank issued), a SIGUSR2 dump
@@ -240,11 +243,32 @@ def test_trace_merge_gives_the_jax_trace(tmp_path, capsys):
 
 
 def test_trace_merge_refuses_the_device_leg(tmp_path, capsys):
+    """The device leg, which the tool refused until the sampled
+    profiler: ``--xplane`` now reads a profiler directory (a sample's
+    Chrome trace and sidecar) and puts the card's spans on the rank's
+    ``device:*`` thread; a directory without a sample gives no events
+    and exit 1, as the JAX script does."""
     assert trace_merge.main(["--xplane", str(tmp_path),
-                             "--out", str(tmp_path / "o.json")]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP queue A entry 13, part 2" in err
-    assert not (tmp_path / "o.json").exists()
+                             "--out", str(tmp_path / "o.json")]) == 1
+    assert "no events" in capsys.readouterr().err
+    d = tmp_path / "rank1" / "step4"
+    d.mkdir(parents=True)
+    (d / "hvd_prof_meta.json").write_text(json.dumps(
+        {"hvd_prof_meta": 1, "rank": 1, "step": 4,
+         "t_start_unix": 1_700_000_000.0, "clock_offset_s": 0.5}))
+    (d / "trace.json").write_text(json.dumps({"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "gemm", "ts": 10.0,
+         "dur": 5.0, "pid": 0, "tid": 7, "args": {"device": 0,
+                                                  "stream": 7}}]}))
+    assert trace_merge.main(["--xplane", str(tmp_path),
+                             "--out", str(tmp_path / "o.json")]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["by_source"] == {"rank1/device": 1}
+    assert report["clock_offsets_s"] == {"1": 0.5}
+    (ev,) = [e for e in json.load(open(tmp_path / "o.json"))["traceEvents"]
+             if e["ph"] == "X"]
+    assert (ev["name"], ev["tid"], ev["dur"]) == ("gemm", "device:stream 7",
+                                                  5.0)
 
 
 # ------------------------------------------------- the launcher's flags
@@ -258,6 +282,10 @@ _OBSERVE_FLAGS = {
     "--no-flight-recorder": (["--no-flight-recorder"],
                              {"flight_recorder": False}),
     "--flight-dir": (["--flight-dir", "/tmp/fd"], {"flight_dir": "/tmp/fd"}),
+    "--prof-every": (["--prof-every", "5"], {"prof_every": 5}),
+    "--prof-dir": (["--prof-dir", "/tmp/pd"], {"prof_dir": "/tmp/pd"}),
+    "--prof-duty-cycle": (["--prof-duty-cycle", "0.5"],
+                          {"prof_duty_cycle": 0.5}),
 }
 
 
@@ -289,13 +317,28 @@ def test_observability_flag_reaches_the_workers_knobs(flag, monkeypatch):
         assert getattr(mine, field) == getattr(theirs, field) == value
 
 
-def test_profiler_flags_stay_refused(capsys):
-    from horovod_tpu_torch.runner import launch
-
-    assert launch.run_commandline(["--prof-every", "5", "python",
-                                   "-c", "pass"]) == 2
-    assert "ROADMAP queue A entry 13 (observability, part 2" in \
-        capsys.readouterr().err
+def test_prof_every_reaches_a_launched_worker(tmp_path):
+    """``hvdrun --prof-every 3 --prof-dir D`` starts its worker with the
+    profiler armed by ``init()`` from those knobs."""
+    out = tmp_path / "knobs.json"
+    code = ("import json, sys\n"
+            "import horovod_tpu_torch as hvd\n"
+            "hvd.init(device='cpu')\n"
+            "s = hvd.prof.summary()\n"
+            "json.dump({'every': s['every'], 'active': s['active'],\n"
+            "           'dir': hvd.prof.default_dir()},\n"
+            "          open(sys.argv[1], 'w'))\n"
+            "hvd.shutdown()\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         "1", "-H", "localhost:1", "--prof-every", "3", "--prof-dir",
+         str(tmp_path / "prof"), sys.executable, "-c", code, str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    got = json.load(open(out))
+    assert got == {"every": 3, "active": True,
+                   "dir": str(tmp_path / "prof" / "rank0")}
 
 
 # --------------------------------------- a static world of 2 over gloo

@@ -394,7 +394,24 @@ def test_server_auth_health_and_routes():
             assert json.loads(r.read())["status"] == "ok"
         with urllib.request.urlopen(
                 f"http://{addr}/health", timeout=5.0) as r:
-            assert json.loads(r.read())["health"] == "off"
+            assert json.loads(r.read()) == {"health": "off",
+                                            "alerts_active": 0}
+        # health on: the verdict, folded into /healthz too
+        from horovod_tpu_torch import health
+        health.configure(enabled_override=True, endpoint=None,
+                         interval_s=60.0, capture=False)
+        try:
+            with urllib.request.urlopen(
+                    f"http://{addr}/health", timeout=5.0) as r:
+                assert json.loads(r.read()) == {
+                    "health": "ok", "alerts_active": 0, "alerts": []}
+            with urllib.request.urlopen(
+                    f"http://{addr}/healthz", timeout=5.0) as r:
+                assert json.loads(r.read())["health"] == "ok"
+        finally:
+            health.reset()
+            from horovod_tpu_torch.utils import metrics
+            metrics.reset()
         # the exposition is not ported: 404 naming its entry
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(f"http://{addr}/metrics", timeout=5.0)

@@ -10,6 +10,7 @@ JAX package's (horovod_tpu.utils.timeline):
 * the collective layer's ``XLA_COLLECTIVE`` spans and the fusion
   plan's ``FUSION_PLAN`` instant, through ``hvd.start_timeline`` and
   through ``HOROVOD_TIMELINE`` at ``init``;
+* ``close`` writes the JAX ``close``'s closed array, once;
 * ``profiler_trace`` is a ``torch.profiler`` trace written into its
   directory (the JAX package's traces XLA: a deliberate difference).
 """
@@ -154,6 +155,29 @@ def test_writer_drains_in_order_and_restarts(tmp_path):
     assert ts == sorted(ts)
     assert [e["name"] for e in _events(second)] == [
         timeline.CLOCK_ANCHOR, "only_in_second"]
+
+
+def test_close_writes_the_jax_closed_array(tmp_path):
+    """``close`` (the JAX package's name, which its ``shutdown()``
+    calls) on an active timeline writes the same closed JSON array as
+    the JAX ``close``; a second close does nothing."""
+    traces = []
+    for mod in (timeline, jtimeline):
+        path = str(tmp_path / f"{mod.__name__}.json")
+        tl = mod.Timeline(path)
+        with tl.activity("grad", "ALLREDUCE"):
+            tl.instant("grad", "FUSION_PLAN", {"buckets": 1})
+        tl.close()
+        assert not tl.active
+        with open(path) as f:
+            text = f.read()
+        tl.close()
+        with open(path) as f:
+            assert f.read() == text
+        traces.append(_masked(json.loads(text)))
+    assert traces[0] == traces[1]
+    assert [e["name"] for e in traces[0]] == [
+        timeline.CLOCK_ANCHOR, "ALLREDUCE", "FUSION_PLAN", "ALLREDUCE"]
 
 
 def test_collectives_and_the_fusion_plan_emit_events(tmp_path):
