@@ -228,10 +228,19 @@ Phases, in order; the first failure exits non-zero:
    bitwise the same steps without the runtime, the plan frozen after
    the warmup and the later steps negotiating 0 bytes, step ms beside
    the steps without it, the controller's cycles and the executor's
-   host seconds; (b) the same on the int8 + error-feedback wire (block
-   256): each fused batch's sum and residual bitwise the plain
-   composition of B11-B14 on the same buffer, B11-B14 exactly once a
-   fused batch a step, a falling loss, one step profiled; (c) a bucket
+   host seconds; with metrics, the flight recorder and a timeline on,
+   the runtime's records against its own counters: the batch histogram
+   its executed batches, the fused counters the 12 buckets' tensors and
+   bytes every step, the negotiation histogram and the timeline's
+   NEGOTIATE spans the warm-up's tensors, the plan cache's and the
+   controller's gauges ``metrics_snapshot()``, one plan activation in
+   the timeline and the flight ring; (b) the same on the int8 +
+   error-feedback wire (block 256): each fused batch's sum and residual
+   bitwise the plain composition of B11-B14 on the same buffer, B11-B14
+   exactly once a fused batch a step, ``hvd_wire_*``'s logical and sent
+   bytes the int8 wire's reckoning of those batches, a falling loss,
+   one step profiled; every telemetry switch off again after the phase;
+   (c) a bucket
    written behind a spin kernel on the producer's stream arrives
    through the ready event, and with that wait monkeypatched out it
    must not; (d) in a process of its own, an executor that blocks makes
@@ -367,10 +376,16 @@ Phases, in order; the first failure exits non-zero:
    and two ``--decode`` replica processes on the card (``python -m
    horovod_tpu_torch.serving.replica_set``, 8 slots x 1024, bf16 cache)
    behind an in-process front door: the 16 prompts streamed
-   concurrently must get phase 6's tokens bitwise; again, with one
-   replica SIGTERMed once every stream has its first token: its streams
-   complete, it exits 83, later requests reach the other replica, no
-   client sees a failure; and an MLP's predict tier through a
+   concurrently must get phase 6's tokens bitwise; the replicas'
+   ``GET /metrics`` (their ``serve_replica`` turns metrics on) against
+   the client: requests by code, a TTFT a request (their sum within the
+   client's), the TPOT count the tokens after each request's first,
+   the slots' gauges, and their median TPOT and decode step's wall with
+   the records on; again, with one replica SIGTERMed once every stream
+   has its first token: its streams complete, it exits 83, later
+   requests reach the other replica, no client sees a failure, and the
+   front door's ``/metrics`` counts every reply by code, one ejection
+   of the SIGTERMed replica and none in flight; and an MLP's predict tier through a
    ``--checkpoint`` replica, groups of 64, 10, 3 and 1 concurrent
    clients, each answer bitwise the module's forward of the padded
    batch, with each group's batch fill, and in this process the MLP's
@@ -381,7 +396,9 @@ Phases, in order; the first failure exits non-zero:
    host bytes must stay within one shape's; ``GET /health`` on the
    front door, with this process's health monitor on, answers a verdict
    ("ok"), not "off";
-9. print each phase's seconds (``{"phase_seconds": ...}``) and the
+9. print each phase's seconds (``{"phase_seconds": ...}``; the
+   telemetry checks of 4l and 8 as their own entry, "4l, 8 (part 3)")
+   and the
    ``{"kernels": [...]}`` line: each kernel's launches on the
    training runs of phases 4, 4b, 4c, 4d, 4e (the launched worker's
    step), 4f (the FSDP runs, not their references), 4g ((a) and (b)), 4h
@@ -6350,6 +6367,95 @@ EAGER_STALL_SLACK_S = 1.5
 EAGER_LAUNCH_FLAGS = ["--cycle-time-ms", "2", "--cache-capacity", "256",
                       "--stall-abort-seconds", "120"]
 INT8_KERNELS = ("quant_rows", "quant_ef_rows", "accum_rows", "dequant_flat")
+#: the seconds of observability part 3's checks (the scrapes, the
+#: comparisons, the file reads) inside phases 4l and 8, reported as their
+#: own ``phase_seconds`` entry and taken out of those phases'
+PART3_S = {"4l": 0.0, "8": 0.0}
+
+
+def _prom(text):
+    """A Prometheus exposition's samples: ``{(name, labels): value}``,
+    ``labels`` the text between the braces ('' without)."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, val = line.rsplit(" ", 1)
+            name, _, labels = key.partition("{")
+            out[(name, labels.rstrip("}"))] = float(val)
+    return out
+
+
+def _scrape(addr):
+    """``GET /metrics`` of a serving process (unauthenticated)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}/metrics", timeout=10) as r:
+        return r.read().decode()
+
+
+def _eager_telemetry_a(rt, snap0, snap1, params, tl_path):
+    """Phase 4l (a)'s telemetry, read from the run that just ended: the
+    runtime's records against its own counters. The batch histogram
+    counts the executor's batches; the fused counters carry the 12
+    buckets' tensors and bytes every step; the negotiation histogram
+    counts the tensors that went through the controller (the warm-up's,
+    not the fast path's), and the timeline holds a NEGOTIATE span for
+    each and one plan activation, the flight ring one ``plan_activate``;
+    the plan cache's and the controller's gauges are
+    ``metrics_snapshot()`` read around the same scrape."""
+    from horovod_tpu_torch.utils import flight, metrics
+
+    before = rt.metrics_snapshot()
+    text = metrics.scrape()
+    after = rt.metrics_snapshot()
+    _require(not metrics.lint_exposition(text),
+             "phase 4l (a): the exposition does not lint")
+    got = _prom(text)
+    batches = snap1["executor_batches"] - snap0["executor_batches"]
+    hits = snap1["fast_path_hits"] - snap0["fast_path_hits"]
+    tensors = EAGER_BUCKETS * EAGER_STEPS
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    negotiated = tensors - hits
+    want = {
+        ("hvd_batch_execution_seconds_count", 'op="allreduce"'): batches,
+        ("hvd_fused_tensors_total", 'op="allreduce"'): tensors,
+        ("hvd_fused_batch_bytes_total", 'op="allreduce"'):
+            nbytes * EAGER_STEPS,
+        ("hvd_negotiation_seconds_count", ""): negotiated,
+        ("hvd_eager_fast_path_hits_total", ""): after["fast_path_hits"],
+        ("hvd_eager_fast_path_steps_total", ""): after["fast_path_steps"],
+        ("hvd_eager_fast_path_activations_total", ""):
+            after["fast_path_activations"],
+        ("hvd_eager_fast_path_active", ""): after["fast_path_active"],
+    }
+    wrong = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    _require(not wrong, f"phase 4l (a): records against the runtime's own "
+                        f"counters (got, want): {wrong}")
+    cycles = got.get(("hvd_coord_cycles_total", ""))
+    _require(cycles is not None
+             and before["cycles"] <= cycles <= after["cycles"],
+             f"phase 4l (a): hvd_coord_cycles_total {cycles} outside the "
+             f"snapshots' {before['cycles']}..{after['cycles']}")
+    with open(tl_path) as f:
+        events = json.load(f)
+    spans = sum(1 for e in events if e["ph"] == "B"
+                and e["name"] == "NEGOTIATE_ALLREDUCE")
+    plans = sum(1 for e in events if e["name"] == "PLAN_ACTIVATED")
+    kinds = [e[3] for e in flight.snapshot()]
+    _require(spans == negotiated and plans == 1
+             and kinds.count("plan_activate") == 1,
+             f"phase 4l (a): timeline NEGOTIATE spans {spans} (negotiated "
+             f"{negotiated}), plan activations {plans}, flight "
+             f"plan_activate {kinds.count('plan_activate')}")
+    return {"batches": batches, "negotiated_tensors": negotiated,
+            "fast_path_hits": hits, "timeline_events": len(events),
+            "timeline_bytes": os.path.getsize(tl_path),
+            "flight_events": len(kinds), "exposition_bytes": len(text),
+            "batch_execution_ms_mean": got[
+                ("hvd_batch_execution_seconds_sum", 'op="allreduce"')]
+            / max(batches, 1) * 1e3,
+            "negotiation_ms_mean": got[("hvd_negotiation_seconds_sum", "")]
+            / max(negotiated, 1) * 1e3}
 
 
 class _EagerBucketsAdamW(torch.optim.AdamW):
@@ -6684,19 +6790,26 @@ def train_eager(seed, ledger, in_process_losses):
         (``_eager_launch``); (d) and (e)'s processes run together.
 
     Launch counts are zeroed just before each run and read just after."""
+    import shutil
+    import tempfile
+
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.core.state import global_state
     from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
     from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops.eager_runtime import DistExecutor
-    from horovod_tpu_torch.optim.compression import WireSpec
+    from horovod_tpu_torch.optim.compression import WireSpec, wire_sent_bytes
+    from horovod_tpu_torch.utils import flight, metrics
 
     t_phase = time.perf_counter()
     report = {"phase": "eager", "model": "GPT-2 medium 24x1024, 16 heads",
               "batch": "8x1024", "steps": EAGER_STEPS}
     cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
     os.environ["HVD_TPU_NATIVE"] = "1"
+    tmp = tempfile.mkdtemp(prefix="hvd_eager_")
+    flight_was = flight.enabled()
+    metrics.reset()
     try:
         hvd.init()
         rt = global_state().eager_runtime
@@ -6728,6 +6841,12 @@ def train_eager(seed, ledger, in_process_losses):
         _require(len(plans) == EAGER_BUCKETS,
                  f"phase 4l: {len(plans)} buckets, not {EAGER_BUCKETS}")
         opt.bind(plans, params)
+        # part 3: metrics, the flight recorder (on since init()) and a
+        # timeline on for (a) and (b)
+        tl_path = os.path.join(tmp, "eager_a_timeline.json")
+        metrics.enable()
+        flight.clear()
+        hvd.start_timeline(tl_path)
         snap0 = rt.metrics_snapshot()
         _build.reset_launches()
         steps = []
@@ -6762,7 +6881,12 @@ def train_eager(seed, ledger, in_process_losses):
         _require(all(zero), "phase 4l (a): steps after the freeze "
                  f"negotiated {[s['negotiated_bytes'] for s in steps]}")
         snap1 = rt.metrics_snapshot()
-        report["a"] = {
+        hvd.stop_timeline()
+        t3 = time.perf_counter()
+        telemetry_a = _eager_telemetry_a(rt, snap0, snap1, params, tl_path)
+        PART3_S["4l"] += time.perf_counter() - t3
+        print(json.dumps({"eager telemetry (a)": telemetry_a}))
+        report["a"] = {"telemetry": telemetry_a,
             "bitwise_params_and_losses": True, "buckets": len(plans),
             "freeze_step": frozen[0] + 1, "zero_byte_steps": len(zero),
             "losses": losses,
@@ -6788,10 +6912,17 @@ def train_eager(seed, ledger, in_process_losses):
         opt.bind(*gpt2_medium_plan(model))
         total = {}
         b_steps = []
+        wire0 = metrics.registry.snapshot()
+        spec = WireSpec("int8", EAGER_BLOCK, error_feedback=True)
+        reckoned = [0, 0]  # the int8 wire's logical and sent bytes
         for i in range(EAGER_STEPS):
             recorder.log = []
             _build.reset_launches()
             loss, ms = timed(step)
+            for _, flat, _, _, outs in recorder.log:
+                itemsize = outs[0].element_size()  # the bucket's dtype
+                reckoned[0] += flat.numel() * itemsize
+                reckoned[1] += wire_sent_bytes(flat.numel(), itemsize, spec)
             counts = dict(_build.LAUNCHES)
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
@@ -6807,6 +6938,15 @@ def train_eager(seed, ledger, in_process_losses):
             b_steps.append({"loss": loss, "ms": ms, "batches": held,
                             "fast_path": rt.fast_path_stats()["active"]})
         ledger["eager_b"] = total
+        t3 = time.perf_counter()
+        wire1 = metrics.registry.snapshot()
+        wire = [wire1[f"hvd_wire_bytes_{k}_total"][""]
+                - wire0[f"hvd_wire_bytes_{k}_total"][""]
+                for k in ("logical", "sent")]
+        _require(wire == reckoned,
+                 f"phase 4l (b): hvd_wire_bytes logical/sent {wire}, the "
+                 f"int8 wire's reckoning at block {EAGER_BLOCK} {reckoned}")
+        PART3_S["4l"] += time.perf_counter() - t3
         b_losses = [s["loss"] for s in b_steps]
         _require(all(np.isfinite(b_losses)) and b_losses[-1] < b_losses[0],
                  f"phase 4l (b): the loss did not fall: {b_losses}")
@@ -6827,6 +6967,7 @@ def train_eager(seed, ledger, in_process_losses):
         report["b"] = {
             "wire": f"int8 block {EAGER_BLOCK} ef",
             "bitwise_plain_composition": True, "steps": b_steps,
+            "wire_bytes_logical_sent": wire,
             "int8_launches_per_step": {k: total[k] / EAGER_STEPS
                                        for k in INT8_KERNELS},
             "profiled_step_device_ms": by,
@@ -6836,13 +6977,24 @@ def train_eager(seed, ledger, in_process_losses):
         del model, opt, step, recorder
         torch.cuda.empty_cache()
 
+        metrics.disable()
         # (c) the ready event
         report["c"] = _eager_ready_wait()
         hvd.shutdown()
     finally:
         os.environ.pop("HVD_TPU_NATIVE", None)
+        hvd.stop_timeline()
         if hvd.is_initialized():
             hvd.shutdown()
+        metrics.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    from horovod_tpu_torch.utils.timeline import active_timeline
+
+    _require(not metrics.enabled() and flight.enabled() == flight_was
+             and active_timeline() is None,
+             "phase 4l: telemetry left on after the phase: metrics "
+             f"{metrics.enabled()}, flight {flight.enabled()}, timeline "
+             f"{active_timeline() is not None}")
     torch.cuda.empty_cache()
 
     # (d) the stall watchdog, in a process of its own, and (e) the
@@ -10357,6 +10509,114 @@ def check_graph_eviction(mlp_dir):
             "pinned_bytes_max": peak, "pinned_bytes_bound": bound}
 
 
+def _hist_quantile(samples, name, q):
+    """The ``q`` quantile of a histogram's buckets summed over its label
+    sets, interpolated within its bucket as Prometheus'
+    ``histogram_quantile`` does (an estimate: the buckets are all the
+    exposition keeps)."""
+    cum = {}
+    for (n, labels), v in samples.items():
+        if n == name + "_bucket":
+            le = labels.rsplit('le="', 1)[1].rstrip('"')
+            le = float("inf") if le == "+Inf" else float(le)
+            cum[le] = cum.get(le, 0.0) + v
+    bounds = sorted(cum)
+    total = cum[bounds[-1]] if bounds else 0.0
+    if not total:
+        return None
+    rank, lo, below = q * total, 0.0, 0.0
+    for le in bounds:
+        if cum[le] >= rank:
+            if le == float("inf"):
+                return lo
+            return lo + (le - lo) * (rank - below) / max(cum[le] - below,
+                                                         1e-30)
+        lo, below = le, cum[le]
+    return lo
+
+
+def _replica_telemetry(replicas, results):
+    """Phase 8 (a)'s replica scrapes (part 3): each decode replica's
+    ``GET /metrics`` (its ``serve_replica`` turned metrics on) against
+    the client's view of the same requests (the first request and round
+    (a)): requests by code, one TTFT a request on its replica and their
+    sum within the client's TTFTs', the TPOT count the tokens after each
+    request's first under its class ("standard"), the slots' gauges."""
+    from horovod_tpu_torch.utils import metrics
+
+    texts = {i: _scrape(a) for i, a in sorted(replicas.items())}
+    per = {i: _prom(t) for i, t in texts.items()}
+    lint = {i: problems[:3] for i, t in texts.items()
+            if (problems := metrics.lint_exposition(t))}
+    _require(not lint, f"phase 8: replica expositions do not lint: {lint}")
+    merged = {}
+    for got in per.values():
+        for k, v in got.items():
+            merged[k] = merged.get(k, 0.0) + v
+    codes = {k[1]: v for k, v in merged.items()
+             if k[0] == "hvd_serving_requests_total"}
+    tokens_after_first = sum(len(r["tokens"]) - 1 for r in results)
+    client_ttft = sum(r["ttft_s"] for r in results)
+    std = 'slo="standard"'
+    checks = {
+        "requests_by_code": (codes, {'code="200"': float(len(results))}),
+        "ttft_count": (merged.get(("hvd_serving_ttft_seconds_count", std)),
+                       float(len(results))),
+        "tpot_count": (merged.get(("hvd_serving_tpot_seconds_count", std)),
+                       float(tokens_after_first)),
+    }
+    wrong = {k: v for k, v in checks.items() if v[0] != v[1]}
+    for i, got in per.items():
+        if got.get(("hvd_serving_ttft_seconds_count", std), 0.0) != got.get(
+                ("hvd_serving_requests_total", 'code="200"'), 0.0):
+            wrong[f"replica {i} ttft vs requests"] = got
+        if ("hvd_serving_decode_slots", 'state="total"') not in got:
+            wrong[f"replica {i} slots"] = "absent"
+    ttft_sum = merged.get(("hvd_serving_ttft_seconds_sum", std), 0.0)
+    if not ttft_sum <= client_ttft:
+        wrong["ttft_sum"] = (ttft_sum, client_ttft)
+    _require(not wrong, f"phase 8: replica records against the client "
+                        f"(got, want): {wrong}")
+    it_n = merged[("hvd_serving_decode_iteration_seconds_count", "")]
+    tpot = [(r["end_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1)
+            for r in results]
+    return {
+        "requests": len(results), "ttft_sum_s": ttft_sum,
+        "client_ttft_sum_s": client_ttft,
+        "tpot_samples": tokens_after_first,
+        "replica_tpot_median_ms": _hist_quantile(
+            merged, "hvd_serving_tpot_seconds", 0.5) * 1e3,
+        "replica_tpot_mean_ms": merged[("hvd_serving_tpot_seconds_sum",
+                                        std)] / tokens_after_first * 1e3,
+        "client_tpot_median_ms": _pct(tpot, 50) * 1e3,
+        "decode_iterations": it_n,
+        "decode_step_wall_mean_ms": merged[
+            ("hvd_serving_decode_iteration_seconds_sum", "")] / it_n * 1e3,
+        "decode_step_wall_median_ms": _hist_quantile(
+            merged, "hvd_serving_decode_iteration_seconds", 0.5) * 1e3,
+        "exposition_bytes": {i: len(t) for i, t in texts.items()}}
+
+
+def _front_door_telemetry(addr, n_replies):
+    """Phase 8 (c)'s front-door scrape (part 3; this process's metrics,
+    on since (a)): every reply the clients got, by code; replica 0,
+    SIGTERMed in (b), ejected once and replica 1 never; no request in
+    flight on either."""
+    got = _prom(_scrape(addr))
+    want = {("hvd_serving_requests_total", 'code="200"'): float(n_replies),
+            ("hvd_serving_failovers_total", 'replica="0"'): 1.0,
+            ("hvd_serving_inflight", 'replica="0"'): 0.0,
+            ("hvd_serving_inflight", 'replica="1"'): 0.0}
+    wrong = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    extra = [k for k in got if k[0] in ("hvd_serving_requests_total",
+                                        "hvd_serving_failovers_total")
+             and k not in want]
+    _require(not wrong and not extra,
+             f"phase 8 (c): the front door's records (got, want) {wrong}, "
+             f"unexpected {extra}")
+    return {"replies": n_replies, "failovers": {"0": 1}}
+
+
 def _front_door_health(addr):
     """``GET /health`` and ``/healthz`` on phase 8's front door with this
     process's health monitor on: a verdict ("ok", no alert), not "off".
@@ -10413,6 +10673,7 @@ def serve_http(seed, cfg, model, prompts, want):
     from horovod_tpu_torch.serving import (SERVING_DECODE_KIND, SERVING_KIND,
                                            ReplicaSet, ServingServer)
     from horovod_tpu_torch.serving.decode import config_to_meta
+    from horovod_tpu_torch.utils import metrics
 
     key = make_secret_key()
     root = tempfile.mkdtemp(prefix="hvd_serving_")
@@ -10451,6 +10712,10 @@ def serve_http(seed, cfg, model, prompts, want):
         rs = ReplicaSet(replicas, key=key)
         front = ServingServer(generate_fn=rs.generate, key=key)
         addr = f"127.0.0.1:{front.start()}"
+        # part 3: the front door (this process) records from here to its
+        # scrape after (c); the replicas record since their start
+        metrics.reset()
+        metrics.enable()
 
         # one request first: a client process's first requests import
         # urllib's lazy modules, 0.3-0.9 s under 16 concurrent threads
@@ -10460,9 +10725,14 @@ def serve_http(seed, cfg, model, prompts, want):
                  f"phase 8: the first request got {res[0]}")
         print(json.dumps({"serve_http first request": {
             "ttft_ms": res[0]["ttft_s"] * 1e3, "wall_s": wall}}))
+        first = res[0]
         # (a)
         res, wall = _stream_all(addr, prompts, SERVE_MAX_NEW, key)
         stats_a = _http_round("(a) two replicas", res, wall, want)
+        t3 = time.perf_counter()
+        replica_records = _replica_telemetry(replicas, [first] + res)
+        PART3_S["8"] += time.perf_counter() - t3
+        print(json.dumps({"serve_http replica records": replica_records}))
 
         # (b) SIGTERM replica 0 once every stream has its first token
         import signal
@@ -10494,6 +10764,9 @@ def serve_http(seed, cfg, model, prompts, want):
         stats_c = _http_round("(c) after the drain", res, wall, want)
         _require(0 in rs.dead and 1 not in rs.dead,
                  f"phase 8 (c): dead replicas {rs.dead}")
+        t3 = time.perf_counter()
+        door_records = _front_door_telemetry(addr, 1 + 3 * len(prompts))
+        PART3_S["8"] += time.perf_counter() - t3
         door_health = _front_door_health(addr)
 
         # (d)
@@ -10508,11 +10781,13 @@ def serve_http(seed, cfg, model, prompts, want):
             "replicas_ready_s": ready, "sigterm_to_exit_83_s": exit_s,
             "dead": rs.dead, "predict_batch_fill": fills,
             "front_door_health": door_health,
+            "front_door_records": door_records,
             "rounds": [stats_a["tokens_per_s"], stats_b["tokens_per_s"],
                        stats_c["tokens_per_s"]]}}))
     finally:
         if front is not None:
             front.shutdown()
+        metrics.reset()
         codes = [p.stop() for p in reversed(procs)]
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"serve_http_exit_codes": codes[::-1]}))
@@ -11167,6 +11442,11 @@ def main(argv=None) -> int:
     timed("5", train_resnet, args.seed, ledger)
     timed("5c", train_mnist_and_entry, ledger)
     timed("6-8", serve_gpt2, args.seed, ledger)
+    # observability part 3's checks have their own entry, out of 4l's
+    # and 6-8's
+    seconds["4l"] = round(seconds["4l"] - PART3_S["4l"], 2)
+    seconds["6-8"] = round(seconds["6-8"] - PART3_S["8"], 2)
+    seconds["4l, 8 (part 3)"] = round(PART3_S["4l"] + PART3_S["8"], 2)
     print(json.dumps({"phase_seconds": seconds}))
     launches = {name: sum(counts.get(name, 0) for counts in ledger.values())
                 for name, *_ in KERNELS}

@@ -181,6 +181,17 @@ class Knobs:
     serving_prefill_buckets: str = ""
     serving_decode_max_new: int = 64
     serving_decode_stats_every: int = 50
+    # --- the replica autoscaler (serving/replica_set.ReplicaAutoscaler) ---
+    serving_autoscale_interval_s: float = 2.0
+    serving_autoscale_hi_occupancy: float = 0.85
+    serving_autoscale_lo_occupancy: float = 0.25
+    serving_autoscale_queue_wait_s: float = 0.5
+    serving_autoscale_min_replicas: int = 1
+    serving_autoscale_max_replicas: int = 4
+    # consecutive over- or under-threshold polls before acting
+    serving_autoscale_sustain: int = 2
+    # seconds after an action before the next is considered
+    serving_autoscale_cooldown_s: float = 10.0
 
     # --- autotune (queue A entry 12) ---
     # the training run's tuned-configuration cache; a serving replica
@@ -326,6 +337,22 @@ class Knobs:
             serving_decode_max_new=_env_int("SERVING_DECODE_MAX_NEW", 64),
             serving_decode_stats_every=_env_int(
                 "SERVING_DECODE_STATS_EVERY", 50),
+            serving_autoscale_interval_s=_env_float(
+                "SERVING_AUTOSCALE_INTERVAL_S", 2.0),
+            serving_autoscale_hi_occupancy=_env_float(
+                "SERVING_AUTOSCALE_HI_OCCUPANCY", 0.85),
+            serving_autoscale_lo_occupancy=_env_float(
+                "SERVING_AUTOSCALE_LO_OCCUPANCY", 0.25),
+            serving_autoscale_queue_wait_s=_env_float(
+                "SERVING_AUTOSCALE_QUEUE_WAIT_S", 0.5),
+            serving_autoscale_min_replicas=_env_int(
+                "SERVING_AUTOSCALE_MIN_REPLICAS", 1),
+            serving_autoscale_max_replicas=_env_int(
+                "SERVING_AUTOSCALE_MAX_REPLICAS", 4),
+            serving_autoscale_sustain=_env_int(
+                "SERVING_AUTOSCALE_SUSTAIN", 2),
+            serving_autoscale_cooldown_s=_env_float(
+                "SERVING_AUTOSCALE_COOLDOWN_S", 10.0),
             autotune_cache=_env("AUTOTUNE_CACHE", "") or "",
             timeline_filename=_env("TIMELINE", "") or "",
             timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),

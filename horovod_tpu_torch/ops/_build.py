@@ -27,7 +27,12 @@ no-op.
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds
 one (``count_launch``) where it launches its kernel and nowhere else,
 so a caller can show that a run went through the kernels
-(``chip_smoke.py``).
+(``chip_smoke.py``). A fused computation-collective surface (the int8
+wire's psum and reduce-scatter, the ring-row epilogues, the decode
+append+attend) is recorded in the metrics once a process, at its first
+launch on the card with metrics on (:func:`note_surface`): the JAX
+package records it when it lowers the surface, and the port has no
+lowering.
 """
 
 from __future__ import annotations
@@ -89,6 +94,21 @@ def count_launch(name: str) -> None:
     ranks of ``parallel/comm.run_ranks`` launch from several threads)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+#: the fused surfaces this process has recorded (``note_surface``)
+_SURFACES: set = set()
+
+
+def note_surface(surface: str) -> None:
+    """``metrics.record_fused_collective(surface)`` at the surface's
+    first launch on the card while metrics are on, then never again in
+    this process; a caller launching its kernel calls it."""
+    from ..utils import metrics
+
+    if metrics.enabled() and surface not in _SURFACES:
+        _SURFACES.add(surface)
+        metrics.record_fused_collective(surface)
 
 
 def reset_launches() -> None:

@@ -261,6 +261,7 @@ def _count(kernel: str, route: int, cluster: int) -> None:
     _build.count_launch(kernel)
     ROUTE_LAUNCHES[ROUTES[route]] += 1
     LAST_LAUNCH.update(route=ROUTES[route], cluster=cluster)
+    _build.note_surface("decode_append_attend")
 
 
 def append_attend_cuda(q, k_buf, v_buf, k_new, v_new, positions):

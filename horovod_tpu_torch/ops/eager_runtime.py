@@ -45,10 +45,22 @@ progress. A collective on the card cannot be cancelled, so the abort
 also aborts the executor's group and leaves the runtime able to shut
 down without joining a thread stuck in the data plane.
 
-Left for later entries: autotune (``autotune=True`` raises; ROADMAP
-queue A entry 12) and the flight recorder's events, timeline spans and
-latency histograms of the runtime (entry 13, part 3). Adasum is reduced by ``ops/adasum.py`` outside
-the runtime; the executor refuses it.
+Telemetry, as in the JAX package: each enqueue and negotiated response
+lands in the flight recorder (the unit the cross-rank straggler report
+counts), each tensor's negotiation and execution in the timeline
+(``NEGOTIATE_<OP>`` and ``<OP>`` spans, a cycle mark a negotiation
+cycle, instants where a plan activates or is dropped), each tensor's
+enqueue-to-negotiated wait in ``hvd_negotiation_seconds``, each executed
+batch, negotiated or replayed, in ``hvd_batch_execution_seconds`` and
+the fused-tensor counters, each allreduce batch's logical and sent bytes
+in ``hvd_wire_*``, and the controller's and the plan cache's cumulative
+counters (``metrics_snapshot``) in gauges refreshed at every scrape. No
+metrics record is made while the runtime's lock is held: a scrape takes
+that lock through ``metrics_snapshot``.
+
+Left for a later entry: autotune (``autotune=True`` raises; ROADMAP
+queue A entry 12). Adasum is reduced by ``ops/adasum.py`` outside the
+runtime; the executor refuses it.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ import torch.distributed as dist
 
 from ..core.exceptions import HorovodInternalError
 from ..utils import faults as _faults
+from ..utils import flight as _flight
 from ..utils import metrics as _metrics
 from .collectives import (ReduceOp, _all_gather_tiled,
                           _reduce_scatter_tiled, average_, dist_op, scale_)
@@ -88,6 +101,16 @@ _REDUCE_ADASUM = 2
 _REDUCE_MIN = 3
 _REDUCE_MAX = 4
 _REDUCE_PRODUCT = 5
+
+# op id -> (negotiation activity, execution activity): the reference's
+# per-tensor phase names (common.h:79-113, timeline.cc)
+_OP_ACTIVITIES = {
+    OP_ALLREDUCE: ("NEGOTIATE_ALLREDUCE", "ALLREDUCE"),
+    OP_ALLGATHER: ("NEGOTIATE_ALLGATHER", "ALLGATHER"),
+    OP_BROADCAST: ("NEGOTIATE_BROADCAST", "BROADCAST"),
+    OP_ALLTOALL: ("NEGOTIATE_ALLTOALL", "ALLTOALL"),
+    OP_REDUCESCATTER: ("NEGOTIATE_REDUCESCATTER", "REDUCESCATTER"),
+}
 
 # op id -> metric label
 _OP_METRIC_NAMES = {
@@ -147,6 +170,13 @@ class ExecutionPlan:
         self.wire_key = wire_key
 
 
+def _timeline():
+    """The active host-side timeline, or None (utils/timeline.py)."""
+    from ..utils.timeline import active_timeline
+
+    return active_timeline()
+
+
 _RESIDUAL_EVICTION_WARNED = [False]
 
 
@@ -191,6 +221,21 @@ def _wire_applies(spec, batch: ExecutionBatch) -> bool:
     if batch.reduce_op not in (_REDUCE_SUM, _REDUCE_AVERAGE):
         return False
     return batch_dtype(batch).is_floating_point
+
+
+def _record_wire_batch(spec, batch: ExecutionBatch, n_elements: int
+                       ) -> None:
+    """``hvd_wire_bytes_{logical,sent}_total`` of one executed allreduce
+    batch: ``sent`` equals ``logical`` on the uncompressed wire."""
+    if not _metrics.enabled() or batch.op != OP_ALLREDUCE:
+        return
+    from ..optim.compression import wire_sent_bytes
+
+    itemsize = batch_dtype(batch).itemsize
+    _metrics.record_wire_bytes(
+        n_elements * itemsize,
+        wire_sent_bytes(n_elements, itemsize,
+                        spec if _wire_applies(spec, batch) else None))
 
 
 class LoopbackExecutor:
@@ -254,6 +299,9 @@ class LoopbackExecutor:
                  tensors: Dict[str, torch.Tensor]) -> Dict[str, object]:
         n, rank = self._set_world(batch)
         wired = _wire_applies(self.wire, batch)
+        if batch.op == OP_ALLREDUCE:
+            _record_wire_batch(self.wire, batch, sum(
+                tensors[nm].numel() for nm in batch.names if nm in tensors))
         out = {}
         for name in batch.names:
             if name not in tensors:
@@ -373,6 +421,7 @@ class EagerRuntime:
             raise NotImplementedError(
                 "EagerRuntime(autotune=True): autotune is not in "
                 "horovod_tpu_torch yet (ROADMAP queue A entry 12)")
+        self._rank, self._size = int(rank), int(size)
         self._native = NativeRuntime()
         self._native.init(
             rank, size, coordinator_addr, coordinator_port,
@@ -400,6 +449,11 @@ class EagerRuntime:
         #: handle -> (result, completion event or None)
         self._results: Dict[int, tuple] = {}
         self._handle_name: Dict[int, str] = {}
+        self._handle_op: Dict[int, int] = {}
+        #: enqueue times of negotiated handles, stamped only while
+        #: metrics are on (the negotiation-latency histogram)
+        self._handle_ts: Dict[int, float] = {}
+        self._last_cycle = -1
         self._last_exec_error = ""
         self._exec_seconds = 0.0
         self._exec_batches = 0
@@ -453,6 +507,9 @@ class EagerRuntime:
         )
         self._worker.start()
         self._exec_worker.start()
+        # the controller's and the plan cache's cumulative counters,
+        # pulled into their gauges at every scrape
+        _metrics.set_native_stats_provider(self.metrics_snapshot)
 
     # ------------------------------------------------------------ enqueue
 
@@ -620,8 +677,20 @@ class EagerRuntime:
                     table.pop(name, None)
             raise
         self._handle_name[handle] = name
+        self._handle_op[handle] = kwargs["op"]
         if kwargs["op"] in _PLAN_OPS:
             self._fp_outstanding.add(handle)
+        # the enqueue is the unit the cross-rank straggler report counts
+        _flight.record("enqueue", name, op=kwargs["op"], handle=handle)
+        if _metrics.enabled():  # stamped only when someone reads it
+            self._handle_ts[handle] = time.perf_counter()
+        # the span opens only once the controller took the tensor: an
+        # unclosed B would break the trace's nesting
+        tl = _timeline()
+        if tl is not None and kwargs["op"] in _OP_ACTIVITIES:
+            tl.activity_start(name, _OP_ACTIVITIES[kwargs["op"]][0],
+                              args={"shape": list(arr.shape),
+                                    "dtype": str(arr.dtype)})
         return handle
 
     # ------------------------------------------- steady-state fast path
@@ -705,6 +774,13 @@ class EagerRuntime:
             list(captured), entries,
             wire_key=wire.key if wire is not None else None)
         self._fp_activations += 1
+        _flight.record("plan_activate", batches=len(captured),
+                       tensors=len(entries))
+        tl = _timeline()
+        if tl is not None:
+            tl.instant("fast_path", "PLAN_ACTIVATED",
+                       args={"batches": len(captured),
+                             "tensors": len(entries)})
 
     def _fp_hit_locked(self, name: str, arr, ready):
         """Negotiation bypassed: append the tensor straight into its
@@ -717,6 +793,9 @@ class EagerRuntime:
         if ready is not None:
             self._ready[name] = ready
         self._fp_hits += 1
+        # a bypassed enqueue still counts as a submission: peers on the
+        # negotiated path must not read this rank as a straggler
+        _flight.record("enqueue", name, handle=h, fast_path=True)
         steps = ()
         if (len(self._fp_step) == len(plan.names)
                 and not self._fp_dispatching):
@@ -770,6 +849,11 @@ class EagerRuntime:
         if had_plan:
             self._fp_invalidations += 1
             self._fp_last_invalidation = reason
+            _flight.record("plan_invalidate", reason=reason)
+            tl = _timeline()
+            if tl is not None:
+                tl.instant("fast_path", "PLAN_INVALIDATED",
+                           args={"reason": reason})
         self._fp_cond.notify_all()
 
     def _fp_dispatch(self, plan: ExecutionPlan, step: Dict[str, tuple]
@@ -784,7 +868,8 @@ class EagerRuntime:
         for batch in plan.batches:
             try:
                 tensors = {n: tensors_all[n] for n in batch.names}
-                results, done = self._execute(batch, tensors)
+                results, done = self._execute(batch, tensors, batch.names,
+                                              fast_path=True)
                 with self._lock:
                     for n in batch.names:
                         if n in results:
@@ -1087,11 +1172,30 @@ class EagerRuntime:
         _metrics.record_stall_abort()
         self._native.release(handle)
         with self._lock:
+            # everything still awaiting negotiation or execution: the
+            # tensors the straggler report attributes (taken before the
+            # aborting handle's own input goes)
+            pending = sorted(set(self._inputs) | set(self._fp_step))
             self._fp_outstanding.discard(handle)
             name = self._handle_name.pop(handle, None)
+            op = self._handle_op.pop(handle, None)
+            self._handle_ts.pop(handle, None)
             if name is not None:
                 self._inputs.pop(name, None)
                 self._ready.pop(name, None)
+        straggler = ""
+        if _flight.enabled():
+            _flight.record("stall_abort", name or "", handle=handle,
+                           waited_s=round(waited_s, 3))
+            try:
+                straggler = _flight.straggler_report(
+                    pending, self._size, self._rank, reason="stall_abort")
+            except Exception:
+                straggler = ""
+        tl = _timeline()
+        if tl is not None and name is not None and op in _OP_ACTIVITIES:
+            tl.activity_end(name, _OP_ACTIVITIES[op][0])
+            tl.instant(name, "STALL_ABORT")
         self._aborted = True
         abort = getattr(self._executor, "abort", None)
         if abort is not None:
@@ -1105,6 +1209,7 @@ class EagerRuntime:
             + f" made no progress for {waited_s:.1f}s "
             "(HOROVOD_STALL_ABORT_S watchdog; a peer likely died; "
             "elastic training will restore and retry)"
+            + (f"; {straggler}" if straggler else "")
         )
 
     def _await_handle(self, handle: int, timeout_s: float,
@@ -1149,12 +1254,18 @@ class EagerRuntime:
         self._native.release(handle)
         if failed:
             # a handle that never reached the executor failed in
-            # negotiation
+            # negotiation: its NEGOTIATE span is still open
             with self._lock:
                 self._fp_outstanding.discard(handle)
                 name = self._handle_name.pop(handle, None)
+                op = self._handle_op.pop(handle, None)
+                self._handle_ts.pop(handle, None)
                 self._inputs.pop(name, None)
                 self._ready.pop(name, None)
+            tl = _timeline()
+            if tl is not None and name is not None and op in _OP_ACTIVITIES:
+                tl.activity_end(name, _OP_ACTIVITIES[op][0])
+                tl.instant(name, "ERROR")
             raise HorovodInternalError(
                 self._native.last_error() or self._last_exec_error)
         with self._lock:
@@ -1176,39 +1287,74 @@ class EagerRuntime:
             s = self._streams[device] = torch.cuda.Stream(device)
         return s
 
-    def _execute(self, batch: ExecutionBatch, tensors: Dict[str, object]):
+    def _execute(self, batch: ExecutionBatch, tensors: Dict[str, object],
+                 spans=(), fast_path: bool = False):
         """Run the executor on one batch: on the card, on the runtime's
         stream after the inputs' ready events, recording a completion
-        event. Returns ``(results, event or None)``."""
+        event. ``spans`` are the tensors (this rank's) whose execution
+        span the timeline shows. Returns ``(results, event or None)``."""
+        tl = _timeline()
+        execute = _OP_ACTIVITIES.get(batch.op, (None, None))[1]
+        if execute is None:
+            tl = None
+        if tl is not None:
+            # the span carries the fused batch's composition
+            args = {"batch_id": batch.batch_id,
+                    "fused_with": len(batch.names)}
+            if fast_path:
+                args["fast_path"] = True
+            for n in spans:
+                tl.activity_start(n, execute, args=args)
+        head = batch.names[0] if batch.names else ""
+        fp = {"fast_path": True} if fast_path else {}
+        if _flight.enabled():
+            _flight.record("exec_begin", head, op=batch.op,
+                           n=len(batch.names), bytes=int(batch.total_bytes),
+                           names=list(batch.names), **fp)
         device = self._device
         if device is None or device.type != "cuda":
             device = next((t.device for t in tensors.values()
                            if isinstance(t, torch.Tensor) and t.is_cuda),
                           None)
         t0 = time.perf_counter()
-        if device is None:
-            results, done = self._executor(batch, tensors), None
-        else:
-            stream = self._stream(device)
-            with torch.cuda.stream(stream):
-                with self._lock:
-                    events = [self._ready.pop(n) for n in batch.names
-                              if n in self._ready]
-                _wait_ready(stream, events)
-                for t in tensors.values():
-                    if isinstance(t, torch.Tensor) and t.is_cuda:
-                        # the caller may drop its tensor before the
-                        # runtime's stream has read it
-                        t.record_stream(stream)
-                results = self._executor(batch, tensors)
-                done = torch.cuda.Event()
-                done.record(stream)
+        try:
+            if device is None:
+                results, done = self._executor(batch, tensors), None
+            else:
+                stream = self._stream(device)
+                with torch.cuda.stream(stream):
+                    with self._lock:
+                        events = [self._ready.pop(n) for n in batch.names
+                                  if n in self._ready]
+                    _wait_ready(stream, events)
+                    for t in tensors.values():
+                        if isinstance(t, torch.Tensor) and t.is_cuda:
+                            # the caller may drop its tensor before the
+                            # runtime's stream has read it
+                            t.record_stream(stream)
+                    results = self._executor(batch, tensors)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+        except Exception as e:
+            if _flight.enabled():
+                _flight.record("exec_error", head, op=batch.op,
+                               error=str(e)[:200], **fp)
+                _flight.dump("executor_error")
+            raise
+        finally:
+            if tl is not None:
+                for n in spans:
+                    tl.activity_end(n, execute)
+        dt = time.perf_counter() - t0
         with self._lock:
-            self._exec_seconds += time.perf_counter() - t0
+            self._exec_seconds += dt
             self._exec_batches += 1
-        _metrics.record_fused_batch(
+        _metrics.record_batch_execution(
             _OP_METRIC_NAMES.get(batch.op, str(batch.op)),
-            len(batch.names), int(batch.total_bytes))
+            len(batch.names), int(batch.total_bytes), dt)
+        if _flight.enabled():
+            _flight.record("exec_end", head, op=batch.op,
+                           names=list(batch.names), **fp)
         return results, done
 
     def _run(self) -> None:
@@ -1222,7 +1368,41 @@ class EagerRuntime:
                 batch = self._native.next_batch(timeout_s=0.1)
                 if batch is None:
                     continue
-                self._exec_q.put(batch)
+                tl = _timeline()
+                if tl is not None and batch.cycle != self._last_cycle:
+                    # one mark a negotiation cycle, however many fused
+                    # batches it produced (the reference's
+                    # MarkCycleStart, operations.cc:734)
+                    self._last_cycle = batch.cycle
+                    tl.mark_cycle_start()
+                if _flight.enabled():
+                    # the moment the tensors' negotiation ended here
+                    _flight.record(
+                        "response", batch.names[0] if batch.names else "",
+                        op=batch.op, cycle=int(batch.cycle),
+                        n=len(batch.names), names=list(batch.names))
+                ours: List[str] = []
+                if batch.op not in (OP_JOIN, OP_BARRIER):
+                    # spans only for the tensors this rank enqueued: a
+                    # joined rank receives batches naming tensors it
+                    # never started
+                    waits: List[float] = []
+                    with self._lock:
+                        ours = [self._handle_name[h] for h in batch.handles
+                                if h in self._handle_name]
+                        if self._handle_ts:
+                            now = time.perf_counter()
+                            for h in batch.handles:
+                                ts = self._handle_ts.pop(h, None)
+                                if ts is not None:
+                                    waits.append(now - ts)
+                    for w in waits:  # recorded outside the lock
+                        _metrics.record_negotiation_latency(w)
+                    negotiate = _OP_ACTIVITIES.get(batch.op, (None,))[0]
+                    if tl is not None and negotiate is not None:
+                        for n in ours:
+                            tl.activity_end(n, negotiate)
+                self._exec_q.put((batch, ours))
         finally:
             self._exec_q.put(None)
 
@@ -1233,9 +1413,10 @@ class EagerRuntime:
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.set_device(self._device)
         while True:
-            batch = self._exec_q.get()
-            if batch is None:
+            item = self._exec_q.get()
+            if item is None:
                 return
+            batch, ours = item
             if batch.op in (OP_JOIN, OP_BARRIER):
                 # completed in controller order so a barrier cannot
                 # overtake a data batch negotiated before it
@@ -1247,10 +1428,14 @@ class EagerRuntime:
                         n: self._inputs[n]
                         for n in batch.names if n in self._inputs
                     }
-                results, done = self._execute(batch, tensors)
+                results, done = self._execute(batch, tensors, ours)
                 with self._lock:
                     for h in batch.handles:
                         name = self._handle_name.pop(h, None)
+                        self._handle_op.pop(h, None)
+                        # a handle stamped while metrics were on whose
+                        # negotiation ended after a disable()
+                        self._handle_ts.pop(h, None)
                         if name is not None and name in results:
                             self._results[h] = (results[name], done)
                         self._inputs.pop(name, None)
@@ -1279,6 +1464,8 @@ class EagerRuntime:
                 with self._lock:
                     for h in batch.handles:
                         name = self._handle_name.pop(h, None)
+                        self._handle_op.pop(h, None)
+                        self._handle_ts.pop(h, None)
                         self._inputs.pop(name, None)
                         self._ready.pop(name, None)
 
@@ -1317,6 +1504,7 @@ class EagerRuntime:
         return self._native.coordinator_port()
 
     def shutdown(self) -> None:
+        _metrics.set_native_stats_provider(None)
         with self._fp_cond:
             # fail any tensors still held in an incomplete plan step so
             # their waiters see a terminal state, mirroring the native
@@ -1483,6 +1671,7 @@ class DistExecutor:
     def _run_allreduce(self, batch, tensors):
         group, n, _, tag = self._batch_ctx(batch)
         inputs = self._materialize(batch, tensors)
+        _record_wire_batch(self.wire, batch, sum(x.numel() for x in inputs))
         wire = self.wire if _wire_applies(self.wire, batch) else None
         if wire is not None and wire.kind == "int8":
             return self._run_allreduce_int8(batch, tensors, inputs, group,

@@ -41,11 +41,13 @@ result (:class:`SideStream`); on the CPU they run in order.
 The exchanges are pluggable (:class:`WorldExchange` over
 ``torch.distributed``; :class:`EmulatedWorld` for a world of several
 ranks composed in one process, as ``chip_smoke.py`` runs one on a single
-card). The JAX package's metrics hooks (``_record_staged_step``,
-``_record_fsdp_step``) come with ROADMAP queue A entry 13, part 3; what they would record is left on the returned ``vag`` as
-plain attributes: ``issue_log``, ``gather_log``, ``param_bytes``,
-``gather_bytes``, ``regather_bytes``, ``offload_bytes``,
-``peak_param_bytes`` and ``pinned_frac``.
+card). Each step's figures are left on the returned ``vag``
+(``issue_log``, ``gather_log``, ``param_bytes``, ``gather_bytes``,
+``regather_bytes``, ``offload_bytes``, ``peak_param_bytes``,
+``pinned_frac``) and, with metrics on, recorded as the JAX package's
+runners record them (:func:`_record_staged_step`,
+:func:`_record_fsdp_step`): direct calls, where the JAX package's
+compiled step needs an ``io_callback``.
 """
 
 from __future__ import annotations
@@ -813,6 +815,12 @@ class _FsdpRun:
             _stage_cost_bytes(layout.shapes, layout.leaf_dtypes(),
                               self.stage_leaves),
             self.backward_stage_order, first)
+        _record_staged_step(
+            [(int(L), _itemsize(d), d.is_floating_point)
+             for L, d in zip(layout.lens, layout.dtypes)],
+            self.wire, v.pinned_frac)
+        _record_fsdp_step(v.param_bytes, v.gather_bytes, regather_bytes,
+                          offload_bytes)
         return loss.detach(), StagedShards(reduced, new_residuals=new_res)
 
     # -- saved-gather mode (HOROVOD_FSDP_REGATHER=0) ----------------------
@@ -917,6 +925,43 @@ class _FsdpRun:
                        if first_use[b] == si]:
                 self.drop(bi)
         return self.result(loss, regather_bytes, offload_bytes)
+
+
+def _record_fsdp_step(param_bytes: int, gather_bytes: int,
+                      regather_bytes: int = 0, offload_bytes: int = 0):
+    """A step's FSDP figures into the metrics: a rank's resident
+    parameter bytes, the bytes its forward gathers materialized, the
+    backward's re-gathers and the carries parked on the host
+    (``hvd_hbm_param_bytes``, ``hvd_fsdp_*_bytes_total`` and the step
+    record's ``fsdp``)."""
+    from ..utils import metrics as _metrics
+
+    if not _metrics.enabled():
+        return
+    _metrics.record_fsdp_step(int(param_bytes), int(gather_bytes),
+                              int(regather_bytes), int(offload_bytes))
+
+
+def _record_staged_step(bucket_meta, wire, pinned_frac):
+    """A staged step's reduction into the metrics, as the monolithic
+    paths record theirs: the gradient bytes, the bytes at logical
+    precision against those on ``wire`` (the WireSpec the reduce-scatters
+    move, None uncompressed) and the overlap pin. ``bucket_meta`` is
+    ``(elements, itemsize, is_floating)`` a bucket. (The JAX package
+    also feeds the autotuner's observation here: ROADMAP queue A entry
+    12.)"""
+    from ..utils import metrics as _metrics
+
+    if not _metrics.enabled():
+        return
+    from ..optim.compression import wire_sent_bytes
+
+    total = sum(e * it for e, it, _ in bucket_meta)
+    _metrics.record_grad_reduction(total, len(bucket_meta))
+    sent = sum(wire_sent_bytes(e, it, wire if fl else None)
+               for e, it, fl in bucket_meta)
+    _metrics.record_wire_bytes(total, sent)
+    _metrics.record_overlap_window(float(pinned_frac))
 
 
 def _require_scalar(loss):

@@ -352,6 +352,8 @@ def start_quantized_psum(flat: torch.Tensor, n: int, block: int,
     (None without one). With NCCL nothing here blocks the host: a wait
     only orders the current stream after the exchange."""
     q, s, err = stage_quantize(flat, residual, n, block)
+    if flat.is_cuda:
+        _build.note_surface("quantized_psum")
     (qg, wq), (sg, ws) = (_all_to_all_tiled(q, group),
                           _all_to_all_tiled(s, group))
     wq.wait()
@@ -394,6 +396,8 @@ def fused_quantized_reduce_scatter_rows(
     or ``(shard, new_residual (n, k2))`` with a residual."""
     k2 = rows_f.shape[1]
     q, s, err = stage_quantize(rows_f.reshape(-1), residual, n, block)
+    if rows_f.is_cuda:
+        _build.note_surface("reduce_scatter_rows")
     (qg, wq), (sg, ws) = _all_to_all_tiled(q), _all_to_all_tiled(s)
     wq.wait()
     ws.wait()
@@ -412,6 +416,8 @@ def emulated_quantized_psum(flats, n: int, block: int, residuals=None):
     residuals = residuals or [None] * n
     outs = [stage_quantize(f, r, n, block)
             for f, r in zip(flats, residuals)]
+    if flats[0].is_cuda:
+        _build.note_surface("quantized_psum")
     c = outs[0][0].numel() // n
     cs = c // block
     shards = [stage_reduce(
@@ -439,6 +445,8 @@ def emulated_quantized_reduce_scatter_rows(rows_fs, n: int, block: int,
     res = residuals or [None] * n
     outs = [stage_quantize(r.reshape(-1), e, n, block)
             for r, e in zip(rows_fs, res)]
+    if rows_fs[0].is_cuda:
+        _build.note_surface("reduce_scatter_rows")
     sums = []
     for r in range(n):
         qg = torch.cat([q[r * k2:(r + 1) * k2] for q, _, _ in outs])

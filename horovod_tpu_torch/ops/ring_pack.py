@@ -103,6 +103,7 @@ def pack_rows_cuda(bucket: torch.Tensor, n: int) -> torch.Tensor:
     if out.numel():
         _launch("pack_rows", bucket.device, bucket.data_ptr(),
                 out.data_ptr(), length, out.numel(), bucket.element_size())
+        _build.note_surface("pack_epilogue")
     return out
 
 
@@ -177,6 +178,7 @@ def matmul_pack_cuda(a: torch.Tensor, b: torch.Tensor,
         _launch("matmul_pack", a.device, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), m, ncols, kdim, out.numel(),
                 _DTYPE_CODE[a.dtype])
+        _build.note_surface("matmul_epilogue")
     else:
         out.zero_()
     return out

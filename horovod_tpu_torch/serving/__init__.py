@@ -21,10 +21,10 @@ The PyTorch counterpart of the JAX package's ``serving/``:
   continuously batched at iteration granularity with SLO-class
   admission and token streaming;
 * :class:`~horovod_tpu_torch.serving.replica_set.ReplicaSupervisor` —
-  spawn and drain replicas over the preemption (exit 83) contract.
-
-The metrics-driven ``ReplicaAutoscaler`` is not ported yet (ROADMAP
-queue A entry 13, part 3).
+  spawn and drain replicas over the preemption (exit 83) contract;
+* :class:`~horovod_tpu_torch.serving.replica_set.ReplicaAutoscaler` —
+  grow and shrink the fleet off the replicas' slot occupancy
+  (``/healthz``) and queue wait (``/metrics``).
 """
 
 from .batcher import (  # noqa: F401
@@ -52,6 +52,7 @@ from .engine import (  # noqa: F401
 from .replica_set import (  # noqa: F401
     SERVING_DECODE_KIND,
     SERVING_KIND,
+    ReplicaAutoscaler,
     ReplicaSet,
     ReplicaSupervisor,
     generate_remote,

@@ -24,20 +24,33 @@ Contract points:
 
 The ``serving.admit`` fault point fires inside ``submit``. The decode
 scheduler (scheduler.py) raises the same three admission errors, with
-the same HTTP mapping.
+the same HTTP mapping. Each request's queue wait and its time to the
+answer (its TTFT: a one-shot answer is its first token) land in the
+metrics; each batch is a ``SERVING_EXEC`` timeline span keyed by the
+batcher, and a ``serving_batch`` (or ``serving_batch_error``) flight
+record naming the request ids it carried, so a slow request can be
+followed into the batch that served it.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Callable, List, Optional
 
 import numpy as np
 
-from ..utils import faults
+from ..utils import faults, flight, metrics
+from ..utils.timeline import active_timeline
 from . import tracing
 from .engine import serving_knobs
+
+SERVING_EXEC = "SERVING_EXEC"  # timeline activity around a batch run
+
+# a batcher's timeline span key: two batchers in one process (in-process
+# replicas, tests) must not share an open span
+_batcher_seq = itertools.count(1)
 
 
 class QueueFull(RuntimeError):
@@ -125,6 +138,7 @@ class DynamicBatcher:
         self._queued_examples = 0
         self._draining = False
         self._thread: Optional[threading.Thread] = None
+        self._span_key = f"serving_batch#{next(_batcher_seq)}"
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -253,22 +267,47 @@ class DynamicBatcher:
             live: List[_Pending] = []
             for p in batch:
                 if p.deadline_t is not None and now > p.deadline_t:
+                    if p.req_id:
+                        flight.record("serving_timeout", p.req_id,
+                                      queued_s=round(now - p.enqueue_t, 4))
                     p.set_error(RequestTimeout(
                         f"request expired after {now - p.enqueue_t:.3f}s "
                         "in the admission queue"))
                 else:
+                    metrics.record_serving_queue_wait(now - p.enqueue_t)
                     live.append(p)
             if not live:
                 continue
             x = (live[0].x if len(live) == 1
                  else np.concatenate([p.x for p in live], axis=0))
+            # which request ids rode this batch (gathered only when a
+            # timeline or the flight recorder will read them)
+            tl = active_timeline()
+            ids = ([p.req_id for p in live if p.req_id]
+                   if (tl is not None or flight.enabled()) else [])
+            if ids:
+                flight.record("serving_batch", ids[0], ids=ids,
+                              n=int(x.shape[0]))
+            if tl is not None:
+                tl.activity_start(self._span_key, SERVING_EXEC,
+                                  args={"ids": ids, "n": int(x.shape[0])})
             try:
                 y = self._run(x)
             except BaseException as e:
+                if ids:
+                    flight.record("serving_batch_error", ids[0], ids=ids,
+                                  error=str(e)[:120])
                 for p in live:
                     p.set_error(e)
                 continue
+            finally:
+                if tl is not None:
+                    tl.activity_end(self._span_key, SERVING_EXEC)
             off = 0
+            done_t = self._clock()
             for p in live:
                 p.set_result(np.asarray(y)[off:off + p.n])
                 off += p.n
+                # a one-shot answer is its first token: TTFT is enqueue
+                # to result, billed to the default "standard" class
+                metrics.record_serving_ttft(done_t - p.enqueue_t)

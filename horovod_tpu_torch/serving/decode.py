@@ -35,12 +35,22 @@ The PyTorch counterpart of the JAX package's ``serving/decode.py``:
 The model side is models/transformer.py's ``kv_cache`` path; each
 layer's append+attend runs ops/decode_attention.py's kernel on the card.
 The engine runs on the card unless the caller asks for ``device="cpu"``.
+
+Metrics, as in the JAX package: each graph built
+(``record_serving_compile``, by decode slots or prefill bucket), each
+prefill (``record_decode_prefill``) and each decode iteration
+(``record_decode_iteration``, and ``record_serving_tpot`` for every live
+sequence it advanced, by the SLO class ``decode(slos=)`` names). A
+replay returns before the card is done, so an iteration's time runs up
+to its next tokens on the host (``to_host``), not to the replay's
+return. Every record is made around the replay, never inside a graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -52,7 +62,7 @@ import torch
 from ..ops.decode_attention import (_dequantize_rows,  # noqa: F401
                                     _quantize_rows, append_rows_int8_ref,
                                     append_rows_ref, decode_append_attend)
-from ..utils import faults
+from ..utils import faults, metrics
 from .engine import (GraphStep, resolve_device, run_step, serving_knobs,
                      to_device, to_host)
 
@@ -463,7 +473,7 @@ class GenerationEngine:
                     # never leave the card
                     return (nxt, last) if return_logits else (nxt,)
 
-            return GraphStep(key, decode_fn)
+            return GraphStep(key, decode_fn, bucket=spec.slots)
 
         key = ("decode", spec.slots, spec.max_len, bool(return_logits))
         return self._step(key, build)
@@ -511,7 +521,8 @@ class GenerationEngine:
                                 0, self._slot, rows.to(dst.dtype))
                     return first, last
 
-            return GraphStep(key, prefill_fn, {"tokens": tokens})
+            return GraphStep(key, prefill_fn, {"tokens": tokens},
+                             bucket=bucket)
 
         key = ("prefill", bucket)
         return self._step(key, build)
@@ -559,10 +570,12 @@ class GenerationEngine:
 
     def _prefill(self, slot: int, padded: np.ndarray, n: int):
         bucket = padded.shape[1]
+        t0 = time.perf_counter()
         with self._lock:
             step = self._prefill_step(bucket)
             faults.inject("serving.decode_prefill", bucket=bucket)
             first, last = self._run_prefill(step, slot, padded, n)
+        metrics.record_decode_prefill(bucket, time.perf_counter() - t0)
         return int(first), last
 
     def _run_prefill(self, step: GraphStep, slot: int, padded: np.ndarray,
@@ -587,12 +600,18 @@ class GenerationEngine:
 
     def decode(self, tokens: np.ndarray, lengths: np.ndarray,
                return_logits: bool = False,
+               slos: Optional[Sequence[str]] = None,
                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """One iteration: append ``tokens[i]`` at position ``lengths[i]``
         in every slot i and return ``(next_tokens, last_logits)``
         (``[slots]``, and ``[slots, vocab]`` only under
         ``return_logits``). Inactive slots ride along (pass length 0 so
-        their write lands in a row the next prefill overwrites)."""
+        their write lands in a row the next prefill overwrites).
+
+        ``slos`` names the SLO class of each live sequence the iteration
+        advances (the scheduler passes one entry an occupied slot): the
+        iteration's time, up to its tokens on the host, is each one's
+        time per output token (``hvd_serving_tpot_seconds{slo=...}``)."""
         spec = self.spec
         tokens = np.asarray(tokens, np.int32).reshape(spec.slots)
         lengths = np.asarray(lengths, np.int32).reshape(spec.slots)
@@ -600,10 +619,18 @@ class GenerationEngine:
             raise ValueError(
                 f"decode positions must lie in [0, max_seq_len "
                 f"{self.cfg.max_seq_len}), got {lengths.tolist()}")
+        t0 = time.perf_counter()
         with self._lock:
             step = self._decode_step(return_logits)
             faults.inject("serving.decode_step")
             out = self._run_decode(step, tokens, lengths)
+        dt = time.perf_counter() - t0
+        metrics.record_decode_iteration(int(spec.slots), dt)
+        if slos:
+            # each live sequence got one token from this iteration, so
+            # its time is each one's time per output token
+            for slo in slos:
+                metrics.record_serving_tpot(dt, slo=slo)
         return out[0], (out[1] if return_logits else None)
 
     def cache_nbytes(self) -> int:

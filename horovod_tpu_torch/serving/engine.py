@@ -20,6 +20,14 @@ The ``serving.replica_exec`` fault point fires before every executed
 batch, so the chaos tooling (utils/faults.py) can kill or error a
 replica mid-request and prove the dispatch tier's retry path works.
 
+Metrics, as in the JAX package: each executed batch
+(``record_serving_batch``, its bucket and real examples) and each
+bucket's step built (``record_serving_compile``). The build is timed at
+the graph's capture, the port's counterpart of the JAX package's AOT
+compile; on the CPU, which has no graphs, a step is only created, and
+its seconds are 0. Both records are made around the replay, never
+inside a captured step (a call inside one would run at capture only).
+
 With ``mesh`` the parameters are placed by the ``parallel/`` sharding
 rules, as the JAX package places them: each rank computes its slice of
 every leaf (``engine.shards``, bitwise the JAX array's shard on that
@@ -53,7 +61,7 @@ import torch
 
 from ..core.knobs import Knobs
 from ..ops import _build
-from ..utils import faults
+from ..utils import faults, metrics
 
 #: checkpoint metadata key under which a serving process finds the
 #: model description it rebuilds the model from
@@ -150,16 +158,20 @@ class GraphStep:
     passing through their wrappers, so the counters do not tick) and
     ``replays`` how often it ran since. ``pinned`` holds the pinned host
     buffers its inputs and outputs travel through (``to_device``,
-    ``to_host``), which go with it."""
+    ``to_host``), which go with it. ``bucket`` labels its build's
+    ``record_serving_compile``; ``built`` is set by its first run."""
 
     __slots__ = ("key", "fn", "inputs", "graph", "outputs", "launches",
-                 "replays", "capture_s", "pinned")
+                 "replays", "capture_s", "pinned", "bucket", "built")
 
     def __init__(self, key: Tuple, fn: Callable[[], Tuple],
-                 inputs: Optional[Dict[str, torch.Tensor]] = None):
+                 inputs: Optional[Dict[str, torch.Tensor]] = None,
+                 bucket: int = 0):
         self.key = key
         self.fn = fn
         self.inputs = dict(inputs or {})
+        self.bucket = int(bucket)
+        self.built = False
         self.graph = None
         self.outputs: Tuple = ()
         self.launches: Dict[str, int] = {}
@@ -205,11 +217,21 @@ def run_step(step: GraphStep, stream, pool=None,
              uncaptured: bool = False) -> Tuple:
     """The step's outputs for this call: a replay of its graph on the
     card (captured on first use), ``fn()`` itself on the CPU or when
-    ``uncaptured`` (the check that the replay gives the same bits)."""
-    if stream is None or uncaptured:
+    ``uncaptured`` (the check that the replay gives the same bits). A
+    step's first run records its build (``record_serving_compile``: the
+    capture's seconds on the card, 0 on the CPU)."""
+    if uncaptured:
+        return step.fn()
+    if stream is None:
+        if not step.built:
+            step.built = True
+            metrics.record_serving_compile(step.bucket, 0.0)
         return step.fn()
     if step.graph is None:
-        return capture_step(step, stream, pool)
+        outputs = capture_step(step, stream, pool)
+        step.built = True
+        metrics.record_serving_compile(step.bucket, step.capture_s)
+        return outputs
     step.graph.replay()
     step.replays += 1
     return step.outputs
@@ -435,7 +457,7 @@ class InferenceEngine:
             with torch.inference_mode():
                 return (self._apply(self._params, x),)
 
-        step = GraphStep(key, fn, {"x": x})
+        step = GraphStep(key, fn, {"x": x}, bucket=bucket)
         self._cache[key] = step
         while len(self._cache) > self.MAX_CACHED_EXECUTABLES:
             self._cache.popitem(last=False)[1].free()
@@ -488,4 +510,6 @@ class InferenceEngine:
         if bucket != n:
             x = np.concatenate(
                 [x, np.zeros((bucket - n,) + x.shape[1:], x.dtype)], axis=0)
-        return self._run(bucket, x)[:n]
+        y = self._run(bucket, x)[:n]
+        metrics.record_serving_batch(bucket, n)
+        return y

@@ -23,13 +23,22 @@ module is everything around them:
   generation) and the in-flight HTTP requests, then exits with
   ``PREEMPTED_EXIT_CODE`` (83).
 
+* **autoscaling** — :class:`ReplicaAutoscaler` grows and shrinks the
+  fleet through a :class:`ReplicaSupervisor` off the replicas' live
+  signals: slot occupancy from ``/healthz`` and the queue-wait
+  histogram's deltas from ``/metrics``.
+
 Fault points: ``serving.dispatch`` fires before every routed attempt
 (front door), ``serving.replica_exec`` before every executed batch
 (replica, engine.py), ``serving.admit`` at admission (batcher.py).
+Metrics and flight records, as in the JAX package: each replica's
+in-flight count, each ejection (``hvd_serving_failovers_total``), the
+rotation's size on every membership change, the dispatch and failover
+of each request under its id, the autoscaler's actions; a replica
+process turns metrics on, so its ``/metrics`` always answers.
 
-Not ported yet: the metrics-driven ``ReplicaAutoscaler`` (it scrapes
-``/metrics``, ROADMAP queue A entry 13, part 3) and the registrations' mirror
-into a pod relay's KV (entry 14).
+Not ported yet: the registrations' mirror into a pod relay's KV (ROADMAP
+queue A entry 14).
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..utils import faults, metrics, retry
+from ..utils import faults, flight, metrics, retry
 from . import tracing
 from .batcher import RequestTimeout
 from .server import AUTH_HEADER, REQUEST_ID_HEADER, ServingServer, sign_body
@@ -226,15 +235,22 @@ class ReplicaSet:
             idx = min(live, key=lambda i: (self._inflight[i],
                                            (i + self._rr) % len(live)))
             self._inflight[idx] += 1
+            n = self._inflight[idx]
+        metrics.set_serving_inflight(n, replica=str(idx))
         return idx, self._replicas[idx]
 
     def _release(self, idx: int) -> None:
         with self._lock:
             self._inflight[idx] -= 1
+            n = self._inflight[idx]
+        metrics.set_serving_inflight(n, replica=str(idx))
 
     def _mark_dead(self, idx: int, why: BaseException) -> None:
         with self._lock:
+            already = idx in self._dead
             self._dead[idx] = f"{type(why).__name__}: {why}"
+        if not already:
+            metrics.record_serving_failover(str(idx))
 
     def revive(self, idx: Optional[int] = None) -> None:
         """Forgive one replica (or all) — e.g. after an external health
@@ -255,6 +271,8 @@ class ReplicaSet:
             self._replicas[idx] = addr
             self._inflight.setdefault(idx, 0)
             self._dead.pop(idx, None)
+            n = len(self._replicas)
+        metrics.set_serving_replicas(n)
 
     def remove_replica(self, idx: int) -> None:
         """Take a replica out of rotation BEFORE draining it: no new
@@ -268,6 +286,8 @@ class ReplicaSet:
                     "refusing to remove the last serving replica")
             self._replicas.pop(idx)
             self._dead.pop(idx, None)
+            n = len(self._replicas)
+        metrics.set_serving_replicas(n)
 
     # -- dispatch -----------------------------------------------------------
 
@@ -290,6 +310,8 @@ class ReplicaSet:
                     f"request budget {timeout_s}s exhausted during "
                     f"dispatch/failover")
             idx, addr = self._pick()
+            flight.record("serving_dispatch", str(idx),
+                          n=int(x.shape[0]), req=rid)
             try:
                 faults.inject("serving.dispatch", replica=idx)
                 remaining = max(deadline.remaining(), 0.5)
@@ -305,6 +327,8 @@ class ReplicaSet:
             except BaseException as e:
                 if _ejects_replica(e):
                     self._mark_dead(idx, e)
+                    flight.record("serving_failover", str(idx),
+                                  error=str(e)[:120])
                 raise
             finally:
                 self._release(idx)
@@ -338,6 +362,8 @@ class ReplicaSet:
                     f"request budget {timeout_s}s exhausted during "
                     "generate dispatch/failover")
             idx, addr = self._pick()
+            flight.record("serving_dispatch", str(idx), req=rid,
+                          route="generate")
             yielded = False
             try:
                 faults.inject("serving.dispatch", replica=idx)
@@ -354,6 +380,8 @@ class ReplicaSet:
             except BaseException as e:
                 if _ejects_replica(e):
                     self._mark_dead(idx, e)
+                    flight.record("serving_failover", str(idx),
+                                  error=str(e)[:120])
                 if yielded:
                     yield {"done": True,
                            "error": f"{type(e).__name__}: {e}"}
@@ -400,6 +428,7 @@ class ReplicaSupervisor:
         with self._lock:
             self._owned[idx] = handle
         self._rs.add_replica(idx, addr)
+        flight.record("autoscale_grow", str(idx), addr=addr)
         return idx
 
     def shrink(self, timeout_s: float = 60.0) -> Optional[int]:
@@ -418,9 +447,10 @@ class ReplicaSupervisor:
         # drain timeout never orphans a live subprocess
         self._rs.remove_replica(idx)
         handle.send_signal(signal_mod.SIGTERM)
-        handle.wait(timeout=timeout_s)
+        rc = handle.wait(timeout=timeout_s)
         with self._lock:
             self._owned.pop(idx, None)
+        flight.record("autoscale_shrink", str(idx), exit_code=rc)
         return idx
 
     def stop_all(self, timeout_s: float = 30.0) -> None:
@@ -433,6 +463,182 @@ class ReplicaSupervisor:
             except ValueError:
                 # last replica in the set: leave it serving
                 return
+
+
+class ReplicaAutoscaler:
+    """Grow and shrink the replica fleet off the replicas' live decode
+    signals: slot occupancy (``hvd_serving_decode_slots``, served as
+    ``slots{}`` on every replica's unauthenticated ``/healthz``) and the
+    admission queue's wait (``hvd_serving_queue_wait_seconds`` deltas
+    from ``/metrics``).
+
+    Policy: a poll is *hot* when the fleet's occupancy is at least
+    ``hi_occupancy``, or prefills queue while the recent queue wait is
+    at least ``queue_wait_hi_s``; *cold* when occupancy is at most
+    ``lo_occupancy`` with an empty queue. ``sustain`` hot (cold) polls
+    in a row outside the ``cooldown_s`` window grow (shrink) the fleet
+    by one replica, within [``min_replicas``, ``max_replicas``]. Every
+    action lands in ``hvd_serving_autoscale_events_total{action=}`` and
+    the flight recorder. ``signal_fn`` (default: the scrape) and
+    ``clock`` let a test drive the policy; each argument left None reads
+    its ``HOROVOD_SERVING_AUTOSCALE_*`` knob.
+    """
+
+    def __init__(
+        self,
+        supervisor: ReplicaSupervisor,
+        replica_set: ReplicaSet,
+        *,
+        signal_fn=None,
+        min_replicas: Optional[int] = None,
+        max_replicas: Optional[int] = None,
+        hi_occupancy: Optional[float] = None,
+        lo_occupancy: Optional[float] = None,
+        queue_wait_hi_s: Optional[float] = None,
+        sustain: Optional[int] = None,
+        cooldown_s: Optional[float] = None,
+        clock=time.monotonic,
+    ):
+        from .engine import serving_knobs
+
+        k = serving_knobs()
+
+        def _k(v, name):
+            return v if v is not None else getattr(k, name)
+
+        self._sup = supervisor
+        self._rs = replica_set
+        self._signal_fn = signal_fn or self._scrape_signals
+        self.min_replicas = int(_k(min_replicas,
+                                   "serving_autoscale_min_replicas"))
+        self.max_replicas = int(_k(max_replicas,
+                                   "serving_autoscale_max_replicas"))
+        self.hi_occupancy = float(_k(hi_occupancy,
+                                     "serving_autoscale_hi_occupancy"))
+        self.lo_occupancy = float(_k(lo_occupancy,
+                                     "serving_autoscale_lo_occupancy"))
+        self.queue_wait_hi_s = float(_k(queue_wait_hi_s,
+                                        "serving_autoscale_queue_wait_s"))
+        self.sustain = int(_k(sustain, "serving_autoscale_sustain"))
+        self.cooldown_s = float(_k(cooldown_s,
+                                   "serving_autoscale_cooldown_s"))
+        self._clock = clock
+        self._hot_streak = 0
+        self._cold_streak = 0
+        self._last_action_t = -1e9
+        self._last_wait: Dict[str, Tuple[float, float]] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._stop: Optional[threading.Event] = None
+        self.decisions: list = []  # (t, action): the trail
+
+    # -- signals -------------------------------------------------------------
+
+    def _scrape_signals(self) -> Dict:
+        """The fleet's occupancy and queue over the live replicas:
+        ``slots{}`` from ``/healthz``, the queue wait's sum and count
+        deltas from ``/metrics``. A replica that does not answer within
+        2 s adds nothing (the dispatch tier's failover owns it)."""
+        total = occupied = queued = 0
+        dsum = dcount = 0.0
+        for idx, addr in self._rs.replicas.items():
+            try:
+                with urllib.request.urlopen(
+                        f"http://{addr}/healthz", timeout=2.0) as r:
+                    h = json.loads(r.read())
+                slots = h.get("slots") or {}
+                total += int(slots.get("total", 0))
+                occupied += int(slots.get("occupied", 0))
+                queued += int(slots.get("queued_prefills", 0))
+            except Exception:
+                continue
+            try:
+                with urllib.request.urlopen(
+                        f"http://{addr}/metrics", timeout=2.0) as r:
+                    text = r.read().decode()
+                s = c = 0.0
+                # the histogram is labeled by SLO class: sum its series
+                for line in text.splitlines():
+                    if line.startswith(
+                            "hvd_serving_queue_wait_seconds_sum"):
+                        s += float(line.rsplit(" ", 1)[1])
+                    elif line.startswith(
+                            "hvd_serving_queue_wait_seconds_count"):
+                        c += float(line.rsplit(" ", 1)[1])
+                ps, pc = self._last_wait.get(addr, (0.0, 0.0))
+                self._last_wait[addr] = (s, c)
+                dsum += max(s - ps, 0.0)
+                dcount += max(c - pc, 0.0)
+            except Exception:
+                continue
+        return {
+            "occupancy": (occupied / total) if total else 0.0,
+            "queued": queued,
+            "queue_wait_s": (dsum / dcount) if dcount else 0.0,
+        }
+
+    # -- the control loop ----------------------------------------------------
+
+    def poll_once(self) -> Optional[str]:
+        """One observe-decide-act cycle; returns "grow" or "shrink" when
+        an action fired, else None."""
+        sig = self._signal_fn()
+        now = self._clock()
+        n = len(self._rs.replicas)
+        hot = (sig.get("occupancy", 0.0) >= self.hi_occupancy
+               or (sig.get("queued", 0) > 0
+                   and sig.get("queue_wait_s", 0.0)
+                   >= self.queue_wait_hi_s))
+        cold = (sig.get("occupancy", 0.0) <= self.lo_occupancy
+                and sig.get("queued", 0) == 0)
+        self._hot_streak = self._hot_streak + 1 if hot else 0
+        self._cold_streak = self._cold_streak + 1 if cold else 0
+        if now - self._last_action_t < self.cooldown_s:
+            return None
+        action = None
+        if self._hot_streak >= self.sustain and n < self.max_replicas:
+            self._sup.grow()
+            action = "grow"
+        elif (self._cold_streak >= self.sustain
+                and n > self.min_replicas and self._sup.owned):
+            if self._sup.shrink() is not None:
+                action = "shrink"
+        if action:
+            self._last_action_t = now
+            self._hot_streak = self._cold_streak = 0
+            self.decisions.append((now, action))
+            metrics.record_autoscale(action)
+        return action
+
+    def start(self, interval_s: Optional[float] = None) -> None:
+        """Poll every ``interval_s`` (default the knob) on a thread of its
+        own until :meth:`stop`."""
+        from .engine import serving_knobs
+
+        if interval_s is None:
+            interval_s = float(serving_knobs().serving_autoscale_interval_s)
+        if self._thread is not None:
+            return
+        stop = threading.Event()
+
+        def loop():
+            while not stop.wait(interval_s):
+                try:
+                    self.poll_once()
+                except Exception as e:  # noqa: BLE001 — keep scaling
+                    flight.record("autoscale_error", "",
+                                  error=str(e)[:120])
+
+        t = threading.Thread(target=loop, daemon=True,
+                             name="hvd-serving-autoscaler")
+        t.start()
+        self._thread, self._stop = t, stop
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=5)
+            self._thread = None
+            self._stop = None
 
 
 # ---------------------------------------------------------------------------
@@ -526,6 +732,7 @@ def serve_replica(argv=None) -> int:
                          "(skips the registry)")
     args = ap.parse_args(argv)
 
+    metrics.enable()  # serving is an observability-first workload
     faults.configure()  # arm HOROVOD_TPU_FAULT_SPEC if the env set one
     key = _secret_or_none()
 

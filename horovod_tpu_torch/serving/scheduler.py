@@ -26,6 +26,14 @@ batch is rebuilt EVERY token:
 Each request records the clock at its first token (``first_token_t``)
 and at its end (``done_t``), from which a caller reads time to first
 token and time per output token.
+
+Metrics and flight records, as in the JAX package: admission's queue
+wait and time to first token by the request's SLO class, the tokens
+delivered, every eviction by reason, the slots' occupancy after each
+iteration, a ``decode`` StepStats event every
+``HOROVOD_SERVING_DECODE_STATS_EVERY`` iterations, and the engine's
+per-sequence TPOT (``decode(slos=)``); a traced request's admission,
+shedding and finish land in the flight recorder under its id.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import flight, metrics
 from . import tracing
 from .batcher import Draining, QueueFull, RequestTimeout
 from .engine import serving_knobs
@@ -304,6 +313,8 @@ class DecodeScheduler:
                     f"shed for an arriving {r.slo_name!r}-class "
                     "request (queue at capacity)"))
                 self._count_eviction("shed")
+                flight.record("decode_shed", victim.req_id,
+                              slo=victim.slo_name, for_slo=r.slo_name)
             self._queue.append(r)
             self._cv.notify_all()
         return r
@@ -325,6 +336,7 @@ class DecodeScheduler:
 
     def _count_eviction(self, reason: str) -> None:
         self._evictions[reason] = self._evictions.get(reason, 0) + 1
+        metrics.record_decode_eviction(reason)
 
     def _evict_locked(self, slot: int) -> None:
         self._active.pop(slot, None)
@@ -337,6 +349,9 @@ class DecodeScheduler:
         r.done_t = self._clock()
         r.finish(reason)
         self._count_eviction(reason)
+        if r.req_id:
+            flight.record("decode_finish", r.req_id, reason=reason,
+                          n=len(r.tokens))
         self._evict_locked(slot)
 
     def step_once(self) -> bool:
@@ -376,6 +391,11 @@ class DecodeScheduler:
         # prefills run outside the scheduler lock (submit must not
         # block on compute; the engine serializes execution itself)
         for slot, r in admitted:
+            metrics.record_serving_queue_wait(now - r.enqueue_t,
+                                              slo=r.slo_name)
+            if r.req_id:
+                flight.record("decode_admit", r.req_id, slot=slot,
+                              n=int(r.prompt.shape[0]), slo=r.slo_name)
             try:
                 first, _ = self._engine.prefill(slot, r.prompt)
             except Exception as e:  # noqa: BLE001 — fail only this one
@@ -384,14 +404,20 @@ class DecodeScheduler:
                     self._count_eviction("error")
                     self._evict_locked(slot)
                 continue
+            # time to first token: admission to the first token, by
+            # SLO class (what the burn-rate rules watch)
+            first_t = self._clock()
+            metrics.record_serving_ttft(first_t - r.enqueue_t,
+                                        slo=r.slo_name)
             with self._cv:
                 if slot not in self._active:
                     continue  # evicted between admit and prefill
-                r.first_token_t = self._clock()
+                r.first_token_t = first_t
                 self._tokens[slot] = first
                 self._lengths[slot] = r.prompt.shape[0]
                 r.push_tokens([first])
                 self._tokens_out += 1
+                metrics.record_decode_tokens(1)
                 if (self._engine.eos_id is not None
                         and first == self._engine.eos_id):
                     self._finish_locked(slot, r, "eos")
@@ -404,8 +430,13 @@ class DecodeScheduler:
             lengths = self._lengths.copy()
         did_decode = False
         if active:
-            nxt, _ = self._engine.decode(tokens, lengths)
+            # the engine bills the iteration's time to each live
+            # sequence as its TPOT, by SLO class
+            nxt, _ = self._engine.decode(
+                tokens, lengths,
+                slos=[r.slo_name for r in active.values()])
             did_decode = True
+            n_new = 0
             with self._cv:
                 for slot, r in list(self._active.items()):
                     if slot not in active:
@@ -414,7 +445,7 @@ class DecodeScheduler:
                     self._tokens[slot] = tok
                     self._lengths[slot] += 1
                     r.push_tokens([tok])
-                    self._tokens_out += 1
+                    n_new += 1
                     if (self._engine.eos_id is not None
                             and tok == self._engine.eos_id):
                         self._finish_locked(slot, r, "eos")
@@ -422,11 +453,21 @@ class DecodeScheduler:
                           or self._lengths[slot]
                           >= self._engine.max_len):
                         self._finish_locked(slot, r, "length")
+                self._tokens_out += n_new
+            metrics.record_decode_tokens(n_new)
         with self._lock:
             self._iterations += 1
             iterations = self._iterations
-        if self._stats_every and iterations % self._stats_every == 0:
-            _log.info("decode stats %s", self.stats())
+            occupied = len(self._active)
+            queued = len(self._queue)
+        metrics.set_decode_slots(self._engine.slots, occupied, queued)
+        if (self._stats_every and iterations % self._stats_every == 0
+                and metrics.enabled()):
+            stats = self.stats()
+            metrics.step_stats.emit_event("decode", {
+                k: stats[k] for k in (
+                    "iterations", "tokens", "slots_total",
+                    "slots_occupied", "queued_prefills", "evictions")})
         return bool(admitted) or did_decode
 
     def _loop(self) -> None:

@@ -1,5 +1,5 @@
 """HTTP front end for inference: POST /v1/predict + /v1/generate,
-/healthz, /health.
+/healthz, /health, /metrics.
 
 The PyTorch counterpart of the JAX package's ``serving/server.py``: a
 threaded stdlib HTTP server (per-request threads, silent logging,
@@ -7,11 +7,11 @@ Content-Length replies) carrying the launcher's per-job shared secret
 (``runner/util/secret.py``) as request authentication: when a key is
 set, every POST body must be accompanied by ``X-Hvd-Auth:
 hex(hmac_sha256(key, body))``. Probe routes stay unauthenticated.
-``GET /metrics`` answers 404: the serving records and this server's
-exposition come with ROADMAP queue A entry 13, part 3 (the registry and
-``/metrics`` on the rendezvous store came with part 1). ``GET /health``
-answers this process's fleet-health verdict (``health.verdict()``: off,
-ok or degraded, with the firing rules), which ``/healthz`` folds in.
+``GET /metrics`` answers this process's exposition
+(``metrics.exposition()``: the serving records of this tier and of the
+engine behind it). ``GET /health`` answers this process's fleet-health
+verdict (``health.verdict()``: off, ok or degraded, with the firing
+rules), which ``/healthz`` folds in.
 
 Protocol (the JAX package's, unchanged)::
 
@@ -37,13 +37,18 @@ Protocol (the JAX package's, unchanged)::
 The same class fronts a single replica (predict_fn = the batcher) and
 the multi-replica dispatch tier (predict_fn = ReplicaSet.predict).
 Every request carries an id (``X-Request-Id``, serving/tracing.py),
-echoed on the reply and forwarded by the dispatch tier.
+echoed on the reply and forwarded by the dispatch tier; it keys the
+request's ``SERVING_REQUEST`` timeline span and its ``serving_request``
+flight record. Each completed POST lands in
+``hvd_serving_requests_total`` and ``hvd_serving_request_seconds`` by
+status, and the in-flight count in ``hvd_serving_inflight``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import hmac
+import itertools
 import json
 import threading
 import time
@@ -54,12 +59,20 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .. import health as _health
+from ..utils import flight, metrics
+from ..utils.timeline import active_timeline
 from . import tracing
 from .batcher import Draining, QueueFull, RequestTimeout
 
 AUTH_HEADER = "X-Hvd-Auth"
 REQUEST_ID_HEADER = tracing.REQUEST_ID_HEADER
 MAX_BODY_BYTES = 64 << 20  # one request can't swallow the heap
+SERVING_REQUEST = "SERVING_REQUEST"  # timeline activity, tid = request id
+
+# a span key gets a process-unique suffix: a client may reuse an id
+# (retries, a fixed X-Request-Id), and two concurrent requests with one
+# id would otherwise share an open span
+_span_seq = itertools.count(1)
 
 
 def sign_body(key: bytes, body: bytes) -> str:
@@ -120,17 +133,16 @@ class _ServingHandler(BaseHTTPRequestHandler):
     def do_GET(self):
         srv: "ServingServer" = self.server.serving  # type: ignore[attr-defined]
         path = self.path.split("?", 1)[0].rstrip("/")
-        if path == "/healthz":
+        if path == "/metrics":
+            ctype, body = metrics.exposition()
+            self._reply(200, body, ctype)
+        elif path == "/healthz":
             self._reply_json(200 if not srv.draining else 503,
                              srv.health())
         elif path == "/health":
             # the verdict alone (the rendezvous store serves the same
             # route for the training fleet)
             self._reply_json(200, _health.verdict())
-        elif path == "/metrics":
-            self._reply_json(404, {"error": "the serving exposition is "
-                                            "not ported yet (ROADMAP "
-                                            "queue A entry 13, part 3)"})
         else:
             self._reply_json(404, {"error": "not found"})
 
@@ -147,12 +159,17 @@ class _ServingHandler(BaseHTTPRequestHandler):
             self._reply_json(404, {"error": "not found"})
             return
         self._streamed = False
+        t0 = time.perf_counter()
         # request trace id: the client's X-Request-Id (sanitized) or a
         # fresh one, bound to this handler thread's context so the
         # batcher/dispatch tier downstream carry the same id
         rid = tracing.sanitize(self.headers.get(REQUEST_ID_HEADER, ""))
         self._request_id = rid
         rid_token = tracing.set_request_id(rid)
+        span = f"{rid}#{next(_span_seq)}"
+        tl = active_timeline()
+        if tl is not None:
+            tl.activity_start(span, SERVING_REQUEST, args={"id": rid})
         # count ourselves in-flight BEFORE touching the body: drain()
         # must not report empty (and let SIGTERM os._exit) while a
         # request is mid-read — the whole handling INCLUDING the
@@ -232,10 +249,11 @@ class _ServingHandler(BaseHTTPRequestHandler):
                 code, resp = 500, {"error": f"{type(e).__name__}: {e}"}
         finally:
             try:
-                if not self._streamed:
-                    self._reply_json(code, resp)
+                self._finish(code, resp, t0)
             finally:
                 srv._inflight_delta(-1)
+                if tl is not None:
+                    tl.activity_end(span, SERVING_REQUEST)
                 tracing.reset_request_id(rid_token)
                 self._request_id = ""
 
@@ -283,6 +301,14 @@ class _ServingHandler(BaseHTTPRequestHandler):
         finally:
             self._end_stream()
         return 200, None
+
+    def _finish(self, code: int, resp: Dict, t0: float) -> None:
+        dt = time.perf_counter() - t0
+        metrics.record_serving_request(dt, code)
+        flight.record("serving_request", self._request_id,
+                      code=code, ms=round(dt * 1e3, 3))
+        if not self._streamed:
+            self._reply_json(code, resp)
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -356,6 +382,8 @@ class ServingServer:
     def _inflight_delta(self, d: int) -> None:
         with self._inflight_lock:
             self._inflight += d
+            n = self._inflight
+        metrics.set_serving_inflight(n)
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Stop admitting requests and wait for in-flight ones to

@@ -5,9 +5,10 @@ metrics are per process: when a world hangs, each rank holds only its
 own view. The recorder is an aircraft-style black box:
 
 * a **bounded ring** of control-plane events (retries, faults, elastic
-  transitions, recoveries, preemption, signals; the eager runtime's
-  enqueue, response and execution events come with entry 13, part 3),
-  each stamped with a per-rank sequence number and the monotonic and
+  transitions, recoveries, preemption, signals, the eager runtime's
+  enqueues, responses, executions and plan changes, the serving tier's
+  requests, batches, dispatches and failovers, decode admissions and
+  evictions, the autoscaler's actions), each stamped with a per-rank sequence number and the monotonic and
   wall clocks. :func:`record` takes no lock: one enabled check, a
   ``deque.append`` (atomic under the GIL) and an ``itertools.count``
   step;

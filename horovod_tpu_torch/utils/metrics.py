@@ -22,18 +22,24 @@ The record sites: the eager collectives (``record_collective``,
 (``record_timeline_activity``, ``utils/timeline.py``), the control plane
 (``record_retry``/``record_retry_giveup``, ``record_fault``), elastic
 training (``record_elastic_event``, ``record_recovery_rung``,
-``record_replication``) and the eager runtime's counters
-(``record_stall_abort``, ``record_fused_batch``, ``set_queue_depth``).
-The retry, fault, recovery and elastic records also land in the flight
-recorder (``utils/flight.py``), which has its own gate. Still to come:
-the serving and decode records, the eager runtime's latency histograms
-and native-stats gauges and the serving records' call sites (ROADMAP
-queue A entry 13, part 3), the autotuner's trail (entry 12); the pod
-label stays unset until entry 14. The sampled profiler
-(``utils/prof.py``) feeds ``record_mfu`` and ``record_step_attribution``
-through the step wrapper, and the health monitor (``health/``) reads
-each closed step record and serving latency sample through the
-observer slots.
+``record_replication``), the eager runtime (``record_stall_abort``,
+``record_negotiation_latency``, ``record_batch_execution``,
+``set_queue_depth``, its wire's ``record_wire_bytes`` and, pulled at
+every scrape through :func:`set_native_stats_provider`, the controller's
+cumulative ``hvd_cache_hits_total``/``hvd_coord_*`` and the plan cache's
+``hvd_eager_fast_path_*`` gauges), the fused kernels' first launch
+(``record_fused_collective``), the FSDP step (``record_fsdp_step``,
+``record_overlap_window``), the serving tier (``record_serving_*``,
+``set_serving_inflight``, ``set_serving_replicas``), decode
+(``record_decode_*``, ``set_decode_slots``) and the replica autoscaler
+(``record_autoscale``). The retry, fault, recovery, elastic, eviction
+and autoscale records also land in the flight recorder
+(``utils/flight.py``), which has its own gate. Still to come: the
+autotuner's trail (ROADMAP queue A entry 12); the pod label stays unset
+until entry 14. The sampled profiler (``utils/prof.py``) feeds
+``record_mfu`` and ``record_step_attribution`` through the step wrapper,
+and the health monitor (``health/``) reads each closed step record and
+serving latency sample through the observer slots.
 
 Cost discipline: off by default, and every record function begins with
 ``if not _enabled: return``, so a disabled site costs one predicted
@@ -53,7 +59,7 @@ import re
 import threading
 import time
 import urllib.request
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from . import flight as _flight
 
@@ -252,13 +258,12 @@ class MetricFamily:
 
 
 class MetricsRegistry:
-    """Thread-safe family registry. (The JAX registry's pre-scrape
-    collector hooks feed the eager runtime's native stats; they come
-    with those, entry 13 part 3.)"""
+    """Thread-safe family registry and pre-scrape collector hooks."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._families: Dict[str, MetricFamily] = {}
+        self._collectors: List[Callable[[], None]] = []
 
     def _family(self, name: str, kind: str, help: str,
                 labelnames: Sequence[str] = (),
@@ -288,7 +293,33 @@ class MetricsRegistry:
                   buckets=None) -> MetricFamily:
         return self._family(name, "histogram", help, labelnames, buckets)
 
+    def register_collector(self, fn: Callable[[], None]) -> None:
+        """``fn`` runs before every render and snapshot: the pull hook of
+        a source that keeps its own cumulative state (the eager
+        runtime)."""
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+
+    def unregister_collector(self, fn: Callable[[], None]) -> None:
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def collect(self) -> None:
+        """Run the collectors, holding no lock of the registry: a
+        collector takes its source's lock (the runtime's) and then a
+        family's, the order every record site keeps."""
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:
+                pass  # a dead provider must not break the scrape
+
     def render(self) -> str:
+        self.collect()
         lines: List[str] = []
         with self._lock:
             fams = sorted(self._families.values(), key=lambda f: f.name)
@@ -297,6 +328,7 @@ class MetricsRegistry:
         return "\n".join(lines) + ("\n" if lines else "")
 
     def snapshot(self) -> dict:
+        self.collect()
         with self._lock:
             fams = sorted(self._families.values(), key=lambda f: f.name)
         return {f.name: f.snapshot() for f in fams}
@@ -304,6 +336,7 @@ class MetricsRegistry:
     def clear(self) -> None:
         with self._lock:
             self._families.clear()
+            self._collectors.clear()
 
 
 registry = MetricsRegistry()
@@ -516,13 +549,12 @@ class StepStats:
         self._log_path = ""
         self.step = 0
         self._t0: Optional[float] = None
+        self._last_native: Dict[str, float] = {}
         self._reset_interval()
 
     def _reset_interval(self) -> None:
         self.collectives: Dict[str, List[float]] = {}  # op/dtype -> [n, B]
-        # the eager runtime's negotiation latencies (entry 13, part 3,
-        # feeds them); the record carries the pair from the first step
-        self.neg_count = 0
+        self.neg_count = 0  # the eager runtime's negotiation latencies
         self.neg_sum = 0.0
         self.fusion_plans = 0
         self.fusion_buckets = 0
@@ -530,6 +562,11 @@ class StepStats:
         self.grad_bytes = 0
         self.wire_logical = 0
         self.wire_sent = 0
+        self.overlap_window = None  # the staged schedule's pin (0..1)
+        self.fsdp_param_bytes = None  # a rank's resident parameter bytes
+        self.fsdp_gather_bytes = 0  # forward all-gather bytes
+        self.fsdp_regather_bytes = 0  # backward re-gather bytes
+        self.fsdp_offload_bytes = 0  # stage carries parked on the host
         self.queue_depth = 0
         self.elastic_events: List[str] = []
         self.mfu = None  # model-FLOPs utilization of the step (0..1)
@@ -542,6 +579,11 @@ class StepStats:
             ent = self.collectives.setdefault(f"{op}/{dtype}", [0, 0])
             ent[0] += 1
             ent[1] += int(nbytes)
+
+    def add_negotiation(self, seconds: float) -> None:
+        with self._lock:
+            self.neg_count += 1
+            self.neg_sum += seconds
 
     def add_fusion(self, n_buckets: int, fill_sum: float) -> None:
         with self._lock:
@@ -557,6 +599,18 @@ class StepStats:
         with self._lock:
             self.wire_logical += int(logical)
             self.wire_sent += int(sent)
+
+    def set_overlap_window(self, frac: float) -> None:
+        with self._lock:
+            self.overlap_window = float(frac)
+
+    def add_fsdp(self, param_bytes: int, gather_bytes: int,
+                 regather_bytes: int = 0, offload_bytes: int = 0) -> None:
+        with self._lock:
+            self.fsdp_param_bytes = int(param_bytes)
+            self.fsdp_gather_bytes += int(gather_bytes)
+            self.fsdp_regather_bytes += int(regather_bytes)
+            self.fsdp_offload_bytes += int(offload_bytes)
 
     def add_elastic_event(self, kind: str) -> None:
         with self._lock:
@@ -621,8 +675,11 @@ class StepStats:
         now = time.perf_counter()
         dt = (now - self._t0) if self._t0 is not None else 0.0
         self._t0 = None
+        # the provider takes the runtime's lock: read it before ours
+        native = _native_stats_snapshot()
         with self._lock:
             self.step += 1
+            n_coll = sum(v[0] for v in self.collectives.values())
             record = {
                 "step": self.step,
                 "time_unix": time.time(),
@@ -651,6 +708,15 @@ class StepStats:
                     "logical_bytes": self.wire_logical,
                     "sent_bytes": self.wire_sent,
                 }
+            if self.overlap_window is not None:
+                record["overlap_window_frac"] = self.overlap_window
+            if self.fsdp_param_bytes is not None:
+                record["fsdp"] = {
+                    "hbm_param_bytes": self.fsdp_param_bytes,
+                    "gather_bytes": self.fsdp_gather_bytes,
+                    "regather_bytes": self.fsdp_regather_bytes,
+                    "offload_bytes": self.fsdp_offload_bytes,
+                }
             if self.mfu is not None:
                 record["mfu"] = self.mfu
             if self.attribution is not None:
@@ -661,6 +727,24 @@ class StepStats:
                 record["retry_giveups"] = dict(self.retry_giveups)
             if _pod_label:
                 record["pod"] = _pod_label
+            if native:
+                delta = {
+                    k: native[k] - self._last_native.get(k, 0.0)
+                    for k in ("cache_hits", "bytes_negotiated",
+                              "stall_warnings")
+                    if k in native
+                }
+                hits = delta.get("cache_hits", 0.0)
+                record["native"] = {
+                    **{k: int(v) for k, v in delta.items()},
+                    # hits against the collectives issued this step: the
+                    # controller's cache counts no lookups of its own
+                    "cache_hit_rate": (
+                        min(hits / n_coll, 1.0) if n_coll else 0.0),
+                }
+                if "cycles" in native:
+                    record["native"]["coord_cycles"] = int(native["cycles"])
+                self._last_native = native
             if extra:
                 record.update(extra)
             # written under the lock: close_log (shutdown, maybe on
@@ -817,6 +901,103 @@ def record_wire_bytes(logical: int, sent: int) -> None:
     step_stats.add_wire(int(logical), int(sent))
 
 
+def record_negotiation_latency(seconds: float) -> None:
+    """One tensor's wait in the eager runtime from its enqueue to the
+    negotiated batch that carries it."""
+    if not _enabled:
+        return
+    registry.histogram(
+        "hvd_negotiation_seconds",
+        "Enqueue-to-negotiated latency in the eager runtime",
+    ).observe(seconds)
+    step_stats.add_negotiation(seconds)
+
+
+def record_batch_execution(op: str, n_tensors: int, nbytes: int,
+                           seconds: float) -> None:
+    """One fused batch executed by the eager runtime's data plane,
+    negotiated or replayed from the plan cache: its host seconds in the
+    executor, its tensors and bytes, by op."""
+    if not _enabled:
+        return
+    registry.histogram(
+        "hvd_batch_execution_seconds",
+        "Fused-batch execution wall time, by op", ("op",),
+    ).labels(op).observe(seconds)
+    registry.counter(
+        "hvd_fused_tensors_total",
+        "Tensors carried by executed fused batches", ("op",),
+    ).labels(op).inc(n_tensors)
+    registry.counter(
+        "hvd_fused_batch_bytes_total",
+        "Bytes carried by executed fused batches", ("op",),
+    ).labels(op).inc(nbytes)
+
+
+def record_fused_collective(surface: str) -> None:
+    """A fused computation-collective kernel's surface, recorded once a
+    process at its first launch on the card (``ops/quantized_collectives``,
+    ``ops/ring_pack``, ``ops/decode_attention``; the JAX package records
+    it at lowering): a breadcrumb of which fused surfaces ran, not a
+    step counter, since fusion moves the same bytes."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_fused_collectives_enabled",
+        "1 when the fused Pallas collective backend is selected").set(1)
+    registry.counter(
+        "hvd_fused_collective_lowerings_total",
+        "Fused computation-collective kernels lowered, by surface",
+        labelnames=("surface",)).labels(surface=surface).inc()
+
+
+def record_overlap_window(frac: float) -> None:
+    """The staged step's overlap pin (``ops/overlap.py``): the share of
+    the backward's cost that runs after the first gradient collective
+    is issued, the least overlap window a correct schedule grants."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_overlap_window_frac",
+        "Backward fraction pinned after the first gradient collective "
+        "by the overlap schedule").set(float(frac))
+    step_stats.set_overlap_window(frac)
+
+
+def record_fsdp_step(param_bytes: int, gather_bytes: int,
+                     regather_bytes: int = 0,
+                     offload_bytes: int = 0) -> None:
+    """One executed FSDP step (``ops/overlap.py``): a rank's resident
+    parameter bytes (about 1/world of the replicated size), the bytes
+    its forward all-gathers materialized, the backward's re-gathers
+    (regather mode) and the stage carries parked on the host
+    (HOROVOD_FSDP_OFFLOAD)."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_hbm_param_bytes",
+        "Per-device parameter bytes resident in HBM (sharded "
+        "footprint under FSDP; replicated size otherwise)").set(
+            float(param_bytes))
+    registry.counter(
+        "hvd_fsdp_gather_bytes_total",
+        "Full-precision parameter bytes materialized by FSDP forward "
+        "all-gathers").inc(float(gather_bytes))
+    if regather_bytes:
+        registry.counter(
+            "hvd_fsdp_regather_bytes_total",
+            "Full-precision parameter bytes re-materialized by FSDP "
+            "backward re-gathers (regather mode)").inc(
+                float(regather_bytes))
+    if offload_bytes:
+        registry.counter(
+            "hvd_fsdp_offload_bytes_total",
+            "Stage-boundary activation bytes offloaded to host RAM "
+            "per step (HOROVOD_FSDP_OFFLOAD)").inc(float(offload_bytes))
+    step_stats.add_fsdp(param_bytes, gather_bytes, regather_bytes,
+                        offload_bytes)
+
+
 def record_timeline_activity(activity: str, seconds: float) -> None:
     """A closed timeline span (``utils/timeline.py``) into a latency
     histogram keyed by its activity."""
@@ -926,23 +1107,6 @@ def record_elastic_event(kind: str) -> None:
     step_stats.add_elastic_event(kind)
 
 
-def record_fused_batch(op: str, n_tensors: int, nbytes: int) -> None:
-    """One negotiated fused batch executed by the eager runtime's data
-    plane: the tensors it carried and their bytes, by op (the counter
-    half of the JAX ``record_batch_execution``; its latency histogram
-    comes with the eager runtime's records, entry 13 part 3)."""
-    if not _enabled:
-        return
-    registry.counter(
-        "hvd_fused_tensors_total",
-        "Tensors carried by executed fused batches", ("op",),
-    ).labels(op).inc(n_tensors)
-    registry.counter(
-        "hvd_fused_batch_bytes_total",
-        "Bytes carried by executed fused batches", ("op",),
-    ).labels(op).inc(nbytes)
-
-
 def record_mfu(mfu: float) -> None:
     """Model-FLOPs utilization of the step just closed: the declared
     model FLOPs over (step time x cards x the card's peak FLOP/s;
@@ -1005,10 +1169,22 @@ def set_queue_depth(n: int) -> None:
     step_stats.set_queue_depth(n)
 
 
-# -- the standalone endpoint ---------------------------------------------------
+# -- the serving tier (``serving/``: engine, batcher, server, dispatch) ------
 
-# -- serving latencies by SLO class (their call sites in ``serving/`` come
-# with ROADMAP queue A entry 13, part 3) -----------------------------------
+def record_serving_request(seconds: float, code: int) -> None:
+    """One completed front-end request (``serving/server.py``), by HTTP
+    status."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_requests_total",
+        "Serving requests completed, by HTTP status", ("code",),
+    ).labels(str(code)).inc()
+    registry.histogram(
+        "hvd_serving_request_seconds",
+        "End-to-end serving request latency, by HTTP status", ("code",),
+    ).labels(str(code)).observe(seconds)
+
 
 def record_serving_queue_wait(seconds: float,
                               slo: str = "standard") -> None:
@@ -1055,6 +1231,160 @@ def record_serving_tpot(seconds: float, slo: str = "standard") -> None:
         obs("tpot", slo, seconds)
 
 
+def record_serving_batch(bucket: int, n_real: int) -> None:
+    """One executed inference batch: its padded bucket and the real
+    examples it carried (the rest is padding)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_batches_total",
+        "Inference batches executed, by padded bucket", ("bucket",),
+    ).labels(str(bucket)).inc()
+    registry.counter(
+        "hvd_serving_examples_total",
+        "Real examples served through executed batches").inc(n_real)
+    registry.counter(
+        "hvd_serving_padding_examples_total",
+        "Padding examples added to reach the bucket size",
+    ).inc(max(bucket - n_real, 0))
+    registry.histogram(
+        "hvd_serving_batch_fill_ratio",
+        "Real examples / padded bucket size per executed batch",
+        buckets=RATIO_BUCKETS,
+    ).observe(n_real / bucket if bucket else 0.0)
+
+
+def record_serving_compile(bucket: int, seconds: float) -> None:
+    """One bucket's step built by an engine: on the card the capture of
+    its CUDA graph, the port's counterpart of the JAX package's AOT
+    compile (on the CPU, which has no graphs, the step is only created
+    and its seconds are 0)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_compiles_total",
+        "Bucket executables AOT-compiled, by bucket", ("bucket",),
+    ).labels(str(bucket)).inc()
+    registry.histogram(
+        "hvd_serving_compile_seconds",
+        "AOT compile wall time per bucket executable",
+    ).observe(seconds)
+
+
+def set_serving_inflight(n: int, replica: str = "") -> None:
+    """Requests in flight, by replica ('' = this process's server)."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_serving_inflight",
+        "In-flight serving requests, by replica", ("replica",),
+    ).labels(replica).set(n)
+
+
+def record_serving_failover(replica: str) -> None:
+    """A replica ejected from dispatch after a failed request (the
+    request itself is retried on another)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_failovers_total",
+        "Replicas ejected from dispatch after a failure", ("replica",),
+    ).labels(replica).inc()
+
+
+# -- decode (``serving/decode.py``, ``serving/scheduler.py``) -----------------
+
+def record_decode_prefill(bucket: int, seconds: float) -> None:
+    """One prompt prefilled into a claimed slot, by prompt-length
+    bucket."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_decode_prefills_total",
+        "Prompts prefilled into cache slots, by prompt-length bucket",
+        ("bucket",),
+    ).labels(str(bucket)).inc()
+    registry.histogram(
+        "hvd_serving_decode_prefill_seconds",
+        "Prefill executable wall time per admitted prompt",
+    ).observe(seconds)
+
+
+def record_decode_iteration(slots: int, seconds: float) -> None:
+    """One decode iteration (every slot advances one position), its
+    wall time up to the next tokens on the host."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_decode_iterations_total",
+        "Decode iterations executed").inc()
+    registry.histogram(
+        "hvd_serving_decode_iteration_seconds",
+        "Decode-iteration executable wall time",
+    ).observe(seconds)
+
+
+def record_decode_tokens(n: int) -> None:
+    """Tokens delivered to live sequences (inactive slots' ride-along
+    outputs excluded)."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_decode_tokens_total",
+        "Tokens generated for live sequences").inc(n)
+
+
+def set_decode_slots(total: int, occupied: int, queued: int) -> None:
+    """Slot occupancy and queued prefills after a scheduler iteration:
+    the signals the replica autoscaler scales on."""
+    if not _enabled:
+        return
+    g = registry.gauge(
+        "hvd_serving_decode_slots",
+        "Decode cache slots, by state", ("state",))
+    g.labels("total").set(total)
+    g.labels("occupied").set(occupied)
+    registry.gauge(
+        "hvd_serving_decode_queued_prefills",
+        "Requests admitted but waiting for a free slot").set(queued)
+    registry.gauge(
+        "hvd_serving_decode_slot_occupancy",
+        "Occupied fraction of decode cache slots").set(
+            occupied / total if total else 0.0)
+
+
+def record_decode_eviction(reason: str) -> None:
+    """One sequence leaving its slot or the queue, by reason: eos,
+    length, deadline, shed, drain or error."""
+    _flight.record("decode_evict", reason)
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_decode_evictions_total",
+        "Sequences evicted from decode, by reason", ("reason",),
+    ).labels(reason).inc()
+
+
+def record_autoscale(action: str) -> None:
+    """One replica-autoscaler decision acted on (grow or shrink)."""
+    _flight.record("autoscale", action)
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_serving_autoscale_events_total",
+        "Replica autoscaler actions, by direction", ("action",),
+    ).labels(action).inc()
+
+
+def set_serving_replicas(n: int) -> None:
+    """Replicas in the front door's dispatch rotation."""
+    if not _enabled:
+        return
+    registry.gauge(
+        "hvd_serving_replicas",
+        "Replicas in the dispatch rotation").set(n)
+
+
 # -- the fleet-health monitor (``health/``) -----------------------------------
 
 def set_alert_active(rule: str, active: bool) -> None:
@@ -1088,6 +1418,96 @@ def record_health_incident(rule: str, state: str) -> None:
         ("rule", "state"),
     ).labels(rule, state).inc()
 
+
+# -- the eager runtime's cumulative stats, pulled at every scrape ------------
+
+_native_provider: Optional[Callable[[], dict]] = None
+
+
+def set_native_stats_provider(fn: Optional[Callable[[], dict]]) -> None:
+    """The eager runtime registers its cumulative-stats snapshot
+    (``EagerRuntime.metrics_snapshot``) here at start and ``None`` at
+    shutdown; the gauges below refresh from it at every render."""
+    global _native_provider
+    _native_provider = fn
+    if fn is not None:
+        registry.register_collector(_collect_native)
+
+
+def _native_stats_snapshot() -> Dict[str, float]:
+    fn = _native_provider
+    if fn is None:
+        return {}
+    try:
+        return {k: float(v) for k, v in fn().items()}
+    except Exception:
+        return {}
+
+
+_NATIVE_GAUGES = {
+    "cache_hits": ("hvd_cache_hits_total",
+                   "Response-cache hits (native runtime, cumulative)"),
+    "bytes_negotiated": ("hvd_bytes_negotiated_total",
+                         "Tensor bytes negotiated (cumulative)"),
+    "stall_warnings": ("hvd_stall_warnings_total",
+                       "Stall-inspector warnings (cumulative)"),
+    "queue_depth": ("hvd_eager_queue_depth",
+                    "Tensors enqueued and awaiting negotiation/execution"),
+    "fast_path_hits": (
+        "hvd_eager_fast_path_hits_total",
+        "Eager collectives that bypassed negotiation via the "
+        "steady-state plan cache (cumulative)"),
+    "fast_path_steps": (
+        "hvd_eager_fast_path_steps_total",
+        "Whole steps executed off a cached plan (cumulative)"),
+    "fast_path_activations": (
+        "hvd_eager_fast_path_activations_total",
+        "Plans frozen after steady-state warmup (cumulative)"),
+    "fast_path_invalidations": (
+        "hvd_eager_fast_path_invalidations_total",
+        "Cached plans dropped (deviation/churn/fault, cumulative)"),
+    "fast_path_active": (
+        "hvd_eager_fast_path_active",
+        "1 while a frozen plan is live, 0 otherwise"),
+    "negotiation_bypassed_bytes": (
+        "hvd_eager_negotiation_bypassed_bytes_total",
+        "Tensor bytes whose negotiation the plan cache skipped "
+        "(cumulative; the fast-path analog of "
+        "hvd_bytes_negotiated_total)"),
+    "cycles": ("hvd_coord_cycles_total",
+               "Coordinator negotiation cycles (rank 0)"),
+    "busy_cycles": ("hvd_coord_busy_cycles_total",
+                    "Coordinator cycles that produced responses (rank 0)"),
+    "wait_us": ("hvd_coord_wait_seconds_total",
+                "Coordinator wall time blocked on worker frames (rank 0)"),
+    "work_us": ("hvd_coord_work_seconds_total",
+                "Coordinator CPU work per cycle, summed (rank 0)"),
+    "bytes_rx": ("hvd_coord_bytes_rx_total",
+                 "Control-plane bytes received by the coordinator"),
+    "bytes_tx": ("hvd_coord_bytes_tx_total",
+                 "Control-plane bytes sent by the coordinator"),
+    "cache_hit_positions": ("hvd_coord_cache_hit_positions_total",
+                            "Cache-hit positions in coordinator cycles"),
+    "responses": ("hvd_coord_responses_total",
+                  "Responses emitted by the coordinator"),
+}
+
+
+def _collect_native() -> None:
+    """The registry's collector: the provider's snapshot (taken before
+    any family lock) into the gauges of ``_NATIVE_GAUGES``."""
+    if not _enabled:
+        return
+    stats = _native_stats_snapshot()
+    for key, (name, help) in _NATIVE_GAUGES.items():
+        if key in stats:
+            v = stats[key]
+            if key in ("wait_us", "work_us"):
+                v = v / 1e6
+            registry.gauge(name, help).set(v)
+
+
+# -- the standalone endpoint ---------------------------------------------------
 
 _http_server = None
 _http_thread = None
@@ -1281,6 +1701,7 @@ def on_shutdown() -> None:
     stop_metrics_push()  # joins after a final push
     step_stats.close_log()
     stop_http_server()
+    set_native_stats_provider(None)
     if _configured:
         _configured = False
         disable()
@@ -1301,4 +1722,5 @@ def reset() -> None:
     registry.clear()
     step_stats.close_log()
     step_stats.step = 0
+    step_stats._last_native = {}
     step_stats._reset_interval()

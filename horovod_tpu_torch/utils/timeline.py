@@ -32,8 +32,9 @@ from . import metrics as _metrics
 # the JAX package's activity names, so one tool reads both packages'
 # traces: an eager collective's host-side dispatch span, the negotiation
 # cycle's mark and the fusion plan's instant (the eager runtime's
-# negotiation and execution phases, the reference's common.h:79-113
-# names, come with entry 13, part 3)
+# negotiation and execution phases carry the reference's common.h:79-113
+# names, ``ops/eager_runtime._OP_ACTIVITIES``; the serving tier's spans
+# are ``serving/server.SERVING_REQUEST`` and ``batcher.SERVING_EXEC``)
 XLA_COLLECTIVE = "XLA_COLLECTIVE"
 CYCLE_START = "CYCLE_START"
 FUSION_PLAN = "FUSION_PLAN"

@@ -290,7 +290,7 @@ def test_disabled_records_touch_no_lock_and_leave_nothing(monkeypatch):
     monkeypatch.setattr(flight, "_dump_lock", _RaisingLock())
     for name, args in _calls(9, 200):
         getattr(metrics, name)(*args)
-    metrics.record_fused_batch("allreduce", 3, 4096)
+    metrics.record_batch_execution("allreduce", 3, 4096, 0.001)
     with metrics.step():
         metrics.record_collective("allreduce", "float32", 8)
     monkeypatch.undo()

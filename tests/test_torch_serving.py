@@ -412,11 +412,19 @@ def test_server_auth_health_and_routes():
             health.reset()
             from horovod_tpu_torch.utils import metrics
             metrics.reset()
-        # the exposition is not ported: 404 naming its entry
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(f"http://{addr}/metrics", timeout=5.0)
-        assert ei.value.code == 404
-        assert "entry 13" in json.loads(ei.value.read())["error"]
+        # the exposition: this process's registry, the server's own
+        # request records in it
+        metrics.enable()
+        try:
+            predict_remote(addr, x, 5.0, key=key)
+            with urllib.request.urlopen(
+                    f"http://{addr}/metrics", timeout=5.0) as r:
+                assert "version=0.0.4" in r.headers["Content-Type"]
+                text = r.read().decode()
+        finally:
+            metrics.reset()
+        assert not metrics.lint_exposition(text)
+        assert 'hvd_serving_requests_total{code="200"} 1' in text
         # no generation engine behind this server
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(urllib.request.Request(
