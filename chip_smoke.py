@@ -306,6 +306,19 @@ Phases, in order; the first failure exits non-zero:
    rank's parameter and AdamW-state bytes exactly its specs' share
    (beside world 1's), the bytes gathered and reduce-scattered a step,
    peak memory, step ms, tokens/s;
+4q. build straight into the shards, no kernel: GPT-2 medium from seed
+   0 on the card's generator, each rank of fsdp = 4 and tp = 4
+   (``parallel.train.build_sharded`` on an unbound mesh of its
+   coordinates), each stage of pp = 4 (``build_stage``) and each rank's
+   ``FullyShardedOptimizer`` rows at world 4 (``bind(materialize=)``)
+   bitwise the whole build's slices, blocks and rows; rank 0 of
+   Llama-2 7B (32 x 4096, float32) on fsdp = 4 built and given AdamW's
+   moments by a zero-gradient step at lr 0 that leaves every parameter
+   bitwise as it was, its peak device memory over the build at most
+   its reckoning (``param_counts`` x 4 bytes) and over the step at most
+   its own (x 12 bytes), each plus the largest parameter plus
+   ``INIT_SLACK_BYTES``; ``distributed_value_and_grad`` and the ``_op``
+   queries at world 1 (its own ``phase_seconds`` entry);
 4p. train GPT-2 medium (24 x 1024, ``--flash --fused-norm``, AdamW
    under the DistributedOptimizer, phase 4's weights and 8 x 1024 batch)
    at world 1 over NCCL, 1 warm-up + 5 steps each inside
@@ -8622,6 +8635,276 @@ def train_fsdp_axis(seed, ledger, in_process_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 4q: init straight into the shards
+# ---------------------------------------------------------------------------
+
+#: what the Llama-2 reading may hold beyond its reckoning and one whole
+#: parameter. The build's reckoning is 4 B an element held, the step's
+#: 12 B (the parameters and AdamW's two moments); beyond them the step
+#: holds the zero gradients' buffer and AdamW's two temporaries of one
+#: parameter (131 MB each at most), and both hold the caching
+#: allocator's rounding: it maps fresh memory in 2 MiB steps and does
+#: not split off a remainder of 1 MiB or less, so a fresh tensor of an
+#: odd number of MiB (a 45,088,768 B shard of w1, w2 or w3, a
+#: 131,072,000 B one of tok_emb or lm_head) counts 1 MiB more: on an
+#: H100 80GB HBM3 at 700 W, 196 MiB over the moments and 43 MiB over
+#: the parameters (``rounding_bytes``: each block's size less the size
+#: asked for, from ``torch.cuda.memory_snapshot()``)
+INIT_SLACK_BYTES = 256 << 20
+
+
+def _whole_gpt2(cfg):
+    """GPT-2 medium whole on the card from seed 0, the path every build
+    took before it drew into the shards: the reference."""
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    with torch.device("cuda"):
+        model = Transformer(cfg)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def _init_parity(cfg):
+    """(a): each rank of fsdp = 4 and tp = 4 (``build_sharded``, an
+    unbound mesh of the rank's coordinates), each stage of pp = 4
+    (``build_stage``) and each rank of the ``FullyShardedOptimizer`` at
+    world 4 (``bind(materialize=)``) against the whole build: its
+    slices, blocks and rows bitwise. Returns the counts compared."""
+    from horovod_tpu_torch.optim.compression import Compression
+    from horovod_tpu_torch.optim.fsdp import FullyShardedOptimizer
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.parallel import mesh as pm
+    from horovod_tpu_torch.parallel import pipeline as pl
+    from horovod_tpu_torch.parallel import sharding as psh
+    from horovod_tpu_torch.parallel.train import build_sharded
+
+    t0 = time.perf_counter()
+    whole = _whole_gpt2(cfg)
+    out = {"whole_s": time.perf_counter() - t0}
+    for name, axes in (("fsdp4", dict(fsdp=4)), ("tp4", dict(tp=4))):
+        t0 = time.perf_counter()
+        split = 0
+        for r in range(4):
+            mesh = pm.make_mesh(world=4, rank=r, **axes)
+            model, specs = build_sharded(cfg, mesh, "cuda")
+            for n, p in model.named_parameters():
+                want = psh.local_slice(whole[n], specs[n], mesh)
+                _require(p.shape == want.shape and torch.equal(p, want),
+                         f"phase 4q {name} rank {r}: {n} is not the whole "
+                         "build's slice")
+                split += p.shape != whole[n].shape
+            del model
+        out[name] = {"ranks": 4, "split_params": split,
+                     "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    blocks = 0
+    for s in range(4):
+        stage = pl.build_stage(cfg, pm.make_mesh(world=4, rank=s, pp=4),
+                               device="cuda")
+        got = dict(stage.named_parameters())
+        held = {n.split(".")[0] for n in got if n.startswith("block_")}
+        _require(held == {f"block_{i}" for i in stage.layers},
+                 f"phase 4q pp stage {s} holds {sorted(held)}")
+        _require(all(torch.equal(p, whole[n]) for n, p in got.items()),
+                 f"phase 4q pp stage {s}: not the whole build's weights")
+        blocks += len(held)
+        del stage, got
+    out["pp4_1f1b_stages"] = {"stages": 4, "blocks": blocks,
+                              "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        meta = Transformer(cfg)
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4)
+    rows = 0
+    for r in range(4):
+        fso = FullyShardedOptimizer(factory, world=4, rank=r,
+                                    compression=Compression.none)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        drawn = fso.bind(meta.named_parameters(), materialize=lambda sink:
+                         meta.init_params(gen, sink=sink)).shards
+        today = fso.bind(list(whole.items())).shards
+        _require(len(drawn) == len(today) and all(
+            torch.equal(a, b) for a, b in zip(drawn, today)),
+            f"phase 4q FSDP rank {r}: the drawn rows are not bind's")
+        rows += len(drawn)
+        del drawn, today
+    out["fsdp_optimizer_world4"] = {"ranks": 4, "bucket_rows": rows,
+                                    "seconds": time.perf_counter() - t0}
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _llama_rank0():
+    """(b): rank 0 of an fsdp = 4 mesh builds Llama-2 7B at full width
+    and depth (32 layers, float32) on the card, then takes AdamW's step
+    on zero gradients at lr 0, which makes the moments and must leave
+    every parameter bitwise as it was. The zero gradients are views of
+    one buffer of the largest local parameter (AdamW reads them only),
+    and the step runs AdamW's for-loop form (no full-size temporaries):
+    the moments are what is measured. Peak device memory of each, from
+    a reset after ``empty_cache``, above what was allocated before (and,
+    for the step, above the copy of the parameters it is checked
+    against), against its reckoning (``param_counts`` x 4 bytes for the
+    build, the parameters; x 12 for the step, the parameters and two
+    moments) plus the largest parameter plus ``INIT_SLACK_BYTES``. The
+    step's peak is also taken apart: what the build left resident, the
+    moments' blocks and three blocks of the largest local parameter
+    (the zero buffer and AdamW's two temporaries), with the allocator's
+    rounding of the parameters and moments read from its snapshot."""
+    from horovod_tpu_torch.models.transformer import LLAMA2_7B, Transformer
+    from horovod_tpu_torch.parallel import fsdp_axis
+    from horovod_tpu_torch.parallel import mesh as pm
+    from horovod_tpu_torch.parallel.train import build_sharded
+
+    mesh = pm.make_mesh(world=4, rank=0, fsdp=4)
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape)
+                  for n, p in Transformer(LLAMA2_7B).named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, specs = build_sharded(LLAMA2_7B, mesh, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_build = torch.cuda.max_memory_allocated() - base
+    resident = torch.cuda.memory_allocated() - base
+    held, whole = fsdp_axis.param_counts(specs, shapes, mesh)
+    params = list(model.parameters())
+    _require(sum(p.numel() for p in params) == held,
+             f"phase 4q Llama: {sum(p.numel() for p in params)} elements, "
+             f"not the reckoning's {held}")
+    zeros = torch.zeros(max(p.numel() for p in params), device="cuda")
+    for p in params:
+        p.grad = zeros[:p.numel()].view_as(p)
+    opt = torch.optim.AdamW(params, lr=0.0, foreach=False, fused=False)
+    # the parameters' bits before the step, on the card: their bytes are
+    # taken out of the step's reading
+    copied = torch.cuda.memory_allocated()
+    before = [p.detach().clone() for p in params]
+    torch.cuda.synchronize()
+    copied = torch.cuda.memory_allocated() - copied
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_step = torch.cuda.max_memory_allocated() - base - copied
+    moments = [t for s in opt.state.values() for k, t in s.items()
+               if k != "step"]
+    state = sum(t.numel() * t.element_size() for t in moments)
+    unchanged = all(torch.equal(p, b) for p, b in zip(params, before))
+    blocks = {b["address"]: b for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+    def block(t):
+        return blocks[t.untyped_storage().data_ptr()]
+
+    rounding = {what: sum(block(t)["size"] - block(t)["requested_size"]
+                          for t in ts)
+                for what, ts in (("params", params), ("moments", moments))}
+    explained = (resident + sum(block(t)["size"] for t in moments)
+                 + 3 * block(zeros)["size"])
+    largest = 4 * max(math.prod(s) for s in shapes.values())
+    reckoning = 12 * held
+    limit = reckoning + largest + INIT_SLACK_BYTES
+    build_limit = 4 * held + largest + INIT_SLACK_BYTES
+    out = {"layers": LLAMA2_7B.num_layers,
+           "hidden": LLAMA2_7B.hidden_size, "dtype": "float32",
+           "mesh": "fsdp=4, rank 0 (unbound)",
+           "elements_rank": held, "elements_whole": whole,
+           "reckoning_bytes": reckoning, "whole_bytes": 12 * whole,
+           "largest_param_bytes": largest,
+           "slack_bytes": INIT_SLACK_BYTES, "limit_bytes": limit,
+           "build_limit_bytes": build_limit,
+           "allocated_before_bytes": base, "copy_bytes": copied,
+           "peak_build_bytes": peak_build, "resident_bytes": resident,
+           "peak_step_bytes": peak_step, "rounding_bytes": rounding,
+           "explained_step_bytes": explained,
+           "adamw_state_bytes": state, "build_s": build_s,
+           "step_s": step_s, "params_unchanged": unchanged}
+    del model, params, before, zeros, opt
+    torch.cuda.empty_cache()
+    _require(state == 8 * held,
+             f"phase 4q Llama: AdamW's moments {state} B, not 8 x {held}")
+    _require(unchanged, "phase 4q Llama: the lr-0 step changed a parameter")
+    _require(peak_build <= build_limit,
+             f"phase 4q Llama: build's peak {peak_build} B over "
+             f"{build_limit} B ({out})")
+    _require(peak_step <= limit,
+             f"phase 4q Llama: step's peak {peak_step} B over {limit} B "
+             f"({out})")
+    return out
+
+
+def _surface_world1():
+    """(c): ``distributed_value_and_grad`` and the ``_op`` queries at
+    world 1 over NCCL: the gradient bitwise the local one (the mean over
+    one rank), the queries int32 on the card."""
+    import horovod_tpu_torch as hvd
+
+    w = torch.linspace(-1.0, 1.0, 1024, device="cuda")
+    x = torch.linspace(0.5, 2.0, 1024, device="cuda")
+
+    def loss_fn(w, x):
+        return torch.sum(torch.tanh(w * x) ** 2)
+
+    t0 = time.perf_counter()
+    loss, grad = hvd.distributed_value_and_grad(loss_fn)(w, x)
+    wl = w.clone().requires_grad_()
+    want = torch.autograd.grad(loss_fn(wl, x), wl)[0]
+    ops = {"rank": hvd.rank_op(), "size": hvd.size_op(),
+           "local_rank": hvd.local_rank_op(),
+           "local_size": hvd.local_size_op(),
+           "included": hvd.process_set_included_op()}
+    torch.cuda.synchronize()
+    out = {"grad_bitwise": torch.equal(grad, want),
+           "ops": {k: int(v) for k, v in ops.items()},
+           "ops_int32_cuda": all(v.dtype == torch.int32
+                                 and v.device.type == "cuda"
+                                 for v in ops.values()),
+           "is_homogeneous": hvd.is_homogeneous(),
+           "seconds": time.perf_counter() - t0}
+    _require(out["grad_bitwise"] and out["ops_int32_cuda"]
+             and out["ops"] == {"rank": 0, "size": 1, "local_rank": 0,
+                                "local_size": 1, "included": 1},
+             f"phase 4q: value_and_grad and the queries at world 1: {out}")
+    return out
+
+
+def check_init_shards():
+    """Phase 4q: the build straight into the shards. (a) GPT-2 medium's
+    slices on fsdp = 4 and tp = 4, stages of pp = 4 and FSDP rows at
+    world 4, each rank bitwise the whole build's; (b) rank 0 of Llama-2
+    7B on fsdp = 4 built on the card with AdamW's state, its peak
+    against the reckoning; (c) the public surface's value-and-grad and
+    queries at world 1."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+
+    card = _card()
+    t0 = time.perf_counter()
+    hvd.init()
+    init_s = time.perf_counter() - t0
+    parity = _init_parity(GPT2_MEDIUM)
+    parity_s = time.perf_counter() - t0 - init_s
+    t0 = time.perf_counter()
+    llama = _llama_rank0()
+    llama_s = time.perf_counter() - t0
+    surface = _surface_world1()
+    hvd.shutdown()
+    report = {"phase": "init_shards", "card": card, "init_s": init_s,
+              "gpt2_medium_bitwise": parity, "parity_s": parity_s,
+              "llama2_7b_rank0_fsdp4": llama, "llama_s": llama_s,
+              "surface_world1": surface}
+    print(json.dumps(report), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 4p: GPT-2 medium trained with every telemetry knob on, then off
 # ---------------------------------------------------------------------------
 
@@ -11434,6 +11717,7 @@ def main(argv=None) -> int:
     timed("4m", train_mesh, args.seed, ledger, in_process_losses)
     timed("4n", train_pipeline, args.seed, ledger, in_process_losses)
     timed("4o", train_fsdp_axis, args.seed, ledger, in_process_losses)
+    timed("4q (init shards)", check_init_shards)
     # 4p's seconds without (f) and (g), which have their own entry
     part2_s = timed("4p", train_observed, args.seed, ledger,
                     in_process_losses)

@@ -88,14 +88,17 @@ __version__ = "0.1.0"
 from . import callbacks, checkpoint, data, elastic
 from .checkpoint import LoadedModel, load_model, save_model
 from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
-                          cuda_enabled, ddl_built, device, gloo_built,
-                          gloo_enabled, init, is_initialized, local_rank,
-                          local_size, mesh, mpi_built, mpi_enabled,
-                          mpi_threads_supported, nccl_built, nccl_enabled,
-                          rank, rocm_built, shutdown, size, xla_built,
-                          xla_enabled)
-from .core.exceptions import (HorovodInternalError, HostsUpdatedInterrupt,
-                              NotInitializedError, ProcessSetError)
+                          cuda_enabled, ddl_built, device, dp_axis_names,
+                          gloo_built, gloo_enabled, init, is_homogeneous,
+                          is_initialized, local_rank, local_rank_op,
+                          local_size, local_size_op, mesh, mpi_built,
+                          mpi_enabled, mpi_threads_supported, nccl_built,
+                          nccl_enabled, process_set_included_op, rank,
+                          rank_op, rocm_built, shutdown, size, size_op,
+                          xla_built, xla_enabled)
+from .core.exceptions import (HorovodInternalError, HorovodTpuError,
+                              HostsUpdatedInterrupt, NotInitializedError,
+                              ProcessSetError)
 from .core.knobs import Knobs
 from .core.process_sets import (ProcessSet, add_or_get_process_set,
                                  add_process_set, get_process_set_by_id,
@@ -124,22 +127,29 @@ from .ops.decode_attention import decode_append_attend
 from .ops.hierarchical import hierarchical_allgather, hierarchical_psum
 from .ops.flash_attention import (flash_attention, flash_attention_bhtd,
                                   make_flash_attention_fn)
+from .ops.fusion import model_fingerprint
 from .ops.layernorm import FusedLayerNorm, fused_layer_norm
 from .ops.ring_pack import (matmul_reduce_scatter, maybe_pack_rows,
                             pack_rows_fused)
-from .ops.sparse import IndexedSlices, sparse_allreduce
-from .optim.compression import Compression
-from .optim.distributed import DistributedOptimizer
+from .ops.sparse import (IndexedSlices, dense_to_sparse, sparse_allreduce,
+                         sparse_to_dense)
+from .optim.compression import Compression, Int8BlockCompressor, WireSpec
+from .optim.distributed import (DistributedGradientTape,
+                                DistributedOptimizer,
+                                distributed_value_and_grad)
 from .optim.functions import (allgather_object, broadcast_object,
                               broadcast_optimizer_state,
                               broadcast_parameters)
-from .optim.fsdp import FullyShardedOptimizer
+from .optim.fsdp import FullyShardedOptimizer, fsdp_layout
 from .optim.zero import ShardedOptimizer, reshard_state
 from .parallel.train import make_lm_train_step
 from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
 from .serving.scheduler import DecodeScheduler, GenRequest
 from .sync_batch_norm import SyncBatchNorm
 from . import health  # hvd.health.verdict(), summary(), ...
+from .ops import overlap  # hvd.overlap.fsdp_staged_value_and_grad, ...
+from .optim import fsdp  # hvd.fsdp.shard_params, fsdp_layout, ...
+from .utils import faults  # hvd.faults.inject, ...
 from .utils import metrics  # hvd.metrics.step(), scrape(), ...
 from .utils import prof  # hvd.prof.set_step_flops(), summary(), ...
 
@@ -173,7 +183,9 @@ __all__ = [
     "mpi_built", "mpi_enabled", "mpi_threads_supported", "gloo_built",
     "gloo_enabled", "nccl_built", "nccl_enabled", "cuda_built",
     "cuda_enabled", "rocm_built", "ddl_built", "ccl_built", "xla_built",
-    "xla_enabled", "HorovodInternalError", "HostsUpdatedInterrupt",
+    "xla_enabled", "is_homogeneous", "dp_axis_names", "rank_op",
+    "size_op", "local_rank_op", "local_size_op", "process_set_included_op",
+    "HorovodTpuError", "HorovodInternalError", "HostsUpdatedInterrupt",
     "NotInitializedError",
     "ProcessSetError", "Knobs", "ProcessSet", "global_process_set",
     "add_process_set", "add_or_get_process_set", "remove_process_set",
@@ -188,13 +200,16 @@ __all__ = [
     "grouped_reducescatter_async", "alltoall", "alltoall_async",
     "grouped_allgather", "grouped_allgather_async", "join",
     "masked_allreduce", "sparse_allreduce", "IndexedSlices",
+    "dense_to_sparse", "sparse_to_dense",
     "adasum_allreduce", "hierarchical_adasum", "hierarchical_psum",
     "hierarchical_allgather", "maybe_pack_rows",
     "pack_rows_fused", "matmul_reduce_scatter",
     # training
     "DistributedOptimizer", "ShardedOptimizer", "FullyShardedOptimizer",
-    "reshard_state",
-    "Compression", "broadcast_parameters",
+    "reshard_state", "fsdp_layout", "fsdp", "overlap", "faults",
+    "DistributedGradientTape", "distributed_value_and_grad",
+    "model_fingerprint",
+    "Compression", "Int8BlockCompressor", "WireSpec", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allgather_object",
     "make_lm_train_step", "checkpoint", "save_model", "load_model",
     "LoadedModel", "elastic", "data", "callbacks",

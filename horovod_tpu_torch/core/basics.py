@@ -129,7 +129,9 @@ def init(device: Optional[str] = None,
     from ..parallel.mesh import mesh_from_spec
 
     try:
-        # collective: every rank registers the mesh's axis groups
+        # collectives: every rank gathers the local sizes and registers
+        # the mesh's axis groups
+        st.homogeneous = _homogeneous(st)
         st.mesh = mesh_from_spec(st.knobs.mesh_spec, st.size,
                                  st.rank).bind()
     except BaseException:
@@ -140,6 +142,21 @@ def init(device: Optional[str] = None,
         from ..elastic import replication
 
         replication.configure(st.knobs)
+
+
+def _homogeneous(st) -> bool:
+    """Whether every host runs as many ranks as this one: a world of one
+    rank is; any other world all-gathers the ranks' local sizes
+    (collective: every rank's ``init()`` runs it). Only the world's size,
+    which every rank agrees on, decides whether to gather: the
+    launcher's ``cross_size`` counts the hosts with a slot at this
+    rank's local rank, so it differs between ranks of uneven hosts."""
+    if st.size == 1:
+        return True
+    mine = torch.tensor([st.local_size], dtype=torch.int64, device=st.device)
+    every = [torch.empty_like(mine) for _ in range(st.size)]
+    dist.all_gather(every, mine)
+    return len({int(t) for t in every}) == 1
 
 
 def _start_native_eager(st) -> None:
@@ -352,6 +369,59 @@ def mesh():
 def device() -> torch.device:
     """The device this process's collectives and kernels run on."""
     return _require_init().device
+
+
+def dp_axis_names() -> tuple:
+    """The names of :func:`mesh`'s axes, every one of which the JAX
+    package's default mesh treats as data-parallel (``("dp",)`` without
+    ``HOROVOD_MESH``)."""
+    return tuple(_require_init().mesh.axis_names)
+
+
+def is_homogeneous() -> bool:
+    """Whether every host runs the same number of ranks (reference:
+    ``horovod_is_homogeneous``, operations.cc:1135); read at
+    ``init()`` by an all-gather of the ranks' local sizes."""
+    return _require_init().homogeneous
+
+
+# The reference's in-graph queries (tensorflow/mpi_ops.py size_op,
+# rank_op, ...): int32 scalars on the world's device, for steps that
+# mask or index with the topology without a host round trip.
+def _int32(value: int) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.int32,
+                        device=_require_init().device)
+
+
+def size_op(process_set_id: int = 0) -> torch.Tensor:
+    """The world's size, or the process set's with its id."""
+    if process_set_id != 0:
+        return _int32(_ps.get_process_set_by_id(process_set_id).size())
+    return _int32(size())
+
+
+def rank_op(process_set_id: int = 0) -> torch.Tensor:
+    """This rank, or its rank within the process set (-1 outside it:
+    mask with :func:`process_set_included_op`)."""
+    if process_set_id != 0:
+        ps = _ps.get_process_set_by_id(process_set_id)
+        return _int32(ps.rank(rank()) if ps.included(rank()) else -1)
+    return _int32(rank())
+
+
+def local_size_op() -> torch.Tensor:
+    return _int32(local_size())
+
+
+def local_rank_op() -> torch.Tensor:
+    return _int32(local_rank())
+
+
+def process_set_included_op(process_set_id: int = 0) -> torch.Tensor:
+    """1 if this rank belongs to the process set, else 0 (reference
+    tensorflow/mpi_ops.py:571)."""
+    ps = _ps.get_process_set_by_id(process_set_id)
+    return _int32(1 if ps.included(rank()) else 0)
 
 
 # Build and run-time capability queries, answered for this process: the

@@ -36,6 +36,8 @@ class GlobalState:
         self.local_size = 1
         self.cross_rank = 0
         self.cross_size = 1
+        # whether every host runs as many ranks (init() reads it)
+        self.homogeneous = True
         # the device mesh (parallel/mesh.Mesh) HOROVOD_MESH names, bound
         # to the world
         self.mesh: Optional[Any] = None

@@ -242,14 +242,15 @@ def _norm(cfg: TransformerConfig) -> nn.Module:
     return LayerNorm(c, epsilon=cfg.layernorm_epsilon, dtype=cfg.dtype)
 
 
-def rope_frequencies(head_dim: int, max_len: int, theta: float):
-    """float32 ``(cos, sin)`` tables ``[max_len, head_dim / 2]``, on the
-    default device (a model built under ``torch.device("cuda")`` gets
-    them on the card)."""
+def rope_frequencies(head_dim: int, max_len: int, theta: float,
+                     device=None):
+    """float32 ``(cos, sin)`` tables ``[max_len, head_dim / 2]``, on
+    ``device`` (default: the default device; a model built under
+    ``torch.device("cuda")`` gets them on the card)."""
     inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
     freqs = np.outer(np.arange(max_len), inv)
-    return (torch.tensor(np.cos(freqs), dtype=torch.float32),
-            torch.tensor(np.sin(freqs), dtype=torch.float32))
+    return (torch.tensor(np.cos(freqs), dtype=torch.float32, device=device),
+            torch.tensor(np.sin(freqs), dtype=torch.float32, device=device))
 
 
 def apply_rope(x, cos, sin, positions):
@@ -469,57 +470,86 @@ class Transformer(nn.Module):
         return [getattr(self, f"block_{i}") for i in self.layers]
 
     def _init_order(self):
-        """``(name, parameter, owner module)`` of the whole model's
+        """``(name, parameter, owner module, held)`` of the whole model's
         parameters in ``named_parameters``' order for every layer; a
-        block this model does not hold yields a scratch block's, so the
-        draws that follow it are the whole model's."""
+        block this model does not hold yields a meta block's (``held``
+        False), so the draws that follow it are the whole model's."""
+        named = list(self.named_parameters())
         scratch = None
-        for name, p in self.named_parameters():
+        for name, p in named:
             if name.startswith("block_") or name.startswith("ln_final.") \
                     or name.startswith("lm_head."):
                 continue
-            yield name, p, self._owner(name)
+            yield name, p, self._owner(name), True
         for i in range(self.cfg.num_layers):
-            if i in self.layers:
+            held = i in self.layers
+            if held:
                 block = getattr(self, f"block_{i}")
             else:
                 if scratch is None:
-                    scratch = Block(self.cfg).to(self.tok_emb.embedding.device)
+                    with torch.device("meta"):
+                        scratch = Block(self.cfg)
                 block = scratch
             for n, p in block.named_parameters():
                 yield f"block_{i}.{n}", p, block.get_submodule(
-                    n.rsplit(".", 1)[0])
-        for name, p in self.named_parameters():
+                    n.rsplit(".", 1)[0]), held
+        for name, p in named:
             if name.startswith("ln_final.") or name.startswith("lm_head."):
-                yield name, p, self._owner(name)
+                yield name, p, self._owner(name), True
 
     def _owner(self, name):
         mod = name.rpartition(".")[0]
         return self.get_submodule(mod) if mod else self
 
     @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> "Transformer":
+    def init_params(self, generator: torch.Generator,
+                    sink=None) -> "Transformer":
         """Random weights distributed as flax initializes them: normal
         (std 0.02) embeddings, ``pos_emb`` and untied LM head,
         xavier-uniform dense kernels (fans of the kernel flattened to
         ``[in, out]``), zero biases and unit norm scales. ``generator``
-        must live on the parameters' device. A model that holds some of
+        must live on the parameters' device (with a sink, the device to
+        draw on). A model that holds some of
         the blocks (a pipeline stage) gets the whole model's draws for
-        them."""
-        for name, p, mod in self._init_order():
+        them; the other blocks' are drawn into a temporary and dropped.
+
+        With ``sink`` the parameters are not written, and may be meta
+        tensors (a model built under ``torch.device("meta")``): each one
+        is drawn whole into a temporary on the generator's device, in
+        the same order from the same generator, handed to ``sink(name,
+        tensor)`` and dropped before the next draw
+        (``parallel/sharding.materialize_shards`` keeps a rank's slice
+        of it); the rope tables are then computed on that device. The
+        draws are the same, bit for bit, with or without a sink."""
+        device = generator.device
+        for name, p, mod, held in self._init_order():
+            if sink is None and held and p.device.type == "meta":
+                raise ValueError(
+                    f"{name} is a meta tensor: a model built on the meta "
+                    "device takes its weights through init_params(sink=)")
+            own = sink is None and held
+            t = p if own else torch.empty(p.shape, dtype=p.dtype,
+                                          device=device)
             leaf = name.rsplit(".", 1)[-1]
             if name in ("tok_emb.embedding", "pos_emb",
                         "lm_head.kernel"):
-                p.normal_(0.0, 0.02, generator=generator)
+                t.normal_(0.0, 0.02, generator=generator)
             elif leaf == "kernel":
                 fan_in = math.prod(mod.in_shape)
                 fan_out = math.prod(mod.out_shape)
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
-                p.uniform_(-bound, bound, generator=generator)
+                t.uniform_(-bound, bound, generator=generator)
             elif leaf == "scale":
-                p.fill_(1.0)
+                t.fill_(1.0)
             else:
-                p.zero_()
+                t.zero_()
+            if sink is not None and held:
+                sink(name, t)
+            del t
+        if sink is not None and self.cfg.position == "rope":
+            self.rope_cos, self.rope_sin = rope_frequencies(
+                self.cfg.head_dim, self.cfg.max_seq_len, self.cfg.rope_theta,
+                device)
         return self
 
     def forward(self, tokens, positions=None, mask=None,

@@ -25,6 +25,7 @@ is traced.
 
 from __future__ import annotations
 
+import hashlib
 import re
 from typing import List, Optional, Sequence, Tuple
 
@@ -43,6 +44,28 @@ def flax_path(name: str) -> Path:
 def keystr(path: Path) -> str:
     """``jax.tree_util.keystr`` of a dict-key path: ``['a']['b']``."""
     return "".join(f"['{k}']" for k in path)
+
+
+def model_fingerprint(params) -> str:
+    """A stable identity of a model's bucketable structure: sha256 over
+    each parameter's flax path, shape and dtype in flatten order, the
+    inputs :func:`pytree_bucket_plan` derives a plan from, so two models
+    share a fingerprint iff they get the same plans at every threshold.
+    ``params``: a module (its ``named_parameters()``), a mapping or
+    ``(name, tensor)`` pairs; meta tensors do. Value-free and the same
+    in every process. It differs from the JAX package's, which also
+    hashes ``jax``'s treedef repr."""
+    if isinstance(params, torch.nn.Module):
+        params = params.named_parameters()
+    items = list(params.items() if hasattr(params, "items") else params)
+    paths = [flax_path(n) for n, _ in items]
+    h = hashlib.sha256(b"horovod_tpu_torch")
+    for i in flatten_order(paths):
+        t = items[i][1]
+        dtype = str(t.dtype).removeprefix("torch.")
+        h.update(keystr(paths[i]).encode())
+        h.update(repr((tuple(t.shape), dtype)).encode())
+    return h.hexdigest()[:16]
 
 
 def flatten_order(paths: Sequence[Path]) -> List[int]:

@@ -610,3 +610,84 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
         gradient_predivide_factor=gradient_predivide_factor,
         fusion_threshold_bytes=fusion_threshold_bytes,
         process_set=process_set, groups=groups)
+
+
+# -- gradients of a function, all-reduced ------------------------------------
+
+def _reduce_grads(grads, op, process_set):
+    """Every tensor of the ``grads`` tree (a tensor, or lists, tuples
+    and dicts of them) reduced over ``process_set``: one grouped
+    allreduce a dtype."""
+    from torch.utils import _pytree as pytree
+
+    from ..ops.collectives import grouped_allreduce
+
+    flat, spec = pytree.tree_flatten(grads)
+    flat = grouped_allreduce(flat, op=op, process_set=process_set)
+    return pytree.tree_unflatten(list(flat), spec)
+
+
+class DistributedGradientTape:
+    """Wrap a value-and-grad function so the gradients it returns arrive
+    all-reduced (reference ``hvd.DistributedGradientTape``,
+    tensorflow/__init__.py:873; the JAX package's wraps a
+    ``jax.value_and_grad``)::
+
+        vag = hvd.DistributedGradientTape(my_value_and_grad)
+        loss, grads = vag(params, batch)
+
+    ``op`` (default Average) and ``process_set`` are the collectives'.
+    The JAX tape's ``compression``, ``axis_name`` and fusion threshold
+    have no counterpart: the gradients go as one grouped allreduce a
+    dtype."""
+
+    def __init__(self, value_and_grad_fn, *, op=ReduceOp.AVERAGE,
+                 process_set=None):
+        self._fn = value_and_grad_fn
+        self._op = op
+        self._process_set = process_set
+
+    def __call__(self, *args, **kwargs):
+        out, grads = self._fn(*args, **kwargs)
+        return out, _reduce_grads(grads, self._op, self._process_set)
+
+
+def distributed_value_and_grad(fun, argnums=0, has_aux: bool = False,
+                               op=ReduceOp.AVERAGE, process_set=None):
+    """``jax.value_and_grad``'s torch twin whose gradients arrive
+    all-reduced: ``wrapped(*args) -> (value, grads)``, the value of
+    ``fun(*args)`` (``(value, aux)`` with ``has_aux``) and
+    ``torch.autograd.grad`` of the value with respect to the arguments
+    ``argnums`` (an int, or a tuple of ints for a tuple of gradients),
+    each a tensor or a list, tuple or dict of them, reduced over
+    ``process_set`` by ``op`` (default Average)."""
+    from torch.utils import _pytree as pytree
+
+    def wrapped(*args, **kwargs):
+        nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+        args = list(args)
+        leaves = []
+        for i in nums:
+            flat, spec = pytree.tree_flatten(args[i])
+            flat = [t.detach().requires_grad_() for t in flat]
+            leaves.append((flat, spec))
+            args[i] = pytree.tree_unflatten(flat, spec)
+        with torch.enable_grad():
+            out = fun(*args, **kwargs)
+            value = out[0] if has_aux else out
+            got = iter(torch.autograd.grad(
+                value, [t for flat, _ in leaves for t in flat],
+                allow_unused=True))
+        grads = []
+        for flat, spec in leaves:
+            gs = [next(got) for _ in flat]
+            gs = [torch.zeros_like(t) if g is None else g
+                  for g, t in zip(gs, flat)]
+            grads.append(pytree.tree_unflatten(gs, spec))
+        grads = grads[0] if isinstance(argnums, int) else tuple(grads)
+        grads = _reduce_grads(grads, op, process_set)
+        if has_aux:
+            return (value.detach(), out[1]), grads
+        return value.detach(), grads
+
+    return wrapped

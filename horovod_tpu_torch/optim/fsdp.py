@@ -284,7 +284,7 @@ class _FullyShardedOptimizer:
     def __init__(self, optimizer: Callable, named_parameters,
                  compression=None, fusion_threshold_bytes=None,
                  bucket_backward_order=None, world: Optional[int] = None,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None, materialize=None):
         from ..core.basics import _require_init
 
         st = _require_init()
@@ -304,13 +304,18 @@ class _FullyShardedOptimizer:
             fusion_threshold_bytes=fusion_threshold_bytes,
             bucket_backward_order=bucket_backward_order)
         leaves = _leaves_in_order(named, self.layout)
-        if any(t.device.type == "meta" for t in leaves):
+        if materialize is None and any(t.device.type == "meta"
+                                       for t in leaves):
             raise ValueError("FullyShardedOptimizer takes the parameters' "
-                             "values (it keeps this rank's rows of them); "
-                             "got meta tensors")
+                             "values (it keeps this rank's rows of them) "
+                             "or, for meta tensors, a materialize=")
         #: this rank's ``(k_i,)`` parameter rows, the tensors the inner
         #: optimizer steps
-        self.shards = _rank_rows(leaves, self.layout, self._rank)
+        if materialize is None:
+            def materialize(sink):
+                for name, t in zip(self.layout.names, leaves):
+                    sink(name, t.detach())
+        self.shards = _rank_rows(materialize, self.layout, self._rank)
         self._opt = optimizer(self.shards)
         #: this rank's error-feedback residual rows (None off the wire)
         self.residuals = None
@@ -383,23 +388,35 @@ class _FullyShardedOptimizer:
         return self._opt.load_state_dict(sd)
 
 
-def _rank_rows(leaves, layout: FsdpLayout, rank: int) -> List[torch.Tensor]:
-    """Rank ``rank``'s row of each bucket of ``leaves``, zero-padded,
-    copied without forming the bucket."""
-    out = []
-    for b, plan in enumerate(layout.plans):
+def _rank_rows(materialize, layout: FsdpLayout,
+               rank: int) -> List[torch.Tensor]:
+    """Rank ``rank``'s row of each bucket, zero-padded, filled one
+    parameter at a time without forming a bucket: ``materialize(sink)``
+    hands each whole parameter to ``sink(name, tensor)`` (the given
+    values, or ``Transformer.init_params(generator, sink=)``'s draws),
+    which copies the ranges of the rank's rows the parameter covers.
+    Drawn so, no two parameters are ever whole at once."""
+    where = {layout.names[i]: (b, off, size)
+             for b, plan in enumerate(layout.plans)
+             for (i, off, size, _) in plan}
+    rows: List[torch.Tensor] = []
+
+    def sink(name: str, whole: torch.Tensor) -> None:
+        if not rows:  # the first draw names the device
+            rows.extend(torch.zeros(k, dtype=d, device=whole.device)
+                        for k, d in zip(layout.ks, layout.dtypes))
+        b, off, size = where.pop(name)
         k = layout.ks[b]
-        first = leaves[plan[0][0]]
-        shard = torch.zeros(k, dtype=first.dtype, device=first.device)
         lo, hi = rank * k, (rank + 1) * k
-        with torch.no_grad():
-            for (i, off, size, _) in plan:
-                a, z = max(lo, off), min(hi, off + size)
-                if a < z:
-                    shard[a - lo:z - lo].copy_(
-                        leaves[i].detach().reshape(-1)[a - off:z - off])
-        out.append(shard)
-    return out
+        a, z = max(lo, off), min(hi, off + size)
+        if a < z:
+            rows[b][a - lo:z - lo].copy_(whole.reshape(-1)[a - off:z - off])
+
+    with torch.no_grad():
+        materialize(sink)
+    if where:
+        raise ValueError(f"the materializer drew no {sorted(where)}")
+    return rows
 
 
 def _fsdp_info(comp, wire, threshold, order) -> dict:
@@ -443,7 +460,12 @@ def FullyShardedOptimizer(optimizer: Callable, named_parameters=None,
     shards. ``named_parameters`` gives the full parameters' names and
     values, of which this rank keeps its rows (``shards``); without it
     the result is an :class:`UnboundOptimizer` for
-    ``make_lm_train_step``. ``compression=None`` takes the
+    ``make_lm_train_step``, whose ``bind`` also takes meta parameters
+    with ``materialize=``, a callable that draws each whole parameter
+    into ``sink(name, tensor)`` one at a time
+    (``Transformer.init_params(generator, sink=)``): the rows are then
+    filled draw by draw, bitwise the same, and no rank holds the
+    model. ``compression=None`` takes the
     HOROVOD_COMPRESSION knob's wire; the int8 wire runs with error
     feedback on the rank-private residual. ``world`` and ``rank`` default
     to the initialized world's (they differ only for a world emulated

@@ -51,6 +51,7 @@ from ..models.transformer import (Transformer, TransformerConfig,
                                   causal_lm_nll)
 from .comm import GroupComm, SelfComm, reduce_grads
 from .mesh import DATA_AXES, Mesh
+from .sharding import build_device, materialize_shards
 
 #: the live axes a pipeline runs on; any other only repeats its work
 PIPELINE_AXES = ("pp",) + DATA_AXES
@@ -124,18 +125,19 @@ def _check_pp(cfg: TransformerConfig, mesh: Mesh, who: str,
 def build_stage(cfg: TransformerConfig, mesh: Mesh, attention_fn=None,
                 device=None, seed: int = 0) -> Transformer:
     """This rank's stage of ``cfg`` on ``mesh``: its blocks and the
-    replicated rest, with the whole model's weights from ``seed``
-    (``Transformer.init_params``), on ``device`` (default: the card;
-    without one it raises)."""
+    replicated rest, with the whole model's weights from ``seed``, on
+    ``device`` (default: the card; without one it raises). The stage is
+    built on the meta device and its parameters drawn one at a time
+    (``sharding.materialize_shards``): the blocks it does not hold are
+    drawn into a temporary and dropped, so they are never resident and
+    the stage's weights are bitwise the whole model's."""
     _check_pp(cfg, mesh, "build_stage")
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_stage: no CUDA device; pass device='cpu' "
-                           "to build on the CPU")
-    with torch.device(dev):
+    dev = build_device(device, "build_stage")
+    with torch.device("meta"):
         model = Transformer(cfg, attention_fn,
                             layers=stage_layers(cfg, mesh))
-    return model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    return materialize_shards(
+        model, torch.Generator(device=dev).manual_seed(seed))
 
 
 def _pp_comm(mesh: Mesh):

@@ -113,6 +113,47 @@ def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh,
     return t
 
 
+def build_device(device, where: str) -> torch.device:
+    """``device`` (None: the card) as the device a build draws on. A
+    build on the card raises where none is visible: nothing falls back
+    to the CPU unless the caller passes ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{where}: no CUDA device; pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
+def materialize_shards(model, generator: torch.Generator,
+                       specs: Optional[Mapping[str, Spec]] = None,
+                       mesh: Optional[Mesh] = None):
+    """Give ``model`` (built on the meta device) this rank's slice of
+    each of its parameters, one parameter at a time, and return it.
+
+    ``model.init_params(generator, sink=...)`` draws each whole
+    parameter into a temporary on the generator's device, in the whole
+    model's order; the sink keeps the rank's slice of it under its
+    pruned spec (:func:`local_slice` on ``mesh``; the whole tensor where
+    ``specs`` is None or the spec splits nothing) as the module's
+    parameter and drops the rest before the next draw. So a rank holds
+    its slices plus at most one whole parameter, never the model, and
+    its slices are bitwise those of the whole model drawn from the same
+    generator. A pipeline stage (a model of some of the blocks) keeps
+    only its own blocks' draws. The JAX package's ``init_fn``
+    jit-initializes into the shardings instead."""
+    def keep(name: str, whole: torch.Tensor) -> None:
+        local = whole if specs is None else local_slice(whole, specs[name],
+                                                        mesh)
+        if local is not whole:
+            local = local.clone(memory_format=torch.contiguous_format)
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        mod._parameters[leaf] = torch.nn.Parameter(
+            local, requires_grad=mod._parameters[leaf].requires_grad)
+
+    return model.init_params(generator, sink=keep)
+
+
 def shard_params(params, mesh: Mesh,
                  rules: Optional[Sequence[Rule]] = None,
                  rank: Optional[int] = None) -> Dict[str, torch.Tensor]:

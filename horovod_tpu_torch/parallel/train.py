@@ -47,9 +47,16 @@ experts route over an ep axis in ``models/moe.MoeMlp``.
 step has no fused loss, and the port's (``fused_ce``) computes its
 vocab blocks whole.
 
-The model is built whole on every rank, then sliced; a model larger
-than a card needs the JAX package's init straight into the shards
-(``horovod_tpu/parallel/train.py`` ``init_fn``).
+The model is built on the meta device and each rank draws its own
+slices into it, one parameter at a time
+(``sharding.materialize_shards``; the FSDP step its bucket rows,
+``FullyShardedOptimizer.bind(materialize=)``): every parameter is drawn
+whole from the seed into a temporary and dropped once the rank has kept
+its part, so no rank holds the whole model and every rank's slices are
+bitwise those of the whole model, as the JAX package's ``init_fn``
+initializes straight into the shardings. The optimizer's state is made
+at its first step from the slices (``torch.optim``'s lazy state), where
+the JAX ``init_fn`` also returns it in its shardings.
 """
 
 from __future__ import annotations
@@ -110,17 +117,25 @@ def _is_fsdp(optimizer) -> bool:
     return info is not None and info.get("kind") == "fsdp"
 
 
-def _keep_shards(model, specs, mesh) -> None:
-    """Replace each parameter of ``model`` by this rank's slice of it."""
-    with torch.no_grad():
-        for name, p in list(model.named_parameters()):
-            mod_name, _, leaf = name.rpartition(".")
-            mod = model.get_submodule(mod_name) if mod_name else model
-            local = sharding_lib.local_slice(p, specs[name], mesh)
-            if local.shape != p.shape:
-                mod._parameters[leaf] = torch.nn.Parameter(
-                    local.contiguous().clone(),
-                    requires_grad=p.requires_grad)
+def build_sharded(cfg: TransformerConfig, mesh: Mesh, device=None,
+                  rules=None, attention_fn=None, seed: int = 0):
+    """``(model, specs)``: ``cfg``'s model built on the meta device, then
+    given this rank's slices of its seed-``seed`` weights on ``device``
+    (default: the card) by ``rules``' pruned specs on ``mesh``, one
+    parameter at a time (``sharding.materialize_shards``). ``specs`` is
+    None, and every parameter whole, without a live tp or fsdp axis.
+    ``mesh`` need not be bound: only its coordinates are read, so one
+    rank of a mesh can be built without its peers."""
+    device = sharding_lib.build_device(device, "build_sharded")
+    with torch.device("meta"):
+        model = Transformer(cfg, attention_fn=attention_fn)
+    specs = None
+    if mesh.axis_size("tp") > 1 or mesh.axis_size("fsdp") > 1:
+        specs = sharding_lib.make_param_shardings(
+            model.named_parameters(), mesh, rules)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    sharding_lib.materialize_shards(model, generator, specs, mesh)
+    return model, specs
 
 
 def _sum_grads_over(model, comm) -> None:
@@ -144,10 +159,13 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
     broadcasting its first rank's weights over it, or an optimizer of
     this package given no parameters (``ShardedOptimizer(factory)``,
     ``FullyShardedOptimizer(factory)``), which the step binds to the
-    model. The model is built on ``device`` (default: the device
-    ``init()`` chose) with random weights from seed 0; on a mesh with
-    a live tp axis each rank keeps its slices of them by ``rules``
-    (default ``sharding.TRANSFORMER_RULES``).
+    model. The model is built on the meta device and takes random
+    weights from seed 0 on ``device`` (default: the device ``init()``
+    chose), drawn one parameter at a time: on a mesh with a live tp or
+    fsdp axis each rank keeps only its slices of them by ``rules``
+    (default ``sharding.TRANSFORMER_RULES``), bitwise the whole model's
+    (``sharding.materialize_shards``), so no rank ever holds the whole
+    model.
 
     ``mesh``: a :class:`~horovod_tpu_torch.parallel.mesh.Mesh`, a spec
     (``"dp=2,tp=2"``) or None (``hvd.mesh()``). ``sequence_parallel``
@@ -173,14 +191,15 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
     and backward; a vocab split over tp raises.
 
     Under a ``FullyShardedOptimizer`` the returned model's parameters
-    live on the meta device (the rows are in ``step.optimizer.shards``;
-    ``step.state_dict()`` gathers a full copy)."""
+    stay on the meta device: each one is drawn whole and copied into
+    the ranges of this rank's bucket rows it covers
+    (``step.optimizer.shards``; ``step.state_dict()`` gathers a full
+    copy). The optimizer's state (AdamW's moments) is made lazily at its
+    first step, from the slices or rows."""
     st = _require_init()
     schedule_mode(st.knobs)  # an unknown HOROVOD_OVERLAP_SCHEDULE raises
-    device = st.device if device is None else torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_lm_train_step: no CUDA device; pass "
-                           "device='cpu' to train on the CPU")
+    device = sharding_lib.build_device(
+        st.device if device is None else device, "make_lm_train_step")
     if sequence_parallel not in (None, "ring", "ulysses"):
         raise ValueError(f"sequence_parallel={sequence_parallel!r}: None, "
                          "'ring' or 'ulysses'")
@@ -202,10 +221,11 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
                 f"the FSDP step shards parameters over one live data axis "
                 f"(the world); mesh has data axes {axes} and extra live "
                 f"axes {extra}")
-        with torch.device(device):
+        with torch.device("meta"):
             model = Transformer(cfg, attention_fn=attention_fn)
-        model.init_params(torch.Generator(device=device).manual_seed(0))
-        return model, _fsdp_step_fn(cfg, model, optimizer, fused_ce)
+        return model, _fsdp_step_fn(
+            cfg, model, optimizer, fused_ce,
+            torch.Generator(device=device).manual_seed(0))
     for axis, where in _ELSEWHERE.items():
         if mesh.axis_size(axis) > 1:
             raise ValueError(
@@ -220,17 +240,10 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
             raise ValueError("sequence_parallel chooses the attention; "
                              "pass no attention_fn with it")
         attention_fn = sp_attention_fn(mesh, sequence_parallel, cfg.causal)
-    with torch.device(device):
-        model = Transformer(cfg, attention_fn=attention_fn)
-    model.init_params(torch.Generator(device=device).manual_seed(0))
-
     tp_comm, sp_comm = mesh.comm("tp"), mesh.comm("sp")
     fsdp_comm = mesh.comm("fsdp")
-    specs = fsdp = None
-    if tp_comm is not None or fsdp_comm is not None:
-        specs = sharding_lib.make_param_shardings(
-            model.named_parameters(), mesh, rules)
-        _keep_shards(model, specs, mesh)
+    model, specs = build_sharded(cfg, mesh, device, rules, attention_fn)
+    fsdp = None
     if tp_comm is not None:
         parallelize(model, TensorParallel(tp_comm))
         head = (model.tok_emb.embedding.shape[0] if cfg.tie_embeddings
@@ -427,24 +440,14 @@ def _count_weighted_stages(model, fused_ce: bool, size: int):
     return stages_for
 
 
-def _params_to_meta(model) -> None:
-    """Replace every parameter of ``model`` by a meta tensor of its shape
-    (buffers stay): the FSDP step's rows hold the values."""
-    for mod in model.modules():
-        for name, p in list(mod._parameters.items()):
-            if p is not None:
-                mod._parameters[name] = torch.nn.Parameter(
-                    torch.empty_like(p, device="meta"),
-                    requires_grad=p.requires_grad)
-
-
-def _fsdp_step_fn(cfg, model, optimizer, fused_ce):
+def _fsdp_step_fn(cfg, model, optimizer, fused_ce, generator):
     """The fully-sharded step of a ``FullyShardedOptimizer`` (every
     other optimizer takes its path bit for bit whatever HOROVOD_FSDP
-    says). Every rank draws
-    the same seed-0 weights, keeps its rows of each bucket
-    (``optimizer.bind``) and frees the rest: the model's parameters move
-    to the meta device, and the step gathers them bucket by bucket
+    says) over ``model``, built on the meta device. Every rank draws
+    the same seed-0 weights from ``generator`` one parameter at a time
+    and keeps the ranges of its rows of each bucket that each covers
+    (``optimizer.bind(materialize=)``): the model's parameters stay on
+    the meta device, and the step gathers them bucket by bucket
     (``ops/overlap.fsdp_staged_value_and_grad``, with the FSDP knobs'
     prefetch, regather and offload). There is no fallback: the
     optimizer's step consumes staged shards only."""
@@ -458,8 +461,9 @@ def _fsdp_step_fn(cfg, model, optimizer, fused_ce):
             "FullyShardedOptimizer — its update consumes staged shards "
             "and cannot ride the monolithic paths; turn the knob on or "
             "use ShardedOptimizer/DistributedOptimizer")
-    opt = optimizer.bind(model.named_parameters())
-    _params_to_meta(model)
+    opt = optimizer.bind(
+        model.named_parameters(),
+        materialize=lambda sink: model.init_params(generator, sink=sink))
     layout = opt.layout
     stages_for = _count_weighted_stages(model, fused_ce, st.size)
     holder = {}

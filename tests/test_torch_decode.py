@@ -389,6 +389,12 @@ _OBSERVABILITY_MODULES = [
         "tools.device_summary")]
 
 
+_SURFACE_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "optim", "models", "parallel.sharding", "parallel.pipeline",
+        "optim.fsdp", "ops.fusion", "core.basics")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
@@ -403,12 +409,16 @@ def test_no_jax_in_port_or_chip_smoke():
     the rest of the mesh's (the live fsdp axis, the step, the two-axis
     wire, the engine on a mesh) and observability's (metrics, the
     timeline, the flight recorder, the trace reader, the sampled
-    profiler, the health monitor, the four offline tools) modules are
-    among those walked."""
+    profiler, the health monitor, the four offline tools) and the
+    public surface's and the init into the shards' (the optimizers' and
+    models' package exports, the materializer, ``build_stage``, the
+    FSDP rows, the fingerprint, the in-graph queries) modules are among
+    those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
               + _SERVING_MODULES + _MESH_MODULES + _PIPELINE_MODULES
-              + _FSDP_AXIS_MODULES + _OBSERVABILITY_MODULES)
+              + _FSDP_AXIS_MODULES + _OBSERVABILITY_MODULES
+              + _SURFACE_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

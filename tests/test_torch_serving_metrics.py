@@ -20,6 +20,7 @@
 
 import collections
 import json
+import time
 import urllib.request
 
 import jax
@@ -427,6 +428,11 @@ def test_metrics_route_and_serve_replica_enable(monkeypatch):
                 f"http://127.0.0.1:{port}/v1/predict", data=body,
                 method="POST"), timeout=10.0):
             pass
+        # the handler leaves the in-flight window after its reply is
+        # written, so the client may read the reply first
+        deadline = time.monotonic() + 5.0
+        while srv.health()["inflight"] and time.monotonic() < deadline:
+            time.sleep(0.01)
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{port}/metrics", timeout=5.0) as r:
             assert r.status == 200
