@@ -319,6 +319,26 @@ Phases, in order; the first failure exits non-zero:
    its own (x 12 bytes), each plus the largest parameter plus
    ``INIT_SLACK_BYTES``; ``distributed_value_and_grad`` and the ``_op``
    queries at world 1 (its own ``phase_seconds`` entry);
+4r. the autotuner, no kernel of its own: (a) ``tune_lm_train_step`` on
+   GPT-2 medium (24 x 1024, bf16, flash attention, fused norms, AdamW
+   under the DistributedOptimizer, 8 x 1024) at world 1 over NCCL,
+   ``OnlineTuner`` with its default dimensions (five thresholds, the
+   ordered flip, two overlap modes: eight candidates), 1 warm-up + 3
+   measured steps a candidate, a cache in a temporary directory: every
+   trial's ``step_s`` finite, the pin in the knobs, the cache entry of
+   schema 2 with the tuned knob list, B1-B5 exactly 8 x 4 x
+   ``STEP_LAUNCHES`` over the sweep, the sweep's peak device memory at
+   most ``AUTOTUNE_MEM_FACTOR`` x one candidate's measured alone (each
+   above the memory held before it), the final step's first loss
+   bitwise an untuned ``make_lm_train_step``'s on the same tokens; (b)
+   a second ``tune_lm_train_step`` on the same cache: pinned from the
+   cache, zero tuning builds, the same configuration, no kernel launch
+   before the final build; (d) ``ordered_buckets`` flipped: 1 + 3 steps
+   bitwise (losses and each parameter's float64 sum) the untuned run's
+   (world 1 reduces nothing); (c) ``HOROVOD_AUTOTUNE=1`` through
+   ``init()`` without the eager runtime: a ``ParameterManager`` that
+   one GPT-2 medium step's ``synchronize`` advances (its own
+   ``phase_seconds`` entry);
 4p. train GPT-2 medium (24 x 1024, ``--flash --fused-norm``, AdamW
    under the DistributedOptimizer, phase 4's weights and 8 x 1024 batch)
    at world 1 over NCCL, 1 warm-up + 5 steps each inside
@@ -501,27 +521,33 @@ def _dev_us(event):
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def _kernel_events(prof):
-    """The device events of a ``_profiled`` window, averaged, without
-    the GPU-side copies of user annotations (e.g. ``Optimizer.step``),
-    whose time overlaps the kernels they enclose, and without the spin
-    kernels that open the window. The profiler loses a window's first
+def _window_events(prof):
+    """``(events, spins)``: the device events of a ``_profiled`` window,
+    averaged, without the GPU-side copies of user annotations (e.g.
+    ``Optimizer.step``), whose time overlaps the kernels they enclose,
+    and without the spin kernels that open the window; and how many of
+    those spins the window kept. The profiler loses a window's first
     device records, the more of them the older the process: a window
-    that lost every spin may have lost the work's first records too,
-    and fails."""
+    that kept no spin may have lost the work's first records too."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     spins = sum(e.count for e in events if SPIN_KERNEL in e.key)
-    lost = PROFILE_WARMUP_SPINS - spins
     PROFILER_TALLY["spins_lost_max"] = max(
-        PROFILER_TALLY["spins_lost_max"], lost)
+        PROFILER_TALLY["spins_lost_max"], PROFILE_WARMUP_SPINS - spins)
+    return [e for e in events if SPIN_KERNEL not in e.key], spins
+
+
+def _kernel_events(prof):
+    """``_window_events``' events; a window that lost every spin
+    fails."""
+    events, spins = _window_events(prof)
     _require(spins > 0, f"a profiler window lost all its "
                         f"{PROFILE_WARMUP_SPINS} leading spin kernels, "
                         "and maybe the first records of its work")
-    return [e for e in events if SPIN_KERNEL not in e.key]
+    return events
 
 
 #: bytes written before each call of an L2-cold reading (``_device_ms``
@@ -628,8 +654,9 @@ def _device_ms(fn, iters=50, cold=False):
     kernels it launches, from ``torch.profiler`` over ``iters`` calls.
     For a call shorter than its host-side launch, where back-to-back
     CUDA-event timing measures the enqueue and not the card. A window
-    without device time, or whose kernel calls are not a whole number a
-    call (the profiler dropped events), is refused and profiled again;
+    without device time, whose kernel calls are not a whole number a
+    call (the profiler dropped events), or that lost every leading spin
+    (and maybe the work's first records), is refused and profiled again;
     after ``DEVICE_MS_WINDOWS`` refused windows the reading is
     ``_held_ms``'s (``PROFILER_TALLY`` counts both). With ``cold``, each
     call follows a fill of ``FLUSH_BYTES``, whose kernel the sum leaves
@@ -649,9 +676,9 @@ def _device_ms(fn, iters=50, cold=False):
             for i in range(iters):
                 call(i)
         PROFILER_TALLY["windows"] += 1
-        events = _kernel_events(prof)
+        events, spins = _window_events(prof)
         fills = sum(e.count for e in events if FLUSH_KERNEL in e.key)
-        _require(flush is None or not events or fills,
+        _require(flush is None or not events or fills or not spins,
                  f"no kernel named *{FLUSH_KERNEL}* among "
                  f"{[e.key[:60] for e in events]}: the L2 flush cannot be "
                  "left out of the reading")
@@ -659,13 +686,14 @@ def _device_ms(fn, iters=50, cold=False):
                 if flush is None or FLUSH_KERNEL not in e.key]
         us = sum(_dev_us(e) for e in mine)
         calls = sum(e.count for e in mine)
-        if us > 0 and calls % iters == 0 and fills % iters == 0:
+        if (spins and us > 0 and calls % iters == 0
+                and fills % iters == 0):
             return us / 1e3 / iters
         PROFILER_TALLY["refused"] += 1
         if len(PROFILER_TALLY["refusals"]) < 20:
             PROFILER_TALLY["refusals"].append({
                 "iters": iters, "device_us": us, "calls": calls,
-                "fills": fills, "kernels": {
+                "fills": fills, "spins": spins, "kernels": {
                     e.key[:60]: e.count for e in mine
                     if e.count % iters}})
     PROFILER_TALLY["held_event_readings"] += 1
@@ -8905,6 +8933,208 @@ def check_init_shards():
 
 
 # ---------------------------------------------------------------------------
+# phase 4r: the autotuner on GPT-2 medium
+# ---------------------------------------------------------------------------
+
+#: the sweep's peak device memory (above what was held before it) at
+#: most this many times one candidate's measured alone: a candidate's
+#: model and AdamW state must be freed before the next is drawn (two at
+#: once would read about 2x)
+AUTOTUNE_MEM_FACTOR = 1.25
+AUTOTUNE_WARMUP, AUTOTUNE_MEASURE = 1, 3
+#: the OnlineTuner's default dimensions: five thresholds (128 MiB, the
+#: incumbent, among them), the ordered flip, two overlap modes
+AUTOTUNE_CANDIDATES = 8
+
+
+def _tuned_gpt2():
+    """GPT-2 medium's phase-4 configuration (fused norms, flash
+    attention, AdamW) and 8 x 1024 tokens on the card."""
+    from horovod_tpu_torch.examples.gpt2_pretraining import synthetic_tokens
+    from horovod_tpu_torch.models.transformer import GPT2_MEDIUM
+    from horovod_tpu_torch.ops.flash_attention import make_flash_attention_fn
+
+    cfg = dataclasses.replace(GPT2_MEDIUM, fused_norm=True)
+    tokens = torch.from_numpy(synthetic_tokens(
+        cfg.vocab_size, 8, 1024, 0, 1)).cuda()
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    return cfg, tokens, adamw, make_flash_attention_fn(causal=True)
+
+
+def _alone_run(cfg, tokens, adamw, attn):
+    """One candidate measured alone: a ``make_lm_train_step`` under the
+    knobs as they are and a candidate's 1 + 3 steps. Returns its losses,
+    each parameter's float64 sum after them, and its peak device bytes
+    above those held before it."""
+    import horovod_tpu_torch as hvd
+
+    _free_cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, step = hvd.make_lm_train_step(cfg, adamw, attention_fn=attn)
+    losses = [step(tokens) for _ in range(AUTOTUNE_WARMUP
+                                          + AUTOTUNE_MEASURE)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [x.item() for x in losses]
+    sums = [p.detach().double().sum().item() for p in model.parameters()]
+    del model, step
+    _free_cuda()
+    return losses, sums, peak
+
+
+def check_autotune(ledger):
+    """Phase 4r: the autotuner on GPT-2 medium at world 1 over NCCL
+    ((a) the sweep, (b) the warm start, (d) ``ordered_buckets`` flipped,
+    (c) the ParameterManager under ``HOROVOD_AUTOTUNE=1``), printed
+    beside the card's name and power limit."""
+    import shutil
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.autotune import (KNOB_SCHEMA_VERSION,
+                                                OnlineTuner, TuneCache)
+    from horovod_tpu_torch.parallel.train import tune_lm_train_step
+
+    card = _card()
+    root = tempfile.mkdtemp(prefix="hvd_autotune_")
+    cache = os.path.join(root, "cache.json")
+    report = {"phase": "autotune", "card": card,
+              "model": "GPT-2 medium 24x1024, 16 heads", "batch": "8x1024",
+              "warmup": AUTOTUNE_WARMUP, "measure": AUTOTUNE_MEASURE}
+    try:
+        hvd.init()
+        knobs = global_state().knobs
+        cfg, tokens, adamw, attn = _tuned_gpt2()
+        untuned = {k: getattr(knobs, k) for k in (
+            "fusion_threshold_bytes", "ordered_buckets", "overlap_schedule")}
+        alone, sums_alone, peak_alone = _alone_run(cfg, tokens, adamw,
+                                                   attn)
+        first_alone = alone[0]
+
+        # (a) the sweep
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tuner = OnlineTuner(warmup=AUTOTUNE_WARMUP, measure=AUTOTUNE_MEASURE,
+                            cache_path=cache)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        model, step, config = tune_lm_train_step(
+            cfg, lambda: adamw, tokens, tuner=tuner, attention_fn=attn)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak_sweep = torch.cuda.max_memory_allocated() - base
+        ledger["train_autotune"] = launches
+        steps = AUTOTUNE_CANDIDATES * (AUTOTUNE_WARMUP + AUTOTUNE_MEASURE)
+        _exact_launches(launches, steps, "the autotune sweep")
+        trials = tuner.trials
+        _require(len(trials) == AUTOTUNE_CANDIDATES
+                 and tuner.compiles == AUTOTUNE_CANDIDATES,
+                 f"autotune: {len(trials)} trials, {tuner.compiles} "
+                 f"builds, not {AUTOTUNE_CANDIDATES}")
+        _require(all("step_s" in t and math.isfinite(t["step_s"])
+                     for t in trials), f"autotune trials {trials}")
+        _require(tuner.pin_source == "sweep"
+                 and {k: getattr(knobs, k) for k in config} == config,
+                 f"autotune: pinned {config}, knobs "
+                 f"{ {k: getattr(knobs, k) for k in config} }")
+        with open(cache) as f:
+            entries = json.load(f)["entries"]
+        _require(len(entries) == 1, f"autotune cache {entries}")
+        (entry,) = entries.values()
+        _require(entry["schema"] == KNOB_SCHEMA_VERSION
+                 and entry["knobs"] == sorted(config)
+                 and entry["config"] == config,
+                 f"autotune cache entry {entry}")
+        _require(peak_sweep <= AUTOTUNE_MEM_FACTOR * peak_alone,
+                 f"autotune: the sweep's peak {peak_sweep} B above "
+                 f"{AUTOTUNE_MEM_FACTOR} x one candidate's {peak_alone} B")
+        first_tuned = step(tokens).item()
+        _require(first_tuned == first_alone,
+                 f"autotune: the tuned step's first loss {first_tuned!r} "
+                 f"is not the untuned step's {first_alone!r}")
+        del model, step
+        _free_cuda()
+
+        # (b) the warm start, from the knobs it started with
+        for k, v in untuned.items():
+            setattr(knobs, k, v)
+        warm = OnlineTuner(warmup=AUTOTUNE_WARMUP, measure=AUTOTUNE_MEASURE,
+                           cache_path=cache)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        model, step, config2 = tune_lm_train_step(
+            cfg, lambda: adamw, tokens, tuner=warm, attention_fn=attn)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_launches = sum(_build.LAUNCHES.get(k, 0)
+                            for k in STEP_LAUNCHES)
+        _require(warm.pin_source == "cache" and warm.compiles == 0
+                 and not warm.trials and config2 == config
+                 and {k: getattr(knobs, k) for k in config} == config,
+                 f"autotune warm start: {warm.pin_source}, "
+                 f"{warm.compiles} builds, {config2} against {config}")
+        _require(warm_launches == 0,
+                 f"autotune warm start launched {warm_launches} kernels "
+                 "before the final build")
+        del model, step
+        _free_cuda()
+
+        # (d) ordered_buckets off against on (the alone run): at world 1
+        # the optimizer reduces nothing, so the knob changes no bit
+        knobs.ordered_buckets = not untuned["ordered_buckets"]
+        flipped, sums_flipped, _ = _alone_run(cfg, tokens, adamw, attn)
+        knobs.ordered_buckets = untuned["ordered_buckets"]
+        _require(flipped == alone and sums_flipped == sums_alone,
+                 f"autotune: ordered_buckets={not untuned['ordered_buckets']} "
+                 f"losses {flipped} against {alone}, or its parameters "
+                 "differ")
+        hvd.shutdown()
+
+        # (c) the ParameterManager through init()
+        os.environ["HOROVOD_AUTOTUNE"] = "1"
+        try:
+            hvd.init()
+        finally:
+            del os.environ["HOROVOD_AUTOTUNE"]
+        pm = global_state().parameter_manager
+        _require(pm is not None and global_state().eager_runtime is None,
+                 "HOROVOD_AUTOTUNE=1 built no ParameterManager")
+        before = pm._steps_in_sample
+        _, step = hvd.make_lm_train_step(cfg, adamw, attention_fn=attn)
+        step(tokens).item()
+        observed = pm._steps_in_sample - before
+        _require(observed == 1,
+                 f"the ParameterManager saw {observed} steps, not 1")
+        del step
+        hvd.shutdown()
+        _free_cuda()
+        report.update({
+            "trials": trials, "pinned": config, "sweep_s": sweep_s,
+            "warm_start_s": warm_s, "peak_sweep_gb": peak_sweep / 1e9,
+            "peak_alone_gb": peak_alone / 1e9,
+            "peak_ratio": peak_sweep / peak_alone,
+            "first_loss": first_tuned,
+            "launches_per_step": {k: launches[k] / steps
+                                  for k in STEP_LAUNCHES},
+            "warm_start": {"pin_source": warm.pin_source,
+                           "builds": warm.compiles,
+                           "launches": warm_launches},
+            "parameter_manager_steps": observed,
+            "ordered_flip_bitwise": True, "untuned": untuned})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if hvd.is_initialized():
+            hvd.shutdown()
+    print(json.dumps(report), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 4p: GPT-2 medium trained with every telemetry knob on, then off
 # ---------------------------------------------------------------------------
 
@@ -11718,6 +11948,7 @@ def main(argv=None) -> int:
     timed("4n", train_pipeline, args.seed, ledger, in_process_losses)
     timed("4o", train_fsdp_axis, args.seed, ledger, in_process_losses)
     timed("4q (init shards)", check_init_shards)
+    timed("4r (autotune)", check_autotune, ledger)
     # 4p's seconds without (f) and (g), which have their own entry
     part2_s = timed("4p", train_observed, args.seed, ledger,
                     in_process_losses)

@@ -46,6 +46,14 @@ NVIDIA Hopper GPUs:
   blacklisting failed hosts (``python -m
   horovod_tpu_torch.examples.gpt2_elastic``); ``hvd.data``'s
   ``ElasticSampler`` and loaders and ``hvd.callbacks`` go with it;
+* **autotuning** (``hvd.autotune``): :class:`OnlineTuner` and
+  :class:`SPMDStepTuner` build and time a step per candidate knob
+  setting (``parallel.tune_lm_train_step`` for the causal-LM step),
+  agree the winners over the ranks, pin them into the knobs and keep
+  them in a warm-start cache (``HOROVOD_AUTOTUNE_CACHE``) that later
+  runs and serving replicas read; ``HOROVOD_AUTOTUNE`` runs the
+  in-step ``ParameterManager``, or the eager runtime's controller
+  tuner;
 * **observability**: ``hvd.metrics`` (counters, gauges, histograms,
   the per-step JSONL of ``with hvd.metrics.step():``, the Prometheus
   exposition and its push to the launcher's ``/metrics``), the host
@@ -111,6 +119,7 @@ from .models.transformer import (BERT_LARGE, GPT2_MEDIUM, GPT2_SMALL, Bert,
                                  causal_lm_loss, mlm_loss)
 from .ops._build import LAUNCHES, reset_launches
 from .ops.adasum import adasum_allreduce, hierarchical_adasum
+from .ops.autotune import OnlineTuner, SPMDStepTuner
 from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               Sum, allgather, allgather_async, allreduce,
                               allreduce_, allreduce_async, allreduce_async_,
@@ -147,6 +156,7 @@ from .serving.decode import GenerationEngine, KVCacheSpec, SlottedKVCache
 from .serving.scheduler import DecodeScheduler, GenRequest
 from .sync_batch_norm import SyncBatchNorm
 from . import health  # hvd.health.verdict(), summary(), ...
+from .ops import autotune  # hvd.autotune.OnlineTuner, warm_start, ...
 from .ops import overlap  # hvd.overlap.fsdp_staged_value_and_grad, ...
 from .optim import fsdp  # hvd.fsdp.shard_params, fsdp_layout, ...
 from .utils import faults  # hvd.faults.inject, ...
@@ -208,7 +218,7 @@ __all__ = [
     "DistributedOptimizer", "ShardedOptimizer", "FullyShardedOptimizer",
     "reshard_state", "fsdp_layout", "fsdp", "overlap", "faults",
     "DistributedGradientTape", "distributed_value_and_grad",
-    "model_fingerprint",
+    "model_fingerprint", "autotune", "OnlineTuner", "SPMDStepTuner",
     "Compression", "Int8BlockCompressor", "WireSpec", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allgather_object",
     "make_lm_train_step", "checkpoint", "save_model", "load_model",

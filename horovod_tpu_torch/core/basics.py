@@ -36,7 +36,11 @@ starts the eager negotiation runtime (``ops/eager_runtime.py``): the
 C++ controller, whose rank 0 binds ``HVD_TPU_NATIVE_COORDINATOR_PORT``
 at ``HVD_TPU_NATIVE_COORDINATOR_ADDR`` (the launcher publishes both),
 and a ``DistExecutor`` on a process group of its own, created
-collectively here. ``shutdown()`` stops it first.
+collectively here. ``shutdown()`` stops it first. With
+``HOROVOD_AUTOTUNE=1`` the controller tunes (``HOROVOD_AUTOTUNE_BAYES``,
+``_WARMUP_SAMPLES``, ``_STEPS_PER_SAMPLE``); without the runtime,
+``init()`` builds the autotuner's ``ParameterManager``
+(``ops/autotune.py``), which the DistributedOptimizer feeds.
 """
 
 from __future__ import annotations
@@ -116,6 +120,12 @@ def init(device: Optional[str] = None,
         st.cross_rank, st.cross_size = cross_rank, cross_size
         st.process_set_table = _ps.ProcessSetTable(size)
         _configure_telemetry(st)
+        if st.knobs.autotune and not st.knobs.native_eager:
+            # the in-step bucket tuner; with the eager runtime the
+            # controller tunes and ships its winners in each response
+            from ..ops.autotune import ParameterManager
+
+            st.parameter_manager = ParameterManager(st.knobs)
         st.initialized = True
     if st.knobs.native_eager:
         try:
@@ -192,6 +202,10 @@ def _start_native_eager(st) -> None:
                          if k.stall_check_enabled else 0.0),
         stall_shutdown_s=k.stall_shutdown_time_seconds,
         stall_abort_s=k.stall_abort_time_seconds,
+        autotune=k.autotune,
+        autotune_warmup=k.autotune_warmup_samples,
+        autotune_cycles_per_sample=k.autotune_steps_per_sample,
+        autotune_bayes=k.autotune_bayes,
         fast_path=k.eager_fast_path,
         fast_path_warmup=k.eager_fast_path_warmup,
         device=st.device,

@@ -55,6 +55,12 @@ class Knobs:
 
     # --- gradient fusion (ops/fusion.py, optim/distributed.py) ---
     fusion_threshold_bytes: int = 128 * 1024 * 1024
+    # on: each fusion bucket is issued from the backward's gradient
+    # hooks, in plan order, as soon as its gradients exist (the JAX
+    # package chains the buckets so that XLA cannot merge them); off:
+    # the hooks only count, and synchronize() issues every bucket in
+    # plan order after the backward (the combiner's schedule)
+    ordered_buckets: bool = True
     # bucket gradients in the order backward produces them (last layer
     # first, embeddings last), so the first bucket is ready first
     bucket_backward_order: bool = True
@@ -193,11 +199,28 @@ class Knobs:
     # seconds after an action before the next is considered
     serving_autoscale_cooldown_s: float = 10.0
 
-    # --- autotune (queue A entry 12) ---
-    # the training run's tuned-configuration cache; a serving replica
-    # would warm-start from it, which the port refuses until the
-    # autotuner is ported
+    # --- autotune (ops/autotune.py) ---
+    # HOROVOD_AUTOTUNE: init() builds the ParameterManager (without the
+    # eager runtime) or starts the controller's tuner (with it)
+    autotune: bool = False
+    # the controller's Gaussian-process search instead of coordinate
+    # descent (its copy of bayes.cc)
+    autotune_bayes: bool = False
+    # the ParameterManager's CSV log; the step tuners write "<log>.spmd"
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    # the OnlineTuner's warm-start cache: winners persist per (model
+    # fingerprint, topology) at this path, and later runs and serving
+    # replicas pin them without a sweep; "" = no cache
     autotune_cache: str = ""
+    # score trials by the measured hvd_mfu when the sampled profiler is
+    # live; the step-time p50 is always recorded and is the fallback
+    autotune_mfu: bool = True
+    # opt in to the numerics-changing dimensions (wire dtype and block,
+    # the eager fast path's warmup): never swept or warm-started
+    # without this consent
+    autotune_wire: bool = False
 
     # --- timeline (utils/timeline.py) ---
     # the Chrome trace file init() starts writing ("" = none), and the
@@ -283,6 +306,7 @@ class Knobs:
         return Knobs(
             fusion_threshold_bytes=_env_int(
                 "FUSION_THRESHOLD", 128 * 1024 * 1024),
+            ordered_buckets=_env_bool("ORDERED_BUCKETS", True),
             bucket_backward_order=_env_bool("BUCKET_BACKWARD_ORDER", True),
             compression=_env("COMPRESSION", "") or "none",
             compression_block=_env_int("COMPRESSION_BLOCK", 256),
@@ -353,7 +377,15 @@ class Knobs:
                 "SERVING_AUTOSCALE_SUSTAIN", 2),
             serving_autoscale_cooldown_s=_env_float(
                 "SERVING_AUTOSCALE_COOLDOWN_S", 10.0),
+            autotune=_env_bool("AUTOTUNE", False),
+            autotune_bayes=_env_bool("AUTOTUNE_BAYES", False),
+            autotune_log=_env("AUTOTUNE_LOG", "") or "",
+            autotune_warmup_samples=_env_int("AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_steps_per_sample=_env_int(
+                "AUTOTUNE_STEPS_PER_SAMPLE", 10),
             autotune_cache=_env("AUTOTUNE_CACHE", "") or "",
+            autotune_mfu=_env_bool("AUTOTUNE_MFU", True),
+            autotune_wire=_env_bool("AUTOTUNE_WIRE", False),
             timeline_filename=_env("TIMELINE", "") or "",
             timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),
             metrics_enabled=_env_bool("METRICS", False),

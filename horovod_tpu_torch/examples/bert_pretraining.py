@@ -21,8 +21,13 @@ several):
         --layers 2 --hidden 64 --device cpu   # a smoke on the CPU
 
 The gradient wire follows ``HOROVOD_COMPRESSION``; the first line names
-it. ``--autotune-spmd`` (the SPMD step tuner) is not ported yet and
-raises.
+it. ``--autotune-spmd`` runs the SPMD step tuner
+(``ops/autotune.SPMDStepTuner``: bucket sizes 16, 64, 128 and 256 MiB,
+then the ordered issue) before the timed run, as the JAX example does:
+each candidate wraps a new optimizer around the same model, the previous
+candidate's hooks detached first, and the timed run starts again from
+the weights it had before the sweep, its optimizer built under the
+pinned knobs.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def synthetic_mlm_batch(vocab, batch, seq, mask_frac, rank, size,
 
 
 def make_mlm_train_step(cfg, optimizer, *, zero=False, attention_fn=None,
-                        device=None, fused_ce=False):
+                        device=None, fused_ce=False, model=None):
     """Build ``(model, step)`` for data-parallel masked-LM training.
 
     ``optimizer`` makes the inner torch optimizer from a list of tensors
@@ -79,16 +84,19 @@ def make_mlm_train_step(cfg, optimizer, *, zero=False, attention_fn=None,
     and returns the local loss; ``step.optimizer`` is the wrapper.
     ``fused_ce`` takes the loss from the pre-head activations through
     ``fused_linear_cross_entropy`` with the tied embedding as the head,
-    as the JAX example's ``--fused-ce`` does."""
+    as the JAX example's ``--fused-ce`` does. With ``model`` the step
+    trains that model as it stands (no build, no broadcast): a new
+    optimizer around the same weights."""
     st = _require_init()
-    device = st.device if device is None else torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_mlm_train_step: no CUDA device; pass "
-                           "device='cpu' to train on the CPU")
-    with torch.device(device):
-        model = Transformer(cfg, attention_fn=attention_fn)
-    model.init_params(torch.Generator(device=device).manual_seed(0))
-    broadcast_parameters(model.state_dict(), root_rank=0)
+    if model is None:
+        device = st.device if device is None else torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("make_mlm_train_step: no CUDA device; pass "
+                               "device='cpu' to train on the CPU")
+        with torch.device(device):
+            model = Transformer(cfg, attention_fn=attention_fn)
+        model.init_params(torch.Generator(device=device).manual_seed(0))
+        broadcast_parameters(model.state_dict(), root_rank=0)
     if zero:
         opt = ShardedOptimizer(optimizer, model.named_parameters())
     else:
@@ -111,6 +119,36 @@ def make_mlm_train_step(cfg, optimizer, *, zero=False, attention_fn=None,
 
     step.optimizer = opt
     return model, step
+
+
+def autotune_spmd(model, step, batch, build):
+    """The SPMD step tuner's sweep over ``model``: each candidate is
+    ``build()`` (a new optimizer around ``model``, the knobs holding the
+    candidate) after the previous candidate's hooks are detached, so
+    every gradient is reduced by one optimizer only; ``step`` is the
+    optimizer built before the sweep. The weights are put back as they
+    were before the sweep, and the run's step is built under the pinned
+    knobs. Returns ``(step, winners, candidates)``, ``candidates`` each
+    candidate's overrides and bucket count."""
+    from ..ops.autotune import SPMDStepTuner
+
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    current, candidates = [step], []
+
+    def build_step(overrides):
+        current[0].optimizer._detach()
+        current[0] = cand = build()
+        candidates.append((dict(overrides),
+                           len(cand.optimizer.bucket_plan)))
+        return lambda: cand(*batch)
+
+    winners = SPMDStepTuner(
+        thresholds=[16 << 20, 64 << 20, 128 << 20, 256 << 20],
+        warmup=1, measure=4,
+    ).tune(build_step)
+    current[0].optimizer._detach()
+    model.load_state_dict(weights)
+    return build(), winners, candidates
 
 
 def main(argv=None, stats=None):
@@ -145,10 +183,6 @@ def main(argv=None, stats=None):
     p.add_argument("--device", default=None,
                    help="'cpu' to run on the CPU (default: the card)")
     args = p.parse_args(argv)
-    if args.autotune_spmd:
-        raise NotImplementedError(
-            "--autotune-spmd: the SPMD step tuner is not ported yet "
-            "(ROADMAP item 15)")
 
     basics.init(device=args.device)
     n = basics.size()
@@ -173,11 +207,20 @@ def main(argv=None, stats=None):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    inner = functools.partial(torch.optim.AdamW, lr=args.lr,
+                              weight_decay=1e-4)
     model, step = make_mlm_train_step(
-        cfg, functools.partial(torch.optim.AdamW, lr=args.lr,
-                               weight_decay=1e-4),
-        zero=args.zero, attention_fn=attention_fn, fused_ce=args.fused_ce)
+        cfg, inner, zero=args.zero, attention_fn=attention_fn,
+        fused_ce=args.fused_ce)
     n_params = count_params(model.parameters())
+    candidates = None
+    if args.autotune_spmd:
+        step, winners, candidates = autotune_spmd(
+            model, step, batch, lambda: make_mlm_train_step(
+                cfg, inner, zero=args.zero, fused_ce=args.fused_ce,
+                model=model)[1])
+        if basics.rank() == 0:
+            print(f"autotune-spmd pinned: {winners}", flush=True)
 
     def sync_loss(loss):
         # the mean loss over the ranks; the host read closes a window
@@ -237,6 +280,7 @@ def main(argv=None, stats=None):
         stats["optimizer_state_bytes"] = opt_bytes
         stats["buckets"] = len(step.optimizer.bucket_plan)
         stats["step"], stats["batch"] = step, batch
+        stats["autotune_candidates"] = candidates
     return per_chip, mfu
 
 

@@ -269,13 +269,17 @@ def _stop_publisher() -> None:
 
 def _load_autotune_baseline(path: str):
     """Best-effort (step_s, mfu) from the newest entry of the
-    autotuner's persisted cache (its JSON; ``HOROVOD_AUTOTUNE_CACHE``,
-    whose tuner comes with ROADMAP queue A entry 12): the cross-run
+    autotuner's persisted cache (``ops/autotune.TuneCache``'s JSON,
+    ``HOROVOD_AUTOTUNE_CACHE``, whose entries sit under its
+    ``"entries"``; a bare mapping of entries reads too): the cross-run
     reference the step-time and MFU envelopes also guard. Read as plain
-    JSON, so health needs nothing of the tuner."""
+    JSON, so health needs nothing of the tuner. (The JAX package's
+    loader reads the file's top level, where the cache's envelope holds
+    no entry, so it never finds a baseline there: ROADMAP queue C.)"""
     try:
         with open(path) as f:
-            entries = json.load(f)
+            data = json.load(f)
+        entries = data.get("entries", data)
         newest = max(
             (e for e in entries.values() if isinstance(e, dict)),
             key=lambda e: e.get("time_unix", 0.0), default=None)

@@ -58,9 +58,18 @@ counters (``metrics_snapshot``) in gauges refreshed at every scrape. No
 metrics record is made while the runtime's lock is held: a scrape takes
 that lock through ``metrics_snapshot``.
 
-Left for a later entry: autotune (``autotune=True`` raises; ROADMAP
-queue A entry 12). Adasum is reduced by ``ops/adasum.py`` outside the
-runtime; the executor refuses it.
+With ``autotune=True`` the controller tunes (reference
+parameter_manager.cc): it walks the fusion threshold and the cycle time
+(coordinate descent), or with ``autotune_bayes`` searches them with the
+cache switch and the two-level route's inner size by a Gaussian process,
+and ships each sample point and the winners in every response, so every
+rank applies the same values (``tuned_parameters``). A batch stamped
+with a hierarchical sample point takes the ``DistExecutor``'s two-level
+route; once the Bayesian search pins, the first ``synchronize`` after it
+sets the knobs ``hierarchical_allreduce`` and
+``hierarchical_local_size`` for what is built later
+(``_apply_pinned_tuning``). Adasum is reduced by ``ops/adasum.py``
+outside the runtime; the executor refuses it.
 """
 
 from __future__ import annotations
@@ -411,24 +420,28 @@ class EagerRuntime:
         stall_shutdown_s: float = 0.0,
         stall_abort_s: float = 0.0,
         autotune: bool = False,
+        autotune_warmup: int = -1,
+        autotune_cycles_per_sample: int = -1,
+        autotune_bayes: bool = False,
         fast_path: bool = True,
         fast_path_warmup: int = 3,
         pipeline_depth: int = 2,
         wire="auto",
         device=None,
     ):
-        if autotune:
-            raise NotImplementedError(
-                "EagerRuntime(autotune=True): autotune is not in "
-                "horovod_tpu_torch yet (ROADMAP queue A entry 12)")
         self._rank, self._size = int(rank), int(size)
         self._native = NativeRuntime()
         self._native.init(
             rank, size, coordinator_addr, coordinator_port,
             cycle_ms=cycle_ms, fusion_threshold=fusion_threshold,
             cache_capacity=cache_capacity, stall_warning_s=stall_warning_s,
-            stall_shutdown_s=stall_shutdown_s,
+            stall_shutdown_s=stall_shutdown_s, autotune=autotune,
+            autotune_warmup=autotune_warmup,
+            autotune_cycles_per_sample=autotune_cycles_per_sample,
+            autotune_bayes=autotune_bayes,
         )
+        # the controller's pinned winners reach the knobs once
+        self._tuning_applied = False
         self._executor = executor or LoopbackExecutor(size, rank,
                                                       wire=wire)
         #: the port rank 0's controller binds in a world of more than one
@@ -1268,6 +1281,7 @@ class EagerRuntime:
                 tl.instant(name, "ERROR")
             raise HorovodInternalError(
                 self._native.last_error() or self._last_exec_error)
+        self._apply_pinned_tuning()
         with self._lock:
             self._fp_outstanding.discard(handle)
             if handle not in self._results:
@@ -1277,6 +1291,32 @@ class EagerRuntime:
                 )
             value = self._results.pop(handle)
         return _deliver(*value)
+
+    def _apply_pinned_tuning(self) -> None:
+        """Once the controller pins its autotune winners, steer the
+        knobs so what is built later takes the tuned two-level route
+        (``ops/hierarchical.py`` reads them). Runs at most once, on the
+        first synchronize() after the pin — the moment the reference
+        applies ParameterManager winners. Turning autotune on hands
+        these knobs to the tuner: a pinned winner overrides the
+        environment's values, turning the two-level route OFF too if the
+        flat one scored better."""
+        if self._tuning_applied or not self._native.tuned_pinned():
+            return
+        self._tuning_applied = True
+        # only the Bayesian search explores the hierarchical dimensions;
+        # coordinate descent leaves them at their defaults, and applying
+        # those here would turn off a user-set
+        # HOROVOD_HIERARCHICAL_ALLREDUCE=1
+        if not self._native.tuned_bayes():
+            return
+        from ..core.state import global_state
+
+        k = global_state().knobs
+        k.hierarchical_allreduce = bool(self._native.tuned_hierarchical())
+        local = int(self._native.tuned_hier_block())
+        if local > 0:
+            k.hierarchical_local_size = local
 
     # ------------------------------------------------------------- worker
 
@@ -1497,6 +1537,19 @@ class EagerRuntime:
 
     def stall_warnings(self) -> int:
         return self._native.stall_warnings()
+
+    def tuned_parameters(self) -> dict:
+        """The controller's autotune values — the same on every rank by
+        construction (the coordinator ships them in each response;
+        reference parameter_manager.cc:528)."""
+        return {
+            "cycle_ms": self._native.tuned_cycle_ms(),
+            "fusion_threshold_bytes": self._native.tuned_threshold(),
+            "pinned": self._native.tuned_pinned(),
+            "cache_enabled": self._native.tuned_cache_enabled(),
+            "hierarchical_allreduce": self._native.tuned_hierarchical(),
+            "hierarchical_local_size": self._native.tuned_hier_block(),
+        }
 
     def bound_port(self) -> int:
         """The port rank 0's controller listens on (0 in a world of one,

@@ -101,6 +101,20 @@ def _backward_availability_order(paths: Sequence[Path]) -> List[int]:
     return sorted(range(len(paths)), key=lambda i: keys[i])
 
 
+def _threshold_bytes() -> int:
+    """The fusion threshold of a plan given none: the autotuner's
+    parameter manager's current candidate when one runs, else the
+    knob."""
+    from ..core.knobs import Knobs
+    from ..core.state import global_state
+
+    st = global_state()
+    if st.parameter_manager is not None:
+        return st.parameter_manager.fusion_threshold_bytes()
+    knobs = st.knobs if st.initialized else Knobs.from_env()
+    return knobs.fusion_threshold_bytes
+
+
 def _defaults(threshold_bytes, backward_order):
     if threshold_bytes is not None and backward_order is not None:
         return threshold_bytes, backward_order
@@ -110,7 +124,7 @@ def _defaults(threshold_bytes, backward_order):
     st = global_state()
     knobs = st.knobs if st.initialized else Knobs.from_env()
     if threshold_bytes is None:
-        threshold_bytes = knobs.fusion_threshold_bytes
+        threshold_bytes = _threshold_bytes()
     if backward_order is None:
         backward_order = knobs.bucket_backward_order
     return threshold_bytes, backward_order

@@ -943,20 +943,25 @@ def _record_fsdp_step(param_bytes: int, gather_bytes: int,
 
 
 def _record_staged_step(bucket_meta, wire, pinned_frac):
-    """A staged step's reduction into the metrics, as the monolithic
+    """A staged step's reduction into the autotuner's parameter manager
+    (its bucket bytes, once a step) and the metrics, as the monolithic
     paths record theirs: the gradient bytes, the bytes at logical
     precision against those on ``wire`` (the WireSpec the reduce-scatters
     move, None uncompressed) and the overlap pin. ``bucket_meta`` is
-    ``(elements, itemsize, is_floating)`` a bucket. (The JAX package
-    also feeds the autotuner's observation here: ROADMAP queue A entry
-    12.)"""
+    ``(elements, itemsize, is_floating)`` a bucket."""
+    from ..core.state import global_state
     from ..utils import metrics as _metrics
 
+    pm = global_state().parameter_manager
+    if pm is None and not _metrics.enabled():
+        return
+    total = sum(e * it for e, it, _ in bucket_meta)
+    if pm is not None:
+        pm.observe(total)
     if not _metrics.enabled():
         return
     from ..optim.compression import wire_sent_bytes
 
-    total = sum(e * it for e, it, _ in bucket_meta)
     _metrics.record_grad_reduction(total, len(bucket_meta))
     sent = sum(wire_sent_bytes(e, it, wire if fl else None)
                for e, it, fl in bucket_meta)

@@ -14,7 +14,11 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   ``torch.cat``) and handed to an asynchronous ``all_reduce``. Buckets
   are issued strictly in plan order, on every rank: one that is ready
   early waits for the ones before it, since NCCL needs the same
-  sequence of collectives on every rank;
+  sequence of collectives on every rank. With ``HOROVOD_ORDERED_BUCKETS=0``
+  (``Knobs.ordered_buckets``, read when the optimizer is built) the
+  hooks only count, and ``synchronize()`` issues every bucket in plan
+  order after the backward: the schedule the JAX package's step gets
+  when XLA's combiner merges its unchained buckets;
 * Average is a SUM scaled by ``1/n`` afterwards (with
   ``gradient_predivide_factor`` f: ``1/f`` before, ``f/n`` after), in
   the wire dtype of the compressor, as the JAX package does; n is the
@@ -74,6 +78,12 @@ package's fused-bucket reduction inside (``optim/distributed.py``):
   its own path;
 * in a world of one rank nothing is packed or reduced (nor recorded,
   as in the JAX package);
+* with the autotuner's ``ParameterManager`` running (``HOROVOD_AUTOTUNE``
+  without the eager runtime), ``synchronize()`` reports the step's
+  bucket bytes to it once a step (``observe``), in a world of one rank
+  too, where the JAX package's step reduces, and reports, nothing; a
+  ``fusion_threshold_bytes`` given while tuning is active masks the
+  tuned threshold for this optimizer, which is said once;
 * with metrics on, each executed step's reduction is recorded once
   after ``synchronize()`` has waited for it:
   ``metrics.record_grad_reduction`` (the buckets' bytes and count) and,
@@ -143,6 +153,8 @@ class _DistributedOptimizer:
         st = _require_init()
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        if fusion_threshold_bytes is not None:
+            _warn_tuned_threshold_masked_once(fusion_threshold_bytes)
         op = resolve_op(None, op)
         if gradient_predivide_factor != 1.0 and op != ReduceOp.AVERAGE:
             raise ValueError("gradient_predivide_factor needs op=Average")
@@ -236,7 +248,12 @@ class _DistributedOptimizer:
 
     def _install_hooks(self) -> None:
         """The per-step state, and a post-accumulate-grad hook on every
-        parameter in a world of more than one rank."""
+        parameter in a world of more than one rank; whether the hooks
+        issue the buckets (``ordered_buckets``) and the parameter
+        manager to report to are read now, with the plan."""
+        st = _require_init()
+        self._ordered = st.knobs.ordered_buckets
+        self._tuner = st.parameter_manager
         self._lock = threading.Lock()
         self._reset()
         self._hooks = []
@@ -296,7 +313,7 @@ class _DistributedOptimizer:
                         f"only; {self._names[self._leaf_of[key]]} has one")
                 self._sparse.append(self._leaf_of[key])
             self._missing[self._bucket_of[key]] -= 1
-            while (self._next < len(self._plans)
+            while (self._ordered and self._next < len(self._plans)
                    and self._missing[self._next] == 0):
                 self._issue(self._next)
                 self._next += 1
@@ -420,6 +437,8 @@ class _DistributedOptimizer:
         """Finish this step's reduction: issue the buckets not issued
         yet, reduce the sparse gradients, wait for all, and write the
         results into ``.grad``."""
+        if self._tuner is not None:
+            self._tuner.observe(self._bucket_bytes())
         if not self._reduces():
             if self._k > 1:
                 for p in self._params:
@@ -455,11 +474,20 @@ class _DistributedOptimizer:
         if metrics.enabled():
             self._record_reduction()
 
+    def _bucket_sizes(self) -> List:
+        """(elements, dtype) of each bucket of the plan."""
+        return [(sum(n for (_, _, n, _) in plan),
+                 self._params[plan[0][0]].dtype) for plan in self._plans]
+
+    def _bucket_bytes(self) -> int:
+        """The plan's buckets' bytes at their dtypes: what a step
+        reduces."""
+        return sum(n * dt.itemsize for n, dt in self._bucket_sizes())
+
     def _record_reduction(self) -> None:
         """One executed reduction: the buckets' bytes at their dtypes
         and, where this optimizer owns the wire, what the wire sent."""
-        sizes = [(sum(n for (_, _, n, _) in plan),
-                  self._params[plan[0][0]].dtype) for plan in self._plans]
+        sizes = self._bucket_sizes()
         total = sum(n * dt.itemsize for n, dt in sizes)
         metrics.record_grad_reduction(total, len(sizes))
         if self._rt is None:
@@ -510,6 +538,34 @@ class _DistributedOptimizer:
         if item == "_opt":  # not set yet: __init__ raised
             raise AttributeError(item)
         return getattr(self._opt, item)
+
+
+_TUNED_MASK_WARNED = [False]
+
+
+def _warn_tuned_threshold_masked_once(explicit: int) -> None:
+    """An explicit per-optimizer ``fusion_threshold_bytes`` outranks the
+    global knob — which is exactly where the autotuner
+    (``ops/autotune.py``) pins its winners. When tuning (or a
+    warm-start cache) is active, the pinned bucket size would be
+    silently masked by the constructor argument: say so once."""
+    if _TUNED_MASK_WARNED[0]:
+        return
+    from ..core.state import global_state
+
+    knobs = global_state().knobs
+    if not (knobs.autotune or getattr(knobs, "autotune_cache", "")):
+        return
+    _TUNED_MASK_WARNED[0] = True
+    from ..utils.logging import get_logger
+
+    get_logger().warning(
+        "DistributedOptimizer was built with an explicit "
+        "fusion_threshold_bytes=%d while autotuning is active "
+        "(HOROVOD_AUTOTUNE / HOROVOD_AUTOTUNE_CACHE): the explicit "
+        "value masks the tuner's pinned bucket size for this "
+        "optimizer. Drop the argument to let the tuned knob apply.",
+        explicit)
 
 
 _WIRE_MISMATCH_WARNED: set = set()

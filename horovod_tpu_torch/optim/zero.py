@@ -26,8 +26,11 @@ The gradient buckets are planned from the parameters' flax names with
 and each bucket's pack and reduce-scatter are issued from the
 post-accumulate-grad hooks of ``optim/distributed.py``, in plan order on
 every rank, as backward produces them: the counterpart of the JAX
-package's chain of optimization barriers. ``step()`` waits for the
-shards.
+package's chain of optimization barriers (``ordered_buckets``). With
+``HOROVOD_ORDERED_BUCKETS=0`` the hooks only count, and
+``synchronize()`` issues every bucket in plan order after the backward,
+as the JAX package's unchained reduce-scatters run. ``step()`` waits
+for the shards.
 
 The JAX package all-gathers the inner optimizer's *updates* and adds
 them to the replicated parameters (``p + all_gather(u)``); torch's

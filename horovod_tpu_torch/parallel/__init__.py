@@ -27,7 +27,8 @@ from .sharding import (  # noqa: F401
     unshard_params,
 )
 from .tensor_parallel import TensorParallel, parallelize  # noqa: F401
-from .train import make_lm_train_step, sp_attention_fn  # noqa: F401
+from .train import (make_lm_train_step, sp_attention_fn,  # noqa: F401
+                    tune_lm_train_step)
 from .ulysses import (  # noqa: F401
     make_ulysses_attention_fn,
     padded_alltoall,

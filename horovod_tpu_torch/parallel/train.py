@@ -57,6 +57,11 @@ bitwise those of the whole model, as the JAX package's ``init_fn``
 initializes straight into the shardings. The optimizer's state is made
 at its first step from the slices (``torch.optim``'s lazy state), where
 the JAX ``init_fn`` also returns it in its shardings.
+
+:func:`tune_lm_train_step` autotunes the step
+(``ops/autotune.OnlineTuner``): it builds the step anew for each
+candidate knob setting, times it, and returns the step built under the
+winners.
 """
 
 from __future__ import annotations
@@ -355,6 +360,74 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *,
     step.optimizer, step.mesh, step.specs = opt, mesh, specs
     step.backward, step.fsdp = backward, fsdp
     return model, step
+
+
+def tune_lm_train_step(cfg: TransformerConfig, optimizer_factory, tokens,
+                       *, mesh=None, tuner=None, rules=None,
+                       sequence_parallel: Optional[str] = None,
+                       fused_ce: bool = False, attention_fn=None,
+                       device=None, **tuner_kwargs):
+    """Autotune the causal-LM train step (``ops/autotune.OnlineTuner``),
+    then build it under the winners: ``(model, step, config)``, where
+    ``model, step`` are a fresh :func:`make_lm_train_step` build under
+    the pinned knobs and ``config`` is the pinned configuration.
+
+    Each candidate is the REAL step, built anew through
+    :func:`make_lm_train_step` with the candidate's knobs set: the port
+    plans an optimizer's buckets when it is built, so a knob that
+    changes them takes effect only in a new optimizer.
+    ``optimizer_factory()`` is called once per candidate (and once for
+    the final build) and returns what :func:`make_lm_train_step` takes
+    as ``optimizer`` (a factory of the inner torch optimizer, or an
+    unbound ``ShardedOptimizer``/``FullyShardedOptimizer``): the
+    optimizer and its state are rebuilt, not reused, per candidate. A
+    candidate is timed as ``step(tokens)``, ``tokens`` being this
+    rank's rows as :func:`make_lm_train_step`'s step takes them, and
+    it trains its own model from seed 0's weights, so no candidate
+    changes the final build's weights. Each candidate's model and
+    optimizer are freed before the next is built. The other arguments
+    are :func:`make_lm_train_step`'s.
+
+    The warm-start cache's model fingerprint is
+    ``ops.fusion.model_fingerprint`` of the whole model built on the
+    meta device, so a run against a cached (model, topology) key pins
+    the stored winners with zero tuning builds. Without ``tuner`` an
+    ``OnlineTuner(**tuner_kwargs)`` tunes, with its
+    ``fused_collectives`` dimension on when ``HOROVOD_FUSED_COLLECTIVES``
+    is (the backends give the same bits, so the flip can only back the
+    setting out where it measures slower)."""
+    import gc
+
+    from ..ops import autotune as autotune_mod
+    from ..ops.fusion import model_fingerprint
+
+    st = _require_init()
+    with torch.device("meta"):
+        fingerprint = model_fingerprint(Transformer(cfg))
+    if tuner is None:
+        if ("tune_fused_collectives" not in tuner_kwargs
+                and st.knobs.fused_collectives):
+            tuner_kwargs["tune_fused_collectives"] = True
+        tuner = autotune_mod.OnlineTuner(**tuner_kwargs)
+
+    def build():
+        # the previous candidate's model and optimizer reference each
+        # other through the gradient hooks: a cycle, freed only by the
+        # collector, and it must go before the next model is drawn
+        gc.collect()
+        return make_lm_train_step(
+            cfg, optimizer_factory(), attention_fn=attention_fn,
+            device=device, mesh=mesh, sequence_parallel=sequence_parallel,
+            rules=rules, fused_ce=fused_ce)
+
+    def build_step(overrides):
+        # the knobs already hold `overrides`
+        _, step = build()
+        return lambda: step(tokens)
+
+    config = tuner.tune(build_step, fingerprint=fingerprint)
+    model, step = build()
+    return model, step, config
 
 
 class _AxisAveraged:

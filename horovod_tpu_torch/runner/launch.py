@@ -30,10 +30,13 @@ workers' telemetry knobs (``HOROVOD_TIMELINE*``, ``HOROVOD_FLIGHT_*``,
 ``HOROVOD_PROF_*``); every launch runs a rendezvous store whose
 ``/metrics`` merges the workers' pushes, whose ``/flight/<rank>`` holds
 their dumps and whose ``/health`` judges their health summaries
-(``runner/exec_run.py``).
+(``runner/exec_run.py``). ``--autotune``, ``--autotune-bayes``,
+``--autotune-log``, ``--autotune-cache``, ``--autotune-mfu`` and
+``--autotune-wire`` set the workers' autotune knobs
+(``HOROVOD_AUTOTUNE*``, ``ops/autotune.py``).
 
 A flag whose feature the port does not have yet — the sharded control
-plane, autotune — is
+plane — is
 refused when given (on the command line or in ``--config-file``): the launcher
 exits 2 naming its ROADMAP queue A entry (``UNPORTED``), and exports
 nothing no worker would read.
@@ -62,7 +65,6 @@ from .util.hosts import HostInfo, parse_host_files, parse_hosts
 
 #: ROADMAP queue A entry -> what it brings
 ENTRIES = {
-    12: "autotune",
     14: "multipod and the sharded control plane",
 }
 
@@ -71,9 +73,6 @@ UNPORTED = {
     **dict.fromkeys((
         "root_replicas", "root_state_dir", "root_lease_ttl",
         "root_heartbeat", "pod_relays"), 14),
-    **dict.fromkeys((
-        "autotune", "autotune_bayes", "autotune_log", "autotune_cache",
-        "autotune_mfu", "autotune_wire"), 12),
 }
 
 

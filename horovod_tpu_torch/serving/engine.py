@@ -38,8 +38,12 @@ whole leaves every rank loaded: a rank holds the whole parameters where
 a JAX device holds its shard (``engine.resident_param_bytes`` against
 ``engine.shard_param_bytes``; ROADMAP queue C).
 
-Not ported yet: the autotune warm start from ``HOROVOD_AUTOTUNE_CACHE``
-(ROADMAP queue A entry 12), refused.
+A replica pointed at the training run's ``HOROVOD_AUTOTUNE_CACHE`` pins
+the model's tuned configuration when the engine is built
+(``engine.autotune_config``; ``ops/autotune.warm_start``), the entry
+found by the fingerprint of the parameters it serves whatever the
+training world's shape; the numerics-changing winners only under
+``HOROVOD_AUTOTUNE_WIRE``.
 
 The module also holds what both engines share: the serving knobs, the
 device rule (the card unless the caller asks for the CPU) and the
@@ -321,10 +325,6 @@ class InferenceEngine:
         if sharding_rules is not None and mesh is None:
             raise ValueError("sharding_rules places parameters over a "
                              "mesh; pass mesh= too")
-        if serving_knobs().autotune_cache:
-            raise NotImplementedError(
-                "the autotune warm start (HOROVOD_AUTOTUNE_CACHE) is not "
-                "ported yet (ROADMAP queue A entry 12); unset it to serve")
         self.device = resolve_device(device, "InferenceEngine")
         self._apply = apply_fn
         self._buckets = (tuple(sorted(set(int(b) for b in buckets)))
@@ -342,6 +342,21 @@ class InferenceEngine:
         if mesh is not None:
             self.shards = self._place(params, mesh, sharding_rules)
         self._params = params
+        # the autotune warm start: the model's tuned configuration from
+        # the training run's cache, found by the parameters' fingerprint
+        # with the topology relaxed (an inference tier rarely shares the
+        # training world's shape)
+        self.autotune_config: Optional[Dict[str, Any]] = None
+        sk = serving_knobs()
+        if sk.autotune_cache:
+            from ..ops import autotune as autotune_mod
+
+            # the opt-in is the environment's: an uninitialized
+            # replica's global knobs never read it
+            self.autotune_config = autotune_mod.warm_start(
+                {"": params} if isinstance(params, torch.Tensor)
+                else params, cache_path=sk.autotune_cache,
+                allow_numerics=sk.autotune_wire, context="serving")
         self._cache: "OrderedDict[Tuple, GraphStep]" = OrderedDict()
         # one lock around the cache, execution and capture: a capture
         # must not overlap other work on the card (PyTorch's global

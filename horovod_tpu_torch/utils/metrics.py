@@ -34,9 +34,10 @@ cumulative ``hvd_cache_hits_total``/``hvd_coord_*`` and the plan cache's
 (``record_decode_*``, ``set_decode_slots``) and the replica autoscaler
 (``record_autoscale``). The retry, fault, recovery, elastic, eviction
 and autoscale records also land in the flight recorder
-(``utils/flight.py``), which has its own gate. Still to come: the
-autotuner's trail (ROADMAP queue A entry 12); the pod label stays unset
-until entry 14. The sampled profiler (``utils/prof.py``) feeds
+(``utils/flight.py``), which has its own gate. The autotuner
+(``ops/autotune.py``) leaves its trail through ``record_autotune_trial``
+and ``record_autotune_pin``. The pod label stays unset until ROADMAP
+queue A entry 14. The sampled profiler (``utils/prof.py``) feeds
 ``record_mfu`` and ``record_step_attribution`` through the step wrapper,
 and the health monitor (``health/``) reads each closed step record and
 serving latency sample through the observer slots.
@@ -1105,6 +1106,84 @@ def record_elastic_event(kind: str) -> None:
         "Elastic lifecycle transitions, by event", ("event",),
     ).labels(kind).inc()
     step_stats.add_elastic_event(kind)
+
+
+def record_autotune_trial(dimension: str, step_s: Optional[float],
+                          mfu: Optional[float] = None,
+                          error: Optional[str] = None,
+                          overrides: Optional[dict] = None) -> None:
+    """One autotuner candidate measured (or failed) by the closed-loop
+    tuner (ops/autotune.py): counts into
+    ``hvd_autotune_trials_total{dimension}`` (errors additionally into
+    ``hvd_autotune_trial_errors_total``) and lands as an ``autotune``
+    event line in the StepStats JSONL — the decision trail
+    ``tools.metrics_summary`` renders as the sweep table."""
+    if not _enabled:
+        return
+    registry.counter(
+        "hvd_autotune_trials_total",
+        "Autotune candidates measured, by sweep dimension",
+        ("dimension",),
+    ).labels(dimension).inc()
+    if error is not None:
+        registry.counter(
+            "hvd_autotune_trial_errors_total",
+            "Autotune candidates that failed to compile/run, by "
+            "dimension", ("dimension",),
+        ).labels(dimension).inc()
+    payload = {"kind": "trial", "dimension": dimension}
+    if overrides:
+        payload["overrides"] = {k: v for k, v in overrides.items()}
+    if step_s is not None:
+        payload["step_s"] = float(step_s)
+    if mfu is not None:
+        payload["mfu"] = float(mfu)
+    if error is not None:
+        payload["error"] = error
+    step_stats.emit_event("autotune", payload)
+
+
+def record_autotune_pin(dimension: str, config: dict,
+                        step_s: Optional[float],
+                        accepted: bool = True,
+                        source: str = "sweep") -> None:
+    """One per-dimension agreement outcome (pin when the dimension
+    improved on the incumbent, reject when it kept it) or a
+    warm-start/final pin: ``hvd_autotune_best_step_s`` tracks the
+    agreed best step time and ``hvd_autotune_dimension{dimension=<knob>}``
+    carries every pinned knob's numeric value (strings enumerate per
+    ``ops/autotune._ENUM_VALUES``). ``step_s`` None = no candidate of
+    the dimension measured successfully (all failed): the gauge keeps
+    its last value and the JSONL event carries null — a bare
+    ``Infinity`` token would make the line unparseable to RFC-8259
+    readers."""
+    if not _enabled:
+        return
+    from ..ops.autotune import _numeric
+
+    if step_s is not None and step_s == step_s and step_s not in (
+            float("inf"), float("-inf")):
+        registry.gauge(
+            "hvd_autotune_best_step_s",
+            "Agreed best measured step seconds of the autotune sweep "
+            "(the warm-start entry's recorded time on cache pins)",
+        ).set(float(step_s))
+    else:
+        step_s = None
+    gauge = registry.gauge(
+        "hvd_autotune_dimension",
+        "Pinned autotune knob values, by knob (strings enumerate: "
+        "overlap off/stage/double=0/1/2, compression "
+        "none/fp16/bf16/int8/int8-raw=0..4)", ("dimension",))
+    for k, v in config.items():
+        gauge.labels(k).set(_numeric(k, v))
+    step_stats.emit_event("autotune", {
+        "kind": "pin" if accepted else "reject",
+        "dimension": dimension,
+        "config": {k: v for k, v in config.items()},
+        "step_s": step_s,
+        "source": source,
+    })
 
 
 def record_mfu(mfu: float) -> None:

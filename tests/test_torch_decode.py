@@ -245,7 +245,15 @@ _KNOB_ENV = {  # suffix -> value (set as HOROVOD_<suffix>)
     "SERVING_DECODE_MAX_NEW": "12",
     "SERVING_DECODE_STATS_EVERY": "0",
     "FUSION_THRESHOLD": "65536",
+    "ORDERED_BUCKETS": "0",
     "BUCKET_BACKWARD_ORDER": "0",
+    "AUTOTUNE": "1",
+    "AUTOTUNE_BAYES": "1",
+    "AUTOTUNE_LOG": "/tmp/autotune.csv",
+    "AUTOTUNE_WARMUP_SAMPLES": "2",
+    "AUTOTUNE_STEPS_PER_SAMPLE": "4",
+    "AUTOTUNE_MFU": "0",
+    "AUTOTUNE_WIRE": "1",
     "COMPRESSION": "bf16",
     "FAULT_SPEC": "http.put:delay:secs=0",
     "RETRY_MAX_ATTEMPTS": "7",
@@ -395,6 +403,12 @@ _SURFACE_MODULES = [
         "optim.fsdp", "ops.fusion", "core.basics")]
 
 
+_AUTOTUNE_MODULES = [
+    "horovod_tpu_torch." + m for m in (
+        "ops", "ops.autotune", "parallel.train", "serving.engine",
+        "examples.bert_pretraining")]
+
+
 def test_no_jax_in_port_or_chip_smoke():
     """Every module of horovod_tpu_torch and chip_smoke.py import
     without pulling in jax or horovod_tpu; the training slice's, the
@@ -412,13 +426,14 @@ def test_no_jax_in_port_or_chip_smoke():
     profiler, the health monitor, the four offline tools) and the
     public surface's and the init into the shards' (the optimizers' and
     models' package exports, the materializer, ``build_stage``, the
-    FSDP rows, the fingerprint, the in-graph queries) modules are among
-    those walked."""
+    FSDP rows, the fingerprint, the in-graph queries) and the
+    autotuner's (the tuners, ``tune_lm_train_step``, the serving warm
+    start, the BERT example's sweep) modules are among those walked."""
     walked = (_TRAINING_MODULES + _ADASUM_MODULES + _LAUNCHER_MODULES
               + _HIERARCHY_MODULES + _ELASTIC_MODULES + _EAGER_MODULES
               + _SERVING_MODULES + _MESH_MODULES + _PIPELINE_MODULES
               + _FSDP_AXIS_MODULES + _OBSERVABILITY_MODULES
-              + _SURFACE_MODULES)
+              + _SURFACE_MODULES + _AUTOTUNE_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch as pkg\n"

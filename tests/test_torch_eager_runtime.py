@@ -128,8 +128,25 @@ def test_unknown_op_raises_not_passthrough():
 
 
 def test_autotune_waits_for_its_entry():
-    with pytest.raises(NotImplementedError, match="entry 12"):
-        EagerRuntime(0, 1, autotune=True)
+    """The runtime starts with the controller's tuner on (autotune was
+    refused until the autotuner was ported): its collectives run, and
+    its tuned parameters are the controller's, unpinned at the start
+    and at the configured threshold."""
+    r = EagerRuntime(0, 1, cycle_ms=1.0, fusion_threshold=1 << 20,
+                     autotune=True, autotune_warmup=1,
+                     autotune_cycles_per_sample=2)
+    try:
+        x = torch.arange(8, dtype=torch.float32)
+        assert torch.equal(r.synchronize(r.allreduce_async("at", x)), x)
+        tuned = r.tuned_parameters()
+        assert set(tuned) == {"cycle_ms", "fusion_threshold_bytes",
+                              "pinned", "cache_enabled",
+                              "hierarchical_allreduce",
+                              "hierarchical_local_size"}
+        assert tuned["fusion_threshold_bytes"] >= 1 << 20
+        assert tuned["cycle_ms"] > 0
+    finally:
+        r.shutdown()
 
 
 # ------------------------------------ the LoopbackExecutor against JAX's

@@ -37,12 +37,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 #: families the port does not register yet, by the queue A entry that
 #: brings them
-_LATER = {
-    "hvd_autotune_trials_total": "entry 12",
-    "hvd_autotune_trial_errors_total": "entry 12",
-    "hvd_autotune_best_step_s": "entry 12",
-    "hvd_autotune_dimension": "entry 12",
-}
+_LATER: dict = {}
 
 
 @pytest.fixture(autouse=True)
@@ -124,7 +119,7 @@ def test_every_jax_record_function_is_the_ports_or_awaits_its_entry():
                 if inspect.isfunction(f) and f.__module__ == mod.__name__
                 and n.startswith(("record_", "set_"))}
 
-    later = {"record_autotune_trial", "record_autotune_pin"}
+    later: set = set()
     assert names(jmetrics) - names(metrics) == later
     for name in names(jmetrics) - later:
         jp = inspect.signature(getattr(jmetrics, name)).parameters

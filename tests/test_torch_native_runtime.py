@@ -8,7 +8,9 @@ cache, ragged and uneven metadata, join, barrier and groups.
 
 The ranks load the ctypes layer by its path (it imports only the
 standard library), so they start without torch or jax. The two
-autotune scenarios wait for autotune (ROADMAP queue A entry 12).
+autotune scenarios (coordinate descent and the Bayesian search) run
+through the port's ``EagerRuntime(autotune=True)`` in
+``tests/test_torch_autotune_runtime.py``.
 """
 
 import importlib.util

@@ -67,10 +67,7 @@ N = 4
 RTOL = 4e-6
 
 #: JAX public names that a later entry of the roadmap's queue A brings
-LATER = {
-    "autotune": "entry 12", "OnlineTuner": "entry 12",
-    "SPMDStepTuner": "entry 12", "multipod": "entry 14",
-}
+LATER = {"multipod": "entry 14"}
 #: JAX public names the port leaves out on purpose, and why
 DIFFERENT = {
     "error_feedback_specs": "partition specs of a state one program holds "

@@ -874,6 +874,54 @@ def test_unported_flag_is_refused_with_its_entry(action, capsys):
     assert f"ROADMAP queue A entry {entry} " in err
 
 
+#: ROADMAP queue A entry 12's flags (autotune), and the knobs each sets
+_AUTOTUNE = {
+    "autotune": ("autotune",), "autotune_bayes": ("autotune_bayes",),
+    "autotune_log": ("autotune_log",), "autotune_cache": ("autotune_cache",),
+    "autotune_mfu": ("autotune_mfu",), "autotune_wire": ("autotune_wire",),
+}
+_AUTOTUNE_FLAGS = [a for a in _FLAGS if a.dest in _AUTOTUNE]
+
+
+def test_autotune_flags_are_the_six_of_entry_12():
+    assert len(_AUTOTUNE_FLAGS) == 6
+    assert 12 not in launch.ENTRIES
+    assert 12 not in launch.UNPORTED.values()
+    assert set(launch.UNPORTED.values()) == {14}
+
+
+@pytest.mark.parametrize("action", _AUTOTUNE_FLAGS,
+                         ids=[a.option_strings[-1] for a in _AUTOTUNE_FLAGS])
+def test_autotune_flag_reaches_the_workers_knobs(action, monkeypatch):
+    """Each of entry 12's flags is accepted, exported into the slot env
+    as the JAX launcher exports it, and read by the worker's knobs as
+    the JAX package reads it, away from the knob's default."""
+    from horovod_tpu.core.knobs import Knobs as JKnobs
+    from horovod_tpu_torch.core.knobs import Knobs
+
+    value = {"autotune_mfu": "0", "autotune_wire": "1"}.get(action.dest)
+    argv = ((_flag_argv(action) if value is None
+             else [action.option_strings[-1], value])
+            + ["python", "train.py"])
+    mine, theirs = launch.parse_args(argv), jax_launch.parse_args(argv)
+    assert launch.unported_flags(mine, argv) == []
+    env = config_parser.env_from_args(mine, {})
+    assert env == jax_config_parser.env_from_args(theirs, {})
+    assert len(env) == 1
+    wenv = slot_env(SlotInfo("localhost", 0, 0, 0, 1, 1, 1), env,
+                    "localhost:4261")
+    var, got = next(iter(env.items()))
+    assert wenv[var] == got
+    for k in list(os.environ):
+        if k.startswith(("HOROVOD_", "HVD_TPU_")):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv(var, got)
+    for field in _AUTOTUNE[action.dest]:
+        assert getattr(Knobs.from_env(), field) == \
+            getattr(JKnobs.from_env(), field)
+        assert getattr(Knobs.from_env(), field) != getattr(Knobs(), field)
+
+
 #: ROADMAP queue A entry 9's flags, refused until the eager runtime:
 #: their value, each knob it sets, and the runtime argument it reaches
 _EAGER = {
@@ -956,9 +1004,13 @@ def test_unported_flags_at_their_defaults_are_accepted(tmp_path, capfd):
     # the trainee's own --mesh is not the launcher's
     argv = ["-np", "1", "python", "-c", "pass", "--mesh", "dp=2"]
     assert launch.unported_flags(launch.parse_args(argv), argv) == []
+    # entry 12's flags reach the knobs now; entry 14's stay refused,
+    # from a config file as from the command line
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("autotune: true\nlog-level: INFO\n")
     argv = ["--config-file", str(cfg), "-np", "1", "python", "-c", "pass"]
+    assert launch.unported_flags(launch.parse_args(argv), argv) == []
+    cfg.write_text("root-replicas: 3\nlog-level: INFO\n")
     assert launch.unported_flags(launch.parse_args(argv), argv) == [
-        ("--autotune", 12)]
+        ("--root-replicas", 14)]
     assert launch.run_commandline(argv) == 2

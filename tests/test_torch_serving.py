@@ -203,9 +203,49 @@ def test_engine_refuses_what_is_not_ported(monkeypatch, flax_mlp):
     # rules place parameters over a mesh: without one they mean nothing
     with pytest.raises(ValueError, match="mesh="):
         InferenceEngine(lambda p, x: x, {}, sharding_rules=[], device="cpu")
-    monkeypatch.setenv("HOROVOD_AUTOTUNE_CACHE", "/tmp/tune.json")
-    with pytest.raises(NotImplementedError, match="entry 12"):
-        InferenceEngine(lambda p, x: x, {}, device="cpu")
+
+
+def test_engine_warm_starts_from_the_autotune_cache(monkeypatch, tmp_path):
+    """An engine built with HOROVOD_AUTOTUNE_CACHE pins the model's
+    tuned configuration from the training run's cache (the entry of its
+    parameters' fingerprint, whatever the topology), as the JAX engine
+    does; the numerics-changing winners only under
+    HOROVOD_AUTOTUNE_WIRE. A cache without the model's entry pins
+    nothing."""
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.ops.autotune import (KNOB_SCHEMA_VERSION,
+                                                TuneCache, cache_key)
+    from horovod_tpu_torch.ops.fusion import model_fingerprint
+
+    params = {"w": torch.zeros(4, 3), "b": torch.zeros(3)}
+    cache = str(tmp_path / "tune.json")
+    TuneCache(cache).store(
+        cache_key(model_fingerprint(params),
+                  {"world": 8, "mesh_axes": {"dp": 8}, "dcn_hops": 1}),
+        {"config": {"fusion_threshold_bytes": 4 << 20,
+                    "ordered_buckets": False, "compression": "int8",
+                    "compression_block": 128},
+         "schema": KNOB_SCHEMA_VERSION, "step_s": 0.25, "time_unix": 1.0})
+    monkeypatch.setenv("HOROVOD_AUTOTUNE_CACHE", cache)
+    knobs = global_state().knobs
+    saved = dict(vars(knobs))
+    try:
+        eng = InferenceEngine(lambda p, x: x @ p["w"] + p["b"], params,
+                              device="cpu")
+        assert eng.autotune_config == {"fusion_threshold_bytes": 4 << 20,
+                                       "ordered_buckets": False}
+        assert knobs.fusion_threshold_bytes == 4 << 20
+        assert knobs.compression == "none"
+        monkeypatch.setenv("HOROVOD_AUTOTUNE_WIRE", "1")
+        eng = InferenceEngine(lambda p, x: x @ p["w"] + p["b"], params,
+                              device="cpu")
+        assert eng.autotune_config["compression"] == "int8"
+        assert knobs.compression_block == 128
+        other = {"w": torch.zeros(5, 3), "b": torch.zeros(3)}
+        assert InferenceEngine(lambda p, x: x, other,
+                               device="cpu").autotune_config is None
+    finally:
+        vars(knobs).update(saved)
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
